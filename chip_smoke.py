@@ -5,36 +5,64 @@
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from ``swift_game_engine_tpu_torch/
-csrc`` (first use), builds the full DemoScene render world from ``assets/``,
-and drives the port's main path — ``Engine(960, 540, path="rt",
-max_layers=3, shadow_layers=4)`` — for 2 warm-up and 10 timed frames. Then:
+csrc`` (first use, one nvcc per source in parallel) and drives three paths
+of the port through its entry points, each for 2 warm-up and 10 timed
+frames at 960x540 with ``max_layers=3, shadow_layers=4``:
 
-  * every kernel of the path (K1 cluster raster, K2 occlusion sweep, K3
-    translucent-slot sweep, K4 closest-hit traversal) must have launched in
-    the timed frames (K1 twice per frame);
-  * each kernel is held against its plain PyTorch version on the inputs the
-    first frame gave it, and both are timed at those shapes;
-  * the frame must be finite and not constant, and a 320x180 render of the
-    same view through the kernels must agree with the same render through
-    the plain versions.
+  1. ``demo_rt_960x540``: the full DemoScene (``import_tri_budget=0``,
+     181,340 triangles) with the default hybrid visibility: K1 cluster
+     raster twice a frame, K2/K3 shadow sweeps per shade call, K4 bounces;
+  2. ``demo_trace_960x540``: the default, decimated DemoScene (its tree
+     must fit the walks' 22,000-row cap) with ``primary="trace"``: K5 (the
+     layered shared-origin walk) once a frame, K2/K3, K4, and no K1;
+  3. ``demo_trace_rtscale_0.25``: the same Engine after
+     ``set_rt_resolution_scale(0.25)`` — a 240x135 RT target (40,960
+     padded lanes, under the 100,000-lane cluster threshold) upscaled to
+     960x540: K5 once a frame, K7 (the shadow walk) per shade call, no
+     K2/K3.
+
+Each path's kernel launch counts are zeroed just before its timed frames
+and read just after. Then:
+
+  * every kernel is held against its plain PyTorch version on the inputs
+    the first frame of each path that runs it gave it (K5 and K7 on a
+    fixed subset of the captured lanes: their twins walk lane by lane in
+    lockstep and are slow), and both are timed (CUDA events); each
+    kernel's bound — the larger of its bytes over the card's memory rate
+    and its operations over the FP32 rate — is computed from the same
+    inputs. A kernel's entry in the JSON line carries the path name after
+    an ``@`` for every path but the first that runs it;
+  * a 320x180 hybrid render of the full scene (73,728 lanes, with the
+    cluster threshold lowered to 0 so that its shadows take the cluster
+    sweeps K2/K3, as paths 1 and 2 do) and a 240x135 traced render of the
+    decimated scene (K5, K7), each through the kernels and through the
+    plain versions, must agree (>= 99% of pixels within 1e-4, means within
+    0.1%).
+
+``path_engines`` is the one definition of the three paths;
+``profile_port.py`` drives the same ones.
 
 It prints the card (``nvidia-smi`` name and power limit), the build and
-scene statistics, the frame times, one JSON line of per-kernel results and,
-last, ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
-that line; with no CUDA device it exits non-zero at once.
+scene statistics, each path's frame times and launches, one JSON line of
+per-kernel results and, last, ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero before that line; with no CUDA device it exits
+non-zero at once.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+ASSETS = os.path.join(REPO, "assets")
 W, H = 960, 540
 WARMUP, TIMED = 2, 10
+LAYERS, SHADOW_LAYERS = 3, 4
 
 # Tolerances of kernel vs plain version. Both compute the same records with
 # the same f32 operation order (the kernels build with --fmad=false), so
@@ -44,6 +72,20 @@ MAX_MISMATCH = 1e-3
 # ... and where the records agree, t / depth / barycentrics agree to f32
 # rounding of the same expression (relative).
 MAX_REL_ERR = 1e-5
+# The walks' twins run on at most this many of the captured lanes.
+TWIN_LANES = 65_536
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
+# device memory rate and FP32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# FP32 operations of one test, counted from the kernels' sources.
+SLAB_OPS = 25         # slab test: 6 sub, 6 mul, 10 min/max, 3 compares
+SO_SLOT_OPS = 29      # K5 slot: 3 dots (15), sign fold (5), divide, compares
+WALK_SLOT_OPS = 26    # K7 slot: 3 dots (15), 3 subtracts, compares
+MT_OPS = 45           # K4 Moller-Trumbore slot test
+EDGE_OPS = 20         # K1 edge functions and depth of one fragment
+SWEEP_OPS = 26        # K2/K3 slot: 3 dots (15), 3 subtracts, compares
 
 
 def _fail(msg):
@@ -67,22 +109,88 @@ def _time_ms(fn, reps, warm=True):
 
 
 def _compare(name, key_k, key_p, vals_k, vals_p):
-    """Mismatch fraction of record keys and max relative error of the
-    values where the keys agree."""
+    """Mismatch fraction of record keys (per lane: a row of keys) and the
+    max absolute / relative error of the values where the keys agree.
+    Returns the max absolute error."""
     import torch
     same = key_k == key_p
+    if same.dim() == 2:
+        same = same.all(1)
     mism = float((~same).float().mean())
-    err = 0.0
+    err = rel = 0.0
     for a, b in zip(vals_k, vals_p):
-        m = same & (a < 1e30) & (b < 1e30)
+        lanes = same if a.dim() == same.dim() else same[:, None]
+        m = lanes & (a < 1e30) & (b < 1e30)
         if m.any():
-            d = (a[m] - b[m]).abs() / torch.clamp(b[m].abs(), min=1.0)
+            d = (a[m] - b[m]).abs()
             err = max(err, float(d.max()))
+            rel = max(rel, float((d / torch.clamp(b[m].abs(), min=1.0))
+                                 .max()))
     print(f"  {name}: {int((~same).sum())} of {same.numel()} records differ "
-          f"({mism:.2e}), max rel err {err:.3e}")
-    if mism > MAX_MISMATCH or err > MAX_REL_ERR:
+          f"({mism:.2e}), max abs err {err:.3e}, max rel err {rel:.3e}")
+    if mism > MAX_MISMATCH or rel > MAX_REL_ERR:
         _fail(f"{name} disagrees with its plain version")
     return err
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _bound(inputs, outputs, ops):
+    """(bound_ms, bound_by): the larger of the bytes (each input read once,
+    each output written once) over the memory rate and the operations over
+    the FP32 rate."""
+    t_bytes = _nbytes(inputs + outputs) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _subset(n, device):
+    """Every k-th lane, at most TWIN_LANES of them."""
+    import torch
+    step = max(1, math.ceil(n / TWIN_LANES))
+    return torch.arange(0, n, step, device=device)
+
+
+class Capture:
+    """Records the first call's arguments of chosen kernel wrappers."""
+
+    def __init__(self):
+        self.args, self._orig = {}, []
+
+    def on(self, mod, name, key_of):
+        orig = getattr(mod, name)
+
+        def wrapper(*a, **k):
+            self.args.setdefault(key_of(*a, **k), (a, k))
+            return orig(*a, **k)
+        setattr(mod, name, wrapper)
+        self._orig.append((mod, name, orig))
+
+    def off(self):
+        for mod, name, orig in self._orig:
+            setattr(mod, name, orig)
+        self._orig = []
+
+
+def path_engines(dev):
+    """The three paths, in order: yields (name, scene, Engine). The scenes
+    are built lazily; paths 2 and 3 share one Engine (path 3 is path 2's
+    Engine after ``set_rt_resolution_scale(0.25)``)."""
+    from swift_game_engine_tpu_torch.scene.demo_scene import build_demo_scene
+    from swift_game_engine_tpu_torch.scene.engine import Engine
+    kw = dict(path="rt", max_layers=LAYERS, shadow_layers=SHADOW_LAYERS,
+              device=dev)
+    full = build_demo_scene(ASSETS, device=dev, import_tri_budget=0)
+    yield "demo_rt_960x540", full, Engine(full, W, H, **kw)
+    del full
+    world = build_demo_scene(ASSETS, device=dev)
+    eng = Engine(world, W, H, primary="trace", **kw)
+    yield "demo_trace_960x540", world, eng
+    eng.set_rt_resolution_scale(0.25)
+    yield "demo_trace_rtscale_0.25", world, eng
 
 
 def main():
@@ -104,9 +212,11 @@ def main():
     from swift_game_engine_tpu_torch.ops import _cuda
     from swift_game_engine_tpu_torch.ops import cluster_shadow as CS
     from swift_game_engine_tpu_torch.ops import rt_kernel as RK
+    from swift_game_engine_tpu_torch.render import rt as RT
     from swift_game_engine_tpu_torch.render import tile_raster as TR
-    from swift_game_engine_tpu_torch.scene.demo_scene import build_demo_scene
-    from swift_game_engine_tpu_torch.scene.engine import Engine
+    from swift_game_engine_tpu_torch.render.scene_geometry import flatten_frame
+
+    t_start = time.perf_counter()
 
     # -- 1. kernels ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -117,182 +227,329 @@ def main():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
-    # -- 2. scene --------------------------------------------------------------
-    t0 = time.perf_counter()
-    world = build_demo_scene(os.path.join(REPO, "assets"), device=dev)
-    torch.cuda.synchronize()
-    geo = world.geometry
-    print(f"scene: {geo.tri.shape[0]} triangles, "
-          f"{int(geo.tri_translucent.sum())} translucent, "
-          f"{geo.topo.node_count} BVH nodes, built in "
-          f"{time.perf_counter() - t0:.1f} s")
-
-    # -- 3. main path ----------------------------------------------------------
-    # Record the inputs each kernel wrapper gets in the first frame.
-    captured = {}
-
-    def capture(mod, name, key_of):
-        orig = getattr(mod, name)
-
-        def wrapper(*a, **k):
-            captured.setdefault(key_of(*a, **k), (a, k))
-            return orig(*a, **k)
-        setattr(mod, name, wrapper)
-        return orig
-
-    orig_raster = capture(TR, "cluster_raster",
-                          lambda rows, meta, w, h, layers, prior_w=None:
-                          f"K1/layers={layers}")
-    orig_occl = capture(CS, "trace_shadow_occl", lambda *a, **k: "K2")
-    orig_slots = capture(CS, "trace_shadow_clusters", lambda *a, **k: "K3")
-    orig_trace = capture(RK, "trace_rays", lambda *a, **k: "K4")
-
-    eng = Engine(world, W, H, path="rt", max_layers=3, shadow_layers=4,
-                 device=dev)
-    for _ in range(WARMUP):
-        img = eng.frame(1 / 60)
-    TR.cluster_raster, CS.trace_shadow_occl = orig_raster, orig_occl
-    CS.trace_shadow_clusters, RK.trace_rays = orig_slots, orig_trace
-    for key in ("K1/layers=1", "K1/layers=3", "K2", "K3", "K4"):
-        if key not in captured:
-            _fail(f"{key} was not called in the first frame")
-
-    torch.cuda.synchronize()
-    TR.launches = CS.occl_launches = CS.slots_launches = RK.launches = 0
-    times = []
-    for _ in range(TIMED):
-        t0 = time.perf_counter()
-        img = eng.frame(1 / 60)
+    def zero_counts():
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = {"K1": TR.launches, "K2": CS.occl_launches,
-                "K3": CS.slots_launches, "K4": RK.launches}
-    print(f"frame {W}x{H}: median {np.median(times):.2f} ms, p90 "
-          f"{np.percentile(times, 90):.2f} ms over {TIMED} frames "
-          f"(min {min(times):.2f}, max {max(times):.2f})")
-    print(f"launches in {TIMED} frames: {launches}")
-    if any(v == 0 for v in launches.values()):
-        _fail(f"a kernel of the path never launched: {launches}")
-    if launches["K1"] != 2 * TIMED:
-        _fail(f"K1 launched {launches['K1']} times, expected {2 * TIMED}")
-    if tuple(img.shape) != (H, W, 3) or img.dtype != torch.uint8:
-        _fail(f"frame has shape {tuple(img.shape)} {img.dtype}")
-    f = img.float()
-    if not bool(torch.isfinite(f).all()) or float(f.std()) < 1.0:
-        _fail("frame is not finite or is constant")
-    print(f"frame mean {float(f.mean()):.4f}, std {float(f.std()):.4f}")
+        TR.launches = CS.occl_launches = CS.slots_launches = 0
+        RK.launches = RK.so_launches = RK.shadow_launches = 0
 
-    # -- 4. each kernel vs its plain version ---------------------------------
+    def read_counts():
+        return {"K1": TR.launches, "K2": CS.occl_launches,
+                "K3": CS.slots_launches, "K4": RK.launches,
+                "K5": RK.so_launches, "K7": RK.shadow_launches}
+
+    def run_path(name, eng, cap):
+        """2 warm-up frames (inputs captured), then 10 timed frames with the
+        launch counts zeroed just before and read just after."""
+        for _ in range(WARMUP):
+            img = eng.frame(1 / 60)
+        cap.off()
+        zero_counts()
+        times = []
+        for _ in range(TIMED):
+            t0 = time.perf_counter()
+            img = eng.frame(1 / 60)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        print(f"path {name}: frame median {np.median(times):.2f} ms, p90 "
+              f"{np.percentile(times, 90):.2f} ms over {TIMED} frames (min "
+              f"{min(times):.2f}, max {max(times):.2f}); RT target "
+              f"{eng.rt_size[0]}x{eng.rt_size[1]}")
+        print(f"  launches in {TIMED} frames: {counts}")
+        if tuple(img.shape) != (H, W, 3) or img.dtype != torch.uint8:
+            _fail(f"{name}: frame has shape {tuple(img.shape)} {img.dtype}")
+        f = img.float()
+        if not bool(torch.isfinite(f).all()) or float(f.std()) < 1.0:
+            _fail(f"{name}: frame is not finite or is constant")
+        print(f"  frame mean {float(f.mean()):.4f}, std {float(f.std()):.4f}")
+        return counts
+
+    def expect(name, counts, rule, ok):
+        if not ok:
+            _fail(f"{name}: expected {rule}, got {counts}")
+
+    def scene_stats(label, scene, t0):
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        g = scene.geometry
+        rows_n = (g.topo.node_count + 7) // 8 * 8
+        print(f"scene ({label}): {g.tri.shape[0]} triangles, "
+              f"{int(g.tri_translucent.sum())} translucent, "
+              f"{g.topo.node_count} BVH nodes, {rows_n} rows, built in "
+              f"{seconds:.1f} s")
+        return rows_n
+
+    # -- 2. the three paths ---------------------------------------------------
+    # Each path captures the first call of every kernel it runs (K1: one
+    # call per raster, keyed by its layer count).
+    wrappers = {"K1": (TR, "cluster_raster"), "K2": (CS, "trace_shadow_occl"),
+                "K3": (CS, "trace_shadow_clusters"), "K4": (RK, "trace_rays"),
+                "K5": (RK, "trace_layers_so"),
+                "K7": (RK, "trace_shadow_factor")}
+    runs = {"demo_rt_960x540": ("K1", "K2", "K3", "K4"),
+            "demo_trace_960x540": ("K2", "K3", "K4", "K5"),
+            "demo_trace_rtscale_0.25": ("K4", "K5", "K7")}
+    caps, counts, scenes, engines = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    for name, scene, eng in path_engines(dev):
+        if all(scene is not s for s in scenes.values()):
+            rows_n = scene_stats("decimated" if scenes else "full", scene,
+                                 t0)
+            if scenes and rows_n > RK.WALK_MAX_ROWS:
+                _fail(f"the decimated tree has {rows_n} rows, over the "
+                      f"walks' cap")
+        scenes[name], engines[name] = scene, eng
+        cap = caps[name] = Capture()
+        for key in runs[name]:
+            cap.on(*wrappers[key], lambda *a, key=key, **k: key
+                   if key != "K1" else f"K1/layers={a[4]}")
+        counts[name] = run_path(name, eng, cap)
+        for key in runs[name]:
+            for k in ((key,) if key != "K1" else
+                      ("K1/layers=1", f"K1/layers={LAYERS}")):
+                if k not in cap.args:
+                    _fail(f"{k} was not called in the first frame of {name}")
+        t0 = time.perf_counter()
+    c1, c2, c3 = counts.values()
+    expect("path 1", c1, "K1 twice a frame, K2 = K3 > 0, K4 > 0, no K5/K7",
+           c1["K1"] == 2 * TIMED and c1["K2"] == c1["K3"] > 0 and
+           c1["K4"] > 0 and c1["K5"] == c1["K7"] == 0)
+    expect("path 2", c2, "K5 once a frame, K2 = K3 > 0, K4 > 0, no K1/K7",
+           c2["K5"] == TIMED and c2["K2"] == c2["K3"] > 0 and
+           c2["K4"] > 0 and c2["K1"] == c2["K7"] == 0)
+    expect("path 3", c3, "K5 once a frame, K7 > 0, no K1/K2/K3",
+           c3["K5"] == TIMED and c3["K7"] > 0 and
+           c3["K1"] == c3["K2"] == c3["K3"] == 0)
+
+    # -- 3. each kernel vs its plain version, on each path's inputs ----------
     results = []
 
-    def report(name, source, replaces, key, err, ms, plain_ms):
+    def report(name, source, replaces, launches, err, ms, plain_ms, bound,
+               extra=""):
+        bound_ms, bound_by = bound
         results.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=launches[key],
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
-        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+                            replaces=replaces, launches=launches,
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None))
+        print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{extra},"
+              f" bound {bound_ms:.4f} ms by {bound_by}, {launches} launches")
 
-    print("kernel vs plain version on the first frame's inputs:")
-    err_k1 = 0.0
-    ms_k1 = plain_k1 = 0.0
-    for layers in (1, 3):
-        (rows, meta, w, h, lay, *rest), kw = captured[f"K1/layers={layers}"]
-        prior = rest[0] if rest else kw.get("prior_w")
-        out_k = TR.cluster_raster(rows, meta, w, h, lay, prior)
-        out_p = TR.cluster_raster_plain(rows, w, h, lay, prior)
-        err_k1 = max(err_k1, _compare(
-            f"K1 layers={layers} ({rows.shape[0]} rows)", out_k[0], out_p[0],
-            out_k[1:], out_p[1:]))
-        ms_k1 += _time_ms(lambda: TR.cluster_raster(rows, meta, w, h, lay,
-                                                    prior), 5)
-        plain_k1 += _time_ms(lambda: TR.cluster_raster_plain(rows, w, h, lay,
-                                                             prior), 1, False)
-    report("cluster_raster", "swift_game_engine_tpu_torch/csrc/"
-           "cluster_raster.cu", "swift_game_engine_tpu/render/"
-           "tile_raster.py:620", "K1", err_k1, ms_k1, plain_k1)
+    def check_k1(args, launches, tag):
+        err_k1 = ms_k1 = plain_k1 = 0.0
+        k1_in, k1_out, k1_ops = [], [], 0
+        for layers in (1, LAYERS):
+            (rows, meta, w, h, lay, *rest), kw = args[f"K1/layers={layers}"]
+            prior = rest[0] if rest else kw.get("prior_w")
+            out_k = TR.cluster_raster(rows, meta, w, h, lay, prior)
+            out_p = TR.cluster_raster_plain(rows, w, h, lay, prior)
+            err_k1 = max(err_k1, _compare(
+                f"K1 layers={layers} ({rows.shape[0]} rows)", out_k[0],
+                out_p[0], out_k[1:], out_p[1:]))
+            ms_k1 += _time_ms(lambda: TR.cluster_raster(rows, meta, w, h, lay,
+                                                        prior), 5)
+            plain_k1 += _time_ms(lambda: TR.cluster_raster_plain(
+                rows, w, h, lay, prior), 1, False)
+            k1_in += [rows, meta, prior]
+            k1_out += list(out_k)
+            k1_ops += int((out_k[0] >= 0).sum()) * EDGE_OPS
+        report("cluster_raster" + tag, "swift_game_engine_tpu_torch/csrc/"
+               "cluster_raster.cu", "swift_game_engine_tpu/render/"
+               "tile_raster.py:620", launches, err_k1, ms_k1, plain_k1,
+               _bound(k1_in, k1_out, k1_ops), " (both rasters)")
 
-    (sc, o, t_lim), kw = captured["K2"][0][:3], captured["K2"][1]
-    tt = kw.get("tt")
-    exact_k = CS.trace_shadow_occl(sc, o, t_lim)
-    exact_p = CS.trace_shadow_occl_plain(sc, o, t_lim)
-    err = _compare(f"K2 exact ({o.shape[0]} lanes)", exact_k < 1e30,
-                   exact_p < 1e30, [exact_k], [exact_p])
-    if tt is not None:   # any-hit: settled lanes return SOME t < tt
-        any_k = CS.trace_shadow_occl(sc, o, t_lim, tt=tt)
-        bad = (any_k != exact_p) & ~((any_k < tt) & (exact_p < tt))
-        print(f"  K2 any-hit: {int(bad.sum())} lanes not factor-equivalent")
-        if float(bad.float().mean()) > MAX_MISMATCH:
-            _fail("K2 any-hit records are not factor-equivalent")
-    report("shadow_occl", "swift_game_engine_tpu_torch/csrc/"
-           "cluster_shadow.cu", "swift_game_engine_tpu/ops/"
-           "cluster_shadow.py:541", "K2", err,
-           _time_ms(lambda: CS.trace_shadow_occl(sc, o, t_lim, tt=tt), 5),
-           _time_ms(lambda: CS.trace_shadow_occl_plain(sc, o, t_lim), 1,
-                    False))
+    def check_k2(args, launches, tag):
+        (sc, o, t_lim), kw = args["K2"][0][:3], args["K2"][1]
+        tt = kw.get("tt")
+        exact_k = CS.trace_shadow_occl(sc, o, t_lim)
+        exact_p = CS.trace_shadow_occl_plain(sc, o, t_lim)
+        err = _compare(f"K2 exact ({o.shape[0]} lanes)", exact_k < 1e30,
+                       exact_p < 1e30, [exact_k], [exact_p])
+        if tt is not None:   # any-hit: settled lanes return SOME t < tt
+            any_k = CS.trace_shadow_occl(sc, o, t_lim, tt=tt)
+            bad = (any_k != exact_p) & ~((any_k < tt) & (exact_p < tt))
+            print(f"  K2 any-hit: {int(bad.sum())} lanes not "
+                  f"factor-equivalent")
+            if float(bad.float().mean()) > MAX_MISMATCH:
+                _fail("K2 any-hit records are not factor-equivalent")
+        else:
+            any_k = exact_k
+        report("shadow_occl" + tag, "swift_game_engine_tpu_torch/csrc/"
+               "cluster_shadow.cu", "swift_game_engine_tpu/ops/"
+               "cluster_shadow.py:541", launches, err,
+               _time_ms(lambda: CS.trace_shadow_occl(sc, o, t_lim, tt=tt), 5),
+               _time_ms(lambda: CS.trace_shadow_occl_plain(sc, o, t_lim), 1,
+                        False),
+               _bound([sc.rows, sc.meta, sc.basis, o, t_lim, tt], [any_k],
+                      int((any_k < 1e30).sum()) * SWEEP_OPS))
 
-    (sc, o, t_lim, *rest), kw = captured["K3"]
-    n_slots = rest[0] if rest else kw.get("n_slots", 4)
-    alpha = rest[1] if len(rest) > 1 else kw.get("alpha_payload", False)
-    k3 = CS.trace_shadow_clusters(sc, o, t_lim, n_slots, alpha)
-    p3 = CS.trace_shadow_clusters_plain(sc, o, t_lim, n_slots, alpha)
-    err = max(_compare(f"K3 t_opq ({o.shape[0]} lanes)", k3[0] < 1e30,
-                       p3[0] < 1e30, [k3[0]], [p3[0]]),
-              _compare(f"K3 slots ({n_slots} per lane)", k3[2], p3[2],
-                       [k3[1]], [p3[1]]))
-    report("shadow_slots", "swift_game_engine_tpu_torch/csrc/"
-           "cluster_shadow.cu", "swift_game_engine_tpu/ops/"
-           "cluster_shadow.py:254", "K3", err,
-           _time_ms(lambda: CS.trace_shadow_clusters(sc, o, t_lim, n_slots,
-                                                     alpha), 5),
-           _time_ms(lambda: CS.trace_shadow_clusters_plain(sc, o, t_lim,
-                                                           n_slots, alpha), 1,
-                    False))
+    def check_k3(args, launches, tag):
+        (sc, o, t_lim, *rest), kw = args["K3"]
+        n_slots = rest[0] if rest else kw.get("n_slots", 4)
+        alpha = rest[1] if len(rest) > 1 else kw.get("alpha_payload", False)
+        k3 = CS.trace_shadow_clusters(sc, o, t_lim, n_slots, alpha)
+        p3 = CS.trace_shadow_clusters_plain(sc, o, t_lim, n_slots, alpha)
+        err = max(_compare(f"K3 t_opq ({o.shape[0]} lanes)", k3[0] < 1e30,
+                           p3[0] < 1e30, [k3[0]], [p3[0]]),
+                  _compare(f"K3 slots ({n_slots} per lane)", k3[2], p3[2],
+                           [k3[1]], [p3[1]]))
+        report("shadow_slots" + tag, "swift_game_engine_tpu_torch/csrc/"
+               "cluster_shadow.cu", "swift_game_engine_tpu/ops/"
+               "cluster_shadow.py:254", launches, err,
+               _time_ms(lambda: CS.trace_shadow_clusters(sc, o, t_lim,
+                                                         n_slots, alpha), 5),
+               _time_ms(lambda: CS.trace_shadow_clusters_plain(
+                   sc, o, t_lim, n_slots, alpha), 1, False),
+               _bound([sc.rows, sc.meta, sc.basis, o, t_lim], list(k3),
+                      (int((k3[2] >= 0).sum()) + int((k3[0] < 1e30).sum()))
+                      * SWEEP_OPS))
 
-    (rows, o, d, t_max), _ = captured["K4"]
-    t_k, tri_k = RK.trace_rays(rows, o, d, t_max)
-    t_p, tri_p = RK.trace_rays_plain(rows, o, d, t_max)
-    err = _compare(f"K4 ({o.shape[0]} rays, {rows.shape[0]} nodes)", tri_k,
-                   tri_p, [t_k], [t_p])
-    report("trace_closest", "swift_game_engine_tpu_torch/csrc/"
-           "bvh_trace.cu", "swift_game_engine_tpu/ops/rt_kernel.py:794", "K4",
-           err, _time_ms(lambda: RK.trace_rays(rows, o, d, t_max), 5),
-           _time_ms(lambda: RK.trace_rays_plain(rows, o, d, t_max), 1, False))
+    def check_k4(args, launches, tag):
+        (rows, o, d, t_max), _ = args["K4"]
+        t_k, tri_k = RK.trace_rays(rows, o, d, t_max)
+        t_p, tri_p = RK.trace_rays_plain(rows, o, d, t_max)
+        err = _compare(f"K4 ({o.shape[0]} rays, {rows.shape[0]} rows)",
+                       tri_k, tri_p, [t_k], [t_p])
+        report("trace_closest" + tag, "swift_game_engine_tpu_torch/csrc/"
+               "bvh_trace.cu", "swift_game_engine_tpu/ops/rt_kernel.py:794",
+               launches, err,
+               _time_ms(lambda: RK.trace_rays(rows, o, d, t_max), 5),
+               _time_ms(lambda: RK.trace_rays_plain(rows, o, d, t_max), 1,
+                        False),
+               _bound([rows, o, d, t_max], [t_k, tri_k],
+                      int((tri_k >= 0).sum()) * MT_OPS))
 
-    # -- 5. kernel path vs plain path, end to end at 320x180 ----------------
-    from swift_game_engine_tpu_torch.render import rt as RT
-    from swift_game_engine_tpu_torch.render.scene_geometry import flatten_frame
-    sw, sh = 320, 180
-    cam = eng.camera
-    tf = world.transforms.clone()
-    tf[:, :3, 3] -= torch.as_tensor(cam.world_position.astype(np.float32),
-                                    device=dev)
-    fg = flatten_frame(geo, tf, world.palettes)
+    def check_k5(args, launches, tag):
+        (so_rows, origin, d, t_max), kw = args["K5"]
+        n_slots = kw.get("n_slots", 3)
+        n = d.shape[0]
+        sub = _subset(n, dev)
+        d_s, tm_s = d[sub].contiguous(), t_max[sub].contiguous()
+        k5 = RK.trace_layers_so(so_rows, origin, d_s, tm_s, n_slots)
+        walk = {}
+        p5 = RK.trace_layers_so_plain(so_rows, origin, d_s, tm_s, n_slots,
+                                      counts=walk)
+        err = _compare(f"K5 ({sub.numel()} of {n} rays, {n_slots} slots, "
+                       f"{so_rows[0].numel() // 8} rows)",
+                       torch.cat([k5[1][:, None].float(), k5[3]], 1),
+                       torch.cat([p5[1][:, None].float(), p5[3]], 1),
+                       [k5[0], k5[2]], [p5[0], p5[2]])
+        out5 = RK.trace_layers_so(so_rows, origin, d, t_max, n_slots)
+        ops5 = (walk["box"] * SLAB_OPS + walk["slot"] * SO_SLOT_OPS) \
+            * n / sub.numel()
+        print(f"  K5 walk on the subset: {walk['box']} box tests, "
+              f"{walk['slot']} slot tests")
+        report("so_layers" + tag,
+               "swift_game_engine_tpu_torch/csrc/so_layers.cu",
+               "swift_game_engine_tpu/ops/rt_kernel.py:1503", launches, err,
+               _time_ms(lambda: RK.trace_layers_so(so_rows, origin, d, t_max,
+                                                   n_slots), 5),
+               _time_ms(lambda: RK.trace_layers_so_plain(
+                   so_rows, origin, d_s, tm_s, n_slots), 1, False),
+               _bound([*so_rows, d, t_max], list(out5), ops5),
+               f" (plain on {sub.numel()} of {n} rays)")
 
-    def render():
-        return RT.render_frame(
-            geo, fg, eng.ibl, world.lights,
-            torch.as_tensor(cam.inv_view_proj(sw, sh), device=dev),
-            cam.position, sw, sh, max_layers=3, shadow_layers=4,
-            view_proj=torch.as_tensor(cam.view_proj(sw, sh), device=dev))
+    def check_k7(args, launches, tag):
+        (sh_rows, l, o, t_lim), kw = args["K7"]
+        n_slots = kw.get("n_slots", 4)
+        n = o.shape[0]
+        sub = _subset(n, dev)
+        o_s, tl_s = o[sub].contiguous(), t_lim[sub].contiguous()
+        k7 = RK.trace_shadow_factor(sh_rows, l, o_s, tl_s, n_slots)
+        walk = {}
+        p7 = RK.trace_shadow_factor_plain(sh_rows, l, o_s, tl_s, n_slots,
+                                          counts=walk)
+        err = _compare(f"K7 ({sub.numel()} of {n} origins, {n_slots} slots)",
+                       torch.cat([(k7[0] < 1e30)[:, None].float(), k7[2]], 1),
+                       torch.cat([(p7[0] < 1e30)[:, None].float(), p7[2]], 1),
+                       [k7[0], k7[1]], [p7[0], p7[1]])
+        out7 = RK.trace_shadow_factor(sh_rows, l, o, t_lim, n_slots)
+        ops7 = (walk["box"] * SLAB_OPS + walk["slot"] * WALK_SLOT_OPS) \
+            * n / sub.numel()
+        print(f"  K7 walk on the subset: {walk['box']} box tests, "
+              f"{walk['slot']} slot tests")
+        report("shadow_walk" + tag,
+               "swift_game_engine_tpu_torch/csrc/shadow_walk.cu",
+               "swift_game_engine_tpu/ops/rt_kernel.py:1113", launches, err,
+               _time_ms(lambda: RK.trace_shadow_factor(sh_rows, l, o, t_lim,
+                                                       n_slots), 5),
+               _time_ms(lambda: RK.trace_shadow_factor_plain(
+                   sh_rows, l, o_s, tl_s, n_slots), 1, False),
+               _bound([*sh_rows, o, t_lim], list(out7), ops7),
+               f" (plain on {sub.numel()} of {n} origins)")
 
-    img_k = render()
-    TR.cluster_raster = lambda rows, meta, w, h, lay, prior_w=None: \
-        TR.cluster_raster_plain(rows, w, h, lay, prior_w)
-    CS.trace_shadow_occl = lambda sc, o, t, tt=None: \
-        CS.trace_shadow_occl_plain(sc, o, t)
-    CS.trace_shadow_clusters = CS.trace_shadow_clusters_plain
-    RK.trace_rays = RK.trace_rays_plain
-    img_p = render()
-    TR.cluster_raster, CS.trace_shadow_occl = orig_raster, orig_occl
-    CS.trace_shadow_clusters, RK.trace_rays = orig_slots, orig_trace
-    diff = (img_k - img_p).abs().amax(-1)
-    frac = float((diff < 1e-4).float().mean())
-    mean_k, mean_p = float(img_k.mean()), float(img_p.mean())
-    print(f"end to end {sw}x{sh}: {frac:.5f} of pixels within 1e-4 of the "
-          f"plain path; means {mean_k:.6f} vs {mean_p:.6f}")
-    if not bool(torch.isfinite(img_k).all()) or frac < 0.99 or \
-            abs(mean_k - mean_p) > 1e-3 * max(mean_p, 1e-3):
-        _fail("kernel path and plain path renders disagree")
+    checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3, "K4": check_k4,
+              "K5": check_k5, "K7": check_k7}
+    seen = set()
+    for name, cap in caps.items():
+        print(f"kernel vs plain version on the first frame's inputs of "
+              f"{name}:")
+        for key in runs[name]:
+            tag = f"@{name}" if key in seen else ""
+            seen.add(key)
+            checks[key](cap.args, counts[name][key], tag)
 
+    # -- 5. kernel path vs plain path, end to end ----------------------------
+    plain = {
+        (TR, "cluster_raster"): lambda rows, meta, w, h, lay, prior_w=None:
+            TR.cluster_raster_plain(rows, w, h, lay, prior_w),
+        (CS, "trace_shadow_occl"): lambda sc, o, t, tt=None:
+            CS.trace_shadow_occl_plain(sc, o, t),
+        (CS, "trace_shadow_clusters"): CS.trace_shadow_clusters_plain,
+        (RK, "trace_rays"): RK.trace_rays_plain,
+        (RK, "trace_layers_so"): RK.trace_layers_so_plain,
+        (RK, "trace_shadow_factor"): RK.trace_shadow_factor_plain,
+    }
+
+    def end_to_end(name, eng, scene, sw, sh, primary, cluster_min_lanes):
+        cam = eng.camera
+        tf = scene.transforms.clone()
+        tf[:, :3, 3] -= torch.as_tensor(cam.world_position.astype(np.float32),
+                                        device=dev)
+        fg = flatten_frame(scene.geometry, tf, scene.palettes)
+
+        def render():
+            return RT.render_frame(
+                scene.geometry, fg, eng.ibl, scene.lights,
+                torch.as_tensor(cam.inv_view_proj(sw, sh), device=dev),
+                cam.position, sw, sh, max_layers=LAYERS,
+                shadow_layers=SHADOW_LAYERS,
+                view_proj=torch.as_tensor(cam.view_proj(sw, sh), device=dev),
+                primary=primary)
+
+        t0 = time.perf_counter()
+        threshold = RT.SHADOW_CLUSTER_MIN_LANES
+        RT.SHADOW_CLUSTER_MIN_LANES = cluster_min_lanes
+        orig = {k: getattr(*k) for k in plain}
+        try:
+            img_k = render()
+            for (mod, attr), fn in plain.items():
+                setattr(mod, attr, fn)
+            img_p = render()
+        finally:
+            RT.SHADOW_CLUSTER_MIN_LANES = threshold
+            for (mod, attr), fn in orig.items():
+                setattr(mod, attr, fn)
+        diff = (img_k - img_p).abs().amax(-1)
+        frac = float((diff < 1e-4).float().mean())
+        mean_k, mean_p = float(img_k.mean()), float(img_p.mean())
+        print(f"end to end {name} {sw}x{sh}: {frac:.5f} of pixels within "
+              f"1e-4 of the plain path; means {mean_k:.6f} vs {mean_p:.6f} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if not bool(torch.isfinite(img_k).all()) or frac < 0.99 or \
+                abs(mean_k - mean_p) > 1e-3 * max(mean_p, 1e-3):
+            _fail(f"{name}: kernel path and plain path renders disagree")
+
+    # the cluster sweeps at 73,728 lanes: the shadow branch of paths 1 and 2
+    end_to_end("hybrid, full scene, cluster shadows",
+               engines["demo_rt_960x540"], scenes["demo_rt_960x540"], 320,
+               180, "hybrid", 0)
+    # the shadow walk at 40,960 lanes, as path 3 takes it
+    end_to_end("trace, decimated scene, shadow walk",
+               engines["demo_trace_960x540"], scenes["demo_trace_960x540"],
+               240, 135, "trace", RT.SHADOW_CLUSTER_MIN_LANES)
+
+    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))
     print(smi[0])
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,17 @@ name, contract and array layouts of its counterpart, and the tests hold the
 two against each other. This package imports ``torch`` and never ``jax``.
 
 Subpackages mirror the reference:
-  assets  — the reference's numpy-only asset code, shared (see _shared_assets)
+  assets  — host-side asset loaders, decimation, procedural meshes (numpy)
   anim    — linear-blend skinning
   render  — BVH refit, camera rays, shading, IBL, composite, tile raster, RT
   ops     — the hand-written Hopper kernels (csrc/) and their plain twins
   scene   — input, the DemoScene render world, the Engine frame loop
+
+Entry points (``build_demo_scene``, ``Engine``, ``RenderGeometryBuilder.
+build``, ``IBL.build``, ``DirectionalLights.from_list``) put their tensors
+on ``device="cuda"`` unless the caller passes another device; the CPU is
+used only when asked for (``device="cpu"``), and a call without a device
+raises where CUDA is absent.
 
 Numerics follow the reference, which forces true float32 matmuls
 (swift_game_engine_tpu/__init__.py): TF32 stays off everywhere.
@@ -19,8 +25,16 @@ __version__ = "0.1.0"
 
 import torch as _torch
 
-from . import _shared_assets  # noqa: F401  (registers the .assets package)
-
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
+
+
+def resolve_device(device="cuda") -> _torch.device:
+    """The device an entry point puts its tensors on: the card unless the
+    caller names another. Raises where CUDA is asked for and absent."""
+    dev = _torch.device(device)
+    if dev.type == "cuda" and not _torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           "CPU")
+    return dev

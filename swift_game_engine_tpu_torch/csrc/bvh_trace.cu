@@ -27,32 +27,14 @@ namespace sge {
 namespace {
 
 constexpr int ROW = 128;
-constexpr int SLOT_N = 12;
-constexpr int STACK = 128;  // render/bvh.py STACK_MAX: refit bounds the depth
-constexpr float EPS = 1e-6f;
 
-__device__ __forceinline__ float safe_inv(float v) {
-  const float vs = fabsf(v) < 1e-12f ? (v < 0.0f ? -1e-12f : 1e-12f) : v;
-  return 1.0f / vs;
-}
-
-// Slab test of node `node`: returns tmin, sets `hit` as the reference's
-// box_hit = (tmax >= max(tmin, 0)) & (tmin < t_best).
+// Slab test of node `node` against the ray's best hit so far.
 __device__ __forceinline__ float box(const float* __restrict__ rows,
                                      int node, float ox, float oy, float oz,
                                      float ix, float iy, float iz,
                                      float t_best, bool& hit) {
-  const float4 h0 = __ldg(reinterpret_cast<const float4*>(rows + int64_t(node) * ROW));
-  const float4 h1 = __ldg(reinterpret_cast<const float4*>(rows + int64_t(node) * ROW + 4));
-  const float tx0 = (h0.x - ox) * ix, tx1 = (h0.w - ox) * ix;
-  const float ty0 = (h0.y - oy) * iy, ty1 = (h1.x - oy) * iy;
-  const float tz0 = (h0.z - oz) * iz, tz1 = (h1.y - oz) * iz;
-  const float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                           fminf(tz0, tz1));
-  const float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                           fmaxf(tz0, tz1));
-  hit = tmax >= fmaxf(tmin, 0.0f) && tmin < t_best;
-  return tmin;
+  return slab(rows + int64_t(node) * ROW, ox, oy, oz, ix, iy, iz, t_best,
+              hit);
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS)

@@ -33,6 +33,51 @@ __device__ __forceinline__ Row16 load_row16(const float4* __restrict__ rows,
 
 constexpr int BLOCK_THREADS = 256;
 
+// BVH walks over the packed tree (ops/rt_kernel.py pack_bvh): 12 triangles
+// per leaf row, a 128-deep traversal stack (render/bvh.py STACK_MAX: refit
+// refuses deeper trees, so a walk never overflows it).
+constexpr int SLOT_N = 12;
+constexpr int STACK = 128;
+constexpr float EPS = 1e-6f;
+
+__device__ __forceinline__ float safe_inv(float v) {
+  const float vs = fabsf(v) < 1e-12f ? (v < 0.0f ? -1e-12f : 1e-12f) : v;
+  return 1.0f / vs;
+}
+
+// Slab test of the box whose header starts at h (bmin h[0:3], bmax h[3:6]):
+// returns tmin and sets `hit` as the reference's
+// box_hit = (tmax >= max(tmin, 0)) & (tmin < bound).
+__device__ __forceinline__ float slab(const float* __restrict__ h, float ox,
+                                      float oy, float oz, float ix, float iy,
+                                      float iz, float bound, bool& hit) {
+  const float4 h0 = __ldg(reinterpret_cast<const float4*>(h));
+  const float4 h1 = __ldg(reinterpret_cast<const float4*>(h) + 1);
+  const float tx0 = (h0.x - ox) * ix, tx1 = (h0.w - ox) * ix;
+  const float ty0 = (h0.y - oy) * iy, ty1 = (h1.x - oy) * iy;
+  const float tz0 = (h0.z - oz) * iz, tz1 = (h1.y - oz) * iz;
+  const float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                           fminf(tz0, tz1));
+  const float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                           fmaxf(tz0, tz1));
+  hit = tmax >= fmaxf(tmin, 0.0f) && tmin < bound;
+  return tmin;
+}
+
+// The reference's insertion network: (t, id) enters the ascending slot
+// list (ts, ids) of NS entries; the largest falls off the end.
+template <int NS>
+__device__ __forceinline__ void insert_slot(float ct, float cid,
+                                            float (&ts)[NS], float (&ids)[NS]) {
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    if (ct < ts[k]) {
+      float tmp = ts[k]; ts[k] = ct; ct = tmp;
+      tmp = ids[k]; ids[k] = cid; cid = tmp;
+    }
+  }
+}
+
 inline unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + BLOCK_THREADS - 1) / BLOCK_THREADS);
 }

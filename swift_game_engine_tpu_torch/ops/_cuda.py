@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes. The library goes into this
+The sources are compiled by ``nvcc`` for ``sm_90a`` — one ``nvcc`` per
+source, all started together — and linked into one shared library with a
+plain C interface, loaded with ctypes. The library goes into this
 package's gitignored ``build/`` directory, named by a hash of the sources
 and flags, so a stale build is never loaded. Nothing is imported or built
 when the module is imported: the CPU paths never touch it.
@@ -25,9 +26,10 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("cluster_raster.cu", "cluster_shadow.cu", "bvh_trace.cu")
+SOURCES = ("cluster_raster.cu", "cluster_shadow.cu", "bvh_trace.cu",
+           "so_layers.cu", "shadow_walk.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+         "--fmad=false", "-Xcompiler", "-fPIC")
 
 _LIB = None
 build_seconds = None   # wall time of the last compile in this process
@@ -44,6 +46,10 @@ _SIGNATURES = {
     "sge_shadow_slots": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                          _P, _P, _P, _P],
     "sge_trace_closest": [_P, _P, _P, _P, _I64, _P, _P, _P],
+    "sge_so_layers": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _P, _P, _P, _P,
+                      _P],
+    "sge_shadow_walk": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _P, _P, _P,
+                        _P],
 }
 
 
@@ -58,30 +64,49 @@ def _nvcc():
                        "toolkit to build")
 
 
+def _compile(cmds):
+    """Run the nvcc commands all at once; raise with the log of a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{log}")
+    return "".join(logs)
+
+
 def library(verbose: bool = False):
     """The loaded kernel library, compiled on first call. ``verbose`` adds
     ``-Xptxas -v`` (registers, spills) to a fresh compile."""
     global _LIB, build_seconds, build_log
     if _LIB is not None:
         return _LIB
-    paths = [os.path.join(CSRC, s) for s in SOURCES] + \
-        [os.path.join(CSRC, "common.cuh")]
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for p in paths:
+    with open(os.path.join(CSRC, "common.cuh"), "rb") as f:
+        common = f.read()
+    h = hashlib.sha256(" ".join(FLAGS).encode() + common)
+    srcs = [os.path.join(CSRC, s) for s in SOURCES]
+    for p in srcs:
         with open(p, "rb") as f:
             h.update(f.read())
-    so = os.path.join(BUILD_DIR, f"libsge_kernels_{h.hexdigest()[:16]}.so")
+    tag = h.hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"libsge_kernels_{tag}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, *paths[:len(SOURCES)]]
+        nvcc = _nvcc()
+        pid = os.getpid()
+        objs = [os.path.join(BUILD_DIR, f"{os.path.splitext(s)[0]}_{tag}."
+                             f"{pid}.o") for s in SOURCES]
+        extra = ["-Xptxas", "-v"] if verbose else []
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = _compile([[nvcc, *FLAGS, *extra, "-c", "-o", obj, src]
+                              for src, obj in zip(srcs, objs)])
+        tmp = f"{so}.{pid}.tmp"
+        build_log += _compile([[nvcc, "-shared", "-o", tmp, *objs]])
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        for obj in objs:
+            os.remove(obj)
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     for name, args in _SIGNATURES.items():

@@ -1,19 +1,30 @@
-"""Closest-hit traversal of the packed BVH (kernel K4) and its helpers.
+"""BVH traversal kernels over the packed tree and their helpers.
 
-Port of the parts of swift_game_engine_tpu/ops/rt_kernel.py the hybrid RT
-frame uses: ``pack_bvh`` (the (M, 128) row-per-node layout),
-``trace_rays`` (the ``trace_rays_pallas`` contract), ``barycentrics`` and
-``trace_batch``.
+Port of the parts of swift_game_engine_tpu/ops/rt_kernel.py the RT frame
+uses: ``pack_bvh`` (the (M, 128) row-per-node layout), ``barycentrics``,
+``trace_batch`` and three kernels, each with its plain PyTorch twin:
+
+  * K4 ``trace_rays`` — closest hit per ray (the ``trace_rays_pallas``
+    contract; csrc/bvh_trace.cu);
+  * K5 ``trace_layers_so`` — the layered shared-origin walk: the nearest
+    opaque hit and the n_slots nearest translucent hits of rays that share
+    one origin (csrc/so_layers.cu), over ``build_origin_rows``;
+  * K7 ``trace_shadow_factor`` — the shared-direction shadow walk: the
+    nearest opaque t and the n_slots nearest translucent hits toward one
+    light (csrc/shadow_walk.cu), over ``build_shadow_rows``.
+
+K5 and K7 serve trees of at most ``WALK_MAX_ROWS`` packed rows
+(``walk_available``), the reference's rule.
 
 Row layout (f32 lanes):
   [0:3] bmin  [3:6] bmax  [6] skip link  [7] leaf flag
   [8+9j : 17+9j] triangle j as (a, b-a, c-a), j in 0..SLOT_N-1
   [8+9*SLOT_N + j] triangle j's original id (-1 empty; translucent id+0.5)
 
-``trace_rays`` launches the CUDA kernel ``csrc/bvh_trace.cu`` for CUDA
-tensors and runs ``trace_rays_plain`` — a lockstep masked skip-link walk of
-the same rows, the batched form of render/bvh.py ``traverse`` — only for
-CPU tensors.
+Each wrapper launches its CUDA kernel for CUDA tensors (and counts the
+launch) and runs its plain twin only for CPU tensors. The twins walk every
+lane in lockstep with masked tensor ops, in the kernel's own per-lane node
+order and f32 operation order.
 """
 
 from __future__ import annotations
@@ -28,7 +39,18 @@ ROW = 128
 SLOT_N = 12      # triangles inlined per leaf row (SGE_RT_LEAF)
 _IDS = 8 + 9 * SLOT_N
 
-launches = 0     # trace_rays kernel launches since the last reset
+# Tree-size rule of the shared-origin (K5) and shadow (K7) walks: the
+# reference serves them from an SMEM header that fits at most this many
+# packed rows (ops/rt_kernel.py:82 _SMEM_MAX_NODES, so_available :1455,
+# shadow_prepass_available :1038); larger trees take the general paths.
+WALK_MAX_ROWS = 22_000
+STACK = 128      # render/bvh.py STACK_MAX: refit refuses deeper trees
+SO_SLOT_F = 10   # origin rows: k_u, k_v, k_d, tn per triangle
+SHADOW_SLOT_F = 12   # shadow rows: g1, g2, g3, c per triangle
+
+launches = 0         # trace_rays (K4) kernel launches since the last reset
+so_launches = 0      # trace_layers_so (K5) kernel launches
+shadow_launches = 0  # trace_shadow_factor (K7) kernel launches
 
 
 def pack_bvh(bvh, translucent=None):
@@ -170,3 +192,325 @@ def trace_batch(bvh, o, d, active):
     found = found & active & (t < BIG)
     return (torch.where(found, t, BIG), torch.where(found, tri.long(), -1),
             u, v, found)
+
+
+# ------------------------------------------------------------------ K5 / K7
+
+
+def walk_available(rows) -> bool:
+    """The shared-origin walk (K5) and the shadow walk (K7) serve this tree
+    (rt_kernel.py:1455 so_available, :1038 shadow_prepass_available)."""
+    return rows.shape[0] <= WALK_MAX_ROWS
+
+
+def _leaf_rows(rows):
+    """Leaf-compacted rows (rt_kernel.py:1081-1088): every builder emits a
+    binary tree, so there are at most (M+1)//2 leaves; the header's field 7
+    becomes the leaf's 1-based rank (0 for interior nodes).
+    Returns (header (M*8,), leaf rows (Lp, 128))."""
+    m = rows.shape[0]
+    is_leaf = rows[:, 7] > 0.5
+    lp = ((m + 1) // 2 + 7) // 8 * 8
+    found = torch.nonzero(is_leaf).squeeze(1)[:lp]
+    leaf_nodes = torch.zeros(lp, dtype=torch.int64, device=rows.device)
+    leaf_nodes[:found.shape[0]] = found
+    header = rows[:, :8].clone()
+    rank = torch.cumsum(is_leaf.to(torch.float32), 0)
+    header[:, 7] = torch.where(is_leaf, rank, 0.0)
+    return header.reshape(-1).contiguous(), rows[leaf_nodes]
+
+
+def _split_tris(leaf_rows):
+    lp = leaf_rows.shape[0]
+    tri = leaf_rows[:, 8:_IDS].reshape(lp, SLOT_N, 9)
+    return tri[..., 0:3], tri[..., 3:6], tri[..., 6:9], \
+        leaf_rows[:, _IDS:_IDS + SLOT_N]
+
+
+def _cross(a, b):
+    """a x b with the reference's component formula (jnp.cross)."""
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
+
+
+def _dot(a, b):
+    p = a * b
+    return (p[..., 0] + p[..., 1]) + p[..., 2]
+
+
+def build_origin_rows(rows, o):
+    """Per-frame constants for rays sharing origin ``o`` (3,)
+    (rt_kernel.py:1295-1324) -> (header (M*8,), srows (Lp, 132)): per leaf
+    triangle k_u = e2 x (o-a), k_v = (o-a) x e1, k_d = e2 x e1,
+    tn = e2 . k_v, then the ids."""
+    header, leaf = _leaf_rows(rows)
+    a, e1, e2, ids = _split_tris(leaf)
+    tv = torch.as_tensor(o, dtype=torch.float32, device=rows.device) - a
+    k_v = _cross(tv, e1)
+    slot = torch.cat([_cross(e2, tv), k_v, _cross(e2, e1),
+                      _dot(e2, k_v)[..., None]], -1)
+    srows = torch.cat([slot.reshape(leaf.shape[0], SO_SLOT_F * SLOT_N), ids],
+                      -1)
+    return header, srows.contiguous()
+
+
+def build_shadow_rows(rows, l):
+    """Per-frame constants for rays along unit direction ``l`` (3,) toward
+    the light (rt_kernel.py:1070-1110) -> (header (M*8,), srows (Lp, 156)):
+    per leaf triangle g1, g2, g3, c with u = P.g1 - c1, v = P.g2 - c2,
+    t = P.g3 - c3; ids of triangles parallel to ``l`` are -1."""
+    header, leaf = _leaf_rows(rows)
+    a, e1, e2, ids = _split_tris(leaf)
+    lv = torch.as_tensor(l, dtype=torch.float32,
+                         device=rows.device).expand_as(e2)
+    h = _cross(lv, e2)
+    det = _dot(e1, h)
+    ok = det.abs() >= EPS
+    f = (1.0 / torch.where(ok, det, 1.0))[..., None]
+    g1 = h * f
+    g2 = _cross(e1, lv) * f
+    g3 = _cross(e1, e2) * f
+    c = torch.stack([_dot(a, g1), _dot(a, g2), _dot(a, g3)], -1)
+    slot = torch.cat([g1, g2, g3, c], -1)
+    srows = torch.cat([slot.reshape(leaf.shape[0], SHADOW_SLOT_F * SLOT_N),
+                       torch.where(ok, ids, -1.0)], -1)
+    return header, srows.contiguous()
+
+
+def _insert(ts, ids, hit, ct, cid):
+    """The insertion network over (P, S) slot lists, for the lanes of
+    ``hit`` only (rt_kernel.py:1609-1615)."""
+    ct = torch.where(hit, ct, BIG)
+    cid = torch.where(hit, cid, -1.0)
+    for k in range(ts.shape[1]):
+        win = ct < ts[:, k]
+        nt = torch.where(win, ct, ts[:, k])
+        nid = torch.where(win, cid, ids[:, k])
+        ct, cid = torch.where(win, ts[:, k], ct), torch.where(win, ids[:, k],
+                                                              cid)
+        ts[:, k], ids[:, k] = nt, nid
+
+
+def _slab(hdr, o, inv, bound):
+    """Per-lane slab test of header rows ``hdr`` (P, 8) -> (hit, tmin)."""
+    t0 = (hdr[:, 0:3] - o) * inv
+    t1 = (hdr[:, 3:6] - o) * inv
+    tmin = torch.minimum(t0, t1).amax(-1)
+    tmax = torch.maximum(t0, t1).amin(-1)
+    return (tmax >= tmin.clamp(min=0.0)) & (tmin < bound), tmin
+
+
+def trace_layers_so(origin_rows, o, d, t_max, n_slots: int = 3):
+    """Layered records of rays sharing origin ``o`` (3,) — the origin that
+    ``build_origin_rows`` baked in; host floats need no device sync — with
+    directions ``d`` (N, 3): one walk
+    -> (t_opq (N,), tri_opq (N,) int32, ts (N, n_slots), ids (N, n_slots)
+    float with the translucent +0.5 marker). Rays with t_max <= 0 are
+    inactive (t_opq 0, tri -1)."""
+    header, srows = origin_rows
+    if not header.is_cuda:
+        return trace_layers_so_plain(origin_rows, o, d, t_max, n_slots)
+    if not 1 <= n_slots <= 3:
+        raise ValueError(f"n_slots must be 1..3, got {n_slots}")
+    dev = header.device
+    n = d.shape[0]
+    _cuda.require(header, "header", dtype=torch.float32, device=dev)
+    _cuda.require(srows, "srows", dtype=torch.float32, device=dev)
+    if srows.dim() != 2 or srows.shape[1] != SO_SLOT_F * SLOT_N + SLOT_N:
+        raise ValueError(f"srows: bad shape {tuple(srows.shape)}")
+    _cuda.require(d, "d", (n, 3), device=dev)
+    _cuda.require(t_max, "t_max", (n,), device=dev)
+    ox, oy, oz = (float(x) for x in torch.as_tensor(o).tolist())
+    t_opq = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    ts = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
+    ids = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
+    lib = _cuda.library()
+    global so_launches
+    so_launches += 1
+    _cuda.check(lib.sge_so_layers(header.data_ptr(), srows.data_ptr(), ox, oy,
+                                  oz, d.data_ptr(), t_max.data_ptr(), n,
+                                  n_slots, t_opq.data_ptr(), tri.data_ptr(),
+                                  ts.data_ptr(), ids.data_ptr(),
+                                  _cuda.stream_ptr(header)), "sge_so_layers")
+    return t_opq, tri, ts, ids
+
+
+def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
+                          counts=None):
+    """Plain PyTorch twin of K5: every live ray walks near-first with its own
+    stack, one node per lockstep step (interior: test both children against
+    the ray's bound, descend to the nearer, stack the farther; leaf: test
+    the box, then the slots in order). ``counts``: a dict that receives the
+    box and slot tests of the walk ("box", "slot") — the kernel's own work,
+    since it walks each ray in the same order."""
+    header, srows = origin_rows
+    hdr = header.reshape(-1, 8)
+    dev = d.device
+    n = d.shape[0]
+    o = torch.as_tensor(o, dtype=torch.float32, device=dev)
+    inv = _safe_inv(d)
+    active = t_max > 0
+    t_opq = torch.where(active, BIG, 0.0)
+    tri = torch.full((n,), -1.0, device=dev)
+    ts = torch.full((n, n_slots), BIG, device=dev)
+    ids = torch.full((n, n_slots), -1.0, device=dev)
+    stack = torch.zeros((n, STACK), dtype=torch.int64, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    idx = torch.nonzero(active).squeeze(1)
+    base = SO_SLOT_F * SLOT_N
+    while idx.numel():
+        nd = node[idx]
+        h = hdr[nd]
+        bound = torch.minimum(torch.minimum(t_max[idx], t_opq[idx]),
+                              ts[idx, n_slots - 1])
+        leaf = h[:, 7] > 0.5
+        nxt = torch.full_like(nd, -2)          # -2: pop
+        li = torch.nonzero(leaf).squeeze(1)
+        if counts is not None:
+            counts["box"] = counts.get("box", 0) + 2 * idx.numel() - \
+                li.numel()
+        if li.numel():
+            lanes = idx[li]
+            box, _ = _slab(h[li], o, inv[lanes], bound[li])
+            if counts is not None:
+                counts["slot"] = counts.get("slot", 0) + \
+                    SLOT_N * int(box.sum())
+            row = srows[h[li, 7].to(torch.int64) - 1]
+            dl, bl = d[lanes], bound[li]
+            to, tr = t_opq[lanes], tri[lanes]
+            tsl, idl = ts[lanes], ids[lanes]
+            for j in range(SLOT_N):
+                s = row[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)]
+                tid = row[:, base + j]
+                un, vn, dn = (_dot(dl, s[:, 3 * c:3 * c + 3])
+                              for c in range(3))
+                sgn = torch.where(dn < 0, -1.0, 1.0)
+                dnp, un_s, vn_s, tn_s = dn * sgn, un * sgn, vn * sgn, \
+                    s[:, 9] * sgn
+                t = tn_s / torch.where(dnp >= EPS, dnp, 1.0)
+                hit = (tid >= 0) & (dnp >= EPS) & (un_s >= 0) & \
+                    (un_s <= dnp) & (vn_s >= 0) & (un_s + vn_s <= dnp) & \
+                    (tn_s > 1e-4 * dnp) & (t < bl) & box
+                opaque = tid == torch.floor(tid)
+                win = hit & opaque & (t < to)
+                to = torch.where(win, t, to)
+                tr = torch.where(win, tid, tr)
+                _insert(tsl, idl, hit & ~opaque, t, tid)
+            t_opq[lanes], tri[lanes] = to, tr
+            ts[lanes], ids[lanes] = tsl, idl
+        ii = torch.nonzero(~leaf).squeeze(1)
+        if ii.numel():
+            lanes = idx[ii]
+            left = nd[ii] + 1
+            right = hdr[left, 6].to(torch.int64)
+            hl, tl = _slab(hdr[left], o, inv[lanes], bound[ii])
+            hr, tr_ = _slab(hdr[right], o, inv[lanes], bound[ii])
+            both = hl & hr
+            left_near = tl <= tr_
+            near = torch.where(left_near, left, right)
+            far = torch.where(left_near, right, left)
+            bi = torch.nonzero(both).squeeze(1)
+            stack[lanes[bi], sp[lanes[bi]]] = far[bi]
+            sp[lanes[bi]] += 1
+            nxt[ii] = torch.where(both, near, torch.where(
+                hl, left, torch.where(hr, right, -2)))
+        pop = nxt == -2
+        pi = idx[pop]
+        has = sp[pi] > 0
+        sp[pi] = torch.where(has, sp[pi] - 1, sp[pi])
+        nxt[pop] = torch.where(has, stack[pi, sp[pi].clamp(min=0)], -1)
+        node[idx] = nxt
+        idx = idx[nxt >= 0]
+    return t_opq, tri.to(torch.int32), ts, ids
+
+
+def trace_shadow_factor(shadow_rows, l, o, t_limit, n_slots: int = 4):
+    """Shadow records of origins ``o`` (N, 3) along unit direction ``l``
+    (3,) — the direction ``build_shadow_rows`` baked in; host floats need no
+    device sync: one walk ->
+    (t_opq (N,), ts (N, n_slots), ids (N, n_slots) float with the
+    translucent +0.5 marker). Origins with t_limit <= 0 are inactive
+    (t_opq 0, ids -1)."""
+    header, srows = shadow_rows
+    if not header.is_cuda:
+        return trace_shadow_factor_plain(shadow_rows, l, o, t_limit, n_slots)
+    if not 1 <= n_slots <= 4:
+        raise ValueError(f"n_slots must be 1..4, got {n_slots}")
+    dev = header.device
+    n = o.shape[0]
+    _cuda.require(header, "header", dtype=torch.float32, device=dev)
+    _cuda.require(srows, "srows", dtype=torch.float32, device=dev)
+    if srows.dim() != 2 or srows.shape[1] != SHADOW_SLOT_F * SLOT_N + SLOT_N:
+        raise ValueError(f"srows: bad shape {tuple(srows.shape)}")
+    _cuda.require(o, "o", (n, 3), device=dev)
+    _cuda.require(t_limit, "t_limit", (n,), device=dev)
+    ix, iy, iz = (float(x) for x in _safe_inv(
+        torch.as_tensor(l, dtype=torch.float32)).tolist())
+    t_opq = torch.empty(n, dtype=torch.float32, device=dev)
+    ts = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
+    ids = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
+    lib = _cuda.library()
+    global shadow_launches
+    shadow_launches += 1
+    _cuda.check(lib.sge_shadow_walk(header.data_ptr(), srows.data_ptr(), ix,
+                                    iy, iz, o.data_ptr(), t_limit.data_ptr(),
+                                    n, n_slots, t_opq.data_ptr(),
+                                    ts.data_ptr(), ids.data_ptr(),
+                                    _cuda.stream_ptr(header)),
+                "sge_shadow_walk")
+    return t_opq, ts, ids
+
+
+def trace_shadow_factor_plain(shadow_rows, l, o, t_limit, n_slots: int = 4,
+                              counts=None):
+    """Plain PyTorch twin of K7: every live origin steps its own skip-link
+    cursor in lockstep (descend to node+1 on a box hit at an interior node,
+    else jump to skip); leaves its box hits test their slots in order.
+    ``counts``: as for trace_layers_so_plain."""
+    header, srows = shadow_rows
+    hdr = header.reshape(-1, 8)
+    dev = o.device
+    n = o.shape[0]
+    inv = _safe_inv(torch.as_tensor(l, dtype=torch.float32, device=dev))
+    active = t_limit > 0
+    t_opq = torch.where(active, BIG, 0.0)
+    ts = torch.full((n, n_slots), BIG, device=dev)
+    ids = torch.full((n, n_slots), -1.0, device=dev)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    idx = torch.nonzero(active).squeeze(1)
+    base = SHADOW_SLOT_F * SLOT_N
+    while idx.numel():
+        nd = node[idx]
+        h = hdr[nd]
+        tl = t_limit[idx]
+        bound = torch.minimum(torch.minimum(tl, t_opq[idx]),
+                              ts[idx, n_slots - 1])
+        box, _ = _slab(h, o[idx], inv, bound)
+        leaf = h[:, 7] > 0.5
+        li = torch.nonzero(leaf & box).squeeze(1)
+        if counts is not None:
+            counts["box"] = counts.get("box", 0) + idx.numel()
+            counts["slot"] = counts.get("slot", 0) + SLOT_N * li.numel()
+        if li.numel():
+            lanes = idx[li]
+            row = srows[h[li, 7].to(torch.int64) - 1]
+            p, tll = o[lanes], tl[li]
+            to, tsl, idl = t_opq[lanes], ts[lanes], ids[lanes]
+            for j in range(SLOT_N):
+                s = row[:, SHADOW_SLOT_F * j:SHADOW_SLOT_F * (j + 1)]
+                tid = row[:, base + j]
+                u, v, t = (_dot(p, s[:, 3 * c:3 * c + 3]) - s[:, 9 + c]
+                           for c in range(3))
+                hit = (tid >= 0) & (u >= 0) & (u <= 1) & (v >= 0) & \
+                    (u + v <= 1) & (t > 1e-4) & (t < tll)
+                opaque = tid == torch.floor(tid)
+                to = torch.where(hit & opaque, torch.minimum(to, t), to)
+                _insert(tsl, idl, hit & ~opaque, t, tid)
+            t_opq[lanes], ts[lanes], ids[lanes] = to, tsl, idl
+        nxt = torch.where(box & ~leaf, nd + 1, h[:, 6].to(torch.int64))
+        node[idx] = nxt
+        idx = idx[nxt >= 0]
+    return t_opq, ts, ids

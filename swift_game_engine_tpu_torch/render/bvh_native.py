@@ -3,13 +3,17 @@
 The source is the reference's ``native/bvh_builder.cpp``, compiled with the
 flags of ``native/build.sh`` (so both packages get the same tree from the
 same input) into this package's gitignored ``build/`` directory — nothing
-is written into ``native/``. There is no fallback builder: a failed build
-raises.
+is written into ``native/``. ``-march=native`` ties the library to the CPU
+it was built on, so its file name carries a hash of the source, the flags
+and the instruction-set macros ``-march=native`` enables on this host: a
+library built on another machine is never loaded. There is no fallback
+builder: a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 
@@ -20,19 +24,31 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 SOURCE = os.path.join(_REPO, "native", "bvh_builder.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "build")
+FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")   # native/build.sh
 _LIB = None
+
+
+def _library_path() -> str:
+    """build/libsge_bvh_<hash>.so, the hash over the source, the flags and
+    the host's -march=native target (its predefined macros)."""
+    target = subprocess.run(
+        ["g++", "-march=native", "-dM", "-E", "-x", "c++", os.devnull],
+        capture_output=True, check=True).stdout
+    h = hashlib.sha256(" ".join(FLAGS).encode() + target)
+    with open(SOURCE, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libsge_bvh_{h.hexdigest()[:16]}.so")
 
 
 def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    so = os.path.join(BUILD_DIR, "libsge_bvh.so")
-    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(SOURCE):
+    so = _library_path()
+    if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                        "-o", tmp, SOURCE], check=True)
+        subprocess.run(["g++", *FLAGS, "-o", tmp, SOURCE], check=True)
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     p32 = ctypes.POINTER(ctypes.c_int32)

@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 ENV_MIP_COUNT = 8
 LUT_SIZE = 128
 
@@ -130,7 +132,9 @@ class IBL(NamedTuple):
     env_mip_count: int
 
     @staticmethod
-    def build(device=None):
+    def build(device="cuda"):
+        """The IBL tables on ``device`` (the card unless asked otherwise)."""
+        device = resolve_device(device)
         sh0, sh1 = hemisphere_sh(device)
         return IBL(sh0=sh0, sh1=sh1,
                    brdf_lut=torch.as_tensor(integrate_brdf_lut(),

@@ -1,21 +1,37 @@
-"""Ray-traced frame, hybrid visibility: port of swift_game_engine_tpu/render/rt.py.
+"""Ray-traced frame: port of swift_game_engine_tpu/render/rt.py.
 
-The reference's production path (its ``SGE_RT_PRIMARY`` "hybrid" mode at
-the config.py defaults) and nothing else:
+The reference's RT frame at its config.py defaults, in its two primary
+visibility modes (``render_frame(primary=...)``, the reference's
+``SGE_RT_PRIMARY``):
 
-  * primary visibility from two cluster rasters (kernel K1): the opaque
-    triangles (1 layer) and the translucent subset (max_layers peeled
-    layers in front of the opaque depth), composed into per-layer hit
-    records by the layered floor chain (incl. the 2*bias continuation skip);
+  * ``"hybrid"`` (default): primary visibility from two cluster rasters
+    (kernel K1): the opaque triangles (1 layer) and the translucent subset
+    (max_layers peeled layers in front of the opaque depth), composed into
+    per-layer hit records by the layered floor chain (incl. the 2*bias
+    continuation skip);
+  * ``"trace"``: the reference's intersector semantics. On a tree of at most
+    ``WALK_MAX_ROWS`` rows one layered shared-origin walk (kernel K5) gives
+    the nearest opaque hit and max_layers translucent hits per pixel, and
+    the same floor chain makes the layer records; on a larger tree a dense
+    closest-hit trace (K4) gives layer 1 and the continuation layers
+    re-trace from offset origins (K4), compacted to the live lanes.
+
+Then, in both modes:
+
   * layer 1 shaded densely, continuation layers 2.. shaded together as one
     compacted record set (the reference's SGE_RT_LBATCH=2), then the
     front-to-back alpha chain elementwise;
   * per hit: the static shade row gathers (SROW), the material sample with
     sparse texture taps, normal mapping, GGX direct light per directional
     light, SH ambient, split-sum specular IBL and the unlit fast path;
-  * light-0 shadows from the split cluster sweeps (kernels K2 + K3, any-hit
-    occlusion, alpha-payload records), with the reference's exact layer
-    semantics applied elementwise (``_apply_shadow_records``);
+  * light-0 shadows, chosen per frame as the reference chooses them
+    (rt.py:1420-1452): the split cluster sweeps (kernels K2 + K3, any-hit
+    occlusion, alpha-payload records) for frames of at least
+    ``SHADOW_CLUSTER_MIN_LANES`` padded lanes; else the shared-direction
+    shadow walk (kernel K7) on a tree of at most ``WALK_MAX_ROWS`` rows;
+    else the per-layer closest-hit loop (K4). The records go through the
+    reference's exact layer semantics elementwise
+    (``_apply_shadow_records``);
   * one mirror bounce and one refraction bounce, traced with kernel K4.
 
 Compaction: wherever the reference runs ``_chunked`` (fixed-size chunks of
@@ -32,7 +48,9 @@ from typing import NamedTuple
 
 import torch
 
+from .. import resolve_device
 from ..math3d import normalize
+from ..ops import rt_kernel as RK
 from ..ops.cluster_shadow import build_shadow_split, trace_shadow_split
 from ..ops.rt_kernel import barycentrics, trace_batch
 from .camera import generate_rays_tiled, untile_image
@@ -46,6 +64,11 @@ from .tile_raster import CLUSTER, TRANS_CLUSTER, rasterize_clusters
 BG_COLOR = (0.02, 0.02, 0.03)
 AMBIENT_INTENSITY = 0.25  # RayTracingRenderer.swift:82
 BIG = 3.0e38
+# Frames of at least this many padded tile-major lanes take the cluster
+# shadow sweeps (config.py:53 SGE_SHADOW_CLUSTER_MIN_LANES); smaller frames
+# take the shadow walk (K7) or, on a large tree, the per-layer loop.
+SHADOW_CLUSTER_MIN_LANES = 100_000
+PRIMARY_MODES = ("hybrid", "trace")
 
 
 class DirectionalLights(NamedTuple):
@@ -58,9 +81,11 @@ class DirectionalLights(NamedTuple):
     max_distance: torch.Tensor  # (L,)
 
     @staticmethod
-    def from_list(lights, device=None) -> "DirectionalLights":
-        """From dicts with direction/intensity/color[/enabled/max_distance];
-        an empty list gives the reference's fallback sun."""
+    def from_list(lights, device="cuda") -> "DirectionalLights":
+        """From dicts with direction/intensity/color[/enabled/max_distance]
+        on ``device`` (the card unless asked otherwise); an empty list gives
+        the reference's fallback sun."""
+        device = resolve_device(device)
         if not lights:
             lights = [dict(direction=(-0.2, -1.0, -0.4), intensity=2.6,
                            color=(1.0, 0.95, 0.85))]
@@ -83,10 +108,11 @@ class _Frame(NamedTuple):
     ibl: IBL
     lights: DirectionalLights
     cam: torch.Tensor
-    shadow: object            # ShadowSplit for light 0
-    shadow_layers: int
+    shadow: object            # light 0: ShadowSplit ("clusters"), (shadow
+    shadow_layers: int        # rows, host l) ("walk") or None ("loop")
     enable_mirror: bool
     enable_refraction: bool
+    shadow_mode: str = "clusters"
 
 
 def _bg(device):
@@ -189,13 +215,62 @@ def _apply_shadow_records(fr: _Frame, o_sh, l, t_opq, ts, ids, active,
     return torch.where(active, shadow, 1.0)
 
 
+def _shadow_mode(geo: SceneGeometry, fg: FrameGeometry, lights,
+                 lanes: int):
+    """The frame's light-0 shadow source (rt.py:1420-1452) -> (mode, the
+    per-frame constants its shade calls share). The walk's direction is
+    read to the host once here, so its shade calls need no device sync."""
+    l0 = normalize(-lights.direction[0])
+    if lanes >= SHADOW_CLUSTER_MIN_LANES:
+        bv = fg.bvh
+        mid_t = geo.tri_material.clamp(min=0)
+        return "clusters", build_shadow_split(
+            bv.v0, bv.v1, bv.v2, l0, geo.tri_translucent,
+            alpha=torch.clamp(geo.materials.alpha[mid_t], 0.0, 1.0),
+            trans_idx=geo.translucent_idx)
+    if RK.walk_available(fg.bvh.rows):
+        return "walk", (RK.build_shadow_rows(fg.bvh.rows, l0), l0.tolist())
+    return "loop", None
+
+
+def _shadow_loop(fr: _Frame, o, l, max_dist, bias, active):
+    """The per-layer shadow loop (rt.py:893-910): closest hit toward the
+    light, multiply by (1 - alpha), continue past the surface, at most
+    shadow_layers times while the factor stays above 0.02."""
+    shadow = torch.ones(o.shape[0], device=o.device)
+    act = active
+    d = l.expand_as(o).contiguous()
+    for _ in range(fr.shadow_layers):
+        live = act & (shadow > 0.02)
+        if not bool(live.any()):
+            break
+        t, tri, u, v, found = trace_batch(fr.fg.bvh, o, d, live)
+        found = found & (t < max_dist)
+        a = _sample_alpha(fr.geo, tri, u, v)
+        shadow = torch.where(found, shadow * (1.0 - a), shadow)
+        sh_pos = o + l * t[:, None]
+        o = torch.where(found[:, None], sh_pos + l * (bias * 2.0)[:, None], o)
+        act = live & found
+    return shadow
+
+
 def _shadow_factor(fr: _Frame, hit_pos, n, light_dir, max_dist, bias,
                    active):
     """Alpha-filtered shadow toward directional light 0
-    (RayTracing.metalinc:332-372) from the split cluster sweeps."""
+    (RayTracing.metalinc:332-372) from the frame's shadow source."""
     l = normalize(-light_dir)
     o0 = hit_pos + n * bias[:, None]
+    if fr.shadow_mode == "loop":
+        return _shadow_loop(fr, o0, l, max_dist, bias, active)
     o_sh = torch.where(active[:, None], o0, 1.0e9).contiguous()
+    if fr.shadow_mode == "walk":
+        # rt.py:853-864: the t limit is the light's range alone
+        t_lim = torch.where(active, torch.clamp(max_dist, max=BIG), 0.0)
+        rows, l_host = fr.shadow
+        t_opq, ts, ids = RK.trace_shadow_factor(
+            rows, l_host, o_sh, t_lim.contiguous(), n_slots=fr.shadow_layers)
+        return _apply_shadow_records(fr, o_sh, l, t_opq, ts, ids, active,
+                                     max_dist, False)
     # Exact per-lane t limit: no triangle lies outside the root AABB, so a
     # shadow ray needs nothing past its AABB exit distance.
     bmin, bmax = fr.fg.bvh.bmin[0], fr.fg.bvh.bmax[0]
@@ -391,12 +466,12 @@ def _shade_layer(fr: _Frame, o_l, d_l, t, tri, u, v, found, alpha_in):
 def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
                          live):
     """Layers 2.. shaded as one compacted record set, then the alpha chain
-    elementwise (per-record color does not depend on the chain)."""
+    elementwise (per-record color does not depend on the chain). Records
+    without barycentrics (u is None: traced layers) get them on the
+    compacted set (rt.py:1533-1536)."""
     nl, p = len(recs), ray_o.shape[0]
     t_s = torch.cat([r[0] for r in recs])
     tri_s = torch.cat([r[1] for r in recs])
-    u_s = torch.cat([r[2] for r in recs])
-    v_s = torch.cat([r[3] for r in recs])
     f_s = [r[4] for r in recs]
     chain_open = live & (accum_alpha < 0.99)
     idx = torch.nonzero(torch.cat([f & chain_open for f in f_s])).squeeze(1)
@@ -404,9 +479,14 @@ def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
     alphas = torch.zeros(nl * p, device=d.device)
     if idx.numel():
         lane = idx % p
+        oc, dc, tc, tric = ray_o[lane], d[lane], t_s[idx], tri_s[idx]
+        if recs[0][2] is None:
+            uc, vc, _ = barycentrics(fr.fg.bvh, oc, dc, tc, tric)
+        else:
+            uc = torch.cat([r[2] for r in recs])[idx]
+            vc = torch.cat([r[3] for r in recs])[idx]
         ok = torch.ones(idx.shape[0], dtype=torch.bool, device=d.device)
-        color, alpha = _shade_layer(fr, ray_o[lane], d[lane], t_s[idx],
-                                    tri_s[idx], u_s[idx], v_s[idx], ok,
+        color, alpha = _shade_layer(fr, oc, dc, tc, tric, uc, vc, ok,
                                     torch.zeros(idx.shape[0], device=d.device))
         colors[idx] = color
         alphas[idx] = alpha
@@ -421,44 +501,123 @@ def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
 
 
 def _layer_records(opq, trs, max_layers: int):
-    """Per-layer records from the opaque hit + translucent peels: layer L is
-    the nearest translucent record past the floor and in front of the
-    opaque hit, else the opaque hit once it clears the floor; the floor
-    advances by t + 2*bias (the traced continuation's surface skip)."""
+    """Per-layer records from the opaque hit + translucent records (raster
+    peels, or the slots of the layered walk): layer L is the nearest
+    translucent record past the floor and in front of the opaque hit, else
+    the opaque hit once it clears the floor; the floor advances by
+    t + 2*bias (the traced continuation's surface skip). Records carry
+    (t, tri, u, v, found); u and v may be None (traced records), and are
+    then None in the layer records too."""
     t_o, tri_o, u_o, v_o, f_o = opq
     p = t_o.shape[0]
     dev = t_o.device
+    with_uv = u_o is not None
     t_opq = torch.where(f_o, t_o, BIG)
     floor = torch.zeros(p, device=dev)
     recs = []
     for _ in range(max_layers):
         tn = torch.full((p,), BIG, device=dev)
         idn = torch.full((p,), -1, dtype=torch.int64, device=dev)
-        un = torch.zeros(p, device=dev)
-        vn = torch.zeros(p, device=dev)
+        un = vn = None
+        if with_uv:
+            un = torch.zeros(p, device=dev)
+            vn = torch.zeros(p, device=dev)
         for tk, trik, uk, vk, fk in reversed(trs):   # nearest eligible wins
             ok = fk & (tk > floor) & (tk < t_opq)
             tn = torch.where(ok, tk, tn)
             idn = torch.where(ok, trik, idn)
-            un = torch.where(ok, uk, un)
-            vn = torch.where(ok, vk, vn)
+            if with_uv:
+                un = torch.where(ok, uk, un)
+                vn = torch.where(ok, vk, vn)
         use_opq = f_o & (t_opq > floor) & (tn >= BIG)
         found = use_opq | (tn < BIG)
         t_l = torch.where(found, torch.where(use_opq, t_opq, tn), BIG)
         tri_l = torch.where(found, torch.where(use_opq, tri_o, idn), -1)
-        recs.append((t_l, tri_l, torch.where(use_opq, u_o, un),
-                     torch.where(use_opq, v_o, vn), found))
+        if with_uv:
+            recs.append((t_l, tri_l, torch.where(use_opq, u_o, un),
+                         torch.where(use_opq, v_o, vn), found))
+        else:
+            recs.append((t_l, tri_l, None, None, found))
         floor = torch.where(found, t_l + 2.0 * shadow_bias(t_l), floor)
     return recs
+
+
+def _traced_records(fg: FrameGeometry, cam, cam_host, d, max_layers: int):
+    """Layer records of the camera rays ``d`` from ONE layered shared-origin
+    walk (K5, rt.py:1687-1719): the nearest opaque hit and max_layers
+    translucent hits per ray, through the floor chain. ``cam_host``: the
+    origin ``cam`` as host floats, for the kernel's arguments."""
+    p = d.shape[0]
+    so_rows = RK.build_origin_rows(fg.bvh.rows, cam)
+    t_opq, otri, lts, lids = RK.trace_layers_so(
+        so_rows, cam_host, d, torch.full((p,), BIG, device=d.device),
+        n_slots=max_layers)
+    trs = [(lts[:, k], torch.floor(lids[:, k]).long(), None, None,
+            lids[:, k] >= 0) for k in range(max_layers)]
+    return _layer_records((t_opq, otri.long(), None, None, t_opq < BIG), trs,
+                          max_layers)
+
+
+def _next_origin(o, d, t):
+    """The continuation origin past a hit at t (rt.py:1495): the hit
+    position, moved on by 2*bias along the ray."""
+    hit_pos = o + d * t[:, None]
+    return hit_pos + d * (shadow_bias(t) * 2.0)[:, None]
+
+
+def _trace_general(fr: _Frame, ray_o, d, max_layers: int):
+    """Traced layers on a tree past the walk's row cap (rt.py:1778-1896):
+    a dense closest-hit trace (K4) for layer 1, then each continuation layer
+    re-traces the live lanes from offset origins, compacted."""
+    p, dev = ray_o.shape[0], ray_o.device
+    t, tri, u, v, found = trace_batch(fr.fg.bvh, ray_o, d,
+                                      torch.ones(p, dtype=torch.bool,
+                                                 device=dev))
+    color, contrib = _shade_layer(fr, ray_o, d, t, tri, u, v, found,
+                                  torch.zeros(p, device=dev))
+    accum = color * contrib[:, None]
+    accum_alpha = contrib
+    o = torch.where(found[:, None], _next_origin(ray_o, d, torch.where(
+        found, t, 1.0)), ray_o)
+    live = found
+    for _ in range(1, max_layers):
+        live = live & (accum_alpha < 0.99)
+        idx = torch.nonzero(live).squeeze(1)
+        if not idx.numel():
+            break
+        oc, dc = o[idx], d[idx]
+        ok = torch.ones(idx.shape[0], dtype=torch.bool, device=dev)
+        t, tri, u, v, found = trace_batch(fr.fg.bvh, oc, dc, ok)
+        color, contrib = _shade_layer(fr, oc, dc, t, tri, u, v, found,
+                                      accum_alpha[idx])
+        accum = accum.index_add(0, idx, color * contrib[:, None])
+        accum_alpha = accum_alpha.index_add(0, idx, contrib)
+        o = o.clone()
+        o[idx] = torch.where(found[:, None],
+                             _next_origin(oc, dc, torch.where(found, t, 1.0)),
+                             oc)
+        live = torch.zeros(p, dtype=torch.bool, device=dev)
+        live[idx] = found
+    return accum + _bg(dev) * (1.0 - accum_alpha)[:, None]
 
 
 def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                  lights: DirectionalLights, inv_view_proj, cam_pos,
                  width: int, height: int, max_layers: int = 3,
                  shadow_layers: int = 4, enable_mirror: bool = True,
-                 enable_refraction: bool = True, view_proj=None):
-    """Full RT frame -> (H, W, 3) linear color. ``inv_view_proj``,
-    ``view_proj`` and ``cam_pos`` are tensors on the geometry's device."""
+                 enable_refraction: bool = True, view_proj=None,
+                 primary: str = "hybrid"):
+    """Full RT frame -> (H, W, 3) linear color. ``inv_view_proj`` and
+    ``view_proj`` are tensors on the geometry's device; ``cam_pos`` (3,) is
+    host values (numpy) or a tensor.
+    ``primary`` is the primary visibility mode, "hybrid" or "trace" (see
+    the module docstring); the reference's "raster" and "peels" modes are
+    not ported."""
+    if primary in ("raster", "peels"):
+        raise NotImplementedError(f"primary={primary!r} is not ported")
+    if primary not in PRIMARY_MODES:
+        raise ValueError(f"primary must be one of {PRIMARY_MODES}, got "
+                         f"{primary!r}")
     if not 1 <= max_layers <= 3:
         raise ValueError(f"max_layers must be 1..3, got {max_layers}")
     if not 1 <= shadow_layers <= 4:
@@ -466,58 +625,65 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     dev = fg.pos.device
     ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=dev)
     cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
-    vp = torch.linalg.inv(ivp) if view_proj is None else \
-        torch.as_tensor(view_proj, dtype=torch.float32, device=dev)
     ray_o, ray_d, px, py = generate_rays_tiled(ivp, cam, width, height)
-
-    # Exact w -> t for pinhole rays p = cam + d*t: the raster's view depth
-    # is w = w(cam) + t * (vp[3,:3] . d).
-    vp3 = vp[3]
-    w_cam = (vp3[:3] * cam).sum() + vp3[3]
-    wd = ray_d @ vp3[:3]
-    inv_wd = 1.0 / torch.where(wd.abs() < 1e-12, 1e-12, wd)
-
-    def rec_of(h):
-        return (torch.where(h.found, (h.w_depth - w_cam) * inv_wd, BIG),
-                h.tri, h.u, h.v, h.found)
-
+    p = ray_o.shape[0]
     bv = fg.bvh
-    oi = geo.opaque_idx
-    h_o = rasterize_clusters(
-        bv.v0[oi], bv.v1[oi], bv.v2[oi], vp, width, height, layers=1,
-        opaque=torch.ones(oi.shape[0], dtype=torch.bool, device=dev),
-        cluster=CLUSTER, ids=oi.to(torch.float32))[0]
-    trs = []
-    ti = geo.translucent_idx
-    if ti.numel():
-        trs = [rec_of(h) for h in rasterize_clusters(
-            bv.v0[ti], bv.v1[ti], bv.v2[ti], vp, width, height,
-            layers=max_layers, cluster=TRANS_CLUSTER,
-            ids=ti.to(torch.float32), prior_w=h_o.w_depth)]
-    recs = _layer_records(rec_of(h_o), trs, max_layers)
 
-    # light-0 shadow clusters: shared by every shade call of the frame
-    mid_t = geo.tri_material.clamp(min=0)
-    shadow = build_shadow_split(
-        bv.v0, bv.v1, bv.v2, normalize(-lights.direction[0]),
-        geo.tri_translucent,
-        alpha=torch.clamp(geo.materials.alpha[mid_t], 0.0, 1.0),
-        trans_idx=ti)
+    recs = None
+    if primary == "hybrid":
+        vp = torch.linalg.inv(ivp) if view_proj is None else \
+            torch.as_tensor(view_proj, dtype=torch.float32, device=dev)
+        # Exact w -> t for pinhole rays p = cam + d*t: the raster's view
+        # depth is w = w(cam) + t * (vp[3,:3] . d).
+        vp3 = vp[3]
+        w_cam = (vp3[:3] * cam).sum() + vp3[3]
+        wd = ray_d @ vp3[:3]
+        inv_wd = 1.0 / torch.where(wd.abs() < 1e-12, 1e-12, wd)
+
+        def rec_of(h):
+            return (torch.where(h.found, (h.w_depth - w_cam) * inv_wd, BIG),
+                    h.tri, h.u, h.v, h.found)
+
+        oi = geo.opaque_idx
+        h_o = rasterize_clusters(
+            bv.v0[oi], bv.v1[oi], bv.v2[oi], vp, width, height, layers=1,
+            opaque=torch.ones(oi.shape[0], dtype=torch.bool, device=dev),
+            cluster=CLUSTER, ids=oi.to(torch.float32))[0]
+        trs = []
+        ti = geo.translucent_idx
+        if ti.numel():
+            trs = [rec_of(h) for h in rasterize_clusters(
+                bv.v0[ti], bv.v1[ti], bv.v2[ti], vp, width, height,
+                layers=max_layers, cluster=TRANS_CLUSTER,
+                ids=ti.to(torch.float32), prior_w=h_o.w_depth)]
+        recs = _layer_records(rec_of(h_o), trs, max_layers)
+    elif RK.walk_available(bv.rows):
+        # the origin as host floats: no device sync when cam_pos is on the
+        # host, as the Engine passes it
+        cam_host = torch.as_tensor(cam_pos, dtype=torch.float32).tolist()
+        recs = _traced_records(fg, cam, cam_host, ray_d, max_layers)
+
+    # light-0 shadow constants: shared by every shade call of the frame
+    mode, shadow = _shadow_mode(geo, fg, lights, p)
     fr = _Frame(geo=geo, fg=fg, ibl=ibl, lights=lights, cam=cam,
                 shadow=shadow, shadow_layers=shadow_layers,
                 enable_mirror=enable_mirror,
-                enable_refraction=enable_refraction)
+                enable_refraction=enable_refraction, shadow_mode=mode)
 
-    p = ray_o.shape[0]
-    t1, tri1, u1, v1, f1 = recs[0]
-    color, contrib = _shade_layer(fr, ray_o, ray_d, t1, tri1, u1, v1, f1,
-                                  torch.zeros(p, device=dev))
-    accum = color * contrib[:, None]
-    if max_layers > 1:
-        out = _shade_continuations(fr, ray_o, ray_d, recs[1:], accum, contrib,
-                                   f1)
+    if recs is None:
+        out = _trace_general(fr, ray_o, ray_d, max_layers)
     else:
-        out = accum + _bg(dev) * (1.0 - contrib)[:, None]
+        t1, tri1, u1, v1, f1 = recs[0]
+        if u1 is None:                   # traced layer 1: dense barycentrics
+            u1, v1, _ = barycentrics(bv, ray_o, ray_d, t1, tri1)
+        color, contrib = _shade_layer(fr, ray_o, ray_d, t1, tri1, u1, v1, f1,
+                                      torch.zeros(p, device=dev))
+        accum = color * contrib[:, None]
+        if max_layers > 1:
+            out = _shade_continuations(fr, ray_o, ray_d, recs[1:], accum,
+                                       contrib, f1)
+        else:
+            out = accum + _bg(dev) * (1.0 - contrib)[:, None]
 
     # per-pixel hash dither in lane order, then one reshape to the image
     noise = hash12(torch.stack([px.to(torch.float32), py.to(torch.float32)],

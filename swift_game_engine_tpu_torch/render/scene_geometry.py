@@ -22,6 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 from ..assets.mesh_api import MeshDescriptor, compute_tangents
 from ..assets.materials import Material
 from ..anim.skinning import skin_vertices
@@ -335,7 +337,10 @@ class RenderGeometryBuilder:
             tri_shade=tri_shade)
         return arrays, topo
 
-    def build(self, device=None) -> SceneGeometry:
+    def build(self, device="cuda") -> SceneGeometry:
+        """The packed geometry on ``device`` (the card unless asked
+        otherwise)."""
+        device = resolve_device(device)
         arrays, topo = self.build_arrays()
         return pack_scene(arrays, topo, device)
 

@@ -1,8 +1,7 @@
 """DemoScene render world: port of swift_game_engine_tpu/scene/demo_scene.py.
 
 Builds the render geometry of the reference demo world, item for item and
-in the same entity order (scene/demo_scene.py:116-272,282-426), at full
-fidelity (no import decimation):
+in the same entity order (scene/demo_scene.py:116-272,282-426):
 
   * 80x80 ground at y=-3; 17-Cheese and Semla (+18,0,10) with their
     translucent unlit collision hulls; the ornate mirror when its asset is
@@ -18,6 +17,15 @@ bone names (unitScale 0.026); each bone's inverse bind comes from the skin
 file, so the bind pose is exactly the identity palette and the body is drawn
 at bind pose. This stands in until those files are in the repository and
 the fixed-step simulation is ported.
+
+Import decimation follows the reference's ``import_tri_budget``
+(config.py:83 SGE_IMPORT_TRI_BUDGET = 20000, scene/demo_scene.py:79,
+323-331,390-401): an imported part with more triangles than the budget and
+exactly one submesh is vertex-clustered down to the budget, and each YBot
+submesh to its share of it (at least 2000 triangles). The default scene is
+this decimated one (53,342 triangles, a tree under the 22,000-row cap of
+the shared-origin and shadow walks); ``import_tri_budget=0`` keeps full
+fidelity (181,340 triangles).
 
 There is no simulation here: ``transforms`` are the instance transforms of
 the initial state in world space — what the reference's ``Stepper._extract``
@@ -36,11 +44,12 @@ import torch
 
 from ..assets import procedural_meshes as pm
 from ..assets.materials import Material, load_materials
-from ..assets.mesh_api import simplify_skinned
+from ..assets.mesh_api import simplify_mesh, simplify_skinned
 from ..assets.nputil import quat_from_mat
 from ..assets.skeleton import build_skeleton
 from ..assets.skinned_mesh import dense_weight_matrix, load_skinned_mesh
 from ..assets.static_mesh import load_static_mesh
+from .. import resolve_device
 from ..math3d import quat_from_axis_angle_np, quat_mul_np, trs_matrices
 from ..render.rt import DirectionalLights
 from ..render.scene_geometry import RenderGeometryBuilder, SceneGeometry
@@ -49,6 +58,9 @@ GROUND_Y = -3.0
 UNIT_SCALE = 0.026   # the YBot skeleton's unitScale (BASELINE.md)
 # MovementComponent defaults (ecs/world.py): walk, run, run threshold
 PLAYER_MOVEMENT = (4.5, 12.5, 0.78)
+# Render-mesh triangle budget per imported part (config.py:83
+# SGE_IMPORT_TRI_BUDGET); 0 disables decimation.
+IMPORT_TRI_BUDGET = 20000
 
 
 class DemoWorld(NamedTuple):
@@ -100,7 +112,7 @@ class _Entities:
 
 
 def _add_imported(ents, rb, path, materials_path, offset, hull_color,
-                  scale=None, upright_flip=False):
+                  budget, scale=None, upright_flip=False):
     if not os.path.exists(path):
         print(f"DemoScene: missing static mesh asset: {os.path.basename(path)}")
         return
@@ -126,16 +138,25 @@ def _add_imported(ents, rb, path, materials_path, offset, hull_color,
             s = s * scale
         t = t + np.asarray(offset, np.float32)
         e = ents.add(t, q, s)
-        for sub in part.submeshes:
-            rb.add_static_mesh(part.mesh, materials.get(sub.material, fallback),
-                               instance=e, tri_range=(sub.start, sub.count))
+        mesh = part.mesh
+        if mesh.triangle_count > budget and len(part.submeshes) == 1:
+            mesh = simplify_mesh(mesh.with_tangents() if mesh.uvs is not None
+                                 and mesh.normals is not None else mesh,
+                                 budget)
+            rb.add_static_mesh(mesh, materials.get(part.submeshes[0].material,
+                                                   fallback), instance=e)
+        else:
+            for sub in part.submeshes:
+                rb.add_static_mesh(mesh, materials.get(sub.material, fallback),
+                                   instance=e, tri_range=(sub.start, sub.count))
         for hull in part.collision_hulls:
             he = ents.add(t, q, s, body=True)
             rb.add_static_mesh(hull, hull_mat, instance=he)
 
 
-def _add_player_body(rb, skinned_path, instance):
-    """The YBot skin on a stand-in skeleton of its own bone names."""
+def _add_player_body(rb, skinned_path, instance, budget):
+    """The YBot skin on a stand-in skeleton of its own bone names, each
+    submesh decimated to its share of ``budget``."""
     with open(skinned_path) as f:
         names = [b["name"] for b in json.load(f)["skin"]["bones"]]
     b = len(names)
@@ -152,7 +173,7 @@ def _add_player_body(rb, skinned_path, instance):
         pos, nrm, uv, tri, j4, w4 = simplify_skinned(
             sm.positions[used], sm.normals[used], sm.uvs[used],
             remap[idx].astype(np.int32), sm.joints[used], sm.weights[used],
-            1 << 30)
+            max(int(budget * s.count / len(sm.indices)), 2000))
         rb.add_skinned_mesh(pos, nrm, uv, tri,
                             dense_weight_matrix(j4, w4, skeleton.bone_count),
                             [mat], [(0, len(tri))], instance=instance,
@@ -160,9 +181,14 @@ def _add_player_body(rb, skinned_path, instance):
     return skeleton.bone_count
 
 
-def build_demo_scene(asset_dir: str = "assets", device=None) -> DemoWorld:
-    """The DemoScene render world on ``device`` (see the module docstring).
-    ``asset_dir`` holds the *.static.json / *.skinned.json files."""
+def build_demo_scene(asset_dir: str = "assets", device="cuda",
+                     import_tri_budget: int = IMPORT_TRI_BUDGET) -> DemoWorld:
+    """The DemoScene render world on ``device`` (the card unless asked
+    otherwise; see the module docstring). ``asset_dir`` holds the
+    *.static.json / *.skinned.json files; ``import_tri_budget`` is the
+    per-part triangle budget of the imported meshes (0: full fidelity)."""
+    device = resolve_device(device)
+    budget = import_tri_budget or (1 << 30)
     ents = _Entities()
     rb = RenderGeometryBuilder()
 
@@ -185,12 +211,13 @@ def build_demo_scene(asset_dir: str = "assets", device=None) -> DemoWorld:
 
     _add_imported(ents, rb, asset("17-Cheese.static.json"),
                   asset("17-Cheese.materials.json"), (0, 0, 0),
-                  (80, 180, 255))
+                  (80, 180, 255), budget)
     _add_imported(ents, rb, asset("Semla.static.json"),
-                  asset("Semla.materials.json"), (18, 0, 10), (120, 220, 180))
+                  asset("Semla.materials.json"), (18, 0, 10), (120, 220, 180),
+                  budget)
     _add_imported(ents, rb, asset("ornate_mirror.static.json"),
                   asset("ornate-mirror.materials.json"), (-10, 1, 4),
-                  (200, 160, 255), scale=8.0, upright_flip=True)
+                  (200, 160, 255), budget, scale=8.0, upright_flip=True)
 
     plat_mesh = pm.box(4.0)
     for name, pos, color in (("elevator", [16, -1.0, 0], (120, 200, 255)),
@@ -208,7 +235,7 @@ def build_demo_scene(asset_dir: str = "assets", device=None) -> DemoWorld:
 
     start = np.array([0.0, GROUND_Y + 2.5 + 8.0, 0.0], np.float32)
     player = ents.add(start, body=True)
-    n_bones = _add_player_body(rb, asset("YBot.skinned.json"), player)
+    n_bones = _add_player_body(rb, asset("YBot.skinned.json"), player, budget)
     overlay = ents.add(start, follow=player)
     rb.add_static_mesh(pm.capsule(1.5, 1.0),
                        _solid_mat("PlayerCapsuleOverlayMat", (120, 160, 255),

@@ -4,8 +4,16 @@
 (scene/engine.py:385-459) step for step: dt clamp <= 0.1, time advance
 (scaled and unscaled) and the fixed-step accumulator, player intent and
 exposure input, the chase camera, the camera-relative rebase of the
-instance transforms (scene/step.py:387), ``flatten_frame``, the hybrid RT
-``render_frame``, ``composite_frame``, u8 quantisation and the FPS overlay.
+instance transforms (scene/step.py:387), ``flatten_frame``, the RT
+``render_frame`` (``primary="hybrid"`` or ``"trace"``) at the RT target
+size, the bilinear upscale to the drawable, ``composite_frame``, u8
+quantisation and the FPS overlay.
+
+The RT target is ``rt_resolution_scale`` times the drawable (at least 0.25,
+Renderer.swift:175); ``set_rt_resolution_scale`` changes it between frames
+(Renderer.swift:232-258). The reference compiles one frame program per RT
+size and caches them; PyTorch runs eagerly, so the port needs no program
+cache and a new scale takes effect on the next frame.
 
 The fixed-step simulation is not ported yet, so the Engine starts paused
 (``time_scale = 0``): the accumulator receives scaled time and never asks
@@ -20,7 +28,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from .. import resolve_device
 from ..render.camera import Camera
 from ..render.composite import FPSOverlay, composite_frame, overlay_blit_device
 from ..render.ibl import IBL
@@ -34,16 +44,20 @@ MAX_SUBSTEPS = 4
 
 class Engine:
     def __init__(self, scene, width: int = 640, height: int = 360,
-                 path: str = "rt", max_layers: int = 3, shadow_layers: int = 4,
-                 device=None):
+                 path: str = "rt", rt_resolution_scale: float = 1.0,
+                 max_layers: int = 3, shadow_layers: int = 4,
+                 primary: str = "hybrid", device="cuda"):
         """``scene``: a scene.demo_scene.DemoWorld (or anything with its
         fields: geometry, transforms, palettes, lights, player_position,
-        movement) on ``device``."""
+        movement) on ``device`` (the card unless asked otherwise).
+        ``primary``: the RT primary visibility mode, "hybrid" or "trace"."""
         if path != "rt":
             raise NotImplementedError(f"path={path!r}: only the RT path is "
                                       "ported")
-        self.device = torch.device(device) if device is not None else \
-            scene.transforms.device
+        if primary not in RT.PRIMARY_MODES:
+            raise ValueError(f"primary must be one of {RT.PRIMARY_MODES}, "
+                             f"got {primary!r}")
+        self.device = resolve_device(device)
         self.geometry = scene.geometry
         self.lights = scene.lights
         self.transforms = scene.transforms
@@ -52,7 +66,9 @@ class Engine:
         self.movement = scene.movement
         self.width, self.height = width, height
         self.path = path
+        self.primary = primary
         self.max_layers, self.shadow_layers = max_layers, shadow_layers
+        self.set_rt_resolution_scale(rt_resolution_scale)
         self.camera = Camera()
         self.input = InputSystem()
         self.ibl = IBL.build(self.device)
@@ -66,6 +82,27 @@ class Engine:
         self.frame_index = 0
         self.tone_mapping_exposure = 1.0
         self.intent = None      # the last frame's player MoveIntent
+
+    def set_rt_resolution_scale(self, scale: float):
+        """rtResolutionScale (Renderer.swift:175,232-258): the RT target is
+        (int(width * s), int(height * s)) with s >= 0.25."""
+        self.rt_scale = max(float(scale), 0.25)
+        self.rt_size = (max(int(self.width * self.rt_scale), 1),
+                        max(int(self.height * self.rt_scale), 1))
+
+    def _upscale(self, img):
+        """RT target -> drawable, bilinear (engine.py:132-141): the
+        reference's ``jax.image.resize(..., "bilinear")`` is half-pixel
+        bilinear with renormalised edge weights, antialiased when it
+        shrinks — ``F.interpolate(bilinear, align_corners=False)``, with
+        ``antialias`` for s > 1."""
+        if self.rt_size == (self.width, self.height):
+            return img
+        out = F.interpolate(img.permute(2, 0, 1)[None],
+                            size=(self.height, self.width), mode="bilinear",
+                            align_corners=False,
+                            antialias=self.rt_scale > 1.0)
+        return out[0].permute(1, 2, 0)
 
     def _advance_time(self, dt: float) -> float:
         """TimeSystem.update: returns the SCALED dt for the accumulator."""
@@ -101,8 +138,9 @@ class Engine:
         # previous and current snapshots by accumulator / FIXED_DT; with no
         # stepper the two agree, so the interpolant is the player position.
         self.input.update_camera(self.camera, self.player_position)
-        ivp = self.camera.inv_view_proj(self.width, self.height)
-        vp = self.camera.view_proj(self.width, self.height)
+        rw, rh = self.rt_size
+        ivp = self.camera.inv_view_proj(rw, rh)
+        vp = self.camera.view_proj(rw, rh)
         cam_world = self.camera.world_position.astype(np.float32)
         fps = self.overlay.update(dt) if with_overlay else -1
 
@@ -112,10 +150,10 @@ class Engine:
         fg = flatten_frame(self.geometry, transforms, self.palettes)
         img = RT.render_frame(
             self.geometry, fg, self.ibl, self.lights,
-            torch.as_tensor(ivp, device=dev), self.camera.position,
-            self.width, self.height, max_layers=self.max_layers,
-            shadow_layers=self.shadow_layers,
-            view_proj=torch.as_tensor(vp, device=dev))
-        img = composite_frame(img, self.tone_mapping_exposure, True)
+            torch.as_tensor(ivp, device=dev), self.camera.position, rw, rh,
+            max_layers=self.max_layers, shadow_layers=self.shadow_layers,
+            view_proj=torch.as_tensor(vp, device=dev), primary=self.primary)
+        img = composite_frame(self._upscale(img), self.tone_mapping_exposure,
+                              True)
         u8 = (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
         return overlay_blit_device(u8, fps)

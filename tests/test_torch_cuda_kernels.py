@@ -5,7 +5,9 @@ this file imports no jax and runs there without the conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Here (no CUDA device) every test skips. The twins themselves are held
+Here (no CUDA device) every test skips. K5 (the layered shared-origin walk)
+and K7 (the shadow walk) walk each lane in the same order as their twins,
+so their records agree lane for lane. The twins themselves are held
 against the JAX reference by tests/test_torch_kernels.py on the CPU.
 
 Inputs are seeded numpy triangle soups, larger than the CPU tests' so that
@@ -173,6 +175,86 @@ def test_k4_kernel_matches_plain(cuda):
     agree(ktri, ptri, [kt], [pt])
 
 
+@pytest.fixture
+def walk_tree(cuda):
+    """A 6,000-triangle soup, a fifth of it translucent, as the packed tree
+    the walks read (well under their 22,000-row cap)."""
+    v0, v1, v2 = soup(9, 6000, spread=14.0)
+    pos = np.stack([v0, v1, v2], 1).reshape(-1, 3)
+    cut = 3 * 4800
+    b = RenderGeometryBuilder(texture_size=4)
+    b.add_static_mesh(MeshDescriptor(
+        positions=pos[:cut], indices=np.arange(cut, dtype=np.int32)),
+        Material(name="opaque"), instance=0)
+    b.add_static_mesh(MeshDescriptor(
+        positions=pos[cut:], indices=np.arange(len(pos) - cut,
+                                               dtype=np.int32)),
+        Material(name="glass", alpha=0.4), instance=0)
+    geo = b.build(cuda)
+    fg = flatten_frame(geo, torch.eye(4, device=cuda)[None],
+                       torch.zeros((1, 1, 4, 4), device=cuda))
+    assert RK.walk_available(fg.bvh.rows)
+    return fg.bvh.rows
+
+
+def records_agree(key_k, key_p, vals_k, vals_p):
+    """Per-lane records of a walk kernel and its twin (same per-lane order):
+    the (N, K) keys equal on >= 99.9% of lanes, values to 1e-5 there."""
+    same = (key_k == key_p).all(1)
+    assert float(same.float().mean()) >= 0.999
+    for a, b in zip(vals_k, vals_p):
+        torch.testing.assert_close(a[same], b[same], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 3])
+def test_k5_kernel_matches_plain(walk_tree, n_slots):
+    dev = walk_tree.device
+    rng = np.random.default_rng(10)
+    o = torch.tensor([0.0, 3.0, 30.0], device=dev)
+    tgt = torch.as_tensor(rng.uniform(-14, 14, (20000, 3)).astype(np.float32),
+                          device=dev)
+    d = tgt - o
+    d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).contiguous()
+    t_max = torch.full((20000,), 3.0e38, device=dev)
+    t_max[::17] = 0.0                                     # inactive rays
+    so = RK.build_origin_rows(walk_tree, o)
+    before = RK.so_launches
+    k = RK.trace_layers_so(so, o.tolist(), d, t_max, n_slots)
+    assert RK.so_launches == before + 1
+    p = RK.trace_layers_so_plain(so, o, d, t_max, n_slots)
+    torch.cuda.synchronize()
+    assert int((p[1] >= 0).sum()) > 3000 and int((p[3][:, 0] >= 0).sum()) > 1000
+    records_agree(torch.cat([k[1][:, None].float(), k[3]], 1),
+                  torch.cat([p[1][:, None].float(), p[3]], 1),
+                  [k[0], k[2]], [p[0], p[2]])
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 3, 4])
+def test_k7_kernel_matches_plain(walk_tree, n_slots):
+    dev = walk_tree.device
+    rng = np.random.default_rng(11)
+    l = torch.as_tensor(np.array([0.3, 0.8, -0.2], np.float32), device=dev)
+    l = l / torch.linalg.vector_norm(l)
+    o = torch.as_tensor(rng.uniform(-16, 16, (20000, 3)).astype(np.float32),
+                        device=dev)
+    t_lim = torch.full((20000,), 60.0, device=dev)
+    t_lim[::13] = 0.0                                     # dead lanes
+    sr = RK.build_shadow_rows(walk_tree, l)
+    before = RK.shadow_launches
+    k = RK.trace_shadow_factor(sr, l, o, t_lim, n_slots)
+    assert RK.shadow_launches == before + 1
+    # the direction as host floats, as the frame passes it: the same walk
+    for a, b in zip(RK.trace_shadow_factor(sr, l.tolist(), o, t_lim, n_slots),
+                    k):
+        assert torch.equal(a, b)
+    p = RK.trace_shadow_factor_plain(sr, l, o, t_lim, n_slots)
+    torch.cuda.synchronize()
+    assert int((p[0] < 1e30).sum()) > 3000 and int((p[2][:, 0] >= 0).sum()) > 1000
+    records_agree(torch.cat([(k[0] < 1e30)[:, None].float(), k[2]], 1),
+                  torch.cat([(p[0] < 1e30)[:, None].float(), p[2]], 1),
+                  [k[0], k[1]], [p[0], p[1]])
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     rows = torch.zeros((8, RK.ROW), device=cuda)
     o = torch.zeros((4, 3), device=cuda)
@@ -183,3 +265,12 @@ def test_wrappers_reject_bad_inputs(cuda):
                       torch.ones(4, device=cuda))
     with pytest.raises(ValueError):
         RK.trace_rays(rows, o, o, torch.ones(4))          # t_max on the CPU
+    so = RK.build_origin_rows(rows, torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError):
+        RK.trace_layers_so(so, torch.zeros(3), o, torch.ones(4, device=cuda),
+                           n_slots=4)                     # K5 takes 1..3
+    sr = RK.build_shadow_rows(rows, torch.tensor([0.0, 1.0, 0.0],
+                                                 device=cuda))
+    with pytest.raises(ValueError):
+        RK.trace_shadow_factor(sr, torch.tensor([0.0, 1.0, 0.0]), o,
+                               torch.ones(5, device=cuda))  # t_limit shape

@@ -158,8 +158,10 @@ def test_engine_is_paused_and_refuses_substeps(scene):
 
 
 def test_port_runs_without_jax():
+    """The port renders both primary modes, from a scene its own builder
+    made, with no jax and no module of the JAX package loaded."""
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "import numpy as np, torch\n"
         "from swift_game_engine_tpu_torch.assets import procedural_meshes as pm\n"
         "from swift_game_engine_tpu_torch.assets.materials import Material\n"
@@ -172,15 +174,22 @@ def test_port_runs_without_jax():
         "b.add_static_mesh(pm.plane(20.0), Material(name='g'), instance=0)\n"
         "b.add_static_mesh(pm.capsule(1.0, 1.0), Material(name='c', "
         "alpha=0.4), instance=1)\n"
-        "geo = b.build()\n"
+        "geo = b.build(device='cpu')\n"
         "fg = flatten_frame(geo, torch.eye(4).expand(2, 4, 4), "
         "torch.zeros(1, 1, 4, 4))\n"
         "cam = Camera(); cam.position = np.array([0, 3, 8], np.float32)\n"
-        "img = rt.render_frame(geo, fg, IBL.build(), "
-        "rt.DirectionalLights.from_list([]), "
-        "torch.as_tensor(cam.inv_view_proj(32, 18)), cam.position, 32, 18)\n"
-        "assert img.shape == (18, 32, 3) and bool(torch.isfinite(img).all())\n"
+        "for primary in ('hybrid', 'trace'):\n"
+        "    img = rt.render_frame(geo, fg, IBL.build(device='cpu'), "
+        "rt.DirectionalLights.from_list([], device='cpu'), "
+        "torch.as_tensor(cam.inv_view_proj(32, 18)), cam.position, 32, 18, "
+        "primary=primary)\n"
+        "    assert img.shape == (18, 32, 3)\n"
+        "    assert bool(torch.isfinite(img).all())\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "ref = os.path.join(os.getcwd(), 'swift_game_engine_tpu') + os.sep\n"
+        "bad = [m for m, mod in list(sys.modules.items()) if "
+        "(getattr(mod, '__file__', None) or '').startswith(ref)]\n"
+        "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -190,11 +199,13 @@ def test_port_runs_without_jax():
 
 
 def test_demo_scene_render_world():
-    """The repository's assets give the full DemoScene render world: 181,340
-    triangles (17-Cheese, Semla, YBot and the procedural items), the YBot
-    at bind pose (identity palettes) 4.69 units tall."""
+    """The repository's assets give the full DemoScene render world
+    (``import_tri_budget=0``): 181,340 triangles (17-Cheese, Semla, YBot and
+    the procedural items), the YBot at bind pose (identity palettes) 4.69
+    units tall."""
     from swift_game_engine_tpu_torch.scene.demo_scene import build_demo_scene
-    world = build_demo_scene(os.path.join(REPO, "assets"), device="cpu")
+    world = build_demo_scene(os.path.join(REPO, "assets"), device="cpu",
+                             import_tri_budget=0)
     geo = world.geometry
     assert geo.tri.shape[0] == 181_340
     assert int(geo.tri_translucent.sum()) == 4124

@@ -64,7 +64,7 @@ def scenes():
         tf[i, :3, 3] = rng.uniform(-5, 5, 3)
     pal = np.tile(np.eye(4, dtype=np.float32), (1, nb, 1, 1))
     pal[0, :, :3, 3] = rng.uniform(-0.3, 0.3, (nb, 3))
-    return jb.build(), pb.build(), tf, pal
+    return jb.build(), pb.build(device="cpu"), tf, pal
 
 
 def _arrays(geo):
