@@ -5,13 +5,14 @@
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from ``swift_game_engine_tpu_torch/
-csrc`` (first use, one nvcc per source in parallel) and drives three paths
+csrc`` (first use, one nvcc per source in parallel) and drives six paths
 of the port through its entry points, each for 2 warm-up and 10 timed
-frames at 960x540 with ``max_layers=3, shadow_layers=4``:
+frames at 960x540 (the RT paths with ``max_layers=3``):
 
   1. ``demo_rt_960x540``: the full DemoScene (``import_tri_budget=0``,
-     181,340 triangles) with the default hybrid visibility: K1 cluster
-     raster twice a frame, K2/K3 shadow sweeps per shade call, K4 bounces;
+     181,340 triangles), ``Engine(path="rt")`` with the default hybrid
+     visibility and 4 shadow layers: K1 cluster raster twice a frame,
+     K2/K3 shadow sweeps per shade call, K4 bounces;
   2. ``demo_trace_960x540``: the default, decimated DemoScene (its tree
      must fit the walks' 22,000-row cap) with ``primary="trace"``: K5 (the
      layered shared-origin walk) once a frame, K2/K3, K4, and no K1;
@@ -19,27 +20,41 @@ frames at 960x540 with ``max_layers=3, shadow_layers=4``:
      ``set_rt_resolution_scale(0.25)`` — a 240x135 RT target (40,960
      padded lanes, under the 100,000-lane cluster threshold) upscaled to
      960x540: K5 once a frame, K7 (the shadow walk) per shade call, no
-     K2/K3.
+     K2/K3;
+  4. ``demo_raster_960x540``: the full scene, ``Engine(path="raster")``:
+     K1 once a frame over all triangles with the raster's opaque flags, 2
+     layers, and no BVH kernel;
+  5. ``demo_raster_lists_960x540``: the decimated scene,
+     ``Engine(path="raster", raster_mode="lists")``: the list binning and
+     K9 twice a frame (one per peel);
+  6. ``demo_trace_so_prepass_960x540``: the decimated scene,
+     ``Engine(primary="trace", layered=False, shadow_layers=5,
+     shadow_prepass=True)``: K6 once dense and once per continuation layer,
+     K8 once per shade call in front of the per-layer K4 shadow loop, K4
+     bounces, no K1/K2/K3/K5/K7.
 
 Each path's kernel launch counts are zeroed just before its timed frames
 and read just after. Then:
 
   * every kernel is held against its plain PyTorch version on the inputs
-    the first frame of each path that runs it gave it (K5 and K7 on a
-    fixed subset of the captured lanes: their twins walk lane by lane in
-    lockstep and are slow), and both are timed (CUDA events); each
-    kernel's bound — the larger of its bytes over the card's memory rate
-    and its operations over the FP32 rate — is computed from the same
-    inputs. A kernel's entry in the JSON line carries the path name after
-    an ``@`` for every path but the first that runs it;
-  * a 320x180 hybrid render of the full scene (73,728 lanes, with the
-    cluster threshold lowered to 0 so that its shadows take the cluster
-    sweeps K2/K3, as paths 1 and 2 do) and a 240x135 traced render of the
-    decimated scene (K5, K7), each through the kernels and through the
-    plain versions, must agree (>= 99% of pixels within 1e-4, means within
-    0.1%).
+    the first frame of each path that runs it gave it (the walks K5-K8 on
+    a fixed subset of the captured lanes: their twins walk lane by lane in
+    lockstep and are slow; K10, which no path runs, on path 5's candidate
+    lists, and its first layer against K9's first peel), and both are
+    timed (CUDA events); each kernel's bound — the larger of its bytes over
+    the card's memory rate and its operations over the FP32 rate — is
+    computed from the same inputs. A kernel's entry in the JSON line
+    carries the path name after an ``@`` for every path but the first that
+    runs it;
+  * four small renders, each through the kernels and through the plain
+    versions, must agree (>= 99% of pixels within 1e-4, means within
+    0.1%): a 320x180 hybrid render of the full scene (73,728 lanes, with
+    the cluster threshold lowered to 0 so that its shadows take the
+    cluster sweeps K2/K3, as paths 1 and 2 do), a 240x135 traced render of
+    the decimated scene (K5, K7), a 480x270 list-binned raster frame (K9)
+    and a 160x90 frame configured as path 6 (K6, K8, K4).
 
-``path_engines`` is the one definition of the three paths;
+``path_engines`` is the one definition of the six paths;
 ``profile_port.py`` drives the same ones.
 
 It prints the card (``nvidia-smi`` name and power limit), the build and
@@ -63,6 +78,9 @@ ASSETS = os.path.join(REPO, "assets")
 W, H = 960, 540
 WARMUP, TIMED = 2, 10
 LAYERS, SHADOW_LAYERS = 3, 4
+PATHS = ("demo_rt_960x540", "demo_trace_960x540", "demo_trace_rtscale_0.25",
+         "demo_raster_960x540", "demo_raster_lists_960x540",
+         "demo_trace_so_prepass_960x540")
 
 # Tolerances of kernel vs plain version. Both compute the same records with
 # the same f32 operation order (the kernels build with --fmad=false), so
@@ -84,7 +102,7 @@ SLAB_OPS = 25         # slab test: 6 sub, 6 mul, 10 min/max, 3 compares
 SO_SLOT_OPS = 29      # K5 slot: 3 dots (15), sign fold (5), divide, compares
 WALK_SLOT_OPS = 26    # K7 slot: 3 dots (15), 3 subtracts, compares
 MT_OPS = 45           # K4 Moller-Trumbore slot test
-EDGE_OPS = 20         # K1 edge functions and depth of one fragment
+EDGE_OPS = 20         # K1/K9/K10 edge functions and depth of a fragment
 SWEEP_OPS = 26        # K2/K3 slot: 3 dots (15), 3 subtracts, compares
 
 
@@ -93,11 +111,11 @@ def _fail(msg):
     sys.exit(1)
 
 
-def _time_ms(fn, reps, warm=True):
-    """Mean ms per call over ``reps`` calls, by CUDA events."""
+def _time_ms(fn, reps):
+    """Mean ms per call over ``reps`` calls after one warm-up call, by CUDA
+    events."""
     import torch
-    if warm:
-        fn()
+    fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -106,6 +124,19 @@ def _time_ms(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timed(fn):
+    """fn() once, cold -> (its result, ms by CUDA events). The plain
+    versions are timed on the very call whose records are compared."""
+    import torch
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _compare(name, key_k, key_p, vals_k, vals_p):
@@ -176,21 +207,28 @@ class Capture:
 
 
 def path_engines(dev):
-    """The three paths, in order: yields (name, scene, Engine). The scenes
-    are built lazily; paths 2 and 3 share one Engine (path 3 is path 2's
-    Engine after ``set_rt_resolution_scale(0.25)``)."""
+    """The six paths, in order: yields (name, scene, Engine). The two scenes
+    are built once each, when a path first needs them; paths 2 and 3 share
+    one Engine (path 3 is path 2's Engine after
+    ``set_rt_resolution_scale(0.25)``)."""
     from swift_game_engine_tpu_torch.scene.demo_scene import build_demo_scene
     from swift_game_engine_tpu_torch.scene.engine import Engine
-    kw = dict(path="rt", max_layers=LAYERS, shadow_layers=SHADOW_LAYERS,
-              device=dev)
+    kw = dict(max_layers=LAYERS, shadow_layers=SHADOW_LAYERS, device=dev)
     full = build_demo_scene(ASSETS, device=dev, import_tri_budget=0)
-    yield "demo_rt_960x540", full, Engine(full, W, H, **kw)
-    del full
+    yield PATHS[0], full, Engine(full, W, H, path="rt", **kw)
     world = build_demo_scene(ASSETS, device=dev)
     eng = Engine(world, W, H, primary="trace", **kw)
-    yield "demo_trace_960x540", world, eng
+    yield PATHS[1], world, eng
     eng.set_rt_resolution_scale(0.25)
-    yield "demo_trace_rtscale_0.25", world, eng
+    yield PATHS[2], world, eng
+    yield PATHS[3], full, Engine(full, W, H, path="raster", device=dev)
+    del full
+    yield PATHS[4], world, Engine(world, W, H, path="raster",
+                                  raster_mode="lists", device=dev)
+    yield PATHS[5], world, Engine(world, W, H, primary="trace",
+                                  layered=False, shadow_layers=5,
+                                  shadow_prepass=True, max_layers=LAYERS,
+                                  device=dev)
 
 
 def main():
@@ -212,6 +250,7 @@ def main():
     from swift_game_engine_tpu_torch.ops import _cuda
     from swift_game_engine_tpu_torch.ops import cluster_shadow as CS
     from swift_game_engine_tpu_torch.ops import rt_kernel as RK
+    from swift_game_engine_tpu_torch.render import raster as RA
     from swift_game_engine_tpu_torch.render import rt as RT
     from swift_game_engine_tpu_torch.render import tile_raster as TR
     from swift_game_engine_tpu_torch.render.scene_geometry import flatten_frame
@@ -229,20 +268,31 @@ def main():
 
     def zero_counts():
         torch.cuda.synchronize()
-        TR.launches = CS.occl_launches = CS.slots_launches = 0
-        RK.launches = RK.so_launches = RK.shadow_launches = 0
+        TR.launches = TR.list_launches = TR.peel_launches = 0
+        CS.occl_launches = CS.slots_launches = 0
+        RK.launches = RK.so_launches = RK.so_closest_launches = 0
+        RK.shadow_launches = RK.any_launches = 0
 
     def read_counts():
         return {"K1": TR.launches, "K2": CS.occl_launches,
                 "K3": CS.slots_launches, "K4": RK.launches,
-                "K5": RK.so_launches, "K7": RK.shadow_launches}
+                "K5": RK.so_launches, "K6": RK.so_closest_launches,
+                "K7": RK.shadow_launches, "K8": RK.any_launches,
+                "K9": TR.list_launches, "K10": TR.peel_launches}
 
     def run_path(name, eng, cap):
-        """2 warm-up frames (inputs captured), then 10 timed frames with the
-        launch counts zeroed just before and read just after."""
+        """2 warm-up frames (inputs captured), then the timed frames with
+        the launch counts and the RT shade calls zeroed just before and
+        read just after."""
         for _ in range(WARMUP):
             img = eng.frame(1 / 60)
         cap.off()
+        shade_calls, shade_hit = [0], RT._shade_hit
+
+        def counted(*a, **k):
+            shade_calls[0] += 1
+            return shade_hit(*a, **k)
+        RT._shade_hit = counted
         zero_counts()
         times = []
         for _ in range(TIMED):
@@ -251,6 +301,8 @@ def main():
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
+        counts["shade_calls"] = shade_calls[0]
+        RT._shade_hit = shade_hit
         print(f"path {name}: frame median {np.median(times):.2f} ms, p90 "
               f"{np.percentile(times, 90):.2f} ms over {TIMED} frames (min "
               f"{min(times):.2f}, max {max(times):.2f}); RT target "
@@ -279,17 +331,27 @@ def main():
               f"{seconds:.1f} s")
         return rows_n
 
-    # -- 2. the three paths ---------------------------------------------------
-    # Each path captures the first call of every kernel it runs (K1: one
-    # call per raster, keyed by its layer count).
+    # -- 2. the six paths -----------------------------------------------------
+    # Each path captures the first call of every kernel it runs, keyed by
+    # kernel and, where a frame calls it in two roles, by role: K1 by its
+    # layer count, K6 dense or past a t floor, K9 first or behind a peel.
     wrappers = {"K1": (TR, "cluster_raster"), "K2": (CS, "trace_shadow_occl"),
                 "K3": (CS, "trace_shadow_clusters"), "K4": (RK, "trace_rays"),
-                "K5": (RK, "trace_layers_so"),
-                "K7": (RK, "trace_shadow_factor")}
-    runs = {"demo_rt_960x540": ("K1", "K2", "K3", "K4"),
-            "demo_trace_960x540": ("K2", "K3", "K4", "K5"),
-            "demo_trace_rtscale_0.25": ("K4", "K5", "K7")}
-    caps, counts, scenes, engines = {}, {}, {}, {}
+                "K5": (RK, "trace_layers_so"), "K6": (RK, "trace_rays_so"),
+                "K7": (RK, "trace_shadow_factor"),
+                "K8": (RK, "trace_shadow_any"), "K9": (TR, "list_raster")}
+    roles = {
+        "K1": lambda *a, **k: f"K1/layers={a[4]}",
+        "K6": lambda *a, **k: "K6" if k["t_floor"] is None else "K6/floor",
+        "K9": lambda *a, **k: "K9" if a[4] is None else "K9/peel"}
+    runs = {PATHS[0]: ("K1/layers=1", f"K1/layers={LAYERS}", "K2", "K3",
+                       "K4"),
+            PATHS[1]: ("K2", "K3", "K4", "K5"),
+            PATHS[2]: ("K4", "K5", "K7"),
+            PATHS[3]: ("K1/layers=2",),
+            PATHS[4]: ("K9", "K9/peel"),
+            PATHS[5]: ("K4", "K6", "K6/floor", "K8")}
+    caps, counts, scenes, engines, overflow = {}, {}, {}, {}, []
     t0 = time.perf_counter()
     for name, scene, eng in path_engines(dev):
         if all(scene is not s for s in scenes.values()):
@@ -300,26 +362,49 @@ def main():
                       f"walks' cap")
         scenes[name], engines[name] = scene, eng
         cap = caps[name] = Capture()
-        for key in runs[name]:
-            cap.on(*wrappers[key], lambda *a, key=key, **k: key
-                   if key != "K1" else f"K1/layers={a[4]}")
+        for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
+            cap.on(*wrappers[fam], roles.get(fam, lambda *a, fam=fam, **k:
+                                               fam))
+        if name == PATHS[4]:   # the overflowed tile count of each peel
+            orig = RA.rasterize
+
+            def peel(*a, **k):
+                hits = orig(*a, **k)
+                overflow.append(int(hits.overflow))
+                return hits
+            cap._orig.append((RA, "rasterize", orig))
+            RA.rasterize = peel
         counts[name] = run_path(name, eng, cap)
         for key in runs[name]:
-            for k in ((key,) if key != "K1" else
-                      ("K1/layers=1", f"K1/layers={LAYERS}")):
-                if k not in cap.args:
-                    _fail(f"{k} was not called in the first frame of {name}")
+            if key not in cap.args:
+                _fail(f"{key} was not called in the first frame of {name}")
         t0 = time.perf_counter()
-    c1, c2, c3 = counts.values()
-    expect("path 1", c1, "K1 twice a frame, K2 = K3 > 0, K4 > 0, no K5/K7",
-           c1["K1"] == 2 * TIMED and c1["K2"] == c1["K3"] > 0 and
-           c1["K4"] > 0 and c1["K5"] == c1["K7"] == 0)
-    expect("path 2", c2, "K5 once a frame, K2 = K3 > 0, K4 > 0, no K1/K7",
-           c2["K5"] == TIMED and c2["K2"] == c2["K3"] > 0 and
-           c2["K4"] > 0 and c2["K1"] == c2["K7"] == 0)
-    expect("path 3", c3, "K5 once a frame, K7 > 0, no K1/K2/K3",
-           c3["K5"] == TIMED and c3["K7"] > 0 and
-           c3["K1"] == c3["K2"] == c3["K3"] == 0)
+    print(f"  path 5: overflowed tiles per peel (warm-up frames): "
+          f"{overflow}")
+    c1, c2, c3, c4, c5, c6 = (counts[p] for p in PATHS)
+
+    def only(c, *keys):
+        """No other kernel of the port was launched."""
+        return all(v == 0 for k, v in c.items()
+                   if k not in keys and k != "shade_calls")
+
+    expect("path 1", c1, "K1 twice a frame, K2 = K3 > 0, K4 > 0, nothing "
+           "else", c1["K1"] == 2 * TIMED and c1["K2"] == c1["K3"] > 0 and
+           c1["K4"] > 0 and only(c1, "K1", "K2", "K3", "K4"))
+    expect("path 2", c2, "K5 once a frame, K2 = K3 > 0, K4 > 0, nothing "
+           "else", c2["K5"] == TIMED and c2["K2"] == c2["K3"] > 0 and
+           c2["K4"] > 0 and only(c2, "K2", "K3", "K4", "K5"))
+    expect("path 3", c3, "K5 once a frame, K7 > 0, K4 > 0, nothing else",
+           c3["K5"] == TIMED and c3["K7"] > 0 and c3["K4"] > 0 and
+           only(c3, "K4", "K5", "K7"))
+    expect("path 4", c4, "K1 once a frame, nothing else",
+           c4["K1"] == TIMED and only(c4, "K1"))
+    expect("path 5", c5, "K9 twice a frame, nothing else",
+           c5["K9"] == 2 * TIMED and only(c5, "K9"))
+    expect("path 6", c6, "K6 >= once a frame, K8 once per shade call, "
+           "K4 > 0, nothing else",
+           c6["K6"] >= TIMED and c6["K8"] == c6["shade_calls"] > 0 and
+           c6["K4"] > 0 and only(c6, "K4", "K6", "K8"))
 
     # -- 3. each kernel vs its plain version, on each path's inputs ----------
     results = []
@@ -335,34 +420,57 @@ def main():
         print(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms{extra},"
               f" bound {bound_ms:.4f} ms by {bound_by}, {launches} launches")
 
+    def behind_opaque(rows, tid):
+        """(tiles, L, 32, 128) bool: the record lies behind an opaque
+        fragment of a nearer layer. The kernel ends a pixel's cluster walk
+        at its nearest opaque fragment, so it may keep or drop such a
+        record; the frame never reads one (the alpha chain saturates at an
+        opaque layer), and the dense plain version always keeps it."""
+        ids = rows[:, 12].long()
+        flag = torch.zeros(int(ids.max()) + 1, dtype=torch.bool, device=dev)
+        flag[ids[ids >= 0]] = rows[ids >= 0, 13] > 0.5
+        opq = flag[tid.long().clamp(min=0)] & (tid >= 0)
+        nearer = torch.cumsum(opq.int(), 1) - opq.int()
+        return nearer > 0
+
     def check_k1(args, launches, tag):
         err_k1 = ms_k1 = plain_k1 = 0.0
         k1_in, k1_out, k1_ops = [], [], 0
-        for layers in (1, LAYERS):
-            (rows, meta, w, h, lay, *rest), kw = args[f"K1/layers={layers}"]
+        keys = sorted(k for k in args if k.startswith("K1/"))
+        for key in keys:
+            (rows, meta, w, h, lay, *rest), kw = args[key]
             prior = rest[0] if rest else kw.get("prior_w")
             out_k = TR.cluster_raster(rows, meta, w, h, lay, prior)
-            out_p = TR.cluster_raster_plain(rows, w, h, lay, prior)
+            out_p, ms = _timed(lambda: TR.cluster_raster_plain(
+                rows, w, h, lay, prior))
+            plain_k1 += ms
+            behind = behind_opaque(rows, out_p[0])
+            if bool(behind.any()):
+                print(f"  K1 layers={lay}: {int(behind.sum())} records lie "
+                      f"behind an opaque fragment; compared up to it")
+            (key_k, *vals_k), (key_p, *vals_p) = (
+                [torch.where(behind, -2, o[0])] +
+                [torch.where(behind, 0.0, v) for v in o[1:]]
+                for o in (out_k, out_p))
             err_k1 = max(err_k1, _compare(
-                f"K1 layers={layers} ({rows.shape[0]} rows)", out_k[0],
-                out_p[0], out_k[1:], out_p[1:]))
+                f"K1 layers={lay} ({rows.shape[0]} rows)", key_k, key_p,
+                vals_k, vals_p))
             ms_k1 += _time_ms(lambda: TR.cluster_raster(rows, meta, w, h, lay,
                                                         prior), 5)
-            plain_k1 += _time_ms(lambda: TR.cluster_raster_plain(
-                rows, w, h, lay, prior), 1, False)
             k1_in += [rows, meta, prior]
             k1_out += list(out_k)
             k1_ops += int((out_k[0] >= 0).sum()) * EDGE_OPS
         report("cluster_raster" + tag, "swift_game_engine_tpu_torch/csrc/"
                "cluster_raster.cu", "swift_game_engine_tpu/render/"
                "tile_raster.py:620", launches, err_k1, ms_k1, plain_k1,
-               _bound(k1_in, k1_out, k1_ops), " (both rasters)")
-
+               _bound(k1_in, k1_out, k1_ops),
+               " (both rasters)" if len(keys) > 1 else "")
     def check_k2(args, launches, tag):
         (sc, o, t_lim), kw = args["K2"][0][:3], args["K2"][1]
         tt = kw.get("tt")
         exact_k = CS.trace_shadow_occl(sc, o, t_lim)
-        exact_p = CS.trace_shadow_occl_plain(sc, o, t_lim)
+        exact_p, plain_ms = _timed(lambda: CS.trace_shadow_occl_plain(
+            sc, o, t_lim))
         err = _compare(f"K2 exact ({o.shape[0]} lanes)", exact_k < 1e30,
                        exact_p < 1e30, [exact_k], [exact_p])
         if tt is not None:   # any-hit: settled lanes return SOME t < tt
@@ -378,8 +486,7 @@ def main():
                "cluster_shadow.cu", "swift_game_engine_tpu/ops/"
                "cluster_shadow.py:541", launches, err,
                _time_ms(lambda: CS.trace_shadow_occl(sc, o, t_lim, tt=tt), 5),
-               _time_ms(lambda: CS.trace_shadow_occl_plain(sc, o, t_lim), 1,
-                        False),
+               plain_ms,
                _bound([sc.rows, sc.meta, sc.basis, o, t_lim, tt], [any_k],
                       int((any_k < 1e30).sum()) * SWEEP_OPS))
 
@@ -388,7 +495,8 @@ def main():
         n_slots = rest[0] if rest else kw.get("n_slots", 4)
         alpha = rest[1] if len(rest) > 1 else kw.get("alpha_payload", False)
         k3 = CS.trace_shadow_clusters(sc, o, t_lim, n_slots, alpha)
-        p3 = CS.trace_shadow_clusters_plain(sc, o, t_lim, n_slots, alpha)
+        p3, plain_ms = _timed(lambda: CS.trace_shadow_clusters_plain(
+            sc, o, t_lim, n_slots, alpha))
         err = max(_compare(f"K3 t_opq ({o.shape[0]} lanes)", k3[0] < 1e30,
                            p3[0] < 1e30, [k3[0]], [p3[0]]),
                   _compare(f"K3 slots ({n_slots} per lane)", k3[2], p3[2],
@@ -398,8 +506,7 @@ def main():
                "cluster_shadow.py:254", launches, err,
                _time_ms(lambda: CS.trace_shadow_clusters(sc, o, t_lim,
                                                          n_slots, alpha), 5),
-               _time_ms(lambda: CS.trace_shadow_clusters_plain(
-                   sc, o, t_lim, n_slots, alpha), 1, False),
+               plain_ms,
                _bound([sc.rows, sc.meta, sc.basis, o, t_lim], list(k3),
                       (int((k3[2] >= 0).sum()) + int((k3[0] < 1e30).sum()))
                       * SWEEP_OPS))
@@ -407,15 +514,15 @@ def main():
     def check_k4(args, launches, tag):
         (rows, o, d, t_max), _ = args["K4"]
         t_k, tri_k = RK.trace_rays(rows, o, d, t_max)
-        t_p, tri_p = RK.trace_rays_plain(rows, o, d, t_max)
+        (t_p, tri_p), plain_ms = _timed(lambda: RK.trace_rays_plain(
+            rows, o, d, t_max))
         err = _compare(f"K4 ({o.shape[0]} rays, {rows.shape[0]} rows)",
                        tri_k, tri_p, [t_k], [t_p])
         report("trace_closest" + tag, "swift_game_engine_tpu_torch/csrc/"
                "bvh_trace.cu", "swift_game_engine_tpu/ops/rt_kernel.py:794",
                launches, err,
                _time_ms(lambda: RK.trace_rays(rows, o, d, t_max), 5),
-               _time_ms(lambda: RK.trace_rays_plain(rows, o, d, t_max), 1,
-                        False),
+               plain_ms,
                _bound([rows, o, d, t_max], [t_k, tri_k],
                       int((tri_k >= 0).sum()) * MT_OPS))
 
@@ -427,8 +534,8 @@ def main():
         d_s, tm_s = d[sub].contiguous(), t_max[sub].contiguous()
         k5 = RK.trace_layers_so(so_rows, origin, d_s, tm_s, n_slots)
         walk = {}
-        p5 = RK.trace_layers_so_plain(so_rows, origin, d_s, tm_s, n_slots,
-                                      counts=walk)
+        p5, plain_ms = _timed(lambda: RK.trace_layers_so_plain(
+            so_rows, origin, d_s, tm_s, n_slots, counts=walk))
         err = _compare(f"K5 ({sub.numel()} of {n} rays, {n_slots} slots, "
                        f"{so_rows[0].numel() // 8} rows)",
                        torch.cat([k5[1][:, None].float(), k5[3]], 1),
@@ -444,8 +551,7 @@ def main():
                "swift_game_engine_tpu/ops/rt_kernel.py:1503", launches, err,
                _time_ms(lambda: RK.trace_layers_so(so_rows, origin, d, t_max,
                                                    n_slots), 5),
-               _time_ms(lambda: RK.trace_layers_so_plain(
-                   so_rows, origin, d_s, tm_s, n_slots), 1, False),
+               plain_ms,
                _bound([*so_rows, d, t_max], list(out5), ops5),
                f" (plain on {sub.numel()} of {n} rays)")
 
@@ -457,8 +563,8 @@ def main():
         o_s, tl_s = o[sub].contiguous(), t_lim[sub].contiguous()
         k7 = RK.trace_shadow_factor(sh_rows, l, o_s, tl_s, n_slots)
         walk = {}
-        p7 = RK.trace_shadow_factor_plain(sh_rows, l, o_s, tl_s, n_slots,
-                                          counts=walk)
+        p7, plain_ms = _timed(lambda: RK.trace_shadow_factor_plain(
+            sh_rows, l, o_s, tl_s, n_slots, counts=walk))
         err = _compare(f"K7 ({sub.numel()} of {n} origins, {n_slots} slots)",
                        torch.cat([(k7[0] < 1e30)[:, None].float(), k7[2]], 1),
                        torch.cat([(p7[0] < 1e30)[:, None].float(), p7[2]], 1),
@@ -473,53 +579,172 @@ def main():
                "swift_game_engine_tpu/ops/rt_kernel.py:1113", launches, err,
                _time_ms(lambda: RK.trace_shadow_factor(sh_rows, l, o, t_lim,
                                                        n_slots), 5),
-               _time_ms(lambda: RK.trace_shadow_factor_plain(
-                   sh_rows, l, o_s, tl_s, n_slots), 1, False),
+               plain_ms,
                _bound([*sh_rows, o, t_lim], list(out7), ops7),
                f" (plain on {sub.numel()} of {n} origins)")
 
+    def check_k6(args, launches, tag):
+        """The dense layer-1 call and the first continuation (t floor)."""
+        err, walk = 0.0, {}
+        for key in ("K6", "K6/floor"):
+            (so_rows, origin, d, t_max, *rest), kw = args[key]
+            t_floor = rest[0] if rest else kw.get("t_floor")
+            n = d.shape[0]
+            sub = _subset(n, dev)
+            d_s, tm_s = d[sub].contiguous(), t_max[sub].contiguous()
+            tf_s = None if t_floor is None else t_floor[sub].contiguous()
+            k6 = RK.trace_rays_so(so_rows, origin, d_s, tm_s, tf_s)
+            cnt = {}
+            p6, ms = _timed(lambda: RK.trace_rays_so_plain(
+                so_rows, origin, d_s, tm_s, tf_s, counts=cnt))
+            err = max(err, _compare(
+                f"K6 {'past a t floor' if key != 'K6' else 'dense'} "
+                f"({sub.numel()} of {n} rays)", k6[1], p6[1], [k6[0]],
+                [p6[0]]))
+            if key == "K6":      # the dense call is timed and bounded
+                walk, plain_ms = cnt, ms
+                dense = (so_rows, origin, d, t_max, n, sub.numel())
+        so_rows, origin, d, t_max, n, n_sub = dense
+        out6 = RK.trace_rays_so(so_rows, origin, d, t_max)
+        ops6 = (walk["box"] * SLAB_OPS + walk["slot"] * SO_SLOT_OPS) \
+            * n / n_sub
+        print(f"  K6 dense walk on the subset: {walk['box']} box tests, "
+              f"{walk['slot']} slot tests")
+        report("so_closest" + tag,
+               "swift_game_engine_tpu_torch/csrc/so_layers.cu",
+               "swift_game_engine_tpu/ops/rt_kernel.py:1327", launches, err,
+               _time_ms(lambda: RK.trace_rays_so(so_rows, origin, d, t_max),
+                        5),
+               plain_ms,
+               _bound([*so_rows, d, t_max], list(out6), ops6),
+               f" (the dense call; plain on {n_sub} of {n} rays)")
+
+    def check_k8(args, launches, tag):
+        (rows, o, d, t_lim), _ = args["K8"]
+        n = o.shape[0]
+        sub = _subset(n, dev)
+        o_s, d_s, tl_s = (x[sub].contiguous() for x in (o, d, t_lim))
+        k8 = RK.trace_shadow_any(rows, o_s, d_s, tl_s)
+        walk = {}
+        p8, plain_ms = _timed(lambda: RK.trace_shadow_any_plain(
+            rows, o_s, d_s, tl_s, counts=walk))
+        err = _compare(f"K8 ({sub.numel()} of {n} rays, "
+                       f"{int(p8.sum())} blocked)", k8, p8, [], [])
+        out8 = RK.trace_shadow_any(rows, o, d, t_lim)
+        ops8 = (walk["box"] * SLAB_OPS + walk["slot"] * MT_OPS) \
+            * n / sub.numel()
+        print(f"  K8 walk on the subset: {walk['box']} box tests, "
+              f"{walk['slot']} slot tests")
+        report("shadow_any" + tag,
+               "swift_game_engine_tpu_torch/csrc/bvh_trace.cu",
+               "swift_game_engine_tpu/ops/rt_kernel.py:902", launches, err,
+               _time_ms(lambda: RK.trace_shadow_any(rows, o, d, t_lim), 5),
+               plain_ms,
+               _bound([rows, o, d, t_lim], [out8], ops8),
+               f" (plain on {sub.numel()} of {n} rays)")
+
+    def list_ops(counts_t):
+        """Edge tests of a list raster: every pixel of a tile against each
+        of its candidates."""
+        return int(counts_t.sum()) * TR.TILE_H * TR.TILE_W * EDGE_OPS
+
+    def check_k9(args, launches, tag):
+        err = ms = plain_ms = 0.0
+        ins, outs, ops = [], [], 0
+        for key in ("K9", "K9/peel"):
+            (cnt, cand, w, h, *rest), kw = args[key]
+            prev = rest[0] if rest else kw.get("prev_w")
+            k9 = TR.list_raster(cnt, cand, w, h, prev)
+            p9, p_ms = _timed(lambda: TR.list_raster_plain(cnt, cand, w, h,
+                                                           prev))
+            plain_ms += p_ms
+            err = max(err, _compare(
+                f"K9 {'peel' if prev is not None else 'first'} "
+                f"({cand.shape[0]} tiles, K {cand.shape[1]}, "
+                f"{int(cnt.sum())} candidates)", k9[0], p9[0], k9[1:],
+                p9[1:]))
+            ms += _time_ms(lambda: TR.list_raster(cnt, cand, w, h, prev), 5)
+            ins += [cnt, cand, prev]
+            outs += list(k9)
+            ops += list_ops(cnt)
+        report("list_raster" + tag,
+               "swift_game_engine_tpu_torch/csrc/raster_lists.cu",
+               "swift_game_engine_tpu/render/tile_raster.py:154", launches,
+               err, ms, plain_ms, _bound(ins, outs, ops), " (both peels)")
+        check_k10(args, counts[PATHS[4]]["K10"])
+
+    def check_k10(args, launches):
+        """On the first peel's candidate lists, 2 layers; its first layer
+        against K9's first peel too."""
+        (cnt, cand, w, h, *_), _ = args["K9"]
+        k10 = TR.list_raster_peeled(cnt, cand, w, h, 2)
+        p10, plain_ms = _timed(lambda: TR.list_raster_peeled_plain(
+            cnt, cand, w, h, 2))
+        err = _compare("K10 (2 layers)", k10[0], p10[0], k10[1:], p10[1:])
+        k9 = TR.list_raster(cnt, cand, w, h)
+        _compare("K10 layer 1 vs K9's first peel", k10[0][:, 0], k9[0],
+                 [a[:, 0] for a in k10[1:]], k9[1:])
+        report("list_raster_peeled",
+               "swift_game_engine_tpu_torch/csrc/raster_lists.cu",
+               "swift_game_engine_tpu/render/tile_raster.py:227", launches,
+               err, _time_ms(lambda: TR.list_raster_peeled(cnt, cand, w, h, 2),
+                             5),
+               plain_ms,
+               _bound([cnt, cand], list(k10), list_ops(cnt)),
+               " (no path runs it: path 5's candidate lists)")
+
     checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3, "K4": check_k4,
-              "K5": check_k5, "K7": check_k7}
+              "K5": check_k5, "K6": check_k6, "K7": check_k7, "K8": check_k8,
+              "K9": check_k9}
     seen = set()
     for name, cap in caps.items():
         print(f"kernel vs plain version on the first frame's inputs of "
               f"{name}:")
-        for key in runs[name]:
-            tag = f"@{name}" if key in seen else ""
-            seen.add(key)
-            checks[key](cap.args, counts[name][key], tag)
+        for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
+            tag = f"@{name}" if fam in seen else ""
+            seen.add(fam)
+            checks[fam](cap.args, counts[name][fam], tag)
 
-    # -- 5. kernel path vs plain path, end to end ----------------------------
+    # -- 4. kernel path vs plain path, end to end ----------------------------
     plain = {
         (TR, "cluster_raster"): lambda rows, meta, w, h, lay, prior_w=None:
             TR.cluster_raster_plain(rows, w, h, lay, prior_w),
+        (TR, "list_raster"): TR.list_raster_plain,
         (CS, "trace_shadow_occl"): lambda sc, o, t, tt=None:
             CS.trace_shadow_occl_plain(sc, o, t),
         (CS, "trace_shadow_clusters"): CS.trace_shadow_clusters_plain,
         (RK, "trace_rays"): RK.trace_rays_plain,
         (RK, "trace_layers_so"): RK.trace_layers_so_plain,
+        (RK, "trace_rays_so"): RK.trace_rays_so_plain,
         (RK, "trace_shadow_factor"): RK.trace_shadow_factor_plain,
+        (RK, "trace_shadow_any"): RK.trace_shadow_any_plain,
     }
 
-    def end_to_end(name, eng, scene, sw, sh, primary, cluster_min_lanes):
+    def end_to_end(name, eng, scene, sw, sh, cluster_min_lanes=None, **kw):
+        """A sw x sh frame from ``eng``'s camera through the kernels and
+        through the plain versions: the RT frame with ``kw``, or the raster
+        frame when ``kw`` names a raster_mode."""
         cam = eng.camera
         tf = scene.transforms.clone()
         tf[:, :3, 3] -= torch.as_tensor(cam.world_position.astype(np.float32),
                                         device=dev)
         fg = flatten_frame(scene.geometry, tf, scene.palettes)
+        ivp = torch.as_tensor(cam.inv_view_proj(sw, sh), device=dev)
+        vp = torch.as_tensor(cam.view_proj(sw, sh), device=dev)
 
         def render():
-            return RT.render_frame(
-                scene.geometry, fg, eng.ibl, scene.lights,
-                torch.as_tensor(cam.inv_view_proj(sw, sh), device=dev),
-                cam.position, sw, sh, max_layers=LAYERS,
-                shadow_layers=SHADOW_LAYERS,
-                view_proj=torch.as_tensor(cam.view_proj(sw, sh), device=dev),
-                primary=primary)
+            if "raster_mode" in kw:
+                return RA.render_frame_raster(scene.geometry, fg, ivp,
+                                              cam.position, sw, sh,
+                                              view_proj=vp, **kw)
+            return RT.render_frame(scene.geometry, fg, eng.ibl, scene.lights,
+                                   ivp, cam.position, sw, sh,
+                                   max_layers=LAYERS, view_proj=vp, **kw)
 
         t0 = time.perf_counter()
         threshold = RT.SHADOW_CLUSTER_MIN_LANES
-        RT.SHADOW_CLUSTER_MIN_LANES = cluster_min_lanes
+        if cluster_min_lanes is not None:
+            RT.SHADOW_CLUSTER_MIN_LANES = cluster_min_lanes
         orig = {k: getattr(*k) for k in plain}
         try:
             img_k = render()
@@ -541,13 +766,21 @@ def main():
             _fail(f"{name}: kernel path and plain path renders disagree")
 
     # the cluster sweeps at 73,728 lanes: the shadow branch of paths 1 and 2
-    end_to_end("hybrid, full scene, cluster shadows",
-               engines["demo_rt_960x540"], scenes["demo_rt_960x540"], 320,
-               180, "hybrid", 0)
+    end_to_end("hybrid, full scene, cluster shadows", engines[PATHS[0]],
+               scenes[PATHS[0]], 320, 180, 0, shadow_layers=SHADOW_LAYERS,
+               primary="hybrid")
     # the shadow walk at 40,960 lanes, as path 3 takes it
-    end_to_end("trace, decimated scene, shadow walk",
-               engines["demo_trace_960x540"], scenes["demo_trace_960x540"],
-               240, 135, "trace", RT.SHADOW_CLUSTER_MIN_LANES)
+    end_to_end("trace, decimated scene, shadow walk", engines[PATHS[1]],
+               scenes[PATHS[1]], 240, 135, shadow_layers=SHADOW_LAYERS,
+               primary="trace")
+    # path 5's list raster (K9, two peels)
+    end_to_end("raster, decimated scene, lists", engines[PATHS[4]],
+               scenes[PATHS[4]], 480, 270, raster_mode="lists")
+    # path 6's configuration: K6, K8 in front of the K4 shadow loop
+    end_to_end("trace, decimated scene, non-layered, 5 shadow layers, "
+               "prepass", engines[PATHS[5]], scenes[PATHS[5]], 160, 90,
+               primary="trace", layered=False, shadow_layers=5,
+               shadow_prepass=True)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

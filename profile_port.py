@@ -3,14 +3,17 @@
 
     python3 profile_port.py [--out profile.json]
 
-Drives the three paths that chip_smoke.py defines (``path_engines``: hybrid
-frame of the full DemoScene; traced frame of the decimated DemoScene; the
-same at RT scale 0.25), each at 960x540 with max_layers=3,
-shadow_layers=4, and for each:
+Drives the six paths that chip_smoke.py defines (``path_engines``: the
+hybrid RT frame of the full DemoScene; the traced frame of the decimated
+DemoScene; the same at RT scale 0.25; the raster path of the full scene;
+the list-binned raster path and the non-layered traced frame with the
+shadow prepass of the decimated scene), each at 960x540, and for each:
 
   * 10 frames by host clock around ``Engine.frame`` + ``synchronize()``;
-  * the stages of one frame (flatten_frame, render_frame, composite + u8)
-    by host clock with a synchronize after each, median of 5;
+  * the stages of one frame (flatten_frame, the path's frame
+    ``Engine.render``, ``Engine.present``: upscale, composite where the
+    path has one, u8) by host clock with a synchronize after each, median
+    of 5;
   * a torch.profiler trace of 3 frames: device busy time per frame (the
     union of the kernel and memcpy intervals, so overlaps count once), the
     idle share against the unprofiled frame, kernel launches, memcpys and
@@ -51,8 +54,6 @@ def _union_ms(intervals):
 def _profile(eng, torch, np):
     from torch.profiler import ProfilerActivity, profile
 
-    from swift_game_engine_tpu_torch.render import rt as RT
-    from swift_game_engine_tpu_torch.render.composite import composite_frame
     from swift_game_engine_tpu_torch.render.scene_geometry import flatten_frame
 
     for _ in range(2):
@@ -70,24 +71,19 @@ def _profile(eng, torch, np):
     tf = eng.transforms.clone()
     tf[:, :3, 3] -= torch.as_tensor(cam.world_position.astype(np.float32),
                                     device=dev)
-    stages = {"flatten_frame": [], "render_frame": [], "composite_u8": []}
+    stages = {"flatten_frame": [], "render": [], "present": []}
     for _ in range(STAGE_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fg = flatten_frame(eng.geometry, tf, eng.palettes)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        img = RT.render_frame(
-            eng.geometry, fg, eng.ibl, eng.lights,
-            torch.as_tensor(cam.inv_view_proj(rw, rh), device=dev),
-            cam.position, rw, rh, max_layers=eng.max_layers,
-            shadow_layers=eng.shadow_layers,
-            view_proj=torch.as_tensor(cam.view_proj(rw, rh), device=dev),
-            primary=eng.primary)
+        img = eng.render(
+            fg, torch.as_tensor(cam.inv_view_proj(rw, rh), device=dev),
+            torch.as_tensor(cam.view_proj(rw, rh), device=dev))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        out = composite_frame(eng._upscale(img), 1.0, True)
-        (torch.clamp(out, 0.0, 1.0) * 255.0).to(torch.uint8)
+        eng.present(img)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):

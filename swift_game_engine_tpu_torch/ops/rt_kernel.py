@@ -2,18 +2,22 @@
 
 Port of the parts of swift_game_engine_tpu/ops/rt_kernel.py the RT frame
 uses: ``pack_bvh`` (the (M, 128) row-per-node layout), ``barycentrics``,
-``trace_batch`` and three kernels, each with its plain PyTorch twin:
+``trace_batch`` and five kernels, each with its plain PyTorch twin:
 
   * K4 ``trace_rays`` — closest hit per ray (the ``trace_rays_pallas``
     contract; csrc/bvh_trace.cu);
   * K5 ``trace_layers_so`` — the layered shared-origin walk: the nearest
     opaque hit and the n_slots nearest translucent hits of rays that share
     one origin (csrc/so_layers.cu), over ``build_origin_rows``;
+  * K6 ``trace_rays_so`` — closest hit of rays that share one origin, with
+    a per-lane t floor (csrc/so_layers.cu), over ``build_origin_rows``;
   * K7 ``trace_shadow_factor`` — the shared-direction shadow walk: the
     nearest opaque t and the n_slots nearest translucent hits toward one
-    light (csrc/shadow_walk.cu), over ``build_shadow_rows``.
+    light (csrc/shadow_walk.cu), over ``build_shadow_rows``;
+  * K8 ``trace_shadow_any`` — any-hit occlusion against opaque triangles
+    (csrc/bvh_trace.cu), the shadow prepass.
 
-K5 and K7 serve trees of at most ``WALK_MAX_ROWS`` packed rows
+K5–K8 serve trees of at most ``WALK_MAX_ROWS`` packed rows
 (``walk_available``), the reference's rule.
 
 Row layout (f32 lanes):
@@ -50,7 +54,9 @@ SHADOW_SLOT_F = 12   # shadow rows: g1, g2, g3, c per triangle
 
 launches = 0         # trace_rays (K4) kernel launches since the last reset
 so_launches = 0      # trace_layers_so (K5) kernel launches
+so_closest_launches = 0  # trace_rays_so (K6) kernel launches
 shadow_launches = 0  # trace_shadow_factor (K7) kernel launches
+any_launches = 0     # trace_shadow_any (K8) kernel launches
 
 
 def pack_bvh(bvh, translucent=None):
@@ -110,11 +116,34 @@ def trace_rays(rows, o, d, t_max):
     return t, tri
 
 
+def _mt_leaf(row, o, d):
+    """Moller-Trumbore tests of the SLOT_N triangles of leaf rows ``row``
+    (P, 128) against rays ``o``, ``d`` (P, 3), in the kernels' operation
+    order -> (t, crosses, ids), each (P, SLOT_N): ``crosses`` is a real
+    triangle (id >= 0) with |det| >= EPS and the barycentrics in range."""
+    tri = row[:, 8:_IDS].reshape(-1, SLOT_N, 9)
+    a, e1, e2 = tri[..., 0:3], tri[..., 3:6], tri[..., 6:9]
+    dl = d[:, None, :]
+    p = _cross(dl, e2)
+    det = _dot(e1, p)
+    ok = det.abs() >= EPS
+    inv_det = 1.0 / torch.where(ok, det, 1.0)
+    tv = o[:, None, :] - a
+    u = _dot(tv, p) * inv_det
+    q = _cross(tv, e1)
+    v = _dot(dl, q) * inv_det
+    ids = row[:, _IDS:_IDS + SLOT_N]
+    crosses = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & (ids >= 0)
+    return _dot(e2, q) * inv_det, crosses, ids
+
+
 def trace_rays_plain(rows, o, d, t_max):
     """Plain PyTorch twin of the K4 kernel: every live ray steps its own
     skip-link cursor in lockstep (descend to node+1 on a box hit at an
-    interior node, else jump to skip); leaves test their SLOT_N triangles
-    in slot order with the kernel's Moller-Trumbore arithmetic."""
+    interior node, else jump to skip); a leaf's SLOT_N triangles are tested
+    at once with the kernel's Moller-Trumbore arithmetic, and the nearest
+    hit below the ray's best wins, the first slot among equals — what the
+    kernel's in-order strict-less updates keep."""
     n = o.shape[0]
     inv = _safe_inv(d)
     t_best = t_max.clone()
@@ -134,29 +163,15 @@ def trace_rays_plain(rows, o, d, t_max):
         sel = box & leaf
         if sel.any():
             li = idx[sel]
-            row = rows[nd[sel]]
-            ol, dl, tbl = o[li], d[li], t_best[li]
-            trl = tri_best[li]
-            for j in range(SLOT_N):
-                tid = row[:, _IDS + j]
-                base = 8 + 9 * j
-                a, e1, e2 = (row[:, base:base + 3], row[:, base + 3:base + 6],
-                             row[:, base + 6:base + 9])
-                p = torch.linalg.cross(dl, e2, dim=-1)
-                det = (e1 * p).sum(-1)
-                ok = det.abs() >= EPS
-                inv_det = 1.0 / torch.where(ok, det, 1.0)
-                tv = ol - a
-                u = (tv * p).sum(-1) * inv_det
-                q = torch.linalg.cross(tv, e1, dim=-1)
-                v = (dl * q).sum(-1) * inv_det
-                t = (e2 * q).sum(-1) * inv_det
-                hit = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & \
-                    (t > 1e-4) & (t < tbl) & (tid >= 0)
-                tbl = torch.where(hit, t, tbl)
-                trl = torch.where(hit, tid, trl)
-            t_best[li] = tbl
-            tri_best[li] = trl
+            tbl = t_best[li]
+            t, crosses, ids = _mt_leaf(rows[nd[sel]], o[li], d[li])
+            t = torch.where(crosses & (t > 1e-4) & (t < tbl[:, None]), t,
+                            float("inf"))
+            t_near, j = t.min(1)
+            hit = t_near < float("inf")
+            t_best[li] = torch.where(hit, t_near, tbl)
+            tri_best[li] = torch.where(hit, ids.gather(1, j[:, None])[:, 0],
+                                       tri_best[li])
         nxt = torch.where(box & ~leaf, nd + 1, hdr[:, 6].to(torch.int64))
         node[idx] = nxt
         idx = idx[nxt >= 0]
@@ -194,12 +209,13 @@ def trace_batch(bvh, o, d, active):
             u, v, found)
 
 
-# ------------------------------------------------------------------ K5 / K7
+# ------------------------------------------------------------------ K5 - K8
 
 
 def walk_available(rows) -> bool:
-    """The shared-origin walk (K5) and the shadow walk (K7) serve this tree
-    (rt_kernel.py:1455 so_available, :1038 shadow_prepass_available)."""
+    """The shared-origin walks (K5, K6), the shadow walk (K7) and the shadow
+    prepass (K8) serve this tree (rt_kernel.py:1455 so_available, :1038
+    shadow_prepass_available)."""
     return rows.shape[0] <= WALK_MAX_ROWS
 
 
@@ -337,35 +353,24 @@ def trace_layers_so(origin_rows, o, d, t_max, n_slots: int = 3):
     return t_opq, tri, ts, ids
 
 
-def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
-                          counts=None):
-    """Plain PyTorch twin of K5: every live ray walks near-first with its own
-    stack, one node per lockstep step (interior: test both children against
-    the ray's bound, descend to the nearer, stack the farther; leaf: test
-    the box, then the slots in order). ``counts``: a dict that receives the
-    box and slot tests of the walk ("box", "slot") — the kernel's own work,
-    since it walks each ray in the same order."""
-    header, srows = origin_rows
-    hdr = header.reshape(-1, 8)
-    dev = d.device
-    n = d.shape[0]
-    o = torch.as_tensor(o, dtype=torch.float32, device=dev)
-    inv = _safe_inv(d)
-    active = t_max > 0
-    t_opq = torch.where(active, BIG, 0.0)
-    tri = torch.full((n,), -1.0, device=dev)
-    ts = torch.full((n, n_slots), BIG, device=dev)
-    ids = torch.full((n, n_slots), -1.0, device=dev)
+def _near_first_walk(hdr, o, inv, active, bound_of, visit_leaf, counts=None):
+    """The lockstep walk of the shared-origin twins (K5, K6): every live ray
+    walks near-first with its own stack, one node per step (interior: test
+    both children against the ray's bound, descend to the nearer, stack the
+    farther; leaf: test the box, then ``visit_leaf(lanes, leaf row index,
+    box hit, bound)`` runs the slots). ``bound_of(lanes)``: the rays' prune
+    bound. ``counts``: a dict that receives the box and slot tests of the
+    walk ("box", "slot") — the kernels' own work, since they walk each ray
+    in the same order."""
+    n, dev = inv.shape[0], inv.device
     stack = torch.zeros((n, STACK), dtype=torch.int64, device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     idx = torch.nonzero(active).squeeze(1)
-    base = SO_SLOT_F * SLOT_N
     while idx.numel():
         nd = node[idx]
         h = hdr[nd]
-        bound = torch.minimum(torch.minimum(t_max[idx], t_opq[idx]),
-                              ts[idx, n_slots - 1])
+        bound = bound_of(idx)
         leaf = h[:, 7] > 0.5
         nxt = torch.full_like(nd, -2)          # -2: pop
         li = torch.nonzero(leaf).squeeze(1)
@@ -378,29 +383,7 @@ def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
             if counts is not None:
                 counts["slot"] = counts.get("slot", 0) + \
                     SLOT_N * int(box.sum())
-            row = srows[h[li, 7].to(torch.int64) - 1]
-            dl, bl = d[lanes], bound[li]
-            to, tr = t_opq[lanes], tri[lanes]
-            tsl, idl = ts[lanes], ids[lanes]
-            for j in range(SLOT_N):
-                s = row[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)]
-                tid = row[:, base + j]
-                un, vn, dn = (_dot(dl, s[:, 3 * c:3 * c + 3])
-                              for c in range(3))
-                sgn = torch.where(dn < 0, -1.0, 1.0)
-                dnp, un_s, vn_s, tn_s = dn * sgn, un * sgn, vn * sgn, \
-                    s[:, 9] * sgn
-                t = tn_s / torch.where(dnp >= EPS, dnp, 1.0)
-                hit = (tid >= 0) & (dnp >= EPS) & (un_s >= 0) & \
-                    (un_s <= dnp) & (vn_s >= 0) & (un_s + vn_s <= dnp) & \
-                    (tn_s > 1e-4 * dnp) & (t < bl) & box
-                opaque = tid == torch.floor(tid)
-                win = hit & opaque & (t < to)
-                to = torch.where(win, t, to)
-                tr = torch.where(win, tid, tr)
-                _insert(tsl, idl, hit & ~opaque, t, tid)
-            t_opq[lanes], tri[lanes] = to, tr
-            ts[lanes], ids[lanes] = tsl, idl
+            visit_leaf(lanes, h[li, 7].to(torch.int64) - 1, box, bound[li])
         ii = torch.nonzero(~leaf).squeeze(1)
         if ii.numel():
             lanes = idx[ii]
@@ -424,7 +407,194 @@ def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
         nxt[pop] = torch.where(has, stack[pi, sp[pi].clamp(min=0)], -1)
         node[idx] = nxt
         idx = idx[nxt >= 0]
+
+
+def _so_slot(dl, s):
+    """The shared-origin slot test's sign-folded terms (rt_kernel.py:
+    1393-1401) of directions ``dl`` against slot constants ``s`` (P, 10)
+    -> (t, dnp, un_s, vn_s, tn_s)."""
+    un, vn, dn = (_dot(dl, s[:, 3 * c:3 * c + 3]) for c in range(3))
+    sgn = torch.where(dn < 0, -1.0, 1.0)
+    dnp, un_s, vn_s, tn_s = dn * sgn, un * sgn, vn * sgn, s[:, 9] * sgn
+    return tn_s / torch.where(dnp >= EPS, dnp, 1.0), dnp, un_s, vn_s, tn_s
+
+
+def _so_inside(tid, dnp, un_s, vn_s):
+    return (tid >= 0) & (dnp >= EPS) & (un_s >= 0) & (un_s <= dnp) & \
+        (vn_s >= 0) & (un_s + vn_s <= dnp)
+
+
+def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
+                          counts=None):
+    """Plain PyTorch twin of K5 (``_near_first_walk``): at a leaf whose box
+    the ray hits, the slots in order. ``counts``: as for
+    ``_near_first_walk``."""
+    header, srows = origin_rows
+    dev = d.device
+    n = d.shape[0]
+    active = t_max > 0
+    t_opq = torch.where(active, BIG, 0.0)
+    tri = torch.full((n,), -1.0, device=dev)
+    ts = torch.full((n, n_slots), BIG, device=dev)
+    ids = torch.full((n, n_slots), -1.0, device=dev)
+    base = SO_SLOT_F * SLOT_N
+
+    def bound_of(lanes):
+        return torch.minimum(torch.minimum(t_max[lanes], t_opq[lanes]),
+                             ts[lanes, n_slots - 1])
+
+    def visit_leaf(lanes, leaf_row, box, bl):
+        row = srows[leaf_row]
+        dl = d[lanes]
+        to, tr = t_opq[lanes], tri[lanes]
+        tsl, idl = ts[lanes], ids[lanes]
+        for j in range(SLOT_N):
+            tid = row[:, base + j]
+            t, dnp, un_s, vn_s, tn_s = _so_slot(
+                dl, row[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)])
+            hit = _so_inside(tid, dnp, un_s, vn_s) & \
+                (tn_s > 1e-4 * dnp) & (t < bl) & box
+            opaque = tid == torch.floor(tid)
+            win = hit & opaque & (t < to)
+            to = torch.where(win, t, to)
+            tr = torch.where(win, tid, tr)
+            _insert(tsl, idl, hit & ~opaque, t, tid)
+        t_opq[lanes], tri[lanes] = to, tr
+        ts[lanes], ids[lanes] = tsl, idl
+
+    _near_first_walk(header.reshape(-1, 8),
+                     torch.as_tensor(o, dtype=torch.float32, device=dev),
+                     _safe_inv(d), active, bound_of, visit_leaf, counts)
     return t_opq, tri.to(torch.int32), ts, ids
+
+
+def trace_rays_so(origin_rows, o, d, t_max, t_floor=None):
+    """K6: closest hit of rays sharing origin ``o`` (3,) — the origin that
+    ``build_origin_rows`` baked in; host floats need no device sync — with
+    directions ``d`` (N, 3) -> (t (N,), tri (N,) int32; a miss keeps
+    t = t_max, tri -1). A hit needs tn > t_floor * dn: ``t_floor`` (N,) is
+    the per-lane least accepted t (default 1e-4; a transparency
+    continuation passes t_hit + 2*bias). Rays with t_max <= 0 are
+    inactive."""
+    header, srows = origin_rows
+    if not header.is_cuda:
+        return trace_rays_so_plain(origin_rows, o, d, t_max, t_floor)
+    dev = header.device
+    n = d.shape[0]
+    _cuda.require(header, "header", dtype=torch.float32, device=dev)
+    _cuda.require(srows, "srows", dtype=torch.float32, device=dev)
+    if srows.dim() != 2 or srows.shape[1] != SO_SLOT_F * SLOT_N + SLOT_N:
+        raise ValueError(f"srows: bad shape {tuple(srows.shape)}")
+    _cuda.require(d, "d", (n, 3), device=dev)
+    _cuda.require(t_max, "t_max", (n,), device=dev)
+    if t_floor is not None:
+        _cuda.require(t_floor, "t_floor", (n,), device=dev)
+    ox, oy, oz = (float(x) for x in torch.as_tensor(o).tolist())
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = _cuda.library()
+    global so_closest_launches
+    so_closest_launches += 1
+    _cuda.check(lib.sge_so_closest(header.data_ptr(), srows.data_ptr(), ox, oy,
+                                   oz, d.data_ptr(), t_max.data_ptr(),
+                                   _cuda.ptr(t_floor), n, t.data_ptr(),
+                                   tri.data_ptr(), _cuda.stream_ptr(header)),
+                "sge_so_closest")
+    return t, tri
+
+
+def trace_rays_so_plain(origin_rows, o, d, t_max, t_floor=None, counts=None):
+    """Plain PyTorch twin of K6 (``_near_first_walk`` with the bound t_best):
+    at a leaf whose box the ray hits, each slot in order replaces the best
+    hit when tn_s lies in (t_floor*dnp, t_best*dnp). ``counts``: as for
+    ``_near_first_walk``."""
+    header, srows = origin_rows
+    n = d.shape[0]
+    if t_floor is None:
+        t_floor = torch.full((n,), 1e-4, device=d.device)
+    t_best = t_max.clone()
+    tri = torch.full((n,), -1.0, device=d.device)
+    base = SO_SLOT_F * SLOT_N
+
+    def visit_leaf(lanes, leaf_row, box, _):
+        row = srows[leaf_row]
+        dl, fl = d[lanes], t_floor[lanes]
+        tb, tr = t_best[lanes], tri[lanes]
+        for j in range(SLOT_N):
+            tid = row[:, base + j]
+            t, dnp, un_s, vn_s, tn_s = _so_slot(
+                dl, row[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)])
+            hit = _so_inside(tid, dnp, un_s, vn_s) & \
+                (tn_s > fl * dnp) & (tn_s < tb * dnp) & box
+            tb = torch.where(hit, t, tb)
+            tr = torch.where(hit, tid, tr)
+        t_best[lanes], tri[lanes] = tb, tr
+
+    _near_first_walk(header.reshape(-1, 8),
+                     torch.as_tensor(o, dtype=torch.float32, device=d.device),
+                     _safe_inv(d), t_max > 0, lambda lanes: t_best[lanes],
+                     visit_leaf, counts)
+    return t_best, tri.to(torch.int32)
+
+
+def trace_shadow_any(rows, o, d, t_limit):
+    """K8: any-hit occlusion against OPAQUE triangles (integral slot ids;
+    translucent ids carry +0.5) of rays ``o`` + t ``d`` over the packed
+    tree ``rows`` -> (N,) bool blocked: some opaque triangle is hit at
+    1e-4 < t < t_limit. Lanes with t_limit <= 0 count as blocked."""
+    if not rows.is_cuda:
+        return trace_shadow_any_plain(rows, o, d, t_limit)
+    dev = rows.device
+    n = o.shape[0]
+    _cuda.require(rows, "rows", dtype=torch.float32, device=dev)
+    if rows.dim() != 2 or rows.shape[1] != ROW:
+        raise ValueError(f"rows: expected (M, {ROW}), got {tuple(rows.shape)}")
+    _cuda.require(o, "o", (n, 3), device=dev)
+    _cuda.require(d, "d", (n, 3), device=dev)
+    _cuda.require(t_limit, "t_limit", (n,), device=dev)
+    blocked = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = _cuda.library()
+    global any_launches
+    any_launches += 1
+    _cuda.check(lib.sge_shadow_any(rows.data_ptr(), o.data_ptr(), d.data_ptr(),
+                                   t_limit.data_ptr(), n, blocked.data_ptr(),
+                                   _cuda.stream_ptr(rows)), "sge_shadow_any")
+    return blocked
+
+
+def trace_shadow_any_plain(rows, o, d, t_limit, counts=None):
+    """Plain PyTorch twin of K8: every unblocked ray steps its own skip-link
+    cursor in lockstep (descend to node+1 on a box hit at an interior node,
+    else jump to skip); at a leaf its box hits, the slots' Moller-Trumbore
+    tests in the kernel's operation order; a ray stops at its first opaque
+    hit (the slots tested at once: any opaque hit, whatever its slot).
+    ``counts``: as for trace_shadow_factor_plain."""
+    n = o.shape[0]
+    inv = _safe_inv(d)
+    blocked = t_limit <= 0
+    node = torch.zeros(n, dtype=torch.int64, device=o.device)
+    idx = torch.nonzero(~blocked).squeeze(1)
+    while idx.numel():
+        nd = node[idx]
+        h = rows[nd, :8]
+        oi, tl = o[idx], t_limit[idx]
+        box, _ = _slab(h, oi, inv[idx], tl)
+        leaf = h[:, 7] > 0.5
+        li = torch.nonzero(leaf & box).squeeze(1)
+        if counts is not None:
+            counts["box"] = counts.get("box", 0) + idx.numel()
+            counts["slot"] = counts.get("slot", 0) + SLOT_N * li.numel()
+        hit_any = torch.zeros_like(box)
+        if li.numel():
+            t, crosses, ids = _mt_leaf(rows[nd[li]], oi[li], d[idx[li]])
+            hit = (crosses & (t > 1e-4) & (t < tl[li, None]) &
+                   (ids == torch.floor(ids))).any(1)
+            hit_any[li] = hit
+            blocked[idx[li]] = hit
+        nxt = torch.where(box & ~leaf, nd + 1, h[:, 6].to(torch.int64))
+        node[idx] = nxt
+        idx = idx[(nxt >= 0) & ~hit_any]
+    return blocked
 
 
 def trace_shadow_factor(shadow_rows, l, o, t_limit, n_slots: int = 4):

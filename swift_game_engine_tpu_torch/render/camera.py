@@ -126,6 +126,24 @@ def generate_rays_tiled(inv_view_proj, camera_position, width: int,
     return o, d, px, py
 
 
+def generate_rays(inv_view_proj, camera_position, width: int, height: int):
+    """Primary rays in scanline order, the raster path's lane order
+    (camera.py:179, RayTracing.metalinc:225-229) -> (o (H*W,3),
+    d (H*W,3))."""
+    ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32)
+    dev = ivp.device
+    cam = torch.as_tensor(camera_position, dtype=torch.float32, device=dev)
+    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width
+    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / \
+        height
+    gy, gx = torch.meshgrid((1.0 - ys) * 2.0 - 1.0, xs * 2.0 - 1.0,
+                            indexing="ij")
+    one = torch.ones_like(gx)
+    world = torch.stack([gx, gy, one, one], -1) @ ivp.T
+    d = normalize(world[..., :3] / world[..., 3:4] - cam)
+    return cam.expand_as(d).reshape(-1, 3), d.reshape(-1, 3)
+
+
 def untile_image(flat, width: int, height: int, tile_h: int = TILE_H,
                  tile_w: int = TILE_W):
     """(P, C) tile-major lanes -> (H, W, C) image (reshape + crop)."""

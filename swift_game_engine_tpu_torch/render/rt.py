@@ -12,9 +12,12 @@ visibility modes (``render_frame(primary=...)``, the reference's
   * ``"trace"``: the reference's intersector semantics. On a tree of at most
     ``WALK_MAX_ROWS`` rows one layered shared-origin walk (kernel K5) gives
     the nearest opaque hit and max_layers translucent hits per pixel, and
-    the same floor chain makes the layer records; on a larger tree a dense
-    closest-hit trace (K4) gives layer 1 and the continuation layers
-    re-trace from offset origins (K4), compacted to the live lanes.
+    the same floor chain makes the layer records; with ``layered=False``
+    (the reference's SGE_RT_LAYERED=0) a dense shared-origin closest-hit
+    trace (K6) gives layer 1 and each continuation layer re-traces the live
+    camera rays with K6 past a per-lane t floor (t + 2*bias), compacted. On
+    a larger tree a dense closest-hit trace (K4) gives layer 1 and the
+    continuation layers re-trace from offset origins (K4), compacted.
 
 Then, in both modes:
 
@@ -25,13 +28,16 @@ Then, in both modes:
     sparse texture taps, normal mapping, GGX direct light per directional
     light, SH ambient, split-sum specular IBL and the unlit fast path;
   * light-0 shadows, chosen per frame as the reference chooses them
-    (rt.py:1420-1452): the split cluster sweeps (kernels K2 + K3, any-hit
-    occlusion, alpha-payload records) for frames of at least
-    ``SHADOW_CLUSTER_MIN_LANES`` padded lanes; else the shared-direction
-    shadow walk (kernel K7) on a tree of at most ``WALK_MAX_ROWS`` rows;
-    else the per-layer closest-hit loop (K4). The records go through the
-    reference's exact layer semantics elementwise
-    (``_apply_shadow_records``);
+    (rt.py:1420-1452): with 1..4 shadow layers, the split cluster sweeps
+    (kernels K2 + K3, any-hit occlusion, alpha-payload records) for frames
+    of at least ``SHADOW_CLUSTER_MIN_LANES`` padded lanes, else the
+    shared-direction shadow walk (kernel K7) on a tree of at most
+    ``WALK_MAX_ROWS`` rows — their records go through the reference's
+    exact layer semantics elementwise (``_apply_shadow_records``); else
+    the per-layer closest-hit loop (K4), any number of layers. With
+    ``shadow_prepass=True`` (SGE_SHADOW_PREPASS=1) and a tree the walks
+    serve, the loop starts after an any-hit pass over the opaque triangles
+    (kernel K8): blocked lanes are in shadow and leave the loop;
   * one mirror bounce and one refraction bounce, traced with kernel K4.
 
 Compaction: wherever the reference runs ``_chunked`` (fixed-size chunks of
@@ -113,6 +119,7 @@ class _Frame(NamedTuple):
     enable_mirror: bool
     enable_refraction: bool
     shadow_mode: str = "clusters"
+    shadow_prepass: bool = False  # "loop": the K8 any-hit prepass first
 
 
 def _bg(device):
@@ -216,10 +223,13 @@ def _apply_shadow_records(fr: _Frame, o_sh, l, t_opq, ts, ids, active,
 
 
 def _shadow_mode(geo: SceneGeometry, fg: FrameGeometry, lights,
-                 lanes: int):
+                 lanes: int, shadow_layers: int):
     """The frame's light-0 shadow source (rt.py:1420-1452) -> (mode, the
-    per-frame constants its shade calls share). The walk's direction is
-    read to the host once here, so its shade calls need no device sync."""
+    per-frame constants its shade calls share). The record kernels hold 1..4
+    slots; other layer counts take the loop. The walk's direction is read
+    to the host once here, so its shade calls need no device sync."""
+    if not 1 <= shadow_layers <= 4:
+        return "loop", None
     l0 = normalize(-lights.direction[0])
     if lanes >= SHADOW_CLUSTER_MIN_LANES:
         bv = fg.bvh
@@ -234,12 +244,22 @@ def _shadow_mode(geo: SceneGeometry, fg: FrameGeometry, lights,
 
 
 def _shadow_loop(fr: _Frame, o, l, max_dist, bias, active):
-    """The per-layer shadow loop (rt.py:893-910): closest hit toward the
+    """The per-layer shadow loop (rt.py:865-910): closest hit toward the
     light, multiply by (1 - alpha), continue past the surface, at most
-    shadow_layers times while the factor stays above 0.02."""
+    shadow_layers times while the factor stays above 0.02; after the
+    any-hit prepass when the frame takes it."""
     shadow = torch.ones(o.shape[0], device=o.device)
     act = active
     d = l.expand_as(o).contiguous()
+    if fr.shadow_prepass:
+        # rt.py:867-886: a lane with ANY opaque blocker has shadow 0
+        # whatever the order of its hits; the loop resolves the rest
+        t_lim = torch.where(active, torch.clamp(max_dist, max=BIG), 0.0)
+        o_sh = torch.where(active[:, None], o, 1.0e9).contiguous()
+        blocked = RK.trace_shadow_any(fr.fg.bvh.rows, o_sh, d,
+                                      t_lim.contiguous()) & active
+        shadow = torch.where(blocked, 0.0, shadow)
+        act = active & ~blocked
     for _ in range(fr.shadow_layers):
         live = act & (shadow > 0.02)
         if not bool(live.any()):
@@ -565,37 +585,83 @@ def _next_origin(o, d, t):
     return hit_pos + d * (shadow_bias(t) * 2.0)[:, None]
 
 
-def _trace_general(fr: _Frame, ray_o, d, max_layers: int):
-    """Traced layers on a tree past the walk's row cap (rt.py:1778-1896):
-    a dense closest-hit trace (K4) for layer 1, then each continuation layer
-    re-traces the live lanes from offset origins, compacted."""
+def _offset_tracer(bvh, ray_o, d):
+    """Traced layers past the walks' row cap (rt.py:1779,1866-1896): a
+    closest-hit trace (K4) from each lane's origin, which then moves past
+    the hit (``_next_origin``). Returns trace(idx) for ``_trace_layers``."""
+    o = ray_o
+
+    def trace(idx):
+        nonlocal o
+        oc, dc = (o, d) if idx is None else (o[idx], d[idx])
+        t, tri, u, v, found = trace_batch(bvh, oc, dc, torch.ones(
+            oc.shape[0], dtype=torch.bool, device=oc.device))
+        nxt = torch.where(found[:, None], _next_origin(
+            oc, dc, torch.where(found, t, 1.0)), oc)
+        if idx is None:
+            o = nxt
+        else:
+            o = o.clone()
+            o[idx] = nxt
+        return oc, t, tri, u, v, found
+
+    return trace
+
+
+def _floor_tracer(fg: FrameGeometry, cam, cam_host, ray_o, d):
+    """Non-layered traced layers on a tree the walks serve (rt.py:1767-1777,
+    1815-1865): the camera rays themselves, traced by the shared-origin
+    closest-hit kernel (K6) past a per-lane t floor that moves to
+    t + 2*bias after each hit. Compacted lanes are all live (t_max BIG),
+    so no origin is parked: a parked origin would break the baked leaf
+    constants. Returns trace(idx) for ``_trace_layers``."""
+    bv = fg.bvh
+    so_rows = RK.build_origin_rows(bv.rows, cam)
+    floor = None
+
+    def trace(idx):
+        nonlocal floor
+        oc, dc = (ray_o, d) if idx is None else (ray_o[idx], d[idx])
+        n = dc.shape[0]
+        t, tri = RK.trace_rays_so(
+            so_rows, cam_host, dc, torch.full((n,), BIG, device=dc.device),
+            t_floor=None if idx is None else floor[idx].contiguous())
+        u, v, found = barycentrics(bv, oc, dc, t, tri)
+        found = found & (t < BIG)
+        t = torch.where(found, t, BIG)
+        tri = torch.where(found, tri.long(), -1)
+        nxt = torch.where(found, t + 2.0 * shadow_bias(t), 0.0)
+        if idx is None:
+            floor = nxt
+        else:
+            floor[idx] = torch.where(found, nxt, floor[idx])
+        return oc, t, tri, u, v, found
+
+    return trace
+
+
+def _trace_layers(fr: _Frame, ray_o, d, max_layers: int, trace):
+    """Traced layers one trace at a time: ``trace(None)`` gives every
+    lane's layer-1 record, shaded densely; each continuation layer then
+    re-traces the live lanes, ``trace(idx)``, compacted (rt.py:1760-1898).
+    ``trace`` returns (shading origin, t, tri, u, v, found)."""
     p, dev = ray_o.shape[0], ray_o.device
-    t, tri, u, v, found = trace_batch(fr.fg.bvh, ray_o, d,
-                                      torch.ones(p, dtype=torch.bool,
-                                                 device=dev))
-    color, contrib = _shade_layer(fr, ray_o, d, t, tri, u, v, found,
+    oc, t, tri, u, v, found = trace(None)
+    color, contrib = _shade_layer(fr, oc, d, t, tri, u, v, found,
                                   torch.zeros(p, device=dev))
     accum = color * contrib[:, None]
     accum_alpha = contrib
-    o = torch.where(found[:, None], _next_origin(ray_o, d, torch.where(
-        found, t, 1.0)), ray_o)
     live = found
     for _ in range(1, max_layers):
         live = live & (accum_alpha < 0.99)
         idx = torch.nonzero(live).squeeze(1)
         if not idx.numel():
             break
-        oc, dc = o[idx], d[idx]
-        ok = torch.ones(idx.shape[0], dtype=torch.bool, device=dev)
-        t, tri, u, v, found = trace_batch(fr.fg.bvh, oc, dc, ok)
-        color, contrib = _shade_layer(fr, oc, dc, t, tri, u, v, found,
+        oc, t, tri, u, v, found = trace(idx)
+        color, contrib = _shade_layer(fr, oc, d[idx], t, tri, u, v, found,
                                       accum_alpha[idx])
         accum = accum.index_add(0, idx, color * contrib[:, None])
         accum_alpha = accum_alpha.index_add(0, idx, contrib)
-        o = o.clone()
-        o[idx] = torch.where(found[:, None],
-                             _next_origin(oc, dc, torch.where(found, t, 1.0)),
-                             oc)
         live = torch.zeros(p, dtype=torch.bool, device=dev)
         live[idx] = found
     return accum + _bg(dev) * (1.0 - accum_alpha)[:, None]
@@ -606,13 +672,17 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                  width: int, height: int, max_layers: int = 3,
                  shadow_layers: int = 4, enable_mirror: bool = True,
                  enable_refraction: bool = True, view_proj=None,
-                 primary: str = "hybrid"):
+                 primary: str = "hybrid", layered: bool = True,
+                 shadow_prepass: bool = False):
     """Full RT frame -> (H, W, 3) linear color. ``inv_view_proj`` and
     ``view_proj`` are tensors on the geometry's device; ``cam_pos`` (3,) is
     host values (numpy) or a tensor.
     ``primary`` is the primary visibility mode, "hybrid" or "trace" (see
     the module docstring); the reference's "raster" and "peels" modes are
-    not ported."""
+    not ported. ``layered`` (SGE_RT_LAYERED) chooses the layered walk K5
+    over the per-layer K6 traces of "trace" mode; ``shadow_prepass``
+    (SGE_SHADOW_PREPASS) runs K8 in front of the per-layer shadow loop.
+    Both keep the reference's defaults."""
     if primary in ("raster", "peels"):
         raise NotImplementedError(f"primary={primary!r} is not ported")
     if primary not in PRIMARY_MODES:
@@ -620,8 +690,8 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                          f"{primary!r}")
     if not 1 <= max_layers <= 3:
         raise ValueError(f"max_layers must be 1..3, got {max_layers}")
-    if not 1 <= shadow_layers <= 4:
-        raise ValueError(f"shadow_layers must be 1..4, got {shadow_layers}")
+    if shadow_layers < 0:
+        raise ValueError(f"shadow_layers must be >= 0, got {shadow_layers}")
     dev = fg.pos.device
     ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=dev)
     cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
@@ -629,7 +699,7 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     p = ray_o.shape[0]
     bv = fg.bvh
 
-    recs = None
+    recs = trace = None
     if primary == "hybrid":
         vp = torch.linalg.inv(ivp) if view_proj is None else \
             torch.as_tensor(view_proj, dtype=torch.float32, device=dev)
@@ -661,17 +731,24 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
         # the origin as host floats: no device sync when cam_pos is on the
         # host, as the Engine passes it
         cam_host = torch.as_tensor(cam_pos, dtype=torch.float32).tolist()
-        recs = _traced_records(fg, cam, cam_host, ray_d, max_layers)
+        if layered:
+            recs = _traced_records(fg, cam, cam_host, ray_d, max_layers)
+        else:
+            trace = _floor_tracer(fg, cam, cam_host, ray_o, ray_d)
+    else:
+        trace = _offset_tracer(bv, ray_o, ray_d)
 
     # light-0 shadow constants: shared by every shade call of the frame
-    mode, shadow = _shadow_mode(geo, fg, lights, p)
+    mode, shadow = _shadow_mode(geo, fg, lights, p, shadow_layers)
     fr = _Frame(geo=geo, fg=fg, ibl=ibl, lights=lights, cam=cam,
                 shadow=shadow, shadow_layers=shadow_layers,
                 enable_mirror=enable_mirror,
-                enable_refraction=enable_refraction, shadow_mode=mode)
+                enable_refraction=enable_refraction, shadow_mode=mode,
+                shadow_prepass=shadow_prepass and mode == "loop" and
+                RK.walk_available(bv.rows))
 
     if recs is None:
-        out = _trace_general(fr, ray_o, ray_d, max_layers)
+        out = _trace_layers(fr, ray_o, ray_d, max_layers, trace)
     else:
         t1, tri1, u1, v1, f1 = recs[0]
         if u1 is None:                   # traced layer 1: dense barycentrics

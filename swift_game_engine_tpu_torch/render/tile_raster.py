@@ -1,20 +1,31 @@
-"""Cluster tile rasterizer: primary visibility for the hybrid RT frame (K1).
+"""Tile rasterizers: the cluster raster (K1) of the hybrid RT frame and the
+raster path, and the list raster (K9, K10) of the raster path's "lists"
+binning.
 
-Port of the cluster path of swift_game_engine_tpu/render/tile_raster.py
-(``_setup_clusters`` + ``rasterize_clusters``). Setup runs as torch ops:
+Port of swift_game_engine_tpu/render/tile_raster.py. The cluster path
+(``setup_clusters`` + ``rasterize_clusters``): setup runs as torch ops:
 clip-space transform, 2D-homogeneous cofactor rows per triangle (Olano &
 Greer 1997 — no near-plane clipping), conservative screen AABBs, and
 clusters of ``cluster`` triangles in mesh order sorted front to back by
 their min view depth. The kernel keeps the ``layers`` nearest fragments per
 pixel; the outputs are in padded tile-major lane order (the order of
 camera.generate_rays_tiled), and ``t`` is the raw view depth w — the hybrid
-frame converts it to ray t algebraically.
+frame converts it to ray t algebraically. Given ``cam_pos``, the records
+are in scanline order instead and ``t`` is the ray distance, as the raster
+path reads them.
 
-The wrapper launches ``csrc/cluster_raster.cu`` for CUDA tensors and runs
-``cluster_raster_plain`` (dense pixels x triangles in chunks, ``topk`` for
-the layers) only for CPU tensors. Both leave out-of-image padding lanes
-empty; the reference fills them with whatever projects there, and every
-caller crops them.
+The list path (``setup_lists`` + ``rasterize`` / ``rasterize_peeled``):
+per-tile candidate lists of the first ``RASTER_K`` overlapping triangles in
+index order, then K9 (the nearest fragment behind an optional per-pixel
+depth) or K10 (the ``layers`` nearest in one pass); records in scanline
+order with ray t.
+
+The wrappers launch ``csrc/cluster_raster.cu`` and ``csrc/raster_lists.cu``
+for CUDA tensors and run the plain twins only for CPU tensors: the cluster
+twin tests every pixel against every triangle (dense, in chunks); the list
+twins step every pixel through its tile's list in the kernels' order. The cluster path leaves out-of-image padding
+lanes empty; the reference fills them with whatever projects there, and
+every caller crops them.
 """
 
 from __future__ import annotations
@@ -24,22 +35,26 @@ from typing import NamedTuple
 import torch
 
 from ..ops import _cuda
-from .camera import TILE_H, TILE_W, tiled_pixels
+from .camera import TILE_H, TILE_W, tiled_pixels, untile_image
 
 BIG = 3.0e38
 CLUSTER = 128        # SGE_RASTER_CLUSTER (opaque raster)
 TRANS_CLUSTER = 16   # SGE_RASTER_TRANS_CLUSTER (translucent subset)
+RASTER_K = 8192      # SGE_RASTER_K: candidates per tile of the list binning
 
 launches = 0         # K1 kernel launches since the last reset
+list_launches = 0    # K9 kernel launches
+peel_launches = 0    # K10 kernel launches
 
 
 class RasterHits(NamedTuple):
-    t: torch.Tensor        # (P,) view depth w (BIG at misses)
+    t: torch.Tensor        # (P,) view depth w or ray t (BIG at misses)
     tri: torch.Tensor      # (P,) int64 (-1 at misses)
     u: torch.Tensor        # (P,)
     v: torch.Tensor        # (P,)
     found: torch.Tensor    # (P,) bool
     w_depth: torch.Tensor  # (P,) view depth (for peeling / prior bounds)
+    overflow: object = 0   # tiles whose candidates exceeded K (lists; () int)
 
 
 def setup_clusters(v0, v1, v2, view_proj, width, height, opaque=None,
@@ -227,23 +242,58 @@ def cluster_raster(rows, meta, width: int, height: int, layers: int,
     return tid, b1, b2, w
 
 
+def _scanline_hits(tid, b1, b2, w, width, height, tris, cam_pos,
+                   overflow=0):
+    """Tile-major (tiles, layers, TILE_H, TILE_W) records -> per layer
+    scanline (H*W,) RasterHits with ray t = |p_world - cam| from the
+    barycentrics (tile_raster.py:346-369, 429-448). ``tris``: the
+    (v0, v1, v2) the ids index."""
+    v0, v1, v2 = tris
+    cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=v0.device)
+    outs = []
+    for l in range(tid.shape[1]):
+        def untile(a):
+            return untile_image(a[:, l].reshape(-1, 1), width,
+                                height).reshape(-1)
+
+        tid_l, b1_l, b2_l, w_l = (untile(a) for a in (tid, b1, b2, w))
+        tid_l = tid_l.long()
+        found = tid_l >= 0
+        safe = tid_l.clamp(min=0)
+        b0 = 1.0 - b1_l - b2_l
+        p_world = b0[:, None] * v0[safe] + b1_l[:, None] * v1[safe] + \
+            b2_l[:, None] * v2[safe]
+        t = torch.linalg.vector_norm(p_world - cam, dim=-1)
+        outs.append(RasterHits(t=torch.where(found, t, BIG),
+                               tri=torch.where(found, tid_l, -1), u=b1_l,
+                               v=b2_l, found=found, w_depth=w_l,
+                               overflow=overflow))
+    return outs
+
+
 def rasterize_clusters(v0, v1, v2, view_proj, width: int, height: int,
                        layers: int = 1, opaque=None, cluster: int = CLUSTER,
-                       ids=None, prior_w=None):
+                       ids=None, prior_w=None, cam_pos=None):
     """Cluster-binned depth-peeled rasterization -> list of ``layers``
-    RasterHits, nearest first, in padded tile-major lane order. ``t`` is the
-    view depth w (the reference's ``resolve_t=False``).
+    RasterHits, nearest first. Without ``cam_pos``: padded tile-major lane
+    order, ``t`` the view depth w (the reference's ``flat_tiles=True,
+    resolve_t=False``). With ``cam_pos`` (3,): scanline order, ``t`` the ray
+    distance from it (``flat_tiles=False, resolve_t=True``; needs
+    ``ids=None``).
 
     ``opaque``: (T,) bool — opaque fragments end their pixel's walk once
     ``layers`` > 1. ``ids``: (T,) original triangle ids baked into the rows
     (subset rasters emit global ids). ``prior_w``: (P,) per-lane view-depth
-    bound — fragments at or behind it are rejected."""
+    bound in tile-major order — fragments at or behind it are rejected."""
     rows, meta = setup_clusters(v0, v1, v2, view_proj, width, height,
                                 opaque=opaque, cluster=cluster, ids=ids)
     if prior_w is not None:
         prior_w = prior_w.contiguous()
     tid, b1, b2, w = cluster_raster(rows, meta, width, height, layers,
                                     prior_w)
+    if cam_pos is not None:
+        return _scanline_hits(tid, b1, b2, w, width, height, (v0, v1, v2),
+                              cam_pos)
     outs = []
     for l in range(layers):
         tid_l = tid[:, l].reshape(-1).long()
@@ -254,3 +304,269 @@ def rasterize_clusters(v0, v1, v2, view_proj, width: int, height: int,
                                u=b1[:, l].reshape(-1), v=b2[:, l].reshape(-1),
                                found=found, w_depth=w_l))
     return outs
+
+
+# ------------------------------------------------------------- list binning
+
+
+def setup_lists(v0, v1, v2, view_proj, width: int, height: int,
+                k: int = RASTER_K):
+    """Per-triangle edge rows + per-tile candidate lists (tile_raster.py:
+    75-151 ``_setup``) -> (cand_rows (tiles, k, 16), counts (tiles,) int32,
+    overflowed () int64).
+
+    Rows: 2D-homogeneous cofactors (9), vertex w's (3), the triangle id,
+    zeros. A triangle spans the tiles of its conservative screen AABB (a
+    triangle touching w <= 1e-6 spans the whole screen); degenerate and
+    offscreen ones are culled. Each tile keeps its first ``k`` overlapping
+    triangles in index order, padded with the fill row (id -1);
+    ``counts = min(count, k)`` and ``overflowed`` counts the tiles that had
+    more."""
+    vp = view_proj.to(torch.float32)
+    tiles_x = -(-width // TILE_W)
+    tiles_y = -(-height // TILE_H)
+
+    def tf(p):
+        return p @ vp[:, :3].T + vp[:, 3]
+
+    c = [tf(v) for v in (v0, v1, v2)]
+    r = [torch.stack([ci[:, 0], ci[:, 1], ci[:, 3]], -1) for ci in c]
+    cof = [torch.linalg.cross(r[1], r[2], dim=-1),
+           torch.linalg.cross(r[2], r[0], dim=-1),
+           torch.linalg.cross(r[0], r[1], dim=-1)]
+    det = (r[0] * cof[0]).sum(-1)
+
+    eps_w = 1e-6
+    w_all = torch.stack([ci[:, 3] for ci in c], -1)
+    in_front = (w_all > eps_w).all(-1)
+    safe_w = torch.clamp(w_all, min=eps_w)
+    xs = torch.stack([ci[:, 0] for ci in c], -1) / safe_w
+    ys = torch.stack([ci[:, 1] for ci in c], -1) / safe_w
+    px = (xs * 0.5 + 0.5) * width
+    py = (1.0 - (ys * 0.5 + 0.5)) * height
+    x_min = torch.where(in_front, px.amin(-1), 0.0)
+    x_max = torch.where(in_front, px.amax(-1), float(width))
+    y_min = torch.where(in_front, py.amin(-1), 0.0)
+    y_max = torch.where(in_front, py.amax(-1), float(height))
+
+    def span(lo, hi, tile, n):
+        return [torch.clamp(torch.floor(a / tile), 0, n - 1).to(torch.int64)
+                for a in (lo, hi)]
+
+    tx0, tx1 = span(x_min, x_max, TILE_W, tiles_x)
+    ty0, ty1 = span(y_min, y_max, TILE_H, tiles_y)
+    degenerate = det.abs() < 1e-18
+    offscreen = (x_max < 0) | (x_min > width) | (y_max < 0) | \
+        (y_min > height)
+    cull = degenerate | offscreen
+
+    tcount = v0.shape[0]
+    dev = v0.device
+    rows = torch.cat([*cof, w_all,
+                      torch.arange(tcount, dtype=torch.float32,
+                                   device=dev)[:, None],
+                      torch.zeros((tcount, 3), device=dev)], -1)
+    t_ids = torch.arange(tiles_x * tiles_y, device=dev)
+    tyi, txi = (t_ids // tiles_x)[:, None], (t_ids % tiles_x)[:, None]
+    overlap = (txi >= tx0) & (txi <= tx1) & (tyi >= ty0) & (tyi <= ty1) & \
+        ~cull
+    counts_full = overlap.sum(1)
+    # jnp.nonzero(row, size=k, fill_value=T) keeps the first k set entries
+    # of each row: rank them by a running count
+    rank = torch.cumsum(overlap, 1) - 1
+    tile, tri = torch.nonzero(overlap & (rank < k), as_tuple=True)
+    cands = torch.full((tiles_x * tiles_y, k), tcount, dtype=torch.int64,
+                       device=dev)
+    cands[tile, rank[tile, tri]] = tri
+    rows_pad = torch.cat([rows, rows.new_full((1, 16), -1.0)])
+    return (rows_pad[cands].contiguous(),
+            torch.clamp(counts_full, max=k).to(torch.int32),
+            (counts_full > k).sum())
+
+
+def _list_candidates(counts, cand_rows, width: int, height: int):
+    """The candidates of the list rasters in list order, in lockstep over
+    every pixel of every tile: yields for each list position j the (tiles,
+    TILE_H*TILE_W) terms of the kernels (tile_raster.py:186-202), in their
+    f32 operation order: (live: j < the tile's count, inside: edges, sig
+    and id, detp, sig, lam1, lam2, id)."""
+    tiles_x, n_tiles, sx, sy = _grid(width, height)
+    px, py = tiled_pixels(width, height, device=cand_rows.device)
+    x = ((px.to(torch.float32) + 0.5) * sx - 1.0).reshape(n_tiles, -1)
+    y = (1.0 - (py.to(torch.float32) + 0.5) * sy).reshape(n_tiles, -1)
+    count = counts.to(torch.int64)[:, None]
+    for j in range(int(counts.max()) if counts.numel() else 0):
+        r = cand_rows[:, j, :, None]                     # (tiles, 16, 1)
+        lam0 = r[:, 0] * x + r[:, 1] * y + r[:, 2]
+        lam1 = r[:, 3] * x + r[:, 4] * y + r[:, 5]
+        lam2 = r[:, 6] * x + r[:, 7] * y + r[:, 8]
+        sig = lam0 + lam1 + lam2
+        flip = torch.where(sig < 0, -1.0, 1.0)
+        lam0, lam1, lam2, sig = lam0 * flip, lam1 * flip, lam2 * flip, \
+            sig * flip
+        detp = lam0 * r[:, 9] + lam1 * r[:, 10] + lam2 * r[:, 11]
+        inside = (torch.minimum(torch.minimum(lam0, lam1), lam2) >= 0) & \
+            (sig > 1e-20) & (r[:, 12] >= 0)
+        yield j < count, inside, detp, sig, lam1, lam2, r[:, 12]
+
+
+def _list_records(zn, zd, tid, l1, l2):
+    """Kept fragments -> (id int32, b1, b2, w) as the kernels write them."""
+    inv = 1.0 / zd
+    return (tid.to(torch.int32), l1 * inv, l2 * inv,
+            torch.where(tid >= 0, zn * inv, BIG))
+
+
+def list_raster_plain(counts, cand_rows, width: int, height: int,
+                      prev_w=None):
+    """Plain PyTorch twin of K9: every pixel steps through its tile's
+    candidates in list order, keeping a fragment that is inside, in front,
+    strictly nearer (detp*zd < zn*sig: the first of equal depths stays)
+    and strictly behind ``prev_w`` (detp > prev_w*sig). Returns (id int32,
+    b1, b2, w), each (tiles, TILE_H, TILE_W)."""
+    n_tiles = cand_rows.shape[0]
+    dev = cand_rows.device
+    per = TILE_H * TILE_W
+    pw = torch.zeros((n_tiles, per), device=dev) if prev_w is None else \
+        prev_w.reshape(n_tiles, per)
+    zn = torch.full((n_tiles, per), BIG, device=dev)
+    zd = torch.ones((n_tiles, per), device=dev)
+    tid = torch.full((n_tiles, per), -1.0, device=dev)
+    l1 = torch.zeros((n_tiles, per), device=dev)
+    l2 = torch.zeros((n_tiles, per), device=dev)
+    for live, inside, detp, sig, lam1, lam2, cid in _list_candidates(
+            counts, cand_rows, width, height):
+        win = live & inside & (detp > 0) & (detp * zd < zn * sig) & \
+            (detp > pw * sig)
+        zn, zd = torch.where(win, detp, zn), torch.where(win, sig, zd)
+        tid = torch.where(win, cid, tid)
+        l1, l2 = torch.where(win, lam1, l1), torch.where(win, lam2, l2)
+    return tuple(a.reshape(n_tiles, TILE_H, TILE_W)
+                 for a in _list_records(zn, zd, tid, l1, l2))
+
+
+def list_raster_peeled_plain(counts, cand_rows, width: int, height: int,
+                             layers: int):
+    """Plain PyTorch twin of K10: every pixel steps through its tile's
+    candidates in list order, each inside fragment running the insertion
+    network over ``layers`` slots (tile_raster.py:285-298). Returns (id
+    int32, b1, b2, w), each (tiles, layers, TILE_H, TILE_W)."""
+    n_tiles = cand_rows.shape[0]
+    dev = cand_rows.device
+    per = TILE_H * TILE_W
+    slots = [[torch.full((n_tiles, per), BIG, device=dev),
+              torch.ones((n_tiles, per), device=dev),
+              torch.full((n_tiles, per), -1.0, device=dev),
+              torch.zeros((n_tiles, per), device=dev),
+              torch.zeros((n_tiles, per), device=dev)] for _ in range(layers)]
+    for live, inside, detp, sig, lam1, lam2, cid in _list_candidates(
+            counts, cand_rows, width, height):
+        c = [detp, sig, torch.where(live & inside & (detp > 0), cid, -1.0),
+             lam1, lam2]
+        for l, (zn, zd, tid, *_) in enumerate(slots):
+            # the displaced incumbent becomes the candidate for slot l+1
+            win = (c[2] >= 0) & ((tid < 0) | (c[0] * zd < zn * c[1]))
+            slots[l], c = ([torch.where(win, a, b) for a, b in zip(c, slots[l])],
+                           [torch.where(win, b, a) for a, b in zip(c, slots[l])])
+    return tuple(torch.stack(a, 1).reshape(n_tiles, layers, TILE_H, TILE_W)
+                 for a in zip(*(_list_records(*sl) for sl in slots)))
+
+
+def _list_args(counts, cand_rows, width, height):
+    tiles_x, n_tiles, sx, sy = _grid(width, height)
+    dev = cand_rows.device
+    _cuda.require(counts, "counts", (n_tiles,), dtype=torch.int32,
+                  device=dev)
+    if cand_rows.dim() != 3 or cand_rows.shape[0] != n_tiles or \
+            cand_rows.shape[2] != 16:
+        raise ValueError(f"cand_rows: expected ({n_tiles}, K, 16), got "
+                         f"{tuple(cand_rows.shape)}")
+    _cuda.require(cand_rows, "cand_rows", device=dev)
+    return tiles_x, n_tiles, sx, sy, dev
+
+
+def list_raster(counts, cand_rows, width: int, height: int, prev_w=None):
+    """K9 wrapper: the nearest inside fragment per pixel, strictly behind
+    ``prev_w`` ((tiles, TILE_H, TILE_W) view depth; None: in front of the
+    camera) -> (id int32, b1, b2, w), each (tiles, TILE_H, TILE_W)."""
+    if not cand_rows.is_cuda:
+        return list_raster_plain(counts, cand_rows, width, height, prev_w)
+    tiles_x, n_tiles, sx, sy, dev = _list_args(counts, cand_rows, width,
+                                               height)
+    if prev_w is not None:
+        _cuda.require(prev_w, "prev_w", (n_tiles, TILE_H, TILE_W),
+                      device=dev)
+    shape = (n_tiles, TILE_H, TILE_W)
+    tid = torch.empty(shape, dtype=torch.int32, device=dev)
+    b1, b2, w = (torch.empty(shape, dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    lib = _cuda.library()
+    global list_launches
+    list_launches += 1
+    _cuda.check(lib.sge_list_raster(
+        counts.data_ptr(), cand_rows.data_ptr(), _cuda.ptr(prev_w), n_tiles,
+        cand_rows.shape[1], sx, sy, tiles_x, tid.data_ptr(), b1.data_ptr(),
+        b2.data_ptr(), w.data_ptr(), _cuda.stream_ptr(cand_rows)),
+        "sge_list_raster")
+    return tid, b1, b2, w
+
+
+def list_raster_peeled(counts, cand_rows, width: int, height: int,
+                       layers: int):
+    """K10 wrapper: the ``layers`` nearest inside fragments per pixel ->
+    (id int32, b1, b2, w), each (tiles, layers, TILE_H, TILE_W)."""
+    if not 1 <= layers <= 3:
+        raise ValueError(f"layers must be 1..3, got {layers}")
+    if not cand_rows.is_cuda:
+        return list_raster_peeled_plain(counts, cand_rows, width, height,
+                                        layers)
+    tiles_x, n_tiles, sx, sy, dev = _list_args(counts, cand_rows, width,
+                                               height)
+    shape = (n_tiles, layers, TILE_H, TILE_W)
+    tid = torch.empty(shape, dtype=torch.int32, device=dev)
+    b1, b2, w = (torch.empty(shape, dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    lib = _cuda.library()
+    global peel_launches
+    peel_launches += 1
+    _cuda.check(lib.sge_list_peeled(
+        counts.data_ptr(), cand_rows.data_ptr(), n_tiles, cand_rows.shape[1],
+        sx, sy, tiles_x, layers, tid.data_ptr(), b1.data_ptr(),
+        b2.data_ptr(), w.data_ptr(), _cuda.stream_ptr(cand_rows)),
+        "sge_list_peeled")
+    return tid, b1, b2, w
+
+
+def rasterize(v0, v1, v2, view_proj, cam_pos, width: int, height: int,
+              prev_w=None) -> RasterHits:
+    """List-binned rasterization (K9) -> scanline (H*W,) RasterHits with ray
+    t from ``cam_pos``. ``prev_w``: optional (H*W,) view depth of the
+    previous layer — the nearest fragment strictly behind it (depth
+    peeling); pixels past the image's edge are padded with BIG."""
+    cand, counts, overflowed = setup_lists(v0, v1, v2, view_proj, width,
+                                           height, RASTER_K)
+    prev = None
+    if prev_w is not None:
+        tiles_x = -(-width // TILE_W)
+        tiles_y = -(-height // TILE_H)
+        img = torch.nn.functional.pad(
+            prev_w.to(torch.float32).reshape(height, width),
+            (0, tiles_x * TILE_W - width, 0, tiles_y * TILE_H - height),
+            value=BIG)
+        prev = img.reshape(tiles_y, TILE_H, tiles_x, TILE_W).permute(
+            0, 2, 1, 3).reshape(-1, TILE_H, TILE_W).contiguous()
+    tid, b1, b2, w = list_raster(counts, cand, width, height, prev)
+    return _scanline_hits(tid[:, None], b1[:, None], b2[:, None],
+                          w[:, None], width, height, (v0, v1, v2), cam_pos,
+                          overflowed)[0]
+
+
+def rasterize_peeled(v0, v1, v2, view_proj, cam_pos, width: int,
+                     height: int, layers: int):
+    """One-pass depth-peeled list rasterization (K10) -> list of ``layers``
+    scanline RasterHits (nearest fragment, second-nearest, ...)."""
+    cand, counts, overflowed = setup_lists(v0, v1, v2, view_proj, width,
+                                           height, RASTER_K)
+    return _scanline_hits(*list_raster_peeled(counts, cand, width, height,
+                                              layers),
+                          width, height, (v0, v1, v2), cam_pos, overflowed)

@@ -4,10 +4,16 @@
 (scene/engine.py:385-459) step for step: dt clamp <= 0.1, time advance
 (scaled and unscaled) and the fixed-step accumulator, player intent and
 exposure input, the chase camera, the camera-relative rebase of the
-instance transforms (scene/step.py:387), ``flatten_frame``, the RT
-``render_frame`` (``primary="hybrid"`` or ``"trace"``) at the RT target
-size, the bilinear upscale to the drawable, ``composite_frame``, u8
-quantisation and the FPS overlay.
+instance transforms (scene/step.py:387), ``flatten_frame``, the frame at
+the RT target size, the bilinear upscale to the drawable, ``composite_frame``,
+u8 quantisation and the FPS overlay. The frame is the reference's ``path``
+(scene/engine.py:143-177,226-237):
+
+  * ``"rt"``: the RT ``render_frame`` (``primary="hybrid"`` or
+    ``"trace"``) with its mirror and refraction bounces;
+  * ``"raster_pbr"``: the same RT frame with both bounces off;
+  * ``"raster"``: ``render_frame_raster`` (2 layers, ``raster_mode``
+    "clusters" or "lists"), which tone-maps per material: no composite.
 
 The RT target is ``rt_resolution_scale`` times the drawable (at least 0.25,
 Renderer.swift:175); ``set_rt_resolution_scale`` changes it between frames
@@ -35,28 +41,38 @@ from ..render.camera import Camera
 from ..render.composite import FPSOverlay, composite_frame, overlay_blit_device
 from ..render.ibl import IBL
 from ..render import rt as RT
+from ..render.raster import RASTER_MODES, render_frame_raster
 from ..render.scene_geometry import flatten_frame
 from .input import InputFrame, InputSystem
 
 FIXED_DT = 1.0 / 60.0
 MAX_SUBSTEPS = 4
+PATHS = ("rt", "raster", "raster_pbr")
 
 
 class Engine:
     def __init__(self, scene, width: int = 640, height: int = 360,
                  path: str = "rt", rt_resolution_scale: float = 1.0,
                  max_layers: int = 3, shadow_layers: int = 4,
-                 primary: str = "hybrid", device="cuda"):
+                 primary: str = "hybrid", raster_mode: str = "clusters",
+                 layered: bool = True, shadow_prepass: bool = False,
+                 device="cuda"):
         """``scene``: a scene.demo_scene.DemoWorld (or anything with its
         fields: geometry, transforms, palettes, lights, player_position,
         movement) on ``device`` (the card unless asked otherwise).
-        ``primary``: the RT primary visibility mode, "hybrid" or "trace"."""
-        if path != "rt":
-            raise NotImplementedError(f"path={path!r}: only the RT path is "
-                                      "ported")
+        ``path``: "rt", "raster" or "raster_pbr" (see the module docstring).
+        ``primary``, ``layered``, ``shadow_prepass``, ``max_layers`` and
+        ``shadow_layers`` go to the RT frame (paths "rt", "raster_pbr"),
+        ``raster_mode`` to the raster frame; each keeps the reference's
+        default."""
+        if path not in PATHS:
+            raise ValueError(f"path must be one of {PATHS}, got {path!r}")
         if primary not in RT.PRIMARY_MODES:
             raise ValueError(f"primary must be one of {RT.PRIMARY_MODES}, "
                              f"got {primary!r}")
+        if raster_mode not in RASTER_MODES:
+            raise ValueError(f"raster_mode must be one of {RASTER_MODES}, "
+                             f"got {raster_mode!r}")
         self.device = resolve_device(device)
         self.geometry = scene.geometry
         self.lights = scene.lights
@@ -67,6 +83,8 @@ class Engine:
         self.width, self.height = width, height
         self.path = path
         self.primary = primary
+        self.raster_mode = raster_mode
+        self.layered, self.shadow_prepass = layered, shadow_prepass
         self.max_layers, self.shadow_layers = max_layers, shadow_layers
         self.set_rt_resolution_scale(rt_resolution_scale)
         self.camera = Camera()
@@ -121,6 +139,33 @@ class Engine:
             self.tone_mapping_exposure = min(
                 max(self.tone_mapping_exposure + delta * dt, 0.1), 2.0)
 
+    def render(self, fg, ivp, vp) -> torch.Tensor:
+        """The RT-target-size linear frame of ``self.path`` from the frame
+        geometry ``fg`` and the camera's (inverse) view-projection at the RT
+        size (scene/engine.py:155-169)."""
+        rw, rh = self.rt_size
+        if self.path == "raster":
+            return render_frame_raster(
+                self.geometry, fg, ivp, self.camera.position, rw, rh,
+                view_proj=vp, raster_mode=self.raster_mode)
+        bounce = self.path == "rt"
+        return RT.render_frame(
+            self.geometry, fg, self.ibl, self.lights, ivp,
+            self.camera.position, rw, rh, max_layers=self.max_layers,
+            shadow_layers=self.shadow_layers, view_proj=vp,
+            enable_mirror=bounce, enable_refraction=bounce,
+            primary=self.primary, layered=self.layered,
+            shadow_prepass=self.shadow_prepass)
+
+    def present(self, img) -> torch.Tensor:
+        """RT-target frame -> drawable-size u8: the upscale, the composite
+        where the path has one (not "raster", which tone-maps per
+        material), u8 quantisation (scene/engine.py:226-238)."""
+        img = self._upscale(img)
+        if self.path != "raster":
+            img = composite_frame(img, self.tone_mapping_exposure, True)
+        return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+
     def frame(self, dt: float, pad: Optional[InputFrame] = None,
               with_overlay: bool = True) -> torch.Tensor:
         """One frame -> (H, W, 3) uint8 tensor on the engine's device."""
@@ -148,12 +193,6 @@ class Engine:
         transforms = self.transforms.clone()
         transforms[:, :3, 3] -= torch.as_tensor(cam_world, device=dev)
         fg = flatten_frame(self.geometry, transforms, self.palettes)
-        img = RT.render_frame(
-            self.geometry, fg, self.ibl, self.lights,
-            torch.as_tensor(ivp, device=dev), self.camera.position, rw, rh,
-            max_layers=self.max_layers, shadow_layers=self.shadow_layers,
-            view_proj=torch.as_tensor(vp, device=dev), primary=self.primary)
-        img = composite_frame(self._upscale(img), self.tone_mapping_exposure,
-                              True)
-        u8 = (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
+        u8 = self.present(self.render(fg, torch.as_tensor(ivp, device=dev),
+                                      torch.as_tensor(vp, device=dev)))
         return overlay_blit_device(u8, fps)

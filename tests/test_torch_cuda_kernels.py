@@ -5,10 +5,14 @@ this file imports no jax and runs there without the conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Here (no CUDA device) every test skips. K5 (the layered shared-origin walk)
-and K7 (the shadow walk) walk each lane in the same order as their twins,
-so their records agree lane for lane. The twins themselves are held
-against the JAX reference by tests/test_torch_kernels.py on the CPU.
+Here (no CUDA device) every test skips. K5 (the layered shared-origin walk),
+K6 (the shared-origin closest hit), K7 (the shadow walk) and K8 (the
+any-hit prepass) walk each lane in the same order as their twins, so their
+records agree lane for lane; K9 and K10 (the list rasters) keep the same
+fragments as theirs. The twins themselves are held against the JAX
+reference by the CPU tests (tests/test_torch_kernels.py,
+test_torch_trace_kernels.py, test_torch_so_prepass.py,
+test_torch_raster.py).
 
 Inputs are seeded numpy triangle soups, larger than the CPU tests' so that
 the kernels walk many clusters and deep trees. Both sides evaluate the same
@@ -274,3 +278,91 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         RK.trace_shadow_factor(sr, torch.tensor([0.0, 1.0, 0.0]), o,
                                torch.ones(5, device=cuda))  # t_limit shape
+
+
+@pytest.mark.parametrize("floor", [False, True], ids=["no_floor", "floor"])
+def test_k6_kernel_matches_plain(walk_tree, floor):
+    dev = walk_tree.device
+    rng = np.random.default_rng(12)
+    o = torch.tensor([0.0, 3.0, 30.0], device=dev)
+    tgt = torch.as_tensor(rng.uniform(-14, 14, (20000, 3)).astype(np.float32),
+                          device=dev)
+    d = tgt - o
+    d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).contiguous()
+    t_max = torch.full((20000,), 3.0e38, device=dev)
+    t_max[::17] = 0.0                                     # inactive rays
+    so = RK.build_origin_rows(walk_tree, o)
+    t_floor = None
+    if floor:   # a continuation: past the first hit by a margin
+        t1, tri1 = RK.trace_rays_so_plain(so, o, d, t_max)
+        t_floor = torch.where(tri1 >= 0, t1 + 0.01, 1e-4).contiguous()
+    before = RK.so_closest_launches
+    kt, ktri = RK.trace_rays_so(so, o.tolist(), d, t_max, t_floor)
+    assert RK.so_closest_launches == before + 1
+    pt, ptri = RK.trace_rays_so_plain(so, o, d, t_max, t_floor)
+    torch.cuda.synchronize()
+    assert int((ptri >= 0).sum()) > 3000
+    agree(ktri, ptri, [kt], [pt])
+
+
+def test_k8_kernel_matches_plain(walk_tree):
+    dev = walk_tree.device
+    rng = np.random.default_rng(13)
+    o = torch.as_tensor(rng.uniform(-16, 16, (20000, 3)).astype(np.float32),
+                        device=dev)
+    d = torch.as_tensor(rng.normal(size=(20000, 3)).astype(np.float32),
+                        device=dev)
+    d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).contiguous()
+    t_lim = torch.full((20000,), 60.0, device=dev)
+    t_lim[::13] = 0.0                                     # blocked at once
+    t_lim[1::7] = 3.0                                     # short limits
+    before = RK.any_launches
+    k = RK.trace_shadow_any(walk_tree, o, d, t_lim)
+    assert RK.any_launches == before + 1
+    p = RK.trace_shadow_any_plain(walk_tree, o, d, t_lim)
+    torch.cuda.synchronize()
+    assert 3000 < int(p.sum()) < 19000
+    assert torch.equal(k, p)
+
+
+@pytest.fixture
+def list_case(cuda):
+    """The list binning of a 3,000-triangle soup at 320x180 (18 tiles), K
+    = 512 so that 3 tiles overflow."""
+    v0, v1, v2 = soup(23, 3000)
+    cam = Camera()
+    cam.position = np.array([0.0, 4.0, 22.0], np.float32)
+    vp = torch.as_tensor(cam.view_proj(W, H), device=cuda)
+    cand, counts, over = TR.setup_lists(
+        *(torch.as_tensor(v, device=cuda) for v in (v0, v1, v2)), vp, W, H,
+        k=512)
+    assert int(over) > 0
+    return cand, counts
+
+
+@pytest.mark.parametrize("peel", [False, True], ids=["first", "peel"])
+def test_k9_kernel_matches_plain(list_case, peel):
+    cand, counts = list_case
+    prev = None
+    if peel:   # behind the first layer's depth, with the frame's margin
+        w = TR.list_raster_plain(counts, cand, W, H)[3]
+        prev = torch.where(w < 1e30, w * 1.000001, 3.0e38).contiguous()
+    before = TR.list_launches
+    k = TR.list_raster(counts, cand, W, H, prev)
+    assert TR.list_launches == before + 1
+    p = TR.list_raster_plain(counts, cand, W, H, prev)
+    torch.cuda.synchronize()
+    assert int((p[0] >= 0).sum()) > 10000
+    agree(k[0], p[0], k[1:], p[1:])
+
+
+@pytest.mark.parametrize("layers", [1, 2, 3])
+def test_k10_kernel_matches_plain(list_case, layers):
+    cand, counts = list_case
+    before = TR.peel_launches
+    k = TR.list_raster_peeled(counts, cand, W, H, layers)
+    assert TR.peel_launches == before + 1
+    p = TR.list_raster_peeled_plain(counts, cand, W, H, layers)
+    torch.cuda.synchronize()
+    assert int((p[0][:, -1] >= 0).sum()) > 3000   # the deepest layer has hits
+    agree(k[0], p[0], k[1:], p[1:])

@@ -264,15 +264,18 @@ def test_large_tree_trace_branch_matches_reference(scene, monkeypatch):
     (100_000, 42_688, "clusters")])
 def test_shadow_source_follows_reference_rule(scene, lanes, rows, mode):
     """rt.py:1420-1452: cluster sweeps at >= 100k padded lanes, else the
-    walk at <= 22,000 rows, else the per-layer loop."""
+    walk at <= 22,000 rows, else the per-layer loop; the record kernels
+    need 1..4 shadow layers (else the loop, at any frame size)."""
     geo, tf, pal, lights, _ = scene
     pgeo = interop.scene_geometry(geo)
     pfg = p_sg.flatten_frame(pgeo, torch.as_tensor(tf), torch.as_tensor(pal))
     fake = pfg._replace(bvh=pfg.bvh._replace(rows=torch.zeros((rows, 128))))
-    got, consts = p_rt._shadow_mode(pgeo, fake if mode != "clusters" else pfg,
-                                    interop.lights(lights), lanes)
-    assert got == mode
-    assert (consts is None) == (mode == "loop")
+    for layers, want in ((4, mode), (1, mode), (0, "loop"), (5, "loop")):
+        got, consts = p_rt._shadow_mode(
+            pgeo, fake if mode != "clusters" else pfg,
+            interop.lights(lights), lanes, layers)
+        assert got == want, (layers, got)
+        assert (consts is None) == (want == "loop")
 
 
 # --------------------------------------------------------------- Engine
