@@ -50,7 +50,7 @@ and read just after. Then:
     versions, must agree (>= 99% of pixels within 1e-4, means within
     0.1%): a 320x180 hybrid render of the full scene (73,728 lanes, with
     the cluster threshold lowered to 0 so that its shadows take the
-    cluster sweeps K2/K3, as paths 1 and 2 do), a 240x135 traced render of
+    cluster sweeps K2/K3, as paths 1 and 2 do), a 160x90 traced render of
     the decimated scene (K5, K7), a 480x270 list-binned raster frame (K9)
     and a 160x90 frame configured as path 6 (K6, K8, K4).
 
@@ -165,14 +165,16 @@ def _compare(name, key_k, key_p, vals_k, vals_p):
 
 
 def _nbytes(tensors):
-    return sum(t.numel() * t.element_size() for t in tensors
-               if t is not None)
+    """Bytes of the tensors; an int stands for the bytes of the part of an
+    input that the function reads."""
+    return sum(t if isinstance(t, int) else t.numel() * t.element_size()
+               for t in tensors if t is not None)
 
 
 def _bound(inputs, outputs, ops):
     """(bound_ms, bound_by): the larger of the bytes (each input read once,
-    each output written once) over the memory rate and the operations over
-    the FP32 rate."""
+    each output written once; ints: bytes) over the memory rate and the
+    operations over the FP32 rate."""
     t_bytes = _nbytes(inputs + outputs) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -643,10 +645,14 @@ def main():
                _bound([rows, o, d, t_lim], [out8], ops8),
                f" (plain on {sub.numel()} of {n} rays)")
 
-    def list_ops(counts_t):
-        """Edge tests of a list raster: every pixel of a tile against each
-        of its candidates."""
-        return int(counts_t.sum()) * TR.TILE_H * TR.TILE_W * EDGE_OPS
+    def list_bound(cnt, cand, prev, outs):
+        """As K1 is bounded: the candidate rows the tiles' counts name, read
+        once (the rest of the K-padded lists is never read), the counts,
+        ``prev`` and the outputs, and one fragment test per record
+        written."""
+        rows_read = int(cnt.sum()) * cand.shape[2] * cand.element_size()
+        return ([cnt, rows_read, prev], list(outs),
+                int((outs[0] >= 0).sum()) * EDGE_OPS)
 
     def check_k9(args, launches, tag):
         err = ms = plain_ms = 0.0
@@ -664,9 +670,8 @@ def main():
                 f"{int(cnt.sum())} candidates)", k9[0], p9[0], k9[1:],
                 p9[1:]))
             ms += _time_ms(lambda: TR.list_raster(cnt, cand, w, h, prev), 5)
-            ins += [cnt, cand, prev]
-            outs += list(k9)
-            ops += list_ops(cnt)
+            i9, o9, n9 = list_bound(cnt, cand, prev, k9)
+            ins, outs, ops = ins + i9, outs + o9, ops + n9
         report("list_raster" + tag,
                "swift_game_engine_tpu_torch/csrc/raster_lists.cu",
                "swift_game_engine_tpu/render/tile_raster.py:154", launches,
@@ -690,7 +695,7 @@ def main():
                err, _time_ms(lambda: TR.list_raster_peeled(cnt, cand, w, h, 2),
                              5),
                plain_ms,
-               _bound([cnt, cand], list(k10), list_ops(cnt)),
+               _bound(*list_bound(cnt, cand, None, k10)),
                " (no path runs it: path 5's candidate lists)")
 
     checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3, "K4": check_k4,
@@ -769,9 +774,9 @@ def main():
     end_to_end("hybrid, full scene, cluster shadows", engines[PATHS[0]],
                scenes[PATHS[0]], 320, 180, 0, shadow_layers=SHADOW_LAYERS,
                primary="hybrid")
-    # the shadow walk at 40,960 lanes, as path 3 takes it
+    # the shadow walk under the cluster threshold, as path 3 takes it
     end_to_end("trace, decimated scene, shadow walk", engines[PATHS[1]],
-               scenes[PATHS[1]], 240, 135, shadow_layers=SHADOW_LAYERS,
+               scenes[PATHS[1]], 160, 90, shadow_layers=SHADOW_LAYERS,
                primary="trace")
     # path 5's list raster (K9, two peels)
     end_to_end("raster, decimated scene, lists", engines[PATHS[4]],

@@ -568,7 +568,9 @@ def trace_shadow_any_plain(rows, o, d, t_limit, counts=None):
     else jump to skip); at a leaf its box hits, the slots' Moller-Trumbore
     tests in the kernel's operation order; a ray stops at its first opaque
     hit (the slots tested at once: any opaque hit, whatever its slot).
-    ``counts``: as for trace_shadow_factor_plain."""
+    ``counts``: as for trace_shadow_factor_plain; "slot" counts the
+    Moller-Trumbore tests the kernel makes: the opaque slots up to the
+    first opaque hit."""
     n = o.shape[0]
     inv = _safe_inv(d)
     blocked = t_limit <= 0
@@ -583,12 +585,16 @@ def trace_shadow_any_plain(rows, o, d, t_limit, counts=None):
         li = torch.nonzero(leaf & box).squeeze(1)
         if counts is not None:
             counts["box"] = counts.get("box", 0) + idx.numel()
-            counts["slot"] = counts.get("slot", 0) + SLOT_N * li.numel()
         hit_any = torch.zeros_like(box)
         if li.numel():
             t, crosses, ids = _mt_leaf(rows[nd[li]], oi[li], d[idx[li]])
-            hit = (crosses & (t > 1e-4) & (t < tl[li, None]) &
-                   (ids == torch.floor(ids))).any(1)
+            opaque = (ids >= 0) & (ids == torch.floor(ids))
+            hits = crosses & (t > 1e-4) & (t < tl[li, None]) & opaque
+            if counts is not None:     # no hit in an earlier slot
+                before = (torch.cumsum(hits.int(), 1) - hits.int()) == 0
+                counts["slot"] = counts.get("slot", 0) + \
+                    int((opaque & before).sum())
+            hit = hits.any(1)
             hit_any[li] = hit
             blocked[idx[li]] = hit
         nxt = torch.where(box & ~leaf, nd + 1, h[:, 6].to(torch.int64))
