@@ -104,6 +104,7 @@ WALK_SLOT_OPS = 26    # K7 slot: 3 dots (15), 3 subtracts, compares
 MT_OPS = 45           # K4 Moller-Trumbore slot test
 EDGE_OPS = 20         # K1/K9/K10 edge functions and depth of a fragment
 SWEEP_OPS = 26        # K2/K3 slot: 3 dots (15), 3 subtracts, compares
+META_OPS = 12         # K2 cluster entry against a footprint or a lane
 
 
 def _fail(msg):
@@ -178,6 +179,30 @@ def _bound(inputs, outputs, ops):
     t_bytes = _nbytes(inputs + outputs) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _count_line(cnt, per_warp=32):
+    """mean / p99 / max of each per-lane count and of the per-warp maxima
+    of the per-lane counts (``per_warp`` lanes a warp); per-warp counts
+    (``warp_*``) as they are."""
+    import torch
+    out = []
+    for k, v in cnt.items():
+        v = v.double()
+        if not k.startswith("warp_"):
+            pad = (-v.numel()) % per_warp
+            w = torch.cat([v, v.new_zeros(pad)]).reshape(-1, per_warp)
+            out.append(f"{k} {_stats(v)} (per-warp max {_stats(w.amax(1))})")
+        else:
+            out.append(f"{k} {_stats(v)}")
+    return "; ".join(out)
+
+
+def _stats(v):
+    import torch
+    return (f"mean {float(v.mean()):.1f} p99 "
+            f"{float(torch.quantile(v, 0.99)):.0f} max {float(v.max()):.0f} "
+            f"sum {float(v.sum()):.0f}")
 
 
 def _subset(n, device):
@@ -329,7 +354,9 @@ def main():
         rows_n = (g.topo.node_count + 7) // 8 * 8
         print(f"scene ({label}): {g.tri.shape[0]} triangles, "
               f"{int(g.tri_translucent.sum())} translucent, "
-              f"{g.topo.node_count} BVH nodes, {rows_n} rows, built in "
+              f"{g.topo.node_count} BVH nodes ({len(g.topo.levels)} interior "
+              f"levels), {rows_n} rows, {g.topo.wide_index.shape[0]} wide "
+              f"nodes (stack bound {g.topo.wide_stack}), built in "
               f"{seconds:.1f} s")
         return rows_n
 
@@ -412,8 +439,10 @@ def main():
     results = []
 
     def report(name, source, replaces, launches, err, ms, plain_ms, bound,
-               extra=""):
+               extra="", floor=None):
         bound_ms, bound_by = bound
+        if floor is not None:   # the bytes floor beside the counted bound
+            extra += f", bytes floor {floor[0]:.4f} ms"
         results.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -484,13 +513,23 @@ def main():
                 _fail("K2 any-hit records are not factor-equivalent")
         else:
             any_k = exact_k
+        # the work of the frame's call, from the counting instantiation
+        any_c, cnt = CS.trace_shadow_occl_counts(sc, o, t_lim, tt)
+        if not torch.equal(any_c, any_k):
+            _fail("K2's counting instantiation differs from the kernel")
+        print(f"  K2 work ({sc.meta.shape[0]} clusters of {sc.cluster}): "
+              + _count_line(cnt))
+        ops = (int(cnt["lane_tri"].sum()) * SWEEP_OPS +
+               (int(cnt["warp_meta"].sum()) + int(cnt["lane_meta"].sum())) *
+               META_OPS)
         report("shadow_occl" + tag, "swift_game_engine_tpu_torch/csrc/"
                "cluster_shadow.cu", "swift_game_engine_tpu/ops/"
                "cluster_shadow.py:541", launches, err,
                _time_ms(lambda: CS.trace_shadow_occl(sc, o, t_lim, tt=tt), 5),
                plain_ms,
                _bound([sc.rows, sc.meta, sc.basis, o, t_lim, tt], [any_k],
-                      int((any_k < 1e30).sum()) * SWEEP_OPS))
+                      ops), floor=_bound([sc.rows, sc.meta, sc.basis, o,
+                                          t_lim, tt], [any_k], 0))
 
     def check_k3(args, launches, tag):
         (sc, o, t_lim, *rest), kw = args["K3"]
@@ -514,19 +553,27 @@ def main():
                       * SWEEP_OPS))
 
     def check_k4(args, launches, tag):
-        (rows, o, d, t_max), _ = args["K4"]
-        t_k, tri_k = RK.trace_rays(rows, o, d, t_max)
+        (tree, o, d, t_max), _ = args["K4"]
+        t_k, tri_k = RK.trace_rays(tree, o, d, t_max)
         (t_p, tri_p), plain_ms = _timed(lambda: RK.trace_rays_plain(
-            rows, o, d, t_max))
-        err = _compare(f"K4 ({o.shape[0]} rays, {rows.shape[0]} rows)",
-                       tri_k, tri_p, [t_k], [t_p])
+            tree, o, d, t_max))
+        err = _compare(f"K4 ({o.shape[0]} rays, {tree.rows.shape[0]} rows, "
+                       f"{tree.nodes.shape[0]} wide nodes)", tri_k, tri_p,
+                       [t_k], [t_p])
+        # the work of the frame's call, from the counting instantiation
+        t_c, tri_c, cnt, group = RK.trace_rays_counts(tree, o, d, t_max)
+        if not (torch.equal(tri_c, tri_k) and torch.equal(t_c, t_k)):
+            _fail("K4's counting instantiation differs from the kernel")
+        print(f"  K4 work ({group} threads a ray, stack {tree.stack}): "
+              + _count_line(cnt, 32 // group))
+        ops = int(cnt["nodes"].sum()) * RK.WIDE * SLAB_OPS + \
+            int(cnt["slots"].sum()) * MT_OPS
+        ins, outs = [tree.nodes, tree.rows, o, d, t_max], [t_k, tri_k]
         report("trace_closest" + tag, "swift_game_engine_tpu_torch/csrc/"
                "bvh_trace.cu", "swift_game_engine_tpu/ops/rt_kernel.py:794",
                launches, err,
-               _time_ms(lambda: RK.trace_rays(rows, o, d, t_max), 5),
-               plain_ms,
-               _bound([rows, o, d, t_max], [t_k, tri_k],
-                      int((tri_k >= 0).sum()) * MT_OPS))
+               _time_ms(lambda: RK.trace_rays(tree, o, d, t_max), 5),
+               plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0))
 
     def check_k5(args, launches, tag):
         (so_rows, origin, d, t_max), kw = args["K5"]

@@ -1,4 +1,4 @@
-// K4: closest-hit BVH traversal over the packed (M,128) row-per-node tree.
+// K4: closest-hit BVH traversal over the 4-wide tree.
 //
 // Replaces swift_game_engine_tpu/ops/rt_kernel.py:_kernel_stream (wrapper
 // trace_rays_pallas), the member that serves trees past the TPU's 26k-node
@@ -8,18 +8,34 @@
 // 1e-4 < t < t_max, Moller-Trumbore leaf tests, translucent ids (id + 0.5)
 // truncated to the triangle id.
 //
-// Row layout: [0:3] bmin, [3:6] bmax, [6] skip link, [7] leaf flag,
-// [8+9j : 17+9j] triangle j as (a, b-a, c-a), [116+j] triangle j's id.
+// Layouts (ops/rt_kernel.py): a wide node is one 128-byte line, its four
+// children's boxes as structure of arrays ([0:24]) and their refs
+// ([24:28]: >= 0 a wide node, -1 empty, <= -2 a leaf: -2 - ref = 16 row +
+// triangle count); a leaf's triangles are the packed row's slots
+// [8+9j : 17+9j] and ids [116+j].
 //
-// Design for Hopper: one thread per ray with a near-first stack walk
-// (interior node n has children n+1 and skip[n+1]; the nearer child by box
-// entry distance is visited first). The TPU kernels walk 4096-ray packets
-// with one shared cursor because the TPU has no vector gathers; a GPU
-// thread gathers its own nodes, so incoherent bounce rays do not drag a
-// packet through the union of their subtrees. The full DemoScene tree is
-// ~30k nodes x 512 B = ~16 MB, inside the 50 MB L2, so rows are read
-// straight from global memory with no streaming window. What bounds it is
-// dependent node loads (latency), hidden by many rays in flight.
+// What bound the one-thread-per-ray binary walk this replaces, on the
+// H100 (walk_counters.py, path 1's first bounce batch, 10,684 rays, 3.70
+// ms): the call lasted as long as its slowest ray's chain of dependent
+// node loads, up to 2,164 (two per binary node: the right child's index
+// sat in the left child's row), with its stack in local memory and a
+// leaf's 12 slot tests one after another; 42 blocks left most SMs idle.
+// The tree's top 6 levels took 6.5% of the node visits, so the top of the
+// tree is not kept in shared memory. This design takes 1.19 ms on that
+// batch, still bound by its slowest ray's chain: 434 wide-node and 521
+// leaf steps, about 1.2 us each, against 0.021 ms for its operations:
+//   * one dependent load per step: a step reads one wide-node line, tests
+//     all four child boxes against the ray's best t, goes on to the
+//     nearest hit child and stacks the others farthest first;
+//   * the stack lives in shared memory, per ray, sized by the tree's own
+//     bound (the largest sum of children less one down a root-to-leaf
+//     path, computed with the topology and checked at build);
+//   * G threads per ray (the wrapper's rule: 4 while 4n threads fit on the
+//     card, else 1): with G = 4 each thread tests one child box and 3 of a
+//     leaf's 12 slots, and the group shares the results by warp shuffles,
+//     so a small batch's slowest ray runs its steps four-wide;
+//   * a counting instantiation (COUNT, with a null counts pointer in
+//     production) reports each ray's wide nodes, leaves and slot tests.
 //
 // K8: any-hit occlusion against OPAQUE triangles (integral ids), the shadow
 // prepass. Replaces swift_game_engine_tpu/ops/rt_kernel.py:
@@ -74,64 +90,200 @@ __device__ __forceinline__ bool mt_hit(const float* __restrict__ tr, float ox,
   return u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f;
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS)
-trace_closest_kernel(const float* __restrict__ rows,
-                     const float* __restrict__ o, const float* __restrict__ d,
-                     const float* __restrict__ t_max, int64_t n,
-                     float* __restrict__ t_out, int32_t* __restrict__ tri_out) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+constexpr int WIDE = 4;
+constexpr int NODE_F = 32;          // f32 per wide node: one 128-byte line
+constexpr int TRACE_THREADS = 128;
+
+__device__ __forceinline__ float lane4(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// The slab test of `slab` (common.cuh) on one child's box held in registers.
+__device__ __forceinline__ float child_slab(float lx, float ly, float lz,
+                                            float hx, float hy, float hz,
+                                            float ox, float oy, float oz,
+                                            float ix, float iy, float iz,
+                                            float bound, bool& hit) {
+  const float tx0 = (lx - ox) * ix, tx1 = (hx - ox) * ix;
+  const float ty0 = (ly - oy) * iy, ty1 = (hy - oy) * iy;
+  const float tz0 = (lz - oz) * iz, tz1 = (hz - oz) * iz;
+  const float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                           fminf(tz0, tz1));
+  const float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                           fmaxf(tz0, tz1));
+  hit = tmax >= fmaxf(tmin, 0.0f) && tmin < bound;
+  return tmin;
+}
+
+// Compare-exchange of the child order: b moves ahead of a only when its
+// entry distance is strictly smaller (ops/rt_kernel.py _SORT4).
+__device__ __forceinline__ void cswap(float (&t)[WIDE], int (&r)[WIDE],
+                                      int a, int b) {
+  const bool sw = t[b] < t[a];
+  const float ta = t[a], tb = t[b];
+  const int ra = r[a], rb = r[b];
+  t[a] = sw ? tb : ta; t[b] = sw ? ta : tb;
+  r[a] = sw ? rb : ra; r[b] = sw ? ra : rb;
+}
+
+// G threads per ray; G = 1 or WIDE. The per-ray stack is stack_n entries
+// of (ref, entry distance) in dynamic shared memory, one column per ray.
+template <int G, bool COUNT>
+__global__ void __launch_bounds__(TRACE_THREADS)
+trace_wide_kernel(const float* __restrict__ nodes,
+                  const float* __restrict__ rows, const float* __restrict__ o,
+                  const float* __restrict__ d,
+                  const float* __restrict__ t_max, int64_t n, int stack_n,
+                  int32_t* __restrict__ counts, float* __restrict__ t_out,
+                  int32_t* __restrict__ tri_out) {
+  static_assert(G == 1 || G == WIDE, "one thread per ray or per child");
+  constexpr int RPB = TRACE_THREADS / G;   // rays per block
+  extern __shared__ float4 smem4[];
+  int* st_ref = reinterpret_cast<int*>(smem4);
+  float* st_t = reinterpret_cast<float*>(st_ref + stack_n * RPB);
+  const int slot = threadIdx.x / G;
+  const int k = threadIdx.x % G;
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned mask = G == 1 ? 1u << lane
+                               : ((1u << G) - 1u) << (lane & ~unsigned(G - 1));
+  const int64_t i = int64_t(blockIdx.x) * RPB + slot;
+  if (i >= n) return;                      // the whole group leaves
   const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1),
               oz = __ldg(o + 3 * i + 2);
   const float dx = __ldg(d + 3 * i), dy = __ldg(d + 3 * i + 1),
               dz = __ldg(d + 3 * i + 2);
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  const float INF = __int_as_float(0x7f800000);
   float t_best = __ldg(t_max + i);
   float tri_best = -1.0f;
-
-  int stack_node[STACK];
-  float stack_t[STACK];
-  int sp = 0;
-  bool hit;
-  const float t_root = box(rows, 0, ox, oy, oz, ix, iy, iz, t_best, hit);
-  if (hit) { stack_node[0] = 0; stack_t[0] = t_root; sp = 1; }
-  while (sp > 0) {
-    --sp;
-    const int node = stack_node[sp];
-    if (!(stack_t[sp] < t_best)) continue;  // pruned by a nearer hit
-    const float* row = rows + int64_t(node) * ROW;
-    if (__ldg(row + 7) > 0.5f) {
-#pragma unroll 4
-      for (int j = 0; j < SLOT_N; ++j) {
-        const float tri_id = __ldg(row + 8 + 9 * SLOT_N + j);
-        float t;
-        if (tri_id >= 0.0f &&
-            mt_hit(row + 8 + 9 * j, ox, oy, oz, dx, dy, dz, t) &&
-            t > 1e-4f && t < t_best) {
-          t_best = t;
-          tri_best = tri_id;
+  int cur = 0, sp = 0;
+  int n_nodes = 0, n_leaves = 0, n_slots = 0;
+  while (true) {
+    if (cur >= 0) {                        // wide node: one line
+      const float* nd = nodes + int64_t(cur) * NODE_F;
+      float ct[WIDE];
+      int cr[WIDE];
+      if constexpr (G == 1) {
+        const float4* q = reinterpret_cast<const float4*>(nd);
+        const float4 lx = __ldg(q), ly = __ldg(q + 1), lz = __ldg(q + 2),
+                     hx = __ldg(q + 3), hy = __ldg(q + 4), hz = __ldg(q + 5),
+                     rf = __ldg(q + 6);
+#pragma unroll
+        for (int c = 0; c < WIDE; ++c) {
+          bool hit;
+          const float tm = child_slab(
+              lane4(lx, c), lane4(ly, c), lane4(lz, c), lane4(hx, c),
+              lane4(hy, c), lane4(hz, c), ox, oy, oz, ix, iy, iz, t_best, hit);
+          cr[c] = int(lane4(rf, c));
+          ct[c] = hit && cr[c] != -1 ? tm : INF;
+        }
+      } else {                             // thread k tests child k
+        bool hit;
+        const float tm = child_slab(
+            __ldg(nd + k), __ldg(nd + 4 + k), __ldg(nd + 8 + k),
+            __ldg(nd + 12 + k), __ldg(nd + 16 + k), __ldg(nd + 20 + k), ox,
+            oy, oz, ix, iy, iz, t_best, hit);
+        const int rf = int(__ldg(nd + 24 + k));
+        const float mine = hit && rf != -1 ? tm : INF;
+#pragma unroll
+        for (int c = 0; c < WIDE; ++c) {
+          ct[c] = __shfl_sync(mask, mine, c, G);
+          cr[c] = __shfl_sync(mask, rf, c, G);
         }
       }
-      continue;
+      cswap(ct, cr, 0, 1); cswap(ct, cr, 2, 3); cswap(ct, cr, 0, 2);
+      cswap(ct, cr, 1, 3); cswap(ct, cr, 1, 2);
+      int h = 0;
+#pragma unroll
+      for (int c = 0; c < WIDE; ++c) h += ct[c] < INF;
+      if (COUNT) ++n_nodes;
+      if (h > 0) {                         // nearest next, the rest stacked
+        cur = cr[0];
+        if (G > 1) __syncwarp(mask);       // every pop of the group is done
+#pragma unroll
+        for (int c = WIDE - 1; c >= 1; --c) {
+          if (c < h) {
+            if (k == 0) {
+              st_ref[sp * RPB + slot] = cr[c];
+              st_t[sp * RPB + slot] = ct[c];
+            }
+            ++sp;
+          }
+        }
+        if (G > 1) __syncwarp(mask);
+        continue;
+      }
+    } else {                               // leaf: its slots, G at a time
+      const int code = -2 - cur;
+      const int cnt = code & 15;
+      const float* r = rows + int64_t(code >> 4) * ROW;
+      float bt = t_best;
+      int bj = -1;
+      for (int j = k; j < cnt; j += G) {
+        float t;
+        if (mt_hit(r + 8 + 9 * j, ox, oy, oz, dx, dy, dz, t) && t > 1e-4f &&
+            t < bt) {
+          bt = t;
+          bj = j;
+        }
+      }
+      if constexpr (G > 1) {               // nearest, first slot among equals
+#pragma unroll
+        for (int off = 1; off < G; off <<= 1) {
+          const float ot = __shfl_xor_sync(mask, bt, off, G);
+          const int oj = __shfl_xor_sync(mask, bj, off, G);
+          if (ot < bt || (ot == bt && oj < bj)) {
+            bt = ot;
+            bj = oj;
+          }
+        }
+      }
+      if (bj >= 0) {
+        t_best = bt;
+        tri_best = __ldg(r + 8 + 9 * SLOT_N + bj);
+      }
+      if (COUNT) {
+        ++n_leaves;
+        n_slots += cnt;
+      }
     }
-    const int l = node + 1;
-    const int r = int(__ldg(rows + int64_t(l) * ROW + 6));
-    bool hl, hr;
-    const float tl = box(rows, l, ox, oy, oz, ix, iy, iz, t_best, hl);
-    const float tr = box(rows, r, ox, oy, oz, ix, iy, iz, t_best, hr);
-    // push the far child first so the near one pops next
-    if (hl && hr) {
-      const bool left_near = tl <= tr;
-      stack_node[sp] = left_near ? r : l; stack_t[sp] = left_near ? tr : tl; ++sp;
-      stack_node[sp] = left_near ? l : r; stack_t[sp] = left_near ? tl : tr; ++sp;
-    } else if (hl) {
-      stack_node[sp] = l; stack_t[sp] = tl; ++sp;
-    } else if (hr) {
-      stack_node[sp] = r; stack_t[sp] = tr; ++sp;
+    bool found = false;                    // pop the nearest live entry
+    while (sp > 0) {
+      --sp;
+      if (st_t[sp * RPB + slot] < t_best) {
+        cur = st_ref[sp * RPB + slot];
+        found = true;
+        break;
+      }
+    }
+    if (!found) break;
+  }
+  if (k == 0) {
+    t_out[i] = t_best;
+    tri_out[i] = int32_t(tri_best);
+    if (COUNT) {
+      counts[i] = n_nodes;
+      counts[n + i] = n_leaves;
+      counts[2 * n + i] = n_slots;
     }
   }
-  t_out[i] = t_best;
-  tri_out[i] = int32_t(tri_best);
+}
+
+template <int G, bool COUNT>
+int launch_trace(const float* nodes, const float* rows, const float* o,
+                 const float* d, const float* t_max, int64_t n, int stack_n,
+                 int32_t* counts, float* t, int32_t* tri, cudaStream_t st) {
+  constexpr int RPB = TRACE_THREADS / G;
+  const size_t smem = size_t(stack_n) * RPB * 8;
+  auto kern = trace_wide_kernel<G, COUNT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  kern<<<unsigned((n + RPB - 1) / RPB), TRACE_THREADS, smem, st>>>(
+      nodes, rows, o, d, t_max, n, stack_n, counts, t, tri);
+  return int(cudaGetLastError());
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS)
@@ -173,15 +325,29 @@ shadow_any_kernel(const float* __restrict__ rows, const float* __restrict__ o,
 }  // namespace
 }  // namespace sge
 
-// rows (M_pad,128), o/d (N,3), t_max (N,). Out: t (N,), tri (N,) int32.
-SGE_API int sge_trace_closest(const float* rows, const float* o,
-                              const float* d, const float* t_max, int64_t n,
-                              float* t, int32_t* tri, void* stream) {
-  if (n > 0)
-    sge::trace_closest_kernel<<<sge::blocks_for(n), sge::BLOCK_THREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        rows, o, d, t_max, n, t, tri);
-  return int(cudaGetLastError());
+// nodes (W,32) wide nodes, rows (M_pad,128), o/d (N,3), t_max (N,);
+// stack_n: the tree's stack bound; group: threads per ray (1 or 4);
+// counts: (3,N) int32 per-ray work, or null. Out: t (N,), tri (N,) int32.
+SGE_API int sge_trace_closest(const float* nodes, const float* rows,
+                              const float* o, const float* d,
+                              const float* t_max, int64_t n, int stack_n,
+                              int group, int32_t* counts, float* t,
+                              int32_t* tri, void* stream) {
+  if (n == 0) return int(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (group == 1)
+    return counts ? sge::launch_trace<1, true>(nodes, rows, o, d, t_max, n,
+                                               stack_n, counts, t, tri, st)
+                  : sge::launch_trace<1, false>(nodes, rows, o, d, t_max, n,
+                                                stack_n, counts, t, tri, st);
+  if (group == sge::WIDE)
+    return counts ? sge::launch_trace<sge::WIDE, true>(
+                        nodes, rows, o, d, t_max, n, stack_n, counts, t, tri,
+                        st)
+                  : sge::launch_trace<sge::WIDE, false>(
+                        nodes, rows, o, d, t_max, n, stack_n, counts, t, tri,
+                        st);
+  return int(cudaErrorInvalidValue);
 }
 
 // rows (M_pad,128), o/d (N,3), t_lim (N,). Out: blocked (N,) bool.

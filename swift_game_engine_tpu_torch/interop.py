@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.rt_kernel import wide_tree
 from .render.bvh import BVHArrays
 from .render.ibl import IBL
 from .render.rt import DirectionalLights
@@ -60,13 +61,14 @@ def scene_geometry(geo, topo=None, device=None) -> SceneGeometry:
 def frame_geometry(fg, device=None) -> FrameGeometry:
     """The reference's FrameGeometry (with its BVHArrays) on ``device``."""
     b = _get(fg, "bvh")
+    rows = _t(_get(b, "rows"), device)
     bvh = BVHArrays(
         bmin=_t(_get(b, "bmin"), device), bmax=_t(_get(b, "bmax"), device),
         skip=_t(_get(b, "skip"), device, torch.int32),
         is_leaf=_t(_get(b, "is_leaf"), device, torch.bool),
         slot_tri=_t(_get(b, "slot_tri"), device, torch.int64),
         v0=_t(_get(b, "v0"), device), v1=_t(_get(b, "v1"), device),
-        v2=_t(_get(b, "v2"), device), rows=_t(_get(b, "rows"), device))
+        v2=_t(_get(b, "v2"), device), rows=rows, wide=wide_tree(rows))
     return FrameGeometry(pos=_t(_get(fg, "pos"), device),
                          nrm=_t(_get(fg, "nrm"), device),
                          tan=_t(_get(fg, "tan"), device), bvh=bvh,

@@ -18,7 +18,10 @@ returned t_opq is then factor-equivalent, not the nearest.
 
 The wrappers launch ``csrc/cluster_shadow.cu`` for CUDA tensors and run the
 plain twins (dense lanes x triangles in chunks, ``topk`` for slots) only
-for CPU tensors.
+for CPU tensors. K2 is warp-cooperative: each warp of 32 consecutive lanes
+culls 32 cluster entries at a time against its lanes' footprint, stages
+the rows of the clusters its lanes enter in shared memory, and tests a
+GROUP of 32 rows only for the lanes whose point its box holds.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ EPS = 1e-6
 CLUSTER = 128         # SGE_SHADOW_CLUSTER
 TRANS_CLUSTER = 64    # translucent-subset cluster size
 
+OCCL_CHUNK = 64       # K2 stages a cluster's rows in chunks of this many
+GROUP = 32            # rows per culling group of K2
 occl_launches = 0     # K2 kernel launches since the last reset
 slots_launches = 0    # K3 kernel launches since the last reset
 
@@ -42,6 +47,9 @@ class ShadowClusters(NamedTuple):
     rows: torch.Tensor   # (Tp, 16) per-triangle constants, Morton order
     meta: torch.Tensor   # (C, 8) [a0, b0, a1, b1, d0, d1, base_row, 0]
     basis: torch.Tensor  # (3, 3): rows e1, e2, l
+    # (C * cluster / GROUP, 8): each GROUP rows' [a0, b0, a1, b1, d0, d1,
+    # 0, 0], clusters in meta's order (K2 culls a cluster's groups with it)
+    groups: torch.Tensor
 
     @property
     def cluster(self) -> int:
@@ -169,8 +177,22 @@ def build_shadow_clusters(v0, v1, v2, l, translucent, cluster: int = CLUSTER,
     meta = torch.stack([cmin(a_lo)[order], cmin(b_lo)[order],
                         cmax(a_hi)[order], cmax(b_hi)[order], cd0[order],
                         cmax(d_hi)[order], base, torch.zeros_like(base)], -1)
+    groups = torch.zeros((0, 8), device=rows.device)
+    if cluster % GROUP == 0:
+        per = cluster // GROUP
+
+        def gmin(a):
+            return a.reshape(n_clusters, per, GROUP).amin(2)[order]
+
+        def gmax(a):
+            return a.reshape(n_clusters, per, GROUP).amax(2)[order]
+        g = [gmin(a_lo), gmin(b_lo), gmax(a_hi), gmax(b_hi), gmin(d_lo),
+             gmax(d_hi)]
+        groups = torch.stack(g + [torch.zeros_like(g[0])] * 2,
+                             -1).reshape(-1, 8)
     return ShadowClusters(rows=rows.contiguous(), meta=meta.contiguous(),
-                          basis=torch.stack([e1b, e2b, lv]).contiguous())
+                          basis=torch.stack([e1b, e2b, lv]).contiguous(),
+                          groups=groups.contiguous())
 
 
 def build_shadow_split(v0, v1, v2, l, translucent, alpha=None,
@@ -267,6 +289,22 @@ def _check_inputs(sc: ShadowClusters, o, t_limit, extra=()):
             _cuda.require(x, name, (n,), device=dev)
 
 
+def _launch_occl(sc: ShadowClusters, o, t_limit, tt, counts):
+    _check_inputs(sc, o, t_limit, (("tt", tt),))
+    if sc.cluster % OCCL_CHUNK:
+        raise ValueError(f"cluster size {sc.cluster} is no multiple of "
+                         f"{OCCL_CHUNK}")
+    _cuda.require(sc.groups, "groups",
+                  (sc.meta.shape[0] * sc.cluster // GROUP, 8), device=o.device)
+    out = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
+    _cuda.check(_cuda.library().sge_shadow_occl(
+        sc.rows.data_ptr(), sc.meta.data_ptr(), sc.groups.data_ptr(),
+        sc.basis.data_ptr(), o.data_ptr(), t_limit.data_ptr(), _cuda.ptr(tt),
+        o.shape[0], sc.meta.shape[0], sc.cluster, _cuda.ptr(counts),
+        out.data_ptr(), _cuda.stream_ptr(o)), "sge_shadow_occl")
+    return out
+
+
 def trace_shadow_occl(sc: ShadowClusters, o, t_limit, tt=None):
     """Occlusion sweep (K2) -> (N,) nearest opaque t (BIG when unblocked,
     0 for dead lanes). ``tt``: per-lane settle threshold; a lane whose
@@ -274,18 +312,28 @@ def trace_shadow_occl(sc: ShadowClusters, o, t_limit, tt=None):
     lanes carry t_limit <= 0."""
     if not o.is_cuda:
         return trace_shadow_occl_plain(sc, o, t_limit)
-    _check_inputs(sc, o, t_limit, (("tt", tt),))
-    n = o.shape[0]
-    out = torch.empty(n, dtype=torch.float32, device=o.device)
-    lib = _cuda.library()
     global occl_launches
     occl_launches += 1
-    _cuda.check(lib.sge_shadow_occl(
-        sc.rows.data_ptr(), sc.meta.data_ptr(), sc.basis.data_ptr(),
-        o.data_ptr(), t_limit.data_ptr(), _cuda.ptr(tt), n,
-        sc.meta.shape[0], sc.cluster, out.data_ptr(),
-        _cuda.stream_ptr(o)), "sge_shadow_occl")
-    return out
+    return _launch_occl(sc, o, t_limit, tt, None)
+
+
+def trace_shadow_occl_counts(sc: ShadowClusters, o, t_limit, tt=None):
+    """K2's counting instantiation, on the card only (a measurement, not a
+    launch of the frame) -> (t_opq, counts): per lane "lane_meta" (footprint
+    survivors the lane tests itself), "lane_enter" (clusters it enters),
+    "lane_tri" (triangle rows it tests); per warp of 32 lanes "warp_meta"
+    (metadata entries its ballots test), "warp_surv" (footprint survivors),
+    "warp_enter" (clusters staged), "warp_tri" (triangle rows it loops
+    over: the GROUPs some lane needs)."""
+    n = o.shape[0]
+    w = (n + 31) // 32
+    counts = torch.zeros(3 * n + 4 * w, dtype=torch.int32, device=o.device)
+    out = _launch_occl(sc, o, t_limit, tt, counts)
+    lane = counts[:3 * n].reshape(3, n)
+    warp = counts[3 * n:].reshape(w, 4).T
+    return out, dict(zip(("lane_meta", "lane_enter", "lane_tri", "warp_meta",
+                          "warp_surv", "warp_enter", "warp_tri"),
+                         (*lane, *warp)))
 
 
 def trace_shadow_clusters(sc: ShadowClusters, o, t_limit, n_slots: int = 4,

@@ -5,7 +5,7 @@ uses: ``pack_bvh`` (the (M, 128) row-per-node layout), ``barycentrics``,
 ``trace_batch`` and five kernels, each with its plain PyTorch twin:
 
   * K4 ``trace_rays`` — closest hit per ray (the ``trace_rays_pallas``
-    contract; csrc/bvh_trace.cu);
+    contract; csrc/bvh_trace.cu) over the 4-wide tree (``WideTree``);
   * K5 ``trace_layers_so`` — the layered shared-origin walk: the nearest
     opaque hit and the n_slots nearest translucent hits of rays that share
     one origin (csrc/so_layers.cu), over ``build_origin_rows``;
@@ -25,6 +25,16 @@ Row layout (f32 lanes):
   [8+9j : 17+9j] triangle j as (a, b-a, c-a), j in 0..SLOT_N-1
   [8+9*SLOT_N + j] triangle j's original id (-1 empty; translucent id+0.5)
 
+Wide-node layout (K4; ``collapse_wide`` maps the binary tree onto it once,
+``wide_nodes`` fills the boxes per frame): one 128-byte line of 32 f32 per
+node, its up to WIDE children's boxes as structure of arrays
+  [0:4] bmin.x  [4:8] bmin.y  [8:12] bmin.z
+  [12:16] bmax.x  [16:20] bmax.y  [20:24] bmax.z
+  [24:28] child refs  [28:32] 0
+A ref >= 0 is a wide node; -1 an empty slot; ref <= -2 a leaf, the packed
+row (the leaf's binary node) r with c triangles: -2 - ref = 16 r + c. The
+leaves' triangles stay in the packed rows, which K5-K8 read.
+
 Each wrapper launches its CUDA kernel for CUDA tensors (and counts the
 launch) and runs its plain twin only for CPU tensors. The twins walk every
 lane in lockstep with masked tensor ops, in the kernel's own per-lane node
@@ -33,6 +43,9 @@ order and f32 operation order.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from . import _cuda
@@ -51,6 +64,11 @@ WALK_MAX_ROWS = 22_000
 STACK = 128      # render/bvh.py STACK_MAX: refit refuses deeper trees
 SO_SLOT_F = 10   # origin rows: k_u, k_v, k_d, tn per triangle
 SHADOW_SLOT_F = 12   # shadow rows: g1, g2, g3, c per triangle
+WIDE = 4         # children per wide node (K4)
+NODE_F = 32      # f32 per wide node: one 128-byte line
+# K4's per-ray stack lives in shared memory, sized by the tree's own bound
+# (``collapse_wide``); trees that need more entries are refused at build.
+WIDE_STACK_MAX = 96
 
 launches = 0         # trace_rays (K4) kernel launches since the last reset
 so_launches = 0      # trace_layers_so (K5) kernel launches
@@ -90,30 +108,166 @@ def _safe_inv(v):
     return 1.0 / torch.where(tiny, torch.where(v < 0, -1e-12, 1e-12), v)
 
 
-def trace_rays(rows, o, d, t_max):
-    """Nearest hit per ray -> (t (N,) f32, tri (N,) int32; -1 on a miss,
-    t = t_max). Rays with t_max <= 0 are inactive."""
-    if not rows.is_cuda:
-        return trace_rays_plain(rows, o, d, t_max)
-    dev = rows.device
+# ------------------------------------------------------------ K4: wide tree
+
+
+class WideTree(NamedTuple):
+    """K4's tree: the wide nodes over the packed rows that hold the leaves'
+    triangles."""
+
+    nodes: torch.Tensor   # (W, NODE_F) wide-node lines
+    rows: torch.Tensor    # (M_pad, ROW) packed rows (pack_bvh)
+    stack: int            # stack entries a walk can need (collapse_wide)
+
+
+def collapse_wide(left, right, leaf_count):
+    """Collapse a preorder binary tree (children after their parent; node 0
+    the root) into a WIDE-wide one, once per topology: a wide node starts
+    from a binary interior node's two children and opens the interior child
+    with the most triangles until it has WIDE children or only leaves.
+
+    left, right: (M,) children (-1 at leaves); leaf_count: (M,) triangles
+    per leaf, which fill its first slots. Returns (index (W, 24) int64: the
+    gather of the wide boxes from the (M*6,) view of cat([bmin, bmax], 1),
+    child j's component k at [4k + j] (an empty slot reads the root, never
+    a child); tail (W, 8) float32: the child refs, as in the module
+    docstring, and zeros; stack: the most entries a walk can hold, the
+    largest sum over a root-to-leaf path of each wide node's children less
+    one)."""
+    left, right = np.asarray(left, np.int64), np.asarray(right, np.int64)
+    count = np.asarray(leaf_count, np.int64)
+    m = len(count)
+    is_leaf = left < 0
+    count = np.where(is_leaf, count, 0)
+    inner = np.nonzero(~is_leaf)[0]
+    if np.any(left[inner] <= inner) or np.any(right[inner] <= inner):
+        raise ValueError("collapse_wide needs children after their parent")
+    size = count.copy()
+    for n in inner[::-1]:
+        size[n] = size[left[n]] + size[right[n]]
+
+    def children(n):
+        kids = [int(left[n]), int(right[n])]
+        while len(kids) < WIDE:
+            open_ = [j for j, c in enumerate(kids) if not is_leaf[c]]
+            if not open_:
+                break
+            j = max(open_, key=lambda j: size[kids[j]])
+            c = kids[j]
+            kids[j:j + 1] = [int(left[c]), int(right[c])]
+        return kids
+
+    wide_of, kids_of, todo = {}, [], [0]
+    while todo:
+        n = todo.pop()
+        wide_of[n] = len(kids_of)
+        kids = [0] if is_leaf[n] else children(n)
+        kids_of.append(kids)
+        todo.extend(c for c in reversed(kids) if not is_leaf[c])
+    w = len(kids_of)
+    src = np.full((w, WIDE), -1, np.int64)
+    ref = np.full((w, WIDE), -1.0, np.float32)
+    need = np.zeros(w, np.int64)
+    for i in range(w - 1, -1, -1):      # children were numbered after i
+        kids = kids_of[i]
+        src[i, :len(kids)] = kids
+        below = [need[wide_of[c]] for c in kids if not is_leaf[c]]
+        need[i] = len(kids) - 1 + max(below, default=0)
+        for j, c in enumerate(kids):
+            ref[i, j] = -2 - (16 * c + count[c]) if is_leaf[c] else \
+                wide_of[c]
+    if m >= 1 << 19:
+        raise ValueError(f"{m} nodes: leaf refs would lose f32 precision")
+    index = np.maximum(src, 0)[:, None, :] * 6 + np.arange(6)[None, :, None]
+    tail = np.concatenate([ref, np.zeros_like(ref)], 1)
+    return index.reshape(w, 24), tail, int(need[0])
+
+
+def wide_nodes(bmin, bmax, index, tail):
+    """The frame's wide-node lines: one gather of the binary boxes, then the
+    static refs (``tail`` (W, 8): refs and zeros)."""
+    boxes = torch.cat([bmin, bmax], 1).reshape(-1)[index]
+    return torch.cat([boxes, tail], 1).contiguous()
+
+
+def wide_tree(rows) -> WideTree:
+    """K4's tree rebuilt from packed rows alone (their skip links give the
+    children: the left child of interior node n is n + 1, the right the
+    left's skip link); the frame path gets it from refit instead."""
+    r = rows.detach().cpu().numpy()
+    m = int(np.nonzero(r[:, 7] > 0.5)[0].max()) + 1
+    leaf = r[:m, 7] > 0.5
+    count = (r[:m, 8 + 9 * SLOT_N:ROW] >= 0).sum(1)
+    left = np.where(leaf, -1, np.arange(m) + 1)
+    right = np.where(leaf, -1, r[np.minimum(np.arange(m) + 1, m - 1), 6])
+    index, tail, stack = collapse_wide(left, right.astype(np.int64), count)
+    nodes = wide_nodes(rows[:m, 0:3], rows[:m, 3:6],
+                       torch.as_tensor(index, device=rows.device),
+                       torch.as_tensor(tail, device=rows.device))
+    return WideTree(nodes=nodes, rows=rows, stack=stack)
+
+
+def ray_group(n: int, device) -> int:
+    """Threads per ray of a K4 call of ``n`` rays: 4 (one per child box,
+    three leaf slots each) while 4n threads fit on the card at once, else
+    1. The call lasts as long as its slowest ray, so a small batch spends
+    idle threads on the rays' own work."""
+    p = torch.cuda.get_device_properties(device)
+    return 4 if WIDE * n <= p.multi_processor_count * \
+        p.max_threads_per_multi_processor else 1
+
+
+def _check_tree(tree: WideTree, o, d, t_max):
+    dev = tree.nodes.device
     n = o.shape[0]
-    _cuda.require(rows, "rows", dtype=torch.float32, device=dev)
-    if rows.dim() != 2 or rows.shape[1] != ROW:
-        raise ValueError(f"rows: expected (M, {ROW}), got {tuple(rows.shape)}")
+    _cuda.require(tree.nodes, "nodes", (tree.nodes.shape[0], NODE_F),
+                  device=dev)
+    _cuda.require(tree.rows, "rows", dtype=torch.float32, device=dev)
+    if tree.rows.dim() != 2 or tree.rows.shape[1] != ROW:
+        raise ValueError(f"rows: expected (M, {ROW}), got "
+                         f"{tuple(tree.rows.shape)}")
+    if not 0 <= tree.stack <= WIDE_STACK_MAX:
+        raise ValueError(f"stack bound {tree.stack} outside 0.."
+                         f"{WIDE_STACK_MAX}")
     _cuda.require(o, "o", (n, 3), device=dev)
     _cuda.require(d, "d", (n, 3), device=dev)
     _cuda.require(t_max, "t_max", (n,), device=dev)
+    return dev, n
+
+
+def _launch_k4(tree, o, d, t_max, counts):
+    dev, n = _check_tree(tree, o, d, t_max)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
-    lib = _cuda.library()
+    group = ray_group(n, dev)
+    _cuda.check(_cuda.library().sge_trace_closest(
+        tree.nodes.data_ptr(), tree.rows.data_ptr(), o.data_ptr(),
+        d.data_ptr(), t_max.data_ptr(), n, tree.stack, group,
+        _cuda.ptr(counts), t.data_ptr(), tri.data_ptr(),
+        _cuda.stream_ptr(o)), "sge_trace_closest")
+    return t, tri, group
+
+
+def trace_rays(tree: WideTree, o, d, t_max):
+    """Nearest hit per ray -> (t (N,) f32, tri (N,) int32; -1 on a miss,
+    t = t_max). Rays with t_max <= 0 are inactive."""
+    if not tree.nodes.is_cuda:
+        return trace_rays_plain(tree, o, d, t_max)
     global launches
     launches += 1
-    _cuda.check(lib.sge_trace_closest(rows.data_ptr(), o.data_ptr(),
-                                      d.data_ptr(), t_max.data_ptr(), n,
-                                      t.data_ptr(), tri.data_ptr(),
-                                      _cuda.stream_ptr(rows)),
-                "sge_trace_closest")
+    t, tri, _ = _launch_k4(tree, o, d, t_max, None)
     return t, tri
+
+
+def trace_rays_counts(tree: WideTree, o, d, t_max):
+    """K4's counting instantiation, on the card only (a measurement, not a
+    launch of the frame): (t, tri, per-ray counts {"nodes": wide nodes
+    visited, "leaves": leaves visited, "slots": slot tests}, threads per
+    ray)."""
+    n = o.shape[0]
+    counts = torch.zeros((3, n), dtype=torch.int32, device=o.device)
+    t, tri, group = _launch_k4(tree, o, d, t_max, counts)
+    return t, tri, dict(zip(("nodes", "leaves", "slots"), counts)), group
 
 
 def _mt_leaf(row, o, d):
@@ -137,44 +291,93 @@ def _mt_leaf(row, o, d):
     return _dot(e2, q) * inv_det, crosses, ids
 
 
-def trace_rays_plain(rows, o, d, t_max):
-    """Plain PyTorch twin of the K4 kernel: every live ray steps its own
-    skip-link cursor in lockstep (descend to node+1 on a box hit at an
-    interior node, else jump to skip); a leaf's SLOT_N triangles are tested
-    at once with the kernel's Moller-Trumbore arithmetic, and the nearest
-    hit below the ray's best wins, the first slot among equals — what the
-    kernel's in-order strict-less updates keep."""
-    n = o.shape[0]
+# the 4-input sorting network of K4's child order: compare-exchange (i, j)
+# moves j ahead of i only when its entry distance is strictly smaller
+_SORT4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
+
+
+def trace_rays_plain(tree: WideTree, o, d, t_max):
+    """Plain PyTorch twin of the K4 kernel, in its per-ray order: every live
+    ray holds a current node and its own stack. At a wide node it tests the
+    WIDE child boxes against its best t, orders the hit children by entry
+    distance with the kernel's sorting network, goes on to the nearest and
+    stacks the rest, farthest first; at a leaf the slots' Moller-Trumbore
+    tests (the kernel's arithmetic) keep the nearest hit below the best,
+    the first slot among equals. A popped entry whose entry distance is not
+    below the ray's best t is dropped."""
+    nodes, rows = tree.nodes, tree.rows
+    n, dev = o.shape[0], o.device
     inv = _safe_inv(d)
     t_best = t_max.clone()
-    tri_best = torch.full((n,), -1.0, device=o.device)
-    node = torch.zeros(n, dtype=torch.int64, device=o.device)
-    idx = torch.arange(n, device=o.device)
+    tri_best = torch.full((n,), -1.0, device=dev)
+    depth = max(tree.stack, 1)
+    st_ref = torch.zeros((n, depth), dtype=torch.int64, device=dev)
+    st_t = torch.zeros((n, depth), device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    cur = torch.zeros(n, dtype=torch.int64, device=dev)
+    idx = torch.arange(n, device=dev)
+    inf = float("inf")
     while idx.numel():
-        nd = node[idx]
-        hdr = rows[nd, :8]
-        oi, di, ii, tb = o[idx], d[idx], inv[idx], t_best[idx]
-        t0 = (hdr[:, 0:3] - oi) * ii
-        t1 = (hdr[:, 3:6] - oi) * ii
-        tmin = torch.minimum(t0, t1).amax(-1)
-        tmax = torch.maximum(t0, t1).amin(-1)
-        box = (tmax >= tmin.clamp(min=0.0)) & (tmin < tb)
-        leaf = hdr[:, 7] > 0.5
-        sel = box & leaf
-        if sel.any():
-            li = idx[sel]
-            tbl = t_best[li]
-            t, crosses, ids = _mt_leaf(rows[nd[sel]], o[li], d[li])
-            t = torch.where(crosses & (t > 1e-4) & (t < tbl[:, None]), t,
-                            float("inf"))
+        c = cur[idx]
+        pop = torch.ones_like(c, dtype=torch.bool)
+        wi = torch.nonzero(c >= 0).squeeze(1)
+        if wi.numel():
+            lanes = idx[wi]
+            nd = nodes[c[wi]]
+            lo = nd[:, 0:12].reshape(-1, 3, WIDE)
+            hi = nd[:, 12:24].reshape(-1, 3, WIDE)
+            ref = nd[:, 24:28].to(torch.int64)
+            oi, ii = o[lanes][:, :, None], inv[lanes][:, :, None]
+            t0, t1 = (lo - oi) * ii, (hi - oi) * ii
+            tmin = torch.minimum(t0, t1).amax(1)
+            tmax = torch.maximum(t0, t1).amin(1)
+            hit = (tmax >= tmin.clamp(min=0.0)) & \
+                (tmin < t_best[lanes][:, None]) & (ref != -1)
+            key = torch.where(hit, tmin, inf)
+            cols_t, cols_r = list(key.unbind(1)), list(ref.unbind(1))
+            for a, b in _SORT4:
+                sw = cols_t[b] < cols_t[a]
+                cols_t[a], cols_t[b] = (torch.where(sw, cols_t[b], cols_t[a]),
+                                        torch.where(sw, cols_t[a], cols_t[b]))
+                cols_r[a], cols_r[b] = (torch.where(sw, cols_r[b], cols_r[a]),
+                                        torch.where(sw, cols_r[a], cols_r[b]))
+            h = hit.sum(1)
+            for j in range(WIDE - 1, 0, -1):     # farthest first
+                m = h > j
+                pl = lanes[m]
+                st_ref[pl, sp[pl]] = cols_r[j][m]
+                st_t[pl, sp[pl]] = cols_t[j][m]
+                sp[pl] += 1
+            go = h > 0
+            cur[lanes[go]] = cols_r[0][go]
+            pop[wi] = ~go
+        li = torch.nonzero(c < -1).squeeze(1)
+        if li.numel():
+            lanes = idx[li]
+            row = torch.div(-2 - c[li], 16, rounding_mode="floor")
+            tbl = t_best[lanes]
+            t, crosses, ids = _mt_leaf(rows[row], o[lanes], d[lanes])
+            t = torch.where(crosses & (t > 1e-4) & (t < tbl[:, None]), t, inf)
             t_near, j = t.min(1)
-            hit = t_near < float("inf")
-            t_best[li] = torch.where(hit, t_near, tbl)
-            tri_best[li] = torch.where(hit, ids.gather(1, j[:, None])[:, 0],
-                                       tri_best[li])
-        nxt = torch.where(box & ~leaf, nd + 1, hdr[:, 6].to(torch.int64))
-        node[idx] = nxt
-        idx = idx[nxt >= 0]
+            got = t_near < inf
+            t_best[lanes] = torch.where(got, t_near, tbl)
+            tri_best[lanes] = torch.where(
+                got, ids.gather(1, j[:, None])[:, 0], tri_best[lanes])
+        # pop: the first stacked entry still nearer than the best hit
+        pend = idx[pop]
+        done = []
+        while pend.numel():
+            has = sp[pend] > 0
+            done.append(pend[~has])
+            pend = pend[has]
+            sp[pend] -= 1
+            top = sp[pend]
+            ok = st_t[pend, top] < t_best[pend]
+            cur[pend[ok]] = st_ref[pend[ok], top[ok]]
+            pend = pend[~ok]
+        if done:
+            cur[torch.cat(done)] = -1          # -1: the walk is over
+        idx = idx[cur[idx] != -1]
     return t_best, tri_best.to(torch.int32)
 
 
@@ -202,7 +405,7 @@ def trace_batch(bvh, o, d, active):
     t_max = torch.where(active, BIG, 0.0)
     # park inactive rays far outside the scene: they fail the root box
     o = torch.where(active[:, None], o, 1.0e9).contiguous()
-    t, tri = trace_rays(bvh.rows, o, d.contiguous(), t_max)
+    t, tri = trace_rays(bvh.wide, o, d.contiguous(), t_max)
     u, v, found = barycentrics(bvh, o, d, t, tri)
     found = found & active & (t < BIG)
     return (torch.where(found, t, BIG), torch.where(found, tri.long(), -1),

@@ -5,7 +5,10 @@ node n has its left child at n + 1 and its right child at skip[n + 1];
 ``skip`` jumps over a rejected subtree. The topology is built once on the
 host (render.bvh_native) and kept on the device as index tensors; ``refit``
 recomputes every node AABB from the frame's world-space triangles with
-level-wise min/max, deepest level first.
+level-wise min/max, deepest level first, packs the rows the walks read and
+fills the 4-wide nodes of the closest-hit kernel (K4) by one gather of the
+binary boxes: the collapse of the binary tree into the wide one is computed
+once, with the topology.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..ops import rt_kernel as RK
 
 BIG = 3.0e38
 # Traversal stack depth of the closest-hit kernel (ops.rt_kernel); the tree
@@ -32,6 +37,10 @@ class BVHTopology(NamedTuple):
     tri_order: torch.Tensor   # (T,) int64 — leaf-contiguous permutation
     levels: tuple             # int64 tensors: internal nodes by depth, deepest first
     leaf_slots: torch.Tensor  # (M, LEAF) int64 into tri_order space, -1 padded
+    # the 4-wide tree of K4 (ops.rt_kernel.collapse_wide)
+    wide_index: torch.Tensor  # (W, 24) int64 gather of the wide boxes
+    wide_tail: torch.Tensor   # (W, 8) f32 child refs and zeros
+    wide_stack: int           # the most stack entries a wide walk holds
 
     @property
     def node_count(self):
@@ -46,6 +55,8 @@ class BVHTopology(NamedTuple):
         def t(x, dtype):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
+        index, tail, stack = RK.collapse_wide(get("left"), get("right"),
+                                              get("tri_count"))
         return BVHTopology(
             skip=t(get("skip"), torch.int32),
             first_tri=t(get("first_tri"), torch.int32),
@@ -54,7 +65,9 @@ class BVHTopology(NamedTuple):
             right=t(get("right"), torch.int64),
             tri_order=t(get("tri_order"), torch.int64),
             levels=tuple(t(lv, torch.int64) for lv in get("levels")),
-            leaf_slots=t(get("leaf_slots"), torch.int64))
+            leaf_slots=t(get("leaf_slots"), torch.int64),
+            wide_index=t(index, torch.int64),
+            wide_tail=t(tail, torch.float32), wide_stack=stack)
 
 
 class BVHArrays(NamedTuple):
@@ -69,6 +82,7 @@ class BVHArrays(NamedTuple):
     v1: torch.Tensor
     v2: torch.Tensor
     rows: torch.Tensor      # (M_pad, 128) kernel layout (ops.rt_kernel)
+    wide: RK.WideTree       # K4's wide nodes over ``rows``
 
 
 def refit(topo: BVHTopology, v0, v1, v2, translucent=None) -> BVHArrays:
@@ -76,6 +90,9 @@ def refit(topo: BVHTopology, v0, v1, v2, translucent=None) -> BVHArrays:
     if len(topo.levels) >= STACK_MAX:
         raise ValueError(f"BVH depth {len(topo.levels)} exceeds the traversal "
                          f"stack ({STACK_MAX})")
+    if topo.wide_stack > RK.WIDE_STACK_MAX:
+        raise ValueError(f"the wide tree's walk needs {topo.wide_stack} stack "
+                         f"entries, over {RK.WIDE_STACK_MAX}")
     tri_min = torch.minimum(torch.minimum(v0, v1), v2)[topo.tri_order]
     tri_max = torch.maximum(torch.maximum(v0, v1), v2)[topo.tri_order]
     slots = topo.leaf_slots
@@ -90,6 +107,9 @@ def refit(topo: BVHTopology, v0, v1, v2, translucent=None) -> BVHArrays:
     slot_tri = torch.where(slots >= 0, topo.tri_order[safe], -1)
     out = BVHArrays(bmin=bmin, bmax=bmax, skip=topo.skip,
                     is_leaf=topo.tri_count > 0, slot_tri=slot_tri,
-                    v0=v0, v1=v1, v2=v2, rows=None)
-    from ..ops.rt_kernel import pack_bvh
-    return out._replace(rows=pack_bvh(out, translucent=translucent))
+                    v0=v0, v1=v1, v2=v2, rows=None, wide=None)
+    rows = RK.pack_bvh(out, translucent=translucent)
+    wide = RK.WideTree(nodes=RK.wide_nodes(bmin, bmax, topo.wide_index,
+                                           topo.wide_tail),
+                       rows=rows, stack=topo.wide_stack)
+    return out._replace(rows=rows, wide=wide)

@@ -136,6 +136,33 @@ def test_k2_anyhit_is_factor_equivalent(shadow_case):
                                atol=1e-5)
 
 
+def test_k2_incoherent_lanes(shadow_case):
+    """Lanes in random order (incoherent warps), a lane count that is no
+    multiple of 32, dead lanes and lanes that settle at once mixed in: the
+    exact records equal the plain version's, the any-hit ones are
+    factor-equivalent, and the counting instantiation agrees."""
+    split, o, t_lim = shadow_case
+    n = o.shape[0] - 7
+    perm = torch.as_tensor(np.random.default_rng(17).permutation(n),
+                           device=o.device)
+    o, t_lim = o[perm].contiguous(), t_lim[perm].contiguous()
+    t_lim[::5] = 0.0                                      # more dead lanes
+    tt = torch.full_like(t_lim, 3.0e38)                   # settle at a hit
+    tt[1::3] = 2.0
+    tt[2::3] = 0.0                                        # never settle
+    k = CS.trace_shadow_occl(split.full, o, t_lim)
+    p = CS.trace_shadow_occl_plain(split.full, o, t_lim)
+    assert int((p < 1e30).sum()) > 1000
+    agree(k < 1e30, p < 1e30, [k], [p])
+    ka = CS.trace_shadow_occl(split.full, o, t_lim, tt=tt)
+    assert torch.equal(ka < tt, p < tt)
+    assert torch.equal(ka[t_lim <= 0], torch.zeros_like(ka[t_lim <= 0]))
+    ca, counts = CS.trace_shadow_occl_counts(split.full, o, t_lim, tt)
+    assert torch.equal(ca, ka)
+    assert counts["warp_meta"].numel() == (n + 31) // 32
+    assert int(counts["lane_enter"][t_lim <= 0].sum()) == 0
+
+
 @pytest.mark.parametrize("n_slots,alpha_payload", [(4, True), (4, False),
                                                    (2, True)])
 def test_k3_kernel_matches_plain(shadow_case, n_slots, alpha_payload):
@@ -153,29 +180,71 @@ def test_k3_kernel_matches_plain(shadow_case, n_slots, alpha_payload):
     torch.testing.assert_close(k[1][same], p[1][same], rtol=1e-5, atol=1e-5)
 
 
-def test_k4_kernel_matches_plain(cuda):
-    v0, v1, v2 = soup(5, 6000, spread=14.0)
+def _k4_geometry(dev, v0, v1, v2):
     pos = np.stack([v0, v1, v2], 1).reshape(-1, 3)
     b = RenderGeometryBuilder(texture_size=4)
     b.add_static_mesh(MeshDescriptor(positions=pos,
                                      indices=np.arange(len(pos),
                                                        dtype=np.int32)),
                       Material(name="m"), instance=0)
-    geo = b.build(cuda)
-    fg = flatten_frame(geo, torch.eye(4, device=cuda)[None],
-                       torch.zeros((1, 1, 4, 4), device=cuda))
+    geo = b.build(dev)
+    return flatten_frame(geo, torch.eye(4, device=dev)[None],
+                         torch.zeros((1, 1, 4, 4), device=dev))
+
+
+@pytest.mark.parametrize("n", [256, 2000, 100_000])
+def test_k4_kernel_matches_plain(cuda, n):
+    """The cooperative walk (4 threads a ray) at 256 and 2,000 rays, one
+    thread a ray at 100,000."""
+    fg = _k4_geometry(cuda, *soup(5, 6000, spread=14.0))
+    assert RK.ray_group(n, cuda) == (4 if n < 10_000 else 1)
     rng = np.random.default_rng(6)
-    d = rng.normal(size=(20000, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     o, d, t_max = (torch.as_tensor(x, device=cuda) for x in (
-        rng.uniform(-18, 18, (20000, 3)).astype(np.float32), d,
-        np.full(20000, 1e6, np.float32)))
+        rng.uniform(-18, 18, (n, 3)).astype(np.float32), d,
+        np.full(n, 1e6, np.float32)))
     t_max[::17] = 0.0                                     # inactive rays
     before = RK.launches
-    kt, ktri = RK.trace_rays(fg.bvh.rows, o, d, t_max)
+    kt, ktri = RK.trace_rays(fg.bvh.wide, o, d, t_max)
     assert RK.launches == before + 1
-    pt, ptri = RK.trace_rays_plain(fg.bvh.rows, o, d, t_max)
-    assert int((ptri >= 0).sum()) > 3000
+    pt, ptri = RK.trace_rays_plain(fg.bvh.wide, o, d, t_max)
+    assert int((ptri >= 0).sum()) > n // 8
+    agree(ktri, ptri, [kt], [pt])
+    # the counting instantiation walks the same way
+    ct, ctri, counts, group = RK.trace_rays_counts(fg.bvh.wide, o, d, t_max)
+    assert torch.equal(ctri, ktri) and torch.equal(ct, kt)
+    assert group == RK.ray_group(n, cuda)
+    assert int(counts["slots"].sum()) > 0
+
+
+@pytest.mark.parametrize("n", [2000, 100_000])
+def test_k4_grazing_and_inside(cuda, n):
+    """Rays grazing a large plane (directions within 1e-3 of it, origins
+    just above it) and rays that start inside the soup's boxes."""
+    lift = np.array([0.0, 11.0, 0.0], np.float32)          # soup above y=1
+    v0, v1, v2 = (v + lift for v in soup(15, 3000, spread=8.0))
+    plane = np.array([[-200, 0, -200], [200, 0, -200], [200, 0, 200],
+                      [-200, 0, 200]], np.float32)
+    v0 = np.concatenate([v0, plane[[0, 0]]])
+    v1 = np.concatenate([v1, plane[[1, 2]]])
+    v2 = np.concatenate([v2, plane[[2, 3]]])
+    fg = _k4_geometry(cuda, v0, v1, v2)
+    rng = np.random.default_rng(16)
+    half = n // 2
+    o = rng.uniform(-8, 8, (n, 3)).astype(np.float32) + lift  # in the soup
+    o[:half, 1] = rng.uniform(1e-4, 1e-2, half)            # above the plane
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:half, 1] = -rng.uniform(0, 1e-3, half) * np.linalg.norm(
+        d[:half, [0, 2]], axis=1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
+    t_max = torch.full((n,), 3.0e38, device=cuda)
+    kt, ktri = RK.trace_rays(fg.bvh.wide, o, d, t_max)
+    pt, ptri = RK.trace_rays_plain(fg.bvh.wide, o, d, t_max)
+    plane_ids = torch.tensor([3000, 3001], device=cuda)
+    assert int(torch.isin(ptri[:half], plane_ids).sum()) > half // 4
+    assert int((ptri[half:] >= 0).sum()) > n // 8
     agree(ktri, ptri, [kt], [pt])
 
 
@@ -261,14 +330,19 @@ def test_k7_kernel_matches_plain(walk_tree, n_slots):
 
 def test_wrappers_reject_bad_inputs(cuda):
     rows = torch.zeros((8, RK.ROW), device=cuda)
+    tree = RK.WideTree(nodes=torch.zeros((1, RK.NODE_F), device=cuda),
+                       rows=rows, stack=0)
     o = torch.zeros((4, 3), device=cuda)
     with pytest.raises(TypeError):
-        RK.trace_rays(rows, o.double(), o, torch.ones(4, device=cuda))
+        RK.trace_rays(tree, o.double(), o, torch.ones(4, device=cuda))
     with pytest.raises(ValueError):
-        RK.trace_rays(rows, o, torch.zeros((3, 4), device=cuda).T,
+        RK.trace_rays(tree, o, torch.zeros((3, 4), device=cuda).T,
                       torch.ones(4, device=cuda))
     with pytest.raises(ValueError):
-        RK.trace_rays(rows, o, o, torch.ones(4))          # t_max on the CPU
+        RK.trace_rays(tree, o, o, torch.ones(4))          # t_max on the CPU
+    with pytest.raises(ValueError):                       # stack over the cap
+        RK.trace_rays(tree._replace(stack=RK.WIDE_STACK_MAX + 1), o, o,
+                      torch.ones(4, device=cuda))
     so = RK.build_origin_rows(rows, torch.zeros(3, device=cuda))
     with pytest.raises(ValueError):
         RK.trace_layers_so(so, torch.zeros(3), o, torch.ones(4, device=cuda),

@@ -14,8 +14,9 @@ tests/test_torch_cuda_kernels.py.
     interpret mode with anyhit=False: t_opq to 1e-5, slot records as sets
     (ties in t may order them differently). With anyhit=True the records
     are only factor-equivalent, so the shadow factors are compared.
-  * K4 traversal twin vs render/bvh.traverse: triangle ids on >= 99.9% of
-    rays (equal-t ties), t to 1e-5 where they agree.
+  * K4 traversal twin (the 4-wide walk over the wide nodes rebuilt from
+    the reference's packed rows) vs render/bvh.traverse: triangle ids on
+    >= 99.9% of rays (equal-t ties), t to 1e-5 where they agree.
 """
 
 import numpy as np
@@ -158,6 +159,23 @@ def test_k2_k3_twins_match_reference_records(shadow_case, alpha_payload):
     assert (jids >= 0).any(1).sum() > 20 and (jt < 1e30).sum() > 100
 
 
+def test_k2_groups_cover_their_clusters(shadow_case):
+    """K2's 32-row culling groups: each cluster's box is the union of its
+    groups' boxes, and a group's depth range lies inside its cluster's."""
+    v0, v1, v2, tr, alpha, l, o, t_lim = shadow_case
+    ps = p_cs.build_shadow_split(*(torch.as_tensor(v) for v in (v0, v1, v2)),
+                                 torch.as_tensor(l), torch.as_tensor(tr),
+                                 alpha=torch.as_tensor(alpha),
+                                 trans_idx=torch.as_tensor(np.nonzero(tr)[0]))
+    sc = ps.full
+    per = sc.cluster // p_cs.GROUP
+    g = sc.groups.reshape(-1, per, 8)
+    assert g.shape[0] == sc.meta.shape[0]
+    for k, red in ((0, torch.amin), (1, torch.amin), (2, torch.amax),
+                   (3, torch.amax), (4, torch.amin), (5, torch.amax)):
+        assert torch.equal(red(g[:, :, k], 1), sc.meta[:, k])
+
+
 def test_k2_anyhit_factor_matches_reference(shadow_case):
     """Any-hit occlusion: records may differ, the shadow factor may not."""
     (jt, jts, jids), (pt, pts, pids) = _shadow_both(shadow_case, True, True)
@@ -207,8 +225,8 @@ def test_k4_twin_matches_traverse(trace_case):
         lambda a, b: j_bvh.traverse(fg.bvh, a, b, jnp.float32(1e6)))(
         jnp.asarray(o), jnp.asarray(d))
     jt, jtri = np.asarray(jt), np.asarray(jtri)
-    rows = interop.frame_geometry(fg).bvh.rows
-    pt, ptri = p_rk.trace_rays(rows, torch.as_tensor(o), torch.as_tensor(d),
+    wide = interop.frame_geometry(fg).bvh.wide
+    pt, ptri = p_rk.trace_rays(wide, torch.as_tensor(o), torch.as_tensor(d),
                                torch.as_tensor(t_max))
     same = ptri.numpy() == jtri
     assert same.mean() >= 0.999, same.mean()

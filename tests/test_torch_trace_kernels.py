@@ -30,8 +30,9 @@ on the same rows here.
     triangle's determinant along the light, which magnifies those bits for
     nearly edge-on triangles, so they agree to 1e-6 of the largest entry on
     99.9% of entries and to 1e-4 relative on all.
-  * K4 twin (trace_rays_plain) vs trace_rays_pallas under each sibling
-    kernel's knobs: the default ordered walk (_kernel_smem_ordered),
+  * K4 twin (trace_rays_plain, the 4-wide walk over the wide nodes rebuilt
+    from the reference's packed rows) vs trace_rays_pallas under each
+    sibling kernel's knobs: the default ordered walk (_kernel_smem_ordered),
     SGE_RT_ORDERED=0 (_kernel_smem), SGE_RT_INTERVAL=1
     (_kernel_smem_interval), SGE_RT_DUAL=1 (_kernel_smem_ordered2) and
     SGE_RT_SMEM=0 (_kernel): triangle ids on >= 99.9% of rays (equal-t
@@ -236,8 +237,8 @@ def test_k7_twin_matches_reference(k7, n_slots):
 ], ids=["ordered", "skip_link", "interval", "dual", "vmem"])
 def test_k4_twin_matches_sibling_kernels(tmp_path_factory, knobs):
     ref = _reference(tmp_path_factory, K4_CODE, "k4", knobs)
-    t, tri = RK.trace_rays(_t(ref["rows"]), _t(ref["o"]), _t(ref["d"]),
-                           _t(ref["t_max"]))
+    t, tri = RK.trace_rays(RK.wide_tree(_t(ref["rows"])), _t(ref["o"]),
+                           _t(ref["d"]), _t(ref["t_max"]))
     same = tri.numpy() == ref["tri"]
     assert same.mean() >= 0.999, same.mean()
     assert (ref["tri"] >= 0).sum() > 50
