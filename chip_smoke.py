@@ -92,6 +92,8 @@ MAX_MISMATCH = 1e-3
 MAX_REL_ERR = 1e-5
 # The walks' twins run on at most this many of the captured lanes.
 TWIN_LANES = 65_536
+# K4 calls of at least this many rays are also timed on strided subsets.
+SWEEP_RAYS = 262_144
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # device memory rate and FP32 rate outside the tensor cores.
@@ -213,16 +215,22 @@ def _subset(n, device):
 
 
 class Capture:
-    """Records the first call's arguments of chosen kernel wrappers."""
+    """Records the first call's arguments of chosen kernel wrappers, and
+    those of every call of the first frame (while ``frames`` is 0) for the
+    keys in ``every``."""
 
-    def __init__(self):
+    def __init__(self, every=()):
         self.args, self._orig = {}, []
+        self.every, self.calls, self.frames = every, {}, 0
 
     def on(self, mod, name, key_of):
         orig = getattr(mod, name)
 
         def wrapper(*a, **k):
-            self.args.setdefault(key_of(*a, **k), (a, k))
+            key = key_of(*a, **k)
+            self.args.setdefault(key, (a, k))
+            if key in self.every and not self.frames:
+                self.calls.setdefault(key, []).append((a, k))
             return orig(*a, **k)
         setattr(mod, name, wrapper)
         self._orig.append((mod, name, orig))
@@ -313,6 +321,7 @@ def main():
         read just after."""
         for _ in range(WARMUP):
             img = eng.frame(1 / 60)
+            cap.frames += 1
         cap.off()
         shade_calls, shade_hit = [0], RT._shade_hit
 
@@ -390,7 +399,7 @@ def main():
                 _fail(f"the decimated tree has {rows_n} rows, over the "
                       f"walks' cap")
         scenes[name], engines[name] = scene, eng
-        cap = caps[name] = Capture()
+        cap = caps[name] = Capture(every=("K4",))
         for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
             cap.on(*wrappers[fam], roles.get(fam, lambda *a, fam=fam, **k:
                                                fam))
@@ -439,10 +448,12 @@ def main():
     results = []
 
     def report(name, source, replaces, launches, err, ms, plain_ms, bound,
-               extra="", floor=None):
+               extra="", floor=None, records=None):
         bound_ms, bound_by = bound
         if floor is not None:   # the bytes floor beside the counted bound
             extra += f", bytes floor {floor[0]:.4f} ms"
+        if records is not None:  # and the bound of one test per record
+            extra += f", records bound {records[0]:.4f} ms"
         results.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -519,17 +530,20 @@ def main():
             _fail("K2's counting instantiation differs from the kernel")
         print(f"  K2 work ({sc.meta.shape[0]} clusters of {sc.cluster}): "
               + _count_line(cnt))
+        # counted: each lane's own test of each cluster the warp's cull
+        # admits, and the opaque rows it tests; records: one row test per
+        # lane with a hit
         ops = (int(cnt["lane_tri"].sum()) * SWEEP_OPS +
-               (int(cnt["warp_meta"].sum()) + int(cnt["lane_meta"].sum())) *
-               META_OPS)
+               int(cnt["lane_meta"].sum()) * META_OPS)
+        ins, outs = [sc.rows, sc.meta, sc.groups, sc.basis, o, t_lim, tt], \
+            [any_k]
         report("shadow_occl" + tag, "swift_game_engine_tpu_torch/csrc/"
                "cluster_shadow.cu", "swift_game_engine_tpu/ops/"
                "cluster_shadow.py:541", launches, err,
                _time_ms(lambda: CS.trace_shadow_occl(sc, o, t_lim, tt=tt), 5),
-               plain_ms,
-               _bound([sc.rows, sc.meta, sc.basis, o, t_lim, tt], [any_k],
-                      ops), floor=_bound([sc.rows, sc.meta, sc.basis, o,
-                                          t_lim, tt], [any_k], 0))
+               plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
+               records=_bound(ins, outs, int((any_k < 1e30).sum()) *
+                              SWEEP_OPS))
 
     def check_k3(args, launches, tag):
         (sc, o, t_lim, *rest), kw = args["K3"]
@@ -552,28 +566,66 @@ def main():
                       (int((k3[2] >= 0).sum()) + int((k3[0] < 1e30).sum()))
                       * SWEEP_OPS))
 
-    def check_k4(args, launches, tag):
-        (tree, o, d, t_max), _ = args["K4"]
-        t_k, tri_k = RK.trace_rays(tree, o, d, t_max)
+    def k4_builds(calls):
+        """Both K4 builds (1 and WIDE threads a ray) timed on every call of
+        a path's first frame, and on strided subsets of its largest call
+        when that is large: where ray_group's rule should switch."""
+        def ms(g, tree, rows, o, d, t_max):
+            return _time_ms(lambda: RK._launch_k4(tree, rows, o, d, t_max,
+                                                  None, g), 5)
+        sums = {1: 0.0, RK.WIDE: 0.0, "rule": 0.0}
+        per_call = []
+        for (tree, rows, o, d, t_max), _ in calls:
+            n, live = o.shape[0], int((t_max > 0).sum())
+            t = {g: ms(g, tree, rows, o, d, t_max) for g in (1, RK.WIDE)}
+            for g in t:
+                sums[g] += t[g]
+            sums["rule"] += t[RK.ray_group(n, dev)]
+            per_call.append(f"{n} ({live} live) {t[1]:.3f}/{t[RK.WIDE]:.3f}")
+        print(f"  K4 builds on the first frame's {len(calls)} calls, rays "
+              f"(live) G=1/G={RK.WIDE} ms: " + "; ".join(per_call))
+        print(f"  K4 builds, frame sum: rule {sums['rule']:.3f} ms, all G=1 "
+              f"{sums[1]:.3f} ms, all G={RK.WIDE} {sums[RK.WIDE]:.3f} ms")
+        (tree, rows, o, d, t_max), _ = max(calls,
+                                           key=lambda c: c[0][2].shape[0])
+        if o.shape[0] < SWEEP_RAYS:
+            return
+        sweep = []
+        for step in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            idx = torch.arange(0, o.shape[0], step, device=dev)
+            sub = [x[idx].contiguous() for x in (o, d, t_max)]
+            sweep.append(f"{idx.numel()} {ms(1, tree, rows, *sub):.3f}/"
+                         f"{ms(RK.WIDE, tree, rows, *sub):.3f}")
+        print(f"  K4 builds on every k-th ray of the largest call, rays "
+              f"G=1/G={RK.WIDE} ms: " + "; ".join(sweep))
+
+    def check_k4(args, launches, tag, calls):
+        (tree, rows, o, d, t_max), _ = args["K4"]
+        t_k, tri_k = RK.trace_rays(tree, rows, o, d, t_max)
         (t_p, tri_p), plain_ms = _timed(lambda: RK.trace_rays_plain(
-            tree, o, d, t_max))
-        err = _compare(f"K4 ({o.shape[0]} rays, {tree.rows.shape[0]} rows, "
+            tree, rows, o, d, t_max))
+        err = _compare(f"K4 ({o.shape[0]} rays, {rows.shape[0]} rows, "
                        f"{tree.nodes.shape[0]} wide nodes)", tri_k, tri_p,
                        [t_k], [t_p])
         # the work of the frame's call, from the counting instantiation
-        t_c, tri_c, cnt, group = RK.trace_rays_counts(tree, o, d, t_max)
+        t_c, tri_c, cnt, group = RK.trace_rays_counts(tree, rows, o, d,
+                                                      t_max)
         if not (torch.equal(tri_c, tri_k) and torch.equal(t_c, t_k)):
             _fail("K4's counting instantiation differs from the kernel")
         print(f"  K4 work ({group} threads a ray, stack {tree.stack}): "
               + _count_line(cnt, 32 // group))
-        ops = int(cnt["nodes"].sum()) * RK.WIDE * SLAB_OPS + \
+        # counted: the non-empty child boxes and the triangles the walk
+        # tests; records: one triangle test per ray with a hit
+        ops = int(cnt["boxes"].sum()) * SLAB_OPS + \
             int(cnt["slots"].sum()) * MT_OPS
-        ins, outs = [tree.nodes, tree.rows, o, d, t_max], [t_k, tri_k]
+        ins, outs = [tree.nodes, rows, o, d, t_max], [t_k, tri_k]
         report("trace_closest" + tag, "swift_game_engine_tpu_torch/csrc/"
                "bvh_trace.cu", "swift_game_engine_tpu/ops/rt_kernel.py:794",
                launches, err,
-               _time_ms(lambda: RK.trace_rays(tree, o, d, t_max), 5),
-               plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0))
+               _time_ms(lambda: RK.trace_rays(tree, rows, o, d, t_max), 5),
+               plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
+               records=_bound(ins, outs, int((tri_k >= 0).sum()) * MT_OPS))
+        k4_builds(calls)
 
     def check_k5(args, launches, tag):
         (so_rows, origin, d, t_max), kw = args["K5"]
@@ -745,7 +797,7 @@ def main():
                _bound(*list_bound(cnt, cand, None, k10)),
                " (no path runs it: path 5's candidate lists)")
 
-    checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3, "K4": check_k4,
+    checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3,
               "K5": check_k5, "K6": check_k6, "K7": check_k7, "K8": check_k8,
               "K9": check_k9}
     seen = set()
@@ -755,7 +807,10 @@ def main():
         for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
             tag = f"@{name}" if fam in seen else ""
             seen.add(fam)
-            checks[fam](cap.args, counts[name][fam], tag)
+            if fam == "K4":
+                check_k4(cap.args, counts[name][fam], tag, cap.calls["K4"])
+            else:
+                checks[fam](cap.args, counts[name][fam], tag)
 
     # -- 4. kernel path vs plain path, end to end ----------------------------
     plain = {

@@ -15,7 +15,7 @@
 // [8+9j : 17+9j] and ids [116+j].
 //
 // What bound the one-thread-per-ray binary walk this replaces, on the
-// H100 (walk_counters.py, path 1's first bounce batch, 10,684 rays, 3.70
+// H100 (counted on path 1's first bounce batch, 10,684 rays, 3.70
 // ms): the call lasted as long as its slowest ray's chain of dependent
 // node loads, up to 2,164 (two per binary node: the right child's index
 // sat in the left child's row), with its stack in local memory and a
@@ -35,7 +35,8 @@
 //     leaf's 12 slots, and the group shares the results by warp shuffles,
 //     so a small batch's slowest ray runs its steps four-wide;
 //   * a counting instantiation (COUNT, with a null counts pointer in
-//     production) reports each ray's wide nodes, leaves and slot tests.
+//     production) reports each ray's wide nodes, the child boxes it tests
+//     (the non-empty slots of those nodes), leaves and slot tests.
 //
 // K8: any-hit occlusion against OPAQUE triangles (integral ids), the shadow
 // prepass. Replaces swift_game_engine_tpu/ops/rt_kernel.py:
@@ -157,7 +158,7 @@ trace_wide_kernel(const float* __restrict__ nodes,
   float t_best = __ldg(t_max + i);
   float tri_best = -1.0f;
   int cur = 0, sp = 0;
-  int n_nodes = 0, n_leaves = 0, n_slots = 0;
+  int n_nodes = 0, n_boxes = 0, n_leaves = 0, n_slots = 0;
   while (true) {
     if (cur >= 0) {                        // wide node: one line
       const float* nd = nodes + int64_t(cur) * NODE_F;
@@ -191,12 +192,16 @@ trace_wide_kernel(const float* __restrict__ nodes,
           cr[c] = __shfl_sync(mask, rf, c, G);
         }
       }
+      if (COUNT) {
+        ++n_nodes;
+#pragma unroll
+        for (int c = 0; c < WIDE; ++c) n_boxes += cr[c] != -1;
+      }
       cswap(ct, cr, 0, 1); cswap(ct, cr, 2, 3); cswap(ct, cr, 0, 2);
       cswap(ct, cr, 1, 3); cswap(ct, cr, 1, 2);
       int h = 0;
 #pragma unroll
       for (int c = 0; c < WIDE; ++c) h += ct[c] < INF;
-      if (COUNT) ++n_nodes;
       if (h > 0) {                         // nearest next, the rest stacked
         cur = cr[0];
         if (G > 1) __syncwarp(mask);       // every pop of the group is done
@@ -263,8 +268,9 @@ trace_wide_kernel(const float* __restrict__ nodes,
     tri_out[i] = int32_t(tri_best);
     if (COUNT) {
       counts[i] = n_nodes;
-      counts[n + i] = n_leaves;
-      counts[2 * n + i] = n_slots;
+      counts[n + i] = n_boxes;
+      counts[2 * n + i] = n_leaves;
+      counts[3 * n + i] = n_slots;
     }
   }
 }
@@ -327,7 +333,7 @@ shadow_any_kernel(const float* __restrict__ rows, const float* __restrict__ o,
 
 // nodes (W,32) wide nodes, rows (M_pad,128), o/d (N,3), t_max (N,);
 // stack_n: the tree's stack bound; group: threads per ray (1 or 4);
-// counts: (3,N) int32 per-ray work, or null. Out: t (N,), tri (N,) int32.
+// counts: (4,N) int32 per-ray work, or null. Out: t (N,), tri (N,) int32.
 SGE_API int sge_trace_closest(const float* nodes, const float* rows,
                               const float* o, const float* d,
                               const float* t_max, int64_t n, int stack_n,

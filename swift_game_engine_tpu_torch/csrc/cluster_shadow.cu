@@ -19,7 +19,7 @@
 // its own light-plane point and stops at its own settlement bound.
 //
 // K2: that one-thread-per-lane sweep was bound by instruction issue, not
-// bytes, on the H100 (walk_counters.py, path 1's first shade call, 557,056
+// bytes, on the H100 (counted on path 1's first shade call, 557,056
 // lanes over 1,417 clusters, 1.44 ms): every lane stepped the metadata
 // list one entry at a time, about seven broadcast loads and a branch each
 // (328 entries a lane on average, all 1,414 for a lit lane, 400 for a
@@ -148,7 +148,8 @@ __device__ __forceinline__ void stage_chunk(float4* dst,
 // d0, d1, 0, 0]: a lane tests a group's rows only when its point lies in
 // the group's box and the group starts before its stop bound.
 // counts (COUNT): per lane [0, n) footprint survivors the lane tests
-// itself, [n, 2n) clusters it enters, [2n, 3n) triangle rows it tests;
+// itself, [n, 2n) clusters it enters, [2n, 3n) opaque triangle rows it
+// tests (translucent and padding rows are skipped);
 // per warp w at 3n + 4w: entries its ballots test (32 at a time),
 // footprint survivors, clusters staged, triangle rows it loops over.
 template <bool COUNT>
@@ -279,7 +280,6 @@ shadow_occl_kernel(const float4* __restrict__ rows,
                        q0.y > L.b + mb || q0.w < L.b - mb ||
                        !(q1.y > L.dep - md) || q1.x >= bound + margin(bound));
           }
-          if (COUNT) l_tri += need_g ? GROUP : 0;
           if (!__any_sync(FULL, need_g)) continue;
           if (COUNT) w_tri += GROUP;
           if (need_g) {
@@ -289,6 +289,7 @@ shadow_occl_kernel(const float4* __restrict__ rows,
                             r4[4 * j + 3]};
               const float id = r.s(12);
               if (!(id >= 0.0f && id == floorf(id))) continue;  // opaque
+              if (COUNT) ++l_tri;
               const Hit h = tri_test(r, L, tl);
               if (h.hit) t_opq = fminf(t_opq, h.t);
             }

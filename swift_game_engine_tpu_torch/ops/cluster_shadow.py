@@ -48,8 +48,9 @@ class ShadowClusters(NamedTuple):
     meta: torch.Tensor   # (C, 8) [a0, b0, a1, b1, d0, d1, base_row, 0]
     basis: torch.Tensor  # (3, 3): rows e1, e2, l
     # (C * cluster / GROUP, 8): each GROUP rows' [a0, b0, a1, b1, d0, d1,
-    # 0, 0], clusters in meta's order (K2 culls a cluster's groups with it)
-    groups: torch.Tensor
+    # 0, 0], clusters in meta's order (K2 culls a cluster's groups with it);
+    # None where no K2 sweeps the set
+    groups: torch.Tensor | None
 
     @property
     def cluster(self) -> int:
@@ -82,10 +83,12 @@ def _ortho_basis(l):
 
 
 def build_shadow_clusters(v0, v1, v2, l, translucent, cluster: int = CLUSTER,
-                          alpha=None, ids=None) -> ShadowClusters:
+                          alpha=None, ids=None,
+                          groups: bool = False) -> ShadowClusters:
     """Per-frame constants for unit light direction ``l``. Translucent ids
     are encoded as id + 0.5; with ``alpha``, row lane 13 carries 2 + alpha
-    for translucent triangles (-1 otherwise)."""
+    for translucent triangles (-1 otherwise). ``groups``: also K2's
+    per-GROUP culling boxes (``cluster`` a multiple of GROUP)."""
     lv = l.to(torch.float32)
     e1b, e2b = _ortho_basis(lv)
     x0, y0, z0 = v0.unbind(-1)
@@ -177,28 +180,26 @@ def build_shadow_clusters(v0, v1, v2, l, translucent, cluster: int = CLUSTER,
     meta = torch.stack([cmin(a_lo)[order], cmin(b_lo)[order],
                         cmax(a_hi)[order], cmax(b_hi)[order], cd0[order],
                         cmax(d_hi)[order], base, torch.zeros_like(base)], -1)
-    groups = torch.zeros((0, 8), device=rows.device)
-    if cluster % GROUP == 0:
-        per = cluster // GROUP
+    sc = ShadowClusters(rows=rows.contiguous(), meta=meta.contiguous(),
+                        basis=torch.stack([e1b, e2b, lv]).contiguous(),
+                        groups=None)
+    if not groups:
+        return sc
 
-        def gmin(a):
-            return a.reshape(n_clusters, per, GROUP).amin(2)[order]
-
-        def gmax(a):
-            return a.reshape(n_clusters, per, GROUP).amax(2)[order]
-        g = [gmin(a_lo), gmin(b_lo), gmax(a_hi), gmax(b_hi), gmin(d_lo),
-             gmax(d_hi)]
-        groups = torch.stack(g + [torch.zeros_like(g[0])] * 2,
-                             -1).reshape(-1, 8)
-    return ShadowClusters(rows=rows.contiguous(), meta=meta.contiguous(),
-                          basis=torch.stack([e1b, e2b, lv]).contiguous(),
-                          groups=groups.contiguous())
+    def per_group(a, red):
+        return red(a.reshape(n_clusters, cluster // GROUP, GROUP), 2)[order]
+    g = [per_group(a, red) for a, red in (
+        (a_lo, torch.amin), (b_lo, torch.amin), (a_hi, torch.amax),
+        (b_hi, torch.amax), (d_lo, torch.amin), (d_hi, torch.amax))]
+    return sc._replace(groups=torch.stack(
+        g + [torch.zeros_like(g[0])] * 2, -1).reshape(-1, 8).contiguous())
 
 
 def build_shadow_split(v0, v1, v2, l, translucent, alpha=None,
                        trans_idx=None) -> ShadowSplit:
     """``trans_idx``: the static translucent triangle indices."""
-    full = build_shadow_clusters(v0, v1, v2, l, translucent, alpha=alpha)
+    full = build_shadow_clusters(v0, v1, v2, l, translucent, alpha=alpha,
+                                 groups=True)
     trans = None
     if trans_idx is not None and trans_idx.numel() > 0:
         trans = build_shadow_clusters(
@@ -294,6 +295,8 @@ def _launch_occl(sc: ShadowClusters, o, t_limit, tt, counts):
     if sc.cluster % OCCL_CHUNK:
         raise ValueError(f"cluster size {sc.cluster} is no multiple of "
                          f"{OCCL_CHUNK}")
+    if sc.groups is None:
+        raise ValueError("K2 needs clusters built with groups=True")
     _cuda.require(sc.groups, "groups",
                   (sc.meta.shape[0] * sc.cluster // GROUP, 8), device=o.device)
     out = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
@@ -321,7 +324,7 @@ def trace_shadow_occl_counts(sc: ShadowClusters, o, t_limit, tt=None):
     """K2's counting instantiation, on the card only (a measurement, not a
     launch of the frame) -> (t_opq, counts): per lane "lane_meta" (footprint
     survivors the lane tests itself), "lane_enter" (clusters it enters),
-    "lane_tri" (triangle rows it tests); per warp of 32 lanes "warp_meta"
+    "lane_tri" (opaque triangle rows it tests); per warp of 32 lanes "warp_meta"
     (metadata entries its ballots test), "warp_surv" (footprint survivors),
     "warp_enter" (clusters staged), "warp_tri" (triangle rows it loops
     over: the GROUPs some lane needs)."""

@@ -112,11 +112,10 @@ def _safe_inv(v):
 
 
 class WideTree(NamedTuple):
-    """K4's tree: the wide nodes over the packed rows that hold the leaves'
-    triangles."""
+    """K4's wide nodes; their leaf refs name packed rows (pack_bvh), which
+    K4 takes beside them."""
 
     nodes: torch.Tensor   # (W, NODE_F) wide-node lines
-    rows: torch.Tensor    # (M_pad, ROW) packed rows (pack_bvh)
     stack: int            # stack entries a walk can need (collapse_wide)
 
 
@@ -204,7 +203,7 @@ def wide_tree(rows) -> WideTree:
     nodes = wide_nodes(rows[:m, 0:3], rows[:m, 3:6],
                        torch.as_tensor(index, device=rows.device),
                        torch.as_tensor(tail, device=rows.device))
-    return WideTree(nodes=nodes, rows=rows, stack=stack)
+    return WideTree(nodes=nodes, stack=stack)
 
 
 def ray_group(n: int, device) -> int:
@@ -217,15 +216,15 @@ def ray_group(n: int, device) -> int:
         p.max_threads_per_multi_processor else 1
 
 
-def _check_tree(tree: WideTree, o, d, t_max):
+def _check_tree(tree: WideTree, rows, o, d, t_max):
     dev = tree.nodes.device
     n = o.shape[0]
     _cuda.require(tree.nodes, "nodes", (tree.nodes.shape[0], NODE_F),
                   device=dev)
-    _cuda.require(tree.rows, "rows", dtype=torch.float32, device=dev)
-    if tree.rows.dim() != 2 or tree.rows.shape[1] != ROW:
+    _cuda.require(rows, "rows", dtype=torch.float32, device=dev)
+    if rows.dim() != 2 or rows.shape[1] != ROW:
         raise ValueError(f"rows: expected (M, {ROW}), got "
-                         f"{tuple(tree.rows.shape)}")
+                         f"{tuple(rows.shape)}")
     if not 0 <= tree.stack <= WIDE_STACK_MAX:
         raise ValueError(f"stack bound {tree.stack} outside 0.."
                          f"{WIDE_STACK_MAX}")
@@ -235,39 +234,44 @@ def _check_tree(tree: WideTree, o, d, t_max):
     return dev, n
 
 
-def _launch_k4(tree, o, d, t_max, counts):
-    dev, n = _check_tree(tree, o, d, t_max)
+def _launch_k4(tree, rows, o, d, t_max, counts, group=None):
+    """One K4 launch with ``group`` threads a ray (default: ray_group's
+    rule; chip_smoke.py times both builds on the frame's calls)."""
+    dev, n = _check_tree(tree, rows, o, d, t_max)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
-    group = ray_group(n, dev)
+    group = ray_group(n, dev) if group is None else group
     _cuda.check(_cuda.library().sge_trace_closest(
-        tree.nodes.data_ptr(), tree.rows.data_ptr(), o.data_ptr(),
+        tree.nodes.data_ptr(), rows.data_ptr(), o.data_ptr(),
         d.data_ptr(), t_max.data_ptr(), n, tree.stack, group,
         _cuda.ptr(counts), t.data_ptr(), tri.data_ptr(),
         _cuda.stream_ptr(o)), "sge_trace_closest")
     return t, tri, group
 
 
-def trace_rays(tree: WideTree, o, d, t_max):
-    """Nearest hit per ray -> (t (N,) f32, tri (N,) int32; -1 on a miss,
-    t = t_max). Rays with t_max <= 0 are inactive."""
+def trace_rays(tree: WideTree, rows, o, d, t_max):
+    """Nearest hit per ray over ``tree`` and the packed ``rows`` its leaves
+    name -> (t (N,) f32, tri (N,) int32; -1 on a miss, t = t_max). Rays
+    with t_max <= 0 are inactive."""
     if not tree.nodes.is_cuda:
-        return trace_rays_plain(tree, o, d, t_max)
+        return trace_rays_plain(tree, rows, o, d, t_max)
     global launches
     launches += 1
-    t, tri, _ = _launch_k4(tree, o, d, t_max, None)
+    t, tri, _ = _launch_k4(tree, rows, o, d, t_max, None)
     return t, tri
 
 
-def trace_rays_counts(tree: WideTree, o, d, t_max):
+def trace_rays_counts(tree: WideTree, rows, o, d, t_max, group=None):
     """K4's counting instantiation, on the card only (a measurement, not a
     launch of the frame): (t, tri, per-ray counts {"nodes": wide nodes
-    visited, "leaves": leaves visited, "slots": slot tests}, threads per
+    visited, "boxes": child boxes tested (the non-empty slots of those
+    nodes), "leaves": leaves visited, "slots": triangle tests}, threads per
     ray)."""
     n = o.shape[0]
-    counts = torch.zeros((3, n), dtype=torch.int32, device=o.device)
-    t, tri, group = _launch_k4(tree, o, d, t_max, counts)
-    return t, tri, dict(zip(("nodes", "leaves", "slots"), counts)), group
+    counts = torch.zeros((4, n), dtype=torch.int32, device=o.device)
+    t, tri, group = _launch_k4(tree, rows, o, d, t_max, counts, group)
+    return t, tri, dict(zip(("nodes", "boxes", "leaves", "slots"),
+                            counts)), group
 
 
 def _mt_leaf(row, o, d):
@@ -296,7 +300,7 @@ def _mt_leaf(row, o, d):
 _SORT4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
 
 
-def trace_rays_plain(tree: WideTree, o, d, t_max):
+def trace_rays_plain(tree: WideTree, rows, o, d, t_max):
     """Plain PyTorch twin of the K4 kernel, in its per-ray order: every live
     ray holds a current node and its own stack. At a wide node it tests the
     WIDE child boxes against its best t, orders the hit children by entry
@@ -305,7 +309,7 @@ def trace_rays_plain(tree: WideTree, o, d, t_max):
     tests (the kernel's arithmetic) keep the nearest hit below the best,
     the first slot among equals. A popped entry whose entry distance is not
     below the ray's best t is dropped."""
-    nodes, rows = tree.nodes, tree.rows
+    nodes = tree.nodes
     n, dev = o.shape[0], o.device
     inv = _safe_inv(d)
     t_best = t_max.clone()
@@ -405,7 +409,7 @@ def trace_batch(bvh, o, d, active):
     t_max = torch.where(active, BIG, 0.0)
     # park inactive rays far outside the scene: they fail the root box
     o = torch.where(active[:, None], o, 1.0e9).contiguous()
-    t, tri = trace_rays(bvh.wide, o, d.contiguous(), t_max)
+    t, tri = trace_rays(bvh.wide, bvh.rows, o, d.contiguous(), t_max)
     u, v, found = barycentrics(bvh, o, d, t, tri)
     found = found & active & (t < BIG)
     return (torch.where(found, t, BIG), torch.where(found, tri.long(), -1),

@@ -82,7 +82,7 @@ class BVHArrays(NamedTuple):
     v1: torch.Tensor
     v2: torch.Tensor
     rows: torch.Tensor      # (M_pad, 128) kernel layout (ops.rt_kernel)
-    wide: RK.WideTree       # K4's wide nodes over ``rows``
+    wide: RK.WideTree       # K4's wide nodes; their leaves are ``rows``
 
 
 def refit(topo: BVHTopology, v0, v1, v2, translucent=None) -> BVHArrays:
@@ -111,5 +111,5 @@ def refit(topo: BVHTopology, v0, v1, v2, translucent=None) -> BVHArrays:
     rows = RK.pack_bvh(out, translucent=translucent)
     wide = RK.WideTree(nodes=RK.wide_nodes(bmin, bmax, topo.wide_index,
                                            topo.wide_tail),
-                       rows=rows, stack=topo.wide_stack)
+                       stack=topo.wide_stack)
     return out._replace(rows=rows, wide=wide)

@@ -161,6 +161,11 @@ def test_k2_incoherent_lanes(shadow_case):
     assert torch.equal(ca, ka)
     assert counts["warp_meta"].numel() == (n + 31) // 32
     assert int(counts["lane_enter"][t_lim <= 0].sum()) == 0
+    # a lane tests only opaque rows of the clusters it enters
+    assert bool((counts["lane_tri"] <=
+                 split.full.cluster * counts["lane_enter"]).all())
+    with pytest.raises(ValueError):          # a set built without groups
+        CS.trace_shadow_occl(split.trans, o, t_lim)
 
 
 @pytest.mark.parametrize("n_slots,alpha_payload", [(4, True), (4, False),
@@ -205,17 +210,22 @@ def test_k4_kernel_matches_plain(cuda, n):
         rng.uniform(-18, 18, (n, 3)).astype(np.float32), d,
         np.full(n, 1e6, np.float32)))
     t_max[::17] = 0.0                                     # inactive rays
+    bvh = fg.bvh
     before = RK.launches
-    kt, ktri = RK.trace_rays(fg.bvh.wide, o, d, t_max)
+    kt, ktri = RK.trace_rays(bvh.wide, bvh.rows, o, d, t_max)
     assert RK.launches == before + 1
-    pt, ptri = RK.trace_rays_plain(fg.bvh.wide, o, d, t_max)
+    pt, ptri = RK.trace_rays_plain(bvh.wide, bvh.rows, o, d, t_max)
     assert int((ptri >= 0).sum()) > n // 8
     agree(ktri, ptri, [kt], [pt])
-    # the counting instantiation walks the same way
-    ct, ctri, counts, group = RK.trace_rays_counts(fg.bvh.wide, o, d, t_max)
-    assert torch.equal(ctri, ktri) and torch.equal(ct, kt)
-    assert group == RK.ray_group(n, cuda)
-    assert int(counts["slots"].sum()) > 0
+    # both builds, counting, walk the same way whatever the rule picks
+    for g in (1, RK.WIDE):
+        ct, ctri, counts, group = RK.trace_rays_counts(
+            bvh.wide, bvh.rows, o, d, t_max, group=g)
+        assert group == g
+        assert torch.equal(ctri, ktri) and torch.equal(ct, kt)
+        assert int(counts["slots"].sum()) > 0
+        assert int(counts["boxes"].sum()) <= RK.WIDE * int(
+            counts["nodes"].sum())
 
 
 @pytest.mark.parametrize("n", [2000, 100_000])
@@ -240,8 +250,8 @@ def test_k4_grazing_and_inside(cuda, n):
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     o, d = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
     t_max = torch.full((n,), 3.0e38, device=cuda)
-    kt, ktri = RK.trace_rays(fg.bvh.wide, o, d, t_max)
-    pt, ptri = RK.trace_rays_plain(fg.bvh.wide, o, d, t_max)
+    kt, ktri = RK.trace_rays(fg.bvh.wide, fg.bvh.rows, o, d, t_max)
+    pt, ptri = RK.trace_rays_plain(fg.bvh.wide, fg.bvh.rows, o, d, t_max)
     plane_ids = torch.tensor([3000, 3001], device=cuda)
     assert int(torch.isin(ptri[:half], plane_ids).sum()) > half // 4
     assert int((ptri[half:] >= 0).sum()) > n // 8
@@ -331,17 +341,19 @@ def test_k7_kernel_matches_plain(walk_tree, n_slots):
 def test_wrappers_reject_bad_inputs(cuda):
     rows = torch.zeros((8, RK.ROW), device=cuda)
     tree = RK.WideTree(nodes=torch.zeros((1, RK.NODE_F), device=cuda),
-                       rows=rows, stack=0)
+                       stack=0)
     o = torch.zeros((4, 3), device=cuda)
     with pytest.raises(TypeError):
-        RK.trace_rays(tree, o.double(), o, torch.ones(4, device=cuda))
+        RK.trace_rays(tree, rows, o.double(), o, torch.ones(4, device=cuda))
     with pytest.raises(ValueError):
-        RK.trace_rays(tree, o, torch.zeros((3, 4), device=cuda).T,
+        RK.trace_rays(tree, rows, o, torch.zeros((3, 4), device=cuda).T,
                       torch.ones(4, device=cuda))
     with pytest.raises(ValueError):
-        RK.trace_rays(tree, o, o, torch.ones(4))          # t_max on the CPU
+        RK.trace_rays(tree, rows, o, o, torch.ones(4))    # t_max on the CPU
+    with pytest.raises(ValueError):
+        RK.trace_rays(tree, rows[:, :64], o, o, torch.ones(4, device=cuda))
     with pytest.raises(ValueError):                       # stack over the cap
-        RK.trace_rays(tree._replace(stack=RK.WIDE_STACK_MAX + 1), o, o,
+        RK.trace_rays(tree._replace(stack=RK.WIDE_STACK_MAX + 1), rows, o, o,
                       torch.ones(4, device=cuda))
     so = RK.build_origin_rows(rows, torch.zeros(3, device=cuda))
     with pytest.raises(ValueError):

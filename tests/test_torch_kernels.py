@@ -167,6 +167,7 @@ def test_k2_groups_cover_their_clusters(shadow_case):
                                  torch.as_tensor(l), torch.as_tensor(tr),
                                  alpha=torch.as_tensor(alpha),
                                  trans_idx=torch.as_tensor(np.nonzero(tr)[0]))
+    assert ps.trans.groups is None     # only K2's set is culled by groups
     sc = ps.full
     per = sc.cluster // p_cs.GROUP
     g = sc.groups.reshape(-1, per, 8)
@@ -225,9 +226,9 @@ def test_k4_twin_matches_traverse(trace_case):
         lambda a, b: j_bvh.traverse(fg.bvh, a, b, jnp.float32(1e6)))(
         jnp.asarray(o), jnp.asarray(d))
     jt, jtri = np.asarray(jt), np.asarray(jtri)
-    wide = interop.frame_geometry(fg).bvh.wide
-    pt, ptri = p_rk.trace_rays(wide, torch.as_tensor(o), torch.as_tensor(d),
-                               torch.as_tensor(t_max))
+    bvh = interop.frame_geometry(fg).bvh
+    pt, ptri = p_rk.trace_rays(bvh.wide, bvh.rows, torch.as_tensor(o),
+                               torch.as_tensor(d), torch.as_tensor(t_max))
     same = ptri.numpy() == jtri
     assert same.mean() >= 0.999, same.mean()
     assert (jtri >= 0).sum() > 300

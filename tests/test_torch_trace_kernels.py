@@ -237,7 +237,8 @@ def test_k7_twin_matches_reference(k7, n_slots):
 ], ids=["ordered", "skip_link", "interval", "dual", "vmem"])
 def test_k4_twin_matches_sibling_kernels(tmp_path_factory, knobs):
     ref = _reference(tmp_path_factory, K4_CODE, "k4", knobs)
-    t, tri = RK.trace_rays(RK.wide_tree(_t(ref["rows"])), _t(ref["o"]),
+    rows = _t(ref["rows"])
+    t, tri = RK.trace_rays(RK.wide_tree(rows), rows, _t(ref["o"]),
                            _t(ref["d"]), _t(ref["t_max"]))
     same = tri.numpy() == ref["tri"]
     assert same.mean() >= 0.999, same.mean()

@@ -114,7 +114,8 @@ def test_stack_bound(frame):
     o = torch.as_tensor(rng.uniform(-9, 9, (4000, 3)).astype(np.float32))
     d = torch.as_tensor(rng.normal(size=(4000, 3)).astype(np.float32))
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-    t, tri = RK.trace_rays(wide, o, d, torch.full((4000,), RK.BIG))
+    t, tri = RK.trace_rays(wide, fg.bvh.rows, o, d,
+                           torch.full((4000,), RK.BIG))
     assert int((tri >= 0).sum()) > 1000
     # the decimated DemoScene, which paths 2, 3, 5 and 6 trace
     from swift_game_engine_tpu_torch.scene.demo_scene import \
@@ -168,9 +169,10 @@ def test_twin_matches_pallas_kernel(tmp_path):
                           timeout=900)
     assert proc.returncode == 0, proc.stderr[-4000:]
     ref = dict(np.load(out))
-    wide = RK.wide_tree(torch.as_tensor(ref["rows"]))
-    t, tri = RK.trace_rays(wide, *(torch.as_tensor(ref[k])
-                                   for k in ("o", "d", "t_max")))
+    rows = torch.as_tensor(ref["rows"])
+    t, tri = RK.trace_rays(RK.wide_tree(rows), rows,
+                           *(torch.as_tensor(ref[k])
+                             for k in ("o", "d", "t_max")))
     same = tri.numpy() == ref["tri"]
     assert same.mean() >= 0.999, same.mean()
     assert (ref["tri"] >= 0).sum() > 100
