@@ -92,8 +92,6 @@ MAX_MISMATCH = 1e-3
 MAX_REL_ERR = 1e-5
 # The walks' twins run on at most this many of the captured lanes.
 TWIN_LANES = 65_536
-# K4 calls of at least this many rays are also timed on strided subsets.
-SWEEP_RAYS = 262_144
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # device memory rate and FP32 rate outside the tensor cores.
@@ -215,22 +213,16 @@ def _subset(n, device):
 
 
 class Capture:
-    """Records the first call's arguments of chosen kernel wrappers, and
-    those of every call of the first frame (while ``frames`` is 0) for the
-    keys in ``every``."""
+    """Records the first call's arguments of chosen kernel wrappers."""
 
-    def __init__(self, every=()):
+    def __init__(self):
         self.args, self._orig = {}, []
-        self.every, self.calls, self.frames = every, {}, 0
 
     def on(self, mod, name, key_of):
         orig = getattr(mod, name)
 
         def wrapper(*a, **k):
-            key = key_of(*a, **k)
-            self.args.setdefault(key, (a, k))
-            if key in self.every and not self.frames:
-                self.calls.setdefault(key, []).append((a, k))
+            self.args.setdefault(key_of(*a, **k), (a, k))
             return orig(*a, **k)
         setattr(mod, name, wrapper)
         self._orig.append((mod, name, orig))
@@ -321,7 +313,6 @@ def main():
         read just after."""
         for _ in range(WARMUP):
             img = eng.frame(1 / 60)
-            cap.frames += 1
         cap.off()
         shade_calls, shade_hit = [0], RT._shade_hit
 
@@ -399,7 +390,7 @@ def main():
                 _fail(f"the decimated tree has {rows_n} rows, over the "
                       f"walks' cap")
         scenes[name], engines[name] = scene, eng
-        cap = caps[name] = Capture(every=("K4",))
+        cap = caps[name] = Capture()
         for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
             cap.on(*wrappers[fam], roles.get(fam, lambda *a, fam=fam, **k:
                                                fam))
@@ -566,40 +557,7 @@ def main():
                       (int((k3[2] >= 0).sum()) + int((k3[0] < 1e30).sum()))
                       * SWEEP_OPS))
 
-    def k4_builds(calls):
-        """Both K4 builds (1 and WIDE threads a ray) timed on every call of
-        a path's first frame, and on strided subsets of its largest call
-        when that is large: where ray_group's rule should switch."""
-        def ms(g, tree, rows, o, d, t_max):
-            return _time_ms(lambda: RK._launch_k4(tree, rows, o, d, t_max,
-                                                  None, g), 5)
-        sums = {1: 0.0, RK.WIDE: 0.0, "rule": 0.0}
-        per_call = []
-        for (tree, rows, o, d, t_max), _ in calls:
-            n, live = o.shape[0], int((t_max > 0).sum())
-            t = {g: ms(g, tree, rows, o, d, t_max) for g in (1, RK.WIDE)}
-            for g in t:
-                sums[g] += t[g]
-            sums["rule"] += t[RK.ray_group(n, dev)]
-            per_call.append(f"{n} ({live} live) {t[1]:.3f}/{t[RK.WIDE]:.3f}")
-        print(f"  K4 builds on the first frame's {len(calls)} calls, rays "
-              f"(live) G=1/G={RK.WIDE} ms: " + "; ".join(per_call))
-        print(f"  K4 builds, frame sum: rule {sums['rule']:.3f} ms, all G=1 "
-              f"{sums[1]:.3f} ms, all G={RK.WIDE} {sums[RK.WIDE]:.3f} ms")
-        (tree, rows, o, d, t_max), _ = max(calls,
-                                           key=lambda c: c[0][2].shape[0])
-        if o.shape[0] < SWEEP_RAYS:
-            return
-        sweep = []
-        for step in (1, 2, 4, 8, 16, 32, 64, 128, 256):
-            idx = torch.arange(0, o.shape[0], step, device=dev)
-            sub = [x[idx].contiguous() for x in (o, d, t_max)]
-            sweep.append(f"{idx.numel()} {ms(1, tree, rows, *sub):.3f}/"
-                         f"{ms(RK.WIDE, tree, rows, *sub):.3f}")
-        print(f"  K4 builds on every k-th ray of the largest call, rays "
-              f"G=1/G={RK.WIDE} ms: " + "; ".join(sweep))
-
-    def check_k4(args, launches, tag, calls):
+    def check_k4(args, launches, tag):
         (tree, rows, o, d, t_max), _ = args["K4"]
         t_k, tri_k = RK.trace_rays(tree, rows, o, d, t_max)
         (t_p, tri_p), plain_ms = _timed(lambda: RK.trace_rays_plain(
@@ -608,12 +566,11 @@ def main():
                        f"{tree.nodes.shape[0]} wide nodes)", tri_k, tri_p,
                        [t_k], [t_p])
         # the work of the frame's call, from the counting instantiation
-        t_c, tri_c, cnt, group = RK.trace_rays_counts(tree, rows, o, d,
-                                                      t_max)
+        t_c, tri_c, cnt = RK.trace_rays_counts(tree, rows, o, d, t_max)
         if not (torch.equal(tri_c, tri_k) and torch.equal(t_c, t_k)):
             _fail("K4's counting instantiation differs from the kernel")
-        print(f"  K4 work ({group} threads a ray, stack {tree.stack}): "
-              + _count_line(cnt, 32 // group))
+        print(f"  K4 work ({RK.WIDE} threads a ray, stack {tree.stack}): "
+              + _count_line(cnt, 32 // RK.WIDE))
         # counted: the non-empty child boxes and the triangles the walk
         # tests; records: one triangle test per ray with a hit
         ops = int(cnt["boxes"].sum()) * SLAB_OPS + \
@@ -625,7 +582,6 @@ def main():
                _time_ms(lambda: RK.trace_rays(tree, rows, o, d, t_max), 5),
                plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
                records=_bound(ins, outs, int((tri_k >= 0).sum()) * MT_OPS))
-        k4_builds(calls)
 
     def check_k5(args, launches, tag):
         (so_rows, origin, d, t_max), kw = args["K5"]
@@ -797,7 +753,7 @@ def main():
                _bound(*list_bound(cnt, cand, None, k10)),
                " (no path runs it: path 5's candidate lists)")
 
-    checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3,
+    checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3, "K4": check_k4,
               "K5": check_k5, "K6": check_k6, "K7": check_k7, "K8": check_k8,
               "K9": check_k9}
     seen = set()
@@ -807,10 +763,7 @@ def main():
         for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
             tag = f"@{name}" if fam in seen else ""
             seen.add(fam)
-            if fam == "K4":
-                check_k4(cap.args, counts[name][fam], tag, cap.calls["K4"])
-            else:
-                checks[fam](cap.args, counts[name][fam], tag)
+            checks[fam](cap.args, counts[name][fam], tag)
 
     # -- 4. kernel path vs plain path, end to end ----------------------------
     plain = {

@@ -21,7 +21,7 @@
 // sat in the left child's row), with its stack in local memory and a
 // leaf's 12 slot tests one after another; 42 blocks left most SMs idle.
 // The tree's top 6 levels took 6.5% of the node visits, so the top of the
-// tree is not kept in shared memory. This design takes 1.19 ms on that
+// tree is not kept in shared memory. This design takes 1.18 ms on that
 // batch, still bound by its slowest ray's chain: 434 wide-node and 521
 // leaf steps, about 1.2 us each, against 0.021 ms for its operations:
 //   * one dependent load per step: a step reads one wide-node line, tests
@@ -30,10 +30,14 @@
 //   * the stack lives in shared memory, per ray, sized by the tree's own
 //     bound (the largest sum of children less one down a root-to-leaf
 //     path, computed with the topology and checked at build);
-//   * G threads per ray (the wrapper's rule: 4 while 4n threads fit on the
-//     card, else 1): with G = 4 each thread tests one child box and 3 of a
-//     leaf's 12 slots, and the group shares the results by warp shuffles,
-//     so a small batch's slowest ray runs its steps four-wide;
+//   * four threads a ray: each tests one child box and 3 of a leaf's 12
+//     slots, and the group shares the results by warp shuffles, so a
+//     ray's steps run four-wide. A one-thread-a-ray build of the same walk
+//     was slower at every batch the frames give it, from 6 rays (2.58
+//     against 1.19 ms) to 557,056 (3.60 against 2.58 ms): its 128-ray
+//     blocks' stacks left 1,024 threads an SM resident against 2,048, a
+//     leaf's 12 tests ran one after another, and a warp of 32 rays waited
+//     on the longest of their walks;
 //   * a counting instantiation (COUNT, with a null counts pointer in
 //     production) reports each ray's wide nodes, the child boxes it tests
 //     (the non-empty slots of those nodes), leaves and slot tests.
@@ -95,10 +99,6 @@ constexpr int WIDE = 4;
 constexpr int NODE_F = 32;          // f32 per wide node: one 128-byte line
 constexpr int TRACE_THREADS = 128;
 
-__device__ __forceinline__ float lane4(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
-}
-
 // The slab test of `slab` (common.cuh) on one child's box held in registers.
 __device__ __forceinline__ float child_slab(float lx, float ly, float lz,
                                             float hx, float hy, float hz,
@@ -127,9 +127,13 @@ __device__ __forceinline__ void cswap(float (&t)[WIDE], int (&r)[WIDE],
   r[a] = sw ? rb : ra; r[b] = sw ? ra : rb;
 }
 
-// G threads per ray; G = 1 or WIDE. The per-ray stack is stack_n entries
-// of (ref, entry distance) in dynamic shared memory, one column per ray.
-template <int G, bool COUNT>
+// G = WIDE threads per ray, one per child. The per-ray stack is stack_n
+// entries of (ref, entry distance) in dynamic shared memory, one column
+// per ray.
+constexpr int G = WIDE;
+constexpr int RPB = TRACE_THREADS / G;     // rays per block
+
+template <bool COUNT>
 __global__ void __launch_bounds__(TRACE_THREADS)
 trace_wide_kernel(const float* __restrict__ nodes,
                   const float* __restrict__ rows, const float* __restrict__ o,
@@ -137,16 +141,13 @@ trace_wide_kernel(const float* __restrict__ nodes,
                   const float* __restrict__ t_max, int64_t n, int stack_n,
                   int32_t* __restrict__ counts, float* __restrict__ t_out,
                   int32_t* __restrict__ tri_out) {
-  static_assert(G == 1 || G == WIDE, "one thread per ray or per child");
-  constexpr int RPB = TRACE_THREADS / G;   // rays per block
   extern __shared__ float4 smem4[];
   int* st_ref = reinterpret_cast<int*>(smem4);
   float* st_t = reinterpret_cast<float*>(st_ref + stack_n * RPB);
   const int slot = threadIdx.x / G;
   const int k = threadIdx.x % G;
   const unsigned lane = threadIdx.x & 31u;
-  const unsigned mask = G == 1 ? 1u << lane
-                               : ((1u << G) - 1u) << (lane & ~unsigned(G - 1));
+  const unsigned mask = ((1u << G) - 1u) << (lane & ~unsigned(G - 1));
   const int64_t i = int64_t(blockIdx.x) * RPB + slot;
   if (i >= n) return;                      // the whole group leaves
   const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1),
@@ -164,33 +165,17 @@ trace_wide_kernel(const float* __restrict__ nodes,
       const float* nd = nodes + int64_t(cur) * NODE_F;
       float ct[WIDE];
       int cr[WIDE];
-      if constexpr (G == 1) {
-        const float4* q = reinterpret_cast<const float4*>(nd);
-        const float4 lx = __ldg(q), ly = __ldg(q + 1), lz = __ldg(q + 2),
-                     hx = __ldg(q + 3), hy = __ldg(q + 4), hz = __ldg(q + 5),
-                     rf = __ldg(q + 6);
+      bool hit;                            // thread k tests child k
+      const float tm = child_slab(
+          __ldg(nd + k), __ldg(nd + 4 + k), __ldg(nd + 8 + k),
+          __ldg(nd + 12 + k), __ldg(nd + 16 + k), __ldg(nd + 20 + k), ox, oy,
+          oz, ix, iy, iz, t_best, hit);
+      const int rf = int(__ldg(nd + 24 + k));
+      const float mine = hit && rf != -1 ? tm : INF;
 #pragma unroll
-        for (int c = 0; c < WIDE; ++c) {
-          bool hit;
-          const float tm = child_slab(
-              lane4(lx, c), lane4(ly, c), lane4(lz, c), lane4(hx, c),
-              lane4(hy, c), lane4(hz, c), ox, oy, oz, ix, iy, iz, t_best, hit);
-          cr[c] = int(lane4(rf, c));
-          ct[c] = hit && cr[c] != -1 ? tm : INF;
-        }
-      } else {                             // thread k tests child k
-        bool hit;
-        const float tm = child_slab(
-            __ldg(nd + k), __ldg(nd + 4 + k), __ldg(nd + 8 + k),
-            __ldg(nd + 12 + k), __ldg(nd + 16 + k), __ldg(nd + 20 + k), ox,
-            oy, oz, ix, iy, iz, t_best, hit);
-        const int rf = int(__ldg(nd + 24 + k));
-        const float mine = hit && rf != -1 ? tm : INF;
-#pragma unroll
-        for (int c = 0; c < WIDE; ++c) {
-          ct[c] = __shfl_sync(mask, mine, c, G);
-          cr[c] = __shfl_sync(mask, rf, c, G);
-        }
+      for (int c = 0; c < WIDE; ++c) {
+        ct[c] = __shfl_sync(mask, mine, c, G);
+        cr[c] = __shfl_sync(mask, rf, c, G);
       }
       if (COUNT) {
         ++n_nodes;
@@ -204,7 +189,7 @@ trace_wide_kernel(const float* __restrict__ nodes,
       for (int c = 0; c < WIDE; ++c) h += ct[c] < INF;
       if (h > 0) {                         // nearest next, the rest stacked
         cur = cr[0];
-        if (G > 1) __syncwarp(mask);       // every pop of the group is done
+        __syncwarp(mask);                  // every pop of the group is done
 #pragma unroll
         for (int c = WIDE - 1; c >= 1; --c) {
           if (c < h) {
@@ -215,7 +200,7 @@ trace_wide_kernel(const float* __restrict__ nodes,
             ++sp;
           }
         }
-        if (G > 1) __syncwarp(mask);
+        __syncwarp(mask);
         continue;
       }
     } else {                               // leaf: its slots, G at a time
@@ -232,15 +217,13 @@ trace_wide_kernel(const float* __restrict__ nodes,
           bj = j;
         }
       }
-      if constexpr (G > 1) {               // nearest, first slot among equals
 #pragma unroll
-        for (int off = 1; off < G; off <<= 1) {
-          const float ot = __shfl_xor_sync(mask, bt, off, G);
-          const int oj = __shfl_xor_sync(mask, bj, off, G);
-          if (ot < bt || (ot == bt && oj < bj)) {
-            bt = ot;
-            bj = oj;
-          }
+      for (int off = 1; off < G; off <<= 1) {  // nearest, first slot of equals
+        const float ot = __shfl_xor_sync(mask, bt, off, G);
+        const int oj = __shfl_xor_sync(mask, bj, off, G);
+        if (ot < bt || (ot == bt && oj < bj)) {
+          bt = ot;
+          bj = oj;
         }
       }
       if (bj >= 0) {
@@ -275,20 +258,15 @@ trace_wide_kernel(const float* __restrict__ nodes,
   }
 }
 
-template <int G, bool COUNT>
+template <bool COUNT>
 int launch_trace(const float* nodes, const float* rows, const float* o,
                  const float* d, const float* t_max, int64_t n, int stack_n,
                  int32_t* counts, float* t, int32_t* tri, cudaStream_t st) {
-  constexpr int RPB = TRACE_THREADS / G;
+  // at most 96 entries (WIDE_STACK_MAX): 24 KB, under the default 48 KB
   const size_t smem = size_t(stack_n) * RPB * 8;
-  auto kern = trace_wide_kernel<G, COUNT>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-  }
-  kern<<<unsigned((n + RPB - 1) / RPB), TRACE_THREADS, smem, st>>>(
-      nodes, rows, o, d, t_max, n, stack_n, counts, t, tri);
+  trace_wide_kernel<COUNT><<<unsigned((n + RPB - 1) / RPB), TRACE_THREADS,
+                             smem, st>>>(nodes, rows, o, d, t_max, n,
+                                         stack_n, counts, t, tri);
   return int(cudaGetLastError());
 }
 
@@ -332,28 +310,19 @@ shadow_any_kernel(const float* __restrict__ rows, const float* __restrict__ o,
 }  // namespace sge
 
 // nodes (W,32) wide nodes, rows (M_pad,128), o/d (N,3), t_max (N,);
-// stack_n: the tree's stack bound; group: threads per ray (1 or 4);
-// counts: (4,N) int32 per-ray work, or null. Out: t (N,), tri (N,) int32.
+// stack_n: the tree's stack bound; counts: (4,N) int32 per-ray work, or
+// null. Out: t (N,), tri (N,) int32.
 SGE_API int sge_trace_closest(const float* nodes, const float* rows,
                               const float* o, const float* d,
                               const float* t_max, int64_t n, int stack_n,
-                              int group, int32_t* counts, float* t,
-                              int32_t* tri, void* stream) {
+                              int32_t* counts, float* t, int32_t* tri,
+                              void* stream) {
   if (n == 0) return int(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (group == 1)
-    return counts ? sge::launch_trace<1, true>(nodes, rows, o, d, t_max, n,
-                                               stack_n, counts, t, tri, st)
-                  : sge::launch_trace<1, false>(nodes, rows, o, d, t_max, n,
-                                                stack_n, counts, t, tri, st);
-  if (group == sge::WIDE)
-    return counts ? sge::launch_trace<sge::WIDE, true>(
-                        nodes, rows, o, d, t_max, n, stack_n, counts, t, tri,
-                        st)
-                  : sge::launch_trace<sge::WIDE, false>(
-                        nodes, rows, o, d, t_max, n, stack_n, counts, t, tri,
-                        st);
-  return int(cudaErrorInvalidValue);
+  return counts ? sge::launch_trace<true>(nodes, rows, o, d, t_max, n,
+                                          stack_n, counts, t, tri, st)
+                : sge::launch_trace<false>(nodes, rows, o, d, t_max, n,
+                                           stack_n, counts, t, tri, st);
 }
 
 // rows (M_pad,128), o/d (N,3), t_lim (N,). Out: blocked (N,) bool.

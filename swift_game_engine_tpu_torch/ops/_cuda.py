@@ -46,7 +46,7 @@ _SIGNATURES = {
                         _P],
     "sge_shadow_slots": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                          _P, _P, _P, _P],
-    "sge_trace_closest": [_P, _P, _P, _P, _P, _I64, _I, _I, _P, _P, _P, _P],
+    "sge_trace_closest": [_P, _P, _P, _P, _P, _I64, _I, _P, _P, _P, _P],
     "sge_so_layers": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _P, _P, _P, _P,
                       _P],
     "sge_shadow_walk": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _P, _P, _P,

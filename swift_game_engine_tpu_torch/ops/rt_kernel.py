@@ -206,16 +206,6 @@ def wide_tree(rows) -> WideTree:
     return WideTree(nodes=nodes, stack=stack)
 
 
-def ray_group(n: int, device) -> int:
-    """Threads per ray of a K4 call of ``n`` rays: 4 (one per child box,
-    three leaf slots each) while 4n threads fit on the card at once, else
-    1. The call lasts as long as its slowest ray, so a small batch spends
-    idle threads on the rays' own work."""
-    p = torch.cuda.get_device_properties(device)
-    return 4 if WIDE * n <= p.multi_processor_count * \
-        p.max_threads_per_multi_processor else 1
-
-
 def _check_tree(tree: WideTree, rows, o, d, t_max):
     dev = tree.nodes.device
     n = o.shape[0]
@@ -234,19 +224,16 @@ def _check_tree(tree: WideTree, rows, o, d, t_max):
     return dev, n
 
 
-def _launch_k4(tree, rows, o, d, t_max, counts, group=None):
-    """One K4 launch with ``group`` threads a ray (default: ray_group's
-    rule; chip_smoke.py times both builds on the frame's calls)."""
+def _launch_k4(tree, rows, o, d, t_max, counts):
     dev, n = _check_tree(tree, rows, o, d, t_max)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
-    group = ray_group(n, dev) if group is None else group
     _cuda.check(_cuda.library().sge_trace_closest(
         tree.nodes.data_ptr(), rows.data_ptr(), o.data_ptr(),
-        d.data_ptr(), t_max.data_ptr(), n, tree.stack, group,
-        _cuda.ptr(counts), t.data_ptr(), tri.data_ptr(),
-        _cuda.stream_ptr(o)), "sge_trace_closest")
-    return t, tri, group
+        d.data_ptr(), t_max.data_ptr(), n, tree.stack, _cuda.ptr(counts),
+        t.data_ptr(), tri.data_ptr(), _cuda.stream_ptr(o)),
+        "sge_trace_closest")
+    return t, tri
 
 
 def trace_rays(tree: WideTree, rows, o, d, t_max):
@@ -257,21 +244,18 @@ def trace_rays(tree: WideTree, rows, o, d, t_max):
         return trace_rays_plain(tree, rows, o, d, t_max)
     global launches
     launches += 1
-    t, tri, _ = _launch_k4(tree, rows, o, d, t_max, None)
-    return t, tri
+    return _launch_k4(tree, rows, o, d, t_max, None)
 
 
-def trace_rays_counts(tree: WideTree, rows, o, d, t_max, group=None):
+def trace_rays_counts(tree: WideTree, rows, o, d, t_max):
     """K4's counting instantiation, on the card only (a measurement, not a
     launch of the frame): (t, tri, per-ray counts {"nodes": wide nodes
     visited, "boxes": child boxes tested (the non-empty slots of those
-    nodes), "leaves": leaves visited, "slots": triangle tests}, threads per
-    ray)."""
+    nodes), "leaves": leaves visited, "slots": triangle tests})."""
     n = o.shape[0]
     counts = torch.zeros((4, n), dtype=torch.int32, device=o.device)
-    t, tri, group = _launch_k4(tree, rows, o, d, t_max, counts, group)
-    return t, tri, dict(zip(("nodes", "boxes", "leaves", "slots"),
-                            counts)), group
+    t, tri = _launch_k4(tree, rows, o, d, t_max, counts)
+    return t, tri, dict(zip(("nodes", "boxes", "leaves", "slots"), counts))
 
 
 def _mt_leaf(row, o, d):
