@@ -34,10 +34,9 @@
 //     slots, and the group shares the results by warp shuffles, so a
 //     ray's steps run four-wide. A one-thread-a-ray build of the same walk
 //     was slower at every batch the frames give it, from 6 rays (2.58
-//     against 1.19 ms) to 557,056 (3.60 against 2.58 ms): its 128-ray
-//     blocks' stacks left 1,024 threads an SM resident against 2,048, a
-//     leaf's 12 tests ran one after another, and a warp of 32 rays waited
-//     on the longest of their walks;
+//     against 1.19 ms) to 557,056 (3.60 against 2.58 ms): with about as
+//     many threads resident, it ran a leaf's 12 tests one after another,
+//     and a warp of 32 rays waited on the longest of their walks;
 //   * a counting instantiation (COUNT, with a null counts pointer in
 //     production) reports each ray's wide nodes, the child boxes it tests
 //     (the non-empty slots of those nodes), leaves and slot tests.
