@@ -104,7 +104,7 @@ WALK_SLOT_OPS = 26    # K7 slot: 3 dots (15), 3 subtracts, compares
 MT_OPS = 45           # K4 Moller-Trumbore slot test
 EDGE_OPS = 20         # K1/K9/K10 edge functions and depth of a fragment
 SWEEP_OPS = 26        # K2/K3 slot: 3 dots (15), 3 subtracts, compares
-META_OPS = 12         # K2 cluster entry against a footprint or a lane
+META_OPS = 12         # K1/K2/K3 cluster entry against a footprint or a lane
 
 
 def _fail(msg):
@@ -296,6 +296,7 @@ def main():
     def zero_counts():
         torch.cuda.synchronize()
         TR.launches = TR.list_launches = TR.peel_launches = 0
+        TR.layer_launches[:] = [0] * len(TR.layer_launches)
         CS.occl_launches = CS.slots_launches = 0
         RK.launches = RK.so_launches = RK.so_closest_launches = 0
         RK.shadow_launches = RK.any_launches = 0
@@ -329,6 +330,7 @@ def main():
             times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
         counts["shade_calls"] = shade_calls[0]
+        counts["K1 by layers"] = TR.layer_launches[1:]
         RT._shade_hit = shade_hit
         print(f"path {name}: frame median {np.median(times):.2f} ms, p90 "
               f"{np.percentile(times, 90):.2f} ms over {TIMED} frames (min "
@@ -415,7 +417,7 @@ def main():
     def only(c, *keys):
         """No other kernel of the port was launched."""
         return all(v == 0 for k, v in c.items()
-                   if k not in keys and k != "shade_calls")
+                   if k not in keys + ("shade_calls", "K1 by layers"))
 
     expect("path 1", c1, "K1 twice a frame, K2 = K3 > 0, K4 > 0, nothing "
            "else", c1["K1"] == 2 * TIMED and c1["K2"] == c1["K3"] > 0 and
@@ -466,17 +468,14 @@ def main():
         nearer = torch.cumsum(opq.int(), 1) - opq.int()
         return nearer > 0
 
-    def check_k1(args, launches, tag):
-        err_k1 = ms_k1 = plain_k1 = 0.0
-        k1_in, k1_out, k1_ops = [], [], 0
-        keys = sorted(k for k in args if k.startswith("K1/"))
-        for key in keys:
+    def check_k1(args, launches, tag, by_layers):
+        """Each role (layer count) on its own: records, work, time, bound."""
+        for key in sorted(k for k in args if k.startswith("K1/")):
             (rows, meta, w, h, lay, *rest), kw = args[key]
             prior = rest[0] if rest else kw.get("prior_w")
             out_k = TR.cluster_raster(rows, meta, w, h, lay, prior)
-            out_p, ms = _timed(lambda: TR.cluster_raster_plain(
+            out_p, plain_ms = _timed(lambda: TR.cluster_raster_plain(
                 rows, w, h, lay, prior))
-            plain_k1 += ms
             behind = behind_opaque(rows, out_p[0])
             if bool(behind.any()):
                 print(f"  K1 layers={lay}: {int(behind.sum())} records lie "
@@ -485,19 +484,30 @@ def main():
                 [torch.where(behind, -2, o[0])] +
                 [torch.where(behind, 0.0, v) for v in o[1:]]
                 for o in (out_k, out_p))
-            err_k1 = max(err_k1, _compare(
-                f"K1 layers={lay} ({rows.shape[0]} rows)", key_k, key_p,
-                vals_k, vals_p))
-            ms_k1 += _time_ms(lambda: TR.cluster_raster(rows, meta, w, h, lay,
-                                                        prior), 5)
-            k1_in += [rows, meta, prior]
-            k1_out += list(out_k)
-            k1_ops += int((out_k[0] >= 0).sum()) * EDGE_OPS
-        report("cluster_raster" + tag, "swift_game_engine_tpu_torch/csrc/"
-               "cluster_raster.cu", "swift_game_engine_tpu/render/"
-               "tile_raster.py:620", launches, err_k1, ms_k1, plain_k1,
-               _bound(k1_in, k1_out, k1_ops),
-               " (both rasters)" if len(keys) > 1 else "")
+            err = _compare(f"K1 layers={lay} ({rows.shape[0]} rows)", key_k,
+                           key_p, vals_k, vals_p)
+            # the work of the frame's call, from the counting instantiation
+            out_c, cnt = TR.cluster_raster_counts(rows, meta, w, h, lay,
+                                                  prior)
+            if not all(torch.equal(a, b) for a, b in zip(out_c, out_k)):
+                _fail("K1's counting instantiation differs from the kernel")
+            print(f"  K1 work layers={lay} ({meta.shape[0]} clusters of "
+                  f"{rows.shape[0] // meta.shape[0]}): " + _count_line(cnt))
+            # counted: each pixel's own test of each cluster the cull
+            # admits, and the triangle rows it edge-tests; records: one
+            # edge test per record written
+            ops = (int(cnt["lane_meta"].sum()) * META_OPS +
+                   int(cnt["lane_tri"].sum()) * EDGE_OPS)
+            ins, outs = [rows, meta, prior], list(out_k)
+            report(f"cluster_raster/layers={lay}" + tag, "swift_game_engine_"
+                   "tpu_torch/csrc/cluster_raster.cu", "swift_game_engine_tpu"
+                   "/render/tile_raster.py:620", by_layers[lay - 1], err,
+                   _time_ms(lambda: TR.cluster_raster(rows, meta, w, h, lay,
+                                                      prior), 5),
+                   plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
+                   records=_bound(ins, outs, int((out_k[0] >= 0).sum()) *
+                                  EDGE_OPS))
+
     def check_k2(args, launches, tag):
         (sc, o, t_lim), kw = args["K2"][0][:3], args["K2"][1]
         tt = kw.get("tt")
@@ -547,15 +557,28 @@ def main():
                            p3[0] < 1e30, [k3[0]], [p3[0]]),
                   _compare(f"K3 slots ({n_slots} per lane)", k3[2], p3[2],
                            [k3[1]], [p3[1]]))
+        # the work of the frame's call, from the counting instantiation
+        k3c, cnt = CS.trace_shadow_clusters_counts(sc, o, t_lim, n_slots,
+                                                   alpha)
+        if not all(torch.equal(a, b) for a, b in zip(k3c, k3)):
+            _fail("K3's counting instantiation differs from the kernel")
+        print(f"  K3 work ({sc.meta.shape[0]} clusters of {sc.cluster}): "
+              + _count_line(cnt))
+        # counted: each lane's own test of each cluster the cull admits, and
+        # the rows it tests; records: one row test per record written
+        ops = (int(cnt["lane_tri"].sum()) * SWEEP_OPS +
+               int(cnt["lane_meta"].sum()) * META_OPS)
+        ins, outs = [sc.rows, sc.meta, sc.groups, sc.basis, o, t_lim], \
+            list(k3)
         report("shadow_slots" + tag, "swift_game_engine_tpu_torch/csrc/"
                "cluster_shadow.cu", "swift_game_engine_tpu/ops/"
                "cluster_shadow.py:254", launches, err,
                _time_ms(lambda: CS.trace_shadow_clusters(sc, o, t_lim,
                                                          n_slots, alpha), 5),
-               plain_ms,
-               _bound([sc.rows, sc.meta, sc.basis, o, t_lim], list(k3),
-                      (int((k3[2] >= 0).sum()) + int((k3[0] < 1e30).sum()))
-                      * SWEEP_OPS))
+               plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
+               records=_bound(ins, outs, (int((k3[2] >= 0).sum()) +
+                                          int((k3[0] < 1e30).sum()))
+                              * SWEEP_OPS))
 
     def check_k4(args, launches, tag):
         (tree, rows, o, d, t_max), _ = args["K4"]
@@ -763,7 +786,11 @@ def main():
         for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
             tag = f"@{name}" if fam in seen else ""
             seen.add(fam)
-            checks[fam](cap.args, counts[name][fam], tag)
+            if fam == "K1":
+                check_k1(cap.args, counts[name][fam], tag,
+                         counts[name]["K1 by layers"])
+            else:
+                checks[fam](cap.args, counts[name][fam], tag)
 
     # -- 4. kernel path vs plain path, end to end ----------------------------
     plain = {

@@ -28,13 +28,21 @@ namespace {
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 128;
 
-template <int LAYERS, bool PRIOR>
+constexpr unsigned FULL = 0xffffffffu;
+
+// counts (COUNT): per pixel [0, n) metadata entries stepped, [n, 2n)
+// clusters entered, [2n, 3n) triangle rows edge-tested; per warp w at
+// 3n + 3w: entries stepped, clusters some pixel entered, rows looped over.
+// The counting instantiation steps each warp while any of its pixels
+// walks, as the hardware runs the warp.
+template <int LAYERS, bool PRIOR, bool COUNT>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 cluster_raster_kernel(const float4* __restrict__ rows,
                       const float* __restrict__ meta,
                       const float* __restrict__ prior, int n_clusters,
                       int cluster, int width, int height, float sx, float sy,
                       int tiles_x, int64_t n_lanes,
+                      int32_t* __restrict__ counts,
                       int32_t* __restrict__ id_out, float* __restrict__ b1_out,
                       float* __restrict__ b2_out, float* __restrict__ w_out) {
   const int64_t lane = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -51,60 +59,78 @@ cluster_raster_kernel(const float4* __restrict__ rows,
     zn[l] = BIG; zd[l] = 1.0f; tid[l] = -1.0f; l1s[l] = 0.0f; l2s[l] = 0.0f;
   }
   float on = BIG, od = 1.0f;  // nearest opaque fragment (LAYERS > 1)
+  int l_meta = 0, l_enter = 0, l_tri = 0, w_meta = 0, w_enter = 0;
 
-  if (px < width && py < height) {
-    const float x = (float(px) + 0.5f) * sx - 1.0f;
-    const float y = 1.0f - (float(py) + 0.5f) * sy;
-    const float pb = PRIOR ? __ldg(prior + lane) : BIG;
-    float bound = pb;
-    const float fx0 = float(px), fx1 = float(px + 1);
-    const float fy0 = float(py), fy1 = float(py + 1);
-    for (int c = 0; c < n_clusters; ++c) {
+  const bool in = px < width && py < height;
+  const float x = (float(px) + 0.5f) * sx - 1.0f;
+  const float y = 1.0f - (float(py) + 0.5f) * sy;
+  const float pb = PRIOR && in ? __ldg(prior + lane) : BIG;
+  float bound = pb;
+  const float fx0 = float(px), fx1 = float(px + 1);
+  const float fy0 = float(py), fy1 = float(py + 1);
+  bool done = !in;
+  for (int c = 0; c < n_clusters; ++c) {
+    if (COUNT) {
+      if (__all_sync(FULL, done)) break;
+      ++w_meta;
+    } else if (done) {
+      break;
+    }
+    bool enter = false;
+    if (!done) {
       const float* mc = meta + int64_t(c) * 8;
+      if (COUNT) ++l_meta;
       // clusters are sorted by min depth: nothing later can win
-      if (__ldg(mc + 4) >= bound) break;
-      if (__ldg(mc + 0) > fx1 || __ldg(mc + 2) < fx0 ||
-          __ldg(mc + 1) > fy1 || __ldg(mc + 3) < fy0)
-        continue;
-      const int64_t base = int64_t(__ldg(mc + 5)) * 8;  // packed row -> tri
-      for (int j = 0; j < cluster; ++j) {
-        const Row16 r = load_row16(rows, base + j);
-        float lam0 = r.s(0) * x + r.s(1) * y + r.s(2);
-        float lam1 = r.s(3) * x + r.s(4) * y + r.s(5);
-        float lam2 = r.s(6) * x + r.s(7) * y + r.s(8);
-        float sig = lam0 + lam1 + lam2;
-        const float flip = sig < 0.0f ? -1.0f : 1.0f;
-        lam0 *= flip; lam1 *= flip; lam2 *= flip; sig *= flip;
-        const float detp = lam0 * r.s(9) + lam1 * r.s(10) + lam2 * r.s(11);
-        bool inside = fminf(fminf(lam0, lam1), lam2) >= 0.0f &&
-                      sig > 1e-20f && r.s(12) >= 0.0f && detp > 0.0f;
-        if (PRIOR) inside = inside && detp < pb * sig;
-        if (!inside) continue;
-        float czn = detp, czd = sig, ctid = r.s(12), cl1 = lam1, cl2 = lam2;
+      if (__ldg(mc + 4) >= bound)
+        done = true;
+      else
+        enter = !(__ldg(mc + 0) > fx1 || __ldg(mc + 2) < fx0 ||
+                  __ldg(mc + 1) > fy1 || __ldg(mc + 3) < fy0);
+    }
+    if (COUNT) {
+      l_enter += enter;
+      l_tri += enter ? cluster : 0;
+      w_enter += __any_sync(FULL, enter);
+    }
+    if (!enter) continue;
+    const int64_t base = int64_t(__ldg(meta + int64_t(c) * 8 + 5)) * 8;
+    for (int j = 0; j < cluster; ++j) {
+      const Row16 r = load_row16(rows, base + j);
+      float lam0 = r.s(0) * x + r.s(1) * y + r.s(2);
+      float lam1 = r.s(3) * x + r.s(4) * y + r.s(5);
+      float lam2 = r.s(6) * x + r.s(7) * y + r.s(8);
+      float sig = lam0 + lam1 + lam2;
+      const float flip = sig < 0.0f ? -1.0f : 1.0f;
+      lam0 *= flip; lam1 *= flip; lam2 *= flip; sig *= flip;
+      const float detp = lam0 * r.s(9) + lam1 * r.s(10) + lam2 * r.s(11);
+      bool inside = fminf(fminf(lam0, lam1), lam2) >= 0.0f &&
+                    sig > 1e-20f && r.s(12) >= 0.0f && detp > 0.0f;
+      if (PRIOR) inside = inside && detp < pb * sig;
+      if (!inside) continue;
+      float czn = detp, czd = sig, ctid = r.s(12), cl1 = lam1, cl2 = lam2;
 #pragma unroll
-        for (int l = 0; l < LAYERS; ++l) {
-          const bool win = ctid >= 0.0f &&
-                           (tid[l] < 0.0f || czn * zd[l] < zn[l] * czd);
-          if (win) {
-            float t;
-            t = zn[l]; zn[l] = czn; czn = t;
-            t = zd[l]; zd[l] = czd; czd = t;
-            t = tid[l]; tid[l] = ctid; ctid = t;
-            t = l1s[l]; l1s[l] = cl1; cl1 = t;
-            t = l2s[l]; l2s[l] = cl2; cl2 = t;
-          }
-        }
-        if (LAYERS > 1 && r.s(13) > 0.5f && detp * od < on * sig) {
-          on = detp;
-          od = sig;
+      for (int l = 0; l < LAYERS; ++l) {
+        const bool win = ctid >= 0.0f &&
+                         (tid[l] < 0.0f || czn * zd[l] < zn[l] * czd);
+        if (win) {
+          float t;
+          t = zn[l]; zn[l] = czn; czn = t;
+          t = zd[l]; zd[l] = czd; czd = t;
+          t = tid[l]; tid[l] = ctid; ctid = t;
+          t = l1s[l]; l1s[l] = cl1; cl1 = t;
+          t = l2s[l]; l2s[l] = cl2; cl2 = t;
         }
       }
-      float depth = tid[LAYERS - 1] >= 0.0f ? zn[LAYERS - 1] / zd[LAYERS - 1]
-                                            : BIG;
-      if (LAYERS > 1) depth = fminf(depth, on / od);
-      if (PRIOR) depth = fminf(depth, pb);
-      bound = depth;
+      if (LAYERS > 1 && r.s(13) > 0.5f && detp * od < on * sig) {
+        on = detp;
+        od = sig;
+      }
     }
+    float depth = tid[LAYERS - 1] >= 0.0f ? zn[LAYERS - 1] / zd[LAYERS - 1]
+                                          : BIG;
+    if (LAYERS > 1) depth = fminf(depth, on / od);
+    if (PRIOR) depth = fminf(depth, pb);
+    bound = depth;
   }
 #pragma unroll
   for (int l = 0; l < LAYERS; ++l) {
@@ -115,49 +141,81 @@ cluster_raster_kernel(const float4* __restrict__ rows,
     b2_out[o] = l2s[l] * inv;
     w_out[o] = tid[l] >= 0.0f ? zn[l] * inv : BIG;
   }
+  if (COUNT) {
+    counts[lane] = l_meta;
+    counts[n_lanes + lane] = l_enter;
+    counts[2 * n_lanes + lane] = l_tri;
+    if ((threadIdx.x & 31) == 0) {
+      int32_t* w = counts + 3 * n_lanes + 3 * (lane >> 5);
+      w[0] = w_meta;
+      w[1] = w_enter;
+      w[2] = w_enter * cluster;
+    }
+  }
+}
+
+template <int LAYERS, bool PRIOR>
+void launch2(bool count, const float4* r4, const float* meta,
+             const float* prior, int n_clusters, int cluster, int width,
+             int height, float sx, float sy, int tiles_x, int64_t n_lanes,
+             int32_t* counts, int32_t* id, float* b1, float* b2, float* w,
+             cudaStream_t st) {
+  if (count)
+    cluster_raster_kernel<LAYERS, PRIOR, true>
+        <<<blocks_for(n_lanes), BLOCK_THREADS, 0, st>>>(
+            r4, meta, prior, n_clusters, cluster, width, height, sx, sy,
+            tiles_x, n_lanes, counts, id, b1, b2, w);
+  else
+    cluster_raster_kernel<LAYERS, PRIOR, false>
+        <<<blocks_for(n_lanes), BLOCK_THREADS, 0, st>>>(
+            r4, meta, prior, n_clusters, cluster, width, height, sx, sy,
+            tiles_x, n_lanes, counts, id, b1, b2, w);
 }
 
 template <int LAYERS>
 void launch(bool prior_on, const float* rows, const float* meta,
             const float* prior, int n_clusters, int cluster, int width,
             int height, float sx, float sy, int tiles_x, int64_t n_lanes,
-            int32_t* id, float* b1, float* b2, float* w, cudaStream_t st) {
+            int32_t* counts, int32_t* id, float* b1, float* b2, float* w,
+            cudaStream_t st) {
   const float4* r4 = reinterpret_cast<const float4*>(rows);
   if (prior_on)
-    cluster_raster_kernel<LAYERS, true><<<blocks_for(n_lanes), BLOCK_THREADS,
-                                          0, st>>>(
-        r4, meta, prior, n_clusters, cluster, width, height, sx, sy, tiles_x,
-        n_lanes, id, b1, b2, w);
+    launch2<LAYERS, true>(counts != nullptr, r4, meta, prior, n_clusters,
+                          cluster, width, height, sx, sy, tiles_x, n_lanes,
+                          counts, id, b1, b2, w, st);
   else
-    cluster_raster_kernel<LAYERS, false><<<blocks_for(n_lanes), BLOCK_THREADS,
-                                           0, st>>>(
-        r4, meta, prior, n_clusters, cluster, width, height, sx, sy, tiles_x,
-        n_lanes, id, b1, b2, w);
+    launch2<LAYERS, false>(counts != nullptr, r4, meta, prior, n_clusters,
+                           cluster, width, height, sx, sy, tiles_x, n_lanes,
+                           counts, id, b1, b2, w, st);
 }
 
 }  // namespace
 }  // namespace sge
 
-// rows (Tp,16) f32, meta (C,8) f32, prior (tiles*32*128,) f32 or null.
-// Outputs (tiles, layers, 32, 128). Returns the launch's cudaError_t.
+// rows (Tp,16) f32, meta (C,8) f32, prior (tiles*32*128,) f32 or null,
+// counts (3P + 3P/32,) int32 or null. Outputs (tiles, layers, 32, 128).
+// Returns the launch's cudaError_t.
 SGE_API int sge_cluster_raster(const float* rows, const float* meta,
                                const float* prior, int n_clusters, int cluster,
                                int width, int height, float sx, float sy,
                                int tiles_x, int n_tiles, int layers,
-                               int32_t* id, float* b1, float* b2, float* w,
-                               void* stream) {
+                               int32_t* counts, int32_t* id, float* b1,
+                               float* b2, float* w, void* stream) {
   const int64_t n_lanes = int64_t(n_tiles) * 32 * 128;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool p = prior != nullptr;
   switch (layers) {
     case 1: sge::launch<1>(p, rows, meta, prior, n_clusters, cluster, width,
-                           height, sx, sy, tiles_x, n_lanes, id, b1, b2, w, st);
+                           height, sx, sy, tiles_x, n_lanes, counts, id, b1,
+                           b2, w, st);
       break;
     case 2: sge::launch<2>(p, rows, meta, prior, n_clusters, cluster, width,
-                           height, sx, sy, tiles_x, n_lanes, id, b1, b2, w, st);
+                           height, sx, sy, tiles_x, n_lanes, counts, id, b1,
+                           b2, w, st);
       break;
     case 3: sge::launch<3>(p, rows, meta, prior, n_clusters, cluster, width,
-                           height, sx, sy, tiles_x, n_lanes, id, b1, b2, w, st);
+                           height, sx, sy, tiles_x, n_lanes, counts, id, b1,
+                           b2, w, st);
       break;
     default: return int(cudaErrorInvalidValue);
   }

@@ -321,71 +321,126 @@ shadow_occl_kernel(const float4* __restrict__ rows,
   }
 }
 
-template <int NS, bool ALPHA>
+// counts (COUNT): per lane [0, n) metadata entries stepped, [n, 2n)
+// clusters entered, [2n, 3n) triangle rows tested; per warp w at 3n + 3w:
+// entries stepped, clusters some lane entered, rows looped over. The
+// counting instantiation steps each warp while any of its lanes walks, as
+// the hardware runs the warp.
+template <int NS, bool ALPHA, bool COUNT>
 __global__ void __launch_bounds__(BLOCK_THREADS)
 shadow_slots_kernel(const float4* __restrict__ rows,
                     const float* __restrict__ meta,
                     const float* __restrict__ basis,
                     const float* __restrict__ o,
                     const float* __restrict__ t_lim, int64_t n,
-                    int n_clusters, int cluster,
+                    int n_clusters, int cluster, int32_t* __restrict__ counts,
                     float* __restrict__ t_opq_out, float* __restrict__ ts_out,
                     float* __restrict__ ids_out) {
   const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (!COUNT && i >= n) return;
+  if (COUNT && (i & ~int64_t(31)) >= n) return;  // the whole warp leaves
+  const bool in = i < n;
   float ts[NS], ids[NS];
 #pragma unroll
   for (int k = 0; k < NS; ++k) { ts[k] = BIG; ids[k] = -1.0f; }
-  const float tl = __ldg(t_lim + i);
+  const float tl = in ? __ldg(t_lim + i) : 0.0f;
   float t_opq = 0.0f;
-  if (tl > 0.0f) {
-    const Lane L = load_lane(o, basis, i);
+  int l_meta = 0, l_enter = 0, l_tri = 0, w_meta = 0, w_enter = 0;
+  bool done = !(tl > 0.0f);
+  Lane L{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (!done) {
+    L = load_lane(o, basis, i);
     t_opq = BIG;
-    for (int c = 0; c < n_clusters; ++c) {
-      const float* mc = meta + int64_t(c) * 8;
-      if (past_bound(mc, L.dep + fminf(fminf(tl, t_opq), ts[NS - 1]))) break;
-      if (!overlaps(mc, L)) continue;
-      const int64_t base = int64_t(__ldg(mc + 6)) * 8;
-      for (int j = 0; j < cluster; ++j) {
-        const Row16 r = load_row16(rows, base + j);
-        const float id = r.s(12);
-        if (!(id >= 0.0f)) continue;
-        const Hit h = tri_test(r, L, tl);
-        if (!h.hit) continue;
-        if (id == floorf(id)) {
-          t_opq = fminf(t_opq, h.t);
-          continue;
-        }
-        float ct = h.t, cid = ALPHA ? r.s(13) : id;
-#pragma unroll
-        for (int k = 0; k < NS; ++k) {
-          if (ct < ts[k]) {
-            float tmp = ts[k]; ts[k] = ct; ct = tmp;
-            tmp = ids[k]; ids[k] = cid; cid = tmp;
-          }
-        }
+  }
+  for (int c = 0; c < n_clusters; ++c) {
+    if (COUNT) {
+      if (__all_sync(FULL, done)) break;
+      ++w_meta;
+    } else if (done) {
+      break;
+    }
+    bool enter = false;
+    const float* mc = meta + int64_t(c) * 8;
+    if (!done) {
+      if (COUNT) ++l_meta;
+      if (past_bound(mc, L.dep + fminf(fminf(tl, t_opq), ts[NS - 1])))
+        done = true;
+      else
+        enter = overlaps(mc, L);
+    }
+    if (COUNT) {
+      l_enter += enter;
+      w_enter += __any_sync(FULL, enter);
+    }
+    if (!enter) continue;
+    const int64_t base = int64_t(__ldg(mc + 6)) * 8;
+    for (int j = 0; j < cluster; ++j) {
+      const Row16 r = load_row16(rows, base + j);
+      const float id = r.s(12);
+      if (!(id >= 0.0f)) continue;
+      if (COUNT) ++l_tri;
+      const Hit h = tri_test(r, L, tl);
+      if (!h.hit) continue;
+      if (id == floorf(id)) {
+        t_opq = fminf(t_opq, h.t);
+        continue;
       }
+      insert_slot<NS>(h.t, ALPHA ? r.s(13) : id, ts, ids);
     }
   }
-  t_opq_out[i] = t_opq;
+  if (in) {
+    t_opq_out[i] = t_opq;
 #pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    ts_out[i * NS + k] = ts[k];
-    ids_out[i * NS + k] = ids[k];
+    for (int k = 0; k < NS; ++k) {
+      ts_out[i * NS + k] = ts[k];
+      ids_out[i * NS + k] = ids[k];
+    }
   }
+  if (COUNT) {
+    if (in) {
+      counts[i] = l_meta;
+      counts[n + i] = l_enter;
+      counts[2 * n + i] = l_tri;
+    }
+    if ((threadIdx.x & 31) == 0) {
+      int32_t* w = counts + 3 * n + 3 * (i >> 5);
+      w[0] = w_meta;
+      w[1] = w_enter;
+      w[2] = w_enter * cluster;
+    }
+  }
+}
+
+template <int NS, bool ALPHA>
+void launch_slots2(bool count, const float4* rows, const float* meta,
+                   const float* basis, const float* o, const float* t_lim,
+                   int64_t n, int n_clusters, int cluster, int32_t* counts,
+                   float* t_opq, float* ts, float* ids, cudaStream_t st) {
+  if (count)
+    shadow_slots_kernel<NS, ALPHA, true><<<blocks_for(n), BLOCK_THREADS, 0,
+                                           st>>>(
+        rows, meta, basis, o, t_lim, n, n_clusters, cluster, counts, t_opq,
+        ts, ids);
+  else
+    shadow_slots_kernel<NS, ALPHA, false><<<blocks_for(n), BLOCK_THREADS, 0,
+                                            st>>>(
+        rows, meta, basis, o, t_lim, n, n_clusters, cluster, counts, t_opq,
+        ts, ids);
 }
 
 template <int NS>
 void launch_slots(bool alpha, const float4* rows, const float* meta,
                   const float* basis, const float* o, const float* t_lim,
-                  int64_t n, int n_clusters, int cluster, float* t_opq,
-                  float* ts, float* ids, cudaStream_t st) {
+                  int64_t n, int n_clusters, int cluster, int32_t* counts,
+                  float* t_opq, float* ts, float* ids, cudaStream_t st) {
   if (alpha)
-    shadow_slots_kernel<NS, true><<<blocks_for(n), BLOCK_THREADS, 0, st>>>(
-        rows, meta, basis, o, t_lim, n, n_clusters, cluster, t_opq, ts, ids);
+    launch_slots2<NS, true>(counts != nullptr, rows, meta, basis, o, t_lim,
+                            n, n_clusters, cluster, counts, t_opq, ts, ids,
+                            st);
   else
-    shadow_slots_kernel<NS, false><<<blocks_for(n), BLOCK_THREADS, 0, st>>>(
-        rows, meta, basis, o, t_lim, n, n_clusters, cluster, t_opq, ts, ids);
+    launch_slots2<NS, false>(counts != nullptr, rows, meta, basis, o, t_lim,
+                             n, n_clusters, cluster, counts, t_opq, ts, ids,
+                             st);
 }
 
 }  // namespace
@@ -419,26 +474,27 @@ SGE_API int sge_shadow_occl(const float* rows, const float* meta,
   return int(cudaGetLastError());
 }
 
+// counts (3N + 3 ceil(N/32),) int32 or null.
 // Out: t_opq (N,), ts (N, n_slots), ids (N, n_slots).
 SGE_API int sge_shadow_slots(const float* rows, const float* meta,
                              const float* basis, const float* o,
                              const float* t_lim, int64_t n, int n_clusters,
                              int cluster, int n_slots, int alpha_payload,
-                             float* t_opq, float* ts, float* ids,
-                             void* stream) {
+                             int32_t* counts, float* t_opq, float* ts,
+                             float* ids, void* stream) {
   if (n == 0) return int(cudaGetLastError());
   const float4* r4 = reinterpret_cast<const float4*>(rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool a = alpha_payload != 0;
   switch (n_slots) {
     case 1: sge::launch_slots<1>(a, r4, meta, basis, o, t_lim, n, n_clusters,
-                                 cluster, t_opq, ts, ids, st); break;
+                                 cluster, counts, t_opq, ts, ids, st); break;
     case 2: sge::launch_slots<2>(a, r4, meta, basis, o, t_lim, n, n_clusters,
-                                 cluster, t_opq, ts, ids, st); break;
+                                 cluster, counts, t_opq, ts, ids, st); break;
     case 3: sge::launch_slots<3>(a, r4, meta, basis, o, t_lim, n, n_clusters,
-                                 cluster, t_opq, ts, ids, st); break;
+                                 cluster, counts, t_opq, ts, ids, st); break;
     case 4: sge::launch_slots<4>(a, r4, meta, basis, o, t_lim, n, n_clusters,
-                                 cluster, t_opq, ts, ids, st); break;
+                                 cluster, counts, t_opq, ts, ids, st); break;
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());

@@ -339,6 +339,24 @@ def trace_shadow_occl_counts(sc: ShadowClusters, o, t_limit, tt=None):
                          (*lane, *warp)))
 
 
+def _launch_slots(sc: ShadowClusters, o, t_limit, n_slots, alpha_payload,
+                  counts):
+    if not 1 <= n_slots <= 4:
+        raise ValueError(f"n_slots must be 1..4, got {n_slots}")
+    _check_inputs(sc, o, t_limit)
+    n = o.shape[0]
+    t_opq = torch.empty(n, dtype=torch.float32, device=o.device)
+    ts = torch.empty((n, n_slots), dtype=torch.float32, device=o.device)
+    ids = torch.empty((n, n_slots), dtype=torch.float32, device=o.device)
+    _cuda.check(_cuda.library().sge_shadow_slots(
+        sc.rows.data_ptr(), sc.meta.data_ptr(), sc.basis.data_ptr(),
+        o.data_ptr(), t_limit.data_ptr(), n, sc.meta.shape[0], sc.cluster,
+        n_slots, int(alpha_payload), _cuda.ptr(counts), t_opq.data_ptr(),
+        ts.data_ptr(), ids.data_ptr(), _cuda.stream_ptr(o)),
+        "sge_shadow_slots")
+    return t_opq, ts, ids
+
+
 def trace_shadow_clusters(sc: ShadowClusters, o, t_limit, n_slots: int = 4,
                           alpha_payload: bool = False):
     """Slotted sweep (K3) -> (t_opq (N,), ts (N, n_slots), ids (N, n_slots));
@@ -348,20 +366,31 @@ def trace_shadow_clusters(sc: ShadowClusters, o, t_limit, n_slots: int = 4,
     if not o.is_cuda:
         return trace_shadow_clusters_plain(sc, o, t_limit, n_slots,
                                            alpha_payload)
-    _check_inputs(sc, o, t_limit)
-    n = o.shape[0]
-    t_opq = torch.empty(n, dtype=torch.float32, device=o.device)
-    ts = torch.empty((n, n_slots), dtype=torch.float32, device=o.device)
-    ids = torch.empty((n, n_slots), dtype=torch.float32, device=o.device)
-    lib = _cuda.library()
     global slots_launches
     slots_launches += 1
-    _cuda.check(lib.sge_shadow_slots(
-        sc.rows.data_ptr(), sc.meta.data_ptr(), sc.basis.data_ptr(),
-        o.data_ptr(), t_limit.data_ptr(), n, sc.meta.shape[0], sc.cluster,
-        n_slots, int(alpha_payload), t_opq.data_ptr(), ts.data_ptr(),
-        ids.data_ptr(), _cuda.stream_ptr(o)), "sge_shadow_slots")
-    return t_opq, ts, ids
+    return _launch_slots(sc, o, t_limit, n_slots, alpha_payload, None)
+
+
+SLOTS_COUNT_FIELDS = ("lane_meta", "lane_enter", "lane_tri", "warp_meta",
+                      "warp_enter", "warp_tri")
+
+
+def trace_shadow_clusters_counts(sc: ShadowClusters, o, t_limit,
+                                 n_slots: int = 4,
+                                 alpha_payload: bool = False):
+    """K3's counting instantiation, on the card only (a measurement, not a
+    launch of the frame) -> ((t_opq, ts, ids), counts): per lane
+    "lane_meta" (metadata entries stepped), "lane_enter" (clusters
+    entered), "lane_tri" (triangle rows tested); per warp of 32 lanes
+    "warp_meta" (entries stepped), "warp_enter" (clusters some lane
+    entered), "warp_tri" (triangle rows looped over)."""
+    n = o.shape[0]
+    w = (n + 31) // 32
+    counts = torch.zeros(3 * n + 3 * w, dtype=torch.int32, device=o.device)
+    out = _launch_slots(sc, o, t_limit, n_slots, alpha_payload, counts)
+    lane = counts[:3 * n].reshape(3, n)
+    warp = counts[3 * n:].reshape(w, 3).T
+    return out, dict(zip(SLOTS_COUNT_FIELDS, (*lane, *warp)))
 
 
 def trace_shadow_split(split: ShadowSplit, o, t_limit, n_slots: int = 4,

@@ -43,6 +43,7 @@ TRANS_CLUSTER = 16   # SGE_RASTER_TRANS_CLUSTER (translucent subset)
 RASTER_K = 8192      # SGE_RASTER_K: candidates per tile of the list binning
 
 launches = 0         # K1 kernel launches since the last reset
+layer_launches = [0, 0, 0, 0]  # ... of them with 1, 2, 3 layers (index)
 list_launches = 0    # K9 kernel launches
 peel_launches = 0    # K10 kernel launches
 
@@ -211,13 +212,9 @@ def cluster_raster_plain(rows, width: int, height: int, layers: int,
             tiles(b2).contiguous(), tiles(w).contiguous())
 
 
-def cluster_raster(rows, meta, width: int, height: int, layers: int,
-                   prior_w=None):
-    """K1 wrapper: (id int32, b1, b2, w), each (tiles, layers, 32, 128)."""
+def _launch_raster(rows, meta, width, height, layers, prior_w, counts):
     if not 1 <= layers <= 3:
         raise ValueError(f"layers must be 1..3, got {layers}")
-    if not rows.is_cuda:
-        return cluster_raster_plain(rows, width, height, layers, prior_w)
     tiles_x, n_tiles, sx, sy = _grid(width, height)
     dev = rows.device
     _cuda.require(rows, "rows", (rows.shape[0], 16), device=dev)
@@ -231,15 +228,50 @@ def cluster_raster(rows, meta, width: int, height: int, layers: int,
     tid = torch.empty(shape, dtype=torch.int32, device=dev)
     b1, b2, w = (torch.empty(shape, dtype=torch.float32, device=dev)
                  for _ in range(3))
-    lib = _cuda.library()
-    global launches
-    launches += 1
-    _cuda.check(lib.sge_cluster_raster(
+    _cuda.check(_cuda.library().sge_cluster_raster(
         rows.data_ptr(), meta.data_ptr(), _cuda.ptr(prior_w), meta.shape[0],
         rows.shape[0] // meta.shape[0], width, height, sx, sy, tiles_x,
-        n_tiles, layers, tid.data_ptr(), b1.data_ptr(), b2.data_ptr(),
-        w.data_ptr(), _cuda.stream_ptr(rows)), "sge_cluster_raster")
+        n_tiles, layers, _cuda.ptr(counts), tid.data_ptr(), b1.data_ptr(),
+        b2.data_ptr(), w.data_ptr(), _cuda.stream_ptr(rows)),
+        "sge_cluster_raster")
     return tid, b1, b2, w
+
+
+def cluster_raster(rows, meta, width: int, height: int, layers: int,
+                   prior_w=None):
+    """K1 wrapper: (id int32, b1, b2, w), each (tiles, layers, 32, 128)."""
+    if not 1 <= layers <= 3:
+        raise ValueError(f"layers must be 1..3, got {layers}")
+    if not rows.is_cuda:
+        return cluster_raster_plain(rows, width, height, layers, prior_w)
+    global launches
+    launches += 1
+    layer_launches[layers] += 1
+    return _launch_raster(rows, meta, width, height, layers, prior_w, None)
+
+
+COUNT_FIELDS = ("lane_meta", "lane_enter", "lane_tri", "warp_meta",
+                "warp_enter", "warp_tri")
+
+
+def cluster_raster_counts(rows, meta, width: int, height: int, layers: int,
+                          prior_w=None):
+    """K1's counting instantiation, on the card only (a measurement, not a
+    launch of the frame) -> ((id, b1, b2, w), counts): per pixel in
+    tile-major lane order "lane_meta" (metadata entries stepped),
+    "lane_enter" (clusters entered: AABB admitted), "lane_tri" (triangle
+    rows edge-tested); per warp "warp_meta" (entries stepped), "warp_enter"
+    (clusters some pixel entered), "warp_tri" (triangle rows looped
+    over)."""
+    _, n_tiles, _, _ = _grid(width, height)
+    p = n_tiles * TILE_H * TILE_W
+    w = p // 32
+    counts = torch.zeros(3 * p + 3 * w, dtype=torch.int32,
+                         device=rows.device)
+    out = _launch_raster(rows, meta, width, height, layers, prior_w, counts)
+    lane = counts[:3 * p].reshape(3, p)
+    warp = counts[3 * p:].reshape(w, 3).T
+    return out, dict(zip(COUNT_FIELDS, (*lane, *warp)))
 
 
 def _scanline_hits(tid, b1, b2, w, width, height, tris, cam_pos,
