@@ -372,7 +372,7 @@ def main():
                 "K7": (RK, "trace_shadow_factor"),
                 "K8": (RK, "trace_shadow_any"), "K9": (TR, "list_raster")}
     roles = {
-        "K1": lambda *a, **k: f"K1/layers={a[4]}",
+        "K1": lambda *a, **k: f"K1/layers={a[5]}",
         "K6": lambda *a, **k: "K6" if k["t_floor"] is None else "K6/floor",
         "K9": lambda *a, **k: "K9" if a[4] is None else "K9/peel"}
     runs = {PATHS[0]: ("K1/layers=1", f"K1/layers={LAYERS}", "K2", "K3",
@@ -471,9 +471,9 @@ def main():
     def check_k1(args, launches, tag, by_layers):
         """Each role (layer count) on its own: records, work, time, bound."""
         for key in sorted(k for k in args if k.startswith("K1/")):
-            (rows, meta, w, h, lay, *rest), kw = args[key]
+            (rows, meta, boxes, w, h, lay, *rest), kw = args[key]
             prior = rest[0] if rest else kw.get("prior_w")
-            out_k = TR.cluster_raster(rows, meta, w, h, lay, prior)
+            out_k = TR.cluster_raster(rows, meta, boxes, w, h, lay, prior)
             out_p, plain_ms = _timed(lambda: TR.cluster_raster_plain(
                 rows, w, h, lay, prior))
             behind = behind_opaque(rows, out_p[0])
@@ -487,8 +487,8 @@ def main():
             err = _compare(f"K1 layers={lay} ({rows.shape[0]} rows)", key_k,
                            key_p, vals_k, vals_p)
             # the work of the frame's call, from the counting instantiation
-            out_c, cnt = TR.cluster_raster_counts(rows, meta, w, h, lay,
-                                                  prior)
+            out_c, cnt = TR.cluster_raster_counts(rows, meta, boxes, w, h,
+                                                  lay, prior)
             if not all(torch.equal(a, b) for a, b in zip(out_c, out_k)):
                 _fail("K1's counting instantiation differs from the kernel")
             print(f"  K1 work layers={lay} ({meta.shape[0]} clusters of "
@@ -498,12 +498,12 @@ def main():
             # edge test per record written
             ops = (int(cnt["lane_meta"].sum()) * META_OPS +
                    int(cnt["lane_tri"].sum()) * EDGE_OPS)
-            ins, outs = [rows, meta, prior], list(out_k)
+            ins, outs = [rows, meta, boxes, prior], list(out_k)
             report(f"cluster_raster/layers={lay}" + tag, "swift_game_engine_"
                    "tpu_torch/csrc/cluster_raster.cu", "swift_game_engine_tpu"
                    "/render/tile_raster.py:620", by_layers[lay - 1], err,
-                   _time_ms(lambda: TR.cluster_raster(rows, meta, w, h, lay,
-                                                      prior), 5),
+                   _time_ms(lambda: TR.cluster_raster(rows, meta, boxes, w, h,
+                                                      lay, prior), 5),
                    plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
                    records=_bound(ins, outs, int((out_k[0] >= 0).sum()) *
                                   EDGE_OPS))
@@ -794,7 +794,8 @@ def main():
 
     # -- 4. kernel path vs plain path, end to end ----------------------------
     plain = {
-        (TR, "cluster_raster"): lambda rows, meta, w, h, lay, prior_w=None:
+        (TR, "cluster_raster"):
+            lambda rows, meta, boxes, w, h, lay, prior_w=None:
             TR.cluster_raster_plain(rows, w, h, lay, prior_w),
         (TR, "list_raster"): TR.list_raster_plain,
         (CS, "trace_shadow_occl"): lambda sc, o, t, tt=None:

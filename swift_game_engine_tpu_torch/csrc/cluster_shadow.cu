@@ -14,26 +14,22 @@
 // triangle constants can only add work, never drop a hit. The row tables
 // (64 B per triangle) are L2-resident.
 //
-// K3: one thread owns one origin, walks every cluster's metadata in the
-// global depth order (warp-wide broadcast loads), rejects a cluster against
-// its own light-plane point and stops at its own settlement bound.
-//
-// K2: that one-thread-per-lane sweep was bound by instruction issue, not
-// bytes, on the H100 (counted on path 1's first shade call, 557,056
-// lanes over 1,417 clusters, 1.44 ms): every lane stepped the metadata
-// list one entry at a time, about seven broadcast loads and a branch each
-// (328 entries a lane on average, all 1,414 for a lit lane, 400 for a
-// warp's longest), and a warp looped over all 128 rows of every cluster
-// one of its lanes entered (249 rows a warp). The warp-cooperative design
-// (0.28 ms on that call; a warp tests 404 entries 32 at a time and loops
-// over 75 rows):
+// Both sweeps run one template (NS = 0: K2, the occlusion sweep with the
+// any-hit settle; NS = 1..4: K3, the slotted sweep of the translucent
+// subset). The first design ran one thread per lane; counted on path 1's
+// first shade call (557,056 lanes; PERF.md), every lane stepped the
+// metadata list one entry at a time, about seven broadcast loads and a
+// branch each (K2: 328 entries a lane on average, all 1,414 for a lit
+// lane), and a warp looped over every row of every cluster one of its
+// lanes entered. The warp-cooperative design (K2 1.42 -> 0.28 ms on that
+// call):
 //   * culling: each warp forms its live lanes' footprint (the min/max of
 //     the light-plane a and b with their margins, the least depth less its
 //     margin) and the largest stop bound, tests 32 metadata entries at once,
 //     one per thread, and ballots the survivors; a survivor then meets each
 //     lane's own settle, stop and overlap tests, in depth order, as the
 //     per-lane sweep did. The footprint only over-admits and skipped
-//     entries change no lane's t_opq, so the records are the per-lane
+//     entries change no lane's records, so the records are the per-lane
 //     sweep's;
 //   * staging: the rows of each cluster some lane enters are copied to
 //     shared memory by cp.async in 64-row chunks, double-buffered, so the
@@ -46,6 +42,8 @@
 //     bound (__all_sync), or the next entry lies past the warp's bound;
 //   * a counting instantiation (COUNT, null counts in production) reports
 //     the per-lane and per-warp work.
+// A lane's stop bound is its depth plus the least of t_lim, t_opq and (K3)
+// its last slot's t: nothing farther can change its records.
 
 #include "common.cuh"
 
@@ -74,16 +72,6 @@ __device__ __forceinline__ float margin(float x) {
 }
 
 // Cluster meta: [a0, b0, a1, b1, d0, d1, base_row, 0], sorted by d0.
-__device__ __forceinline__ bool overlaps(const float* mc, const Lane& L) {
-  const float ma = margin(L.a), mb = margin(L.b), md = margin(L.dep);
-  return !(__ldg(mc + 0) > L.a + ma || __ldg(mc + 2) < L.a - ma ||
-           __ldg(mc + 1) > L.b + mb || __ldg(mc + 3) < L.b - mb ||
-           !(__ldg(mc + 5) > L.dep - md));
-}
-
-__device__ __forceinline__ bool past_bound(const float* mc, float bound) {
-  return __ldg(mc + 4) >= bound + margin(bound);
-}
 
 struct Hit {
   float t;
@@ -147,21 +135,27 @@ __device__ __forceinline__ void stage_chunk(float4* dst,
 // groups: per GROUP rows of each cluster (in meta's order) [a0, b0, a1, b1,
 // d0, d1, 0, 0]: a lane tests a group's rows only when its point lies in
 // the group's box and the group starts before its stop bound.
+// NS = 0 (K2): only opaque rows are tested, and a lane whose t_opq drops
+// below its settle threshold `tt` stops. NS > 0 (K3): every row; opaque
+// hits lower t_opq, translucent ones enter the NS slots (payload: the id,
+// or with ALPHA row lane 13).
 // counts (COUNT): per lane [0, n) footprint survivors the lane tests
-// itself, [n, 2n) clusters it enters, [2n, 3n) opaque triangle rows it
-// tests (translucent and padding rows are skipped);
-// per warp w at 3n + 4w: entries its ballots test (32 at a time),
-// footprint survivors, clusters staged, triangle rows it loops over.
-template <bool COUNT>
+// itself, [n, 2n) clusters it enters, [2n, 3n) triangle rows it tests
+// (K2: opaque rows only; padding rows are skipped); per warp w at 3n + 4w:
+// entries its ballots test (32 at a time), footprint survivors, clusters
+// staged, triangle rows it loops over.
+template <int NS, bool ALPHA, bool COUNT>
 __global__ void __launch_bounds__(OCCL_WARPS * 32)
-shadow_occl_kernel(const float4* __restrict__ rows,
-                   const float* __restrict__ meta,
-                   const float4* __restrict__ groups,
-                   const float* __restrict__ basis,
-                   const float* __restrict__ o, const float* __restrict__ t_lim,
-                   const float* __restrict__ tt, int64_t n, int n_clusters,
-                   int cluster, int32_t* __restrict__ counts,
-                   float* __restrict__ t_opq_out) {
+shadow_sweep_kernel(const float4* __restrict__ rows,
+                    const float* __restrict__ meta,
+                    const float4* __restrict__ groups,
+                    const float* __restrict__ basis,
+                    const float* __restrict__ o,
+                    const float* __restrict__ t_lim,
+                    const float* __restrict__ tt, int64_t n, int n_clusters,
+                    int cluster, int32_t* __restrict__ counts,
+                    float* __restrict__ t_opq_out, float* __restrict__ ts_out,
+                    float* __restrict__ ids_out) {
   __shared__ float4 stage[OCCL_WARPS][2][CHUNK * 4];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t wid = int64_t(blockIdx.x) * OCCL_WARPS + warp;
@@ -172,12 +166,22 @@ shadow_occl_kernel(const float4* __restrict__ rows,
   bool done = !(tl > 0.0f);                // dead lanes and the tail
   Lane L{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (!done) L = load_lane(o, basis, i);
-  const float settle = tt != nullptr && in ? __ldg(tt + i) : 0.0f;
+  const float settle = NS == 0 && tt != nullptr && in ? __ldg(tt + i) : 0.0f;
   const float ma = margin(L.a), mb = margin(L.b), md = margin(L.dep);
   const float4* meta4 = reinterpret_cast<const float4*>(meta);
   const int nch = cluster / CHUNK;
   const int per = cluster / GROUP;         // groups per cluster
+  constexpr int NSA = NS > 0 ? NS : 1;
+  float ts[NSA], ids[NSA];
+#pragma unroll
+  for (int k = 0; k < NSA; ++k) { ts[k] = BIG; ids[k] = -1.0f; }
   float t_opq = BIG;
+  // the lane's stop bound: nothing past it can change its records
+  auto stop = [&]() {
+    float s = fminf(tl, t_opq);
+    if constexpr (NS > 0) s = fminf(s, ts[NS - 1]);
+    return L.dep + s;
+  };
   int l_meta = 0, l_enter = 0, l_tri = 0;
   int w_meta = 0, w_surv = 0, w_enter = 0, w_tri = 0;
   for (int c0 = 0; c0 < n_clusters; c0 += 32) {
@@ -189,7 +193,7 @@ shadow_occl_kernel(const float4* __restrict__ rows,
     const float fb0 = warp_min(done ? BIG : L.b - mb);
     const float fb1 = warp_max(done ? -BIG : L.b + mb);
     const float fd0 = warp_min(done ? BIG : L.dep - md);
-    const float bnd = L.dep + fminf(tl, t_opq);
+    const float bnd = stop();
     const float wb = warp_max(done ? -BIG : bnd + margin(bnd));
     // 32 entries at once, one per thread: [a0, b0, a1, b1], [d0, d1, base]
     const int c = c0 + lane;
@@ -250,7 +254,7 @@ shadow_occl_kernel(const float4* __restrict__ rows,
                             : -1;
       // each lane's own tests, in the per-lane sweep's order
       if (!done) {
-        const float bound = L.dep + fminf(tl, t_opq);
+        const float bound = stop();
         done = t_opq < settle || d0 >= bound + margin(bound);
       }
       const bool need = !done && !(a0 > L.a + ma || a1 < L.a - ma ||
@@ -275,7 +279,7 @@ shadow_occl_kernel(const float4* __restrict__ rows,
           if (need) {                      // the group's box and its start
             const float4 q0 = __ldg(gq + 2 * (ch * (CHUNK / GROUP) + g));
             const float4 q1 = __ldg(gq + 2 * (ch * (CHUNK / GROUP) + g) + 1);
-            const float bound = L.dep + fminf(tl, t_opq);
+            const float bound = stop();
             need_g = !(q0.x > L.a + ma || q0.z < L.a - ma ||
                        q0.y > L.b + mb || q0.w < L.b - mb ||
                        !(q1.y > L.dep - md) || q1.x >= bound + margin(bound));
@@ -288,10 +292,16 @@ shadow_occl_kernel(const float4* __restrict__ rows,
               const Row16 r{r4[4 * j], r4[4 * j + 1], r4[4 * j + 2],
                             r4[4 * j + 3]};
               const float id = r.s(12);
-              if (!(id >= 0.0f && id == floorf(id))) continue;  // opaque
+              const bool opaque = id == floorf(id);
+              if (!(id >= 0.0f) || (NS == 0 && !opaque)) continue;
               if (COUNT) ++l_tri;
               const Hit h = tri_test(r, L, tl);
-              if (h.hit) t_opq = fminf(t_opq, h.t);
+              if (!h.hit) continue;
+              if (NS == 0 || opaque) {
+                t_opq = fminf(t_opq, h.t);
+              } else if constexpr (NS > 0) {
+                insert_slot<NS>(h.t, ALPHA ? r.s(13) : id, ts, ids);
+              }
             }
           }
         }
@@ -304,7 +314,16 @@ shadow_occl_kernel(const float4* __restrict__ rows,
     __syncwarp();
     if (live_n < 32) break;
   }
-  if (in) t_opq_out[i] = tl > 0.0f ? t_opq : 0.0f;
+  if (in) {
+    t_opq_out[i] = tl > 0.0f ? t_opq : 0.0f;
+    if constexpr (NS > 0) {
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+        ts_out[i * NS + k] = ts[k];
+        ids_out[i * NS + k] = ids[k];
+      }
+    }
+  }
   if (COUNT) {
     if (in) {
       counts[i] = l_meta;
@@ -321,126 +340,36 @@ shadow_occl_kernel(const float4* __restrict__ rows,
   }
 }
 
-// counts (COUNT): per lane [0, n) metadata entries stepped, [n, 2n)
-// clusters entered, [2n, 3n) triangle rows tested; per warp w at 3n + 3w:
-// entries stepped, clusters some lane entered, rows looped over. The
-// counting instantiation steps each warp while any of its lanes walks, as
-// the hardware runs the warp.
-template <int NS, bool ALPHA, bool COUNT>
-__global__ void __launch_bounds__(BLOCK_THREADS)
-shadow_slots_kernel(const float4* __restrict__ rows,
-                    const float* __restrict__ meta,
-                    const float* __restrict__ basis,
-                    const float* __restrict__ o,
-                    const float* __restrict__ t_lim, int64_t n,
-                    int n_clusters, int cluster, int32_t* __restrict__ counts,
-                    float* __restrict__ t_opq_out, float* __restrict__ ts_out,
-                    float* __restrict__ ids_out) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (!COUNT && i >= n) return;
-  if (COUNT && (i & ~int64_t(31)) >= n) return;  // the whole warp leaves
-  const bool in = i < n;
-  float ts[NS], ids[NS];
-#pragma unroll
-  for (int k = 0; k < NS; ++k) { ts[k] = BIG; ids[k] = -1.0f; }
-  const float tl = in ? __ldg(t_lim + i) : 0.0f;
-  float t_opq = 0.0f;
-  int l_meta = 0, l_enter = 0, l_tri = 0, w_meta = 0, w_enter = 0;
-  bool done = !(tl > 0.0f);
-  Lane L{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (!done) {
-    L = load_lane(o, basis, i);
-    t_opq = BIG;
-  }
-  for (int c = 0; c < n_clusters; ++c) {
-    if (COUNT) {
-      if (__all_sync(FULL, done)) break;
-      ++w_meta;
-    } else if (done) {
-      break;
-    }
-    bool enter = false;
-    const float* mc = meta + int64_t(c) * 8;
-    if (!done) {
-      if (COUNT) ++l_meta;
-      if (past_bound(mc, L.dep + fminf(fminf(tl, t_opq), ts[NS - 1])))
-        done = true;
-      else
-        enter = overlaps(mc, L);
-    }
-    if (COUNT) {
-      l_enter += enter;
-      w_enter += __any_sync(FULL, enter);
-    }
-    if (!enter) continue;
-    const int64_t base = int64_t(__ldg(mc + 6)) * 8;
-    for (int j = 0; j < cluster; ++j) {
-      const Row16 r = load_row16(rows, base + j);
-      const float id = r.s(12);
-      if (!(id >= 0.0f)) continue;
-      if (COUNT) ++l_tri;
-      const Hit h = tri_test(r, L, tl);
-      if (!h.hit) continue;
-      if (id == floorf(id)) {
-        t_opq = fminf(t_opq, h.t);
-        continue;
-      }
-      insert_slot<NS>(h.t, ALPHA ? r.s(13) : id, ts, ids);
-    }
-  }
-  if (in) {
-    t_opq_out[i] = t_opq;
-#pragma unroll
-    for (int k = 0; k < NS; ++k) {
-      ts_out[i * NS + k] = ts[k];
-      ids_out[i * NS + k] = ids[k];
-    }
-  }
-  if (COUNT) {
-    if (in) {
-      counts[i] = l_meta;
-      counts[n + i] = l_enter;
-      counts[2 * n + i] = l_tri;
-    }
-    if ((threadIdx.x & 31) == 0) {
-      int32_t* w = counts + 3 * n + 3 * (i >> 5);
-      w[0] = w_meta;
-      w[1] = w_enter;
-      w[2] = w_enter * cluster;
-    }
-  }
-}
-
 template <int NS, bool ALPHA>
-void launch_slots2(bool count, const float4* rows, const float* meta,
-                   const float* basis, const float* o, const float* t_lim,
-                   int64_t n, int n_clusters, int cluster, int32_t* counts,
-                   float* t_opq, float* ts, float* ids, cudaStream_t st) {
-  if (count)
-    shadow_slots_kernel<NS, ALPHA, true><<<blocks_for(n), BLOCK_THREADS, 0,
-                                           st>>>(
-        rows, meta, basis, o, t_lim, n, n_clusters, cluster, counts, t_opq,
-        ts, ids);
+void launch_sweep(const float4* rows, const float* meta, const float4* groups,
+                  const float* basis, const float* o, const float* t_lim,
+                  const float* tt, int64_t n, int n_clusters, int cluster,
+                  int32_t* counts, float* t_opq, float* ts, float* ids,
+                  cudaStream_t st) {
+  const int64_t warps = (n + 31) / 32;
+  const unsigned blocks = unsigned((warps + OCCL_WARPS - 1) / OCCL_WARPS);
+  if (counts)
+    shadow_sweep_kernel<NS, ALPHA, true><<<blocks, OCCL_WARPS * 32, 0, st>>>(
+        rows, meta, groups, basis, o, t_lim, tt, n, n_clusters, cluster,
+        counts, t_opq, ts, ids);
   else
-    shadow_slots_kernel<NS, ALPHA, false><<<blocks_for(n), BLOCK_THREADS, 0,
-                                            st>>>(
-        rows, meta, basis, o, t_lim, n, n_clusters, cluster, counts, t_opq,
-        ts, ids);
+    shadow_sweep_kernel<NS, ALPHA, false><<<blocks, OCCL_WARPS * 32, 0, st>>>(
+        rows, meta, groups, basis, o, t_lim, tt, n, n_clusters, cluster,
+        counts, t_opq, ts, ids);
 }
 
 template <int NS>
 void launch_slots(bool alpha, const float4* rows, const float* meta,
-                  const float* basis, const float* o, const float* t_lim,
-                  int64_t n, int n_clusters, int cluster, int32_t* counts,
-                  float* t_opq, float* ts, float* ids, cudaStream_t st) {
+                  const float4* groups, const float* basis, const float* o,
+                  const float* t_lim, int64_t n, int n_clusters, int cluster,
+                  int32_t* counts, float* t_opq, float* ts, float* ids,
+                  cudaStream_t st) {
   if (alpha)
-    launch_slots2<NS, true>(counts != nullptr, rows, meta, basis, o, t_lim,
-                            n, n_clusters, cluster, counts, t_opq, ts, ids,
-                            st);
+    launch_sweep<NS, true>(rows, meta, groups, basis, o, t_lim, nullptr, n,
+                           n_clusters, cluster, counts, t_opq, ts, ids, st);
   else
-    launch_slots2<NS, false>(counts != nullptr, rows, meta, basis, o, t_lim,
-                             n, n_clusters, cluster, counts, t_opq, ts, ids,
-                             st);
+    launch_sweep<NS, false>(rows, meta, groups, basis, o, t_lim, nullptr, n,
+                            n_clusters, cluster, counts, t_opq, ts, ids, st);
 }
 
 }  // namespace
@@ -457,44 +386,41 @@ SGE_API int sge_shadow_occl(const float* rows, const float* meta,
                             float* t_opq, void* stream) {
   if (n == 0) return int(cudaGetLastError());
   if (cluster % sge::CHUNK != 0) return int(cudaErrorInvalidValue);
-  const int64_t warps = (n + 31) / 32;
-  const unsigned blocks =
-      unsigned((warps + sge::OCCL_WARPS - 1) / sge::OCCL_WARPS);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float4* r4 = reinterpret_cast<const float4*>(rows);
-  const float4* g4 = reinterpret_cast<const float4*>(groups);
-  if (counts)
-    sge::shadow_occl_kernel<true><<<blocks, sge::OCCL_WARPS * 32, 0, st>>>(
-        r4, meta, g4, basis, o, t_lim, tt, n, n_clusters, cluster, counts,
-        t_opq);
-  else
-    sge::shadow_occl_kernel<false><<<blocks, sge::OCCL_WARPS * 32, 0, st>>>(
-        r4, meta, g4, basis, o, t_lim, tt, n, n_clusters, cluster, counts,
-        t_opq);
+  sge::launch_sweep<0, false>(
+      reinterpret_cast<const float4*>(rows), meta,
+      reinterpret_cast<const float4*>(groups), basis, o, t_lim, tt, n,
+      n_clusters, cluster, counts, t_opq, nullptr, nullptr,
+      static_cast<cudaStream_t>(stream));
   return int(cudaGetLastError());
 }
 
-// counts (3N + 3 ceil(N/32),) int32 or null.
-// Out: t_opq (N,), ts (N, n_slots), ids (N, n_slots).
+// As sge_shadow_occl, without tt. Out: t_opq (N,), ts (N, n_slots), ids
+// (N, n_slots).
 SGE_API int sge_shadow_slots(const float* rows, const float* meta,
-                             const float* basis, const float* o,
-                             const float* t_lim, int64_t n, int n_clusters,
-                             int cluster, int n_slots, int alpha_payload,
-                             int32_t* counts, float* t_opq, float* ts,
-                             float* ids, void* stream) {
+                             const float* groups, const float* basis,
+                             const float* o, const float* t_lim, int64_t n,
+                             int n_clusters, int cluster, int n_slots,
+                             int alpha_payload, int32_t* counts, float* t_opq,
+                             float* ts, float* ids, void* stream) {
   if (n == 0) return int(cudaGetLastError());
+  if (cluster % sge::CHUNK != 0) return int(cudaErrorInvalidValue);
   const float4* r4 = reinterpret_cast<const float4*>(rows);
+  const float4* g4 = reinterpret_cast<const float4*>(groups);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool a = alpha_payload != 0;
   switch (n_slots) {
-    case 1: sge::launch_slots<1>(a, r4, meta, basis, o, t_lim, n, n_clusters,
-                                 cluster, counts, t_opq, ts, ids, st); break;
-    case 2: sge::launch_slots<2>(a, r4, meta, basis, o, t_lim, n, n_clusters,
-                                 cluster, counts, t_opq, ts, ids, st); break;
-    case 3: sge::launch_slots<3>(a, r4, meta, basis, o, t_lim, n, n_clusters,
-                                 cluster, counts, t_opq, ts, ids, st); break;
-    case 4: sge::launch_slots<4>(a, r4, meta, basis, o, t_lim, n, n_clusters,
-                                 cluster, counts, t_opq, ts, ids, st); break;
+    case 1: sge::launch_slots<1>(a, r4, meta, g4, basis, o, t_lim, n,
+                                 n_clusters, cluster, counts, t_opq, ts, ids,
+                                 st); break;
+    case 2: sge::launch_slots<2>(a, r4, meta, g4, basis, o, t_lim, n,
+                                 n_clusters, cluster, counts, t_opq, ts, ids,
+                                 st); break;
+    case 3: sge::launch_slots<3>(a, r4, meta, g4, basis, o, t_lim, n,
+                                 n_clusters, cluster, counts, t_opq, ts, ids,
+                                 st); break;
+    case 4: sge::launch_slots<4>(a, r4, meta, g4, basis, o, t_lim, n,
+                                 n_clusters, cluster, counts, t_opq, ts, ids,
+                                 st); break;
     default: return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());

@@ -40,11 +40,11 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
-    "sge_cluster_raster": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I,
-                           _P, _P, _P, _P, _P, _P],
+    "sge_cluster_raster": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I,
+                           _I, _P, _P, _P, _P, _P, _P],
     "sge_shadow_occl": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _P, _P,
                         _P],
-    "sge_shadow_slots": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
+    "sge_shadow_slots": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
     "sge_trace_closest": [_P, _P, _P, _P, _P, _I64, _I, _P, _P, _P, _P],
     "sge_so_layers": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _P, _P, _P, _P,

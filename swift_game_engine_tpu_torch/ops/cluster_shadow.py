@@ -18,10 +18,11 @@ returned t_opq is then factor-equivalent, not the nearest.
 
 The wrappers launch ``csrc/cluster_shadow.cu`` for CUDA tensors and run the
 plain twins (dense lanes x triangles in chunks, ``topk`` for slots) only
-for CPU tensors. K2 is warp-cooperative: each warp of 32 consecutive lanes
-culls 32 cluster entries at a time against its lanes' footprint, stages
-the rows of the clusters its lanes enter in shared memory, and tests a
-GROUP of 32 rows only for the lanes whose point its box holds.
+for CPU tensors. K2 and K3 are one warp-cooperative kernel template: each
+warp of 32 consecutive lanes culls 32 cluster entries at a time against
+its lanes' footprint, stages the rows of the clusters its lanes enter in
+shared memory, and tests a GROUP of 32 rows only for the lanes whose point
+its box holds; both sets of a split are built with their GROUP boxes.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ EPS = 1e-6
 CLUSTER = 128         # SGE_SHADOW_CLUSTER
 TRANS_CLUSTER = 64    # translucent-subset cluster size
 
-OCCL_CHUNK = 64       # K2 stages a cluster's rows in chunks of this many
-GROUP = 32            # rows per culling group of K2
+OCCL_CHUNK = 64       # K2/K3 stage a cluster's rows in chunks of this many
+GROUP = 32            # rows per culling group of K2/K3
 occl_launches = 0     # K2 kernel launches since the last reset
 slots_launches = 0    # K3 kernel launches since the last reset
 
@@ -48,8 +49,8 @@ class ShadowClusters(NamedTuple):
     meta: torch.Tensor   # (C, 8) [a0, b0, a1, b1, d0, d1, base_row, 0]
     basis: torch.Tensor  # (3, 3): rows e1, e2, l
     # (C * cluster / GROUP, 8): each GROUP rows' [a0, b0, a1, b1, d0, d1,
-    # 0, 0], clusters in meta's order (K2 culls a cluster's groups with it);
-    # None where no K2 sweeps the set
+    # 0, 0], clusters in meta's order (K2/K3 cull a cluster's groups with
+    # it); None for a set built without them, which no kernel sweeps
     groups: torch.Tensor | None
 
     @property
@@ -87,7 +88,7 @@ def build_shadow_clusters(v0, v1, v2, l, translucent, cluster: int = CLUSTER,
                           groups: bool = False) -> ShadowClusters:
     """Per-frame constants for unit light direction ``l``. Translucent ids
     are encoded as id + 0.5; with ``alpha``, row lane 13 carries 2 + alpha
-    for translucent triangles (-1 otherwise). ``groups``: also K2's
+    for translucent triangles (-1 otherwise). ``groups``: also the kernels'
     per-GROUP culling boxes (``cluster`` a multiple of GROUP)."""
     lv = l.to(torch.float32)
     e1b, e2b = _ortho_basis(lv)
@@ -208,7 +209,7 @@ def build_shadow_split(v0, v1, v2, l, translucent, alpha=None,
                        device=v0.device),
             cluster=min(CLUSTER, TRANS_CLUSTER),
             alpha=None if alpha is None else alpha[trans_idx],
-            ids=trans_idx.to(torch.float32))
+            ids=trans_idx.to(torch.float32), groups=True)
     return ShadowSplit(full=full, trans=trans)
 
 
@@ -288,17 +289,17 @@ def _check_inputs(sc: ShadowClusters, o, t_limit, extra=()):
     for name, x in extra:
         if x is not None:
             _cuda.require(x, name, (n,), device=dev)
-
-
-def _launch_occl(sc: ShadowClusters, o, t_limit, tt, counts):
-    _check_inputs(sc, o, t_limit, (("tt", tt),))
     if sc.cluster % OCCL_CHUNK:
         raise ValueError(f"cluster size {sc.cluster} is no multiple of "
                          f"{OCCL_CHUNK}")
     if sc.groups is None:
-        raise ValueError("K2 needs clusters built with groups=True")
+        raise ValueError("the sweeps need clusters built with groups=True")
     _cuda.require(sc.groups, "groups",
-                  (sc.meta.shape[0] * sc.cluster // GROUP, 8), device=o.device)
+                  (sc.meta.shape[0] * sc.cluster // GROUP, 8), device=dev)
+
+
+def _launch_occl(sc: ShadowClusters, o, t_limit, tt, counts):
+    _check_inputs(sc, o, t_limit, (("tt", tt),))
     out = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
     _cuda.check(_cuda.library().sge_shadow_occl(
         sc.rows.data_ptr(), sc.meta.data_ptr(), sc.groups.data_ptr(),
@@ -332,11 +333,14 @@ def trace_shadow_occl_counts(sc: ShadowClusters, o, t_limit, tt=None):
     w = (n + 31) // 32
     counts = torch.zeros(3 * n + 4 * w, dtype=torch.int32, device=o.device)
     out = _launch_occl(sc, o, t_limit, tt, counts)
+    return out, _count_fields(counts, n, w)
+
+
+def _count_fields(counts, n, w):
     lane = counts[:3 * n].reshape(3, n)
     warp = counts[3 * n:].reshape(w, 4).T
-    return out, dict(zip(("lane_meta", "lane_enter", "lane_tri", "warp_meta",
-                          "warp_surv", "warp_enter", "warp_tri"),
-                         (*lane, *warp)))
+    return dict(zip(("lane_meta", "lane_enter", "lane_tri", "warp_meta",
+                     "warp_surv", "warp_enter", "warp_tri"), (*lane, *warp)))
 
 
 def _launch_slots(sc: ShadowClusters, o, t_limit, n_slots, alpha_payload,
@@ -349,8 +353,9 @@ def _launch_slots(sc: ShadowClusters, o, t_limit, n_slots, alpha_payload,
     ts = torch.empty((n, n_slots), dtype=torch.float32, device=o.device)
     ids = torch.empty((n, n_slots), dtype=torch.float32, device=o.device)
     _cuda.check(_cuda.library().sge_shadow_slots(
-        sc.rows.data_ptr(), sc.meta.data_ptr(), sc.basis.data_ptr(),
-        o.data_ptr(), t_limit.data_ptr(), n, sc.meta.shape[0], sc.cluster,
+        sc.rows.data_ptr(), sc.meta.data_ptr(), sc.groups.data_ptr(),
+        sc.basis.data_ptr(), o.data_ptr(), t_limit.data_ptr(), n,
+        sc.meta.shape[0], sc.cluster,
         n_slots, int(alpha_payload), _cuda.ptr(counts), t_opq.data_ptr(),
         ts.data_ptr(), ids.data_ptr(), _cuda.stream_ptr(o)),
         "sge_shadow_slots")
@@ -371,26 +376,17 @@ def trace_shadow_clusters(sc: ShadowClusters, o, t_limit, n_slots: int = 4,
     return _launch_slots(sc, o, t_limit, n_slots, alpha_payload, None)
 
 
-SLOTS_COUNT_FIELDS = ("lane_meta", "lane_enter", "lane_tri", "warp_meta",
-                      "warp_enter", "warp_tri")
-
-
 def trace_shadow_clusters_counts(sc: ShadowClusters, o, t_limit,
                                  n_slots: int = 4,
                                  alpha_payload: bool = False):
     """K3's counting instantiation, on the card only (a measurement, not a
-    launch of the frame) -> ((t_opq, ts, ids), counts): per lane
-    "lane_meta" (metadata entries stepped), "lane_enter" (clusters
-    entered), "lane_tri" (triangle rows tested); per warp of 32 lanes
-    "warp_meta" (entries stepped), "warp_enter" (clusters some lane
-    entered), "warp_tri" (triangle rows looped over)."""
+    launch of the frame) -> ((t_opq, ts, ids), counts), with the fields of
+    ``trace_shadow_occl_counts`` ("lane_tri": every row the lane tests)."""
     n = o.shape[0]
     w = (n + 31) // 32
-    counts = torch.zeros(3 * n + 3 * w, dtype=torch.int32, device=o.device)
+    counts = torch.zeros(3 * n + 4 * w, dtype=torch.int32, device=o.device)
     out = _launch_slots(sc, o, t_limit, n_slots, alpha_payload, counts)
-    lane = counts[:3 * n].reshape(3, n)
-    warp = counts[3 * n:].reshape(w, 3).T
-    return out, dict(zip(SLOTS_COUNT_FIELDS, (*lane, *warp)))
+    return out, _count_fields(counts, n, w)
 
 
 def trace_shadow_split(split: ShadowSplit, o, t_limit, n_slots: int = 4,

@@ -23,9 +23,12 @@ order with ray t.
 The wrappers launch ``csrc/cluster_raster.cu`` and ``csrc/raster_lists.cu``
 for CUDA tensors and run the plain twins only for CPU tensors: the cluster
 twin tests every pixel against every triangle (dense, in chunks); the list
-twins step every pixel through its tile's list in the kernels' order. The cluster path leaves out-of-image padding
-lanes empty; the reference fills them with whatever projects there, and
-every caller crops them.
+twins step every pixel through its tile's list in the kernels' order. K1
+runs one warp per 8x4 pixel patch: it culls 32 cluster entries at a time
+against the patch, then 32 rows at a time by their screen boxes, and
+edge-tests only the rows that overlap the patch. The cluster path leaves
+out-of-image padding lanes empty; the reference fills them with whatever
+projects there, and every caller crops them.
 """
 
 from __future__ import annotations
@@ -62,8 +65,13 @@ def setup_clusters(v0, v1, v2, view_proj, width, height, opaque=None,
                    cluster: int = CLUSTER, ids=None):
     """Per-triangle edge rows + front-to-back sorted cluster metadata.
 
-    Returns (rows (Tp, 16), meta (C, 8)). Row: cof0 cof1 cof2 (9), w (3),
-    id, opaque flag, 0, 0. Meta: [x0, y0, x1, y1, w_min, base_row, 0, 0]."""
+    Returns (rows (Tp, 16), meta (C, 8), boxes (Tp, 4)). Row: cof0 cof1
+    cof2 (9), w (3), id, opaque flag, 0, 0. Meta: [x0, y0, x1, y1, w_min,
+    base_row, 0, 0]. Boxes: each row's conservative screen AABB [x0, y0,
+    x1, y1] in pixels (empty for culled and padding rows); K1 culls a
+    cluster's rows by them, and a cluster's box is the union of its rows'.
+    Culled: degenerate, offscreen, and wholly behind the camera (no
+    fragment of such a row is ever inside)."""
     vp = view_proj.to(torch.float32)
 
     def tfc(p):
@@ -106,7 +114,11 @@ def setup_clusters(v0, v1, v2, view_proj, width, height, opaque=None,
                                                 py[2]), float(height))
     degenerate = det.abs() < 1e-18
     offscreen = (x_max < 0) | (x_min > width) | (y_max < 0) | (y_min > height)
-    cull = degenerate | offscreen
+    # wholly behind the camera: a fragment's detp is a sum of lam_i >= 0
+    # times w_i <= 0, so it is never > 0 and no pixel is inside; the
+    # reference gives such a triangle the whole screen's box instead
+    behind = (w0c <= 0) & (w1c <= 0) & (w2c <= 0)
+    cull = degenerate | offscreen | behind
     x_min = torch.where(cull, BIG, x_min)
     x_max = torch.where(cull, -BIG, x_max)
     y_min = torch.where(cull, BIG, y_min)
@@ -142,7 +154,8 @@ def setup_clusters(v0, v1, v2, view_proj, width, height, opaque=None,
                         creduce(x_max, torch.amax)[order],
                         creduce(y_max, torch.amax)[order], cw[order], base,
                         torch.zeros_like(base), torch.zeros_like(base)], -1)
-    return rows.contiguous(), meta.contiguous()
+    boxes = torch.stack([x_min, y_min, x_max, y_max], -1)
+    return rows.contiguous(), meta.contiguous(), boxes.contiguous()
 
 
 def _grid(width, height):
@@ -212,15 +225,15 @@ def cluster_raster_plain(rows, width: int, height: int, layers: int,
             tiles(b2).contiguous(), tiles(w).contiguous())
 
 
-def _launch_raster(rows, meta, width, height, layers, prior_w, counts):
-    if not 1 <= layers <= 3:
-        raise ValueError(f"layers must be 1..3, got {layers}")
+def _launch_raster(rows, meta, boxes, width, height, layers, prior_w,
+                   counts):
     tiles_x, n_tiles, sx, sy = _grid(width, height)
     dev = rows.device
     _cuda.require(rows, "rows", (rows.shape[0], 16), device=dev)
     _cuda.require(meta, "meta", (meta.shape[0], 8), device=dev)
-    if rows.shape[0] % meta.shape[0]:
-        raise ValueError("rows must hold whole clusters")
+    _cuda.require(boxes, "boxes", (rows.shape[0], 4), device=dev)
+    if rows.shape[0] % meta.shape[0] or (rows.shape[0] // meta.shape[0]) % 8:
+        raise ValueError("rows must hold whole clusters of a multiple of 8")
     if prior_w is not None:
         _cuda.require(prior_w, "prior_w", (n_tiles * TILE_H * TILE_W,),
                       device=dev)
@@ -229,17 +242,18 @@ def _launch_raster(rows, meta, width, height, layers, prior_w, counts):
     b1, b2, w = (torch.empty(shape, dtype=torch.float32, device=dev)
                  for _ in range(3))
     _cuda.check(_cuda.library().sge_cluster_raster(
-        rows.data_ptr(), meta.data_ptr(), _cuda.ptr(prior_w), meta.shape[0],
-        rows.shape[0] // meta.shape[0], width, height, sx, sy, tiles_x,
-        n_tiles, layers, _cuda.ptr(counts), tid.data_ptr(), b1.data_ptr(),
-        b2.data_ptr(), w.data_ptr(), _cuda.stream_ptr(rows)),
-        "sge_cluster_raster")
+        rows.data_ptr(), boxes.data_ptr(), meta.data_ptr(),
+        _cuda.ptr(prior_w), meta.shape[0], rows.shape[0] // meta.shape[0],
+        width, height, sx, sy, tiles_x, n_tiles, layers, _cuda.ptr(counts),
+        tid.data_ptr(), b1.data_ptr(), b2.data_ptr(), w.data_ptr(),
+        _cuda.stream_ptr(rows)), "sge_cluster_raster")
     return tid, b1, b2, w
 
 
-def cluster_raster(rows, meta, width: int, height: int, layers: int,
+def cluster_raster(rows, meta, boxes, width: int, height: int, layers: int,
                    prior_w=None):
-    """K1 wrapper: (id int32, b1, b2, w), each (tiles, layers, 32, 128)."""
+    """K1 wrapper over ``setup_clusters``' (rows, meta, boxes): (id int32,
+    b1, b2, w), each (tiles, layers, 32, 128)."""
     if not 1 <= layers <= 3:
         raise ValueError(f"layers must be 1..3, got {layers}")
     if not rows.is_cuda:
@@ -247,30 +261,36 @@ def cluster_raster(rows, meta, width: int, height: int, layers: int,
     global launches
     launches += 1
     layer_launches[layers] += 1
-    return _launch_raster(rows, meta, width, height, layers, prior_w, None)
+    return _launch_raster(rows, meta, boxes, width, height, layers, prior_w,
+                          None)
 
 
 COUNT_FIELDS = ("lane_meta", "lane_enter", "lane_tri", "warp_meta",
-                "warp_enter", "warp_tri")
+                "warp_surv", "warp_enter", "warp_box", "warp_tri")
 
 
-def cluster_raster_counts(rows, meta, width: int, height: int, layers: int,
-                          prior_w=None):
+def cluster_raster_counts(rows, meta, boxes, width: int, height: int,
+                          layers: int, prior_w=None):
     """K1's counting instantiation, on the card only (a measurement, not a
-    launch of the frame) -> ((id, b1, b2, w), counts): per pixel in
-    tile-major lane order "lane_meta" (metadata entries stepped),
-    "lane_enter" (clusters entered: AABB admitted), "lane_tri" (triangle
-    rows edge-tested); per warp "warp_meta" (entries stepped), "warp_enter"
-    (clusters some pixel entered), "warp_tri" (triangle rows looped
-    over)."""
+    launch of the frame) -> ((id, b1, b2, w), counts). Per pixel, in the
+    kernel's thread order (32 a warp: an 8x4 patch of a tile): "lane_meta"
+    (metadata entries it tests itself: footprint survivors while it walks),
+    "lane_enter" (clusters it enters), "lane_tri" (triangle rows it
+    edge-tests); per warp: "warp_meta" (entries its ballots test),
+    "warp_surv" (footprint survivors), "warp_enter" (clusters some pixel
+    enters), "warp_box" (row boxes its ballots test), "warp_tri" (rows it
+    stages and loops over)."""
+    if not 1 <= layers <= 3:
+        raise ValueError(f"layers must be 1..3, got {layers}")
     _, n_tiles, _, _ = _grid(width, height)
     p = n_tiles * TILE_H * TILE_W
     w = p // 32
-    counts = torch.zeros(3 * p + 3 * w, dtype=torch.int32,
+    counts = torch.zeros(3 * p + 5 * w, dtype=torch.int32,
                          device=rows.device)
-    out = _launch_raster(rows, meta, width, height, layers, prior_w, counts)
+    out = _launch_raster(rows, meta, boxes, width, height, layers, prior_w,
+                         counts)
     lane = counts[:3 * p].reshape(3, p)
-    warp = counts[3 * p:].reshape(w, 3).T
+    warp = counts[3 * p:].reshape(w, 5).T
     return out, dict(zip(COUNT_FIELDS, (*lane, *warp)))
 
 
@@ -317,11 +337,12 @@ def rasterize_clusters(v0, v1, v2, view_proj, width: int, height: int,
     ``layers`` > 1. ``ids``: (T,) original triangle ids baked into the rows
     (subset rasters emit global ids). ``prior_w``: (P,) per-lane view-depth
     bound in tile-major order — fragments at or behind it are rejected."""
-    rows, meta = setup_clusters(v0, v1, v2, view_proj, width, height,
-                                opaque=opaque, cluster=cluster, ids=ids)
+    rows, meta, boxes = setup_clusters(v0, v1, v2, view_proj, width, height,
+                                       opaque=opaque, cluster=cluster,
+                                       ids=ids)
     if prior_w is not None:
         prior_w = prior_w.contiguous()
-    tid, b1, b2, w = cluster_raster(rows, meta, width, height, layers,
+    tid, b1, b2, w = cluster_raster(rows, meta, boxes, width, height, layers,
                                     prior_w)
     if cam_pos is not None:
         return _scanline_hits(tid, b1, b2, w, width, height, (v0, v1, v2),

@@ -71,26 +71,134 @@ def test_k1_kernel_matches_plain(cuda, which):
     cam.position = np.array([0.0, 4.0, 22.0], np.float32)
     vp = torch.as_tensor(cam.view_proj(W, H), device=cuda)
     tv = [torch.as_tensor(v, device=cuda) for v in (v0, v1, v2)]
-    opaque_rows, opaque_meta = TR.setup_clusters(
+    opaque = TR.setup_clusters(
         *tv, vp, W, H, opaque=torch.ones(len(v0), dtype=torch.bool,
                                          device=cuda))
     prior = None
     if which == "opaque":
-        rows, meta, layers = opaque_rows, opaque_meta, 1
+        (rows, meta, boxes), layers = opaque, 1
     else:
         # the translucent raster is bounded by the opaque raster's depth
-        prior = TR.cluster_raster(opaque_rows, opaque_meta, W, H, 1)[3]
+        prior = TR.cluster_raster(*opaque, W, H, 1)[3]
         prior = (prior.reshape(-1) * 1.3).contiguous()
-        rows, meta = TR.setup_clusters(*tv, vp, W, H,
-                                       cluster=TR.TRANS_CLUSTER)
+        rows, meta, boxes = TR.setup_clusters(*tv, vp, W, H,
+                                              cluster=TR.TRANS_CLUSTER)
         layers = 3
     before = TR.launches
-    k = TR.cluster_raster(rows, meta, W, H, layers, prior)
+    k = TR.cluster_raster(rows, meta, boxes, W, H, layers, prior)
     assert TR.launches == before + 1
     p = TR.cluster_raster_plain(rows, W, H, layers, prior)
     torch.cuda.synchronize()
     assert int((k[0][:, -1] >= 0).sum()) > 100   # the deepest layer has hits
     agree(k[0], p[0], k[1:], p[1:])
+
+
+def _quad(z, dup):
+    """Two triangles of the plane z over x in [-40, 40], y in [-30, 40],
+    each repeated ``dup`` times in a row (coplanar fragments at equal
+    depth)."""
+    a, b, c, d = ([-40, -30, z], [40, -30, z], [40, 40, z], [-40, 40, z])
+    return [t for t in ((a, b, c), (a, c, d)) for _ in range(dup)]
+
+
+def _k1_stress_inputs(case):
+    """-> (v0, v1, v2, width, height, layers, cluster, prior, dup): inputs
+    that stress K1's cull, each handled by the plain version as it is;
+    triangles ``dup`` in a row share one geometry."""
+    rng = np.random.default_rng(41)
+    width, height, layers, cluster, prior, dup = W, H, 1, TR.CLUSTER, None, 1
+    if case == "full_screen":
+        # one triangle behind everything covers the screen; one crosses the
+        # camera plane (w = 0), whose box is the whole screen
+        v0, v1, v2 = soup(31, 2000)
+        big = np.array([[[-900, -900, -40], [900, -900, -40], [0, 900, -40]],
+                        [[-50, -2, 30], [50, -2, 30], [0, -2, -50]]],
+                       np.float32)
+        v0, v1, v2 = (np.concatenate([v, big[:, i]])
+                      for i, v in enumerate((v0, v1, v2)))
+        layers = 2
+    elif case == "slivers":
+        # needles far thinner than a pixel
+        v0 = rng.uniform(-10, 10, (20000, 3)).astype(np.float32)
+        v1 = v0 + rng.uniform(-4, 4, (20000, 3)).astype(np.float32)
+        v2 = v1 + rng.uniform(-5e-3, 5e-3, (20000, 3)).astype(np.float32)
+    elif case == "padding":
+        # the last tile row and column of the grid are partly padding
+        v0, v1, v2 = soup(33, 3000)
+        width, height, layers, cluster = 960, 540, 3, TR.TRANS_CLUSTER
+    elif case == "deep_ties":
+        # 6 planes, each triangle twice: 12 fragments a pixel, 3 layers
+        tris = np.array([t for z in np.arange(6) * -1.5
+                         for t in _quad(z, 2)], np.float32)
+        v0, v1, v2 = tris[:, 0], tris[:, 1], tris[:, 2]
+        layers, cluster, dup = 3, TR.TRANS_CLUSTER, 2
+    else:                                  # the prior bound at 0 and at BIG
+        v0, v1, v2 = soup(35, 3000)
+        layers, cluster = 3, TR.TRANS_CLUSTER
+        tiles = -(-W // 128) * -(-H // 32)
+        prior = np.full(tiles * 32 * 128,
+                        0.0 if case == "prior_zero" else TR.BIG, np.float32)
+    return v0, v1, v2, width, height, layers, cluster, prior, dup
+
+
+@pytest.mark.parametrize("case", ["full_screen", "slivers", "padding",
+                                  "deep_ties", "prior_zero", "prior_big"])
+def test_k1_cull_stress(cuda, case):
+    """Inputs that stress the warp cull (a screen-filling triangle, sub-
+    pixel slivers, a padded grid, depth complexity above the layer count
+    with coplanar ties, the prior bound at 0 and BIG): the records equal
+    the plain version's (tied fragments as their geometry), padding pixels
+    stay empty, and the counting instantiation equals the kernel."""
+    v0, v1, v2, width, height, layers, cluster, prior, dup = \
+        _k1_stress_inputs(case)
+    cam = Camera()
+    cam.position = np.array([0.0, 4.0, 22.0], np.float32)
+    vp = torch.as_tensor(cam.view_proj(width, height), device=cuda)
+    tv = [torch.as_tensor(v, device=cuda) for v in (v0, v1, v2)]
+    rows, meta, boxes = TR.setup_clusters(*tv, vp, width, height,
+                                          cluster=cluster)
+    if prior is not None:
+        prior = torch.as_tensor(prior, device=cuda)
+    before = TR.launches
+    k = TR.cluster_raster(rows, meta, boxes, width, height, layers, prior)
+    kc, cnt = TR.cluster_raster_counts(rows, meta, boxes, width, height,
+                                       layers, prior)
+    assert TR.launches == before + 1      # the counting build is no launch
+    p = TR.cluster_raster_plain(rows, width, height, layers, prior)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kc, k))
+    key_k = torch.where(k[0] >= 0, k[0] // dup, -1)
+    key_p = torch.where(p[0] >= 0, p[0] // dup, -1)
+    agree(key_k, key_p, k[1:], p[1:])
+    hits = int((k[0] >= 0).sum())
+    if case == "prior_zero":
+        assert hits == 0
+    else:
+        assert int((k[0][:, -1] >= 0).sum()) > 100   # the last layer fills
+    if case == "deep_ties":               # nearest plane twice, then the next
+        full = (k[0] >= 0).all(1)
+        w0, w1, w2 = (k[3][:, l][full] for l in range(3))
+        assert int(full.sum()) > 0.5 * W * H
+        assert float(((w0 == w1) & (w2 > w1)).float().mean()) >= 0.99
+    # padding pixels (outside the image) keep empty records
+    tiles_x = -(-width // 128)
+    px = (torch.arange(k[0].shape[0], device=cuda) % tiles_x)[:, None,
+                                                               None] * 128 + \
+        torch.arange(128, device=cuda)
+    py = (torch.arange(k[0].shape[0], device=cuda) // tiles_x)[:, None,
+                                                                None] * 32 + \
+        torch.arange(32, device=cuda)[:, None]
+    pad = ((px >= width) | (py >= height))[:, None].expand_as(k[0])
+    if case == "padding":
+        assert bool(pad.any())
+    assert bool((k[0][pad] == -1).all()) and bool((k[3][pad] == TR.BIG).all())
+    # the work: a pixel enters only clusters it tests, tests rows only of
+    # clusters it enters; a warp loops only over rows whose boxes it tests
+    assert bool((cnt["lane_enter"] <= cnt["lane_meta"]).all())
+    assert bool((cnt["lane_tri"] <= cluster * cnt["lane_enter"]).all())
+    assert bool((cnt["warp_tri"] <= cnt["warp_box"]).all())
+    assert bool((cnt["warp_surv"] <= cnt["warp_meta"]).all())
+    assert int(cnt["warp_meta"].numel()) * 32 == cnt["lane_meta"].numel()
 
 
 @pytest.fixture
@@ -165,7 +273,7 @@ def test_k2_incoherent_lanes(shadow_case):
     assert bool((counts["lane_tri"] <=
                  split.full.cluster * counts["lane_enter"]).all())
     with pytest.raises(ValueError):          # a set built without groups
-        CS.trace_shadow_occl(split.trans, o, t_lim)
+        CS.trace_shadow_occl(split.full._replace(groups=None), o, t_lim)
 
 
 @pytest.mark.parametrize("n_slots,alpha_payload", [(4, True), (4, False),
@@ -183,6 +291,41 @@ def test_k3_kernel_matches_plain(shadow_case, n_slots, alpha_payload):
     same = (k[2] == p[2]).all(1)
     assert float(same.float().mean()) >= 0.999
     torch.testing.assert_close(k[1][same], p[1][same], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("alpha_payload", [False, True])
+@pytest.mark.parametrize("n_slots", [1, 2, 3, 4])
+def test_k3_incoherent_lanes(shadow_case, n_slots, alpha_payload):
+    """Lanes in random order (incoherent warps), a lane count that is no
+    multiple of 32 and many dead lanes, at every slot count: t_opq and the
+    slot sets equal the plain version's, dead lanes carry empty records,
+    and the counting instantiation equals the kernel."""
+    split, o, t_lim = shadow_case
+    n = o.shape[0] - 11
+    perm = torch.as_tensor(np.random.default_rng(19).permutation(n),
+                           device=o.device)
+    o, t_lim = o[perm].contiguous(), t_lim[perm].contiguous()
+    t_lim[::4] = 0.0                                      # more dead lanes
+    before = CS.slots_launches
+    k = CS.trace_shadow_clusters(split.trans, o, t_lim, n_slots,
+                                 alpha_payload)
+    kc, cnt = CS.trace_shadow_clusters_counts(split.trans, o, t_lim,
+                                              n_slots, alpha_payload)
+    assert CS.slots_launches == before + 1
+    p = CS.trace_shadow_clusters_plain(split.trans, o, t_lim, n_slots,
+                                       alpha_payload)
+    assert all(torch.equal(a, b) for a, b in zip(kc, k))
+    assert int((p[2][:, 0] >= 0).sum()) > 1000            # translucent hits
+    agree(k[0] < 1e30, p[0] < 1e30, [k[0]], [p[0]])
+    same = (k[2].sort(1)[0] == p[2].sort(1)[0]).all(1)    # slot sets
+    assert float(same.float().mean()) >= 0.999
+    torch.testing.assert_close(k[1][same], p[1][same], rtol=1e-5, atol=1e-5)
+    dead = t_lim <= 0
+    assert bool((k[0][dead] == 0).all()) and bool((k[2][dead] == -1).all())
+    assert cnt["warp_meta"].numel() == (n + 31) // 32
+    assert int(cnt["lane_enter"][dead].sum()) == 0
+    assert bool((cnt["lane_tri"] <=
+                 split.trans.cluster * cnt["lane_enter"]).all())
 
 
 def _k4_geometry(dev, v0, v1, v2):

@@ -10,6 +10,9 @@ tests/test_torch_cuda_kernels.py.
     which triangle wins a pixel centre that lies exactly on a shared edge
     or depth tie — and view depth to 1e-5 where ids agree.
     Out-of-image padding lanes are cropped (the reference fills them).
+    K1's per-row screen boxes (the kernel's row cull) are checked against
+    the reference's cluster metadata and against every fragment the twin
+    keeps.
   * K2/K3 shadow sweep twins vs ops/cluster_shadow.trace_shadow_split in
     interpret mode with anyhit=False: t_opq to 1e-5, slot records as sets
     (ties in t may order them differently). With anyhit=True the records
@@ -111,6 +114,84 @@ def test_k1_twin_matches_reference(raster_case, which):
                                        atol=1e-4)
 
 
+@pytest.mark.parametrize("which", ["opaque", "translucent"])
+def test_k1_row_boxes_cover_their_clusters(raster_case, which):
+    """K1's per-row screen boxes: the cluster metadata equals the
+    reference's, and each cluster's box is the union of its rows' boxes
+    (rows found through the metadata's base row); padding rows are
+    empty."""
+    v0, v1, v2, translucent, vp = raster_case
+    idx = np.nonzero(translucent if which == "translucent" else
+                     ~translucent)[0]
+    cl = 16 if which == "translucent" else 128
+    _, j_meta, n_cl = j_tr._setup_clusters(
+        *(jnp.asarray(v[idx]) for v in (v0, v1, v2)), jnp.asarray(vp), W, H,
+        cluster=cl)
+    rows, meta, boxes = p_tr.setup_clusters(
+        *(torch.as_tensor(v[idx]) for v in (v0, v1, v2)), torch.as_tensor(vp),
+        W, H, cluster=cl)
+    assert meta.shape == (n_cl, 8) and boxes.shape == (rows.shape[0], 4)
+    np.testing.assert_allclose(meta.numpy(), np.asarray(j_meta).reshape(-1, 8),
+                               rtol=1e-5, atol=1e-3)
+    base = meta[:, 5].long() * 8
+    per_cluster = boxes[base[:, None] + torch.arange(cl)]   # (C, cl, 4)
+    for k, red in ((0, torch.amin), (1, torch.amin), (2, torch.amax),
+                   (3, torch.amax)):
+        assert torch.equal(red(per_cluster[:, :, k], 1), meta[:, k])
+    pad = rows[:, 12] == -1.0
+    assert bool((boxes[pad, 0] > boxes[pad, 2]).all())
+
+
+def test_k1_row_boxes_hold_their_fragments(raster_case):
+    """The premise of K1's row cull: every fragment the plain version keeps
+    (3 layers, every triangle, the camera-plane crosser included) lies in
+    its row's box widened to the pixel's square."""
+    v0, v1, v2, _, vp = raster_case
+    rows, meta, boxes = p_tr.setup_clusters(
+        *(torch.as_tensor(v) for v in (v0, v1, v2)), torch.as_tensor(vp),
+        W, H)
+    tid, *_ = p_tr.cluster_raster_plain(rows, W, H, 3)
+    tiles_x = -(-W // 128)
+    t = torch.arange(tid.shape[0])
+    px = ((t % tiles_x)[:, None, None] * 128 +
+          torch.arange(128)).expand(-1, 32, -1).float()
+    py = ((t // tiles_x)[:, None, None] * 32 +
+          torch.arange(32)[:, None]).expand(-1, -1, 128).float()
+    assert int((tid[:, -1] >= 0).sum()) > 10
+    for l in range(3):
+        hit = tid[:, l] >= 0
+        b = boxes[tid[:, l][hit].long()]
+        x, y = px[hit], py[hit]
+        assert bool(((b[:, 0] <= x + 1) & (b[:, 2] >= x) &
+                     (b[:, 1] <= y + 1) & (b[:, 3] >= y)).all())
+
+
+def test_k1_culls_triangles_behind_the_camera(raster_case):
+    """Triangles wholly behind the camera (every vertex w <= 0) get empty
+    boxes, and rightly: with them the twin's records are the same as
+    without them (no fragment of theirs is ever inside)."""
+    v0, v1, v2, _, vp = raster_case
+    rng = np.random.default_rng(5)
+    n = 300                                # behind the camera at z = 16
+    b0 = rng.uniform([-30, -20, 40], [30, 20, 80], (n, 3)).astype(np.float32)
+    b1 = (b0 + rng.uniform(-20, 20, (n, 3)) * [1, 1, 0]).astype(np.float32)
+    b2 = (b0 + rng.uniform(-20, 20, (n, 3)) * [1, 1, 0]).astype(np.float32)
+    tv = [torch.as_tensor(np.concatenate([a, b]))
+          for a, b in ((v0, b0), (v1, b1), (v2, b2))]
+    vpt = torch.as_tensor(vp)
+    rows, meta, boxes = p_tr.setup_clusters(*tv, vpt, W, H, cluster=16)
+    w = torch.stack([rows[:, 9], rows[:, 10], rows[:, 11]], -1)
+    behind = (w <= 0).all(-1) & (rows[:, 12] >= 0)
+    assert int(behind.sum()) == n
+    assert bool((boxes[behind, 0] > boxes[behind, 2]).all())
+    with_them = p_tr.cluster_raster_plain(rows, W, H, 3)
+    only = p_tr.setup_clusters(*(t[:len(v0)] for t in tv), vpt, W, H,
+                               cluster=16)[0]
+    without = p_tr.cluster_raster_plain(only, W, H, 3)
+    for a, b in zip(with_them, without):
+        assert torch.equal(a, b)
+
+
 # ----------------------------------------------------------------- K2 / K3
 
 
@@ -160,21 +241,22 @@ def test_k2_k3_twins_match_reference_records(shadow_case, alpha_payload):
 
 
 def test_k2_groups_cover_their_clusters(shadow_case):
-    """K2's 32-row culling groups: each cluster's box is the union of its
-    groups' boxes, and a group's depth range lies inside its cluster's."""
+    """The sweeps' 32-row culling groups, on both sets of the split (K2's
+    full set and K3's translucent subset): each cluster's box is the union
+    of its groups' boxes, and a group's depth range lies inside its
+    cluster's."""
     v0, v1, v2, tr, alpha, l, o, t_lim = shadow_case
     ps = p_cs.build_shadow_split(*(torch.as_tensor(v) for v in (v0, v1, v2)),
                                  torch.as_tensor(l), torch.as_tensor(tr),
                                  alpha=torch.as_tensor(alpha),
                                  trans_idx=torch.as_tensor(np.nonzero(tr)[0]))
-    assert ps.trans.groups is None     # only K2's set is culled by groups
-    sc = ps.full
-    per = sc.cluster // p_cs.GROUP
-    g = sc.groups.reshape(-1, per, 8)
-    assert g.shape[0] == sc.meta.shape[0]
-    for k, red in ((0, torch.amin), (1, torch.amin), (2, torch.amax),
-                   (3, torch.amax), (4, torch.amin), (5, torch.amax)):
-        assert torch.equal(red(g[:, :, k], 1), sc.meta[:, k])
+    for sc in (ps.full, ps.trans):
+        per = sc.cluster // p_cs.GROUP
+        g = sc.groups.reshape(-1, per, 8)
+        assert g.shape[0] == sc.meta.shape[0]
+        for k, red in ((0, torch.amin), (1, torch.amin), (2, torch.amax),
+                       (3, torch.amax), (4, torch.amin), (5, torch.amax)):
+            assert torch.equal(red(g[:, :, k], 1), sc.meta[:, k])
 
 
 def test_k2_anyhit_factor_matches_reference(shadow_case):
