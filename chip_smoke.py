@@ -43,9 +43,13 @@ and read just after. Then:
     lists, and its first layer against K9's first peel), and both are
     timed (CUDA events); each kernel's bound — the larger of its bytes over
     the card's memory rate and its operations over the FP32 rate — is
-    computed from the same inputs. A kernel's entry in the JSON line
-    carries the path name after an ``@`` for every path but the first that
-    runs it;
+    computed from the same inputs: for K1-K4 from the work their counting
+    instantiations count on that call (printed as "K<n> work" lines and
+    checked equal to the kernel's records), with the bytes floor and a
+    one-test-per-record bound beside. K1 is reported per role (its layer
+    count: the opaque and translucent rasters of path 1, path 4's raster).
+    A kernel's entry in the JSON line carries the path name after an ``@``
+    for every path but the first that runs it;
   * four small renders, each through the kernels and through the plain
     versions, must agree (>= 99% of pixels within 1e-4, means within
     0.1%): a 320x180 hybrid render of the full scene (73,728 lanes, with
@@ -468,8 +472,9 @@ def main():
         nearer = torch.cumsum(opq.int(), 1) - opq.int()
         return nearer > 0
 
-    def check_k1(args, launches, tag, by_layers):
-        """Each role (layer count) on its own: records, work, time, bound."""
+    def check_k1(args, by_layers, tag):
+        """Each role (layer count) on its own: records, work, time, bound;
+        ``by_layers``: the path's launches with 1, 2 and 3 layers."""
         for key in sorted(k for k in args if k.startswith("K1/")):
             (rows, meta, boxes, w, h, lay, *rest), kw = args[key]
             prior = rest[0] if rest else kw.get("prior_w")
@@ -786,11 +791,8 @@ def main():
         for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
             tag = f"@{name}" if fam in seen else ""
             seen.add(fam)
-            if fam == "K1":
-                check_k1(cap.args, counts[name][fam], tag,
-                         counts[name]["K1 by layers"])
-            else:
-                checks[fam](cap.args, counts[name][fam], tag)
+            launches = counts[name]["K1 by layers" if fam == "K1" else fam]
+            checks[fam](cap.args, launches, tag)
 
     # -- 4. kernel path vs plain path, end to end ----------------------------
     plain = {

@@ -185,29 +185,30 @@ cluster_raster_kernel(const float4* __restrict__ rows,
       }
       const int64_t row0 = int64_t(base) * 8;
       for (int g0 = 0; g0 < cluster; g0 += BOX_ROWS) {
-        // the boxes of up to 128 rows, 32 at once: a ballot each
-        unsigned rs[BOX_ROWS / ROWS_CHUNK];
+        // the boxes of up to 128 rows, loaded together: bit q of `keep`
+        // says whether row g0 + 32q + lane overlaps the patch
+        unsigned keep = 0;
 #pragma unroll
         for (int q = 0; q < BOX_ROWS / ROWS_CHUNK; ++q) {
           const int j = g0 + q * ROWS_CHUNK + lane;
-          bool keep = false;
           if (j < cluster) {
             const float4 bx = __ldg(boxes + row0 + j);
-            keep = !misses(bx.x, bx.y, bx.z, bx.w, gx0, gy0, gx1, gy1);
+            keep |= unsigned(!misses(bx.x, bx.y, bx.z, bx.w, gx0, gy0, gx1,
+                                     gy1)) << q;
           }
-          rs[q] = __ballot_sync(FULL, keep);
         }
 #pragma unroll 1
         for (int q = 0; q < BOX_ROWS / ROWS_CHUNK; ++q) {
           const int j0 = g0 + q * ROWS_CHUNK;
+          const unsigned rs = __ballot_sync(FULL, keep >> q & 1u);
           if (COUNT && j0 < cluster) {
             w_box += min(ROWS_CHUNK, cluster - j0);
-            w_tri += __popc(rs[q]);
+            w_tri += __popc(rs);
           }
-          if (!rs[q]) continue;
+          if (!rs) continue;
           // the rows that overlap the patch, in row order
-          if (rs[q] >> lane & 1u) {
-            const int k = __popc(rs[q] & ((1u << lane) - 1u));
+          if (rs >> lane & 1u) {
+            const int k = __popc(rs & ((1u << lane) - 1u));
             const float4* src = rows + (row0 + j0 + lane) * 4;
 #pragma unroll
             for (int e = 0; e < 4; ++e) cp_async16(buf + 4 * k + e, src + e);
@@ -215,7 +216,7 @@ cluster_raster_kernel(const float4* __restrict__ rows,
           cp_async_wait_all();
           __syncwarp();
           if (need) {
-            const int nk = __popc(rs[q]);
+            const int nk = __popc(rs);
             for (int k = 0; k < nk; ++k) {
               const Row16 r{buf[4 * k], buf[4 * k + 1], buf[4 * k + 2],
                             buf[4 * k + 3]};

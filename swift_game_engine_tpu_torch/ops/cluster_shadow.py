@@ -345,8 +345,6 @@ def _count_fields(counts, n, w):
 
 def _launch_slots(sc: ShadowClusters, o, t_limit, n_slots, alpha_payload,
                   counts):
-    if not 1 <= n_slots <= 4:
-        raise ValueError(f"n_slots must be 1..4, got {n_slots}")
     _check_inputs(sc, o, t_limit)
     n = o.shape[0]
     t_opq = torch.empty(n, dtype=torch.float32, device=o.device)
@@ -355,10 +353,9 @@ def _launch_slots(sc: ShadowClusters, o, t_limit, n_slots, alpha_payload,
     _cuda.check(_cuda.library().sge_shadow_slots(
         sc.rows.data_ptr(), sc.meta.data_ptr(), sc.groups.data_ptr(),
         sc.basis.data_ptr(), o.data_ptr(), t_limit.data_ptr(), n,
-        sc.meta.shape[0], sc.cluster,
-        n_slots, int(alpha_payload), _cuda.ptr(counts), t_opq.data_ptr(),
-        ts.data_ptr(), ids.data_ptr(), _cuda.stream_ptr(o)),
-        "sge_shadow_slots")
+        sc.meta.shape[0], sc.cluster, n_slots, int(alpha_payload),
+        _cuda.ptr(counts), t_opq.data_ptr(), ts.data_ptr(), ids.data_ptr(),
+        _cuda.stream_ptr(o)), "sge_shadow_slots")
     return t_opq, ts, ids
 
 

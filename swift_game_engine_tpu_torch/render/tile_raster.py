@@ -280,8 +280,6 @@ def cluster_raster_counts(rows, meta, boxes, width: int, height: int,
     "warp_surv" (footprint survivors), "warp_enter" (clusters some pixel
     enters), "warp_box" (row boxes its ballots test), "warp_tri" (rows it
     stages and loops over)."""
-    if not 1 <= layers <= 3:
-        raise ValueError(f"layers must be 1..3, got {layers}")
     _, n_tiles, _, _ = _grid(width, height)
     p = n_tiles * TILE_H * TILE_W
     w = p // 32
