@@ -14,7 +14,10 @@
 // entry at a time and edge-tested every row of each cluster whose box held
 // its pixel. Counted on path 1's first frame (PERF.md), the warp's 32x1
 // strip looped over every row of every cluster any of its pixels entered,
-// and that row work, not memory traffic, set the time. This design:
+// and that row work, not memory traffic, set the time. This design (on
+// that frame 2.73 -> 0.27 ms for the opaque raster and 2.08 -> 0.06 ms for
+// the translucent one; still far above the bytes floor, held by the
+// warp's rounds of metadata and row-box ballots):
 //   * footprint: a warp covers an 8x4 pixel patch of a tile (each thread
 //     still writes its pixel's tile-major slot), so its pixels share the
 //     clusters and rows they overlap;

@@ -21,8 +21,9 @@
 // metadata list one entry at a time, about seven broadcast loads and a
 // branch each (K2: 328 entries a lane on average, all 1,414 for a lit
 // lane), and a warp looped over every row of every cluster one of its
-// lanes entered. The warp-cooperative design (K2 1.42 -> 0.28 ms on that
-// call):
+// lanes entered. The warp-cooperative design (on that call K2 1.42 ->
+// 0.28 ms, K3 0.25 -> 0.08 ms; both far above their bytes floor, held by
+// the latency of the warp's ballot rounds):
 //   * culling: each warp forms its live lanes' footprint (the min/max of
 //     the light-plane a and b with their margins, the least depth less its
 //     margin) and the largest stop bound, tests 32 metadata entries at once,
