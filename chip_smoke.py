@@ -299,14 +299,16 @@ def main():
 
     def zero_counts():
         torch.cuda.synchronize()
-        TR.launches = TR.list_launches = TR.peel_launches = 0
-        TR.layer_launches[:] = [0] * len(TR.layer_launches)
+        TR.launches = [0] * len(TR.launches)
+        TR.list_launches = TR.peel_launches = 0
         CS.occl_launches = CS.slots_launches = 0
         RK.launches = RK.so_launches = RK.so_closest_launches = 0
         RK.shadow_launches = RK.any_launches = 0
 
     def read_counts():
-        return {"K1": TR.launches, "K2": CS.occl_launches,
+        """Launches by kernel; K1's by role (its layer count)."""
+        k1 = {f"K1/layers={n}": v for n, v in enumerate(TR.launches, 1)}
+        return {**k1, "K2": CS.occl_launches,
                 "K3": CS.slots_launches, "K4": RK.launches,
                 "K5": RK.so_launches, "K6": RK.so_closest_launches,
                 "K7": RK.shadow_launches, "K8": RK.any_launches,
@@ -334,7 +336,6 @@ def main():
             times.append((time.perf_counter() - t0) * 1e3)
         counts = read_counts()
         counts["shade_calls"] = shade_calls[0]
-        counts["K1 by layers"] = TR.layer_launches[1:]
         RT._shade_hit = shade_hit
         print(f"path {name}: frame median {np.median(times):.2f} ms, p90 "
               f"{np.percentile(times, 90):.2f} ms over {TIMED} frames (min "
@@ -421,19 +422,21 @@ def main():
     def only(c, *keys):
         """No other kernel of the port was launched."""
         return all(v == 0 for k, v in c.items()
-                   if k not in keys + ("shade_calls", "K1 by layers"))
+                   if k not in keys + ("shade_calls",))
 
-    expect("path 1", c1, "K1 twice a frame, K2 = K3 > 0, K4 > 0, nothing "
-           "else", c1["K1"] == 2 * TIMED and c1["K2"] == c1["K3"] > 0 and
-           c1["K4"] > 0 and only(c1, "K1", "K2", "K3", "K4"))
+    opq, trans = "K1/layers=1", f"K1/layers={LAYERS}"
+    expect("path 1", c1, "K1 once a frame in each role, K2 = K3 > 0, K4 > 0, "
+           "nothing else", c1[opq] == c1[trans] == TIMED and
+           c1["K2"] == c1["K3"] > 0 and c1["K4"] > 0 and
+           only(c1, opq, trans, "K2", "K3", "K4"))
     expect("path 2", c2, "K5 once a frame, K2 = K3 > 0, K4 > 0, nothing "
            "else", c2["K5"] == TIMED and c2["K2"] == c2["K3"] > 0 and
            c2["K4"] > 0 and only(c2, "K2", "K3", "K4", "K5"))
     expect("path 3", c3, "K5 once a frame, K7 > 0, K4 > 0, nothing else",
            c3["K5"] == TIMED and c3["K7"] > 0 and c3["K4"] > 0 and
            only(c3, "K4", "K5", "K7"))
-    expect("path 4", c4, "K1 once a frame, nothing else",
-           c4["K1"] == TIMED and only(c4, "K1"))
+    expect("path 4", c4, "K1 with 2 layers once a frame, nothing else",
+           c4["K1/layers=2"] == TIMED and only(c4, "K1/layers=2"))
     expect("path 5", c5, "K9 twice a frame, nothing else",
            c5["K9"] == 2 * TIMED and only(c5, "K9"))
     expect("path 6", c6, "K6 >= once a frame, K8 once per shade call, "
@@ -472,9 +475,9 @@ def main():
         nearer = torch.cumsum(opq.int(), 1) - opq.int()
         return nearer > 0
 
-    def check_k1(args, by_layers, tag):
+    def check_k1(args, c, tag):
         """Each role (layer count) on its own: records, work, time, bound;
-        ``by_layers``: the path's launches with 1, 2 and 3 layers."""
+        ``c``: the path's launch counts."""
         for key in sorted(k for k in args if k.startswith("K1/")):
             (rows, meta, boxes, w, h, lay, *rest), kw = args[key]
             prior = rest[0] if rest else kw.get("prior_w")
@@ -503,17 +506,20 @@ def main():
             # edge test per record written
             ops = (int(cnt["lane_meta"].sum()) * META_OPS +
                    int(cnt["lane_tri"].sum()) * EDGE_OPS)
-            ins, outs = [rows, meta, boxes, prior], list(out_k)
+            # bytes: what the function reads and writes (the row boxes are
+            # this design's own table, not part of the work)
+            ins, outs = [rows, meta, prior], list(out_k)
             report(f"cluster_raster/layers={lay}" + tag, "swift_game_engine_"
                    "tpu_torch/csrc/cluster_raster.cu", "swift_game_engine_tpu"
-                   "/render/tile_raster.py:620", by_layers[lay - 1], err,
+                   "/render/tile_raster.py:620", c[key], err,
                    _time_ms(lambda: TR.cluster_raster(rows, meta, boxes, w, h,
                                                       lay, prior), 5),
-                   plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
+                   plain_ms, _bound(ins, outs, ops),
+                   floor=_bound(ins, outs, 0),
                    records=_bound(ins, outs, int((out_k[0] >= 0).sum()) *
                                   EDGE_OPS))
 
-    def check_k2(args, launches, tag):
+    def check_k2(args, c, tag):
         (sc, o, t_lim), kw = args["K2"][0][:3], args["K2"][1]
         tt = kw.get("tt")
         exact_k = CS.trace_shadow_occl(sc, o, t_lim)
@@ -541,17 +547,16 @@ def main():
         # lane with a hit
         ops = (int(cnt["lane_tri"].sum()) * SWEEP_OPS +
                int(cnt["lane_meta"].sum()) * META_OPS)
-        ins, outs = [sc.rows, sc.meta, sc.groups, sc.basis, o, t_lim, tt], \
-            [any_k]
+        ins, outs = [sc.rows, sc.meta, sc.basis, o, t_lim, tt], [any_k]
         report("shadow_occl" + tag, "swift_game_engine_tpu_torch/csrc/"
                "cluster_shadow.cu", "swift_game_engine_tpu/ops/"
-               "cluster_shadow.py:541", launches, err,
+               "cluster_shadow.py:541", c["K2"], err,
                _time_ms(lambda: CS.trace_shadow_occl(sc, o, t_lim, tt=tt), 5),
                plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
                records=_bound(ins, outs, int((any_k < 1e30).sum()) *
                               SWEEP_OPS))
 
-    def check_k3(args, launches, tag):
+    def check_k3(args, c, tag):
         (sc, o, t_lim, *rest), kw = args["K3"]
         n_slots = rest[0] if rest else kw.get("n_slots", 4)
         alpha = rest[1] if len(rest) > 1 else kw.get("alpha_payload", False)
@@ -573,11 +578,10 @@ def main():
         # the rows it tests; records: one row test per record written
         ops = (int(cnt["lane_tri"].sum()) * SWEEP_OPS +
                int(cnt["lane_meta"].sum()) * META_OPS)
-        ins, outs = [sc.rows, sc.meta, sc.groups, sc.basis, o, t_lim], \
-            list(k3)
+        ins, outs = [sc.rows, sc.meta, sc.basis, o, t_lim], list(k3)
         report("shadow_slots" + tag, "swift_game_engine_tpu_torch/csrc/"
                "cluster_shadow.cu", "swift_game_engine_tpu/ops/"
-               "cluster_shadow.py:254", launches, err,
+               "cluster_shadow.py:254", c["K3"], err,
                _time_ms(lambda: CS.trace_shadow_clusters(sc, o, t_lim,
                                                          n_slots, alpha), 5),
                plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
@@ -585,7 +589,7 @@ def main():
                                           int((k3[0] < 1e30).sum()))
                               * SWEEP_OPS))
 
-    def check_k4(args, launches, tag):
+    def check_k4(args, c, tag):
         (tree, rows, o, d, t_max), _ = args["K4"]
         t_k, tri_k = RK.trace_rays(tree, rows, o, d, t_max)
         (t_p, tri_p), plain_ms = _timed(lambda: RK.trace_rays_plain(
@@ -606,12 +610,12 @@ def main():
         ins, outs = [tree.nodes, rows, o, d, t_max], [t_k, tri_k]
         report("trace_closest" + tag, "swift_game_engine_tpu_torch/csrc/"
                "bvh_trace.cu", "swift_game_engine_tpu/ops/rt_kernel.py:794",
-               launches, err,
+               c["K4"], err,
                _time_ms(lambda: RK.trace_rays(tree, rows, o, d, t_max), 5),
                plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
                records=_bound(ins, outs, int((tri_k >= 0).sum()) * MT_OPS))
 
-    def check_k5(args, launches, tag):
+    def check_k5(args, c, tag):
         (so_rows, origin, d, t_max), kw = args["K5"]
         n_slots = kw.get("n_slots", 3)
         n = d.shape[0]
@@ -633,14 +637,14 @@ def main():
               f"{walk['slot']} slot tests")
         report("so_layers" + tag,
                "swift_game_engine_tpu_torch/csrc/so_layers.cu",
-               "swift_game_engine_tpu/ops/rt_kernel.py:1503", launches, err,
+               "swift_game_engine_tpu/ops/rt_kernel.py:1503", c["K5"], err,
                _time_ms(lambda: RK.trace_layers_so(so_rows, origin, d, t_max,
                                                    n_slots), 5),
                plain_ms,
                _bound([*so_rows, d, t_max], list(out5), ops5),
                f" (plain on {sub.numel()} of {n} rays)")
 
-    def check_k7(args, launches, tag):
+    def check_k7(args, c, tag):
         (sh_rows, l, o, t_lim), kw = args["K7"]
         n_slots = kw.get("n_slots", 4)
         n = o.shape[0]
@@ -661,14 +665,14 @@ def main():
               f"{walk['slot']} slot tests")
         report("shadow_walk" + tag,
                "swift_game_engine_tpu_torch/csrc/shadow_walk.cu",
-               "swift_game_engine_tpu/ops/rt_kernel.py:1113", launches, err,
+               "swift_game_engine_tpu/ops/rt_kernel.py:1113", c["K7"], err,
                _time_ms(lambda: RK.trace_shadow_factor(sh_rows, l, o, t_lim,
                                                        n_slots), 5),
                plain_ms,
                _bound([*sh_rows, o, t_lim], list(out7), ops7),
                f" (plain on {sub.numel()} of {n} origins)")
 
-    def check_k6(args, launches, tag):
+    def check_k6(args, c, tag):
         """The dense layer-1 call and the first continuation (t floor)."""
         err, walk = 0.0, {}
         for key in ("K6", "K6/floor"):
@@ -697,14 +701,14 @@ def main():
               f"{walk['slot']} slot tests")
         report("so_closest" + tag,
                "swift_game_engine_tpu_torch/csrc/so_layers.cu",
-               "swift_game_engine_tpu/ops/rt_kernel.py:1327", launches, err,
+               "swift_game_engine_tpu/ops/rt_kernel.py:1327", c["K6"], err,
                _time_ms(lambda: RK.trace_rays_so(so_rows, origin, d, t_max),
                         5),
                plain_ms,
                _bound([*so_rows, d, t_max], list(out6), ops6),
                f" (the dense call; plain on {n_sub} of {n} rays)")
 
-    def check_k8(args, launches, tag):
+    def check_k8(args, c, tag):
         (rows, o, d, t_lim), _ = args["K8"]
         n = o.shape[0]
         sub = _subset(n, dev)
@@ -722,7 +726,7 @@ def main():
               f"{walk['slot']} slot tests")
         report("shadow_any" + tag,
                "swift_game_engine_tpu_torch/csrc/bvh_trace.cu",
-               "swift_game_engine_tpu/ops/rt_kernel.py:902", launches, err,
+               "swift_game_engine_tpu/ops/rt_kernel.py:902", c["K8"], err,
                _time_ms(lambda: RK.trace_shadow_any(rows, o, d, t_lim), 5),
                plain_ms,
                _bound([rows, o, d, t_lim], [out8], ops8),
@@ -737,7 +741,7 @@ def main():
         return ([cnt, rows_read, prev], list(outs),
                 int((outs[0] >= 0).sum()) * EDGE_OPS)
 
-    def check_k9(args, launches, tag):
+    def check_k9(args, c, tag):
         err = ms = plain_ms = 0.0
         ins, outs, ops = [], [], 0
         for key in ("K9", "K9/peel"):
@@ -757,9 +761,9 @@ def main():
             ins, outs, ops = ins + i9, outs + o9, ops + n9
         report("list_raster" + tag,
                "swift_game_engine_tpu_torch/csrc/raster_lists.cu",
-               "swift_game_engine_tpu/render/tile_raster.py:154", launches,
+               "swift_game_engine_tpu/render/tile_raster.py:154", c["K9"],
                err, ms, plain_ms, _bound(ins, outs, ops), " (both peels)")
-        check_k10(args, counts[PATHS[4]]["K10"])
+        check_k10(args, c["K10"])
 
     def check_k10(args, launches):
         """On the first peel's candidate lists, 2 layers; its first layer
@@ -791,8 +795,7 @@ def main():
         for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
             tag = f"@{name}" if fam in seen else ""
             seen.add(fam)
-            launches = counts[name]["K1 by layers" if fam == "K1" else fam]
-            checks[fam](cap.args, launches, tag)
+            checks[fam](cap.args, counts[name], tag)
 
     # -- 4. kernel path vs plain path, end to end ----------------------------
     plain = {

@@ -28,8 +28,10 @@
 //     per-pixel walk did;
 //   * rows: within an entered cluster the warp tests 32 rows' screen boxes
 //     at once (`boxes`, one per row, from setup; up to 128 rows' boxes in
-//     flight) against the patch and stages only the rows that overlap it
-//     in shared memory by cp.async;
+//     flight) against the patch and copies only the rows that overlap it
+//     into shared memory, one row a thread (plain loads: a warp stages
+//     ~10 rows in all on path 1, too few for an asynchronous copy to hide
+//     anything);
 //     each pixel that entered the cluster edge-tests those rows in row
 //     order. A row whose box misses the patch cannot cover a pixel of it,
 //     so every pixel meets the same inside fragments in the same order as
@@ -54,31 +56,6 @@ constexpr int WARPS_PER_TILE = PER_TILE / 32;
 constexpr int RASTER_WARPS = 8;            // warps per block
 constexpr int ROWS_CHUNK = 32;             // rows culled and staged at once
 constexpr int BOX_ROWS = 128;              // row boxes loaded at once
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
-               "memory");
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
 
 // A box [x0, y0, x1, y1] (pixel units) misses the pixel square
 // [fx0, fx1] x [fy0, fy1].
@@ -214,9 +191,8 @@ cluster_raster_kernel(const float4* __restrict__ rows,
             const int k = __popc(rs & ((1u << lane) - 1u));
             const float4* src = rows + (row0 + j0 + lane) * 4;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) cp_async16(buf + 4 * k + e, src + e);
+            for (int e = 0; e < 4; ++e) buf[4 * k + e] = __ldg(src + e);
           }
-          cp_async_wait_all();
           __syncwarp();
           if (need) {
             const int nk = __popc(rs);

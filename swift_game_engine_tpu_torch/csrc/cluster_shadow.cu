@@ -89,7 +89,6 @@ __device__ __forceinline__ Hit tri_test(const Row16& r, const Lane& L,
   return Hit{t, hit};
 }
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int OCCL_WARPS = 4;     // warps per block
 constexpr int CHUNK = 64;         // rows per staged chunk: 4 KB
 constexpr int GROUP = 32;         // rows per culling group
@@ -106,19 +105,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
-  return v;
 }
 
 // The warp copies chunk `ch` of the cluster whose rows start at packed row

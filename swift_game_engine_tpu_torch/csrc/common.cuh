@@ -78,6 +78,22 @@ __device__ __forceinline__ void insert_slot(float ct, float cid,
   }
 }
 
+// Warp-wide reductions over all 32 lanes.
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fminf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
 inline unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + BLOCK_THREADS - 1) / BLOCK_THREADS);
 }

@@ -45,8 +45,8 @@ CLUSTER = 128        # SGE_RASTER_CLUSTER (opaque raster)
 TRANS_CLUSTER = 16   # SGE_RASTER_TRANS_CLUSTER (translucent subset)
 RASTER_K = 8192      # SGE_RASTER_K: candidates per tile of the list binning
 
-launches = 0         # K1 kernel launches since the last reset
-layer_launches = [0, 0, 0, 0]  # ... of them with 1, 2, 3 layers (index)
+# K1 kernel launches since the last reset, by layer count (index layers - 1)
+launches = [0, 0, 0]
 list_launches = 0    # K9 kernel launches
 peel_launches = 0    # K10 kernel launches
 
@@ -258,9 +258,7 @@ def cluster_raster(rows, meta, boxes, width: int, height: int, layers: int,
         raise ValueError(f"layers must be 1..3, got {layers}")
     if not rows.is_cuda:
         return cluster_raster_plain(rows, width, height, layers, prior_w)
-    global launches
-    launches += 1
-    layer_launches[layers] += 1
+    launches[layers - 1] += 1
     return _launch_raster(rows, meta, boxes, width, height, layers, prior_w,
                           None)
 
