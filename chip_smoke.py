@@ -209,6 +209,12 @@ def _stats(v):
             f"sum {float(v.sum()):.0f}")
 
 
+def _ray_line(cnt):
+    """mean / p99 / max of a walk twin's per-ray nodes and slot tests."""
+    return "; ".join(f"{k} {_stats(cnt[k].double())}"
+                     for k in ("nodes", "slots"))
+
+
 def _subset(n, device):
     """Every k-th lane, at most TWIN_LANES of them."""
     import torch
@@ -686,10 +692,11 @@ def main():
             cnt = {}
             p6, ms = _timed(lambda: RK.trace_rays_so_plain(
                 so_rows, origin, d_s, tm_s, tf_s, counts=cnt))
-            err = max(err, _compare(
-                f"K6 {'past a t floor' if key != 'K6' else 'dense'} "
-                f"({sub.numel()} of {n} rays)", k6[1], p6[1], [k6[0]],
-                [p6[0]]))
+            role = 'past a t floor' if key != 'K6' else 'dense'
+            err = max(err, _compare(f"K6 {role} ({sub.numel()} of {n} rays)",
+                                    k6[1], p6[1], [k6[0]], [p6[0]]))
+            print(f"  K6 binary walk {role}, per ray of the subset: "
+                  + _ray_line(cnt))
             if key == "K6":      # the dense call is timed and bounded
                 walk, plain_ms = cnt, ms
                 dense = (so_rows, origin, d, t_max, n, sub.numel())
@@ -724,6 +731,7 @@ def main():
             * n / sub.numel()
         print(f"  K8 walk on the subset: {walk['box']} box tests, "
               f"{walk['slot']} slot tests")
+        print("  K8 binary walk, per ray of the subset: " + _ray_line(walk))
         report("shadow_any" + tag,
                "swift_game_engine_tpu_torch/csrc/bvh_trace.cu",
                "swift_game_engine_tpu/ops/rt_kernel.py:902", c["K8"], err,

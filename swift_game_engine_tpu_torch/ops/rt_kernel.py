@@ -552,12 +552,16 @@ def _near_first_walk(hdr, o, inv, active, bound_of, visit_leaf, counts=None):
     box hit, bound)`` runs the slots). ``bound_of(lanes)``: the rays' prune
     bound. ``counts``: a dict that receives the box and slot tests of the
     walk ("box", "slot") — the kernels' own work, since they walk each ray
-    in the same order."""
+    in the same order — and per ray the nodes it visits and its slot tests
+    ("nodes", "slots": (N,) int64)."""
     n, dev = inv.shape[0], inv.device
     stack = torch.zeros((n, STACK), dtype=torch.int64, device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     idx = torch.nonzero(active).squeeze(1)
+    if counts is not None:
+        for k in ("nodes", "slots"):
+            counts[k] = torch.zeros(n, dtype=torch.int64, device=dev)
     while idx.numel():
         nd = node[idx]
         h = hdr[nd]
@@ -568,12 +572,14 @@ def _near_first_walk(hdr, o, inv, active, bound_of, visit_leaf, counts=None):
         if counts is not None:
             counts["box"] = counts.get("box", 0) + 2 * idx.numel() - \
                 li.numel()
+            counts["nodes"][idx] += 1
         if li.numel():
             lanes = idx[li]
             box, _ = _slab(h[li], o, inv[lanes], bound[li])
             if counts is not None:
                 counts["slot"] = counts.get("slot", 0) + \
                     SLOT_N * int(box.sum())
+                counts["slots"][lanes] += SLOT_N * box
             visit_leaf(lanes, h[li, 7].to(torch.int64) - 1, box, bound[li])
         ii = torch.nonzero(~leaf).squeeze(1)
         if ii.numel():
@@ -761,12 +767,16 @@ def trace_shadow_any_plain(rows, o, d, t_limit, counts=None):
     hit (the slots tested at once: any opaque hit, whatever its slot).
     ``counts``: as for trace_shadow_factor_plain; "slot" counts the
     Moller-Trumbore tests the kernel makes: the opaque slots up to the
-    first opaque hit."""
+    first opaque hit; per ray "nodes" and "slots" ((N,) int64) as for
+    ``_near_first_walk``."""
     n = o.shape[0]
     inv = _safe_inv(d)
     blocked = t_limit <= 0
     node = torch.zeros(n, dtype=torch.int64, device=o.device)
     idx = torch.nonzero(~blocked).squeeze(1)
+    if counts is not None:
+        for k in ("nodes", "slots"):
+            counts[k] = torch.zeros(n, dtype=torch.int64, device=o.device)
     while idx.numel():
         nd = node[idx]
         h = rows[nd, :8]
@@ -776,6 +786,7 @@ def trace_shadow_any_plain(rows, o, d, t_limit, counts=None):
         li = torch.nonzero(leaf & box).squeeze(1)
         if counts is not None:
             counts["box"] = counts.get("box", 0) + idx.numel()
+            counts["nodes"][idx] += 1
         hit_any = torch.zeros_like(box)
         if li.numel():
             t, crosses, ids = _mt_leaf(rows[nd[li]], oi[li], d[idx[li]])
@@ -783,8 +794,9 @@ def trace_shadow_any_plain(rows, o, d, t_limit, counts=None):
             hits = crosses & (t > 1e-4) & (t < tl[li, None]) & opaque
             if counts is not None:     # no hit in an earlier slot
                 before = (torch.cumsum(hits.int(), 1) - hits.int()) == 0
-                counts["slot"] = counts.get("slot", 0) + \
-                    int((opaque & before).sum())
+                tested = (opaque & before).sum(1)
+                counts["slot"] = counts.get("slot", 0) + int(tested.sum())
+                counts["slots"][idx[li]] += tested
             hit = hits.any(1)
             hit_any[li] = hit
             blocked[idx[li]] = hit
