@@ -70,6 +70,7 @@ non-zero at once.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -268,7 +269,37 @@ def path_engines(dev):
                                   device=dev)
 
 
-def main():
+def _k4_records_of(lib_path, tree, rows, o, d, t_max):
+    """K4's records from ``sge_trace_closest`` of another build of the
+    kernel library (another checkout's ``swift_game_engine_tpu_torch/
+    build/libsge_kernels_*.so``) on the same inputs."""
+    import ctypes
+
+    import torch
+
+    from swift_game_engine_tpu_torch.ops import _cuda
+    fn = ctypes.CDLL(lib_path).sge_trace_closest
+    fn.argtypes = _cuda._SIGNATURES["sge_trace_closest"]
+    fn.restype = ctypes.c_int
+    n = o.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=o.device)
+    tri = torch.empty(n, dtype=torch.int32, device=o.device)
+    err = fn(tree.nodes.data_ptr(), rows.data_ptr(), o.data_ptr(),
+             d.data_ptr(), t_max.data_ptr(), n, tree.stack, None,
+             t.data_ptr(), tri.data_ptr(), _cuda.stream_ptr(o))
+    torch.cuda.synchronize()
+    if err:
+        _fail(f"sge_trace_closest of {lib_path} failed ({err})")
+    return t, tri
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--k4-against", metavar="LIB",
+                    help="also hold K4's records on path 1's first call "
+                    "bit for bit against sge_trace_closest of this kernel "
+                    "library (another checkout's build)")
+    opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "swift_game_engine_tpu_torch")):
         _fail("run chip_smoke.py from the root of a checkout")
     sys.path.insert(0, REPO)
@@ -481,6 +512,28 @@ def main():
         nearer = torch.cumsum(opq.int(), 1) - opq.int()
         return nearer > 0
 
+    def k1_differing(rows, w, lay, key_k, key_p, out_k, out_p):
+        """Each record where K1 and its plain version differ: the pixel,
+        the layer, both sides' triangle id and depth w, the pixel's records
+        in every layer, and the row (16 f32) of each triangle involved."""
+        tiles_x = -(-w // 128)
+        for tile, li, y, x in torch.nonzero(key_k != key_p).tolist()[:8]:
+            def rec(o, l):
+                at = (tile, l, y, x)
+                return f"{int(o[0][at])} w {float(o[3][at]):.9g}"
+
+            def pixel(o):
+                return "; ".join(rec(o, l) for l in range(lay))
+            print(f"    K1 differs at pixel ({(tile % tiles_x) * 128 + x}, "
+                  f"{(tile // tiles_x) * 32 + y}) layer {li + 1}: kernel id "
+                  f"{rec(out_k, li)}, plain id {rec(out_p, li)}; the pixel's "
+                  f"layers, kernel: {pixel(out_k)} | plain: {pixel(out_p)}")
+            for tid in {int(out_k[0][tile, li, y, x]),
+                        int(out_p[0][tile, li, y, x])} - {-1}:
+                row = rows[rows[:, 12] == tid][0]
+                print(f"      row of id {tid}: " +
+                      " ".join(f"{v:.9g}" for v in row.tolist()))
+
     def check_k1(args, c, tag):
         """Each role (layer count) on its own: records, work, time, bound;
         ``c``: the path's launch counts."""
@@ -500,6 +553,7 @@ def main():
                 for o in (out_k, out_p))
             err = _compare(f"K1 layers={lay} ({rows.shape[0]} rows)", key_k,
                            key_p, vals_k, vals_p)
+            k1_differing(rows, w, lay, key_k, key_p, out_k, out_p)
             # the work of the frame's call, from the counting instantiation
             out_c, cnt = TR.cluster_raster_counts(rows, meta, boxes, w, h,
                                                   lay, prior)
@@ -603,6 +657,15 @@ def main():
         err = _compare(f"K4 ({o.shape[0]} rays, {rows.shape[0]} rows, "
                        f"{tree.nodes.shape[0]} wide nodes)", tri_k, tri_p,
                        [t_k], [t_p])
+        if opts.k4_against and not tag:
+            t_o, tri_o = _k4_records_of(opts.k4_against, tree, rows, o, d,
+                                        t_max)
+            same = torch.equal(t_o, t_k) and torch.equal(tri_o, tri_k)
+            print(f"  K4 against {opts.k4_against}: records "
+                  f"{'bit-identical' if same else 'DIFFER'} on "
+                  f"{o.shape[0]} rays")
+            if not same:
+                _fail("K4's records differ from the other build's")
         # the work of the frame's call, from the counting instantiation
         t_c, tri_c, cnt = RK.trace_rays_counts(tree, rows, o, d, t_max)
         if not (torch.equal(tri_c, tri_k) and torch.equal(t_c, t_k)):
@@ -678,67 +741,116 @@ def main():
                _bound([*sh_rows, o, t_lim], list(out7), ops7),
                f" (plain on {sub.numel()} of {n} origins)")
 
+    def walk_bounds(ins, outs, own, binary, n_sub, n, records):
+        """The three bounds of a wide walk's call: (the binary walk's tests
+        on the subset, scaled to the call: the bound before the redesign,
+        which the JSON line keeps; the kernel's own counted tests; one test
+        per record), each the larger of the bytes and the operations."""
+        return (_bound(ins, outs, binary * n / n_sub), _bound(ins, outs, own),
+                _bound(ins, outs, records))
+
     def check_k6(args, c, tag):
-        """The dense layer-1 call and the first continuation (t floor)."""
-        err, walk = 0.0, {}
+        """The dense layer-1 call and the first continuation (t floor):
+        records against the wide twin on a subset of the rays; the dense
+        call's work by the counting instantiation, and the binary walk's
+        (the design before the wide walk) on the subset."""
+        err = 0.0
+        rows = args["K4"][0][1]            # the packed rows of the frame
         for key in ("K6", "K6/floor"):
-            (so_rows, origin, d, t_max, *rest), kw = args[key]
+            (tree, srows, origin, d, t_max, *rest), kw = args[key]
             t_floor = rest[0] if rest else kw.get("t_floor")
             n = d.shape[0]
             sub = _subset(n, dev)
             d_s, tm_s = d[sub].contiguous(), t_max[sub].contiguous()
             tf_s = None if t_floor is None else t_floor[sub].contiguous()
-            k6 = RK.trace_rays_so(so_rows, origin, d_s, tm_s, tf_s)
-            cnt = {}
+            k6 = RK.trace_rays_so(tree, srows, origin, d_s, tm_s, tf_s)
             p6, ms = _timed(lambda: RK.trace_rays_so_plain(
-                so_rows, origin, d_s, tm_s, tf_s, counts=cnt))
-            role = 'past a t floor' if key != 'K6' else 'dense'
+                tree, srows, origin, d_s, tm_s, tf_s))
+            role = "past a t floor" if key != "K6" else "dense"
             err = max(err, _compare(f"K6 {role} ({sub.numel()} of {n} rays)",
                                     k6[1], p6[1], [k6[0]], [p6[0]]))
+            # the work of the frame's call, from the counting instantiation
+            t_c, tri_c, cnt = RK.trace_rays_so_counts(tree, srows, origin, d,
+                                                      t_max, t_floor)
+            out6 = RK.trace_rays_so(tree, srows, origin, d, t_max, t_floor)
+            if not (torch.equal(tri_c, out6[1]) and torch.equal(t_c,
+                                                                out6[0])):
+                _fail("K6's counting instantiation differs from the kernel")
+            print(f"  K6 work {role} ({RK.WIDE} threads a ray, stack "
+                  f"{tree.stack}): " + _count_line(cnt, 32 // RK.WIDE))
+            print(f"  K6 work {role}, per ray of the subset: " +
+                  _ray_line({k: v[sub] for k, v in cnt.items()}))
+            # the binary walk's work on the same rays
+            so_rows = RK.build_origin_rows(rows, origin)
+            if not torch.equal(so_rows[1], srows):
+                _fail("K6's origin rows are not those of the frame's rows")
+            walk = {}
+            RK.trace_rays_so_binary(so_rows, origin, d_s, tm_s, tf_s,
+                                    counts=walk)
             print(f"  K6 binary walk {role}, per ray of the subset: "
-                  + _ray_line(cnt))
+                  + _ray_line(walk))
             if key == "K6":      # the dense call is timed and bounded
-                walk, plain_ms = cnt, ms
-                dense = (so_rows, origin, d, t_max, n, sub.numel())
-        so_rows, origin, d, t_max, n, n_sub = dense
-        out6 = RK.trace_rays_so(so_rows, origin, d, t_max)
-        ops6 = (walk["box"] * SLAB_OPS + walk["slot"] * SO_SLOT_OPS) \
-            * n / n_sub
-        print(f"  K6 dense walk on the subset: {walk['box']} box tests, "
-              f"{walk['slot']} slot tests")
+                plain_ms = ms
+                ins, outs = [tree.nodes, srows, d, t_max], list(out6)
+                binary, own, records = walk_bounds(
+                    ins, outs,
+                    int(cnt["boxes"].sum()) * SLAB_OPS +
+                    int(cnt["slots"].sum()) * SO_SLOT_OPS,
+                    walk["box"] * SLAB_OPS + walk["slot"] * SO_SLOT_OPS,
+                    sub.numel(), n, int((out6[1] >= 0).sum()) * SO_SLOT_OPS)
+                dense = (tree, srows, origin, d, t_max, n, sub.numel())
+        tree, srows, origin, d, t_max, n, n_sub = dense
         report("so_closest" + tag,
-               "swift_game_engine_tpu_torch/csrc/so_layers.cu",
+               "swift_game_engine_tpu_torch/csrc/bvh_trace.cu",
                "swift_game_engine_tpu/ops/rt_kernel.py:1327", c["K6"], err,
-               _time_ms(lambda: RK.trace_rays_so(so_rows, origin, d, t_max),
-                        5),
-               plain_ms,
-               _bound([*so_rows, d, t_max], list(out6), ops6),
-               f" (the dense call; plain on {n_sub} of {n} rays)")
+               _time_ms(lambda: RK.trace_rays_so(tree, srows, origin, d,
+                                                 t_max), 5),
+               plain_ms, binary,
+               f" (the dense call; plain on {n_sub} of {n} rays; counted "
+               f"bound {own[0]:.4f} ms by {own[1]}, records bound "
+               f"{records[0]:.4f} ms)")
 
     def check_k8(args, c, tag):
-        (rows, o, d, t_lim), _ = args["K8"]
+        (tree, rows, o, d, t_lim), _ = args["K8"]
         n = o.shape[0]
         sub = _subset(n, dev)
         o_s, d_s, tl_s = (x[sub].contiguous() for x in (o, d, t_lim))
-        k8 = RK.trace_shadow_any(rows, o_s, d_s, tl_s)
-        walk = {}
+        k8 = RK.trace_shadow_any(tree, rows, o_s, d_s, tl_s)
         p8, plain_ms = _timed(lambda: RK.trace_shadow_any_plain(
-            rows, o_s, d_s, tl_s, counts=walk))
+            tree, rows, o_s, d_s, tl_s))
         err = _compare(f"K8 ({sub.numel()} of {n} rays, "
                        f"{int(p8.sum())} blocked)", k8, p8, [], [])
-        out8 = RK.trace_shadow_any(rows, o, d, t_lim)
-        ops8 = (walk["box"] * SLAB_OPS + walk["slot"] * MT_OPS) \
-            * n / sub.numel()
-        print(f"  K8 walk on the subset: {walk['box']} box tests, "
+        # the work of the frame's call, from the counting instantiation
+        out8 = RK.trace_shadow_any(tree, rows, o, d, t_lim)
+        out_c, cnt = RK.trace_shadow_any_counts(tree, rows, o, d, t_lim)
+        if not torch.equal(out_c, out8):
+            _fail("K8's counting instantiation differs from the kernel")
+        print(f"  K8 work ({RK.WIDE} threads a ray, stack {tree.stack}): "
+              + _count_line(cnt, 32 // RK.WIDE))
+        print("  K8 work, per ray of the subset: " +
+              _ray_line({k: v[sub] for k, v in cnt.items()}))
+        # the binary walk's work on the same rays
+        walk = {}
+        RK.trace_shadow_any_binary(rows, o_s, d_s, tl_s, counts=walk)
+        print(f"  K8 binary walk on the subset: {walk['box']} box tests, "
               f"{walk['slot']} slot tests")
         print("  K8 binary walk, per ray of the subset: " + _ray_line(walk))
+        ins, outs = [tree.nodes, rows, o, d, t_lim], [out8]
+        binary, own, records = walk_bounds(
+            ins, outs,
+            int(cnt["boxes"].sum()) * SLAB_OPS +
+            int(cnt["slots"].sum()) * MT_OPS,
+            walk["box"] * SLAB_OPS + walk["slot"] * MT_OPS, sub.numel(), n,
+            int((out8 & (t_lim > 0)).sum()) * MT_OPS)
         report("shadow_any" + tag,
                "swift_game_engine_tpu_torch/csrc/bvh_trace.cu",
                "swift_game_engine_tpu/ops/rt_kernel.py:902", c["K8"], err,
-               _time_ms(lambda: RK.trace_shadow_any(rows, o, d, t_lim), 5),
-               plain_ms,
-               _bound([rows, o, d, t_lim], [out8], ops8),
-               f" (plain on {sub.numel()} of {n} rays)")
+               _time_ms(lambda: RK.trace_shadow_any(tree, rows, o, d, t_lim),
+                        5),
+               plain_ms, binary,
+               f" (plain on {sub.numel()} of {n} rays; counted bound "
+               f"{own[0]:.4f} ms by {own[1]}, records bound "
+               f"{records[0]:.4f} ms)")
 
     def list_bound(cnt, cand, prev, outs):
         """As K1 is bounded: the candidate rows the tiles' counts name, read

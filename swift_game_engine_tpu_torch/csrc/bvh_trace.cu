@@ -1,57 +1,63 @@
-// K4: closest-hit BVH traversal over the 4-wide tree.
+// K4, K6 and K8: one walk over the 4-wide tree, three leaf tests.
 //
-// Replaces swift_game_engine_tpu/ops/rt_kernel.py:_kernel_stream (wrapper
-// trace_rays_pallas), the member that serves trees past the TPU's 26k-node
-// VMEM cap, and computes the same function as its siblings
-// (_kernel_smem_ordered, _kernel, _kernel_smem, _kernel_smem_interval,
-// _kernel_smem_ordered2): per ray the nearest (t, triangle id) with
-// 1e-4 < t < t_max, Moller-Trumbore leaf tests, translucent ids (id + 0.5)
-// truncated to the triangle id.
+// K4, closest hit. Replaces swift_game_engine_tpu/ops/rt_kernel.py:
+// _kernel_stream (wrapper trace_rays_pallas), the member that serves trees
+// past the TPU's 26k-node VMEM cap, and computes the same function as its
+// siblings (_kernel_smem_ordered, _kernel, _kernel_smem,
+// _kernel_smem_interval, _kernel_smem_ordered2): per ray the nearest
+// (t, triangle id) with 1e-4 < t < t_max, Moller-Trumbore leaf tests,
+// translucent ids (id + 0.5) truncated to the triangle id.
+//
+// K6, shared-origin closest hit past a per-lane floor. Replaces
+// rt_kernel.py:_kernel_so_ordered (wrapper trace_rays_so): per ray the
+// nearest hit of any kind with t_floor*dnp < tn_s < t_best*dnp (t_floor
+// 1e-4 unless given), tested by so_slot (common.cuh) on the origin rows of
+// build_origin_rows, in the reference's operation order; a miss keeps
+// t = t_max and id -1, a lane with t_max <= 0 is inactive.
+//
+// K8, any-hit occlusion against OPAQUE triangles (integral ids; a
+// translucent id carries +0.5), the shadow prepass. Replaces
+// rt_kernel.py:_kernel_shadow_smem (wrapper trace_shadow_any): per ray,
+// whether some opaque triangle lies at 1e-4 < t < t_lim; a lane with
+// t_lim <= 0 counts as blocked. The walk bound is the fixed t_lim and the
+// ray's threads stop together at its first opaque hit. The answer does not
+// depend on the order; the children are still visited nearest first (the
+// sort is five compare-exchanges a node, and a nearer blocker ends the
+// walk no later than a farther one).
 //
 // Layouts (ops/rt_kernel.py): a wide node is one 128-byte line, its four
-// children's boxes as structure of arrays ([0:24]) and their refs
-// ([24:28]: >= 0 a wide node, -1 empty, <= -2 a leaf: -2 - ref = 16 row +
-// triangle count); a leaf's triangles are the packed row's slots
-// [8+9j : 17+9j] and ids [116+j].
+// children's boxes as structure of arrays ([0:24]), their refs ([24:28]:
+// >= 0 a wide node, -1 empty, <= -2 a leaf: -2 - ref = 16 row + triangle
+// count) and each leaf child's 1-based leaf rank ([28:32]: the leaf's row
+// in the origin rows, plus one; 0 elsewhere); a leaf's triangles are the
+// packed row's slots [8+9j : 17+9j] and ids [116+j].
 //
-// What bound the one-thread-per-ray binary walk this replaces, on the
-// H100 (counted on path 1's first bounce batch, 10,684 rays, 3.70
-// ms): the call lasted as long as its slowest ray's chain of dependent
-// node loads, up to 2,164 (two per binary node: the right child's index
-// sat in the left child's row), with its stack in local memory and a
-// leaf's 12 slot tests one after another; 42 blocks left most SMs idle.
-// The tree's top 6 levels took 6.5% of the node visits, so the top of the
-// tree is not kept in shared memory. This design takes 1.18 ms on that
-// batch, still bound by its slowest ray's chain: 434 wide-node and 521
-// leaf steps, about 1.2 us each, against 0.021 ms for its operations:
+// What bound the one-thread-per-ray binary walks this replaces, on the
+// H100: a call lasted as long as its slowest ray's chain of dependent node
+// loads (two per binary node: the right child's index sat in the left
+// child's row), with its stack in local memory and a leaf's 12 slot tests
+// one after another; K4's binary walk visited 3.2x the wide walk's nodes.
+// K6 and K8 ran that design until they became instances of this walk.
+// The design:
 //   * one dependent load per step: a step reads one wide-node line, tests
-//     all four child boxes against the ray's best t, goes on to the
-//     nearest hit child and stacks the others farthest first;
+//     all four child boxes against the ray's bound, goes on to the nearest
+//     hit child and stacks the others farthest first;
 //   * the stack lives in shared memory, per ray, sized by the tree's own
 //     bound (the largest sum of children less one down a root-to-leaf
 //     path, computed with the topology and checked at build);
 //   * four threads a ray: each tests one child box and 3 of a leaf's 12
 //     slots, and the group shares the results by warp shuffles, so a
-//     ray's steps run four-wide. A one-thread-a-ray build of the same walk
+//     ray's steps run four-wide. A one-thread-a-ray build of the K4 walk
 //     was slower at every batch the frames give it, from 6 rays (2.58
 //     against 1.19 ms) to 557,056 (3.60 against 2.58 ms): with about as
 //     many threads resident, it ran a leaf's 12 tests one after another,
 //     and a warp of 32 rays waited on the longest of their walks;
+//   * the leaf test is a policy (Closest, SharedOrigin, AnyOpaque): it
+//     loads its ray, names the walk bound, tests a leaf's slots and says
+//     whether the walk ends;
 //   * a counting instantiation (COUNT, with a null counts pointer in
 //     production) reports each ray's wide nodes, the child boxes it tests
 //     (the non-empty slots of those nodes), leaves and slot tests.
-//
-// K8: any-hit occlusion against OPAQUE triangles (integral ids), the shadow
-// prepass. Replaces swift_game_engine_tpu/ops/rt_kernel.py:
-// _kernel_shadow_smem (wrapper trace_shadow_any): per ray, whether some
-// opaque triangle lies at 1e-4 < t < t_lim; a lane with t_lim <= 0 counts
-// as blocked. One thread per ray follows the tree's skip links (descend to
-// node+1 on a box hit at an interior node, else jump to the skip link),
-// with the fixed bound t_lim, and stops at its first opaque hit. The TPU
-// kernel walks a 4096-ray packet with one cursor and exits once every lane
-// is blocked; the answer does not depend on the order, so the two agree
-// lane for lane. Bound by the same dependent node loads as K4, cut short
-// by the first blocker.
 
 #include "common.cuh"
 
@@ -59,15 +65,7 @@ namespace sge {
 namespace {
 
 constexpr int ROW = 128;
-
-// Slab test of node `node` against the ray's best hit so far.
-__device__ __forceinline__ float box(const float* __restrict__ rows,
-                                     int node, float ox, float oy, float oz,
-                                     float ix, float iy, float iz,
-                                     float t_best, bool& hit) {
-  return slab(rows + int64_t(node) * ROW, ox, oy, oz, ix, iy, iz, t_best,
-              hit);
-}
+constexpr int IDS = 8 + 9 * SLOT_N;   // a packed row's triangle ids
 
 // Moller-Trumbore test of the triangle (a, e1, e2) at `tr` in the reference's
 // operation order: whether the ray crosses it (|det| >= EPS, barycentrics in
@@ -132,14 +130,187 @@ __device__ __forceinline__ void cswap(float (&t)[WIDE], int (&r)[WIDE],
 constexpr int G = WIDE;
 constexpr int RPB = TRACE_THREADS / G;     // rays per block
 
-template <bool COUNT>
+__device__ __forceinline__ float f32_inf() {
+  return __int_as_float(0x7f800000);
+}
+
+// The group's nearest candidate (t, slot j; a thread without one holds
+// (inf, -1)), the first slot among equal t.
+__device__ __forceinline__ void group_nearest(float& bt, int& bj,
+                                              unsigned mask) {
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) {
+    const float ot = __shfl_xor_sync(mask, bt, off, G);
+    const int oj = __shfl_xor_sync(mask, bj, off, G);
+    if (ot < bt || (ot == bt && oj < bj)) {
+      bt = ot;
+      bj = oj;
+    }
+  }
+}
+
+// A ray's origin, direction and the direction's safe inverse.
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+  __device__ void load_d(const float* __restrict__ d, int64_t i) {
+    dx = __ldg(d + 3 * i); dy = __ldg(d + 3 * i + 1); dz = __ldg(d + 3 * i + 2);
+    ix = safe_inv(dx); iy = safe_inv(dy); iz = safe_inv(dz);
+  }
+  __device__ void load_o(const float* __restrict__ o, int64_t i) {
+    ox = __ldg(o + 3 * i); oy = __ldg(o + 3 * i + 1); oz = __ldg(o + 3 * i + 2);
+  }
+};
+
+// The leaf ref of child k as the walk carries it: the packed row's code.
+__device__ __forceinline__ int packed_ref(const float* __restrict__ nd,
+                                          int k) {
+  return int(__ldg(nd + 24 + k));
+}
+
+// K4: the nearest Moller-Trumbore hit with 1e-4 < t < t_best.
+struct Closest : Ray {
+  struct Args {
+    const float* rows; const float* o; const float* d; const float* t_max;
+    float* t_out; int32_t* tri_out;
+  };
+  float t_best, tri_best;
+  __device__ Closest(const Args& a, int64_t i) {
+    load_o(a.o, i);
+    load_d(a.d, i);
+    t_best = __ldg(a.t_max + i);
+    tri_best = -1.0f;
+  }
+  // a lane with t_max <= 0 walks and finds nothing (its origin is parked)
+  __device__ bool live() const { return true; }
+  __device__ float bound() const { return t_best; }
+  __device__ int child_ref(const float* nd, int k) const {
+    return packed_ref(nd, k);
+  }
+  __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
+                       int& tests) {
+    const int cnt = code & 15;
+    const float* r = a.rows + int64_t(code >> 4) * ROW;
+    float bt = t_best;
+    int bj = -1;
+    for (int j = k; j < cnt; j += G) {
+      float t;
+      ++tests;
+      if (mt_hit(r + 8 + 9 * j, ox, oy, oz, dx, dy, dz, t) && t > 1e-4f &&
+          t < bt) {
+        bt = t;
+        bj = j;
+      }
+    }
+    if (bj < 0) bt = f32_inf();
+    group_nearest(bt, bj, mask);
+    if (bj >= 0) {
+      t_best = bt;
+      tri_best = __ldg(r + IDS + bj);
+    }
+    return false;
+  }
+  __device__ void write(const Args& a, int64_t i) const {
+    a.t_out[i] = t_best;
+    a.tri_out[i] = int32_t(tri_best);
+  }
+};
+
+// K6: the nearest so_slot hit with t_floor*dnp < tn_s < t_best*dnp, all
+// rays from one origin; leaves name their origin row by rank.
+struct SharedOrigin : Ray {
+  struct Args {
+    const float* srows; float ox, oy, oz; const float* d; const float* t_max;
+    const float* t_floor; float* t_out; int32_t* tri_out;
+  };
+  float t_best, tri_best, fl;
+  __device__ SharedOrigin(const Args& a, int64_t i) {
+    ox = a.ox; oy = a.oy; oz = a.oz;
+    load_d(a.d, i);
+    t_best = __ldg(a.t_max + i);       // a miss keeps t_max
+    tri_best = -1.0f;
+    fl = a.t_floor != nullptr ? __ldg(a.t_floor + i) : 1e-4f;
+  }
+  __device__ bool live() const { return t_best > 0.0f; }
+  __device__ float bound() const { return t_best; }
+  __device__ int child_ref(const float* nd, int k) const {
+    const int rf = packed_ref(nd, k);
+    if (rf > -2) return rf;
+    const int rank = int(__ldg(nd + 28 + k));
+    return -2 - (16 * (rank - 1) + ((-2 - rf) & 15));
+  }
+  __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
+                       int& tests) {
+    const int cnt = code & 15;
+    const float* row = a.srows + int64_t(code >> 4) * SO_ROW_W;
+    float bt = t_best;
+    int bj = -1;
+    for (int j = k; j < cnt; j += G) {
+      float t, dnp, tn_s, tri_id;
+      ++tests;
+      if (so_slot(row, j, dx, dy, dz, t, dnp, tn_s, tri_id) &&
+          tn_s > fl * dnp && tn_s < bt * dnp) {
+        bt = t;
+        bj = j;
+      }
+    }
+    if (bj < 0) bt = f32_inf();
+    group_nearest(bt, bj, mask);
+    if (bj >= 0) {
+      t_best = bt;
+      tri_best = __ldg(row + SO_SLOT_F * SLOT_N + bj);
+    }
+    return false;
+  }
+  __device__ void write(const Args& a, int64_t i) const {
+    a.t_out[i] = t_best;
+    a.tri_out[i] = int32_t(tri_best);
+  }
+};
+
+// K8: whether an opaque triangle lies at 1e-4 < t < t_lim.
+struct AnyOpaque : Ray {
+  struct Args {
+    const float* rows; const float* o; const float* d; const float* t_lim;
+    bool* blocked_out;
+  };
+  float tl;
+  bool blocked;
+  __device__ AnyOpaque(const Args& a, int64_t i) {
+    tl = __ldg(a.t_lim + i);
+    blocked = !(tl > 0.0f);            // t_lim <= 0 counts as blocked
+    load_o(a.o, i);
+    load_d(a.d, i);
+  }
+  __device__ bool live() const { return !blocked; }
+  __device__ float bound() const { return tl; }
+  __device__ int child_ref(const float* nd, int k) const {
+    return packed_ref(nd, k);
+  }
+  __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
+                       int& tests) {
+    const int cnt = code & 15;
+    const float* r = a.rows + int64_t(code >> 4) * ROW;
+    bool mine = false;
+    for (int j = k; j < cnt; j += G) {
+      const float tri_id = __ldg(r + IDS + j);
+      if (tri_id != floorf(tri_id)) continue;   // translucent
+      float t;
+      ++tests;
+      mine |= mt_hit(r + 8 + 9 * j, ox, oy, oz, dx, dy, dz, t) &&
+              t > 1e-4f && t < tl;
+    }
+    blocked = __any_sync(mask, mine);
+    return blocked;
+  }
+  __device__ void write(const Args& a, int64_t i) const {
+    a.blocked_out[i] = blocked;
+  }
+};
+
+template <class R, bool COUNT>
 __global__ void __launch_bounds__(TRACE_THREADS)
-trace_wide_kernel(const float* __restrict__ nodes,
-                  const float* __restrict__ rows, const float* __restrict__ o,
-                  const float* __restrict__ d,
-                  const float* __restrict__ t_max, int64_t n, int stack_n,
-                  int32_t* __restrict__ counts, float* __restrict__ t_out,
-                  int32_t* __restrict__ tri_out) {
+wide_walk_kernel(const float* __restrict__ nodes, const typename R::Args a,
+                 int64_t n, int stack_n, int32_t* __restrict__ counts) {
   extern __shared__ float4 smem4[];
   int* st_ref = reinterpret_cast<int*>(smem4);
   float* st_t = reinterpret_cast<float*>(st_ref + stack_n * RPB);
@@ -149,17 +320,12 @@ trace_wide_kernel(const float* __restrict__ nodes,
   const unsigned mask = ((1u << G) - 1u) << (lane & ~unsigned(G - 1));
   const int64_t i = int64_t(blockIdx.x) * RPB + slot;
   if (i >= n) return;                      // the whole group leaves
-  const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1),
-              oz = __ldg(o + 3 * i + 2);
-  const float dx = __ldg(d + 3 * i), dy = __ldg(d + 3 * i + 1),
-              dz = __ldg(d + 3 * i + 2);
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-  const float INF = __int_as_float(0x7f800000);
-  float t_best = __ldg(t_max + i);
-  float tri_best = -1.0f;
+  R ray(a, i);
+  const float INF = f32_inf();
   int cur = 0, sp = 0;
   int n_nodes = 0, n_boxes = 0, n_leaves = 0, n_slots = 0;
-  while (true) {
+  bool walk = ray.live();                  // the same in the whole group
+  while (walk) {
     if (cur >= 0) {                        // wide node: one line
       const float* nd = nodes + int64_t(cur) * NODE_F;
       float ct[WIDE];
@@ -167,9 +333,9 @@ trace_wide_kernel(const float* __restrict__ nodes,
       bool hit;                            // thread k tests child k
       const float tm = child_slab(
           __ldg(nd + k), __ldg(nd + 4 + k), __ldg(nd + 8 + k),
-          __ldg(nd + 12 + k), __ldg(nd + 16 + k), __ldg(nd + 20 + k), ox, oy,
-          oz, ix, iy, iz, t_best, hit);
-      const int rf = int(__ldg(nd + 24 + k));
+          __ldg(nd + 12 + k), __ldg(nd + 16 + k), __ldg(nd + 20 + k), ray.ox,
+          ray.oy, ray.oz, ray.ix, ray.iy, ray.iz, ray.bound(), hit);
+      const int rf = ray.child_ref(nd, k);
       const float mine = hit && rf != -1 ? tm : INF;
 #pragma unroll
       for (int c = 0; c < WIDE; ++c) {
@@ -203,41 +369,13 @@ trace_wide_kernel(const float* __restrict__ nodes,
         continue;
       }
     } else {                               // leaf: its slots, G at a time
-      const int code = -2 - cur;
-      const int cnt = code & 15;
-      const float* r = rows + int64_t(code >> 4) * ROW;
-      float bt = t_best;
-      int bj = -1;
-      for (int j = k; j < cnt; j += G) {
-        float t;
-        if (mt_hit(r + 8 + 9 * j, ox, oy, oz, dx, dy, dz, t) && t > 1e-4f &&
-            t < bt) {
-          bt = t;
-          bj = j;
-        }
-      }
-#pragma unroll
-      for (int off = 1; off < G; off <<= 1) {  // nearest, first slot of equals
-        const float ot = __shfl_xor_sync(mask, bt, off, G);
-        const int oj = __shfl_xor_sync(mask, bj, off, G);
-        if (ot < bt || (ot == bt && oj < bj)) {
-          bt = ot;
-          bj = oj;
-        }
-      }
-      if (bj >= 0) {
-        t_best = bt;
-        tri_best = __ldg(r + 8 + 9 * SLOT_N + bj);
-      }
-      if (COUNT) {
-        ++n_leaves;
-        n_slots += cnt;
-      }
+      if (COUNT) ++n_leaves;
+      if (ray.leaf(a, -2 - cur, k, mask, n_slots)) break;
     }
     bool found = false;                    // pop the nearest live entry
     while (sp > 0) {
       --sp;
-      if (st_t[sp * RPB + slot] < t_best) {
+      if (st_t[sp * RPB + slot] < ray.bound()) {
         cur = st_ref[sp * RPB + slot];
         found = true;
         break;
@@ -245,9 +383,13 @@ trace_wide_kernel(const float* __restrict__ nodes,
     }
     if (!found) break;
   }
+  if (COUNT) {                             // each thread counted its slots
+#pragma unroll
+    for (int off = 1; off < G; off <<= 1)
+      n_slots += __shfl_xor_sync(mask, n_slots, off, G);
+  }
   if (k == 0) {
-    t_out[i] = t_best;
-    tri_out[i] = int32_t(tri_best);
+    ray.write(a, i);
     if (COUNT) {
       counts[i] = n_nodes;
       counts[n + i] = n_boxes;
@@ -257,80 +399,56 @@ trace_wide_kernel(const float* __restrict__ nodes,
   }
 }
 
-template <bool COUNT>
-int launch_trace(const float* nodes, const float* rows, const float* o,
-                 const float* d, const float* t_max, int64_t n, int stack_n,
-                 int32_t* counts, float* t, int32_t* tri, cudaStream_t st) {
+template <class R>
+int launch_walk(const float* nodes, const typename R::Args& a, int64_t n,
+                int stack_n, int32_t* counts, void* stream) {
+  if (n == 0) return int(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   // at most 96 entries (WIDE_STACK_MAX): 24 KB, under the default 48 KB
   const size_t smem = size_t(stack_n) * RPB * 8;
-  trace_wide_kernel<COUNT><<<unsigned((n + RPB - 1) / RPB), TRACE_THREADS,
-                             smem, st>>>(nodes, rows, o, d, t_max, n,
-                                         stack_n, counts, t, tri);
+  const unsigned blocks = unsigned((n + RPB - 1) / RPB);
+  if (counts)
+    wide_walk_kernel<R, true><<<blocks, TRACE_THREADS, smem, st>>>(
+        nodes, a, n, stack_n, counts);
+  else
+    wide_walk_kernel<R, false><<<blocks, TRACE_THREADS, smem, st>>>(
+        nodes, a, n, stack_n, counts);
   return int(cudaGetLastError());
-}
-
-__global__ void __launch_bounds__(BLOCK_THREADS)
-shadow_any_kernel(const float* __restrict__ rows, const float* __restrict__ o,
-                  const float* __restrict__ d,
-                  const float* __restrict__ t_lim, int64_t n,
-                  bool* __restrict__ blocked_out) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float tl = __ldg(t_lim + i);
-  bool blocked = !(tl > 0.0f);   // a lane with t_lim <= 0 counts as blocked
-  if (!blocked) {
-    const float ox = __ldg(o + 3 * i), oy = __ldg(o + 3 * i + 1),
-                oz = __ldg(o + 3 * i + 2);
-    const float dx = __ldg(d + 3 * i), dy = __ldg(d + 3 * i + 1),
-                dz = __ldg(d + 3 * i + 2);
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    int node = 0;
-    while (node >= 0 && !blocked) {
-      const float* row = rows + int64_t(node) * ROW;
-      bool box_hit;
-      box(rows, node, ox, oy, oz, ix, iy, iz, tl, box_hit);
-      const bool leaf = __ldg(row + 7) > 0.5f;
-      if (leaf && box_hit) {
-        for (int j = 0; j < SLOT_N && !blocked; ++j) {
-          const float tri_id = __ldg(row + 8 + 9 * SLOT_N + j);
-          float t;
-          blocked = tri_id >= 0.0f && tri_id == floorf(tri_id) &&
-                    mt_hit(row + 8 + 9 * j, ox, oy, oz, dx, dy, dz, t) &&
-                    t > 1e-4f && t < tl;
-        }
-      }
-      node = box_hit && !leaf ? node + 1 : int(__ldg(row + 6));
-    }
-  }
-  blocked_out[i] = blocked;
 }
 
 }  // namespace
 }  // namespace sge
 
-// nodes (W,32) wide nodes, rows (M_pad,128), o/d (N,3), t_max (N,);
-// stack_n: the tree's stack bound; counts: (4,N) int32 per-ray work, or
-// null. Out: t (N,), tri (N,) int32.
+// Each entry: nodes (W,32) wide nodes, n rays, stack_n the tree's stack
+// bound, counts (4,N) int32 per-ray work or null.
+
+// K4: rows (M_pad,128), o/d (N,3), t_max (N,). Out: t (N,), tri (N,) int32.
 SGE_API int sge_trace_closest(const float* nodes, const float* rows,
                               const float* o, const float* d,
                               const float* t_max, int64_t n, int stack_n,
                               int32_t* counts, float* t, int32_t* tri,
                               void* stream) {
-  if (n == 0) return int(cudaGetLastError());
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return counts ? sge::launch_trace<true>(nodes, rows, o, d, t_max, n,
-                                          stack_n, counts, t, tri, st)
-                : sge::launch_trace<false>(nodes, rows, o, d, t_max, n,
-                                           stack_n, counts, t, tri, st);
+  return sge::launch_walk<sge::Closest>(nodes, {rows, o, d, t_max, t, tri}, n,
+                                        stack_n, counts, stream);
 }
 
-// rows (M_pad,128), o/d (N,3), t_lim (N,). Out: blocked (N,) bool.
-SGE_API int sge_shadow_any(const float* rows, const float* o, const float* d,
-                           const float* t_lim, int64_t n, bool* blocked,
-                           void* stream) {
-  if (n > 0)
-    sge::shadow_any_kernel<<<sge::blocks_for(n), sge::BLOCK_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        rows, o, d, t_lim, n, blocked);
-  return int(cudaGetLastError());
+// K6: srows (Lp,132) origin rows, origin (ox, oy, oz), d (N,3), t_max (N,),
+// t_floor (N,) or null (1e-4). Out: t (N,), tri (N,) int32.
+SGE_API int sge_trace_so(const float* nodes, const float* srows, float ox,
+                         float oy, float oz, const float* d,
+                         const float* t_max, const float* t_floor, int64_t n,
+                         int stack_n, int32_t* counts, float* t, int32_t* tri,
+                         void* stream) {
+  return sge::launch_walk<sge::SharedOrigin>(
+      nodes, {srows, ox, oy, oz, d, t_max, t_floor, t, tri}, n, stack_n,
+      counts, stream);
+}
+
+// K8: rows (M_pad,128), o/d (N,3), t_lim (N,). Out: blocked (N,) bool.
+SGE_API int sge_trace_any(const float* nodes, const float* rows,
+                          const float* o, const float* d, const float* t_lim,
+                          int64_t n, int stack_n, int32_t* counts,
+                          bool* blocked, void* stream) {
+  return sge::launch_walk<sge::AnyOpaque>(nodes, {rows, o, d, t_lim, blocked},
+                                          n, stack_n, counts, stream);
 }

@@ -45,6 +45,35 @@ __device__ __forceinline__ float safe_inv(float v) {
   return 1.0f / vs;
 }
 
+// Origin rows (ops/rt_kernel.py build_origin_rows) of the shared-origin
+// walks K5 and K6: per leaf triangle k_u, k_v, k_d, tn, then the ids.
+constexpr int SO_SLOT_F = 10;                          // k_u, k_v, k_d, tn
+constexpr int SO_ROW_W = SO_SLOT_F * SLOT_N + SLOT_N;  // + the ids
+
+// Slot j of origin row `row` against direction d: the sign-folded terms of
+// swift_game_engine_tpu/ops/rt_kernel.py:1393-1401, in its operation order.
+// Returns t = tn_s / dnp and whether the ray's line crosses the triangle
+// (id >= 0, dnp >= EPS, barycentric range); the caller adds its t range
+// test on tn_s or t.
+__device__ __forceinline__ bool so_slot(const float* __restrict__ row, int j,
+                                        float dx, float dy, float dz,
+                                        float& t, float& dnp, float& tn_s,
+                                        float& tri_id) {
+  tri_id = __ldg(row + SO_SLOT_F * SLOT_N + j);
+  const float* s = row + SO_SLOT_F * j;
+  const float un = (dx * __ldg(s) + dy * __ldg(s + 1)) + dz * __ldg(s + 2);
+  const float vn = (dx * __ldg(s + 3) + dy * __ldg(s + 4)) + dz * __ldg(s + 5);
+  const float dn = (dx * __ldg(s + 6) + dy * __ldg(s + 7)) + dz * __ldg(s + 8);
+  const float tn = __ldg(s + 9);
+  const float sgn = dn < 0.0f ? -1.0f : 1.0f;
+  dnp = dn * sgn;
+  const float un_s = un * sgn, vn_s = vn * sgn;
+  tn_s = tn * sgn;
+  t = tn_s / (dnp >= EPS ? dnp : 1.0f);
+  return tri_id >= 0.0f && dnp >= EPS && un_s >= 0.0f && un_s <= dnp &&
+         vn_s >= 0.0f && un_s + vn_s <= dnp;
+}
+
 // Slab test of the box whose header starts at h (bmin h[0:3], bmax h[3:6]):
 // returns tmin and sets `hit` as the reference's
 // box_hit = (tmax >= max(tmin, 0)) & (tmin < bound).

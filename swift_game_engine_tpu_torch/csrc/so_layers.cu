@@ -1,64 +1,35 @@
 // K5: layered shared-origin walk — every transparency layer of a primary ray
-// in one traversal; K6: shared-origin closest hit with a per-ray t floor.
+// in one traversal.
 //
-// K5 replaces swift_game_engine_tpu/ops/rt_kernel.py:_kernel_layers_so
-// (wrapper trace_layers_so), K6 replaces :_kernel_so_ordered (wrapper
-// trace_rays_so). All rays share the camera origin o, so the per-frame
-// origin rows (build_origin_rows) hold, per leaf triangle, k_u = e2 x (o-a),
-// k_v = (o-a) x e1, k_d = e2 x e1 and tn = e2 . k_v: a slot test is three
-// dot products of the ray direction with constants and sign-folded
-// compares, with one division for the accepted t (so_slot, in the
-// reference's operation order). K5 returns, per ray, the nearest OPAQUE hit
-// (t, id) and the NS nearest TRANSLUCENT hits (t, id + 0.5) met on the way,
-// ascending (the insertion network); the caller turns these into layer
-// records. K6 returns the nearest hit of any kind with
-// t_floor*dn < tn < t_best*dn: the non-layered trace calls it once for
-// layer 1 and once per continuation layer with t_floor = t_hit + 2*bias.
+// Replaces swift_game_engine_tpu/ops/rt_kernel.py:_kernel_layers_so
+// (wrapper trace_layers_so). All rays share the camera origin o, so the
+// per-frame origin rows (build_origin_rows) hold, per leaf triangle,
+// k_u = e2 x (o-a), k_v = (o-a) x e1, k_d = e2 x e1 and tn = e2 . k_v: a
+// slot test is three dot products of the ray direction with constants and
+// sign-folded compares, with one division for the accepted t (so_slot in
+// common.cuh, in the reference's operation order). K5 returns, per ray, the
+// nearest OPAQUE hit (t, id) and the NS nearest TRANSLUCENT hits
+// (t, id + 0.5) met on the way, ascending (the insertion network); the
+// caller turns these into layer records. K6, the shared-origin closest hit,
+// is an instance of K4's wide walk (bvh_trace.cu) over the same rows.
 //
 // Design for Hopper: one thread per ray walks the tree near-first with its
 // own 128-deep stack (interior node n has children n+1 and skip[n+1]; the
-// child with the nearer box entry of THIS ray goes first). The TPU kernels
-// walk a 4096-ray packet with one cursor, ordering children by the packet's
+// child with the nearer box entry of THIS ray goes first). The TPU kernel
+// walks a 4096-ray packet with one cursor, ordering children by the packet's
 // minimum entry distance, because the TPU has no vector gathers; a GPU
-// thread gathers its own nodes. The closest hit does not depend on the
-// order except at exactly equal t. The per-ray prune bound is
-// min(t_max, t_opq, ts[NS-1]) for K5 and t_best for K6. The whole working
-// set is small: at the decimated DemoScene's 12,768 rows the header is
-// 0.4 MB and the leaf rows (132 f32, 528 B each) 3.4 MB, inside the 50 MB
-// L2, so both are read straight from global memory. What bounds them is the
-// chain of dependent node loads of each ray (latency), hidden by many rays
-// in flight; the arithmetic per node is a few dozen operations.
+// thread gathers its own nodes. The per-ray prune bound is
+// min(t_max, t_opq, ts[NS-1]). The whole working set is small: at the
+// decimated DemoScene's 12,768 rows the header is 0.4 MB and the leaf rows
+// (132 f32, 528 B each) 3.4 MB, inside the 50 MB L2, so both are read
+// straight from global memory. What bounds it is the chain of dependent
+// node loads of each ray (latency), hidden by many rays in flight; the
+// arithmetic per node is a few dozen operations.
 
 #include "common.cuh"
 
 namespace sge {
 namespace {
-
-constexpr int SO_SLOT_F = 10;                        // k_u, k_v, k_d, tn
-constexpr int SO_ROW_W = SO_SLOT_F * SLOT_N + SLOT_N;  // + the ids
-
-// Slot j of leaf row `row` against direction d: the sign-folded terms of
-// rt_kernel.py:1393-1401. Returns t = tn_s / dnp and whether the ray's line
-// crosses the triangle (id >= 0, dnp >= EPS, barycentric range); the caller
-// adds its t range test on tn_s or t.
-__device__ __forceinline__ bool so_slot(const float* __restrict__ row, int j,
-                                        float dx, float dy, float dz,
-                                        float& t, float& dnp, float& tn_s,
-                                        float& tri_id) {
-  tri_id = __ldg(row + SO_SLOT_F * SLOT_N + j);
-  const float* s = row + SO_SLOT_F * j;
-  const float un = (dx * __ldg(s) + dy * __ldg(s + 1)) + dz * __ldg(s + 2);
-  const float vn = (dx * __ldg(s + 3) + dy * __ldg(s + 4)) + dz * __ldg(s + 5);
-  const float dn = (dx * __ldg(s + 6) + dy * __ldg(s + 7)) + dz * __ldg(s + 8);
-  const float tn = __ldg(s + 9);
-  const float sgn = dn < 0.0f ? -1.0f : 1.0f;
-  dnp = dn * sgn;
-  const float un_s = un * sgn, vn_s = vn * sgn;
-  tn_s = tn * sgn;
-  t = tn_s / (dnp >= EPS ? dnp : 1.0f);
-  return tri_id >= 0.0f && dnp >= EPS && un_s >= 0.0f && un_s <= dnp &&
-         vn_s >= 0.0f && un_s + vn_s <= dnp;
-}
 
 // One near-first step at interior node `node`: the next node to visit, or
 // -1 to pop the stack.
@@ -143,55 +114,6 @@ so_layers_kernel(const float* __restrict__ header,
   }
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS)
-so_closest_kernel(const float* __restrict__ header,
-                  const float* __restrict__ srows, float ox, float oy,
-                  float oz, const float* __restrict__ d,
-                  const float* __restrict__ t_max,
-                  const float* __restrict__ t_floor, int64_t n,
-                  float* __restrict__ t_out, int32_t* __restrict__ tri_out) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float t_best = __ldg(t_max + i);   // a miss keeps t_max
-  float tri_best = -1.0f;
-  if (t_best > 0.0f) {
-    const float fl = t_floor != nullptr ? __ldg(t_floor + i) : 1e-4f;
-    const float dx = __ldg(d + 3 * i), dy = __ldg(d + 3 * i + 1),
-                dz = __ldg(d + 3 * i + 2);
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    int stack[STACK];
-    int sp = 0;
-    int node = 0;
-    while (node >= 0) {
-      const float* h = header + int64_t(node) * 8;
-      const float h7 = __ldg(h + 7);
-      int next = -1;
-      if (h7 > 0.5f) {
-        bool box_hit;
-        slab(h, ox, oy, oz, ix, iy, iz, t_best, box_hit);
-        if (box_hit) {
-          const float* row = srows + int64_t(int(h7) - 1) * SO_ROW_W;
-#pragma unroll 2
-          for (int j = 0; j < SLOT_N; ++j) {
-            float t, dnp, tn_s, tri_id;
-            if (so_slot(row, j, dx, dy, dz, t, dnp, tn_s, tri_id) &&
-                tn_s > fl * dnp && tn_s < t_best * dnp) {
-              t_best = t;
-              tri_best = tri_id;
-            }
-          }
-        }
-      } else {
-        next = descend(header, node, ox, oy, oz, ix, iy, iz, t_best, stack,
-                       sp);
-      }
-      node = next >= 0 ? next : (sp > 0 ? stack[--sp] : -1);
-    }
-  }
-  t_out[i] = t_best;
-  tri_out[i] = int32_t(tri_best);
-}
-
 template <int NS>
 void launch(const float* header, const float* srows, float ox, float oy,
             float oz, const float* d, const float* t_max, int64_t n,
@@ -222,18 +144,5 @@ SGE_API int sge_so_layers(const float* header, const float* srows, float ox,
                            ts, ids, st); break;
     default: return int(cudaErrorInvalidValue);
   }
-  return int(cudaGetLastError());
-}
-
-// header (M*8,), srows (Lp, 132), origin (ox, oy, oz), d (N,3), t_max (N,),
-// t_floor (N,) or null (1e-4). Out: t (N,), tri (N,) int32.
-SGE_API int sge_so_closest(const float* header, const float* srows, float ox,
-                           float oy, float oz, const float* d,
-                           const float* t_max, const float* t_floor,
-                           int64_t n, float* t, int32_t* tri, void* stream) {
-  if (n > 0)
-    sge::so_closest_kernel<<<sge::blocks_for(n), sge::BLOCK_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        header, srows, ox, oy, oz, d, t_max, t_floor, n, t, tri);
   return int(cudaGetLastError());
 }

@@ -10,12 +10,16 @@ uses: ``pack_bvh`` (the (M, 128) row-per-node layout), ``barycentrics``,
     opaque hit and the n_slots nearest translucent hits of rays that share
     one origin (csrc/so_layers.cu), over ``build_origin_rows``;
   * K6 ``trace_rays_so`` — closest hit of rays that share one origin, with
-    a per-lane t floor (csrc/so_layers.cu), over ``build_origin_rows``;
+    a per-lane t floor (csrc/bvh_trace.cu), over the wide tree and the
+    origin rows of ``build_origin_rows``;
   * K7 ``trace_shadow_factor`` — the shared-direction shadow walk: the
     nearest opaque t and the n_slots nearest translucent hits toward one
     light (csrc/shadow_walk.cu), over ``build_shadow_rows``;
   * K8 ``trace_shadow_any`` — any-hit occlusion against opaque triangles
-    (csrc/bvh_trace.cu), the shadow prepass.
+    (csrc/bvh_trace.cu) over the wide tree, the shadow prepass.
+
+K4, K6 and K8 are instances of one walk over the wide tree (``_wide_walk``
+in their twins); K5 and K7 walk the binary tree.
 
 K5–K8 serve trees of at most ``WALK_MAX_ROWS`` packed rows
 (``walk_available``), the reference's rule.
@@ -25,15 +29,18 @@ Row layout (f32 lanes):
   [8+9j : 17+9j] triangle j as (a, b-a, c-a), j in 0..SLOT_N-1
   [8+9*SLOT_N + j] triangle j's original id (-1 empty; translucent id+0.5)
 
-Wide-node layout (K4; ``collapse_wide`` maps the binary tree onto it once,
-``wide_nodes`` fills the boxes per frame): one 128-byte line of 32 f32 per
-node, its up to WIDE children's boxes as structure of arrays
+Wide-node layout (K4, K6, K8; ``collapse_wide`` maps the binary tree onto it
+once, ``wide_nodes`` fills the boxes per frame): one 128-byte line of 32
+f32 per node, its up to WIDE children's boxes as structure of arrays
   [0:4] bmin.x  [4:8] bmin.y  [8:12] bmin.z
   [12:16] bmax.x  [16:20] bmax.y  [20:24] bmax.z
-  [24:28] child refs  [28:32] 0
+  [24:28] child refs  [28:32] leaf ranks
 A ref >= 0 is a wide node; -1 an empty slot; ref <= -2 a leaf, the packed
-row (the leaf's binary node) r with c triangles: -2 - ref = 16 r + c. The
-leaves' triangles stay in the packed rows, which K5-K8 read.
+row (the leaf's binary node) r with c triangles: -2 - ref = 16 r + c. A
+leaf child's rank is its 1-based rank among the binary tree's leaves in
+node order (``_leaf_rows``), so its origin row (K6) is rank - 1; 0 for
+other slots. The leaves' triangles stay in the packed rows, which K4, K5,
+K7 and K8 read.
 
 Each wrapper launches its CUDA kernel for CUDA tensors (and counts the
 launch) and runs its plain twin only for CPU tensors. The twins walk every
@@ -112,8 +119,9 @@ def _safe_inv(v):
 
 
 class WideTree(NamedTuple):
-    """K4's wide nodes; their leaf refs name packed rows (pack_bvh), which
-    K4 takes beside them."""
+    """The wide nodes of K4, K6 and K8; their leaf refs name packed rows
+    (pack_bvh), which K4 and K8 take beside them, and their leaf ranks
+    origin rows (build_origin_rows), which K6 takes."""
 
     nodes: torch.Tensor   # (W, NODE_F) wide-node lines
     stack: int            # stack entries a walk can need (collapse_wide)
@@ -129,10 +137,9 @@ def collapse_wide(left, right, leaf_count):
     per leaf, which fill its first slots. Returns (index (W, 24) int64: the
     gather of the wide boxes from the (M*6,) view of cat([bmin, bmax], 1),
     child j's component k at [4k + j] (an empty slot reads the root, never
-    a child); tail (W, 8) float32: the child refs, as in the module
-    docstring, and zeros; stack: the most entries a walk can hold, the
-    largest sum over a root-to-leaf path of each wide node's children less
-    one)."""
+    a child); tail (W, 8) float32: the child refs and leaf ranks, as in the
+    module docstring; stack: the most entries a walk can hold, the largest
+    sum over a root-to-leaf path of each wide node's children less one)."""
     left, right = np.asarray(left, np.int64), np.asarray(right, np.int64)
     count = np.asarray(leaf_count, np.int64)
     m = len(count)
@@ -142,6 +149,7 @@ def collapse_wide(left, right, leaf_count):
     if np.any(left[inner] <= inner) or np.any(right[inner] <= inner):
         raise ValueError("collapse_wide needs children after their parent")
     size = count.copy()
+    rank = np.cumsum(is_leaf)          # 1-based at leaves, as _leaf_rows
     for n in inner[::-1]:
         size[n] = size[left[n]] + size[right[n]]
 
@@ -166,6 +174,7 @@ def collapse_wide(left, right, leaf_count):
     w = len(kids_of)
     src = np.full((w, WIDE), -1, np.int64)
     ref = np.full((w, WIDE), -1.0, np.float32)
+    ranks = np.zeros((w, WIDE), np.float32)
     need = np.zeros(w, np.int64)
     for i in range(w - 1, -1, -1):      # children were numbered after i
         kids = kids_of[i]
@@ -175,22 +184,23 @@ def collapse_wide(left, right, leaf_count):
         for j, c in enumerate(kids):
             ref[i, j] = -2 - (16 * c + count[c]) if is_leaf[c] else \
                 wide_of[c]
+            ranks[i, j] = rank[c] if is_leaf[c] else 0
     if m >= 1 << 19:
         raise ValueError(f"{m} nodes: leaf refs would lose f32 precision")
     index = np.maximum(src, 0)[:, None, :] * 6 + np.arange(6)[None, :, None]
-    tail = np.concatenate([ref, np.zeros_like(ref)], 1)
+    tail = np.concatenate([ref, ranks], 1)
     return index.reshape(w, 24), tail, int(need[0])
 
 
 def wide_nodes(bmin, bmax, index, tail):
     """The frame's wide-node lines: one gather of the binary boxes, then the
-    static refs (``tail`` (W, 8): refs and zeros)."""
+    static refs and leaf ranks (``tail`` (W, 8))."""
     boxes = torch.cat([bmin, bmax], 1).reshape(-1)[index]
     return torch.cat([boxes, tail], 1).contiguous()
 
 
 def wide_tree(rows) -> WideTree:
-    """K4's tree rebuilt from packed rows alone (their skip links give the
+    """The wide tree rebuilt from packed rows alone (their skip links give the
     children: the left child of interior node n is n + 1, the right the
     left's skip link); the frame path gets it from refit instead."""
     r = rows.detach().cpu().numpy()
@@ -206,26 +216,37 @@ def wide_tree(rows) -> WideTree:
     return WideTree(nodes=nodes, stack=stack)
 
 
-def _check_tree(tree: WideTree, rows, o, d, t_max):
+def _check_tree(tree: WideTree, rows, width, d, t_max, o=None):
+    """The walks' checks: the tree, the leaf ``rows`` (M, width), the rays
+    and their bounds on the tree's device -> (device, ray count)."""
     dev = tree.nodes.device
-    n = o.shape[0]
+    n = d.shape[0]
     _cuda.require(tree.nodes, "nodes", (tree.nodes.shape[0], NODE_F),
                   device=dev)
     _cuda.require(rows, "rows", dtype=torch.float32, device=dev)
-    if rows.dim() != 2 or rows.shape[1] != ROW:
-        raise ValueError(f"rows: expected (M, {ROW}), got "
+    if rows.dim() != 2 or rows.shape[1] != width:
+        raise ValueError(f"rows: expected (M, {width}), got "
                          f"{tuple(rows.shape)}")
     if not 0 <= tree.stack <= WIDE_STACK_MAX:
         raise ValueError(f"stack bound {tree.stack} outside 0.."
                          f"{WIDE_STACK_MAX}")
-    _cuda.require(o, "o", (n, 3), device=dev)
+    if o is not None:
+        _cuda.require(o, "o", (n, 3), device=dev)
     _cuda.require(d, "d", (n, 3), device=dev)
     _cuda.require(t_max, "t_max", (n,), device=dev)
     return dev, n
 
 
+def _counts(n, dev):
+    return torch.zeros((4, n), dtype=torch.int32, device=dev)
+
+
+def _count_dict(counts):
+    return dict(zip(("nodes", "boxes", "leaves", "slots"), counts))
+
+
 def _launch_k4(tree, rows, o, d, t_max, counts):
-    dev, n = _check_tree(tree, rows, o, d, t_max)
+    dev, n = _check_tree(tree, rows, ROW, d, t_max, o)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     _cuda.check(_cuda.library().sge_trace_closest(
@@ -252,10 +273,137 @@ def trace_rays_counts(tree: WideTree, rows, o, d, t_max):
     launch of the frame): (t, tri, per-ray counts {"nodes": wide nodes
     visited, "boxes": child boxes tested (the non-empty slots of those
     nodes), "leaves": leaves visited, "slots": triangle tests})."""
-    n = o.shape[0]
-    counts = torch.zeros((4, n), dtype=torch.int32, device=o.device)
+    counts = _counts(o.shape[0], o.device)
     t, tri = _launch_k4(tree, rows, o, d, t_max, counts)
-    return t, tri, dict(zip(("nodes", "boxes", "leaves", "slots"), counts))
+    return t, tri, _count_dict(counts)
+
+
+# the 4-input sorting network of the wide walks' child order: compare-
+# exchange (i, j) moves j ahead of i only when its entry distance is
+# strictly smaller
+_SORT4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
+
+
+def _wide_walk(tree: WideTree, o, inv, bound, active, visit_leaf,
+               by_rank=False, counts=None):
+    """The lockstep walk of the wide twins (K4, K6, K8), in the kernels'
+    per-ray order: every live ray (``active``) holds a current node and its
+    own stack. At a wide node it tests the WIDE child boxes against its
+    walk bound ``bound`` (N,), orders the hit children by entry distance
+    with the kernels' sorting network, goes on to the nearest and stacks
+    the rest, farthest first; at a leaf ``visit_leaf(lanes, code)`` tests
+    the slots (code = 16 row + triangle count, the row a packed row, or an
+    origin row with ``by_rank``), may lower ``bound`` in place, and returns
+    (the lanes whose walk ends there, or None; the slot tests per lane). A
+    popped entry whose entry distance is not below the ray's bound is
+    dropped. ``counts``: a dict that receives the walk's child-box tests
+    ("box": the non-empty slots of the nodes visited) and slot tests
+    ("slot"), the kernels' own work."""
+    nodes = tree.nodes
+    n, dev = inv.shape[0], inv.device
+    depth = max(tree.stack, 1)
+    st_ref = torch.zeros((n, depth), dtype=torch.int64, device=dev)
+    st_t = torch.zeros((n, depth), device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    cur = torch.zeros(n, dtype=torch.int64, device=dev)
+    idx = torch.nonzero(active).squeeze(1)
+    inf = float("inf")
+    if counts is not None:
+        counts.setdefault("box", 0)
+        counts.setdefault("slot", 0)
+    while idx.numel():
+        c = cur[idx]
+        pop = torch.ones_like(c, dtype=torch.bool)
+        wi = torch.nonzero(c >= 0).squeeze(1)
+        if wi.numel():
+            lanes = idx[wi]
+            nd = nodes[c[wi]]
+            lo = nd[:, 0:12].reshape(-1, 3, WIDE)
+            hi = nd[:, 12:24].reshape(-1, 3, WIDE)
+            ref = nd[:, 24:28].to(torch.int64)
+            if by_rank:      # a leaf's origin row: its rank less one
+                rank = nd[:, 28:32].to(torch.int64)
+                ref = torch.where(ref <= -2,
+                                  -2 - (16 * (rank - 1) + (-2 - ref) % 16),
+                                  ref)
+            oi, ii = o[lanes][:, :, None], inv[lanes][:, :, None]
+            t0, t1 = (lo - oi) * ii, (hi - oi) * ii
+            tmin = torch.minimum(t0, t1).amax(1)
+            tmax = torch.maximum(t0, t1).amin(1)
+            hit = (tmax >= tmin.clamp(min=0.0)) & \
+                (tmin < bound[lanes][:, None]) & (ref != -1)
+            if counts is not None:
+                counts["box"] += int((ref != -1).sum())
+            key = torch.where(hit, tmin, inf)
+            cols_t, cols_r = list(key.unbind(1)), list(ref.unbind(1))
+            for a, b in _SORT4:
+                sw = cols_t[b] < cols_t[a]
+                cols_t[a], cols_t[b] = (torch.where(sw, cols_t[b], cols_t[a]),
+                                        torch.where(sw, cols_t[a], cols_t[b]))
+                cols_r[a], cols_r[b] = (torch.where(sw, cols_r[b], cols_r[a]),
+                                        torch.where(sw, cols_r[a], cols_r[b]))
+            h = hit.sum(1)
+            for j in range(WIDE - 1, 0, -1):     # farthest first
+                m = h > j
+                pl = lanes[m]
+                st_ref[pl, sp[pl]] = cols_r[j][m]
+                st_t[pl, sp[pl]] = cols_t[j][m]
+                sp[pl] += 1
+            go = h > 0
+            cur[lanes[go]] = cols_r[0][go]
+            pop[wi] = ~go
+        li = torch.nonzero(c < -1).squeeze(1)
+        if li.numel():
+            stop, tests = visit_leaf(idx[li], -2 - c[li])
+            if counts is not None:
+                counts["slot"] += int(tests.sum())
+            if stop is not None:
+                cur[idx[li[stop]]] = -1
+                pop[li[stop]] = False
+        # pop: the first stacked entry still below the walk bound
+        pend = idx[pop]
+        done = []
+        while pend.numel():
+            has = sp[pend] > 0
+            done.append(pend[~has])
+            pend = pend[has]
+            sp[pend] -= 1
+            top = sp[pend]
+            ok = st_t[pend, top] < bound[pend]
+            cur[pend[ok]] = st_ref[pend[ok], top[ok]]
+            pend = pend[~ok]
+        if done:
+            cur[torch.cat(done)] = -1          # -1: the walk is over
+        idx = idx[cur[idx] != -1]
+
+
+def trace_rays_plain(tree: WideTree, rows, o, d, t_max, counts=None):
+    """Plain PyTorch twin of the K4 kernel (``_wide_walk`` with the bound
+    t_best): at a leaf the slots' Moller-Trumbore tests (the kernel's
+    arithmetic) keep the nearest hit below the best, the first slot among
+    equals. ``counts``: as for ``_wide_walk``."""
+    n, dev = o.shape[0], o.device
+    t_best = t_max.clone()
+    tri_best = torch.full((n,), -1.0, device=dev)
+    inf = float("inf")
+
+    def visit_leaf(lanes, code):
+        tbl = t_best[lanes]
+        t, crosses, ids = _mt_leaf(rows[torch.div(code, 16,
+                                                  rounding_mode="floor")],
+                                   o[lanes], d[lanes])
+        t = torch.where(crosses & (t > 1e-4) & (t < tbl[:, None]), t, inf)
+        t_near, j = t.min(1)
+        got = t_near < inf
+        t_best[lanes] = torch.where(got, t_near, tbl)
+        tri_best[lanes] = torch.where(
+            got, ids.gather(1, j[:, None])[:, 0], tri_best[lanes])
+        return None, code % 16
+
+    _wide_walk(tree, o, _safe_inv(d), t_best,
+               torch.ones(n, dtype=torch.bool, device=dev), visit_leaf,
+               counts=counts)
+    return t_best, tri_best.to(torch.int32)
 
 
 def _mt_leaf(row, o, d):
@@ -277,96 +425,6 @@ def _mt_leaf(row, o, d):
     ids = row[:, _IDS:_IDS + SLOT_N]
     crosses = ok & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) & (ids >= 0)
     return _dot(e2, q) * inv_det, crosses, ids
-
-
-# the 4-input sorting network of K4's child order: compare-exchange (i, j)
-# moves j ahead of i only when its entry distance is strictly smaller
-_SORT4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
-
-
-def trace_rays_plain(tree: WideTree, rows, o, d, t_max):
-    """Plain PyTorch twin of the K4 kernel, in its per-ray order: every live
-    ray holds a current node and its own stack. At a wide node it tests the
-    WIDE child boxes against its best t, orders the hit children by entry
-    distance with the kernel's sorting network, goes on to the nearest and
-    stacks the rest, farthest first; at a leaf the slots' Moller-Trumbore
-    tests (the kernel's arithmetic) keep the nearest hit below the best,
-    the first slot among equals. A popped entry whose entry distance is not
-    below the ray's best t is dropped."""
-    nodes = tree.nodes
-    n, dev = o.shape[0], o.device
-    inv = _safe_inv(d)
-    t_best = t_max.clone()
-    tri_best = torch.full((n,), -1.0, device=dev)
-    depth = max(tree.stack, 1)
-    st_ref = torch.zeros((n, depth), dtype=torch.int64, device=dev)
-    st_t = torch.zeros((n, depth), device=dev)
-    sp = torch.zeros(n, dtype=torch.int64, device=dev)
-    cur = torch.zeros(n, dtype=torch.int64, device=dev)
-    idx = torch.arange(n, device=dev)
-    inf = float("inf")
-    while idx.numel():
-        c = cur[idx]
-        pop = torch.ones_like(c, dtype=torch.bool)
-        wi = torch.nonzero(c >= 0).squeeze(1)
-        if wi.numel():
-            lanes = idx[wi]
-            nd = nodes[c[wi]]
-            lo = nd[:, 0:12].reshape(-1, 3, WIDE)
-            hi = nd[:, 12:24].reshape(-1, 3, WIDE)
-            ref = nd[:, 24:28].to(torch.int64)
-            oi, ii = o[lanes][:, :, None], inv[lanes][:, :, None]
-            t0, t1 = (lo - oi) * ii, (hi - oi) * ii
-            tmin = torch.minimum(t0, t1).amax(1)
-            tmax = torch.maximum(t0, t1).amin(1)
-            hit = (tmax >= tmin.clamp(min=0.0)) & \
-                (tmin < t_best[lanes][:, None]) & (ref != -1)
-            key = torch.where(hit, tmin, inf)
-            cols_t, cols_r = list(key.unbind(1)), list(ref.unbind(1))
-            for a, b in _SORT4:
-                sw = cols_t[b] < cols_t[a]
-                cols_t[a], cols_t[b] = (torch.where(sw, cols_t[b], cols_t[a]),
-                                        torch.where(sw, cols_t[a], cols_t[b]))
-                cols_r[a], cols_r[b] = (torch.where(sw, cols_r[b], cols_r[a]),
-                                        torch.where(sw, cols_r[a], cols_r[b]))
-            h = hit.sum(1)
-            for j in range(WIDE - 1, 0, -1):     # farthest first
-                m = h > j
-                pl = lanes[m]
-                st_ref[pl, sp[pl]] = cols_r[j][m]
-                st_t[pl, sp[pl]] = cols_t[j][m]
-                sp[pl] += 1
-            go = h > 0
-            cur[lanes[go]] = cols_r[0][go]
-            pop[wi] = ~go
-        li = torch.nonzero(c < -1).squeeze(1)
-        if li.numel():
-            lanes = idx[li]
-            row = torch.div(-2 - c[li], 16, rounding_mode="floor")
-            tbl = t_best[lanes]
-            t, crosses, ids = _mt_leaf(rows[row], o[lanes], d[lanes])
-            t = torch.where(crosses & (t > 1e-4) & (t < tbl[:, None]), t, inf)
-            t_near, j = t.min(1)
-            got = t_near < inf
-            t_best[lanes] = torch.where(got, t_near, tbl)
-            tri_best[lanes] = torch.where(
-                got, ids.gather(1, j[:, None])[:, 0], tri_best[lanes])
-        # pop: the first stacked entry still nearer than the best hit
-        pend = idx[pop]
-        done = []
-        while pend.numel():
-            has = sp[pend] > 0
-            done.append(pend[~has])
-            pend = pend[has]
-            sp[pend] -= 1
-            top = sp[pend]
-            ok = st_t[pend, top] < t_best[pend]
-            cur[pend[ok]] = st_ref[pend[ok], top[ok]]
-            pend = pend[~ok]
-        if done:
-            cur[torch.cat(done)] = -1          # -1: the walk is over
-        idx = idx[cur[idx] != -1]
-    return t_best, tri_best.to(torch.int32)
 
 
 def barycentrics(bvh, o, d, t, tri):
@@ -608,11 +666,11 @@ def _near_first_walk(hdr, o, inv, active, bound_of, visit_leaf, counts=None):
 
 def _so_slot(dl, s):
     """The shared-origin slot test's sign-folded terms (rt_kernel.py:
-    1393-1401) of directions ``dl`` against slot constants ``s`` (P, 10)
+    1393-1401) of directions ``dl`` against slot constants ``s`` (..., 10)
     -> (t, dnp, un_s, vn_s, tn_s)."""
-    un, vn, dn = (_dot(dl, s[:, 3 * c:3 * c + 3]) for c in range(3))
+    un, vn, dn = (_dot(dl, s[..., 3 * c:3 * c + 3]) for c in range(3))
     sgn = torch.where(dn < 0, -1.0, 1.0)
-    dnp, un_s, vn_s, tn_s = dn * sgn, un * sgn, vn * sgn, s[:, 9] * sgn
+    dnp, un_s, vn_s, tn_s = dn * sgn, un * sgn, vn * sgn, s[..., 9] * sgn
     return tn_s / torch.where(dnp >= EPS, dnp, 1.0), dnp, un_s, vn_s, tn_s
 
 
@@ -665,46 +723,103 @@ def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
     return t_opq, tri.to(torch.int32), ts, ids
 
 
-def trace_rays_so(origin_rows, o, d, t_max, t_floor=None):
-    """K6: closest hit of rays sharing origin ``o`` (3,) — the origin that
-    ``build_origin_rows`` baked in; host floats need no device sync — with
-    directions ``d`` (N, 3) -> (t (N,), tri (N,) int32; a miss keeps
-    t = t_max, tri -1). A hit needs tn > t_floor * dn: ``t_floor`` (N,) is
-    the per-lane least accepted t (default 1e-4; a transparency
-    continuation passes t_hit + 2*bias). Rays with t_max <= 0 are
-    inactive."""
-    header, srows = origin_rows
-    if not header.is_cuda:
-        return trace_rays_so_plain(origin_rows, o, d, t_max, t_floor)
-    dev = header.device
-    n = d.shape[0]
-    _cuda.require(header, "header", dtype=torch.float32, device=dev)
-    _cuda.require(srows, "srows", dtype=torch.float32, device=dev)
-    if srows.dim() != 2 or srows.shape[1] != SO_SLOT_F * SLOT_N + SLOT_N:
-        raise ValueError(f"srows: bad shape {tuple(srows.shape)}")
-    _cuda.require(d, "d", (n, 3), device=dev)
-    _cuda.require(t_max, "t_max", (n,), device=dev)
+def _launch_k6(tree, srows, o, d, t_max, t_floor, counts):
+    dev, n = _check_tree(tree, srows, SO_SLOT_F * SLOT_N + SLOT_N, d, t_max)
     if t_floor is not None:
         _cuda.require(t_floor, "t_floor", (n,), device=dev)
     ox, oy, oz = (float(x) for x in torch.as_tensor(o).tolist())
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
-    lib = _cuda.library()
-    global so_closest_launches
-    so_closest_launches += 1
-    _cuda.check(lib.sge_so_closest(header.data_ptr(), srows.data_ptr(), ox, oy,
-                                   oz, d.data_ptr(), t_max.data_ptr(),
-                                   _cuda.ptr(t_floor), n, t.data_ptr(),
-                                   tri.data_ptr(), _cuda.stream_ptr(header)),
-                "sge_so_closest")
+    _cuda.check(_cuda.library().sge_trace_so(
+        tree.nodes.data_ptr(), srows.data_ptr(), ox, oy, oz, d.data_ptr(),
+        t_max.data_ptr(), _cuda.ptr(t_floor), n, tree.stack,
+        _cuda.ptr(counts), t.data_ptr(), tri.data_ptr(),
+        _cuda.stream_ptr(d)), "sge_trace_so")
     return t, tri
 
 
-def trace_rays_so_plain(origin_rows, o, d, t_max, t_floor=None, counts=None):
-    """Plain PyTorch twin of K6 (``_near_first_walk`` with the bound t_best):
+def trace_rays_so(tree: WideTree, srows, o, d, t_max, t_floor=None):
+    """K6: closest hit over ``tree`` of rays sharing origin ``o`` (3,) — the
+    origin that ``build_origin_rows`` baked into its origin rows ``srows``
+    (its second output), which the tree's leaf ranks name; host floats need
+    no device sync — with directions ``d`` (N, 3) -> (t (N,), tri (N,)
+    int32; a miss keeps t = t_max, tri -1). A hit needs tn > t_floor * dn:
+    ``t_floor`` (N,) is the per-lane least accepted t (default 1e-4; a
+    transparency continuation passes t_hit + 2*bias). Rays with t_max <= 0
+    are inactive."""
+    if not tree.nodes.is_cuda:
+        return trace_rays_so_plain(tree, srows, o, d, t_max, t_floor)
+    global so_closest_launches
+    so_closest_launches += 1
+    return _launch_k6(tree, srows, o, d, t_max, t_floor, None)
+
+
+def trace_rays_so_counts(tree: WideTree, srows, o, d, t_max, t_floor=None):
+    """K6's counting instantiation, on the card only (not a launch of the
+    frame): (t, tri, per-ray counts as ``trace_rays_counts``'s)."""
+    counts = _counts(d.shape[0], d.device)
+    t, tri = _launch_k6(tree, srows, o, d, t_max, t_floor, counts)
+    return t, tri, _count_dict(counts)
+
+
+def trace_rays_so_plain(tree: WideTree, srows, o, d, t_max, t_floor=None,
+                        counts=None):
+    """Plain PyTorch twin of K6 (``_wide_walk`` with the bound t_best, the
+    leaves by rank): at a leaf, as the kernel's four threads of a ray do,
+    thread k tests slots k, k+4, k+8 (of the leaf's count) in order, each
+    replacing its best when tn_s lies in (t_floor*dnp, best*dnp); the
+    group keeps the nearest of its threads' hits, the first slot among
+    equal t. ``counts``: as for ``_wide_walk``."""
+    n, dev = d.shape[0], d.device
+    if t_floor is None:
+        t_floor = torch.full((n,), 1e-4, device=dev)
+    t_best = t_max.clone()
+    tri = torch.full((n,), -1.0, device=dev)
+    base = SO_SLOT_F * SLOT_N
+    inf = float("inf")
+    k = torch.arange(WIDE, device=dev)
+    slot = torch.arange(SLOT_N, device=dev)
+
+    def visit_leaf(lanes, code):
+        row = srows[torch.div(code, 16, rounding_mode="floor")]
+        cnt = code % 16
+        fl, tb = t_floor[lanes, None], t_best[lanes]
+        t, dnp, un_s, vn_s, tn_s = _so_slot(
+            d[lanes, None, :], row[:, :base].reshape(-1, SLOT_N, SO_SLOT_F))
+        tid = row[:, base:base + SLOT_N]
+        ok = _so_inside(tid, dnp, un_s, vn_s) & (slot < cnt[:, None])
+        bt = tb[:, None].expand(-1, WIDE)
+        bj = torch.full_like(bt, -1, dtype=torch.int64)
+        for s0 in range(0, SLOT_N, WIDE):       # each thread's slots in turn
+            c = slice(s0, s0 + WIDE)
+            acc = ok[:, c] & (tn_s[:, c] > fl * dnp[:, c]) & \
+                (tn_s[:, c] < bt * dnp[:, c])
+            bt = torch.where(acc, t[:, c], bt)
+            bj = torch.where(acc, s0 + k, bj)
+        bt = torch.where(bj >= 0, bt, inf)
+        t_near = bt.amin(1)
+        j = torch.where(bt == t_near[:, None], bj, SLOT_N).amin(1)
+        got = j >= 0
+        t_best[lanes] = torch.where(got, t_near, tb)
+        tri[lanes] = torch.where(got, tid.gather(1, j.clamp(min=0)[:, None])
+                                 [:, 0], tri[lanes])
+        return None, cnt
+
+    o = torch.as_tensor(o, dtype=torch.float32, device=dev)
+    _wide_walk(tree, o.expand(n, 3), _safe_inv(d), t_best, t_max > 0,
+               visit_leaf, by_rank=True, counts=counts)
+    return t_best, tri.to(torch.int32)
+
+
+def trace_rays_so_binary(origin_rows, o, d, t_max, t_floor=None,
+                         counts=None):
+    """K6's function on the binary tree, as the reference and the design
+    before the wide walk walk it (``_near_first_walk`` with the bound
+    t_best; ``origin_rows`` the (header, srows) of ``build_origin_rows``):
     at a leaf whose box the ray hits, each slot in order replaces the best
-    hit when tn_s lies in (t_floor*dnp, t_best*dnp). ``counts``: as for
-    ``_near_first_walk``."""
+    hit when tn_s lies in (t_floor*dnp, t_best*dnp). Kept to count the work
+    of that walk (``counts``: as for ``_near_first_walk``), the bound of
+    K6 before its redesign."""
     header, srows = origin_rows
     n = d.shape[0]
     if t_floor is None:
@@ -734,39 +849,73 @@ def trace_rays_so_plain(origin_rows, o, d, t_max, t_floor=None, counts=None):
     return t_best, tri.to(torch.int32)
 
 
-def trace_shadow_any(rows, o, d, t_limit):
-    """K8: any-hit occlusion against OPAQUE triangles (integral slot ids;
-    translucent ids carry +0.5) of rays ``o`` + t ``d`` over the packed
-    tree ``rows`` -> (N,) bool blocked: some opaque triangle is hit at
-    1e-4 < t < t_limit. Lanes with t_limit <= 0 count as blocked."""
-    if not rows.is_cuda:
-        return trace_shadow_any_plain(rows, o, d, t_limit)
-    dev = rows.device
-    n = o.shape[0]
-    _cuda.require(rows, "rows", dtype=torch.float32, device=dev)
-    if rows.dim() != 2 or rows.shape[1] != ROW:
-        raise ValueError(f"rows: expected (M, {ROW}), got {tuple(rows.shape)}")
-    _cuda.require(o, "o", (n, 3), device=dev)
-    _cuda.require(d, "d", (n, 3), device=dev)
-    _cuda.require(t_limit, "t_limit", (n,), device=dev)
+def _launch_k8(tree, rows, o, d, t_limit, counts):
+    dev, n = _check_tree(tree, rows, ROW, d, t_limit, o)
     blocked = torch.empty(n, dtype=torch.bool, device=dev)
-    lib = _cuda.library()
-    global any_launches
-    any_launches += 1
-    _cuda.check(lib.sge_shadow_any(rows.data_ptr(), o.data_ptr(), d.data_ptr(),
-                                   t_limit.data_ptr(), n, blocked.data_ptr(),
-                                   _cuda.stream_ptr(rows)), "sge_shadow_any")
+    _cuda.check(_cuda.library().sge_trace_any(
+        tree.nodes.data_ptr(), rows.data_ptr(), o.data_ptr(), d.data_ptr(),
+        t_limit.data_ptr(), n, tree.stack, _cuda.ptr(counts),
+        blocked.data_ptr(), _cuda.stream_ptr(o)), "sge_trace_any")
     return blocked
 
 
-def trace_shadow_any_plain(rows, o, d, t_limit, counts=None):
-    """Plain PyTorch twin of K8: every unblocked ray steps its own skip-link
-    cursor in lockstep (descend to node+1 on a box hit at an interior node,
-    else jump to skip); at a leaf its box hits, the slots' Moller-Trumbore
-    tests in the kernel's operation order; a ray stops at its first opaque
-    hit (the slots tested at once: any opaque hit, whatever its slot).
+def trace_shadow_any(tree: WideTree, rows, o, d, t_limit):
+    """K8: any-hit occlusion against OPAQUE triangles (integral slot ids;
+    translucent ids carry +0.5) of rays ``o`` + t ``d`` over ``tree`` and
+    the packed ``rows`` its leaves name -> (N,) bool blocked: some opaque
+    triangle is hit at 1e-4 < t < t_limit. Lanes with t_limit <= 0 count
+    as blocked."""
+    if not tree.nodes.is_cuda:
+        return trace_shadow_any_plain(tree, rows, o, d, t_limit)
+    global any_launches
+    any_launches += 1
+    return _launch_k8(tree, rows, o, d, t_limit, None)
+
+
+def trace_shadow_any_counts(tree: WideTree, rows, o, d, t_limit):
+    """K8's counting instantiation, on the card only (not a launch of the
+    frame): (blocked, per-ray counts as ``trace_rays_counts``'s; "slots"
+    are the Moller-Trumbore tests, of opaque slots)."""
+    counts = _counts(o.shape[0], o.device)
+    blocked = _launch_k8(tree, rows, o, d, t_limit, counts)
+    return blocked, _count_dict(counts)
+
+
+def trace_shadow_any_plain(tree: WideTree, rows, o, d, t_limit, counts=None):
+    """Plain PyTorch twin of K8 (``_wide_walk`` with the fixed bound
+    t_limit): at a leaf the opaque slots' Moller-Trumbore tests (the
+    kernel's arithmetic); a ray's walk ends at the first leaf where one
+    hits at 1e-4 < t < t_limit. ``counts``: as for ``_wide_walk``; "slot"
+    counts the Moller-Trumbore tests, one per opaque slot of the leaves
+    visited."""
+    n = o.shape[0]
+    blocked = t_limit <= 0
+    slot = torch.arange(SLOT_N, device=o.device)
+
+    def visit_leaf(lanes, code):
+        t, crosses, ids = _mt_leaf(rows[torch.div(code, 16,
+                                                  rounding_mode="floor")],
+                                   o[lanes], d[lanes])
+        opaque = (ids == torch.floor(ids)) & (slot < (code % 16)[:, None])
+        hit = (crosses & (t > 1e-4) & (t < t_limit[lanes, None]) &
+               opaque).any(1)
+        blocked[lanes] = hit
+        return hit, opaque.sum(1)
+
+    _wide_walk(tree, o, _safe_inv(d), t_limit, ~blocked, visit_leaf,
+               counts=counts)
+    return blocked
+
+
+def trace_shadow_any_binary(rows, o, d, t_limit, counts=None):
+    """K8's function on the binary tree, as the reference and the design
+    before the wide walk walk it: every unblocked ray steps its own
+    skip-link cursor in lockstep (descend to node+1 on a box hit at an
+    interior node, else jump to skip); at a leaf its box hits, the slots'
+    Moller-Trumbore tests; a ray stops at its first opaque hit. Kept to
+    count the work of that walk, the bound of K8 before its redesign.
     ``counts``: as for trace_shadow_factor_plain; "slot" counts the
-    Moller-Trumbore tests the kernel makes: the opaque slots up to the
+    Moller-Trumbore tests that walk makes: the opaque slots up to the
     first opaque hit; per ray "nodes" and "slots" ((N,) int64) as for
     ``_near_first_walk``."""
     n = o.shape[0]

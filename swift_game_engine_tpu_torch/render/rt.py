@@ -256,8 +256,8 @@ def _shadow_loop(fr: _Frame, o, l, max_dist, bias, active):
         # whatever the order of its hits; the loop resolves the rest
         t_lim = torch.where(active, torch.clamp(max_dist, max=BIG), 0.0)
         o_sh = torch.where(active[:, None], o, 1.0e9).contiguous()
-        blocked = RK.trace_shadow_any(fr.fg.bvh.rows, o_sh, d,
-                                      t_lim.contiguous()) & active
+        blocked = RK.trace_shadow_any(fr.fg.bvh.wide, fr.fg.bvh.rows, o_sh,
+                                      d, t_lim.contiguous()) & active
         shadow = torch.where(blocked, 0.0, shadow)
         act = active & ~blocked
     for _ in range(fr.shadow_layers):
@@ -616,7 +616,7 @@ def _floor_tracer(fg: FrameGeometry, cam, cam_host, ray_o, d):
     so no origin is parked: a parked origin would break the baked leaf
     constants. Returns trace(idx) for ``_trace_layers``."""
     bv = fg.bvh
-    so_rows = RK.build_origin_rows(bv.rows, cam)
+    _, srows = RK.build_origin_rows(bv.rows, cam)
     floor = None
 
     def trace(idx):
@@ -624,7 +624,8 @@ def _floor_tracer(fg: FrameGeometry, cam, cam_host, ray_o, d):
         oc, dc = (ray_o, d) if idx is None else (ray_o[idx], d[idx])
         n = dc.shape[0]
         t, tri = RK.trace_rays_so(
-            so_rows, cam_host, dc, torch.full((n,), BIG, device=dc.device),
+            bv.wide, srows, cam_host, dc,
+            torch.full((n,), BIG, device=dc.device),
             t_floor=None if idx is None else floor[idx].contiguous())
         u, v, found = barycentrics(bv, oc, dc, t, tri)
         found = found & (t < BIG)

@@ -5,10 +5,11 @@ this file imports no jax and runs there without the conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Here (no CUDA device) every test skips. K5 (the layered shared-origin walk),
-K6 (the shared-origin closest hit), K7 (the shadow walk) and K8 (the
-any-hit prepass) walk each lane in the same order as their twins, so their
-records agree lane for lane; K9 and K10 (the list rasters) keep the same
+Here (no CUDA device) every test skips. K4 (the closest hit), K6 (the
+shared-origin closest hit) and K8 (the any-hit prepass), the instances of
+the wide walk, and K5 (the layered shared-origin walk) and K7 (the shadow
+walk) walk each lane in the same order as their twins, so their records
+agree lane for lane; K9 and K10 (the list rasters) keep the same
 fragments as theirs. The twins themselves are held against the JAX
 reference by the CPU tests (tests/test_torch_kernels.py,
 test_torch_trace_kernels.py, test_torch_so_prepass.py,
@@ -497,6 +498,19 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         RK.trace_layers_so(so, torch.zeros(3), o, torch.ones(4, device=cuda),
                            n_slots=4)                     # K5 takes 1..3
+    with pytest.raises(ValueError):                       # K6: srows width
+        RK.trace_rays_so(tree, so[0].reshape(8, 8), [0.0, 0.0, 0.0], o,
+                         torch.ones(4, device=cuda))
+    with pytest.raises(ValueError):                       # K6: floor shape
+        RK.trace_rays_so(tree, so[1], [0.0, 0.0, 0.0], o,
+                         torch.ones(4, device=cuda),
+                         torch.ones(5, device=cuda))
+    with pytest.raises(ValueError):                       # K8: rows width
+        RK.trace_shadow_any(tree, rows[:, :64], o, o,
+                            torch.ones(4, device=cuda))
+    with pytest.raises(ValueError):                       # K8: stack bound
+        RK.trace_shadow_any(tree._replace(stack=RK.WIDE_STACK_MAX + 1),
+                            rows, o, o, torch.ones(4, device=cuda))
     sr = RK.build_shadow_rows(rows, torch.tensor([0.0, 1.0, 0.0],
                                                  device=cuda))
     with pytest.raises(ValueError):
@@ -504,49 +518,133 @@ def test_wrappers_reject_bad_inputs(cuda):
                                torch.ones(5, device=cuda))  # t_limit shape
 
 
+@pytest.fixture
+def wide_case(cuda):
+    """The wide tree of a 6,000-triangle soup (a fifth of it translucent)
+    lifted over an opaque 400-unit plane at y = 0, under the walks' cap."""
+    lift = np.float32([0.0, 17.0, 0.0])                   # soup in y 1..33
+    v0, v1, v2 = (v + lift for v in soup(9, 6000, spread=14.0))
+    pos = np.stack([v0, v1, v2], 1).reshape(-1, 3)
+    plane = np.array([[-200, 0, -200], [200, 0, -200], [200, 0, 200],
+                      [-200, 0, 200]], np.float32)
+    cut = 3 * 4800
+    b = RenderGeometryBuilder(texture_size=4)
+    for mat, p, idx in ((Material(name="opaque"), pos[:cut], None),
+                        (Material(name="glass", alpha=0.4), pos[cut:], None),
+                        (Material(name="floor"), plane,
+                         np.array([0, 1, 2, 0, 2, 3], np.int32))):
+        b.add_static_mesh(MeshDescriptor(
+            positions=p, indices=np.arange(len(p), dtype=np.int32)
+            if idx is None else idx), mat, instance=0)
+    geo = b.build(cuda)
+    fg = flatten_frame(geo, torch.eye(4, device=cuda)[None],
+                       torch.zeros((1, 1, 4, 4), device=cuda))
+    assert RK.walk_available(fg.bvh.rows)
+    return fg.bvh
+
+
+def _grazing(rng, n):
+    """n unit directions within 1e-3 of the plane y = 0, going down."""
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[:, 1] = -rng.uniform(0, 1e-3, n) * np.linalg.norm(d[:, [0, 2]], axis=1)
+    return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def _walk_work(cnt, walk, active):
+    """The counting instantiation against the twin's work: the same child
+    boxes and slot tests in total, no work on inactive lanes, and each
+    count within what the nodes and leaves visited allow."""
+    assert int(cnt["boxes"].sum()) == walk["box"]
+    assert int(cnt["slots"].sum()) == walk["slot"]
+    for v in cnt.values():
+        assert int(v[~active].abs().sum()) == 0
+    assert bool((cnt["boxes"] <= RK.WIDE * cnt["nodes"]).all())
+    assert bool((cnt["slots"] <= RK.SLOT_N * cnt["leaves"]).all())
+
+
+@pytest.mark.parametrize("origin", ["inside", "grazing"])
 @pytest.mark.parametrize("floor", [False, True], ids=["no_floor", "floor"])
-def test_k6_kernel_matches_plain(walk_tree, floor):
-    dev = walk_tree.device
+@pytest.mark.parametrize("n", [6, 1000, 20000])
+def test_k6_kernel_matches_plain(wide_case, n, floor, origin):
+    """K6 on the wide tree from 6 rays to 20,000, one origin inside the
+    soup's leaf boxes or just above the plane (half the rays grazing it),
+    inactive lanes, and a floor past the first hit or exactly at it."""
+    bvh, dev = wide_case, wide_case.rows.device
     rng = np.random.default_rng(12)
-    o = torch.tensor([0.0, 3.0, 30.0], device=dev)
-    tgt = torch.as_tensor(rng.uniform(-14, 14, (20000, 3)).astype(np.float32),
-                          device=dev)
-    d = tgt - o
-    d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).contiguous()
-    t_max = torch.full((20000,), 3.0e38, device=dev)
+    if origin == "inside":
+        o = np.float32([0.0, 17.0, 0.0])
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    else:
+        o = np.float32([0.0, 1e-3, 0.0])
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        d[: n // 2] = _grazing(rng, n // 2)
+    o = torch.as_tensor(o, device=dev)
+    d = torch.as_tensor(d, device=dev)
+    t_max = torch.full((n,), 3.0e38, device=dev)
     t_max[::17] = 0.0                                     # inactive rays
-    so = RK.build_origin_rows(walk_tree, o)
+    _, srows = RK.build_origin_rows(bvh.rows, o)
     t_floor = None
-    if floor:   # a continuation: past the first hit by a margin
-        t1, tri1 = RK.trace_rays_so_plain(so, o, d, t_max)
-        t_floor = torch.where(tri1 >= 0, t1 + 0.01, 1e-4).contiguous()
+    if floor:   # past the first hit by a margin, or exactly at it
+        t1, tri1 = RK.trace_rays_so_plain(bvh.wide, srows, o, d, t_max)
+        t_floor = torch.where(tri1 >= 0, t1 + 0.01, 1e-4)
+        t_floor[1::2] = torch.where(tri1 >= 0, t1, 1e-4)[1::2]
+        t_floor = t_floor.contiguous()
     before = RK.so_closest_launches
-    kt, ktri = RK.trace_rays_so(so, o.tolist(), d, t_max, t_floor)
-    assert RK.so_closest_launches == before + 1
-    pt, ptri = RK.trace_rays_so_plain(so, o, d, t_max, t_floor)
+    kt, ktri = RK.trace_rays_so(bvh.wide, srows, o.tolist(), d, t_max,
+                                t_floor)
+    ct, ctri, cnt = RK.trace_rays_so_counts(bvh.wide, srows, o.tolist(), d,
+                                            t_max, t_floor)
+    assert RK.so_closest_launches == before + 1   # counting: no launch
+    walk = {}
+    pt, ptri = RK.trace_rays_so_plain(bvh.wide, srows, o, d, t_max, t_floor,
+                                      counts=walk)
     torch.cuda.synchronize()
-    assert int((ptri >= 0).sum()) > 3000
+    assert int((ptri >= 0).sum()) > n // 8
+    assert torch.equal(ctri, ktri) and torch.equal(ct, kt)
     agree(ktri, ptri, [kt], [pt])
+    inactive = t_max <= 0
+    assert bool((ktri[inactive] == -1).all()) and \
+        bool((kt[inactive] == 0).all())
+    _walk_work(cnt, walk, ~inactive)
 
 
-def test_k8_kernel_matches_plain(walk_tree):
-    dev = walk_tree.device
+@pytest.mark.parametrize("n", [6, 1000, 20000])
+def test_k8_kernel_matches_plain(wide_case, n):
+    """K8 on the wide tree from 6 rays to 20,000: a full warp of rays
+    (32 lanes) blocked by the plane, origins inside the soup's leaf boxes,
+    rays grazing the plane from just above it, lanes blocked at once
+    (t_lim 0) and short limits: every lane equals the twin's."""
+    bvh, dev = wide_case, wide_case.rows.device
     rng = np.random.default_rng(13)
-    o = torch.as_tensor(rng.uniform(-16, 16, (20000, 3)).astype(np.float32),
-                        device=dev)
-    d = torch.as_tensor(rng.normal(size=(20000, 3)).astype(np.float32),
-                        device=dev)
-    d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).contiguous()
-    t_lim = torch.full((20000,), 60.0, device=dev)
-    t_lim[::13] = 0.0                                     # blocked at once
-    t_lim[1::7] = 3.0                                     # short limits
+    o = rng.uniform(-14, 14, (n, 3)).astype(np.float32) + \
+        np.float32([0.0, 17.0, 0.0])                      # in the soup
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    graze = slice(n // 2, n)
+    o[graze, 1] = rng.uniform(1e-4, 1e-2, n - n // 2)
+    d[graze] = _grazing(rng, n - n // 2)
+    warp = slice(0, min(32, n))                           # straight down
+    o[warp, 1] = 0.5
+    d[warp] = np.float32([0.0, -1.0, 0.0])
+    o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+    t_lim = torch.full((n,), 60.0, device=dev)
+    t_lim[33::13] = 0.0                                   # blocked at once
+    t_lim[34::7] = 3.0                                    # short limits
     before = RK.any_launches
-    k = RK.trace_shadow_any(walk_tree, o, d, t_lim)
-    assert RK.any_launches == before + 1
-    p = RK.trace_shadow_any_plain(walk_tree, o, d, t_lim)
+    k = RK.trace_shadow_any(bvh.wide, bvh.rows, o, d, t_lim)
+    kc, cnt = RK.trace_shadow_any_counts(bvh.wide, bvh.rows, o, d, t_lim)
+    assert RK.any_launches == before + 1          # counting: no launch
+    walk = {}
+    p = RK.trace_shadow_any_plain(bvh.wide, bvh.rows, o, d, t_lim,
+                                  counts=walk)
     torch.cuda.synchronize()
-    assert 3000 < int(p.sum()) < 19000
-    assert torch.equal(k, p)
+    assert bool(p[warp].all())
+    if n > 32:
+        assert 0.05 * n < int(p.sum()) < 0.95 * n
+    assert torch.equal(k, p) and torch.equal(kc, k)
+    _walk_work(cnt, walk, t_lim > 0)
 
 
 @pytest.fixture

@@ -1,8 +1,8 @@
 """PyTorch port, the non-layered traced frame and the shadow prepass vs the
 JAX reference (CPU): kernels K6 (shared-origin closest hit with a t floor)
-and K8 (any-hit opaque occlusion) through their plain twins, and the frames
-that run them. Each CUDA kernel is held against its twin on the card by
-tests/test_torch_cuda_kernels.py.
+and K8 (any-hit opaque occlusion), instances of the wide walk, through
+their plain twins, and the frames that run them. Each CUDA kernel is held
+against its twin on the card by tests/test_torch_cuda_kernels.py.
 
 The JAX kernels and frames read their knobs at import, so every JAX run
 happens in a subprocess of its own (SGE_RT_BLOCK=1024, Pallas interpret
@@ -13,14 +13,24 @@ tests/test_torch_trace_frame.py run them.
     test_torch_trace_kernels.py (two fifths translucent), 512 rays from one
     origin, a seventeenth of them inactive, with the default floor and with
     a per-lane floor past the first hit (as tests/test_so_kernel.py builds
-    it). The TPU kernel orders a packet's children by the packet's nearest
-    entry and the twin by the ray's own; the closest hit does not depend on
-    the order except at exactly equal t, so the triangle ids agree on all
-    but at most one ray in 512, and t to 1e-5 relative where they agree.
+    it). The TPU kernel walks the binary tree, ordering a packet's children
+    by the packet's nearest entry; the twin walks the wide tree rebuilt
+    from the reference's rows, each ray in its own order; the closest hit
+    does not depend on the order except at exactly equal t, so the triangle
+    ids agree on all but at most one ray in 512, and t to 1e-5 relative
+    where they agree. The twin on the binary tree, which counts the work
+    of that walk, is held to the same tolerance.
+  * K6 twin with the floor exactly at each ray's first hit: no hit comes
+    back below the floor, and every hit returned passes the contract's
+    tn_s > t_floor*dnp in f32 -- the first hit itself comes back only
+    where t*dnp rounds below tn_s (it then lies at t = floor).
   * K8 twin vs trace_shadow_any on the 400-triangle soup, half of it
     translucent, 256 rays in random directions, some with t_limit 0 and
     some with a short limit: "any opaque hit within the limit" does not
-    depend on the order, so every lane agrees.
+    depend on the order, so every lane agrees (the binary twin too).
+  * K8 twin on two stacked planes, translucent over opaque: a ray with only
+    the translucent plane before its limit is not blocked, one whose limit
+    reaches the opaque plane is.
   * The traced frame of test_torch_trace_frame.py's scene at 96x54 with
     ``layered=False`` (SGE_RT_LAYERED=0), and with ``shadow_layers`` 5 (with
     and without ``shadow_prepass``, SGE_SHADOW_PREPASS=1) and 0, all
@@ -41,9 +51,13 @@ import pytest
 import torch
 
 from swift_game_engine_tpu_torch import interop
+from swift_game_engine_tpu_torch.assets.materials import Material
+from swift_game_engine_tpu_torch.assets.mesh_api import MeshDescriptor
 from swift_game_engine_tpu_torch.ops import rt_kernel as RK
 from swift_game_engine_tpu_torch.render import rt as p_rt
 from swift_game_engine_tpu_torch.render import scene_geometry as p_sg
+from swift_game_engine_tpu_torch.render.scene_geometry import \
+    RenderGeometryBuilder
 
 from test_torch_trace_frame import build_scene, camera
 from test_torch_trace_kernels import SOUP, _reference, _t
@@ -121,12 +135,18 @@ def k6(tmp_path_factory):
     return _reference(tmp_path_factory, K6_CODE, "k6")
 
 
-@pytest.mark.parametrize("floor", [False, True], ids=["no_floor", "floor"])
-def test_k6_twin_matches_reference(k6, floor):
-    so = RK.build_origin_rows(_t(k6["rows"]), _t(k6["o"]))
-    t_floor = _t(k6["floor"]) if floor else None
-    t, tri = RK.trace_rays_so(so, k6["o"].tolist(), _t(k6["d"]),
-                              _t(k6["t_max"]), t_floor=t_floor)
+def _k6_twin(k6, t_floor, walk="wide"):
+    """K6 on the reference's rows: the wrapper (the wide walk's twin here),
+    or the binary walk's twin."""
+    rows = _t(k6["rows"])
+    so = RK.build_origin_rows(rows, _t(k6["o"]))
+    args = (k6["o"].tolist(), _t(k6["d"]), _t(k6["t_max"]), t_floor)
+    if walk == "binary":
+        return RK.trace_rays_so_binary(so, *args)
+    return RK.trace_rays_so(RK.wide_tree(rows), so[1], *args)
+
+
+def _k6_check(k6, floor, t, tri):
     rt, rtri = (k6["t2"], k6["tri2"]) if floor else (k6["t1"], k6["tri1"])
     t, tri = t.numpy(), tri.numpy()
     same = tri == rtri
@@ -140,16 +160,95 @@ def test_k6_twin_matches_reference(k6, floor):
         assert (t[hit] > k6["floor"][hit]).all()
 
 
+@pytest.mark.parametrize("floor", [False, True], ids=["no_floor", "floor"])
+def test_k6_twin_matches_reference(k6, floor):
+    t_floor = _t(k6["floor"]) if floor else None
+    _k6_check(k6, floor, *_k6_twin(k6, t_floor))
+
+
+@pytest.mark.parametrize("floor", [False, True], ids=["no_floor", "floor"])
+def test_k6_binary_twin_matches_reference(k6, floor):
+    t_floor = _t(k6["floor"]) if floor else None
+    _k6_check(k6, floor, *_k6_twin(k6, t_floor, "binary"))
+
+
+def test_k6_floor_at_a_hit(k6):
+    """The floor exactly at each ray's first hit t: the contract is
+    tn_s > t_floor*dnp in f32, so the first hit comes back only where
+    t*dnp rounds below tn_s, and then at t = floor."""
+    rows = _t(k6["rows"])
+    tree = RK.wide_tree(rows)
+    _, srows = RK.build_origin_rows(rows, _t(k6["o"]))
+    d, t_max = _t(k6["d"]), _t(k6["t_max"])
+    t1, tri1 = RK.trace_rays_so(tree, srows, k6["o"].tolist(), d, t_max)
+    hit1 = tri1 >= 0
+    floor = torch.where(hit1, t1, 1e-4)
+    t2, tri2 = RK.trace_rays_so(tree, srows, k6["o"].tolist(), d, t_max,
+                                t_floor=floor)
+    hit2 = tri2 >= 0
+    assert int(hit1.sum()) > 150 and int(hit2.sum()) > 40
+    assert bool((t2[hit2] >= floor[hit2]).all())       # none below the floor
+    # each hit returned, recomputed from its own slot: floor*dnp < tn_s
+    base = RK.SO_SLOT_F * RK.SLOT_N
+    ids = srows[:, base:].floor()                  # translucent: id + 0.5
+    lane = torch.nonzero(hit2).squeeze(1)
+    row, j = (torch.nonzero(ids[None] == tri2[lane, None, None].float())
+              [:, 1:].T)
+    slot = srows[row, :base].reshape(-1, RK.SLOT_N, RK.SO_SLOT_F)[
+        torch.arange(lane.numel()), j]
+    t, dnp, _, _, tn_s = RK._so_slot(d[lane], slot)
+    assert bool((tn_s > floor[lane] * dnp).all())
+    assert torch.equal(t, t2[lane])
+    again = lane[tri2[lane] == tri1[lane]]            # the first hit again
+    assert bool((t2[again] == floor[again]).all())
+    assert again.numel() < 0.2 * int(hit1.sum())
+
+
 # --------------------------------------------------------------------- K8
 
 
 def test_k8_twin_matches_reference(tmp_path_factory):
     ref = _reference(tmp_path_factory, K8_CODE, "k8")
-    blocked = RK.trace_shadow_any(_t(ref["rows"]), _t(ref["o"]), _t(ref["d"]),
-                                  _t(ref["t_lim"]))
+    rows = _t(ref["rows"])
+    rays = [_t(ref[k]) for k in ("o", "d", "t_lim")]
+    blocked = RK.trace_shadow_any(RK.wide_tree(rows), rows, *rays)
     np.testing.assert_array_equal(blocked.numpy(), ref["blocked"])
+    np.testing.assert_array_equal(
+        RK.trace_shadow_any_binary(rows, *rays).numpy(), ref["blocked"])
     assert ref["blocked"][:32].all()                       # t_limit 0
     assert 10 < ref["blocked"][32:].sum() < 200            # both outcomes
+
+
+def test_k8_translucent_in_front_does_not_block():
+    """A translucent plane (y = 5) over an opaque one (y = 0), both 40
+    units wide: rays up through the translucent plane, down to it with a
+    limit short of the opaque plane, and down with a limit past it."""
+    quad = np.array([[-20, 0, -20], [20, 0, -20], [20, 0, 20], [-20, 0, 20]],
+                    np.float32)
+    b = RenderGeometryBuilder(texture_size=4)
+    for y, mat in ((0.0, Material(name="floor")),
+                   (5.0, Material(name="glass", alpha=0.4))):
+        b.add_static_mesh(MeshDescriptor(
+            positions=quad + np.float32([0, y, 0]),
+            indices=np.array([0, 1, 2, 0, 2, 3], np.int32)), mat,
+            instance=0)
+    fg = p_sg.flatten_frame(b.build(device="cpu"), torch.eye(4)[None],
+                            torch.zeros((1, 1, 4, 4)))
+    rng = np.random.default_rng(14)
+    n = 96
+    o = np.concatenate([rng.uniform(-10, 10, (n, 1)), np.full((n, 1), 3.0),
+                        rng.uniform(-10, 10, (n, 1))], 1).astype(np.float32)
+    o[n // 3:, 1] = 8.0                                  # above both planes
+    d = np.tile(np.float32([0.1, 1.0, -0.2]), (n, 1))
+    d[n // 3:, 1] = -1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_lim = np.full(n, 6.0, np.float32)                  # up: glass only
+    t_lim[n // 3:2 * n // 3] = 5.0                       # down: glass only
+    t_lim[2 * n // 3:] = 20.0                            # down: both
+    blocked = RK.trace_shadow_any(fg.bvh.wide, fg.bvh.rows, torch.as_tensor(o),
+                                  torch.as_tensor(d), torch.as_tensor(t_lim))
+    want = np.arange(n) >= 2 * n // 3
+    np.testing.assert_array_equal(blocked.numpy(), want)
 
 
 # ---------------------------------------------------------------- frames

@@ -10,6 +10,8 @@
     recursion), the twin's stack of exactly that size never overflows on
     rays that start inside boxes, and the decimated DemoScene's tree fits
     the kernel's cap;
+  * the leaf ranks in the wide lines (K6's origin rows) equal
+    ``_leaf_rows``' ranks, for soups and the decimated DemoScene;
   * the twin's records match ``trace_rays_pallas(interpret=True)`` of the
     JAX package on a soup, with inactive rays (t_max = 0) and parked
     origins among them: ids on >= 99.9% of rays (equal-t ties), t to 1e-5
@@ -124,6 +126,42 @@ def test_stack_bound(frame):
     assert 0 < topo.wide_stack <= RK.WIDE_STACK_MAX
     assert topo.wide_stack == _need(topo.wide_tail[:, :4].numpy().astype(
         np.int64))
+
+
+def _soup_topo(t):
+    """The topology of a ``t``-triangle soup."""
+    v0, v1, v2 = soup(37, t)
+    pos = np.stack([v0, v1, v2], 1).reshape(-1, 3)
+    b = RenderGeometryBuilder(texture_size=4)
+    b.add_static_mesh(MeshDescriptor(
+        positions=pos, indices=np.arange(len(pos), dtype=np.int32)),
+        Material(name="m"), instance=0)
+    return b.build(device="cpu").topo
+
+
+@pytest.mark.parametrize("which", ["1", "13", "2500", "demo"])
+def test_leaf_ranks_match_leaf_rows(which):
+    """Each leaf child's rank in the wide lines ([28:32]) is the rank that
+    ``_leaf_rows`` gives its packed row (the row of its origin rows, plus
+    one), for soups from a one-leaf tree up and for the decimated
+    DemoScene's topology; every other slot holds 0."""
+    if which == "demo":
+        from swift_game_engine_tpu_torch.scene.demo_scene import \
+            build_demo_scene
+        topo = build_demo_scene(ASSETS, device="cpu").geometry.topo
+    else:
+        topo = _soup_topo(int(which))
+    leaf = (topo.left < 0).float()
+    rows = torch.zeros(((leaf.numel() + 7) // 8 * 8, RK.ROW))
+    rows[:leaf.numel(), 7] = leaf            # all _leaf_rows reads
+    header, _ = RK._leaf_rows(rows)
+    ref = topo.wide_tail[:, :4].to(torch.int64)
+    rank = topo.wide_tail[:, 4:].to(torch.int64)
+    is_leaf = ref <= -2
+    row = torch.div(-2 - ref[is_leaf], 16, rounding_mode="floor")
+    assert torch.equal(rank[is_leaf], header.reshape(-1, 8)[row, 7].long())
+    assert bool((rank[~is_leaf] == 0).all())
+    assert int(is_leaf.sum()) == int(leaf.sum())   # every leaf, once
 
 
 K4_CODE = r"""
