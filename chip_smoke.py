@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k4-against LIB]
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from ``swift_game_engine_tpu_torch/
@@ -46,10 +46,16 @@ and read just after. Then:
     computed from the same inputs: for K1-K4 from the work their counting
     instantiations count on that call (printed as "K<n> work" lines and
     checked equal to the kernel's records), with the bytes floor and a
-    one-test-per-record bound beside. K1 is reported per role (its layer
-    count: the opaque and translucent rasters of path 1, path 4's raster).
-    A kernel's entry in the JSON line carries the path name after an ``@``
-    for every path but the first that runs it;
+    one-test-per-record bound beside; for K6 and K8 (instances of K4's
+    wide walk) from the tests the binary walk they replaced makes on the
+    subset, scaled (``trace_rays_so_binary``, ``trace_shadow_any_binary``:
+    their bound before the redesign), with their counting instantiations'
+    own bound and the records bound beside, and both walks' work per ray
+    printed. K1 is reported per role (its layer count: the opaque and
+    translucent rasters of path 1, path 4's raster), with every record
+    where it differs from its plain version. A kernel's entry in the JSON
+    line carries the path name after an ``@`` for every path but the first
+    that runs it;
   * four small renders, each through the kernels and through the plain
     versions, must agree (>= 99% of pixels within 1e-4, means within
     0.1%): a 320x180 hybrid render of the full scene (73,728 lanes, with
@@ -59,7 +65,10 @@ and read just after. Then:
     and a 160x90 frame configured as path 6 (K6, K8, K4).
 
 ``path_engines`` is the one definition of the six paths;
-``profile_port.py`` drives the same ones.
+``profile_port.py`` drives the same ones. ``--k4-against LIB`` also holds
+K4's records on path 1's first call bit for bit against
+``sge_trace_closest`` of another build of the kernel library (say, the
+parent commit's ``swift_game_engine_tpu_torch/build/libsge_kernels_*.so``).
 
 It prints the card (``nvidia-smi`` name and power limit), the build and
 scene statistics, each path's frame times and launches, one JSON line of
@@ -512,10 +521,12 @@ def main(argv=None):
         nearer = torch.cumsum(opq.int(), 1) - opq.int()
         return nearer > 0
 
-    def k1_differing(rows, w, lay, key_k, key_p, out_k, out_p):
+    def k1_differing(rows, meta, boxes, w, lay, key_k, key_p, out_k, out_p):
         """Each record where K1 and its plain version differ: the pixel,
         the layer, both sides' triangle id and depth w, the pixel's records
-        in every layer, and the row (16 f32) of each triangle involved."""
+        in every layer, and of each triangle involved its row (16 f32), its
+        screen box and its cluster's."""
+        per = rows.shape[0] // meta.shape[0]
         tiles_x = -(-w // 128)
         for tile, li, y, x in torch.nonzero(key_k != key_p).tolist()[:8]:
             def rec(o, l):
@@ -530,9 +541,14 @@ def main(argv=None):
                   f"layers, kernel: {pixel(out_k)} | plain: {pixel(out_p)}")
             for tid in {int(out_k[0][tile, li, y, x]),
                         int(out_p[0][tile, li, y, x])} - {-1}:
-                row = rows[rows[:, 12] == tid][0]
+                i = int(torch.nonzero(rows[:, 12] == tid)[0])
+                cl = meta[meta[:, 5] == (i // per) * (per // 8)][0]
                 print(f"      row of id {tid}: " +
-                      " ".join(f"{v:.9g}" for v in row.tolist()))
+                      " ".join(f"{v:.9g}" for v in rows[i].tolist()) +
+                      "; screen box " + " ".join(
+                          f"{v:.9g}" for v in boxes[i].tolist()) +
+                      "; its cluster's " + " ".join(
+                          f"{v:.9g}" for v in cl[:4].tolist()))
 
     def check_k1(args, c, tag):
         """Each role (layer count) on its own: records, work, time, bound;
@@ -553,7 +569,8 @@ def main(argv=None):
                 for o in (out_k, out_p))
             err = _compare(f"K1 layers={lay} ({rows.shape[0]} rows)", key_k,
                            key_p, vals_k, vals_p)
-            k1_differing(rows, w, lay, key_k, key_p, out_k, out_p)
+            k1_differing(rows, meta, boxes, w, lay, key_k, key_p, out_k,
+                         out_p)
             # the work of the frame's call, from the counting instantiation
             out_c, cnt = TR.cluster_raster_counts(rows, meta, boxes, w, h,
                                                   lay, prior)
@@ -800,6 +817,14 @@ def main(argv=None):
                     sub.numel(), n, int((out6[1] >= 0).sum()) * SO_SLOT_OPS)
                 dense = (tree, srows, origin, d, t_max, n, sub.numel())
         tree, srows, origin, d, t_max, n, n_sub = dense
+        ref = RK.trace_rays_so(tree, srows, origin, d, t_max)
+        for g in (4, 2, 1, 1, 2, 4):       # threads a ray, in turns
+            out = RK._launch_k6(tree, srows, origin, d, t_max, None, None, g)
+            ms = _time_ms(lambda: RK._launch_k6(tree, srows, origin, d, t_max,
+                                                None, None, g), 5)
+            print(f"  K6 dense, {g} threads a ray: {ms:.3f} ms, "
+                  f"{int((out[1] != ref[1]).sum())} ids and "
+                  f"{int((out[0] != ref[0]).sum())} t differ from the build's")
         report("so_closest" + tag,
                "swift_game_engine_tpu_torch/csrc/bvh_trace.cu",
                "swift_game_engine_tpu/ops/rt_kernel.py:1327", c["K6"], err,
@@ -835,6 +860,12 @@ def main(argv=None):
         print(f"  K8 binary walk on the subset: {walk['box']} box tests, "
               f"{walk['slot']} slot tests")
         print("  K8 binary walk, per ray of the subset: " + _ray_line(walk))
+        for g in (4, 2, 1, 1, 2, 4):       # threads a ray, in turns
+            out = RK._launch_k8(tree, rows, o, d, t_lim, None, g)
+            ms = _time_ms(lambda: RK._launch_k8(tree, rows, o, d, t_lim, None,
+                                                g), 5)
+            print(f"  K8, {g} threads a ray: {ms:.3f} ms, "
+                  f"{int((out != out8).sum())} lanes differ")
         ins, outs = [tree.nodes, rows, o, d, t_lim], [out8]
         binary, own, records = walk_bounds(
             ins, outs,

@@ -124,18 +124,13 @@ __device__ __forceinline__ void cswap(float (&t)[WIDE], int (&r)[WIDE],
   r[a] = sw ? rb : ra; r[b] = sw ? ra : rb;
 }
 
-// G = WIDE threads per ray, one per child. The per-ray stack is stack_n
-// entries of (ref, entry distance) in dynamic shared memory, one column
-// per ray.
-constexpr int G = WIDE;
-constexpr int RPB = TRACE_THREADS / G;     // rays per block
-
 __device__ __forceinline__ float f32_inf() {
   return __int_as_float(0x7f800000);
 }
 
 // The group's nearest candidate (t, slot j; a thread without one holds
 // (inf, -1)), the first slot among equal t.
+template <int G>
 __device__ __forceinline__ void group_nearest(float& bt, int& bj,
                                               unsigned mask) {
 #pragma unroll
@@ -186,6 +181,7 @@ struct Closest : Ray {
   __device__ int child_ref(const float* nd, int k) const {
     return packed_ref(nd, k);
   }
+  template <int G>
   __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
                        int& tests) {
     const int cnt = code & 15;
@@ -202,7 +198,7 @@ struct Closest : Ray {
       }
     }
     if (bj < 0) bt = f32_inf();
-    group_nearest(bt, bj, mask);
+    group_nearest<G>(bt, bj, mask);
     if (bj >= 0) {
       t_best = bt;
       tri_best = __ldg(r + IDS + bj);
@@ -238,6 +234,7 @@ struct SharedOrigin : Ray {
     const int rank = int(__ldg(nd + 28 + k));
     return -2 - (16 * (rank - 1) + ((-2 - rf) & 15));
   }
+  template <int G>
   __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
                        int& tests) {
     const int cnt = code & 15;
@@ -245,16 +242,16 @@ struct SharedOrigin : Ray {
     float bt = t_best;
     int bj = -1;
     for (int j = k; j < cnt; j += G) {
-      float t, dnp, tn_s, tri_id;
+      float dnp, tn_s, tri_id;
       ++tests;
-      if (so_slot(row, j, dx, dy, dz, t, dnp, tn_s, tri_id) &&
+      if (so_cross(row, j, dx, dy, dz, dnp, tn_s, tri_id) &&
           tn_s > fl * dnp && tn_s < bt * dnp) {
-        bt = t;
+        bt = tn_s / dnp;                 // so_slot's t: dnp >= EPS here
         bj = j;
       }
     }
     if (bj < 0) bt = f32_inf();
-    group_nearest(bt, bj, mask);
+    group_nearest<G>(bt, bj, mask);
     if (bj >= 0) {
       t_best = bt;
       tri_best = __ldg(row + SO_SLOT_F * SLOT_N + bj);
@@ -286,6 +283,7 @@ struct AnyOpaque : Ray {
   __device__ int child_ref(const float* nd, int k) const {
     return packed_ref(nd, k);
   }
+  template <int G>
   __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
                        int& tests) {
     const int cnt = code & 15;
@@ -307,10 +305,15 @@ struct AnyOpaque : Ray {
   }
 };
 
-template <class R, bool COUNT>
+// G threads a ray (1, 2 or 4) share its walk: thread k tests children k,
+// k+G, ... and slots k, k+G, ... of a leaf. The per-ray stack is stack_n
+// entries of (ref, entry distance) in dynamic shared memory, one column
+// per ray.
+template <class R, int G, bool COUNT>
 __global__ void __launch_bounds__(TRACE_THREADS)
 wide_walk_kernel(const float* __restrict__ nodes, const typename R::Args a,
                  int64_t n, int stack_n, int32_t* __restrict__ counts) {
+  constexpr int RPB = TRACE_THREADS / G;   // rays per block
   extern __shared__ float4 smem4[];
   int* st_ref = reinterpret_cast<int*>(smem4);
   float* st_t = reinterpret_cast<float*>(st_ref + stack_n * RPB);
@@ -328,19 +331,23 @@ wide_walk_kernel(const float* __restrict__ nodes, const typename R::Args a,
   while (walk) {
     if (cur >= 0) {                        // wide node: one line
       const float* nd = nodes + int64_t(cur) * NODE_F;
-      float ct[WIDE];
-      int cr[WIDE];
-      bool hit;                            // thread k tests child k
-      const float tm = child_slab(
-          __ldg(nd + k), __ldg(nd + 4 + k), __ldg(nd + 8 + k),
-          __ldg(nd + 12 + k), __ldg(nd + 16 + k), __ldg(nd + 20 + k), ray.ox,
-          ray.oy, ray.oz, ray.ix, ray.iy, ray.iz, ray.bound(), hit);
-      const int rf = ray.child_ref(nd, k);
-      const float mine = hit && rf != -1 ? tm : INF;
+      float ct[WIDE], mt[WIDE / G];
+      int cr[WIDE], mr[WIDE / G];
+#pragma unroll
+      for (int q = 0; q < WIDE / G; ++q) {  // thread k: children k + qG
+        const int c = k + q * G;
+        bool hit;
+        const float tm = child_slab(
+            __ldg(nd + c), __ldg(nd + 4 + c), __ldg(nd + 8 + c),
+            __ldg(nd + 12 + c), __ldg(nd + 16 + c), __ldg(nd + 20 + c),
+            ray.ox, ray.oy, ray.oz, ray.ix, ray.iy, ray.iz, ray.bound(), hit);
+        mr[q] = ray.child_ref(nd, c);
+        mt[q] = hit && mr[q] != -1 ? tm : INF;
+      }
 #pragma unroll
       for (int c = 0; c < WIDE; ++c) {
-        ct[c] = __shfl_sync(mask, mine, c, G);
-        cr[c] = __shfl_sync(mask, rf, c, G);
+        ct[c] = G == 1 ? mt[c] : __shfl_sync(mask, mt[c / G], c % G, G);
+        cr[c] = G == 1 ? mr[c] : __shfl_sync(mask, mr[c / G], c % G, G);
       }
       if (COUNT) {
         ++n_nodes;
@@ -370,7 +377,7 @@ wide_walk_kernel(const float* __restrict__ nodes, const typename R::Args a,
       }
     } else {                               // leaf: its slots, G at a time
       if (COUNT) ++n_leaves;
-      if (ray.leaf(a, -2 - cur, k, mask, n_slots)) break;
+      if (ray.template leaf<G>(a, -2 - cur, k, mask, n_slots)) break;
     }
     bool found = false;                    // pop the nearest live entry
     while (sp > 0) {
@@ -399,21 +406,42 @@ wide_walk_kernel(const float* __restrict__ nodes, const typename R::Args a,
   }
 }
 
-template <class R>
+template <class R, int G>
 int launch_walk(const float* nodes, const typename R::Args& a, int64_t n,
-                int stack_n, int32_t* counts, void* stream) {
-  if (n == 0) return int(cudaGetLastError());
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // at most 96 entries (WIDE_STACK_MAX): 24 KB, under the default 48 KB
+                int stack_n, int32_t* counts, cudaStream_t st) {
+  constexpr int RPB = TRACE_THREADS / G;
+  // at most 96 entries (WIDE_STACK_MAX): 96 KB at G = 1, so the kernel is
+  // allowed that much dynamic shared memory
   const size_t smem = size_t(stack_n) * RPB * 8;
   const unsigned blocks = unsigned((n + RPB - 1) / RPB);
-  if (counts)
-    wide_walk_kernel<R, true><<<blocks, TRACE_THREADS, smem, st>>>(
+  if (counts) {
+    cudaFuncSetAttribute(wide_walk_kernel<R, G, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         int(smem));
+    wide_walk_kernel<R, G, true><<<blocks, TRACE_THREADS, smem, st>>>(
         nodes, a, n, stack_n, counts);
-  else
-    wide_walk_kernel<R, false><<<blocks, TRACE_THREADS, smem, st>>>(
+  } else {
+    cudaFuncSetAttribute(wide_walk_kernel<R, G, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         int(smem));
+    wide_walk_kernel<R, G, false><<<blocks, TRACE_THREADS, smem, st>>>(
         nodes, a, n, stack_n, counts);
+  }
   return int(cudaGetLastError());
+}
+
+// The walk with `group` threads a ray (1, 2 or 4).
+template <class R>
+int launch_group(const float* nodes, const typename R::Args& a, int64_t n,
+                 int stack_n, int group, int32_t* counts, void* stream) {
+  if (n == 0) return int(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (group) {
+    case 1: return launch_walk<R, 1>(nodes, a, n, stack_n, counts, st);
+    case 2: return launch_walk<R, 2>(nodes, a, n, stack_n, counts, st);
+    case 4: return launch_walk<R, 4>(nodes, a, n, stack_n, counts, st);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -428,27 +456,29 @@ SGE_API int sge_trace_closest(const float* nodes, const float* rows,
                               const float* t_max, int64_t n, int stack_n,
                               int32_t* counts, float* t, int32_t* tri,
                               void* stream) {
-  return sge::launch_walk<sge::Closest>(nodes, {rows, o, d, t_max, t, tri}, n,
-                                        stack_n, counts, stream);
+  return sge::launch_group<sge::Closest>(nodes, {rows, o, d, t_max, t, tri},
+                                         n, stack_n, 4, counts, stream);
 }
 
 // K6: srows (Lp,132) origin rows, origin (ox, oy, oz), d (N,3), t_max (N,),
-// t_floor (N,) or null (1e-4). Out: t (N,), tri (N,) int32.
+// t_floor (N,) or null (1e-4); group: threads a ray. Out: t (N,), tri (N,)
+// int32.
 SGE_API int sge_trace_so(const float* nodes, const float* srows, float ox,
                          float oy, float oz, const float* d,
                          const float* t_max, const float* t_floor, int64_t n,
-                         int stack_n, int32_t* counts, float* t, int32_t* tri,
-                         void* stream) {
-  return sge::launch_walk<sge::SharedOrigin>(
+                         int stack_n, int group, int32_t* counts, float* t,
+                         int32_t* tri, void* stream) {
+  return sge::launch_group<sge::SharedOrigin>(
       nodes, {srows, ox, oy, oz, d, t_max, t_floor, t, tri}, n, stack_n,
-      counts, stream);
+      group, counts, stream);
 }
 
-// K8: rows (M_pad,128), o/d (N,3), t_lim (N,). Out: blocked (N,) bool.
+// K8: rows (M_pad,128), o/d (N,3), t_lim (N,); group: threads a ray. Out:
+// blocked (N,) bool.
 SGE_API int sge_trace_any(const float* nodes, const float* rows,
                           const float* o, const float* d, const float* t_lim,
-                          int64_t n, int stack_n, int32_t* counts,
+                          int64_t n, int stack_n, int group, int32_t* counts,
                           bool* blocked, void* stream) {
-  return sge::launch_walk<sge::AnyOpaque>(nodes, {rows, o, d, t_lim, blocked},
-                                          n, stack_n, counts, stream);
+  return sge::launch_group<sge::AnyOpaque>(
+      nodes, {rows, o, d, t_lim, blocked}, n, stack_n, group, counts, stream);
 }

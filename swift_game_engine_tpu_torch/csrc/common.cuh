@@ -52,13 +52,13 @@ constexpr int SO_ROW_W = SO_SLOT_F * SLOT_N + SLOT_N;  // + the ids
 
 // Slot j of origin row `row` against direction d: the sign-folded terms of
 // swift_game_engine_tpu/ops/rt_kernel.py:1393-1401, in its operation order.
-// Returns t = tn_s / dnp and whether the ray's line crosses the triangle
-// (id >= 0, dnp >= EPS, barycentric range); the caller adds its t range
-// test on tn_s or t.
-__device__ __forceinline__ bool so_slot(const float* __restrict__ row, int j,
-                                        float dx, float dy, float dz,
-                                        float& t, float& dnp, float& tn_s,
-                                        float& tri_id) {
+// Returns whether the ray's line crosses the triangle (id >= 0,
+// dnp >= EPS, barycentric range), with dnp, tn_s and the id; the caller
+// adds its t range test on tn_s or t = tn_s / dnp.
+__device__ __forceinline__ bool so_cross(const float* __restrict__ row, int j,
+                                         float dx, float dy, float dz,
+                                         float& dnp, float& tn_s,
+                                         float& tri_id) {
   tri_id = __ldg(row + SO_SLOT_F * SLOT_N + j);
   const float* s = row + SO_SLOT_F * j;
   const float un = (dx * __ldg(s) + dy * __ldg(s + 1)) + dz * __ldg(s + 2);
@@ -69,9 +69,19 @@ __device__ __forceinline__ bool so_slot(const float* __restrict__ row, int j,
   dnp = dn * sgn;
   const float un_s = un * sgn, vn_s = vn * sgn;
   tn_s = tn * sgn;
-  t = tn_s / (dnp >= EPS ? dnp : 1.0f);
   return tri_id >= 0.0f && dnp >= EPS && un_s >= 0.0f && un_s <= dnp &&
          vn_s >= 0.0f && un_s + vn_s <= dnp;
+}
+
+// so_cross with the slot's t = tn_s / dnp (dnp replaced by 1 below EPS),
+// the reference's t.
+__device__ __forceinline__ bool so_slot(const float* __restrict__ row, int j,
+                                        float dx, float dy, float dz,
+                                        float& t, float& dnp, float& tn_s,
+                                        float& tri_id) {
+  const bool cross = so_cross(row, j, dx, dy, dz, dnp, tn_s, tri_id);
+  t = tn_s / (dnp >= EPS ? dnp : 1.0f);
+  return cross;
 }
 
 // Slab test of the box whose header starts at h (bmin h[0:3], bmax h[3:6]):

@@ -76,6 +76,9 @@ NODE_F = 32      # f32 per wide node: one 128-byte line
 # K4's per-ray stack lives in shared memory, sized by the tree's own bound
 # (``collapse_wide``); trees that need more entries are refused at build.
 WIDE_STACK_MAX = 96
+# Threads a ray of the K6 and K8 walks (1, 2 or 4; K4 runs 4).
+SO_GROUP = 4
+ANY_GROUP = 4
 
 launches = 0         # trace_rays (K4) kernel launches since the last reset
 so_launches = 0      # trace_layers_so (K5) kernel launches
@@ -723,7 +726,7 @@ def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
     return t_opq, tri.to(torch.int32), ts, ids
 
 
-def _launch_k6(tree, srows, o, d, t_max, t_floor, counts):
+def _launch_k6(tree, srows, o, d, t_max, t_floor, counts, group=SO_GROUP):
     dev, n = _check_tree(tree, srows, SO_SLOT_F * SLOT_N + SLOT_N, d, t_max)
     if t_floor is not None:
         _cuda.require(t_floor, "t_floor", (n,), device=dev)
@@ -732,7 +735,7 @@ def _launch_k6(tree, srows, o, d, t_max, t_floor, counts):
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     _cuda.check(_cuda.library().sge_trace_so(
         tree.nodes.data_ptr(), srows.data_ptr(), ox, oy, oz, d.data_ptr(),
-        t_max.data_ptr(), _cuda.ptr(t_floor), n, tree.stack,
+        t_max.data_ptr(), _cuda.ptr(t_floor), n, tree.stack, group,
         _cuda.ptr(counts), t.data_ptr(), tri.data_ptr(),
         _cuda.stream_ptr(d)), "sge_trace_so")
     return t, tri
@@ -777,7 +780,8 @@ def trace_rays_so_plain(tree: WideTree, srows, o, d, t_max, t_floor=None,
     tri = torch.full((n,), -1.0, device=dev)
     base = SO_SLOT_F * SLOT_N
     inf = float("inf")
-    k = torch.arange(WIDE, device=dev)
+    g = SO_GROUP
+    k = torch.arange(g, device=dev)
     slot = torch.arange(SLOT_N, device=dev)
 
     def visit_leaf(lanes, code):
@@ -788,10 +792,10 @@ def trace_rays_so_plain(tree: WideTree, srows, o, d, t_max, t_floor=None,
             d[lanes, None, :], row[:, :base].reshape(-1, SLOT_N, SO_SLOT_F))
         tid = row[:, base:base + SLOT_N]
         ok = _so_inside(tid, dnp, un_s, vn_s) & (slot < cnt[:, None])
-        bt = tb[:, None].expand(-1, WIDE)
+        bt = tb[:, None].expand(-1, g)
         bj = torch.full_like(bt, -1, dtype=torch.int64)
-        for s0 in range(0, SLOT_N, WIDE):       # each thread's slots in turn
-            c = slice(s0, s0 + WIDE)
+        for s0 in range(0, SLOT_N, g):          # each thread's slots in turn
+            c = slice(s0, s0 + g)
             acc = ok[:, c] & (tn_s[:, c] > fl * dnp[:, c]) & \
                 (tn_s[:, c] < bt * dnp[:, c])
             bt = torch.where(acc, t[:, c], bt)
@@ -849,12 +853,12 @@ def trace_rays_so_binary(origin_rows, o, d, t_max, t_floor=None,
     return t_best, tri.to(torch.int32)
 
 
-def _launch_k8(tree, rows, o, d, t_limit, counts):
+def _launch_k8(tree, rows, o, d, t_limit, counts, group=ANY_GROUP):
     dev, n = _check_tree(tree, rows, ROW, d, t_limit, o)
     blocked = torch.empty(n, dtype=torch.bool, device=dev)
     _cuda.check(_cuda.library().sge_trace_any(
         tree.nodes.data_ptr(), rows.data_ptr(), o.data_ptr(), d.data_ptr(),
-        t_limit.data_ptr(), n, tree.stack, _cuda.ptr(counts),
+        t_limit.data_ptr(), n, tree.stack, group, _cuda.ptr(counts),
         blocked.data_ptr(), _cuda.stream_ptr(o)), "sge_trace_any")
     return blocked
 
