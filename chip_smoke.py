@@ -793,8 +793,8 @@ def main(argv=None):
             if not (torch.equal(tri_c, out6[1]) and torch.equal(t_c,
                                                                 out6[0])):
                 _fail("K6's counting instantiation differs from the kernel")
-            print(f"  K6 work {role} ({RK.WIDE} threads a ray, stack "
-                  f"{tree.stack}): " + _count_line(cnt, 32 // RK.WIDE))
+            print(f"  K6 work {role} ({RK.SO_THREADS} thread a ray, stack "
+                  f"{tree.stack}): " + _count_line(cnt, 32 // RK.SO_THREADS))
             print(f"  K6 work {role}, per ray of the subset: " +
                   _ray_line({k: v[sub] for k, v in cnt.items()}))
             # the binary walk's work on the same rays
@@ -817,14 +817,6 @@ def main(argv=None):
                     sub.numel(), n, int((out6[1] >= 0).sum()) * SO_SLOT_OPS)
                 dense = (tree, srows, origin, d, t_max, n, sub.numel())
         tree, srows, origin, d, t_max, n, n_sub = dense
-        ref = RK.trace_rays_so(tree, srows, origin, d, t_max)
-        for g in (4, 2, 1, 1, 2, 4):       # threads a ray, in turns
-            out = RK._launch_k6(tree, srows, origin, d, t_max, None, None, g)
-            ms = _time_ms(lambda: RK._launch_k6(tree, srows, origin, d, t_max,
-                                                None, None, g), 5)
-            print(f"  K6 dense, {g} threads a ray: {ms:.3f} ms, "
-                  f"{int((out[1] != ref[1]).sum())} ids and "
-                  f"{int((out[0] != ref[0]).sum())} t differ from the build's")
         report("so_closest" + tag,
                "swift_game_engine_tpu_torch/csrc/bvh_trace.cu",
                "swift_game_engine_tpu/ops/rt_kernel.py:1327", c["K6"], err,
@@ -860,12 +852,6 @@ def main(argv=None):
         print(f"  K8 binary walk on the subset: {walk['box']} box tests, "
               f"{walk['slot']} slot tests")
         print("  K8 binary walk, per ray of the subset: " + _ray_line(walk))
-        for g in (4, 2, 1, 1, 2, 4):       # threads a ray, in turns
-            out = RK._launch_k8(tree, rows, o, d, t_lim, None, g)
-            ms = _time_ms(lambda: RK._launch_k8(tree, rows, o, d, t_lim, None,
-                                                g), 5)
-            print(f"  K8, {g} threads a ray: {ms:.3f} ms, "
-                  f"{int((out != out8).sum())} lanes differ")
         ins, outs = [tree.nodes, rows, o, d, t_lim], [out8]
         binary, own, records = walk_bounds(
             ins, outs,

@@ -37,24 +37,32 @@
 // loads (two per binary node: the right child's index sat in the left
 // child's row), with its stack in local memory and a leaf's 12 slot tests
 // one after another; K4's binary walk visited 3.2x the wide walk's nodes.
-// K6 and K8 ran that design until they became instances of this walk.
-// The design:
+// K6 and K8 ran that design until they became instances of this walk
+// (binary walk on path 6's first frame: K6 rays visit 869 nodes and test
+// 3,936 slots each on average, K8's slowest 1% 1,500 nodes). The design:
 //   * one dependent load per step: a step reads one wide-node line, tests
 //     all four child boxes against the ray's bound, goes on to the nearest
 //     hit child and stacks the others farthest first;
 //   * the stack lives in shared memory, per ray, sized by the tree's own
 //     bound (the largest sum of children less one down a root-to-leaf
 //     path, computed with the topology and checked at build);
-//   * four threads a ray: each tests one child box and 3 of a leaf's 12
-//     slots, and the group shares the results by warp shuffles, so a
-//     ray's steps run four-wide. A one-thread-a-ray build of the K4 walk
-//     was slower at every batch the frames give it, from 6 rays (2.58
-//     against 1.19 ms) to 557,056 (3.60 against 2.58 ms): with about as
-//     many threads resident, it ran a leaf's 12 tests one after another,
-//     and a warp of 32 rays waited on the longest of their walks;
+//   * G threads a ray, the policy's choice. K4 and K8 run four: each
+//     thread tests one child box and 3 of a leaf's 12 slots, and the
+//     group shares the results by warp shuffles, so a ray's steps run
+//     four-wide; their calls last as long as their slowest rays. A
+//     one-thread-a-ray build of the K4 walk was slower at every batch the
+//     frames give it, from 6 rays (2.58 against 1.19 ms) to 557,056 (3.60
+//     against 2.58 ms), and K8 at 557,056 shadow rays took 2.93 ms at
+//     one thread, 2.03 at two, 1.83 at four. K6 runs one: every camera
+//     ray of its dense call walks ~270 wide nodes and ~330 leaves, so the
+//     call is bound by the instructions it issues, and a warp serving 32
+//     rays issues fewest: 9.48 ms at one thread, 9.70 at two, 12.05 at
+//     four on path 6's 557,056 rays (H100, commit 4f2c21d);
 //   * the leaf test is a policy (Closest, SharedOrigin, AnyOpaque): it
-//     loads its ray, names the walk bound, tests a leaf's slots and says
-//     whether the walk ends;
+//     loads its ray, names the walk bound and its threads a ray, tests a
+//     leaf's slots and says whether the walk ends. K6 divides for t only
+//     when a slot is accepted (the slot test compares tn_s against the
+//     bounds times dnp);
 //   * a counting instantiation (COUNT, with a null counts pointer in
 //     production) reports each ray's wide nodes, the child boxes it tests
 //     (the non-empty slots of those nodes), leaves and slot tests.
@@ -162,37 +170,23 @@ __device__ __forceinline__ int packed_ref(const float* __restrict__ nd,
   return int(__ldg(nd + 24 + k));
 }
 
-// K4: the nearest Moller-Trumbore hit with 1e-4 < t < t_best.
-struct Closest : Ray {
-  struct Args {
-    const float* rows; const float* o; const float* d; const float* t_max;
-    float* t_out; int32_t* tri_out;
-  };
+// The closest-hit policies' state (K4, K6): the best hit so far, which is
+// also the walk bound.
+struct NearestHit : Ray {
   float t_best, tri_best;
-  __device__ Closest(const Args& a, int64_t i) {
-    load_o(a.o, i);
-    load_d(a.d, i);
-    t_best = __ldg(a.t_max + i);
-    tri_best = -1.0f;
-  }
-  // a lane with t_max <= 0 walks and finds nothing (its origin is parked)
-  __device__ bool live() const { return true; }
   __device__ float bound() const { return t_best; }
-  __device__ int child_ref(const float* nd, int k) const {
-    return packed_ref(nd, k);
-  }
-  template <int G>
-  __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
-                       int& tests) {
-    const int cnt = code & 15;
-    const float* r = a.rows + int64_t(code >> 4) * ROW;
+  // A leaf of cnt slots (ids at `ids`), G at a time: hit(j, bt, t) tests
+  // slot j against the thread's best t so far; the group keeps the nearest
+  // of its threads' hits, the first slot among equal t.
+  template <int G, class Hit>
+  __device__ void nearest(const float* __restrict__ ids, int cnt, int k,
+                          unsigned mask, int& tests, Hit hit) {
     float bt = t_best;
     int bj = -1;
     for (int j = k; j < cnt; j += G) {
       float t;
       ++tests;
-      if (mt_hit(r + 8 + 9 * j, ox, oy, oz, dx, dy, dz, t) && t > 1e-4f &&
-          t < bt) {
+      if (hit(j, bt, t)) {
         bt = t;
         bj = j;
       }
@@ -201,24 +195,55 @@ struct Closest : Ray {
     group_nearest<G>(bt, bj, mask);
     if (bj >= 0) {
       t_best = bt;
-      tri_best = __ldg(r + IDS + bj);
+      tri_best = __ldg(ids + bj);
     }
-    return false;
   }
+  template <class Args>
   __device__ void write(const Args& a, int64_t i) const {
     a.t_out[i] = t_best;
     a.tri_out[i] = int32_t(tri_best);
   }
 };
 
-// K6: the nearest so_slot hit with t_floor*dnp < tn_s < t_best*dnp, all
+// K4: the nearest Moller-Trumbore hit with 1e-4 < t < t_best.
+struct Closest : NearestHit {
+  struct Args {
+    const float* rows; const float* o; const float* d; const float* t_max;
+    float* t_out; int32_t* tri_out;
+  };
+  static constexpr int G = WIDE;
+  __device__ Closest(const Args& a, int64_t i) {
+    load_o(a.o, i);
+    load_d(a.d, i);
+    t_best = __ldg(a.t_max + i);
+    tri_best = -1.0f;
+  }
+  // a lane with t_max <= 0 walks and finds nothing (its origin is parked)
+  __device__ bool live() const { return true; }
+  __device__ int child_ref(const float* nd, int k) const {
+    return packed_ref(nd, k);
+  }
+  __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
+                       int& tests) {
+    const float* r = a.rows + int64_t(code >> 4) * ROW;
+    nearest<G>(r + IDS, code & 15, k, mask, tests,
+               [&](int j, float bt, float& t) {
+                 return mt_hit(r + 8 + 9 * j, ox, oy, oz, dx, dy, dz, t) &&
+                        t > 1e-4f && t < bt;
+               });
+    return false;
+  }
+};
+
+// K6: the nearest so_cross hit with t_floor*dnp < tn_s < t_best*dnp, all
 // rays from one origin; leaves name their origin row by rank.
-struct SharedOrigin : Ray {
+struct SharedOrigin : NearestHit {
   struct Args {
     const float* srows; float ox, oy, oz; const float* d; const float* t_max;
     const float* t_floor; float* t_out; int32_t* tri_out;
   };
-  float t_best, tri_best, fl;
+  static constexpr int G = 1;
+  float fl;
   __device__ SharedOrigin(const Args& a, int64_t i) {
     ox = a.ox; oy = a.oy; oz = a.oz;
     load_d(a.d, i);
@@ -227,40 +252,25 @@ struct SharedOrigin : Ray {
     fl = a.t_floor != nullptr ? __ldg(a.t_floor + i) : 1e-4f;
   }
   __device__ bool live() const { return t_best > 0.0f; }
-  __device__ float bound() const { return t_best; }
   __device__ int child_ref(const float* nd, int k) const {
     const int rf = packed_ref(nd, k);
     if (rf > -2) return rf;
     const int rank = int(__ldg(nd + 28 + k));
     return -2 - (16 * (rank - 1) + ((-2 - rf) & 15));
   }
-  template <int G>
   __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
                        int& tests) {
-    const int cnt = code & 15;
     const float* row = a.srows + int64_t(code >> 4) * SO_ROW_W;
-    float bt = t_best;
-    int bj = -1;
-    for (int j = k; j < cnt; j += G) {
-      float dnp, tn_s, tri_id;
-      ++tests;
-      if (so_cross(row, j, dx, dy, dz, dnp, tn_s, tri_id) &&
-          tn_s > fl * dnp && tn_s < bt * dnp) {
-        bt = tn_s / dnp;                 // so_slot's t: dnp >= EPS here
-        bj = j;
-      }
-    }
-    if (bj < 0) bt = f32_inf();
-    group_nearest<G>(bt, bj, mask);
-    if (bj >= 0) {
-      t_best = bt;
-      tri_best = __ldg(row + SO_SLOT_F * SLOT_N + bj);
-    }
+    nearest<G>(row + SO_SLOT_F * SLOT_N, code & 15, k, mask, tests,
+               [&](int j, float bt, float& t) {
+                 float dnp, tn_s, tri_id;
+                 if (!(so_cross(row, j, dx, dy, dz, dnp, tn_s, tri_id) &&
+                       tn_s > fl * dnp && tn_s < bt * dnp))
+                   return false;
+                 t = tn_s / dnp;       // so_slot's t: dnp >= EPS here
+                 return true;
+               });
     return false;
-  }
-  __device__ void write(const Args& a, int64_t i) const {
-    a.t_out[i] = t_best;
-    a.tri_out[i] = int32_t(tri_best);
   }
 };
 
@@ -270,6 +280,7 @@ struct AnyOpaque : Ray {
     const float* rows; const float* o; const float* d; const float* t_lim;
     bool* blocked_out;
   };
+  static constexpr int G = WIDE;
   float tl;
   bool blocked;
   __device__ AnyOpaque(const Args& a, int64_t i) {
@@ -283,7 +294,6 @@ struct AnyOpaque : Ray {
   __device__ int child_ref(const float* nd, int k) const {
     return packed_ref(nd, k);
   }
-  template <int G>
   __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
                        int& tests) {
     const int cnt = code & 15;
@@ -305,14 +315,15 @@ struct AnyOpaque : Ray {
   }
 };
 
-// G threads a ray (1, 2 or 4) share its walk: thread k tests children k,
-// k+G, ... and slots k, k+G, ... of a leaf. The per-ray stack is stack_n
-// entries of (ref, entry distance) in dynamic shared memory, one column
-// per ray.
-template <class R, int G, bool COUNT>
+// G = R::G threads a ray (1 or 4) share its walk: thread k tests children
+// k, k+G, ... and slots k, k+G, ... of a leaf. The per-ray stack is
+// stack_n entries of (ref, entry distance) in dynamic shared memory, one
+// column per ray.
+template <class R, bool COUNT>
 __global__ void __launch_bounds__(TRACE_THREADS)
 wide_walk_kernel(const float* __restrict__ nodes, const typename R::Args a,
                  int64_t n, int stack_n, int32_t* __restrict__ counts) {
+  constexpr int G = R::G;
   constexpr int RPB = TRACE_THREADS / G;   // rays per block
   extern __shared__ float4 smem4[];
   int* st_ref = reinterpret_cast<int*>(smem4);
@@ -377,7 +388,7 @@ wide_walk_kernel(const float* __restrict__ nodes, const typename R::Args a,
       }
     } else {                               // leaf: its slots, G at a time
       if (COUNT) ++n_leaves;
-      if (ray.template leaf<G>(a, -2 - cur, k, mask, n_slots)) break;
+      if (ray.leaf(a, -2 - cur, k, mask, n_slots)) break;
     }
     bool found = false;                    // pop the nearest live entry
     while (sp > 0) {
@@ -406,42 +417,31 @@ wide_walk_kernel(const float* __restrict__ nodes, const typename R::Args a,
   }
 }
 
-template <class R, int G>
-int launch_walk(const float* nodes, const typename R::Args& a, int64_t n,
-                int stack_n, int32_t* counts, cudaStream_t st) {
-  constexpr int RPB = TRACE_THREADS / G;
-  // at most 96 entries (WIDE_STACK_MAX): 96 KB at G = 1, so the kernel is
-  // allowed that much dynamic shared memory
+template <class R, bool COUNT>
+void launch(const float* nodes, const typename R::Args& a, int64_t n,
+            int stack_n, int32_t* counts, cudaStream_t st) {
+  constexpr int RPB = TRACE_THREADS / R::G;
+  // stack_n <= 96 (WIDE_STACK_MAX): up to 96 KB a block at one thread a
+  // ray, past the default 48 KB of dynamic shared memory
   const size_t smem = size_t(stack_n) * RPB * 8;
-  const unsigned blocks = unsigned((n + RPB - 1) / RPB);
-  if (counts) {
-    cudaFuncSetAttribute(wide_walk_kernel<R, G, true>,
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(wide_walk_kernel<R, COUNT>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          int(smem));
-    wide_walk_kernel<R, G, true><<<blocks, TRACE_THREADS, smem, st>>>(
-        nodes, a, n, stack_n, counts);
-  } else {
-    cudaFuncSetAttribute(wide_walk_kernel<R, G, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         int(smem));
-    wide_walk_kernel<R, G, false><<<blocks, TRACE_THREADS, smem, st>>>(
-        nodes, a, n, stack_n, counts);
-  }
-  return int(cudaGetLastError());
+  wide_walk_kernel<R, COUNT><<<unsigned((n + RPB - 1) / RPB), TRACE_THREADS,
+                               smem, st>>>(nodes, a, n, stack_n, counts);
 }
 
-// The walk with `group` threads a ray (1, 2 or 4).
 template <class R>
-int launch_group(const float* nodes, const typename R::Args& a, int64_t n,
-                 int stack_n, int group, int32_t* counts, void* stream) {
+int launch_walk(const float* nodes, const typename R::Args& a, int64_t n,
+                int stack_n, int32_t* counts, void* stream) {
   if (n == 0) return int(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (group) {
-    case 1: return launch_walk<R, 1>(nodes, a, n, stack_n, counts, st);
-    case 2: return launch_walk<R, 2>(nodes, a, n, stack_n, counts, st);
-    case 4: return launch_walk<R, 4>(nodes, a, n, stack_n, counts, st);
-    default: return int(cudaErrorInvalidValue);
-  }
+  if (counts)
+    launch<R, true>(nodes, a, n, stack_n, counts, st);
+  else
+    launch<R, false>(nodes, a, n, stack_n, counts, st);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -456,29 +456,27 @@ SGE_API int sge_trace_closest(const float* nodes, const float* rows,
                               const float* t_max, int64_t n, int stack_n,
                               int32_t* counts, float* t, int32_t* tri,
                               void* stream) {
-  return sge::launch_group<sge::Closest>(nodes, {rows, o, d, t_max, t, tri},
-                                         n, stack_n, 4, counts, stream);
+  return sge::launch_walk<sge::Closest>(nodes, {rows, o, d, t_max, t, tri}, n,
+                                        stack_n, counts, stream);
 }
 
 // K6: srows (Lp,132) origin rows, origin (ox, oy, oz), d (N,3), t_max (N,),
-// t_floor (N,) or null (1e-4); group: threads a ray. Out: t (N,), tri (N,)
-// int32.
+// t_floor (N,) or null (1e-4). Out: t (N,), tri (N,) int32.
 SGE_API int sge_trace_so(const float* nodes, const float* srows, float ox,
                          float oy, float oz, const float* d,
                          const float* t_max, const float* t_floor, int64_t n,
-                         int stack_n, int group, int32_t* counts, float* t,
-                         int32_t* tri, void* stream) {
-  return sge::launch_group<sge::SharedOrigin>(
+                         int stack_n, int32_t* counts, float* t, int32_t* tri,
+                         void* stream) {
+  return sge::launch_walk<sge::SharedOrigin>(
       nodes, {srows, ox, oy, oz, d, t_max, t_floor, t, tri}, n, stack_n,
-      group, counts, stream);
+      counts, stream);
 }
 
-// K8: rows (M_pad,128), o/d (N,3), t_lim (N,); group: threads a ray. Out:
-// blocked (N,) bool.
+// K8: rows (M_pad,128), o/d (N,3), t_lim (N,). Out: blocked (N,) bool.
 SGE_API int sge_trace_any(const float* nodes, const float* rows,
                           const float* o, const float* d, const float* t_lim,
-                          int64_t n, int stack_n, int group, int32_t* counts,
+                          int64_t n, int stack_n, int32_t* counts,
                           bool* blocked, void* stream) {
-  return sge::launch_group<sge::AnyOpaque>(
-      nodes, {rows, o, d, t_lim, blocked}, n, stack_n, group, counts, stream);
+  return sge::launch_walk<sge::AnyOpaque>(nodes, {rows, o, d, t_lim, blocked},
+                                          n, stack_n, counts, stream);
 }

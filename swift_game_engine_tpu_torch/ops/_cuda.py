@@ -51,9 +51,9 @@ _SIGNATURES = {
                       _P],
     "sge_shadow_walk": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _P, _P, _P,
                         _P],
-    "sge_trace_so": [_P, _P, _F, _F, _F, _P, _P, _P, _I64, _I, _I, _P, _P,
-                     _P, _P],
-    "sge_trace_any": [_P, _P, _P, _P, _P, _I64, _I, _I, _P, _P, _P],
+    "sge_trace_so": [_P, _P, _F, _F, _F, _P, _P, _P, _I64, _I, _P, _P, _P,
+                     _P],
+    "sge_trace_any": [_P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
     "sge_list_raster": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P],
     "sge_list_peeled": [_P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P],
 }

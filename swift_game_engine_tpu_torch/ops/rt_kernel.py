@@ -76,9 +76,9 @@ NODE_F = 32      # f32 per wide node: one 128-byte line
 # K4's per-ray stack lives in shared memory, sized by the tree's own bound
 # (``collapse_wide``); trees that need more entries are refused at build.
 WIDE_STACK_MAX = 96
-# Threads a ray of the K6 and K8 walks (1, 2 or 4; K4 runs 4).
-SO_GROUP = 4
-ANY_GROUP = 4
+# Threads a ray of the wide walks (csrc/bvh_trace.cu: the policies' G): K4
+# and K8 run WIDE, K6 one.
+SO_THREADS = 1
 
 launches = 0         # trace_rays (K4) kernel launches since the last reset
 so_launches = 0      # trace_layers_so (K5) kernel launches
@@ -726,7 +726,7 @@ def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
     return t_opq, tri.to(torch.int32), ts, ids
 
 
-def _launch_k6(tree, srows, o, d, t_max, t_floor, counts, group=SO_GROUP):
+def _launch_k6(tree, srows, o, d, t_max, t_floor, counts):
     dev, n = _check_tree(tree, srows, SO_SLOT_F * SLOT_N + SLOT_N, d, t_max)
     if t_floor is not None:
         _cuda.require(t_floor, "t_floor", (n,), device=dev)
@@ -735,7 +735,7 @@ def _launch_k6(tree, srows, o, d, t_max, t_floor, counts, group=SO_GROUP):
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     _cuda.check(_cuda.library().sge_trace_so(
         tree.nodes.data_ptr(), srows.data_ptr(), ox, oy, oz, d.data_ptr(),
-        t_max.data_ptr(), _cuda.ptr(t_floor), n, tree.stack, group,
+        t_max.data_ptr(), _cuda.ptr(t_floor), n, tree.stack,
         _cuda.ptr(counts), t.data_ptr(), tri.data_ptr(),
         _cuda.stream_ptr(d)), "sge_trace_so")
     return t, tri
@@ -765,49 +765,41 @@ def trace_rays_so_counts(tree: WideTree, srows, o, d, t_max, t_floor=None):
     return t, tri, _count_dict(counts)
 
 
+def _so_closest_leaf(srows, d, t_floor, t_best, tri, lanes, row, mask):
+    """K6's leaf test, as the kernel (one thread a ray) and the reference
+    make it: for rays ``lanes`` where ``mask`` at origin rows ``row``, each
+    slot in order replaces the best hit (``t_best``, ``tri``, updated in
+    place) when tn_s lies in (t_floor*dnp, best*dnp)."""
+    r = srows[row]
+    dl, fl = d[lanes], t_floor[lanes]
+    tb, tr = t_best[lanes], tri[lanes]
+    base = SO_SLOT_F * SLOT_N
+    for j in range(SLOT_N):
+        tid = r[:, base + j]
+        t, dnp, un_s, vn_s, tn_s = _so_slot(
+            dl, r[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)])
+        hit = _so_inside(tid, dnp, un_s, vn_s) & \
+            (tn_s > fl * dnp) & (tn_s < tb * dnp) & mask
+        tb = torch.where(hit, t, tb)
+        tr = torch.where(hit, tid, tr)
+    t_best[lanes], tri[lanes] = tb, tr
+
+
 def trace_rays_so_plain(tree: WideTree, srows, o, d, t_max, t_floor=None,
                         counts=None):
     """Plain PyTorch twin of K6 (``_wide_walk`` with the bound t_best, the
-    leaves by rank): at a leaf, as the kernel's four threads of a ray do,
-    thread k tests slots k, k+4, k+8 (of the leaf's count) in order, each
-    replacing its best when tn_s lies in (t_floor*dnp, best*dnp); the
-    group keeps the nearest of its threads' hits, the first slot among
-    equal t. ``counts``: as for ``_wide_walk``."""
+    leaves by rank, ``_so_closest_leaf`` at a leaf). ``counts``: as for
+    ``_wide_walk``."""
     n, dev = d.shape[0], d.device
     if t_floor is None:
         t_floor = torch.full((n,), 1e-4, device=dev)
     t_best = t_max.clone()
     tri = torch.full((n,), -1.0, device=dev)
-    base = SO_SLOT_F * SLOT_N
-    inf = float("inf")
-    g = SO_GROUP
-    k = torch.arange(g, device=dev)
-    slot = torch.arange(SLOT_N, device=dev)
 
     def visit_leaf(lanes, code):
-        row = srows[torch.div(code, 16, rounding_mode="floor")]
-        cnt = code % 16
-        fl, tb = t_floor[lanes, None], t_best[lanes]
-        t, dnp, un_s, vn_s, tn_s = _so_slot(
-            d[lanes, None, :], row[:, :base].reshape(-1, SLOT_N, SO_SLOT_F))
-        tid = row[:, base:base + SLOT_N]
-        ok = _so_inside(tid, dnp, un_s, vn_s) & (slot < cnt[:, None])
-        bt = tb[:, None].expand(-1, g)
-        bj = torch.full_like(bt, -1, dtype=torch.int64)
-        for s0 in range(0, SLOT_N, g):          # each thread's slots in turn
-            c = slice(s0, s0 + g)
-            acc = ok[:, c] & (tn_s[:, c] > fl * dnp[:, c]) & \
-                (tn_s[:, c] < bt * dnp[:, c])
-            bt = torch.where(acc, t[:, c], bt)
-            bj = torch.where(acc, s0 + k, bj)
-        bt = torch.where(bj >= 0, bt, inf)
-        t_near = bt.amin(1)
-        j = torch.where(bt == t_near[:, None], bj, SLOT_N).amin(1)
-        got = j >= 0
-        t_best[lanes] = torch.where(got, t_near, tb)
-        tri[lanes] = torch.where(got, tid.gather(1, j.clamp(min=0)[:, None])
-                                 [:, 0], tri[lanes])
-        return None, cnt
+        _so_closest_leaf(srows, d, t_floor, t_best, tri, lanes,
+                         torch.div(code, 16, rounding_mode="floor"), True)
+        return None, code % 16
 
     o = torch.as_tensor(o, dtype=torch.float32, device=dev)
     _wide_walk(tree, o.expand(n, 3), _safe_inv(d), t_best, t_max > 0,
@@ -819,32 +811,20 @@ def trace_rays_so_binary(origin_rows, o, d, t_max, t_floor=None,
                          counts=None):
     """K6's function on the binary tree, as the reference and the design
     before the wide walk walk it (``_near_first_walk`` with the bound
-    t_best; ``origin_rows`` the (header, srows) of ``build_origin_rows``):
-    at a leaf whose box the ray hits, each slot in order replaces the best
-    hit when tn_s lies in (t_floor*dnp, t_best*dnp). Kept to count the work
-    of that walk (``counts``: as for ``_near_first_walk``), the bound of
-    K6 before its redesign."""
+    t_best; ``origin_rows`` the (header, srows) of ``build_origin_rows``;
+    ``_so_closest_leaf`` at a leaf whose box the ray hits). Kept to count
+    the work of that walk (``counts``: as for ``_near_first_walk``), the
+    bound of K6 before its redesign."""
     header, srows = origin_rows
     n = d.shape[0]
     if t_floor is None:
         t_floor = torch.full((n,), 1e-4, device=d.device)
     t_best = t_max.clone()
     tri = torch.full((n,), -1.0, device=d.device)
-    base = SO_SLOT_F * SLOT_N
 
     def visit_leaf(lanes, leaf_row, box, _):
-        row = srows[leaf_row]
-        dl, fl = d[lanes], t_floor[lanes]
-        tb, tr = t_best[lanes], tri[lanes]
-        for j in range(SLOT_N):
-            tid = row[:, base + j]
-            t, dnp, un_s, vn_s, tn_s = _so_slot(
-                dl, row[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)])
-            hit = _so_inside(tid, dnp, un_s, vn_s) & \
-                (tn_s > fl * dnp) & (tn_s < tb * dnp) & box
-            tb = torch.where(hit, t, tb)
-            tr = torch.where(hit, tid, tr)
-        t_best[lanes], tri[lanes] = tb, tr
+        _so_closest_leaf(srows, d, t_floor, t_best, tri, lanes, leaf_row,
+                         box)
 
     _near_first_walk(header.reshape(-1, 8),
                      torch.as_tensor(o, dtype=torch.float32, device=d.device),
@@ -853,12 +833,12 @@ def trace_rays_so_binary(origin_rows, o, d, t_max, t_floor=None,
     return t_best, tri.to(torch.int32)
 
 
-def _launch_k8(tree, rows, o, d, t_limit, counts, group=ANY_GROUP):
+def _launch_k8(tree, rows, o, d, t_limit, counts):
     dev, n = _check_tree(tree, rows, ROW, d, t_limit, o)
     blocked = torch.empty(n, dtype=torch.bool, device=dev)
     _cuda.check(_cuda.library().sge_trace_any(
         tree.nodes.data_ptr(), rows.data_ptr(), o.data_ptr(), d.data_ptr(),
-        t_limit.data_ptr(), n, tree.stack, group, _cuda.ptr(counts),
+        t_limit.data_ptr(), n, tree.stack, _cuda.ptr(counts),
         blocked.data_ptr(), _cuda.stream_ptr(o)), "sge_trace_any")
     return blocked
 
