@@ -380,11 +380,11 @@ def _wide_walk(tree: WideTree, o, inv, bound, active, visit_leaf,
         idx = idx[cur[idx] != -1]
 
 
-def trace_rays_plain(tree: WideTree, rows, o, d, t_max, counts=None):
+def trace_rays_plain(tree: WideTree, rows, o, d, t_max):
     """Plain PyTorch twin of the K4 kernel (``_wide_walk`` with the bound
     t_best): at a leaf the slots' Moller-Trumbore tests (the kernel's
     arithmetic) keep the nearest hit below the best, the first slot among
-    equals. ``counts``: as for ``_wide_walk``."""
+    equals."""
     n, dev = o.shape[0], o.device
     t_best = t_max.clone()
     tri_best = torch.full((n,), -1.0, device=dev)
@@ -404,8 +404,7 @@ def trace_rays_plain(tree: WideTree, rows, o, d, t_max, counts=None):
         return None, code % 16
 
     _wide_walk(tree, o, _safe_inv(d), t_best,
-               torch.ones(n, dtype=torch.bool, device=dev), visit_leaf,
-               counts=counts)
+               torch.ones(n, dtype=torch.bool, device=dev), visit_leaf)
     return t_best, tri_best.to(torch.int32)
 
 
