@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--k4-against LIB]
+    python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from ``swift_game_engine_tpu_torch/
@@ -43,15 +43,14 @@ and read just after. Then:
     lists, and its first layer against K9's first peel), and both are
     timed (CUDA events); each kernel's bound — the larger of its bytes over
     the card's memory rate and its operations over the FP32 rate — is
-    computed from the same inputs: for K1-K4 from the work their counting
-    instantiations count on that call (printed as "K<n> work" lines and
-    checked equal to the kernel's records), with the bytes floor and a
-    one-test-per-record bound beside; for K6 and K8 (instances of K4's
-    wide walk) from the tests the binary walk they replaced makes on the
-    subset, scaled (``trace_rays_so_binary``, ``trace_shadow_any_binary``:
-    their bound before the redesign), with their counting instantiations'
-    own bound and the records bound beside, and both walks' work per ray
-    printed. K1 is reported per role (its layer count: the opaque and
+    computed from the same inputs: for K1-K4, K6 and K8 from the work
+    their counting instantiations count on that call (printed as "K<n>
+    work" lines and checked equal to the kernel's records), with the bytes
+    floor and a one-test-per-record bound beside; K6 and K8 (instances of
+    K4's wide walk) also print their bound before the redesign, the tests
+    the binary walk they replaced makes on the subset, scaled
+    (``trace_rays_so_binary``, ``trace_shadow_any_binary``), and both
+    walks' work per ray. K1 is reported per role (its layer count: the opaque and
     translucent rasters of path 1, path 4's raster), with every record
     where it differs from its plain version. A kernel's entry in the JSON
     line carries the path name after an ``@`` for every path but the first
@@ -65,10 +64,7 @@ and read just after. Then:
     and a 160x90 frame configured as path 6 (K6, K8, K4).
 
 ``path_engines`` is the one definition of the six paths;
-``profile_port.py`` drives the same ones. ``--k4-against LIB`` also holds
-K4's records on path 1's first call bit for bit against
-``sge_trace_closest`` of another build of the kernel library (say, the
-parent commit's ``swift_game_engine_tpu_torch/build/libsge_kernels_*.so``).
+``profile_port.py`` drives the same ones.
 
 It prints the card (``nvidia-smi`` name and power limit), the build and
 scene statistics, each path's frame times and launches, one JSON line of
@@ -79,7 +75,6 @@ non-zero at once.
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import os
@@ -278,37 +273,7 @@ def path_engines(dev):
                                   device=dev)
 
 
-def _k4_records_of(lib_path, tree, rows, o, d, t_max):
-    """K4's records from ``sge_trace_closest`` of another build of the
-    kernel library (another checkout's ``swift_game_engine_tpu_torch/
-    build/libsge_kernels_*.so``) on the same inputs."""
-    import ctypes
-
-    import torch
-
-    from swift_game_engine_tpu_torch.ops import _cuda
-    fn = ctypes.CDLL(lib_path).sge_trace_closest
-    fn.argtypes = _cuda._SIGNATURES["sge_trace_closest"]
-    fn.restype = ctypes.c_int
-    n = o.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
-    tri = torch.empty(n, dtype=torch.int32, device=o.device)
-    err = fn(tree.nodes.data_ptr(), rows.data_ptr(), o.data_ptr(),
-             d.data_ptr(), t_max.data_ptr(), n, tree.stack, None,
-             t.data_ptr(), tri.data_ptr(), _cuda.stream_ptr(o))
-    torch.cuda.synchronize()
-    if err:
-        _fail(f"sge_trace_closest of {lib_path} failed ({err})")
-    return t, tri
-
-
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--k4-against", metavar="LIB",
-                    help="also hold K4's records on path 1's first call "
-                    "bit for bit against sge_trace_closest of this kernel "
-                    "library (another checkout's build)")
-    opts = ap.parse_args(argv)
+def main():
     if not os.path.isdir(os.path.join(REPO, "swift_game_engine_tpu_torch")):
         _fail("run chip_smoke.py from the root of a checkout")
     sys.path.insert(0, REPO)
@@ -674,21 +639,13 @@ def main(argv=None):
         err = _compare(f"K4 ({o.shape[0]} rays, {rows.shape[0]} rows, "
                        f"{tree.nodes.shape[0]} wide nodes)", tri_k, tri_p,
                        [t_k], [t_p])
-        if opts.k4_against and not tag:
-            t_o, tri_o = _k4_records_of(opts.k4_against, tree, rows, o, d,
-                                        t_max)
-            same = torch.equal(t_o, t_k) and torch.equal(tri_o, tri_k)
-            print(f"  K4 against {opts.k4_against}: records "
-                  f"{'bit-identical' if same else 'DIFFER'} on "
-                  f"{o.shape[0]} rays")
-            if not same:
-                _fail("K4's records differ from the other build's")
         # the work of the frame's call, from the counting instantiation
         t_c, tri_c, cnt = RK.trace_rays_counts(tree, rows, o, d, t_max)
         if not (torch.equal(tri_c, tri_k) and torch.equal(t_c, t_k)):
             _fail("K4's counting instantiation differs from the kernel")
-        print(f"  K4 work ({RK.WIDE} threads a ray, stack {tree.stack}): "
-              + _count_line(cnt, 32 // RK.WIDE))
+        threads = RK.walk_threads("K4")
+        print(f"  K4 work (threads a ray {threads}, stack {tree.stack}): "
+              + _count_line(cnt, 32 // threads))
         # counted: the non-empty child boxes and the triangles the walk
         # tests; records: one triangle test per ray with a hit
         ops = int(cnt["boxes"].sum()) * SLAB_OPS + \
@@ -759,12 +716,14 @@ def main(argv=None):
                f" (plain on {sub.numel()} of {n} origins)")
 
     def walk_bounds(ins, outs, own, binary, n_sub, n, records):
-        """The three bounds of a wide walk's call: (the binary walk's tests
-        on the subset, scaled to the call: the bound before the redesign,
-        which the JSON line keeps; the kernel's own counted tests; one test
-        per record), each the larger of the bytes and the operations."""
-        return (_bound(ins, outs, binary * n / n_sub), _bound(ins, outs, own),
-                _bound(ins, outs, records))
+        """The bounds of a wide walk's call, each the larger of the bytes
+        and the operations: (the kernel's own counted tests, which the JSON
+        line reports; the bytes floor; one test per record; the binary
+        walk's tests on the subset, scaled to the call: the bound before
+        the redesign)."""
+        return (_bound(ins, outs, own), _bound(ins, outs, 0),
+                _bound(ins, outs, records),
+                _bound(ins, outs, binary * n / n_sub))
 
     def check_k6(args, c, tag):
         """The dense layer-1 call and the first continuation (t floor):
@@ -773,6 +732,7 @@ def main(argv=None):
         (the design before the wide walk) on the subset."""
         err = 0.0
         rows = args["K4"][0][1]            # the packed rows of the frame
+        threads = RK.walk_threads("K6")
         for key in ("K6", "K6/floor"):
             (tree, srows, origin, d, t_max, *rest), kw = args[key]
             t_floor = rest[0] if rest else kw.get("t_floor")
@@ -793,8 +753,8 @@ def main(argv=None):
             if not (torch.equal(tri_c, out6[1]) and torch.equal(t_c,
                                                                 out6[0])):
                 _fail("K6's counting instantiation differs from the kernel")
-            print(f"  K6 work {role} ({RK.SO_THREADS} thread a ray, stack "
-                  f"{tree.stack}): " + _count_line(cnt, 32 // RK.SO_THREADS))
+            print(f"  K6 work {role} (threads a ray {threads}, stack "
+                  f"{tree.stack}): " + _count_line(cnt, 32 // threads))
             print(f"  K6 work {role}, per ray of the subset: " +
                   _ray_line({k: v[sub] for k, v in cnt.items()}))
             # the binary walk's work on the same rays
@@ -809,7 +769,7 @@ def main(argv=None):
             if key == "K6":      # the dense call is timed and bounded
                 plain_ms = ms
                 ins, outs = [tree.nodes, srows, d, t_max], list(out6)
-                binary, own, records = walk_bounds(
+                own, floor, records, binary = walk_bounds(
                     ins, outs,
                     int(cnt["boxes"].sum()) * SLAB_OPS +
                     int(cnt["slots"].sum()) * SO_SLOT_OPS,
@@ -822,10 +782,10 @@ def main(argv=None):
                "swift_game_engine_tpu/ops/rt_kernel.py:1327", c["K6"], err,
                _time_ms(lambda: RK.trace_rays_so(tree, srows, origin, d,
                                                  t_max), 5),
-               plain_ms, binary,
-               f" (the dense call; plain on {n_sub} of {n} rays; counted "
-               f"bound {own[0]:.4f} ms by {own[1]}, records bound "
-               f"{records[0]:.4f} ms)")
+               plain_ms, own,
+               f" (the dense call; plain on {n_sub} of {n} rays; binary "
+               f"walk's bound {binary[0]:.4f} ms by {binary[1]})",
+               floor=floor, records=records)
 
     def check_k8(args, c, tag):
         (tree, rows, o, d, t_lim), _ = args["K8"]
@@ -842,8 +802,9 @@ def main(argv=None):
         out_c, cnt = RK.trace_shadow_any_counts(tree, rows, o, d, t_lim)
         if not torch.equal(out_c, out8):
             _fail("K8's counting instantiation differs from the kernel")
-        print(f"  K8 work ({RK.WIDE} threads a ray, stack {tree.stack}): "
-              + _count_line(cnt, 32 // RK.WIDE))
+        threads = RK.walk_threads("K8")
+        print(f"  K8 work (threads a ray {threads}, stack {tree.stack}): "
+              + _count_line(cnt, 32 // threads))
         print("  K8 work, per ray of the subset: " +
               _ray_line({k: v[sub] for k, v in cnt.items()}))
         # the binary walk's work on the same rays
@@ -853,7 +814,7 @@ def main(argv=None):
               f"{walk['slot']} slot tests")
         print("  K8 binary walk, per ray of the subset: " + _ray_line(walk))
         ins, outs = [tree.nodes, rows, o, d, t_lim], [out8]
-        binary, own, records = walk_bounds(
+        own, floor, records, binary = walk_bounds(
             ins, outs,
             int(cnt["boxes"].sum()) * SLAB_OPS +
             int(cnt["slots"].sum()) * MT_OPS,
@@ -864,10 +825,10 @@ def main(argv=None):
                "swift_game_engine_tpu/ops/rt_kernel.py:902", c["K8"], err,
                _time_ms(lambda: RK.trace_shadow_any(tree, rows, o, d, t_lim),
                         5),
-               plain_ms, binary,
-               f" (plain on {sub.numel()} of {n} rays; counted bound "
-               f"{own[0]:.4f} ms by {own[1]}, records bound "
-               f"{records[0]:.4f} ms)")
+               plain_ms, own,
+               f" (plain on {sub.numel()} of {n} rays; binary walk's bound "
+               f"{binary[0]:.4f} ms by {binary[1]})",
+               floor=floor, records=records)
 
     def list_bound(cnt, cand, prev, outs):
         """As K1 is bounded: the candidate rows the tiles' counts name, read

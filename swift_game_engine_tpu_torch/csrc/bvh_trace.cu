@@ -11,9 +11,12 @@
 // K6, shared-origin closest hit past a per-lane floor. Replaces
 // rt_kernel.py:_kernel_so_ordered (wrapper trace_rays_so): per ray the
 // nearest hit of any kind with t_floor*dnp < tn_s < t_best*dnp (t_floor
-// 1e-4 unless given), tested by so_slot (common.cuh) on the origin rows of
+// 1e-4 unless given), tested by so_cross<true> (common.cuh: the dot
+// products fused as XLA fuses the reference's) on the origin rows of
 // build_origin_rows, in the reference's operation order; a miss keeps
-// t = t_max and id -1, a lane with t_max <= 0 is inactive.
+// t = t_max and id -1, a lane with t_max <= 0 is inactive. A floor set at
+// a hit's t therefore lets that hit through exactly where the reference
+// does: where t*dnp rounds below tn_s.
 //
 // K8, any-hit occlusion against OPAQUE triangles (integral ids; a
 // translucent id carries +0.5), the shadow prepass. Replaces
@@ -235,8 +238,8 @@ struct Closest : NearestHit {
   }
 };
 
-// K6: the nearest so_cross hit with t_floor*dnp < tn_s < t_best*dnp, all
-// rays from one origin; leaves name their origin row by rank.
+// K6: the nearest so_cross<true> hit with t_floor*dnp < tn_s < t_best*dnp,
+// all rays from one origin; leaves name their origin row by rank.
 struct SharedOrigin : NearestHit {
   struct Args {
     const float* srows; float ox, oy, oz; const float* d; const float* t_max;
@@ -264,7 +267,8 @@ struct SharedOrigin : NearestHit {
     nearest<G>(row + SO_SLOT_F * SLOT_N, code & 15, k, mask, tests,
                [&](int j, float bt, float& t) {
                  float dnp, tn_s, tri_id;
-                 if (!(so_cross(row, j, dx, dy, dz, dnp, tn_s, tri_id) &&
+                 if (!(so_cross<true>(row, j, dx, dy, dz, dnp, tn_s,
+                                      tri_id) &&
                        tn_s > fl * dnp && tn_s < bt * dnp))
                    return false;
                  t = tn_s / dnp;       // so_slot's t: dnp >= EPS here
@@ -479,4 +483,16 @@ SGE_API int sge_trace_any(const float* nodes, const float* rows,
                           bool* blocked, void* stream) {
   return sge::launch_walk<sge::AnyOpaque>(nodes, {rows, o, d, t_lim, blocked},
                                           n, stack_n, counts, stream);
+}
+
+// Threads a ray of a walk's policy: 0 K4, 1 K6, 2 K8; -1 otherwise. The
+// counting instantiations' callers group their per-ray counts by warp
+// with it.
+SGE_API int sge_walk_threads(int walk) {
+  switch (walk) {
+    case 0: return sge::Closest::G;
+    case 1: return sge::SharedOrigin::G;
+    case 2: return sge::AnyOpaque::G;
+    default: return -1;
+  }
 }

@@ -50,20 +50,33 @@ __device__ __forceinline__ float safe_inv(float v) {
 constexpr int SO_SLOT_F = 10;                          // k_u, k_v, k_d, tn
 constexpr int SO_ROW_W = SO_SLOT_F * SLOT_N + SLOT_N;  // + the ids
 
+// d . s[0:3] as the reference computes it: separately rounded,
+// (dx*s0 + dy*s1) + dz*s2; or, FUSED, as XLA contracts that sum when it
+// runs the reference on the CPU, fma(dz, s2, fma(dx, s0, dy*s1)) (K6's
+// t then equals the reference's bit for bit on the same origin rows).
+template <bool FUSED>
+__device__ __forceinline__ float dot3(const float* __restrict__ s, float dx,
+                                      float dy, float dz) {
+  if (FUSED)
+    return fmaf(dz, __ldg(s + 2), fmaf(dx, __ldg(s), dy * __ldg(s + 1)));
+  return (dx * __ldg(s) + dy * __ldg(s + 1)) + dz * __ldg(s + 2);
+}
+
 // Slot j of origin row `row` against direction d: the sign-folded terms of
-// swift_game_engine_tpu/ops/rt_kernel.py:1393-1401, in its operation order.
-// Returns whether the ray's line crosses the triangle (id >= 0,
-// dnp >= EPS, barycentric range), with dnp, tn_s and the id; the caller
-// adds its t range test on tn_s or t = tn_s / dnp.
+// swift_game_engine_tpu/ops/rt_kernel.py:1393-1401, in its operation order
+// (its dot products as dot3<FUSED>). Returns whether the ray's line crosses
+// the triangle (id >= 0, dnp >= EPS, barycentric range), with dnp, tn_s and
+// the id; the caller adds its t range test on tn_s or t = tn_s / dnp.
+template <bool FUSED = false>
 __device__ __forceinline__ bool so_cross(const float* __restrict__ row, int j,
                                          float dx, float dy, float dz,
                                          float& dnp, float& tn_s,
                                          float& tri_id) {
   tri_id = __ldg(row + SO_SLOT_F * SLOT_N + j);
   const float* s = row + SO_SLOT_F * j;
-  const float un = (dx * __ldg(s) + dy * __ldg(s + 1)) + dz * __ldg(s + 2);
-  const float vn = (dx * __ldg(s + 3) + dy * __ldg(s + 4)) + dz * __ldg(s + 5);
-  const float dn = (dx * __ldg(s + 6) + dy * __ldg(s + 7)) + dz * __ldg(s + 8);
+  const float un = dot3<FUSED>(s, dx, dy, dz);
+  const float vn = dot3<FUSED>(s + 3, dx, dy, dz);
+  const float dn = dot3<FUSED>(s + 6, dx, dy, dz);
   const float tn = __ldg(s + 9);
   const float sgn = dn < 0.0f ? -1.0f : 1.0f;
   dnp = dn * sgn;

@@ -10,6 +10,8 @@ when the module is imported: the CPU paths never touch it.
 ``--fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch twins and the reference compute them, so a kernel and its
 twin disagree only where a triangle edge passes exactly through a sample.
+Where a kernel fuses on purpose (K6's dot products, ``fmaf`` as XLA fuses
+the reference's), its twin computes the same fused operations.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ _SIGNATURES = {
     "sge_trace_so": [_P, _P, _F, _F, _F, _P, _P, _P, _I64, _I, _P, _P, _P,
                      _P],
     "sge_trace_any": [_P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
+    "sge_walk_threads": [_I],
     "sge_list_raster": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P],
     "sge_list_peeled": [_P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P],
 }

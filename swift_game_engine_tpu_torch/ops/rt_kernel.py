@@ -76,9 +76,6 @@ NODE_F = 32      # f32 per wide node: one 128-byte line
 # K4's per-ray stack lives in shared memory, sized by the tree's own bound
 # (``collapse_wide``); trees that need more entries are refused at build.
 WIDE_STACK_MAX = 96
-# Threads a ray of the wide walks (csrc/bvh_trace.cu: the policies' G): K4
-# and K8 run WIDE, K6 one.
-SO_THREADS = 1
 
 launches = 0         # trace_rays (K4) kernel launches since the last reset
 so_launches = 0      # trace_layers_so (K5) kernel launches
@@ -279,6 +276,13 @@ def trace_rays_counts(tree: WideTree, rows, o, d, t_max):
     counts = _counts(o.shape[0], o.device)
     t, tri = _launch_k4(tree, rows, o, d, t_max, counts)
     return t, tri, _count_dict(counts)
+
+
+def walk_threads(walk: str) -> int:
+    """Threads a ray of wide walk ``walk`` ("K4", "K6" or "K8") as the
+    built kernel library runs it (card only): the group by which the
+    counting instantiations' per-ray counts fill a warp."""
+    return _cuda.library().sge_walk_threads(("K4", "K6", "K8").index(walk))
 
 
 # the 4-input sorting network of the wide walks' child order: compare-
@@ -666,11 +670,25 @@ def _near_first_walk(hdr, o, inv, active, bound_of, visit_leaf, counts=None):
         idx = idx[nxt >= 0]
 
 
-def _so_slot(dl, s):
+def _dot_fused(a, b):
+    """``_dot`` as XLA contracts it on the CPU and K6 computes it:
+    fma(a2, b2, fma(a0, b0, a1*b1)) in f32. Each fma is taken in f64, which
+    holds the f32 product exactly, then rounded to f32 (equal to the fused
+    f32 operation except where the f64 sum lands exactly halfway between
+    two f32 values)."""
+    a, b = a.double(), b.double()
+    p = (a[..., 1] * b[..., 1]).float().double()
+    p = (a[..., 0] * b[..., 0] + p).float().double()
+    return (a[..., 2] * b[..., 2] + p).float()
+
+
+def _so_slot(dl, s, fused=False):
     """The shared-origin slot test's sign-folded terms (rt_kernel.py:
     1393-1401) of directions ``dl`` against slot constants ``s`` (..., 10)
-    -> (t, dnp, un_s, vn_s, tn_s)."""
-    un, vn, dn = (_dot(dl, s[..., 3 * c:3 * c + 3]) for c in range(3))
+    -> (t, dnp, un_s, vn_s, tn_s); ``fused``: its dot products as
+    ``_dot_fused`` (K6), else separately rounded (K5)."""
+    dot = _dot_fused if fused else _dot
+    un, vn, dn = (dot(dl, s[..., 3 * c:3 * c + 3]) for c in range(3))
     sgn = torch.where(dn < 0, -1.0, 1.0)
     dnp, un_s, vn_s, tn_s = dn * sgn, un * sgn, vn * sgn, s[..., 9] * sgn
     return tn_s / torch.where(dnp >= EPS, dnp, 1.0), dnp, un_s, vn_s, tn_s
@@ -766,9 +784,10 @@ def trace_rays_so_counts(tree: WideTree, srows, o, d, t_max, t_floor=None):
 
 def _so_closest_leaf(srows, d, t_floor, t_best, tri, lanes, row, mask):
     """K6's leaf test, as the kernel (one thread a ray) and the reference
-    make it: for rays ``lanes`` where ``mask`` at origin rows ``row``, each
-    slot in order replaces the best hit (``t_best``, ``tri``, updated in
-    place) when tn_s lies in (t_floor*dnp, best*dnp)."""
+    make it (its dot products fused, as XLA fuses the reference's): for
+    rays ``lanes`` where ``mask`` at origin rows ``row``, each slot in
+    order replaces the best hit (``t_best``, ``tri``, updated in place)
+    when tn_s lies in (t_floor*dnp, best*dnp)."""
     r = srows[row]
     dl, fl = d[lanes], t_floor[lanes]
     tb, tr = t_best[lanes], tri[lanes]
@@ -776,7 +795,7 @@ def _so_closest_leaf(srows, d, t_floor, t_best, tri, lanes, row, mask):
     for j in range(SLOT_N):
         tid = r[:, base + j]
         t, dnp, un_s, vn_s, tn_s = _so_slot(
-            dl, r[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)])
+            dl, r[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)], fused=True)
         hit = _so_inside(tid, dnp, un_s, vn_s) & \
             (tn_s > fl * dnp) & (tn_s < tb * dnp) & mask
         tb = torch.where(hit, t, tb)

@@ -11,15 +11,19 @@ tests/test_torch_trace_frame.py run them.
 
   * K6 twin vs trace_rays_so on the 250-triangle soup of
     test_torch_trace_kernels.py (two fifths translucent), 512 rays from one
-    origin, a seventeenth of them inactive, with the default floor and with
-    a per-lane floor past the first hit (as tests/test_so_kernel.py builds
-    it). The TPU kernel walks the binary tree, ordering a packet's children
-    by the packet's nearest entry; the twin walks the wide tree rebuilt
-    from the reference's rows, each ray in its own order; the closest hit
-    does not depend on the order except at exactly equal t, so the triangle
-    ids agree on all but at most one ray in 512, and t to 1e-5 relative
-    where they agree. The twin on the binary tree, which counts the work
-    of that walk, is held to the same tolerance.
+    origin, a seventeenth of them inactive, on the reference's origin rows,
+    with the default floor, with a per-lane floor past the first hit (as
+    tests/test_so_kernel.py builds it) and with the floor exactly at the
+    first hit's t. The TPU kernel walks the binary tree, ordering a
+    packet's children by the packet's nearest entry; the twin walks the
+    wide tree rebuilt from the reference's rows, each ray in its own order;
+    the closest hit does not depend on the order except at exactly equal t,
+    so the triangle ids agree on all but at most one ray in 512, and t to
+    1e-5 relative where they agree. With the floor at the first hit, which
+    hits come back is decided by the last bit of t*dnp: the twin fuses the
+    slot test's dot products as XLA fuses the reference's, so that it
+    decides as the reference does. The twin on the binary tree, which
+    counts the work of that walk, is held to the same tolerance.
   * K6 twin with the floor exactly at each ray's first hit: no hit comes
     back below the floor, and every hit returned passes the contract's
     tn_s > t_floor*dnp in f32 -- the first hit itself comes back only
@@ -80,9 +84,13 @@ t1, tri1 = np.asarray(t1), np.asarray(tri1)
 floor = np.where(tri1 >= 0, t1 + 1e-3, 1e-4).astype(np.float32)
 t2, tri2 = K.trace_rays_so(so, o, jnp.asarray(d), jnp.asarray(t_max),
                            t_floor=jnp.asarray(floor), interpret=True)
-np.savez(sys.argv[1], rows=np.asarray(kb.rows), o=o, d=d, t_max=t_max,
-         floor=floor, t1=t1, tri1=tri1, t2=np.asarray(t2),
-         tri2=np.asarray(tri2))
+floor3 = np.where(tri1 >= 0, t1, 1e-4).astype(np.float32)
+t3, tri3 = K.trace_rays_so(so, o, jnp.asarray(d), jnp.asarray(t_max),
+                           t_floor=jnp.asarray(floor3), interpret=True)
+np.savez(sys.argv[1], rows=np.asarray(kb.rows), srows=np.asarray(so[1]),
+         o=o, d=d, t_max=t_max, floor=floor, t1=t1, tri1=tri1, t2=np.asarray(t2),
+         tri2=np.asarray(tri2), floor3=floor3, t3=np.asarray(t3),
+         tri3=np.asarray(tri3))
 """
 
 K8_CODE = SOUP + r"""
@@ -136,49 +144,60 @@ def k6(tmp_path_factory):
 
 
 def _k6_twin(k6, t_floor, walk="wide"):
-    """K6 on the reference's rows: the wrapper (the wide walk's twin here),
-    or the binary walk's twin."""
+    """K6 on the reference's rows and origin rows (build_origin_rows is
+    held against the reference's in test_torch_trace_kernels.py): the
+    wrapper (the wide walk's twin here), or the binary walk's twin."""
     rows = _t(k6["rows"])
-    so = RK.build_origin_rows(rows, _t(k6["o"]))
+    header, _ = RK.build_origin_rows(rows, _t(k6["o"]))
     args = (k6["o"].tolist(), _t(k6["d"]), _t(k6["t_max"]), t_floor)
     if walk == "binary":
-        return RK.trace_rays_so_binary(so, *args)
-    return RK.trace_rays_so(RK.wide_tree(rows), so[1], *args)
+        return RK.trace_rays_so_binary((header, _t(k6["srows"])), *args)
+    return RK.trace_rays_so(RK.wide_tree(rows), _t(k6["srows"]), *args)
 
 
-def _k6_check(k6, floor, t, tri):
-    rt, rtri = (k6["t2"], k6["tri2"]) if floor else (k6["t1"], k6["tri1"])
+# the three reference runs: (t, tri, floor key) of each
+K6_CASES = {"no_floor": ("t1", "tri1", None), "floor": ("t2", "tri2", "floor"),
+            "floor_at_hit": ("t3", "tri3", "floor3")}
+
+
+def _k6_check(k6, case, t, tri):
+    t_key, tri_key, floor_key = K6_CASES[case]
+    rt, rtri = k6[t_key], k6[tri_key]
     t, tri = t.numpy(), tri.numpy()
     same = tri == rtri
     assert (~same).sum() <= 1, np.nonzero(~same)
     np.testing.assert_allclose(t[same], rt[same], rtol=1e-5)
-    assert (rtri >= 0).sum() > (40 if floor else 150)    # hits exercised
+    assert (rtri >= 0).sum() > (40 if floor_key else 150)  # hits exercised
     inactive = k6["t_max"] <= 0
     assert (t[inactive] == 0).all() and (tri[inactive] == -1).all()
-    if floor:   # the continuation lies past the floor
-        hit = tri >= 0
-        assert (t[hit] > k6["floor"][hit]).all()
+    if floor_key:   # the continuation lies past the floor (or at it, for
+        hit = tri >= 0   # the first hit where t*dnp rounds below tn_s)
+        fl = k6[floor_key][hit]
+        assert (t[hit] > fl).all() if case == "floor" else \
+            (t[hit] >= fl).all()
 
 
-@pytest.mark.parametrize("floor", [False, True], ids=["no_floor", "floor"])
-def test_k6_twin_matches_reference(k6, floor):
-    t_floor = _t(k6["floor"]) if floor else None
-    _k6_check(k6, floor, *_k6_twin(k6, t_floor))
+def _k6_floor(k6, case):
+    floor_key = K6_CASES[case][2]
+    return _t(k6[floor_key]) if floor_key else None
 
 
-@pytest.mark.parametrize("floor", [False, True], ids=["no_floor", "floor"])
-def test_k6_binary_twin_matches_reference(k6, floor):
-    t_floor = _t(k6["floor"]) if floor else None
-    _k6_check(k6, floor, *_k6_twin(k6, t_floor, "binary"))
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_k6_twin_matches_reference(k6, case):
+    _k6_check(k6, case, *_k6_twin(k6, _k6_floor(k6, case)))
+
+
+@pytest.mark.parametrize("case", list(K6_CASES))
+def test_k6_binary_twin_matches_reference(k6, case):
+    _k6_check(k6, case, *_k6_twin(k6, _k6_floor(k6, case), "binary"))
 
 
 def test_k6_floor_at_a_hit(k6):
     """The floor exactly at each ray's first hit t: the contract is
     tn_s > t_floor*dnp in f32, so the first hit comes back only where
     t*dnp rounds below tn_s, and then at t = floor."""
-    rows = _t(k6["rows"])
-    tree = RK.wide_tree(rows)
-    _, srows = RK.build_origin_rows(rows, _t(k6["o"]))
+    tree = RK.wide_tree(_t(k6["rows"]))
+    srows = _t(k6["srows"])
     d, t_max = _t(k6["d"]), _t(k6["t_max"])
     t1, tri1 = RK.trace_rays_so(tree, srows, k6["o"].tolist(), d, t_max)
     hit1 = tri1 >= 0
@@ -196,7 +215,7 @@ def test_k6_floor_at_a_hit(k6):
               [:, 1:].T)
     slot = srows[row, :base].reshape(-1, RK.SLOT_N, RK.SO_SLOT_F)[
         torch.arange(lane.numel()), j]
-    t, dnp, _, _, tn_s = RK._so_slot(d[lane], slot)
+    t, dnp, _, _, tn_s = RK._so_slot(d[lane], slot, fused=True)
     assert bool((tn_s > floor[lane] * dnp).all())
     assert torch.equal(t, t2[lane])
     again = lane[tri2[lane] == tri1[lane]]            # the first hit again
