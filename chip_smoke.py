@@ -658,63 +658,6 @@ def main():
                plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
                records=_bound(ins, outs, int((tri_k >= 0).sum()) * MT_OPS))
 
-    def check_k5(args, c, tag):
-        (so_rows, origin, d, t_max), kw = args["K5"]
-        n_slots = kw.get("n_slots", 3)
-        n = d.shape[0]
-        sub = _subset(n, dev)
-        d_s, tm_s = d[sub].contiguous(), t_max[sub].contiguous()
-        k5 = RK.trace_layers_so(so_rows, origin, d_s, tm_s, n_slots)
-        walk = {}
-        p5, plain_ms = _timed(lambda: RK.trace_layers_so_plain(
-            so_rows, origin, d_s, tm_s, n_slots, counts=walk))
-        err = _compare(f"K5 ({sub.numel()} of {n} rays, {n_slots} slots, "
-                       f"{so_rows[0].numel() // 8} rows)",
-                       torch.cat([k5[1][:, None].float(), k5[3]], 1),
-                       torch.cat([p5[1][:, None].float(), p5[3]], 1),
-                       [k5[0], k5[2]], [p5[0], p5[2]])
-        out5 = RK.trace_layers_so(so_rows, origin, d, t_max, n_slots)
-        ops5 = (walk["box"] * SLAB_OPS + walk["slot"] * SO_SLOT_OPS) \
-            * n / sub.numel()
-        print(f"  K5 walk on the subset: {walk['box']} box tests, "
-              f"{walk['slot']} slot tests")
-        report("so_layers" + tag,
-               "swift_game_engine_tpu_torch/csrc/so_layers.cu",
-               "swift_game_engine_tpu/ops/rt_kernel.py:1503", c["K5"], err,
-               _time_ms(lambda: RK.trace_layers_so(so_rows, origin, d, t_max,
-                                                   n_slots), 5),
-               plain_ms,
-               _bound([*so_rows, d, t_max], list(out5), ops5),
-               f" (plain on {sub.numel()} of {n} rays)")
-
-    def check_k7(args, c, tag):
-        (sh_rows, l, o, t_lim), kw = args["K7"]
-        n_slots = kw.get("n_slots", 4)
-        n = o.shape[0]
-        sub = _subset(n, dev)
-        o_s, tl_s = o[sub].contiguous(), t_lim[sub].contiguous()
-        k7 = RK.trace_shadow_factor(sh_rows, l, o_s, tl_s, n_slots)
-        walk = {}
-        p7, plain_ms = _timed(lambda: RK.trace_shadow_factor_plain(
-            sh_rows, l, o_s, tl_s, n_slots, counts=walk))
-        err = _compare(f"K7 ({sub.numel()} of {n} origins, {n_slots} slots)",
-                       torch.cat([(k7[0] < 1e30)[:, None].float(), k7[2]], 1),
-                       torch.cat([(p7[0] < 1e30)[:, None].float(), p7[2]], 1),
-                       [k7[0], k7[1]], [p7[0], p7[1]])
-        out7 = RK.trace_shadow_factor(sh_rows, l, o, t_lim, n_slots)
-        ops7 = (walk["box"] * SLAB_OPS + walk["slot"] * WALK_SLOT_OPS) \
-            * n / sub.numel()
-        print(f"  K7 walk on the subset: {walk['box']} box tests, "
-              f"{walk['slot']} slot tests")
-        report("shadow_walk" + tag,
-               "swift_game_engine_tpu_torch/csrc/shadow_walk.cu",
-               "swift_game_engine_tpu/ops/rt_kernel.py:1113", c["K7"], err,
-               _time_ms(lambda: RK.trace_shadow_factor(sh_rows, l, o, t_lim,
-                                                       n_slots), 5),
-               plain_ms,
-               _bound([*sh_rows, o, t_lim], list(out7), ops7),
-               f" (plain on {sub.numel()} of {n} origins)")
-
     def walk_bounds(ins, outs, own, binary, n_sub, n, records):
         """The bounds of a wide walk's call, each the larger of the bytes
         and the operations: (the kernel's own counted tests, which the JSON
@@ -724,6 +667,125 @@ def main():
         return (_bound(ins, outs, own), _bound(ins, outs, 0),
                 _bound(ins, outs, records),
                 _bound(ins, outs, binary * n / n_sub))
+
+    def slot_walk(key, launch, twin, counting, binary, args, rows):
+        """K5 or K7, a slot walk of the wide tree: records against the wide
+        twin on a subset of the lanes (keyed by the opaque id, or whether
+        there is an opaque hit, and the slot ids; t_opq and the slots' t
+        compared where the keys agree); the call's work by the counting
+        instantiation, the binary walk's (the design before the redesign)
+        on the subset; times at one and four threads a ray."""
+        (tree, srows, shared, *lane), _ = args[key]
+        n = lane[0].shape[0]
+        sub = _subset(n, dev)
+        lane_s = [x[sub].contiguous() for x in lane]
+
+        def keyed(r):
+            opq = r[1].float() if key == "K5" else (r[0] < 1e30).float()
+            return torch.cat([opq[:, None], r[-1]], 1), [r[0], r[-2]]
+        k = launch(tree, srows, shared, *lane_s)
+        p, plain_ms = _timed(lambda: twin(tree, srows, shared, *lane_s))
+        err = _compare(f"{key} ({sub.numel()} of {n} lanes, "
+                       f"{k[-1].shape[1]} slots)", keyed(k)[0], keyed(p)[0],
+                       keyed(k)[1], keyed(p)[1])
+        out = launch(tree, srows, shared, *lane)
+        *out_c, cnt = counting(tree, srows, shared, *lane)
+        if not all(torch.equal(x, y) for x, y in zip(out_c, out)):
+            _fail(f"{key}'s counting instantiation differs from the kernel")
+        threads = RK.walk_threads(key)
+        print(f"  {key} work (threads a ray {threads}, stack {tree.stack}): "
+              + _count_line(cnt, 32 // threads))
+        print(f"  {key} work, per ray of the subset: " +
+              _ray_line({x: v[sub] for x, v in cnt.items()}))
+        walk = {}
+        binary(rows, shared, *lane_s, walk)
+        print(f"  {key} binary walk, per ray of the subset: "
+              + _ray_line(walk))
+        for g in (4, 1, 1, 4):             # threads a ray, in turns
+            o_g = launch(tree, srows, shared, *lane, threads=g)
+            ms = _time_ms(lambda: launch(tree, srows, shared, *lane,
+                                         threads=g), 5)
+            same = all(torch.equal(x, y) for x, y in zip(o_g, out))
+            print(f"  {key}, {g} threads a ray: {ms:.3f} ms, records "
+                  f"{'equal to' if same else 'DIFFER from'} the build's")
+            if not same:
+                _fail(f"{key} at {g} threads a ray differs")
+        return err, out, cnt, walk, sub.numel(), n, plain_ms
+
+    def check_k5(args, c, tag):
+        rows = args["K4"][0][1]            # the packed rows of the frame
+        n_slots = args["K5"][1].get("n_slots", 3)
+
+        def launch(tree, srows, o, d, t_max, threads=None):
+            return RK._launch_k5(tree, srows, o, d, t_max, n_slots, None,
+                                 threads)
+
+        def binary(rows, origin, d_s, tm_s, walk):
+            so_rows = RK.build_origin_rows(rows, origin)
+            if not torch.equal(so_rows[1], args["K5"][0][1]):
+                _fail("K5's origin rows are not those of the frame's rows")
+            RK.trace_layers_so_binary(so_rows, origin, d_s, tm_s, n_slots,
+                                      counts=walk)
+        err, out, cnt, walk, n_sub, n, plain_ms = slot_walk(
+            "K5", launch,
+            lambda *a: RK.trace_layers_so_plain(*a, n_slots),
+            lambda *a: RK.trace_layers_so_counts(*a, n_slots), binary, args,
+            rows)
+        tree, srows, origin, d, t_max = args["K5"][0]
+        own, floor, records, bin_bound = walk_bounds(
+            [tree.nodes, srows, d, t_max], list(out),
+            int(cnt["boxes"].sum()) * SLAB_OPS +
+            int(cnt["slots"].sum()) * SO_SLOT_OPS,
+            walk["box"] * SLAB_OPS + walk["slot"] * SO_SLOT_OPS, n_sub, n,
+            (int((out[1] >= 0).sum()) + int((out[3] >= 0).sum()))
+            * SO_SLOT_OPS)
+        report("so_layers" + tag,
+               "swift_game_engine_tpu_torch/csrc/bvh_trace.cu",
+               "swift_game_engine_tpu/ops/rt_kernel.py:1503", c["K5"], err,
+               _time_ms(lambda: RK.trace_layers_so(tree, srows, origin, d,
+                                                   t_max, n_slots), 5),
+               plain_ms, own,
+               f" (plain on {n_sub} of {n} rays; binary walk's bound "
+               f"{bin_bound[0]:.4f} ms by {bin_bound[1]})",
+               floor=floor, records=records)
+
+    def check_k7(args, c, tag):
+        rows = args["K4"][0][1]            # the packed rows of the frame
+        n_slots = args["K7"][1].get("n_slots", 4)
+
+        def launch(tree, srows, l, o, t_lim, threads=None):
+            return RK._launch_k7(tree, srows, l, o, t_lim, n_slots, None,
+                                 threads)
+
+        def binary(rows, l, o_s, tl_s, walk):
+            sh_rows = RK.build_shadow_rows(rows, torch.as_tensor(
+                l, dtype=torch.float32, device=dev))
+            if not torch.equal(sh_rows[1], args["K7"][0][1]):
+                _fail("K7's shadow rows are not those of the frame's rows")
+            RK.trace_shadow_factor_binary(sh_rows, l, o_s, tl_s, n_slots,
+                                          counts=walk)
+        err, out, cnt, walk, n_sub, n, plain_ms = slot_walk(
+            "K7", launch,
+            lambda *a: RK.trace_shadow_factor_plain(*a, n_slots),
+            lambda *a: RK.trace_shadow_factor_counts(*a, n_slots), binary,
+            args, rows)
+        tree, srows, l, o, t_lim = args["K7"][0]
+        own, floor, records, bin_bound = walk_bounds(
+            [tree.nodes, srows, o, t_lim], list(out),
+            int(cnt["boxes"].sum()) * SLAB_OPS +
+            int(cnt["slots"].sum()) * WALK_SLOT_OPS,
+            walk["box"] * SLAB_OPS + walk["slot"] * WALK_SLOT_OPS, n_sub, n,
+            (int(((out[0] > 0) & (out[0] < 1e30)).sum()) +
+             int((out[2] >= 0).sum())) * WALK_SLOT_OPS)
+        report("shadow_walk" + tag,
+               "swift_game_engine_tpu_torch/csrc/bvh_trace.cu",
+               "swift_game_engine_tpu/ops/rt_kernel.py:1113", c["K7"], err,
+               _time_ms(lambda: RK.trace_shadow_factor(tree, srows, l, o,
+                                                       t_lim, n_slots), 5),
+               plain_ms, own,
+               f" (plain on {n_sub} of {n} origins; binary walk's bound "
+               f"{bin_bound[0]:.4f} ms by {bin_bound[1]})",
+               floor=floor, records=records)
 
     def check_k6(args, c, tag):
         """The dense layer-1 call and the first continuation (t floor):

@@ -1,4 +1,4 @@
-// K4, K6 and K8: one walk over the 4-wide tree, three leaf tests.
+// K4, K5, K6, K7 and K8: one walk over the 4-wide tree, five leaf tests.
 //
 // K4, closest hit. Replaces swift_game_engine_tpu/ops/rt_kernel.py:
 // _kernel_stream (wrapper trace_rays_pallas), the member that serves trees
@@ -7,6 +7,15 @@
 // _kernel_smem_interval, _kernel_smem_ordered2): per ray the nearest
 // (t, triangle id) with 1e-4 < t < t_max, Moller-Trumbore leaf tests,
 // translucent ids (id + 0.5) truncated to the triangle id.
+//
+// K5, layered shared-origin walk. Replaces rt_kernel.py:_kernel_layers_so
+// (wrapper trace_layers_so): per ray of one shared origin, the nearest
+// OPAQUE hit (t, id) and the NS (1..3) nearest TRANSLUCENT hits
+// (t, id + 0.5) met on the way, ascending (the insertion network), tested
+// by so_cross<false> (separately rounded dot products) on the origin rows
+// of build_origin_rows; a slot is accepted where tn_s > 1e-4*dnp and
+// t = tn_s/dnp lies below the walk bound taken at the leaf's entry. A lane
+// with t_max <= 0 is inactive (t_opq 0, tri -1).
 //
 // K6, shared-origin closest hit past a per-lane floor. Replaces
 // rt_kernel.py:_kernel_so_ordered (wrapper trace_rays_so): per ray the
@@ -17,6 +26,14 @@
 // t = t_max and id -1, a lane with t_max <= 0 is inactive. A floor set at
 // a hit's t therefore lets that hit through exactly where the reference
 // does: where t*dnp rounds below tn_s.
+//
+// K7, shared-direction shadow walk. Replaces
+// rt_kernel.py:_kernel_shadow_factor (wrapper trace_shadow_factor): per
+// origin P toward one light, the nearest OPAQUE t and the NS (1..4)
+// nearest TRANSLUCENT (t, id + 0.5) with 1e-4 < t < t_lim, ascending; the
+// shadow rows of build_shadow_rows give u = P.g1 - c1, v = P.g2 - c2,
+// t = P.g3 - c3 (separately rounded dots). A lane with t_lim <= 0 is
+// inactive (t_opq 0, ids -1).
 //
 // K8, any-hit occlusion against OPAQUE triangles (integral ids; a
 // translucent id carries +0.5), the shadow prepass. Replaces
@@ -32,17 +49,19 @@
 // children's boxes as structure of arrays ([0:24]), their refs ([24:28]:
 // >= 0 a wide node, -1 empty, <= -2 a leaf: -2 - ref = 16 row + triangle
 // count) and each leaf child's 1-based leaf rank ([28:32]: the leaf's row
-// in the origin rows, plus one; 0 elsewhere); a leaf's triangles are the
-// packed row's slots [8+9j : 17+9j] and ids [116+j].
+// in the origin and shadow rows, plus one; 0 elsewhere); a leaf's
+// triangles are the packed row's slots [8+9j : 17+9j] and ids [116+j].
 //
 // What bound the one-thread-per-ray binary walks this replaces, on the
 // H100: a call lasted as long as its slowest ray's chain of dependent node
 // loads (two per binary node: the right child's index sat in the left
 // child's row), with its stack in local memory and a leaf's 12 slot tests
 // one after another; K4's binary walk visited 3.2x the wide walk's nodes.
-// K6 and K8 ran that design until they became instances of this walk
+// K5-K8 ran that design until they became instances of this walk
 // (binary walk on path 6's first frame: K6 rays visit 869 nodes and test
-// 3,936 slots each on average, K8's slowest 1% 1,500 nodes). The design:
+// 3,936 slots each on average, K8's slowest 1% 1,500 nodes; K7 followed
+// skip links and never ordered children near-first, so its prune bound
+// min(t_lim, t_opq, last slot) tightened late). The design:
 //   * one dependent load per step: a step reads one wide-node line, tests
 //     all four child boxes against the ray's bound, goes on to the nearest
 //     hit child and stacks the others farthest first;
@@ -61,11 +80,15 @@
 //     call is bound by the instructions it issues, and a warp serving 32
 //     rays issues fewest: 9.48 ms at one thread, 9.70 at two, 12.05 at
 //     four on path 6's 557,056 rays (H100, commit 4f2c21d);
-//   * the leaf test is a policy (Closest, SharedOrigin, AnyOpaque): it
-//     loads its ray, names the walk bound and its threads a ray, tests a
-//     leaf's slots and says whether the walk ends. K6 divides for t only
-//     when a slot is accepted (the slot test compares tn_s against the
-//     bounds times dnp);
+//   * the leaf test is a policy (Closest, LayeredOrigin, SharedOrigin,
+//     ShadowSlots, AnyOpaque): it loads its ray, names the walk bound and
+//     its threads a ray, tests a leaf's slots and says whether the walk
+//     ends. K5 and K6 divide for t only when a slot crosses;
+//   * the slot policies (K5, K7) keep records whose walk bound depends on
+//     them, so a ray's group must agree on them: each thread tests its
+//     slots against what the leaf's entry fixed, then the group applies
+//     the accepted slots in slot order, each broadcast from its thread
+//     (slots_in_order), which is one thread's order at any G;
 //   * a counting instantiation (COUNT, with a null counts pointer in
 //     production) reports each ray's wide nodes, the child boxes it tests
 //     (the non-empty slots of those nodes), leaves and slot tests.
@@ -107,7 +130,8 @@ constexpr int WIDE = 4;
 constexpr int NODE_F = 32;          // f32 per wide node: one 128-byte line
 constexpr int TRACE_THREADS = 128;
 
-// The slab test of `slab` (common.cuh) on one child's box held in registers.
+// The slab test of one child's box held in registers: returns tmin and sets
+// `hit` as the reference's box_hit = (tmax >= max(tmin, 0)) & (tmin < bound).
 __device__ __forceinline__ float child_slab(float lx, float ly, float lz,
                                             float hx, float hy, float hz,
                                             float ox, float oy, float oz,
@@ -155,6 +179,52 @@ __device__ __forceinline__ void group_nearest(float& bt, int& bj,
   }
 }
 
+// A leaf's cnt slots in slot order, G threads at a time: thread k tests
+// slots k, k+G, ... with test(j, t, id) (it reads only what the leaf's
+// entry fixed), then every thread of the group applies the accepted
+// (t, id) in the order j = 0, 1, ..., each broadcast from its thread, so
+// the group's records stay equal, and equal to one thread's.
+template <int G, class Test, class Apply>
+__device__ __forceinline__ void slots_in_order(int cnt, int k, unsigned mask,
+                                               int& tests, Test test,
+                                               Apply apply) {
+  if constexpr (G == 1) {
+    for (int j = 0; j < cnt; ++j) {
+      float t, id;
+      ++tests;
+      if (test(j, t, id)) apply(t, id);
+    }
+  } else {
+    constexpr int Q = (SLOT_N + G - 1) / G;
+    float tq[Q], iq[Q];
+    bool mine = false;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int j = k + q * G;
+      tq[q] = f32_inf();
+      iq[q] = -1.0f;
+      if (j < cnt) {
+        float t, id;
+        ++tests;
+        if (test(j, t, id)) {
+          tq[q] = t;
+          iq[q] = id;
+          mine = true;
+        }
+      }
+    }
+    if (!__any_sync(mask, mine)) return;
+#pragma unroll
+    for (int j = 0; j < SLOT_N; ++j) {
+      if (j < cnt) {                       // cnt: the same in the group
+        const float t = __shfl_sync(mask, tq[j / G], j % G, G);
+        const float id = __shfl_sync(mask, iq[j / G], j % G, G);
+        if (t < f32_inf()) apply(t, id);
+      }
+    }
+  }
+}
+
 // A ray's origin, direction and the direction's safe inverse.
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
@@ -171,6 +241,17 @@ struct Ray {
 __device__ __forceinline__ int packed_ref(const float* __restrict__ nd,
                                           int k) {
   return int(__ldg(nd + 24 + k));
+}
+
+// The ref of child k with a leaf named by its rank: the code of the leaf's
+// row in the per-leaf tables ordered by rank (the origin rows of K5 and
+// K6, the shadow rows of K7).
+__device__ __forceinline__ int ranked_ref(const float* __restrict__ nd,
+                                          int k) {
+  const int rf = packed_ref(nd, k);
+  if (rf > -2) return rf;
+  const int rank = int(__ldg(nd + 28 + k));
+  return -2 - (16 * (rank - 1) + ((-2 - rf) & 15));
 }
 
 // The closest-hit policies' state (K4, K6): the best hit so far, which is
@@ -256,10 +337,7 @@ struct SharedOrigin : NearestHit {
   }
   __device__ bool live() const { return t_best > 0.0f; }
   __device__ int child_ref(const float* nd, int k) const {
-    const int rf = packed_ref(nd, k);
-    if (rf > -2) return rf;
-    const int rank = int(__ldg(nd + 28 + k));
-    return -2 - (16 * (rank - 1) + ((-2 - rf) & 15));
+    return ranked_ref(nd, k);
   }
   __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
                        int& tests) {
@@ -271,10 +349,147 @@ struct SharedOrigin : NearestHit {
                                       tri_id) &&
                        tn_s > fl * dnp && tn_s < bt * dnp))
                    return false;
-                 t = tn_s / dnp;       // so_slot's t: dnp >= EPS here
+                 t = tn_s / dnp;       // the reference's t: dnp >= EPS here
                  return true;
                });
     return false;
+  }
+};
+
+// The slot policies' records (K5, K7): the nearest opaque hit (t, id; K7
+// reports t alone) and the NS nearest translucent (t, id + 0.5),
+// ascending.
+template <int NS>
+struct SlotRecords : Ray {
+  float t_opq, tri_opq, ts[NS], ids[NS];
+  __device__ void init(bool live) {
+    t_opq = live ? BIG : 0.0f;         // 0: an inactive lane
+    tri_opq = -1.0f;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      ts[s] = BIG;
+      ids[s] = -1.0f;
+    }
+  }
+  __device__ bool live() const { return t_opq > 0.0f; }
+  // the opaque hit or the translucent slot list takes an accepted (t, id)
+  __device__ void take(float t, float id) {
+    if (id == floorf(id)) {
+      if (t < t_opq) {
+        t_opq = t;
+        tri_opq = id;
+      }
+    } else {
+      insert_slot<NS>(t, id, ts, ids);
+    }
+  }
+  template <class Args>
+  __device__ void write_slots(const Args& a, int64_t i) const {
+    a.t_out[i] = t_opq;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      a.ts_out[i * NS + s] = ts[s];
+      a.ids_out[i * NS + s] = ids[s];
+    }
+  }
+};
+
+// K5: the nearest opaque so_cross<false> hit and the NS nearest translucent
+// ones with tn_s > 1e-4*dnp and t = tn_s/dnp below the bound at the leaf's
+// entry, all rays from one origin; leaves name their origin row by rank.
+struct LayeredArgs {
+  const float* srows; float ox, oy, oz; const float* d; const float* t_max;
+  float* t_out; int32_t* tri_out; float* ts_out; float* ids_out;
+};
+
+template <int NS, int G_>
+struct LayeredOrigin : SlotRecords<NS> {
+  using Args = LayeredArgs;
+  static constexpr int G = G_;
+  static constexpr int MAX_NS = 3;
+  float tm;
+  __device__ LayeredOrigin(const Args& a, int64_t i) {
+    this->ox = a.ox; this->oy = a.oy; this->oz = a.oz;
+    this->load_d(a.d, i);
+    tm = __ldg(a.t_max + i);
+    this->init(tm > 0.0f);
+  }
+  __device__ float bound() const {
+    return fminf(fminf(tm, this->t_opq), this->ts[NS - 1]);
+  }
+  __device__ int child_ref(const float* nd, int k) const {
+    return ranked_ref(nd, k);
+  }
+  __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
+                       int& tests) {
+    const float* row = a.srows + int64_t(code >> 4) * SO_ROW_W;
+    const float b = bound();
+    slots_in_order<G>(
+        code & 15, k, mask, tests,
+        [&](int j, float& t, float& id) {
+          float dnp, tn_s;
+          if (!(so_cross<false>(row, j, this->dx, this->dy, this->dz, dnp,
+                                tn_s, id) &&
+                tn_s > 1e-4f * dnp))
+            return false;
+          t = tn_s / dnp;              // the reference's t: dnp >= EPS here
+          return t < b;
+        },
+        [&](float t, float id) { this->take(t, id); });
+    return false;
+  }
+  __device__ void write(const Args& a, int64_t i) const {
+    this->write_slots(a, i);
+    a.tri_out[i] = int32_t(this->tri_opq);
+  }
+};
+
+// K7: the nearest opaque hit and the NS nearest translucent ones at
+// 1e-4 < t < t_lim along the light, each origin its own; leaves name their
+// shadow row by rank.
+struct ShadowArgs {
+  const float* srows; float ix, iy, iz; const float* o; const float* t_lim;
+  float* t_out; float* ts_out; float* ids_out;
+};
+
+template <int NS, int G_>
+struct ShadowSlots : SlotRecords<NS> {
+  using Args = ShadowArgs;
+  static constexpr int G = G_;
+  static constexpr int MAX_NS = 4;
+  float tl;
+  __device__ ShadowSlots(const Args& a, int64_t i) {
+    this->load_o(a.o, i);
+    this->ix = a.ix; this->iy = a.iy; this->iz = a.iz;
+    tl = __ldg(a.t_lim + i);
+    this->init(tl > 0.0f);
+  }
+  __device__ float bound() const {
+    return fminf(fminf(tl, this->t_opq), this->ts[NS - 1]);
+  }
+  __device__ int child_ref(const float* nd, int k) const {
+    return ranked_ref(nd, k);
+  }
+  __device__ bool leaf(const Args& a, int code, int k, unsigned mask,
+                       int& tests) {
+    const float* row = a.srows + int64_t(code >> 4) * SH_ROW_W;
+    const float px = this->ox, py = this->oy, pz = this->oz;
+    slots_in_order<G>(
+        code & 15, k, mask, tests,
+        [&](int j, float& t, float& id) {
+          id = __ldg(row + SH_SLOT_F * SLOT_N + j);
+          const float* s = row + SH_SLOT_F * j;
+          const float u = dot3<false>(s, px, py, pz) - __ldg(s + 9);
+          const float v = dot3<false>(s + 3, px, py, pz) - __ldg(s + 10);
+          t = dot3<false>(s + 6, px, py, pz) - __ldg(s + 11);
+          return id >= 0.0f && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
+                 u + v <= 1.0f && t > 1e-4f && t < tl;
+        },
+        [&](float t, float id) { this->take(t, id); });
+    return false;
+  }
+  __device__ void write(const Args& a, int64_t i) const {
+    this->write_slots(a, i);
   }
 };
 
@@ -448,6 +663,35 @@ int launch_walk(const float* nodes, const typename R::Args& a, int64_t n,
   return int(cudaGetLastError());
 }
 
+// A slot policy P<NS, G> with n_slots = NS in 1..P::MAX_NS.
+template <template <int, int> class P, int G, int NS = 1>
+int launch_slots(int n_slots, const float* nodes,
+                 const typename P<1, G>::Args& a, int64_t n, int stack_n,
+                 int32_t* counts, void* stream) {
+  if constexpr (NS > P<1, G>::MAX_NS) {
+    return int(cudaErrorInvalidValue);
+  } else {
+    if (n_slots == NS)
+      return launch_walk<P<NS, G>>(nodes, a, n, stack_n, counts, stream);
+    return launch_slots<P, G, NS + 1>(n_slots, nodes, a, n, stack_n, counts,
+                                      stream);
+  }
+}
+
+// ... at `threads` (1 or 4) threads a ray.
+template <template <int, int> class P>
+int launch_slots_g(int threads, int n_slots, const float* nodes,
+                   const typename P<1, 1>::Args& a, int64_t n, int stack_n,
+                   int32_t* counts, void* stream) {
+  switch (threads) {
+    case 1: return launch_slots<P, 1>(n_slots, nodes, a, n, stack_n, counts,
+                                      stream);
+    case 4: return launch_slots<P, 4>(n_slots, nodes, a, n, stack_n, counts,
+                                      stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 }  // namespace sge
 
@@ -464,6 +708,21 @@ SGE_API int sge_trace_closest(const float* nodes, const float* rows,
                                         stack_n, counts, stream);
 }
 
+// K5: srows (Lp,132) origin rows, origin (ox, oy, oz), d (N,3), t_max (N,),
+// n_slots 1..3, threads a ray 1 or 4. Out: t_opq (N,), tri (N,) int32,
+// ts (N, n_slots), ids (N, n_slots).
+SGE_API int sge_so_layers(const float* nodes, const float* srows, float ox,
+                          float oy, float oz, const float* d,
+                          const float* t_max, int64_t n, int stack_n,
+                          int n_slots, int threads, int32_t* counts,
+                          float* t_opq, int32_t* tri, float* ts, float* ids,
+                          void* stream) {
+  return sge::launch_slots_g<sge::LayeredOrigin>(
+      threads, n_slots, nodes,
+      {srows, ox, oy, oz, d, t_max, t_opq, tri, ts, ids}, n, stack_n, counts,
+      stream);
+}
+
 // K6: srows (Lp,132) origin rows, origin (ox, oy, oz), d (N,3), t_max (N,),
 // t_floor (N,) or null (1e-4). Out: t (N,), tri (N,) int32.
 SGE_API int sge_trace_so(const float* nodes, const float* srows, float ox,
@@ -474,6 +733,20 @@ SGE_API int sge_trace_so(const float* nodes, const float* srows, float ox,
   return sge::launch_walk<sge::SharedOrigin>(
       nodes, {srows, ox, oy, oz, d, t_max, t_floor, t, tri}, n, stack_n,
       counts, stream);
+}
+
+// K7: srows (Lp,156) shadow rows, the light direction's safe inverse
+// (ix, iy, iz), o (N,3), t_lim (N,), n_slots 1..4, threads a ray 1 or 4.
+// Out: t_opq (N,), ts (N, n_slots), ids (N, n_slots).
+SGE_API int sge_shadow_walk(const float* nodes, const float* srows, float ix,
+                            float iy, float iz, const float* o,
+                            const float* t_lim, int64_t n, int stack_n,
+                            int n_slots, int threads, int32_t* counts,
+                            float* t_opq, float* ts, float* ids,
+                            void* stream) {
+  return sge::launch_slots_g<sge::ShadowSlots>(
+      threads, n_slots, nodes, {srows, ix, iy, iz, o, t_lim, t_opq, ts, ids},
+      n, stack_n, counts, stream);
 }
 
 // K8: rows (M_pad,128), o/d (N,3), t_lim (N,). Out: blocked (N,) bool.

@@ -31,13 +31,9 @@ __device__ __forceinline__ Row16 load_row16(const float4* __restrict__ rows,
   return Row16{__ldg(r), __ldg(r + 1), __ldg(r + 2), __ldg(r + 3)};
 }
 
-constexpr int BLOCK_THREADS = 256;
-
-// BVH walks over the packed tree (ops/rt_kernel.py pack_bvh): 12 triangles
-// per leaf row, a 128-deep traversal stack (render/bvh.py STACK_MAX: refit
-// refuses deeper trees, so a walk never overflows it).
+// The BVH walks (bvh_trace.cu) over the packed tree (ops/rt_kernel.py
+// pack_bvh): 12 triangles per leaf row.
 constexpr int SLOT_N = 12;
-constexpr int STACK = 128;
 constexpr float EPS = 1e-6f;
 
 __device__ __forceinline__ float safe_inv(float v) {
@@ -49,6 +45,10 @@ __device__ __forceinline__ float safe_inv(float v) {
 // walks K5 and K6: per leaf triangle k_u, k_v, k_d, tn, then the ids.
 constexpr int SO_SLOT_F = 10;                          // k_u, k_v, k_d, tn
 constexpr int SO_ROW_W = SO_SLOT_F * SLOT_N + SLOT_N;  // + the ids
+// Shadow rows (build_shadow_rows) of the shadow walk K7: per leaf triangle
+// g1, g2, g3, c, then the ids.
+constexpr int SH_SLOT_F = 12;                          // g1, g2, g3, c
+constexpr int SH_ROW_W = SH_SLOT_F * SLOT_N + SLOT_N;  // + the ids
 
 // d . s[0:3] as the reference computes it: separately rounded,
 // (dx*s0 + dy*s1) + dz*s2; or, FUSED, as XLA contracts that sum when it
@@ -86,36 +86,6 @@ __device__ __forceinline__ bool so_cross(const float* __restrict__ row, int j,
          vn_s >= 0.0f && un_s + vn_s <= dnp;
 }
 
-// so_cross with the slot's t = tn_s / dnp (dnp replaced by 1 below EPS),
-// the reference's t.
-__device__ __forceinline__ bool so_slot(const float* __restrict__ row, int j,
-                                        float dx, float dy, float dz,
-                                        float& t, float& dnp, float& tn_s,
-                                        float& tri_id) {
-  const bool cross = so_cross(row, j, dx, dy, dz, dnp, tn_s, tri_id);
-  t = tn_s / (dnp >= EPS ? dnp : 1.0f);
-  return cross;
-}
-
-// Slab test of the box whose header starts at h (bmin h[0:3], bmax h[3:6]):
-// returns tmin and sets `hit` as the reference's
-// box_hit = (tmax >= max(tmin, 0)) & (tmin < bound).
-__device__ __forceinline__ float slab(const float* __restrict__ h, float ox,
-                                      float oy, float oz, float ix, float iy,
-                                      float iz, float bound, bool& hit) {
-  const float4 h0 = __ldg(reinterpret_cast<const float4*>(h));
-  const float4 h1 = __ldg(reinterpret_cast<const float4*>(h) + 1);
-  const float tx0 = (h0.x - ox) * ix, tx1 = (h0.w - ox) * ix;
-  const float ty0 = (h0.y - oy) * iy, ty1 = (h1.x - oy) * iy;
-  const float tz0 = (h0.z - oz) * iz, tz1 = (h1.y - oz) * iz;
-  const float tmin = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                           fminf(tz0, tz1));
-  const float tmax = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                           fmaxf(tz0, tz1));
-  hit = tmax >= fmaxf(tmin, 0.0f) && tmin < bound;
-  return tmin;
-}
-
 // The reference's insertion network: (t, id) enters the ascending slot
 // list (ts, ids) of NS entries; the largest falls off the end.
 template <int NS>
@@ -144,10 +114,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
   return v;
-}
-
-inline unsigned blocks_for(int64_t n) {
-  return static_cast<unsigned>((n + BLOCK_THREADS - 1) / BLOCK_THREADS);
 }
 
 }  // namespace sge

@@ -3,7 +3,9 @@
 Each function takes the JAX package's NamedTuple (or a dict with the same
 fields) whose leaves are numpy arrays — or anything ``np.asarray`` accepts,
 so the caller converts on the JAX side — and returns the port's
-counterpart on ``device``. This module imports no jax.
+counterpart on ``device``: the card unless the caller names another
+(``resolve_device``; without CUDA, a call that names no device raises).
+This module imports no jax.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import resolve_device
 from .ops.rt_kernel import wide_tree
 from .render.bvh import BVHArrays
 from .render.ibl import IBL
@@ -31,10 +34,11 @@ def _t(x, device, dtype=None):
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def scene_geometry(geo, topo=None, device=None) -> SceneGeometry:
+def scene_geometry(geo, topo=None, device="cuda") -> SceneGeometry:
     """The reference's SceneGeometry (fields incl. ``materials`` with the
     MaterialTable fields, ``textures`` (its bank or the bank's data array)
     and ``skinned_blocks``) plus its BVHTopology (default: ``geo.topo``)."""
+    device = resolve_device(device)
     mats = _get(geo, "materials")
     tex = _get(geo, "textures")
     tex = tex if isinstance(tex, np.ndarray) else _get(tex, "data")
@@ -58,8 +62,9 @@ def scene_geometry(geo, topo=None, device=None) -> SceneGeometry:
     return pack_scene(arrays, topo, device)
 
 
-def frame_geometry(fg, device=None) -> FrameGeometry:
+def frame_geometry(fg, device="cuda") -> FrameGeometry:
     """The reference's FrameGeometry (with its BVHArrays) on ``device``."""
+    device = resolve_device(device)
     b = _get(fg, "bvh")
     rows = _t(_get(b, "rows"), device)
     bvh = BVHArrays(
@@ -75,12 +80,14 @@ def frame_geometry(fg, device=None) -> FrameGeometry:
                          tri_nrm=_t(_get(fg, "tri_nrm"), device))
 
 
-def lights(l, device=None) -> DirectionalLights:
+def lights(l, device="cuda") -> DirectionalLights:
+    device = resolve_device(device)
     return DirectionalLights(**{k: _t(_get(l, k), device)
                                 for k in DirectionalLights._fields})
 
 
-def ibl(tables, device=None) -> IBL:
+def ibl(tables, device="cuda") -> IBL:
+    device = resolve_device(device)
     return IBL(sh0=_t(_get(tables, "sh0"), device),
                sh1=_t(_get(tables, "sh1"), device),
                brdf_lut=_t(_get(tables, "brdf_lut"), device),

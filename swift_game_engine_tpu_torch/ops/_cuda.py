@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("cluster_raster.cu", "cluster_shadow.cu", "bvh_trace.cu",
-           "so_layers.cu", "shadow_walk.cu", "raster_lists.cu")
+           "raster_lists.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "--fmad=false", "-Xcompiler", "-fPIC")
 
@@ -49,10 +49,10 @@ _SIGNATURES = {
     "sge_shadow_slots": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
     "sge_trace_closest": [_P, _P, _P, _P, _P, _I64, _I, _P, _P, _P, _P],
-    "sge_so_layers": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _P, _P, _P, _P,
-                      _P],
-    "sge_shadow_walk": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _P, _P, _P,
-                        _P],
+    "sge_so_layers": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _I, _I, _P, _P,
+                      _P, _P, _P, _P],
+    "sge_shadow_walk": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _I, _I, _P,
+                        _P, _P, _P, _P],
     "sge_trace_so": [_P, _P, _F, _F, _F, _P, _P, _P, _I64, _I, _P, _P, _P,
                      _P],
     "sge_trace_any": [_P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],

@@ -2,24 +2,28 @@
 
 Port of the parts of swift_game_engine_tpu/ops/rt_kernel.py the RT frame
 uses: ``pack_bvh`` (the (M, 128) row-per-node layout), ``barycentrics``,
-``trace_batch`` and five kernels, each with its plain PyTorch twin:
+``trace_batch`` and five kernels, each with its plain PyTorch twin, all
+instances of one walk over the 4-wide tree (``WideTree``; csrc/bvh_trace.cu,
+``_wide_walk`` in the twins):
 
   * K4 ``trace_rays`` — closest hit per ray (the ``trace_rays_pallas``
-    contract; csrc/bvh_trace.cu) over the 4-wide tree (``WideTree``);
+    contract) over the packed rows;
   * K5 ``trace_layers_so`` — the layered shared-origin walk: the nearest
     opaque hit and the n_slots nearest translucent hits of rays that share
-    one origin (csrc/so_layers.cu), over ``build_origin_rows``;
+    one origin, over the origin rows of ``build_origin_rows``;
   * K6 ``trace_rays_so`` — closest hit of rays that share one origin, with
-    a per-lane t floor (csrc/bvh_trace.cu), over the wide tree and the
-    origin rows of ``build_origin_rows``;
+    a per-lane t floor, over the same origin rows;
   * K7 ``trace_shadow_factor`` — the shared-direction shadow walk: the
     nearest opaque t and the n_slots nearest translucent hits toward one
-    light (csrc/shadow_walk.cu), over ``build_shadow_rows``;
+    light, over the shadow rows of ``build_shadow_rows``;
   * K8 ``trace_shadow_any`` — any-hit occlusion against opaque triangles
-    (csrc/bvh_trace.cu) over the wide tree, the shadow prepass.
+    over the packed rows, the shadow prepass.
 
-K4, K6 and K8 are instances of one walk over the wide tree (``_wide_walk``
-in their twins); K5 and K7 walk the binary tree.
+``trace_layers_so_binary``, ``trace_rays_so_binary``,
+``trace_shadow_factor_binary`` and ``trace_shadow_any_binary`` compute
+K5-K8's functions on the binary tree, as the reference walks it: the CPU
+tests hold them against the reference's records, and ``chip_smoke.py``
+counts with them the work of the binary walks the wide walk replaced.
 
 K5–K8 serve trees of at most ``WALK_MAX_ROWS`` packed rows
 (``walk_available``), the reference's rule.
@@ -29,18 +33,18 @@ Row layout (f32 lanes):
   [8+9j : 17+9j] triangle j as (a, b-a, c-a), j in 0..SLOT_N-1
   [8+9*SLOT_N + j] triangle j's original id (-1 empty; translucent id+0.5)
 
-Wide-node layout (K4, K6, K8; ``collapse_wide`` maps the binary tree onto it
-once, ``wide_nodes`` fills the boxes per frame): one 128-byte line of 32
-f32 per node, its up to WIDE children's boxes as structure of arrays
+Wide-node layout (``collapse_wide`` maps the binary tree onto it once,
+``wide_nodes`` fills the boxes per frame): one 128-byte line of 32 f32 per
+node, its up to WIDE children's boxes as structure of arrays
   [0:4] bmin.x  [4:8] bmin.y  [8:12] bmin.z
   [12:16] bmax.x  [16:20] bmax.y  [20:24] bmax.z
   [24:28] child refs  [28:32] leaf ranks
 A ref >= 0 is a wide node; -1 an empty slot; ref <= -2 a leaf, the packed
 row (the leaf's binary node) r with c triangles: -2 - ref = 16 r + c. A
 leaf child's rank is its 1-based rank among the binary tree's leaves in
-node order (``_leaf_rows``), so its origin row (K6) is rank - 1; 0 for
-other slots. The leaves' triangles stay in the packed rows, which K4, K5,
-K7 and K8 read.
+node order (``_leaf_rows``), so its origin row (K5, K6) and its shadow row
+(K7) are rank - 1; 0 for other slots. The leaves' triangles stay in the
+packed rows, which K4 and K8 read.
 
 Each wrapper launches its CUDA kernel for CUDA tensors (and counts the
 launch) and runs its plain twin only for CPU tensors. The twins walk every
@@ -70,12 +74,18 @@ _IDS = 8 + 9 * SLOT_N
 WALK_MAX_ROWS = 22_000
 STACK = 128      # render/bvh.py STACK_MAX: refit refuses deeper trees
 SO_SLOT_F = 10   # origin rows: k_u, k_v, k_d, tn per triangle
+SO_ROW_W = SO_SLOT_F * SLOT_N + SLOT_N           # + the ids
 SHADOW_SLOT_F = 12   # shadow rows: g1, g2, g3, c per triangle
-WIDE = 4         # children per wide node (K4)
+SHADOW_ROW_W = SHADOW_SLOT_F * SLOT_N + SLOT_N   # + the ids
+WIDE = 4         # children per wide node
 NODE_F = 32      # f32 per wide node: one 128-byte line
-# K4's per-ray stack lives in shared memory, sized by the tree's own bound
-# (``collapse_wide``); trees that need more entries are refused at build.
+# The walks' per-ray stack lives in shared memory, sized by the tree's own
+# bound (``collapse_wide``); trees that need more entries are refused at
+# build.
 WIDE_STACK_MAX = 96
+# Threads a ray of the K5 and K7 walks (1 or 4).
+K5_THREADS = 1
+K7_THREADS = 4
 
 launches = 0         # trace_rays (K4) kernel launches since the last reset
 so_launches = 0      # trace_layers_so (K5) kernel launches
@@ -119,9 +129,10 @@ def _safe_inv(v):
 
 
 class WideTree(NamedTuple):
-    """The wide nodes of K4, K6 and K8; their leaf refs name packed rows
-    (pack_bvh), which K4 and K8 take beside them, and their leaf ranks
-    origin rows (build_origin_rows), which K6 takes."""
+    """The wide nodes of K4-K8; their leaf refs name packed rows
+    (pack_bvh), which K4 and K8 take beside them, and their leaf ranks the
+    origin rows (build_origin_rows) that K5 and K6 take and the shadow rows
+    (build_shadow_rows) that K7 takes."""
 
     nodes: torch.Tensor   # (W, NODE_F) wide-node lines
     stack: int            # stack entries a walk can need (collapse_wide)
@@ -216,11 +227,12 @@ def wide_tree(rows) -> WideTree:
     return WideTree(nodes=nodes, stack=stack)
 
 
-def _check_tree(tree: WideTree, rows, width, d, t_max, o=None):
+def _check_tree(tree: WideTree, rows, width, t_max, o=None, d=None):
     """The walks' checks: the tree, the leaf ``rows`` (M, width), the rays
-    and their bounds on the tree's device -> (device, ray count)."""
+    (origins ``o``, directions ``d``: (N, 3) where given) and their bounds
+    ``t_max`` (N,) on the tree's device -> (device, ray count)."""
     dev = tree.nodes.device
-    n = d.shape[0]
+    n = t_max.shape[0]
     _cuda.require(tree.nodes, "nodes", (tree.nodes.shape[0], NODE_F),
                   device=dev)
     _cuda.require(rows, "rows", dtype=torch.float32, device=dev)
@@ -230,9 +242,9 @@ def _check_tree(tree: WideTree, rows, width, d, t_max, o=None):
     if not 0 <= tree.stack <= WIDE_STACK_MAX:
         raise ValueError(f"stack bound {tree.stack} outside 0.."
                          f"{WIDE_STACK_MAX}")
-    if o is not None:
-        _cuda.require(o, "o", (n, 3), device=dev)
-    _cuda.require(d, "d", (n, 3), device=dev)
+    for name, x in (("o", o), ("d", d)):
+        if x is not None:
+            _cuda.require(x, name, (n, 3), device=dev)
     _cuda.require(t_max, "t_max", (n,), device=dev)
     return dev, n
 
@@ -246,7 +258,7 @@ def _count_dict(counts):
 
 
 def _launch_k4(tree, rows, o, d, t_max, counts):
-    dev, n = _check_tree(tree, rows, ROW, d, t_max, o)
+    dev, n = _check_tree(tree, rows, ROW, t_max, o, d)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     _cuda.check(_cuda.library().sge_trace_closest(
@@ -279,9 +291,11 @@ def trace_rays_counts(tree: WideTree, rows, o, d, t_max):
 
 
 def walk_threads(walk: str) -> int:
-    """Threads a ray of wide walk ``walk`` ("K4", "K6" or "K8") as the
-    built kernel library runs it (card only): the group by which the
-    counting instantiations' per-ray counts fill a warp."""
+    """Threads a ray of wide walk ``walk`` ("K4" to "K8") as the built
+    kernel library runs it (card only): the group by which the counting
+    instantiations' per-ray counts fill a warp."""
+    if walk in ("K5", "K7"):
+        return K5_THREADS if walk == "K5" else K7_THREADS
     return _cuda.library().sge_walk_threads(("K4", "K6", "K8").index(walk))
 
 
@@ -293,14 +307,15 @@ _SORT4 = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
 
 def _wide_walk(tree: WideTree, o, inv, bound, active, visit_leaf,
                by_rank=False, counts=None):
-    """The lockstep walk of the wide twins (K4, K6, K8), in the kernels'
-    per-ray order: every live ray (``active``) holds a current node and its
+    """The lockstep walk of the wide twins (K4-K8), in the kernels' per-ray
+    order: every live ray (``active``) holds a current node and its
     own stack. At a wide node it tests the WIDE child boxes against its
     walk bound ``bound`` (N,), orders the hit children by entry distance
     with the kernels' sorting network, goes on to the nearest and stacks
     the rest, farthest first; at a leaf ``visit_leaf(lanes, code)`` tests
     the slots (code = 16 row + triangle count, the row a packed row, or an
-    origin row with ``by_rank``), may lower ``bound`` in place, and returns
+    origin or shadow row with ``by_rank``), may lower ``bound`` in place,
+    and returns
     (the lanes whose walk ends there, or None; the slot tests per lane). A
     popped entry whose entry distance is not below the ray's bound is
     dropped. ``counts``: a dict that receives the walk's child-box tests
@@ -328,7 +343,7 @@ def _wide_walk(tree: WideTree, o, inv, bound, active, visit_leaf,
             lo = nd[:, 0:12].reshape(-1, 3, WIDE)
             hi = nd[:, 12:24].reshape(-1, 3, WIDE)
             ref = nd[:, 24:28].to(torch.int64)
-            if by_rank:      # a leaf's origin row: its rank less one
+            if by_rank:      # a leaf's origin or shadow row: rank less one
                 rank = nd[:, 28:32].to(torch.int64)
                 ref = torch.where(ref <= -2,
                                   -2 - (16 * (rank - 1) + (-2 - ref) % 16),
@@ -514,7 +529,10 @@ def build_origin_rows(rows, o):
     """Per-frame constants for rays sharing origin ``o`` (3,)
     (rt_kernel.py:1295-1324) -> (header (M*8,), srows (Lp, 132)): per leaf
     triangle k_u = e2 x (o-a), k_v = (o-a) x e1, k_d = e2 x e1,
-    tn = e2 . k_v, then the ids."""
+    tn = e2 . k_v, then the ids; row r is the leaf of rank r + 1, which the
+    wide tree names (K5, K6). The header is the binary tree's, which only
+    the binary walks read (``trace_layers_so_binary``,
+    ``trace_rays_so_binary``)."""
     header, leaf = _leaf_rows(rows)
     a, e1, e2, ids = _split_tris(leaf)
     tv = torch.as_tensor(o, dtype=torch.float32, device=rows.device) - a
@@ -530,7 +548,9 @@ def build_shadow_rows(rows, l):
     """Per-frame constants for rays along unit direction ``l`` (3,) toward
     the light (rt_kernel.py:1070-1110) -> (header (M*8,), srows (Lp, 156)):
     per leaf triangle g1, g2, g3, c with u = P.g1 - c1, v = P.g2 - c2,
-    t = P.g3 - c3; ids of triangles parallel to ``l`` are -1."""
+    t = P.g3 - c3; ids of triangles parallel to ``l`` are -1; row r is the
+    leaf of rank r + 1, which the wide tree names (K7). The header is the
+    binary tree's, which only ``trace_shadow_factor_binary`` reads."""
     header, leaf = _leaf_rows(rows)
     a, e1, e2, ids = _split_tris(leaf)
     lv = torch.as_tensor(l, dtype=torch.float32,
@@ -572,45 +592,55 @@ def _slab(hdr, o, inv, bound):
     return (tmax >= tmin.clamp(min=0.0)) & (tmin < bound), tmin
 
 
-def trace_layers_so(origin_rows, o, d, t_max, n_slots: int = 3):
-    """Layered records of rays sharing origin ``o`` (3,) — the origin that
-    ``build_origin_rows`` baked in; host floats need no device sync — with
-    directions ``d`` (N, 3): one walk
-    -> (t_opq (N,), tri_opq (N,) int32, ts (N, n_slots), ids (N, n_slots)
-    float with the translucent +0.5 marker). Rays with t_max <= 0 are
-    inactive (t_opq 0, tri -1)."""
-    header, srows = origin_rows
-    if not header.is_cuda:
-        return trace_layers_so_plain(origin_rows, o, d, t_max, n_slots)
+def _launch_k5(tree, srows, o, d, t_max, n_slots, counts,
+               threads=None):
     if not 1 <= n_slots <= 3:
         raise ValueError(f"n_slots must be 1..3, got {n_slots}")
-    dev = header.device
-    n = d.shape[0]
-    _cuda.require(header, "header", dtype=torch.float32, device=dev)
-    _cuda.require(srows, "srows", dtype=torch.float32, device=dev)
-    if srows.dim() != 2 or srows.shape[1] != SO_SLOT_F * SLOT_N + SLOT_N:
-        raise ValueError(f"srows: bad shape {tuple(srows.shape)}")
-    _cuda.require(d, "d", (n, 3), device=dev)
-    _cuda.require(t_max, "t_max", (n,), device=dev)
+    dev, n = _check_tree(tree, srows, SO_ROW_W, t_max, d=d)
     ox, oy, oz = (float(x) for x in torch.as_tensor(o).tolist())
     t_opq = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     ts = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
     ids = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
-    lib = _cuda.library()
-    global so_launches
-    so_launches += 1
-    _cuda.check(lib.sge_so_layers(header.data_ptr(), srows.data_ptr(), ox, oy,
-                                  oz, d.data_ptr(), t_max.data_ptr(), n,
-                                  n_slots, t_opq.data_ptr(), tri.data_ptr(),
-                                  ts.data_ptr(), ids.data_ptr(),
-                                  _cuda.stream_ptr(header)), "sge_so_layers")
+    _cuda.check(_cuda.library().sge_so_layers(
+        tree.nodes.data_ptr(), srows.data_ptr(), ox, oy, oz, d.data_ptr(),
+        t_max.data_ptr(), n, tree.stack, n_slots,
+        K5_THREADS if threads is None else threads, _cuda.ptr(counts),
+        t_opq.data_ptr(), tri.data_ptr(), ts.data_ptr(), ids.data_ptr(),
+        _cuda.stream_ptr(d)), "sge_so_layers")
     return t_opq, tri, ts, ids
 
 
+def trace_layers_so(tree: WideTree, srows, o, d, t_max, n_slots: int = 3):
+    """K5: layered records over ``tree`` of rays sharing origin ``o`` (3,)
+    — the origin that ``build_origin_rows`` baked into its origin rows
+    ``srows`` (its second output), which the tree's leaf ranks name; host
+    floats need no device sync — with directions ``d`` (N, 3): one walk
+    -> (t_opq (N,), tri_opq (N,) int32, ts (N, n_slots), ids (N, n_slots)
+    float with the translucent +0.5 marker), n_slots 1..3. Rays with
+    t_max <= 0 are inactive (t_opq 0, tri -1)."""
+    if not tree.nodes.is_cuda:
+        return trace_layers_so_plain(tree, srows, o, d, t_max, n_slots)
+    t_opq, tri, ts, ids = _launch_k5(tree, srows, o, d, t_max, n_slots, None)
+    global so_launches
+    so_launches += 1
+    return t_opq, tri, ts, ids
+
+
+def trace_layers_so_counts(tree: WideTree, srows, o, d, t_max,
+                           n_slots: int = 3):
+    """K5's counting instantiation, on the card only (not a launch of the
+    frame): (t_opq, tri, ts, ids, per-ray counts as
+    ``trace_rays_counts``'s)."""
+    counts = _counts(d.shape[0], d.device)
+    out = _launch_k5(tree, srows, o, d, t_max, n_slots, counts)
+    return (*out, _count_dict(counts))
+
+
 def _near_first_walk(hdr, o, inv, active, bound_of, visit_leaf, counts=None):
-    """The lockstep walk of the shared-origin twins (K5, K6): every live ray
-    walks near-first with its own stack, one node per step (interior: test
+    """The lockstep walk of the binary shared-origin walks (K5's and K6's
+    functions on the binary tree): every live ray walks near-first with its
+    own stack, one node per step (interior: test
     both children against the ray's bound, descend to the nearer, stack the
     farther; leaf: test the box, then ``visit_leaf(lanes, leaf row index,
     box hit, bound)`` runs the slots). ``bound_of(lanes)``: the rays' prune
@@ -699,19 +729,97 @@ def _so_inside(tid, dnp, un_s, vn_s):
         (vn_s >= 0) & (un_s + vn_s <= dnp)
 
 
-def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
-                          counts=None):
-    """Plain PyTorch twin of K5 (``_near_first_walk``): at a leaf whose box
-    the ray hits, the slots in order. ``counts``: as for
-    ``_near_first_walk``."""
+def _in_slot_order(test, take, group):
+    """A leaf's slots as the slot walks (K5, K7) take them, ``group``
+    threads a ray: test(j) -> (accepted (P,), t, id) of slot j, against
+    what the leaf's entry fixed; take(accepted, t, id) applies one slot.
+    One thread tests and takes each slot in turn; a group of threads
+    tests its slots j = k (mod group) first, then every thread takes the
+    accepted slots in slot order, each broadcast from its thread."""
+    if group == 1:
+        for j in range(SLOT_N):
+            take(*test(j))
+        return
+    tested = {j: test(j) for k in range(group)
+              for j in range(k, SLOT_N, group)}
+    for j in range(SLOT_N):
+        take(*tested[j])
+
+
+def _slot_records(n, active, n_slots, dev):
+    """The slot walks' records before the walk: t_opq (BIG where active, 0
+    elsewhere), tri -1, n_slots empty slots."""
+    return (torch.where(active, BIG, 0.0), torch.full((n,), -1.0, device=dev),
+            torch.full((n, n_slots), BIG, device=dev),
+            torch.full((n, n_slots), -1.0, device=dev))
+
+
+def _take_slot(rec, hit, t, tid):
+    """The slot walks' take of an accepted (t, id) on records ``rec`` =
+    [t_opq, tri, ts, ids] of the leaf's lanes: an opaque id lowers t_opq,
+    a translucent one enters the insertion network."""
+    opaque = tid == torch.floor(tid)
+    win = hit & opaque & (t < rec[0])
+    rec[0] = torch.where(win, t, rec[0])
+    rec[1] = torch.where(win, tid, rec[1])
+    _insert(rec[2], rec[3], hit & ~opaque, t, tid)
+
+
+def trace_layers_so_plain(tree: WideTree, srows, o, d, t_max,
+                          n_slots: int = 3, counts=None, group=None):
+    """Plain PyTorch twin of K5 (``_wide_walk`` with the bound
+    min(t_max, t_opq, ts[-1]), the leaves by rank): at a leaf, the slots
+    whose so_cross test passes with tn_s > 1e-4*dnp and t = tn_s/dnp below
+    the bound at the leaf's entry are taken in slot order
+    (``_in_slot_order``, ``group`` threads a ray: the kernel's count by
+    default). ``counts``: as for ``_wide_walk``."""
+    n, dev = d.shape[0], d.device
+    active = t_max > 0
+    rec_all = _slot_records(n, active, n_slots, dev)
+    t_opq, tri, ts, ids = rec_all
+    bound = torch.minimum(t_max, t_opq)
+    base = SO_SLOT_F * SLOT_N
+
+    def visit_leaf(lanes, code):
+        row = srows[torch.div(code, 16, rounding_mode="floor")]
+        cnt = code % 16
+        dl, bl = d[lanes], bound[lanes]
+        rec = [x[lanes] for x in rec_all]
+
+        def test(j):
+            tid = row[:, base + j]
+            t, dnp, un_s, vn_s, tn_s = _so_slot(
+                dl, row[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)])
+            return (_so_inside(tid, dnp, un_s, vn_s) & (j < cnt) &
+                    (tn_s > 1e-4 * dnp) & (t < bl)), t, tid
+
+        _in_slot_order(test, lambda *a: _take_slot(rec, *a),
+                       K5_THREADS if group is None else group)
+        for x, v in zip(rec_all, rec):
+            x[lanes] = v
+        bound[lanes] = torch.minimum(torch.minimum(t_max[lanes], rec[0]),
+                                     rec[2][:, -1])
+        return None, cnt
+
+    o = torch.as_tensor(o, dtype=torch.float32, device=dev)
+    _wide_walk(tree, o.expand(n, 3), _safe_inv(d), bound, active, visit_leaf,
+               by_rank=True, counts=counts)
+    return t_opq, tri.to(torch.int32), ts, ids
+
+
+def trace_layers_so_binary(origin_rows, o, d, t_max, n_slots: int = 3,
+                           counts=None):
+    """K5's function on the binary tree, as the reference and the design
+    before the wide walk walk it (``_near_first_walk``; ``origin_rows`` the
+    (header, srows) of ``build_origin_rows``): at a leaf whose box the ray
+    hits, the slots in order. Kept to count the work of that walk
+    (``counts``: as for ``_near_first_walk``), the bound of K5 before its
+    redesign."""
     header, srows = origin_rows
     dev = d.device
     n = d.shape[0]
     active = t_max > 0
-    t_opq = torch.where(active, BIG, 0.0)
-    tri = torch.full((n,), -1.0, device=dev)
-    ts = torch.full((n, n_slots), BIG, device=dev)
-    ids = torch.full((n, n_slots), -1.0, device=dev)
+    t_opq, tri, ts, ids = _slot_records(n, active, n_slots, dev)
     base = SO_SLOT_F * SLOT_N
 
     def bound_of(lanes):
@@ -721,21 +829,14 @@ def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
     def visit_leaf(lanes, leaf_row, box, bl):
         row = srows[leaf_row]
         dl = d[lanes]
-        to, tr = t_opq[lanes], tri[lanes]
-        tsl, idl = ts[lanes], ids[lanes]
+        rec = [t_opq[lanes], tri[lanes], ts[lanes], ids[lanes]]
         for j in range(SLOT_N):
             tid = row[:, base + j]
             t, dnp, un_s, vn_s, tn_s = _so_slot(
                 dl, row[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)])
-            hit = _so_inside(tid, dnp, un_s, vn_s) & \
-                (tn_s > 1e-4 * dnp) & (t < bl) & box
-            opaque = tid == torch.floor(tid)
-            win = hit & opaque & (t < to)
-            to = torch.where(win, t, to)
-            tr = torch.where(win, tid, tr)
-            _insert(tsl, idl, hit & ~opaque, t, tid)
-        t_opq[lanes], tri[lanes] = to, tr
-        ts[lanes], ids[lanes] = tsl, idl
+            _take_slot(rec, _so_inside(tid, dnp, un_s, vn_s) &
+                       (tn_s > 1e-4 * dnp) & (t < bl) & box, t, tid)
+        t_opq[lanes], tri[lanes], ts[lanes], ids[lanes] = rec
 
     _near_first_walk(header.reshape(-1, 8),
                      torch.as_tensor(o, dtype=torch.float32, device=dev),
@@ -744,7 +845,7 @@ def trace_layers_so_plain(origin_rows, o, d, t_max, n_slots: int = 3,
 
 
 def _launch_k6(tree, srows, o, d, t_max, t_floor, counts):
-    dev, n = _check_tree(tree, srows, SO_SLOT_F * SLOT_N + SLOT_N, d, t_max)
+    dev, n = _check_tree(tree, srows, SO_ROW_W, t_max, d=d)
     if t_floor is not None:
         _cuda.require(t_floor, "t_floor", (n,), device=dev)
     ox, oy, oz = (float(x) for x in torch.as_tensor(o).tolist())
@@ -852,7 +953,7 @@ def trace_rays_so_binary(origin_rows, o, d, t_max, t_floor=None,
 
 
 def _launch_k8(tree, rows, o, d, t_limit, counts):
-    dev, n = _check_tree(tree, rows, ROW, d, t_limit, o)
+    dev, n = _check_tree(tree, rows, ROW, t_limit, o, d)
     blocked = torch.empty(n, dtype=torch.bool, device=dev)
     _cuda.check(_cuda.library().sge_trace_any(
         tree.nodes.data_ptr(), rows.data_ptr(), o.data_ptr(), d.data_ptr(),
@@ -916,7 +1017,7 @@ def trace_shadow_any_binary(rows, o, d, t_limit, counts=None):
     interior node, else jump to skip); at a leaf its box hits, the slots'
     Moller-Trumbore tests; a ray stops at its first opaque hit. Kept to
     count the work of that walk, the bound of K8 before its redesign.
-    ``counts``: as for trace_shadow_factor_plain; "slot" counts the
+    ``counts``: as for trace_shadow_factor_binary; "slot" counts the
     Moller-Trumbore tests that walk makes: the opaque slots up to the
     first opaque hit; per ray "nodes" and "slots" ((N,) int64) as for
     ``_near_first_walk``."""
@@ -957,61 +1058,121 @@ def trace_shadow_any_binary(rows, o, d, t_limit, counts=None):
     return blocked
 
 
-def trace_shadow_factor(shadow_rows, l, o, t_limit, n_slots: int = 4):
-    """Shadow records of origins ``o`` (N, 3) along unit direction ``l``
-    (3,) — the direction ``build_shadow_rows`` baked in; host floats need no
-    device sync: one walk ->
-    (t_opq (N,), ts (N, n_slots), ids (N, n_slots) float with the
-    translucent +0.5 marker). Origins with t_limit <= 0 are inactive
-    (t_opq 0, ids -1)."""
-    header, srows = shadow_rows
-    if not header.is_cuda:
-        return trace_shadow_factor_plain(shadow_rows, l, o, t_limit, n_slots)
+def _launch_k7(tree, srows, l, o, t_limit, n_slots, counts, threads=None):
     if not 1 <= n_slots <= 4:
         raise ValueError(f"n_slots must be 1..4, got {n_slots}")
-    dev = header.device
-    n = o.shape[0]
-    _cuda.require(header, "header", dtype=torch.float32, device=dev)
-    _cuda.require(srows, "srows", dtype=torch.float32, device=dev)
-    if srows.dim() != 2 or srows.shape[1] != SHADOW_SLOT_F * SLOT_N + SLOT_N:
-        raise ValueError(f"srows: bad shape {tuple(srows.shape)}")
-    _cuda.require(o, "o", (n, 3), device=dev)
-    _cuda.require(t_limit, "t_limit", (n,), device=dev)
+    dev, n = _check_tree(tree, srows, SHADOW_ROW_W, t_limit, o)
     ix, iy, iz = (float(x) for x in _safe_inv(
         torch.as_tensor(l, dtype=torch.float32)).tolist())
     t_opq = torch.empty(n, dtype=torch.float32, device=dev)
     ts = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
     ids = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
-    lib = _cuda.library()
-    global shadow_launches
-    shadow_launches += 1
-    _cuda.check(lib.sge_shadow_walk(header.data_ptr(), srows.data_ptr(), ix,
-                                    iy, iz, o.data_ptr(), t_limit.data_ptr(),
-                                    n, n_slots, t_opq.data_ptr(),
-                                    ts.data_ptr(), ids.data_ptr(),
-                                    _cuda.stream_ptr(header)),
-                "sge_shadow_walk")
+    _cuda.check(_cuda.library().sge_shadow_walk(
+        tree.nodes.data_ptr(), srows.data_ptr(), ix, iy, iz, o.data_ptr(),
+        t_limit.data_ptr(), n, tree.stack, n_slots,
+        K7_THREADS if threads is None else threads, _cuda.ptr(counts),
+        t_opq.data_ptr(), ts.data_ptr(), ids.data_ptr(), _cuda.stream_ptr(o)),
+        "sge_shadow_walk")
     return t_opq, ts, ids
 
 
-def trace_shadow_factor_plain(shadow_rows, l, o, t_limit, n_slots: int = 4,
-                              counts=None):
-    """Plain PyTorch twin of K7: every live origin steps its own skip-link
+def trace_shadow_factor(tree: WideTree, srows, l, o, t_limit,
+                        n_slots: int = 4):
+    """K7: shadow records over ``tree`` of origins ``o`` (N, 3) along unit
+    direction ``l`` (3,) — the direction ``build_shadow_rows`` baked into
+    its shadow rows ``srows`` (its second output), which the tree's leaf
+    ranks name; host floats need no device sync: one walk -> (t_opq (N,),
+    ts (N, n_slots), ids (N, n_slots) float with the translucent +0.5
+    marker), n_slots 1..4. Origins with t_limit <= 0 are inactive (t_opq
+    0, ids -1)."""
+    if not tree.nodes.is_cuda:
+        return trace_shadow_factor_plain(tree, srows, l, o, t_limit, n_slots)
+    out = _launch_k7(tree, srows, l, o, t_limit, n_slots, None)
+    global shadow_launches
+    shadow_launches += 1
+    return out
+
+
+def trace_shadow_factor_counts(tree: WideTree, srows, l, o, t_limit,
+                               n_slots: int = 4):
+    """K7's counting instantiation, on the card only (not a launch of the
+    frame): (t_opq, ts, ids, per-ray counts as ``trace_rays_counts``'s)."""
+    counts = _counts(o.shape[0], o.device)
+    out = _launch_k7(tree, srows, l, o, t_limit, n_slots, counts)
+    return (*out, _count_dict(counts))
+
+
+def _shadow_test(row, p, t_limit, j):
+    """Slot j of shadow rows ``row`` for origins ``p``: (accepted, t, id)
+    with u = P.g1 - c1, v = P.g2 - c2, t = P.g3 - c3 in range and
+    1e-4 < t < t_limit."""
+    s = row[:, SHADOW_SLOT_F * j:SHADOW_SLOT_F * (j + 1)]
+    tid = row[:, SHADOW_SLOT_F * SLOT_N + j]
+    u, v, t = (_dot(p, s[:, 3 * c:3 * c + 3]) - s[:, 9 + c] for c in range(3))
+    return ((tid >= 0) & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1) &
+            (t > 1e-4) & (t < t_limit)), t, tid
+
+
+def trace_shadow_factor_plain(tree: WideTree, srows, l, o, t_limit,
+                              n_slots: int = 4, counts=None, group=None):
+    """Plain PyTorch twin of K7 (``_wide_walk`` with the bound
+    min(t_limit, t_opq, ts[-1]), the leaves by rank): at a leaf, the
+    accepted slots (``_shadow_test``) are taken in slot order
+    (``_in_slot_order``, ``group`` threads a ray: the kernel's count by
+    default). ``counts``: as for ``_wide_walk``."""
+    n, dev = o.shape[0], o.device
+    active = t_limit > 0
+    rec_all = _slot_records(n, active, n_slots, dev)
+    t_opq, _, ts, ids = rec_all
+    bound = torch.minimum(t_limit, t_opq)
+
+    def visit_leaf(lanes, code):
+        row = srows[torch.div(code, 16, rounding_mode="floor")]
+        cnt = code % 16
+        p, tl = o[lanes], t_limit[lanes]
+        rec = [x[lanes] for x in rec_all]
+
+        def test(j):
+            hit, t, tid = _shadow_test(row, p, tl, j)
+            return hit & (j < cnt), t, tid
+
+        _in_slot_order(test, lambda *a: _take_slot(rec, *a),
+                       K7_THREADS if group is None else group)
+        for x, v in zip(rec_all, rec):
+            x[lanes] = v
+        bound[lanes] = torch.minimum(torch.minimum(tl, rec[0]),
+                                     rec[2][:, -1])
+        return None, cnt
+
+    inv = _safe_inv(torch.as_tensor(l, dtype=torch.float32, device=dev))
+    _wide_walk(tree, o, inv.expand(n, 3), bound, active, visit_leaf,
+               by_rank=True, counts=counts)
+    return t_opq, ts, ids
+
+
+def trace_shadow_factor_binary(shadow_rows, l, o, t_limit, n_slots: int = 4,
+                               counts=None):
+    """K7's function on the binary tree, as the reference and the design
+    before the wide walk walk it (``shadow_rows`` the (header, srows) of
+    ``build_shadow_rows``): every live origin steps its own skip-link
     cursor in lockstep (descend to node+1 on a box hit at an interior node,
     else jump to skip); leaves its box hits test their slots in order.
-    ``counts``: as for trace_layers_so_plain."""
+    Kept to count the work of that walk, the bound of K7 before its
+    redesign. ``counts``: a dict that receives the box and slot tests of
+    the walk ("box", "slot") and per origin the nodes it visits and its
+    slot tests ("nodes", "slots": (N,) int64)."""
     header, srows = shadow_rows
     hdr = header.reshape(-1, 8)
     dev = o.device
     n = o.shape[0]
     inv = _safe_inv(torch.as_tensor(l, dtype=torch.float32, device=dev))
     active = t_limit > 0
-    t_opq = torch.where(active, BIG, 0.0)
-    ts = torch.full((n, n_slots), BIG, device=dev)
-    ids = torch.full((n, n_slots), -1.0, device=dev)
+    t_opq, tri, ts, ids = _slot_records(n, active, n_slots, dev)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     idx = torch.nonzero(active).squeeze(1)
-    base = SHADOW_SLOT_F * SLOT_N
+    if counts is not None:
+        for k in ("nodes", "slots"):
+            counts[k] = torch.zeros(n, dtype=torch.int64, device=dev)
     while idx.numel():
         nd = node[idx]
         h = hdr[nd]
@@ -1024,22 +1185,16 @@ def trace_shadow_factor_plain(shadow_rows, l, o, t_limit, n_slots: int = 4,
         if counts is not None:
             counts["box"] = counts.get("box", 0) + idx.numel()
             counts["slot"] = counts.get("slot", 0) + SLOT_N * li.numel()
+            counts["nodes"][idx] += 1
+            counts["slots"][idx[li]] += SLOT_N
         if li.numel():
             lanes = idx[li]
             row = srows[h[li, 7].to(torch.int64) - 1]
             p, tll = o[lanes], tl[li]
-            to, tsl, idl = t_opq[lanes], ts[lanes], ids[lanes]
+            rec = [t_opq[lanes], tri[lanes], ts[lanes], ids[lanes]]
             for j in range(SLOT_N):
-                s = row[:, SHADOW_SLOT_F * j:SHADOW_SLOT_F * (j + 1)]
-                tid = row[:, base + j]
-                u, v, t = (_dot(p, s[:, 3 * c:3 * c + 3]) - s[:, 9 + c]
-                           for c in range(3))
-                hit = (tid >= 0) & (u >= 0) & (u <= 1) & (v >= 0) & \
-                    (u + v <= 1) & (t > 1e-4) & (t < tll)
-                opaque = tid == torch.floor(tid)
-                to = torch.where(hit & opaque, torch.minimum(to, t), to)
-                _insert(tsl, idl, hit & ~opaque, t, tid)
-            t_opq[lanes], ts[lanes], ids[lanes] = to, tsl, idl
+                _take_slot(rec, *_shadow_test(row, p, tll, j))
+            t_opq[lanes], ts[lanes], ids[lanes] = rec[0], rec[2], rec[3]
         nxt = torch.where(box & ~leaf, nd + 1, h[:, 6].to(torch.int64))
         node[idx] = nxt
         idx = idx[nxt >= 0]

@@ -239,7 +239,7 @@ def _shadow_mode(geo: SceneGeometry, fg: FrameGeometry, lights,
             alpha=torch.clamp(geo.materials.alpha[mid_t], 0.0, 1.0),
             trans_idx=geo.translucent_idx)
     if RK.walk_available(fg.bvh.rows):
-        return "walk", (RK.build_shadow_rows(fg.bvh.rows, l0), l0.tolist())
+        return "walk", (RK.build_shadow_rows(fg.bvh.rows, l0)[1], l0.tolist())
     return "loop", None
 
 
@@ -286,9 +286,10 @@ def _shadow_factor(fr: _Frame, hit_pos, n, light_dir, max_dist, bias,
     if fr.shadow_mode == "walk":
         # rt.py:853-864: the t limit is the light's range alone
         t_lim = torch.where(active, torch.clamp(max_dist, max=BIG), 0.0)
-        rows, l_host = fr.shadow
+        srows, l_host = fr.shadow
         t_opq, ts, ids = RK.trace_shadow_factor(
-            rows, l_host, o_sh, t_lim.contiguous(), n_slots=fr.shadow_layers)
+            fr.fg.bvh.wide, srows, l_host, o_sh, t_lim.contiguous(),
+            n_slots=fr.shadow_layers)
         return _apply_shadow_records(fr, o_sh, l, t_opq, ts, ids, active,
                                      max_dist, False)
     # Exact per-lane t limit: no triangle lies outside the root AABB, so a
@@ -568,10 +569,10 @@ def _traced_records(fg: FrameGeometry, cam, cam_host, d, max_layers: int):
     translucent hits per ray, through the floor chain. ``cam_host``: the
     origin ``cam`` as host floats, for the kernel's arguments."""
     p = d.shape[0]
-    so_rows = RK.build_origin_rows(fg.bvh.rows, cam)
+    _, srows = RK.build_origin_rows(fg.bvh.rows, cam)
     t_opq, otri, lts, lids = RK.trace_layers_so(
-        so_rows, cam_host, d, torch.full((p,), BIG, device=d.device),
-        n_slots=max_layers)
+        fg.bvh.wide, srows, cam_host, d,
+        torch.full((p,), BIG, device=d.device), n_slots=max_layers)
     trs = [(lts[:, k], torch.floor(lids[:, k]).long(), None, None,
             lids[:, k] >= 0) for k in range(max_layers)]
     return _layer_records((t_opq, otri.long(), None, None, t_opq < BIG), trs,

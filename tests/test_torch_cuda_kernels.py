@@ -5,11 +5,11 @@ this file imports no jax and runs there without the conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 
-Here (no CUDA device) every test skips. K4 (the closest hit), K6 (the
-shared-origin closest hit) and K8 (the any-hit prepass), the instances of
-the wide walk, and K5 (the layered shared-origin walk) and K7 (the shadow
-walk) walk each lane in the same order as their twins, so their records
-agree lane for lane; K9 and K10 (the list rasters) keep the same
+Here (no CUDA device) every test skips. K4 (the closest hit), K5 (the
+layered shared-origin walk), K6 (the shared-origin closest hit), K7 (the
+shadow walk) and K8 (the any-hit prepass), the instances of the wide walk,
+walk each lane in the same order as their twins, so their records agree
+lane for lane; K9 and K10 (the list rasters) keep the same
 fragments as theirs. The twins themselves are held against the JAX
 reference by the CPU tests (tests/test_torch_kernels.py,
 test_torch_trace_kernels.py, test_torch_so_prepass.py,
@@ -399,8 +399,8 @@ def test_k4_grazing_and_inside(cuda, n):
 
 @pytest.fixture
 def walk_tree(cuda):
-    """A 6,000-triangle soup, a fifth of it translucent, as the packed tree
-    the walks read (well under their 22,000-row cap)."""
+    """A 6,000-triangle soup, a fifth of it translucent, as the packed and
+    wide trees the walks read (well under their 22,000-row cap)."""
     v0, v1, v2 = soup(9, 6000, spread=14.0)
     pos = np.stack([v0, v1, v2], 1).reshape(-1, 3)
     cut = 3 * 4800
@@ -416,7 +416,7 @@ def walk_tree(cuda):
     fg = flatten_frame(geo, torch.eye(4, device=cuda)[None],
                        torch.zeros((1, 1, 4, 4), device=cuda))
     assert RK.walk_available(fg.bvh.rows)
-    return fg.bvh.rows
+    return fg.bvh
 
 
 def records_agree(key_k, key_p, vals_k, vals_p):
@@ -428,53 +428,79 @@ def records_agree(key_k, key_p, vals_k, vals_p):
         torch.testing.assert_close(a[same], b[same], rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("n_slots", [1, 2, 3])
-def test_k5_kernel_matches_plain(walk_tree, n_slots):
-    dev = walk_tree.device
-    rng = np.random.default_rng(10)
+def _k5_case(bvh, n, n_slots, seed):
+    """K5 and its wide twin on n rays from one origin into the soup, every
+    17th inactive."""
+    dev = bvh.rows.device
+    rng = np.random.default_rng(seed)
     o = torch.tensor([0.0, 3.0, 30.0], device=dev)
-    tgt = torch.as_tensor(rng.uniform(-14, 14, (20000, 3)).astype(np.float32),
+    tgt = torch.as_tensor(rng.uniform(-14, 14, (n, 3)).astype(np.float32),
                           device=dev)
     d = tgt - o
     d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).contiguous()
-    t_max = torch.full((20000,), 3.0e38, device=dev)
+    t_max = torch.full((n,), 3.0e38, device=dev)
     t_max[::17] = 0.0                                     # inactive rays
-    so = RK.build_origin_rows(walk_tree, o)
+    _, srows = RK.build_origin_rows(bvh.rows, o)
     before = RK.so_launches
-    k = RK.trace_layers_so(so, o.tolist(), d, t_max, n_slots)
+    k = RK.trace_layers_so(bvh.wide, srows, o.tolist(), d, t_max, n_slots)
     assert RK.so_launches == before + 1
-    p = RK.trace_layers_so_plain(so, o, d, t_max, n_slots)
+    p = RK.trace_layers_so_plain(bvh.wide, srows, o, d, t_max, n_slots)
     torch.cuda.synchronize()
-    assert int((p[1] >= 0).sum()) > 3000 and int((p[3][:, 0] >= 0).sum()) > 1000
+    assert int((p[1] >= 0).sum()) > n // 7 and \
+        int((p[3][:, 0] >= 0).sum()) > n // 20
+    assert bool((k[0][::17] == 0).all() and (k[1][::17] == -1).all())
     records_agree(torch.cat([k[1][:, None].float(), k[3]], 1),
                   torch.cat([p[1][:, None].float(), p[3]], 1),
                   [k[0], k[2]], [p[0], p[2]])
 
 
-@pytest.mark.parametrize("n_slots", [1, 2, 3, 4])
-def test_k7_kernel_matches_plain(walk_tree, n_slots):
-    dev = walk_tree.device
-    rng = np.random.default_rng(11)
+@pytest.mark.parametrize("n_slots", [1, 2, 3])
+def test_k5_kernel_matches_plain(walk_tree, n_slots):
+    _k5_case(walk_tree, 20000, n_slots, 10)
+
+
+def test_k5_kernel_matches_plain_at_scale(walk_tree):
+    """Past 100,000 rays: many blocks of rays in flight."""
+    _k5_case(walk_tree, 131_072, 3, 12)
+
+
+def _k7_case(bvh, n, n_slots, seed):
+    """K7 and its wide twin on n origins in and around the soup toward one
+    light, every 13th inactive."""
+    dev = bvh.rows.device
+    rng = np.random.default_rng(seed)
     l = torch.as_tensor(np.array([0.3, 0.8, -0.2], np.float32), device=dev)
     l = l / torch.linalg.vector_norm(l)
-    o = torch.as_tensor(rng.uniform(-16, 16, (20000, 3)).astype(np.float32),
+    o = torch.as_tensor(rng.uniform(-16, 16, (n, 3)).astype(np.float32),
                         device=dev)
-    t_lim = torch.full((20000,), 60.0, device=dev)
+    t_lim = torch.full((n,), 60.0, device=dev)
     t_lim[::13] = 0.0                                     # dead lanes
-    sr = RK.build_shadow_rows(walk_tree, l)
+    _, srows = RK.build_shadow_rows(bvh.rows, l)
     before = RK.shadow_launches
-    k = RK.trace_shadow_factor(sr, l, o, t_lim, n_slots)
+    k = RK.trace_shadow_factor(bvh.wide, srows, l, o, t_lim, n_slots)
     assert RK.shadow_launches == before + 1
     # the direction as host floats, as the frame passes it: the same walk
-    for a, b in zip(RK.trace_shadow_factor(sr, l.tolist(), o, t_lim, n_slots),
-                    k):
+    for a, b in zip(RK.trace_shadow_factor(bvh.wide, srows, l.tolist(), o,
+                                           t_lim, n_slots), k):
         assert torch.equal(a, b)
-    p = RK.trace_shadow_factor_plain(sr, l, o, t_lim, n_slots)
+    p = RK.trace_shadow_factor_plain(bvh.wide, srows, l, o, t_lim, n_slots)
     torch.cuda.synchronize()
-    assert int((p[0] < 1e30).sum()) > 3000 and int((p[2][:, 0] >= 0).sum()) > 1000
+    assert int((p[0] < 1e30).sum()) > n // 7 and \
+        int((p[2][:, 0] >= 0).sum()) > n // 20
+    assert bool((k[0][::13] == 0).all() and (k[2][::13] == -1).all())
     records_agree(torch.cat([(k[0] < 1e30)[:, None].float(), k[2]], 1),
                   torch.cat([(p[0] < 1e30)[:, None].float(), p[2]], 1),
                   [k[0], k[1]], [p[0], p[1]])
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 3, 4])
+def test_k7_kernel_matches_plain(walk_tree, n_slots):
+    _k7_case(walk_tree, 20000, n_slots, 11)
+
+
+def test_k7_kernel_matches_plain_at_scale(walk_tree):
+    """Past 100,000 origins: many blocks of origins in flight."""
+    _k7_case(walk_tree, 131_072, 4, 13)
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -496,8 +522,12 @@ def test_wrappers_reject_bad_inputs(cuda):
                       torch.ones(4, device=cuda))
     so = RK.build_origin_rows(rows, torch.zeros(3, device=cuda))
     with pytest.raises(ValueError):
-        RK.trace_layers_so(so, torch.zeros(3), o, torch.ones(4, device=cuda),
+        RK.trace_layers_so(tree, so[1], torch.zeros(3), o,
+                           torch.ones(4, device=cuda),
                            n_slots=4)                     # K5 takes 1..3
+    with pytest.raises(ValueError):                       # K5: srows width
+        RK.trace_layers_so(tree, rows, [0.0, 0.0, 0.0], o,
+                           torch.ones(4, device=cuda))
     with pytest.raises(ValueError):                       # K6: srows width
         RK.trace_rays_so(tree, so[0].reshape(8, 8), [0.0, 0.0, 0.0], o,
                          torch.ones(4, device=cuda))
@@ -511,11 +541,14 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):                       # K8: stack bound
         RK.trace_shadow_any(tree._replace(stack=RK.WIDE_STACK_MAX + 1),
                             rows, o, o, torch.ones(4, device=cuda))
-    sr = RK.build_shadow_rows(rows, torch.tensor([0.0, 1.0, 0.0],
-                                                 device=cuda))
+    _, sr = RK.build_shadow_rows(rows, torch.tensor([0.0, 1.0, 0.0],
+                                                    device=cuda))
     with pytest.raises(ValueError):
-        RK.trace_shadow_factor(sr, torch.tensor([0.0, 1.0, 0.0]), o,
+        RK.trace_shadow_factor(tree, sr, torch.tensor([0.0, 1.0, 0.0]), o,
                                torch.ones(5, device=cuda))  # t_limit shape
+    with pytest.raises(ValueError):                       # K7 takes 1..4
+        RK.trace_shadow_factor(tree, sr, [0.0, 1.0, 0.0], o,
+                               torch.ones(4, device=cuda), n_slots=5)
 
 
 @pytest.fixture

@@ -105,10 +105,11 @@ def test_render_frame_matches_reference(scene):
     cam.position = np.array([0.5, 4.0, 11.0], np.float32)
     cam.target = np.array([0.0, 1.0, 0.0], np.float32)
     ref = np.asarray(_reference_render(scene, cam, tf))
-    pgeo = interop.scene_geometry(geo)
+    pgeo = interop.scene_geometry(geo, device="cpu")
     pfg = p_sg.flatten_frame(pgeo, torch.as_tensor(tf), torch.as_tensor(pal))
     out = p_rt.render_frame(
-        pgeo, pfg, interop.ibl(ibl), interop.lights(lights),
+        pgeo, pfg, interop.ibl(ibl, device="cpu"),
+        interop.lights(lights, device="cpu"),
         torch.as_tensor(cam.inv_view_proj(W, H)), cam.position, W, H,
         max_layers=LAYERS, shadow_layers=SHADOW_LAYERS,
         view_proj=torch.as_tensor(cam.view_proj(W, H))).numpy()
@@ -120,10 +121,10 @@ def test_render_frame_matches_reference(scene):
 
 def _port_world(scene, player):
     geo, tf, pal, lights, _ = scene
-    return DemoWorld(geometry=interop.scene_geometry(geo),
+    return DemoWorld(geometry=interop.scene_geometry(geo, device="cpu"),
                      transforms=torch.as_tensor(tf),
                      palettes=torch.as_tensor(pal),
-                     lights=interop.lights(lights),
+                     lights=interop.lights(lights, device="cpu"),
                      player_position=np.asarray(player, np.float64),
                      movement=(4.5, 12.5, 0.78))
 

@@ -110,11 +110,34 @@ def test_usage_and_partition(scenes):
 
 def test_interop_scene_matches_port_build(scenes):
     jgeo, pgeo, _, _ = scenes
-    via = interop.scene_geometry(jgeo)
+    via = interop.scene_geometry(jgeo, device="cpu")
     for group, arrs in _arrays(via).items():
         for a, b in zip(arrs, _arrays(pgeo)[group]):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert via.usage == pgeo.usage
+
+
+def test_interop_needs_a_device_without_cuda(scenes, monkeypatch):
+    """interop defaults to the card like every entry point: where CUDA is
+    absent, a call that names no device raises instead of running on the
+    CPU."""
+    from swift_game_engine_tpu_torch.render.rt import DirectionalLights
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jgeo, _, tf, pal = scenes
+    jfg = j_sg.flatten_frame(jgeo, jnp.asarray(tf), jnp.asarray(pal))
+    lights = {k: np.zeros((1, 3), np.float32)
+              for k in DirectionalLights._fields}
+    tables = {"sh0": np.zeros(3, np.float32),
+              "sh1": np.zeros((3, 3), np.float32),
+              "brdf_lut": np.zeros((8, 8, 2), np.float32), "env_mip_count": 1}
+    for call in (lambda: interop.scene_geometry(jgeo),
+                 lambda: interop.frame_geometry(jfg),
+                 lambda: interop.lights(lights),
+                 lambda: interop.ibl(tables)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert interop.lights(lights, device="cpu").direction.device.type == \
+        "cpu"
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +145,7 @@ def frames(scenes):
     jgeo, pgeo, tf, pal = scenes
     jfg = j_sg.flatten_frame(jgeo, jnp.asarray(tf), jnp.asarray(pal))
     pfg = p_sg.flatten_frame(pgeo, torch.as_tensor(tf), torch.as_tensor(pal))
-    return interop.frame_geometry(jfg), pfg
+    return interop.frame_geometry(jfg, device="cpu"), pfg
 
 
 @pytest.mark.parametrize("field", ["pos", "nrm", "tan", "tri_nrm"])

@@ -308,7 +308,7 @@ def test_k4_twin_matches_traverse(trace_case):
         lambda a, b: j_bvh.traverse(fg.bvh, a, b, jnp.float32(1e6)))(
         jnp.asarray(o), jnp.asarray(d))
     jt, jtri = np.asarray(jt), np.asarray(jtri)
-    bvh = interop.frame_geometry(fg).bvh
+    bvh = interop.frame_geometry(fg, device="cpu").bvh
     pt, ptri = p_rk.trace_rays(bvh.wide, bvh.rows, torch.as_tensor(o),
                                torch.as_tensor(d), torch.as_tensor(t_max))
     same = ptri.numpy() == jtri

@@ -202,7 +202,7 @@ def test_k10_twin_matches_reference(lists, monkeypatch, layers):
 
 def _port_raster(raster_mode):
     geo, tf, pal, _, _ = build_scene()
-    pgeo = interop.scene_geometry(geo)
+    pgeo = interop.scene_geometry(geo, device="cpu")
     pfg = p_sg.flatten_frame(pgeo, torch.as_tensor(tf), torch.as_tensor(pal))
     cam = camera()
     return p_raster.render_frame_raster(
@@ -233,7 +233,8 @@ def test_raster_frame_matches_reference(tmp_path_factory, raster_mode):
 def test_opaque_flag_matches_reference():
     geo = build_scene()[0]
     np.testing.assert_array_equal(
-        p_raster.opaque_tris(interop.scene_geometry(geo)).numpy(),
+        p_raster.opaque_tris(
+            interop.scene_geometry(geo, device="cpu")).numpy(),
         np.asarray(j_rt._opaque_tris(geo)))
 
 

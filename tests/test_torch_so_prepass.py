@@ -297,11 +297,12 @@ def _port_frame(monkeypatch, **kw):
             return _orig(*a, **k)
         monkeypatch.setattr(RK, name, spy)
     geo, tf, pal, lights, ibl = build_scene()
-    pgeo = interop.scene_geometry(geo)
+    pgeo = interop.scene_geometry(geo, device="cpu")
     pfg = p_sg.flatten_frame(pgeo, torch.as_tensor(tf), torch.as_tensor(pal))
     cam = camera()
     img = p_rt.render_frame(
-        pgeo, pfg, interop.ibl(ibl), interop.lights(lights),
+        pgeo, pfg, interop.ibl(ibl, device="cpu"),
+        interop.lights(lights, device="cpu"),
         torch.as_tensor(cam.inv_view_proj(W, H)), cam.position, W, H,
         max_layers=LAYERS, view_proj=torch.as_tensor(cam.view_proj(W, H)),
         primary="trace", enable_refraction=False, **kw)

@@ -181,10 +181,11 @@ def _kernel_frame(tmp_path, *knobs, refraction=True):
 def _port_render(scene, cam, tf, w=W, h=H, primary="trace",
                  refraction=True):
     geo, _, pal, lights, ibl = scene
-    pgeo = interop.scene_geometry(geo)
+    pgeo = interop.scene_geometry(geo, device="cpu")
     pfg = p_sg.flatten_frame(pgeo, torch.as_tensor(tf), torch.as_tensor(pal))
     return p_rt.render_frame(
-        pgeo, pfg, interop.ibl(ibl), interop.lights(lights),
+        pgeo, pfg, interop.ibl(ibl, device="cpu"),
+        interop.lights(lights, device="cpu"),
         torch.as_tensor(cam.inv_view_proj(w, h)), cam.position, w, h,
         max_layers=LAYERS, shadow_layers=SHADOW_LAYERS,
         view_proj=torch.as_tensor(cam.view_proj(w, h)),
@@ -267,13 +268,13 @@ def test_shadow_source_follows_reference_rule(scene, lanes, rows, mode):
     walk at <= 22,000 rows, else the per-layer loop; the record kernels
     need 1..4 shadow layers (else the loop, at any frame size)."""
     geo, tf, pal, lights, _ = scene
-    pgeo = interop.scene_geometry(geo)
+    pgeo = interop.scene_geometry(geo, device="cpu")
     pfg = p_sg.flatten_frame(pgeo, torch.as_tensor(tf), torch.as_tensor(pal))
     fake = pfg._replace(bvh=pfg.bvh._replace(rows=torch.zeros((rows, 128))))
     for layers, want in ((4, mode), (1, mode), (0, "loop"), (5, "loop")):
         got, consts = p_rt._shadow_mode(
             pgeo, fake if mode != "clusters" else pfg,
-            interop.lights(lights), lanes, layers)
+            interop.lights(lights, device="cpu"), lanes, layers)
         assert got == want, (layers, got)
         assert (consts is None) == (want == "loop")
 
@@ -283,10 +284,10 @@ def test_shadow_source_follows_reference_rule(scene, lanes, rows, mode):
 
 def _port_world(scene, player):
     geo, tf, pal, lights, _ = scene
-    return DemoWorld(geometry=interop.scene_geometry(geo),
+    return DemoWorld(geometry=interop.scene_geometry(geo, device="cpu"),
                      transforms=torch.as_tensor(tf),
                      palettes=torch.as_tensor(pal),
-                     lights=interop.lights(lights),
+                     lights=interop.lights(lights, device="cpu"),
                      player_position=np.asarray(player, np.float64),
                      movement=(4.5, 12.5, 0.78))
 

@@ -9,19 +9,28 @@ tests/test_layered_kernel.py and tests/test_shadow_kernel.py run them), and
 hands its tree rows and records back as an .npz. The port's twin then runs
 on the same rows here.
 
-  * K5 twin (trace_layers_so_plain) vs trace_layers_so on the 250-triangle
-    soup of test_layered_kernel.py, 512 rays from one origin, n_slots 1..3.
+  * K5's twins vs trace_layers_so on the 250-triangle soup of
+    test_layered_kernel.py, 512 rays from one origin, n_slots 1..3: the
+    wide twin (trace_layers_so_plain, over the wide tree rebuilt from the
+    reference's packed rows) and the binary twin (trace_layers_so_binary).
     The TPU kernel orders a packet's children by the packet's nearest entry
-    and the twin by the ray's own, so a ray may meet its hits in another
+    and the twins by the ray's own, so a ray may meet its hits in another
     order. What the layer chain reads agrees: the nearest opaque hit (once
     a ray's n_slots translucent slots are full in front of it, the walk may
     or may not have met the opaque hit behind them, and the chain never
     reads it: such a lane counts as "no opaque hit"), t to 1e-5, and the
     translucent slots in front of it as sets.
-  * K7 twin (trace_shadow_factor_plain) vs trace_shadow_factor on the
-    400-triangle soup of test_shadow_kernel.py, 256 origins, an eighth of
-    them inactive, n_slots 1..4: the same skip-link order per lane, so the
-    records are equal (ids exactly), t to 1e-5.
+  * K7's twins vs trace_shadow_factor on the 400-triangle soup of
+    test_shadow_kernel.py, 256 origins, an eighth of them inactive,
+    n_slots 1..4. The binary twin (trace_shadow_factor_binary) follows the
+    same skip links per lane, so the records are equal (ids exactly), t to
+    1e-5. The wide twin (trace_shadow_factor_plain) walks near-first, so it
+    fills the slots behind the opaque hit otherwise; what
+    _apply_shadow_records reads agrees (``_shadow_view``: the slots in
+    front of the opaque hit as sets, the opaque t while slots remain), and
+    so does the shadow factor it computes from them, to 1e-6.
+  * The wide twins' records are the same whether a leaf's slots are taken
+    one at a time or four at a time (the kernels' group broadcast order).
   * build_origin_rows / build_shadow_rows vs the reference's, ids exactly.
     The reference's XLA CPU build contracts each cross product's
     a*b - c*d into one fused multiply-add where the port rounds both
@@ -43,11 +52,14 @@ import os
 import subprocess
 import sys
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
 from swift_game_engine_tpu_torch.ops import rt_kernel as RK
+from swift_game_engine_tpu_torch.render import rt as p_rt
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 BIG = 3.0e38
@@ -179,21 +191,34 @@ def test_build_origin_rows_matches_reference(k5):
     _rows_match(srows, k5["srows"])
 
 
-@pytest.mark.parametrize("n_slots", [1, 2, 3])
-def test_k5_twin_matches_reference(k5, n_slots):
-    rows = _t(k5["rows"])
-    so = RK.build_origin_rows(rows, _t(k5["o"]))
-    got = RK.trace_layers_so(so, _t(k5["o"]), _t(k5["d"]),
-                             torch.full((512,), BIG), n_slots=n_slots)
-    got = [x.numpy() for x in got]
-    ref = [k5[f"{k}{n_slots}"] for k in ("t_opq", "tri", "ts", "ids")]
-    gt, gtri, gts, gids = _layer_view(*got)
+def _layers_agree(got, ref):
+    gt, gtri, gts, gids = _layer_view(*[x.numpy() for x in got])
     rt, rtri, rts, rids = _layer_view(*ref)
     np.testing.assert_array_equal(gtri, rtri)
     np.testing.assert_allclose(gt, rt, rtol=1e-5)
     np.testing.assert_array_equal(gids, rids)
     np.testing.assert_allclose(gts, rts, rtol=1e-5)
     assert (rtri >= 0).sum() > 50 and (rids[:, 0] >= 0).sum() > 50
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 3])
+def test_k5_twin_matches_reference(k5, n_slots):
+    rows = _t(k5["rows"])
+    _, srows = RK.build_origin_rows(rows, _t(k5["o"]))
+    got = RK.trace_layers_so(RK.wide_tree(rows), srows, _t(k5["o"]),
+                             _t(k5["d"]), torch.full((512,), BIG),
+                             n_slots=n_slots)
+    _layers_agree(got, [k5[f"{k}{n_slots}"]
+                        for k in ("t_opq", "tri", "ts", "ids")])
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 3])
+def test_k5_binary_twin_matches_reference(k5, n_slots):
+    so = RK.build_origin_rows(_t(k5["rows"]), _t(k5["o"]))
+    got = RK.trace_layers_so_binary(so, _t(k5["o"]), _t(k5["d"]),
+                                    torch.full((512,), BIG), n_slots=n_slots)
+    _layers_agree(got, [k5[f"{k}{n_slots}"]
+                        for k in ("t_opq", "tri", "ts", "ids")])
 
 
 # --------------------------------------------------------------------- K7
@@ -213,8 +238,8 @@ def test_build_shadow_rows_matches_reference(k7):
 @pytest.mark.parametrize("n_slots", [1, 2, 3, 4])
 def test_k7_twin_matches_reference(k7, n_slots):
     sr = RK.build_shadow_rows(_t(k7["rows"]), _t(k7["l"]))
-    t_opq, ts, ids = RK.trace_shadow_factor(sr, _t(k7["l"]), _t(k7["o"]),
-                                            _t(k7["t_lim"]), n_slots=n_slots)
+    t_opq, ts, ids = RK.trace_shadow_factor_binary(
+        sr, _t(k7["l"]), _t(k7["o"]), _t(k7["t_lim"]), n_slots=n_slots)
     np.testing.assert_array_equal(ids.numpy(), k7[f"ids{n_slots}"])
     np.testing.assert_allclose(t_opq.numpy(), k7[f"t_opq{n_slots}"],
                                rtol=1e-5)
@@ -223,6 +248,83 @@ def test_k7_twin_matches_reference(k7, n_slots):
     assert (t_opq.numpy()[inactive] == 0).all()
     assert ((ids.numpy() >= 0).any(1).sum() > 20 and
             (t_opq.numpy() < 1e30).sum() > 20)
+
+
+def _shadow_view(t_opq, ts, ids):
+    """What _apply_shadow_records reads of a K7 record: the translucent
+    slots in front of the opaque hit, sorted by (t, id) (ties at equal t
+    as sets), and the opaque t unless every slot lies in front of it."""
+    front = (ids >= 0) & (ts < t_opq[:, None])
+    t_eff = np.where(front.all(1), BIG, t_opq)
+    f_ts, f_ids = np.where(front, ts, BIG), np.where(front, ids, -1.0)
+    order = np.lexsort((f_ids, f_ts))
+    return (t_eff, np.take_along_axis(f_ts, order, 1),
+            np.take_along_axis(f_ids, order, 1))
+
+
+def _shadow_factor(t_opq, ts, ids, t_lim, alpha):
+    """The shadow factor that render/rt.py's _apply_shadow_records computes
+    from K7 records, with ``alpha`` per triangle id carried in the ids (its
+    alpha-payload form, id -> 2 + alpha) and the t limit as the light's
+    range."""
+    tri = np.floor(np.maximum(ids, 0)).astype(np.int64)
+    payload = np.where(ids >= 0, 2.0 + alpha[tri], -1.0).astype(np.float32)
+    fr = SimpleNamespace(shadow_layers=ids.shape[1])
+    return p_rt._apply_shadow_records(
+        fr, torch.zeros((len(t_opq), 3)), None, _t(t_opq), _t(ts),
+        _t(payload), _t(t_lim > 0), _t(t_lim), True).numpy()
+
+
+@pytest.mark.parametrize("n_slots", [1, 2, 3, 4])
+def test_k7_wide_twin_matches_reference(k7, n_slots):
+    rows = _t(k7["rows"])
+    _, srows = RK.build_shadow_rows(rows, _t(k7["l"]))
+    got = [x.numpy() for x in RK.trace_shadow_factor(
+        RK.wide_tree(rows), srows, _t(k7["l"]), _t(k7["o"]),
+        _t(k7["t_lim"]), n_slots=n_slots)]
+    ref = [k7[f"{k}{n_slots}"] for k in ("t_opq", "ts", "ids")]
+    g_opq, g_ts, g_ids = _shadow_view(*got)
+    r_opq, r_ts, r_ids = _shadow_view(*ref)
+    np.testing.assert_array_equal(g_ids, r_ids)
+    np.testing.assert_allclose(g_opq, r_opq, rtol=1e-5)
+    np.testing.assert_allclose(g_ts, r_ts, rtol=1e-5)
+    assert (got[0][k7["t_lim"] <= 0] == 0).all()
+    alpha = np.random.default_rng(3).uniform(0.1, 0.9, 400)
+    f_got = _shadow_factor(*got, k7["t_lim"], alpha)
+    f_ref = _shadow_factor(*ref, k7["t_lim"], alpha)
+    np.testing.assert_allclose(f_got, f_ref, rtol=0, atol=1e-6)
+    assert ((f_ref > 0) & (f_ref < 1)).sum() > 20 and (f_ref == 0).sum() > 20
+
+
+# ------------------------------------------------- K5, K7: the group order
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K7"])
+def test_wide_twins_take_slots_in_group_order(request, kernel):
+    """The slot walks' groups test a leaf's slots j = k (mod G) and take
+    the accepted ones in slot order, broadcast: the records are those of
+    one thread taking the slots one at a time."""
+    ref = request.getfixturevalue(kernel.lower())
+    rows = _t(ref["rows"])
+    tree = RK.wide_tree(rows)
+    if kernel == "K5":
+        _, srows = RK.build_origin_rows(rows, _t(ref["o"]))
+
+        def run(group):
+            return RK.trace_layers_so_plain(
+                tree, srows, _t(ref["o"]), _t(ref["d"]),
+                torch.full((512,), BIG), 3, group=group)
+    else:
+        _, srows = RK.build_shadow_rows(rows, _t(ref["l"]))
+
+        def run(group):
+            return RK.trace_shadow_factor_plain(
+                tree, srows, _t(ref["l"]), _t(ref["o"]), _t(ref["t_lim"]), 4,
+                group=group)
+    one, four = run(1), run(4)
+    for a, b in zip(one, four):
+        assert torch.equal(a, b)
+    assert int((one[-1] >= 0).any(1).sum()) > 20
 
 
 # --------------------------------------------------------------------- K4
