@@ -43,18 +43,18 @@ and read just after. Then:
     lists, and its first layer against K9's first peel), and both are
     timed (CUDA events); each kernel's bound — the larger of its bytes over
     the card's memory rate and its operations over the FP32 rate — is
-    computed from the same inputs: for K1-K4, K6 and K8 from the work
-    their counting instantiations count on that call (printed as "K<n>
-    work" lines and checked equal to the kernel's records), with the bytes
-    floor and a one-test-per-record bound beside; K6 and K8 (instances of
-    K4's wide walk) also print their bound before the redesign, the tests
-    the binary walk they replaced makes on the subset, scaled
-    (``trace_rays_so_binary``, ``trace_shadow_any_binary``), and both
-    walks' work per ray. K1 is reported per role (its layer count: the opaque and
-    translucent rasters of path 1, path 4's raster), with every record
-    where it differs from its plain version. A kernel's entry in the JSON
-    line carries the path name after an ``@`` for every path but the first
-    that runs it;
+    computed from the same inputs: for K1-K8 from the work their counting
+    instantiations count on that call (printed as "K<n> work" lines and
+    checked equal to the kernel's records), with the bytes floor and a
+    one-test-per-record bound beside; K5-K8 (instances of K4's wide walk)
+    also print their bound before the redesign, the tests the binary walk
+    they replaced makes on the subset, scaled (``trace_layers_so_binary``,
+    ``trace_rays_so_binary``, ``trace_shadow_factor_binary``,
+    ``trace_shadow_any_binary``), and both walks' work per ray. K1 is
+    reported per role (its layer count: the opaque and translucent rasters
+    of path 1, path 4's raster), with every record where it differs from
+    its plain version. A kernel's entry in the JSON line carries the path
+    name after an ``@`` for every path but the first that runs it;
   * four small renders, each through the kernels and through the plain
     versions, must agree (>= 99% of pixels within 1e-4, means within
     0.1%): a 320x180 hybrid render of the full scene (73,728 lanes, with
@@ -701,15 +701,21 @@ def main():
         binary(rows, shared, *lane_s, walk)
         print(f"  {key} binary walk, per ray of the subset: "
               + _ray_line(walk))
-        for g in (4, 1, 1, 4):             # threads a ray, in turns
-            o_g = launch(tree, srows, shared, *lane, threads=g)
-            ms = _time_ms(lambda: launch(tree, srows, shared, *lane,
-                                         threads=g), 5)
-            same = all(torch.equal(x, y) for x, y in zip(o_g, out))
-            print(f"  {key}, {g} threads a ray: {ms:.3f} ms, records "
-                  f"{'equal to' if same else 'DIFFER from'} the build's")
-            if not same:
-                _fail(f"{key} at {g} threads a ray differs")
+        # threads a ray, in turns (-1: one thread, its slots one at a
+        # time), on the call and on its first m lanes
+        for m in sorted({min(n, m) for m in (40960, 81920, 163840, 327680)}
+                        | {n}):
+            part = [x[:m].contiguous() for x in lane]
+            ref = launch(tree, srows, shared, *part)
+            for g in (4, 1, -1, -1, 1, 4):
+                o_g = launch(tree, srows, shared, *part, threads=g)
+                ms = _time_ms(lambda: launch(tree, srows, shared, *part,
+                                             threads=g), 5)
+                same = all(torch.equal(x, y) for x, y in zip(o_g, ref))
+                print(f"  {key} on {m} lanes, threads {g}: {ms:.3f} ms, "
+                      f"records {'equal' if same else 'DIFFER'}")
+                if not same:
+                    _fail(f"{key} at {g} threads a ray differs")
         return err, out, cnt, walk, sub.numel(), n, plain_ms
 
     def check_k5(args, c, tag):

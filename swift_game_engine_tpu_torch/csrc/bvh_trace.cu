@@ -188,11 +188,27 @@ template <int G, class Test, class Apply>
 __device__ __forceinline__ void slots_in_order(int cnt, int k, unsigned mask,
                                                int& tests, Test test,
                                                Apply apply) {
-  if constexpr (G == 1) {
+  if constexpr (G == -1) {
     for (int j = 0; j < cnt; ++j) {
       float t, id;
       ++tests;
       if (test(j, t, id)) apply(t, id);
+    }
+  } else if constexpr (G == 1) {         // four tests' loads in flight
+    for (int j0 = 0; j0 < cnt; j0 += 4) {
+      float tq[4], iq[4];
+      bool acc[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[q] = false;
+        if (j0 + q < cnt) {
+          ++tests;
+          acc[q] = test(j0 + q, tq[q], iq[q]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (acc[q]) apply(tq[q], iq[q]);
     }
   } else {
     constexpr int Q = (SLOT_N + G - 1) / G;
@@ -405,7 +421,7 @@ struct LayeredArgs {
 template <int NS, int G_>
 struct LayeredOrigin : SlotRecords<NS> {
   using Args = LayeredArgs;
-  static constexpr int G = G_;
+  static constexpr int G = G_ < 0 ? 1 : G_;
   static constexpr int MAX_NS = 3;
   float tm;
   __device__ LayeredOrigin(const Args& a, int64_t i) {
@@ -424,7 +440,7 @@ struct LayeredOrigin : SlotRecords<NS> {
                        int& tests) {
     const float* row = a.srows + int64_t(code >> 4) * SO_ROW_W;
     const float b = bound();
-    slots_in_order<G>(
+    slots_in_order<G_>(
         code & 15, k, mask, tests,
         [&](int j, float& t, float& id) {
           float dnp, tn_s;
@@ -455,7 +471,7 @@ struct ShadowArgs {
 template <int NS, int G_>
 struct ShadowSlots : SlotRecords<NS> {
   using Args = ShadowArgs;
-  static constexpr int G = G_;
+  static constexpr int G = G_ < 0 ? 1 : G_;
   static constexpr int MAX_NS = 4;
   float tl;
   __device__ ShadowSlots(const Args& a, int64_t i) {
@@ -474,7 +490,7 @@ struct ShadowSlots : SlotRecords<NS> {
                        int& tests) {
     const float* row = a.srows + int64_t(code >> 4) * SH_ROW_W;
     const float px = this->ox, py = this->oy, pz = this->oz;
-    slots_in_order<G>(
+    slots_in_order<G_>(
         code & 15, k, mask, tests,
         [&](int j, float& t, float& id) {
           id = __ldg(row + SH_SLOT_F * SLOT_N + j);
@@ -688,6 +704,8 @@ int launch_slots_g(int threads, int n_slots, const float* nodes,
                                       stream);
     case 4: return launch_slots<P, 4>(n_slots, nodes, a, n, stack_n, counts,
                                       stream);
+    case -1: return launch_slots<P, -1>(n_slots, nodes, a, n, stack_n, counts,
+                                        stream);
     default: return int(cudaErrorInvalidValue);
   }
 }
