@@ -674,7 +674,7 @@ def main():
         there is an opaque hit, and the slot ids; t_opq and the slots' t
         compared where the keys agree); the call's work by the counting
         instantiation, the binary walk's (the design before the redesign)
-        on the subset; times at one and four threads a ray."""
+        on the subset."""
         (tree, srows, shared, *lane), _ = args[key]
         n = lane[0].shape[0]
         sub = _subset(n, dev)
@@ -692,7 +692,7 @@ def main():
         *out_c, cnt = counting(tree, srows, shared, *lane)
         if not all(torch.equal(x, y) for x, y in zip(out_c, out)):
             _fail(f"{key}'s counting instantiation differs from the kernel")
-        threads = RK.walk_threads(key)
+        threads = RK.walk_threads(key, n)
         print(f"  {key} work (threads a ray {threads}, stack {tree.stack}): "
               + _count_line(cnt, 32 // threads))
         print(f"  {key} work, per ray of the subset: " +
@@ -701,30 +701,14 @@ def main():
         binary(rows, shared, *lane_s, walk)
         print(f"  {key} binary walk, per ray of the subset: "
               + _ray_line(walk))
-        # threads a ray, in turns (-1: one thread, its slots one at a
-        # time), on the call and on its first m lanes
-        for m in sorted({min(n, m) for m in (40960, 81920, 163840, 327680)}
-                        | {n}):
-            part = [x[:m].contiguous() for x in lane]
-            ref = launch(tree, srows, shared, *part)
-            for g in (4, 1, -1, -1, 1, 4):
-                o_g = launch(tree, srows, shared, *part, threads=g)
-                ms = _time_ms(lambda: launch(tree, srows, shared, *part,
-                                             threads=g), 5)
-                same = all(torch.equal(x, y) for x, y in zip(o_g, ref))
-                print(f"  {key} on {m} lanes, threads {g}: {ms:.3f} ms, "
-                      f"records {'equal' if same else 'DIFFER'}")
-                if not same:
-                    _fail(f"{key} at {g} threads a ray differs")
         return err, out, cnt, walk, sub.numel(), n, plain_ms
 
     def check_k5(args, c, tag):
         rows = args["K4"][0][1]            # the packed rows of the frame
         n_slots = args["K5"][1].get("n_slots", 3)
 
-        def launch(tree, srows, o, d, t_max, threads=None):
-            return RK._launch_k5(tree, srows, o, d, t_max, n_slots, None,
-                                 threads)
+        def launch(*a):
+            return RK.trace_layers_so(*a, n_slots)
 
         def binary(rows, origin, d_s, tm_s, walk):
             so_rows = RK.build_origin_rows(rows, origin)
@@ -759,9 +743,8 @@ def main():
         rows = args["K4"][0][1]            # the packed rows of the frame
         n_slots = args["K7"][1].get("n_slots", 4)
 
-        def launch(tree, srows, l, o, t_lim, threads=None):
-            return RK._launch_k7(tree, srows, l, o, t_lim, n_slots, None,
-                                 threads)
+        def launch(*a):
+            return RK.trace_shadow_factor(*a, n_slots)
 
         def binary(rows, l, o_s, tl_s, walk):
             sh_rows = RK.build_shadow_rows(rows, torch.as_tensor(

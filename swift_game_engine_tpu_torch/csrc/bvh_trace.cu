@@ -79,7 +79,9 @@
 //     ray of its dense call walks ~270 wide nodes and ~330 leaves, so the
 //     call is bound by the instructions it issues, and a warp serving 32
 //     rays issues fewest: 9.48 ms at one thread, 9.70 at two, 12.05 at
-//     four on path 6's 557,056 rays (H100, commit 4f2c21d);
+//     four on path 6's 557,056 rays (H100, commit 4f2c21d). K7 runs four
+//     and K5 four or one by the call's ray count (k5_threads,
+//     K7_THREADS);
 //   * the leaf test is a policy (Closest, LayeredOrigin, SharedOrigin,
 //     ShadowSlots, AnyOpaque): it loads its ray, names the walk bound and
 //     its threads a ray, tests a leaf's slots and says whether the walk
@@ -188,27 +190,11 @@ template <int G, class Test, class Apply>
 __device__ __forceinline__ void slots_in_order(int cnt, int k, unsigned mask,
                                                int& tests, Test test,
                                                Apply apply) {
-  if constexpr (G == -1) {
+  if constexpr (G == 1) {
     for (int j = 0; j < cnt; ++j) {
       float t, id;
       ++tests;
       if (test(j, t, id)) apply(t, id);
-    }
-  } else if constexpr (G == 1) {         // four tests' loads in flight
-    for (int j0 = 0; j0 < cnt; j0 += 4) {
-      float tq[4], iq[4];
-      bool acc[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[q] = false;
-        if (j0 + q < cnt) {
-          ++tests;
-          acc[q] = test(j0 + q, tq[q], iq[q]);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (acc[q]) apply(tq[q], iq[q]);
     }
   } else {
     constexpr int Q = (SLOT_N + G - 1) / G;
@@ -421,7 +407,7 @@ struct LayeredArgs {
 template <int NS, int G_>
 struct LayeredOrigin : SlotRecords<NS> {
   using Args = LayeredArgs;
-  static constexpr int G = G_ < 0 ? 1 : G_;
+  static constexpr int G = G_;
   static constexpr int MAX_NS = 3;
   float tm;
   __device__ LayeredOrigin(const Args& a, int64_t i) {
@@ -440,7 +426,7 @@ struct LayeredOrigin : SlotRecords<NS> {
                        int& tests) {
     const float* row = a.srows + int64_t(code >> 4) * SO_ROW_W;
     const float b = bound();
-    slots_in_order<G_>(
+    slots_in_order<G>(
         code & 15, k, mask, tests,
         [&](int j, float& t, float& id) {
           float dnp, tn_s;
@@ -468,10 +454,16 @@ struct ShadowArgs {
   float* t_out; float* ts_out; float* ids_out;
 };
 
+// K7 runs four threads an origin: its calls (40,960 origins at RT scale
+// 0.25; the walk serves frames under 100,000 lanes) last as long as their
+// slowest origins, 1.293-1.297 ms at four threads against 3.171-3.188 at
+// one (H100, path 3; chip_smoke.py of commit 429fc42).
+constexpr int K7_THREADS = WIDE;
+
 template <int NS, int G_>
 struct ShadowSlots : SlotRecords<NS> {
   using Args = ShadowArgs;
-  static constexpr int G = G_ < 0 ? 1 : G_;
+  static constexpr int G = G_;
   static constexpr int MAX_NS = 4;
   float tl;
   __device__ ShadowSlots(const Args& a, int64_t i) {
@@ -490,7 +482,7 @@ struct ShadowSlots : SlotRecords<NS> {
                        int& tests) {
     const float* row = a.srows + int64_t(code >> 4) * SH_ROW_W;
     const float px = this->ox, py = this->oy, pz = this->oz;
-    slots_in_order<G_>(
+    slots_in_order<G>(
         code & 15, k, mask, tests,
         [&](int j, float& t, float& id) {
           id = __ldg(row + SH_SLOT_F * SLOT_N + j);
@@ -694,20 +686,19 @@ int launch_slots(int n_slots, const float* nodes,
   }
 }
 
-// ... at `threads` (1 or 4) threads a ray.
-template <template <int, int> class P>
-int launch_slots_g(int threads, int n_slots, const float* nodes,
-                   const typename P<1, 1>::Args& a, int64_t n, int stack_n,
-                   int32_t* counts, void* stream) {
-  switch (threads) {
-    case 1: return launch_slots<P, 1>(n_slots, nodes, a, n, stack_n, counts,
-                                      stream);
-    case 4: return launch_slots<P, 4>(n_slots, nodes, a, n, stack_n, counts,
-                                      stream);
-    case -1: return launch_slots<P, -1>(n_slots, nodes, a, n, stack_n, counts,
-                                        stream);
-    default: return int(cudaErrorInvalidValue);
-  }
+// K5's threads a ray by the call's ray count: four while one thread a ray
+// leaves the SMs short of warps, one once the call is bound by the
+// instructions it issues. K5 on path 3's 40,960 rays and on the first m of
+// path 2's 557,056 (H100, chip_smoke.py of commit 429fc42):
+//   rays            four threads      one thread
+//   40,960 (p3)     1.559-1.583 ms    3.311-3.330 ms
+//   163,840         3.366-3.403       3.834-3.837
+//   327,680         6.722-6.759       6.091-6.110
+//   557,056 (p2)    12.327-12.338     9.552-9.560
+constexpr int64_t K5_ONE_THREAD_FROM = 262144;
+
+__host__ __device__ constexpr int k5_threads(int64_t n) {
+  return n < K5_ONE_THREAD_FROM ? WIDE : 1;
 }
 
 }  // namespace
@@ -727,18 +718,19 @@ SGE_API int sge_trace_closest(const float* nodes, const float* rows,
 }
 
 // K5: srows (Lp,132) origin rows, origin (ox, oy, oz), d (N,3), t_max (N,),
-// n_slots 1..3, threads a ray 1 or 4. Out: t_opq (N,), tri (N,) int32,
-// ts (N, n_slots), ids (N, n_slots).
+// n_slots 1..3. Out: t_opq (N,), tri (N,) int32, ts (N, n_slots),
+// ids (N, n_slots).
 SGE_API int sge_so_layers(const float* nodes, const float* srows, float ox,
                           float oy, float oz, const float* d,
                           const float* t_max, int64_t n, int stack_n,
-                          int n_slots, int threads, int32_t* counts,
-                          float* t_opq, int32_t* tri, float* ts, float* ids,
-                          void* stream) {
-  return sge::launch_slots_g<sge::LayeredOrigin>(
-      threads, n_slots, nodes,
-      {srows, ox, oy, oz, d, t_max, t_opq, tri, ts, ids}, n, stack_n, counts,
-      stream);
+                          int n_slots, int32_t* counts, float* t_opq,
+                          int32_t* tri, float* ts, float* ids, void* stream) {
+  const sge::LayeredArgs a{srows, ox, oy, oz, d, t_max, t_opq, tri, ts, ids};
+  if (sge::k5_threads(n) == 1)
+    return sge::launch_slots<sge::LayeredOrigin, 1>(n_slots, nodes, a, n,
+                                                     stack_n, counts, stream);
+  return sge::launch_slots<sge::LayeredOrigin, sge::WIDE>(
+      n_slots, nodes, a, n, stack_n, counts, stream);
 }
 
 // K6: srows (Lp,132) origin rows, origin (ox, oy, oz), d (N,3), t_max (N,),
@@ -754,17 +746,16 @@ SGE_API int sge_trace_so(const float* nodes, const float* srows, float ox,
 }
 
 // K7: srows (Lp,156) shadow rows, the light direction's safe inverse
-// (ix, iy, iz), o (N,3), t_lim (N,), n_slots 1..4, threads a ray 1 or 4.
-// Out: t_opq (N,), ts (N, n_slots), ids (N, n_slots).
+// (ix, iy, iz), o (N,3), t_lim (N,), n_slots 1..4. Out: t_opq (N,),
+// ts (N, n_slots), ids (N, n_slots).
 SGE_API int sge_shadow_walk(const float* nodes, const float* srows, float ix,
                             float iy, float iz, const float* o,
                             const float* t_lim, int64_t n, int stack_n,
-                            int n_slots, int threads, int32_t* counts,
-                            float* t_opq, float* ts, float* ids,
-                            void* stream) {
-  return sge::launch_slots_g<sge::ShadowSlots>(
-      threads, n_slots, nodes, {srows, ix, iy, iz, o, t_lim, t_opq, ts, ids},
-      n, stack_n, counts, stream);
+                            int n_slots, int32_t* counts, float* t_opq,
+                            float* ts, float* ids, void* stream) {
+  return sge::launch_slots<sge::ShadowSlots, sge::K7_THREADS>(
+      n_slots, nodes, {srows, ix, iy, iz, o, t_lim, t_opq, ts, ids}, n,
+      stack_n, counts, stream);
 }
 
 // K8: rows (M_pad,128), o/d (N,3), t_lim (N,). Out: blocked (N,) bool.
@@ -776,14 +767,16 @@ SGE_API int sge_trace_any(const float* nodes, const float* rows,
                                           n, stack_n, counts, stream);
 }
 
-// Threads a ray of a walk's policy: 0 K4, 1 K6, 2 K8; -1 otherwise. The
-// counting instantiations' callers group their per-ray counts by warp
-// with it.
-SGE_API int sge_walk_threads(int walk) {
+// Threads a ray of a walk's policy at n rays: 0 K4, 1 K6, 2 K8, 3 K5, 4 K7;
+// -1 otherwise. The counting instantiations' callers group their per-ray
+// counts by warp with it.
+SGE_API int sge_walk_threads(int walk, int64_t n) {
   switch (walk) {
     case 0: return sge::Closest::G;
     case 1: return sge::SharedOrigin::G;
     case 2: return sge::AnyOpaque::G;
+    case 3: return sge::k5_threads(n);
+    case 4: return sge::K7_THREADS;
     default: return -1;
   }
 }

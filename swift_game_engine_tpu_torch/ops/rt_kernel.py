@@ -83,9 +83,6 @@ NODE_F = 32      # f32 per wide node: one 128-byte line
 # bound (``collapse_wide``); trees that need more entries are refused at
 # build.
 WIDE_STACK_MAX = 96
-# Threads a ray of the K5 and K7 walks (1 or 4).
-K5_THREADS = 1
-K7_THREADS = 4
 
 launches = 0         # trace_rays (K4) kernel launches since the last reset
 so_launches = 0      # trace_layers_so (K5) kernel launches
@@ -290,13 +287,13 @@ def trace_rays_counts(tree: WideTree, rows, o, d, t_max):
     return t, tri, _count_dict(counts)
 
 
-def walk_threads(walk: str) -> int:
-    """Threads a ray of wide walk ``walk`` ("K4" to "K8") as the built
-    kernel library runs it (card only): the group by which the counting
-    instantiations' per-ray counts fill a warp."""
-    if walk in ("K5", "K7"):
-        return K5_THREADS if walk == "K5" else K7_THREADS
-    return _cuda.library().sge_walk_threads(("K4", "K6", "K8").index(walk))
+def walk_threads(walk: str, n: int = 0) -> int:
+    """Threads a ray of wide walk ``walk`` ("K4" to "K8") at ``n`` rays as
+    the built kernel library runs it (card only; K5's count depends on
+    ``n``): the group by which the counting instantiations' per-ray counts
+    fill a warp."""
+    return _cuda.library().sge_walk_threads(
+        ("K4", "K6", "K8", "K5", "K7").index(walk), n)
 
 
 # the 4-input sorting network of the wide walks' child order: compare-
@@ -592,8 +589,7 @@ def _slab(hdr, o, inv, bound):
     return (tmax >= tmin.clamp(min=0.0)) & (tmin < bound), tmin
 
 
-def _launch_k5(tree, srows, o, d, t_max, n_slots, counts,
-               threads=None):
+def _launch_k5(tree, srows, o, d, t_max, n_slots, counts):
     if not 1 <= n_slots <= 3:
         raise ValueError(f"n_slots must be 1..3, got {n_slots}")
     dev, n = _check_tree(tree, srows, SO_ROW_W, t_max, d=d)
@@ -604,8 +600,7 @@ def _launch_k5(tree, srows, o, d, t_max, n_slots, counts,
     ids = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
     _cuda.check(_cuda.library().sge_so_layers(
         tree.nodes.data_ptr(), srows.data_ptr(), ox, oy, oz, d.data_ptr(),
-        t_max.data_ptr(), n, tree.stack, n_slots,
-        K5_THREADS if threads is None else threads, _cuda.ptr(counts),
+        t_max.data_ptr(), n, tree.stack, n_slots, _cuda.ptr(counts),
         t_opq.data_ptr(), tri.data_ptr(), ts.data_ptr(), ids.data_ptr(),
         _cuda.stream_ptr(d)), "sge_so_layers")
     return t_opq, tri, ts, ids
@@ -640,10 +635,10 @@ def trace_layers_so_counts(tree: WideTree, srows, o, d, t_max,
 def _near_first_walk(hdr, o, inv, active, bound_of, visit_leaf, counts=None):
     """The lockstep walk of the binary shared-origin walks (K5's and K6's
     functions on the binary tree): every live ray walks near-first with its
-    own stack, one node per step (interior: test
-    both children against the ray's bound, descend to the nearer, stack the
-    farther; leaf: test the box, then ``visit_leaf(lanes, leaf row index,
-    box hit, bound)`` runs the slots). ``bound_of(lanes)``: the rays' prune
+    own stack, one node per step (interior: test both children against the
+    ray's bound, descend to the nearer, stack the farther; leaf: test the
+    box, then ``visit_leaf(lanes, leaf row index, box hit, bound)`` runs the
+    slots). ``bound_of(lanes)``: the rays' prune
     bound. ``counts``: a dict that receives the box and slot tests of the
     walk ("box", "slot") — the kernels' own work, since they walk each ray
     in the same order — and per ray the nodes it visits and its slot tests
@@ -766,13 +761,13 @@ def _take_slot(rec, hit, t, tid):
 
 
 def trace_layers_so_plain(tree: WideTree, srows, o, d, t_max,
-                          n_slots: int = 3, counts=None, group=None):
+                          n_slots: int = 3, counts=None, group=1):
     """Plain PyTorch twin of K5 (``_wide_walk`` with the bound
     min(t_max, t_opq, ts[-1]), the leaves by rank): at a leaf, the slots
     whose so_cross test passes with tn_s > 1e-4*dnp and t = tn_s/dnp below
     the bound at the leaf's entry are taken in slot order
-    (``_in_slot_order``, ``group`` threads a ray: the kernel's count by
-    default). ``counts``: as for ``_wide_walk``."""
+    (``_in_slot_order`` at ``group`` threads a ray; the records do not
+    depend on it). ``counts``: as for ``_wide_walk``."""
     n, dev = d.shape[0], d.device
     active = t_max > 0
     rec_all = _slot_records(n, active, n_slots, dev)
@@ -793,8 +788,7 @@ def trace_layers_so_plain(tree: WideTree, srows, o, d, t_max,
             return (_so_inside(tid, dnp, un_s, vn_s) & (j < cnt) &
                     (tn_s > 1e-4 * dnp) & (t < bl)), t, tid
 
-        _in_slot_order(test, lambda *a: _take_slot(rec, *a),
-                       K5_THREADS if group is None else group)
+        _in_slot_order(test, lambda *a: _take_slot(rec, *a), group)
         for x, v in zip(rec_all, rec):
             x[lanes] = v
         bound[lanes] = torch.minimum(torch.minimum(t_max[lanes], rec[0]),
@@ -1058,7 +1052,7 @@ def trace_shadow_any_binary(rows, o, d, t_limit, counts=None):
     return blocked
 
 
-def _launch_k7(tree, srows, l, o, t_limit, n_slots, counts, threads=None):
+def _launch_k7(tree, srows, l, o, t_limit, n_slots, counts):
     if not 1 <= n_slots <= 4:
         raise ValueError(f"n_slots must be 1..4, got {n_slots}")
     dev, n = _check_tree(tree, srows, SHADOW_ROW_W, t_limit, o)
@@ -1069,8 +1063,7 @@ def _launch_k7(tree, srows, l, o, t_limit, n_slots, counts, threads=None):
     ids = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
     _cuda.check(_cuda.library().sge_shadow_walk(
         tree.nodes.data_ptr(), srows.data_ptr(), ix, iy, iz, o.data_ptr(),
-        t_limit.data_ptr(), n, tree.stack, n_slots,
-        K7_THREADS if threads is None else threads, _cuda.ptr(counts),
+        t_limit.data_ptr(), n, tree.stack, n_slots, _cuda.ptr(counts),
         t_opq.data_ptr(), ts.data_ptr(), ids.data_ptr(), _cuda.stream_ptr(o)),
         "sge_shadow_walk")
     return t_opq, ts, ids
@@ -1114,12 +1107,12 @@ def _shadow_test(row, p, t_limit, j):
 
 
 def trace_shadow_factor_plain(tree: WideTree, srows, l, o, t_limit,
-                              n_slots: int = 4, counts=None, group=None):
+                              n_slots: int = 4, counts=None, group=1):
     """Plain PyTorch twin of K7 (``_wide_walk`` with the bound
     min(t_limit, t_opq, ts[-1]), the leaves by rank): at a leaf, the
     accepted slots (``_shadow_test``) are taken in slot order
-    (``_in_slot_order``, ``group`` threads a ray: the kernel's count by
-    default). ``counts``: as for ``_wide_walk``."""
+    (``_in_slot_order`` at ``group`` threads a ray; the records do not
+    depend on it). ``counts``: as for ``_wide_walk``."""
     n, dev = o.shape[0], o.device
     active = t_limit > 0
     rec_all = _slot_records(n, active, n_slots, dev)
@@ -1136,8 +1129,7 @@ def trace_shadow_factor_plain(tree: WideTree, srows, l, o, t_limit,
             hit, t, tid = _shadow_test(row, p, tl, j)
             return hit & (j < cnt), t, tid
 
-        _in_slot_order(test, lambda *a: _take_slot(rec, *a),
-                       K7_THREADS if group is None else group)
+        _in_slot_order(test, lambda *a: _take_slot(rec, *a), group)
         for x, v in zip(rec_all, rec):
             x[lanes] = v
         bound[lanes] = torch.minimum(torch.minimum(tl, rec[0]),
