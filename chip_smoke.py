@@ -48,9 +48,10 @@ and read just after. Then:
     checked equal to the kernel's records), with the bytes floor and a
     one-test-per-record bound beside; K5-K8 (instances of K4's wide walk)
     also print their bound before the redesign, the tests the binary walk
-    they replaced makes on the subset, scaled (``trace_layers_so_binary``,
-    ``trace_rays_so_binary``, ``trace_shadow_factor_binary``,
-    ``trace_shadow_any_binary``), and both walks' work per ray. K1 is
+    they replaced makes on the subset (K5, K7: on every 4th lane of it),
+    scaled (``trace_layers_so_binary``, ``trace_rays_so_binary``,
+    ``trace_shadow_factor_binary``, ``trace_shadow_any_binary``), and both
+    walks' work per ray. K1 is
     reported per role (its layer count: the opaque and translucent rasters
     of path 1, path 4's raster), with every record where it differs from
     its plain version. A kernel's entry in the JSON line carries the path
@@ -674,7 +675,7 @@ def main():
         there is an opaque hit, and the slot ids; t_opq and the slots' t
         compared where the keys agree); the call's work by the counting
         instantiation, the binary walk's (the design before the redesign)
-        on the subset."""
+        on every 4th lane of the subset."""
         (tree, srows, shared, *lane), _ = args[key]
         n = lane[0].shape[0]
         sub = _subset(n, dev)
@@ -697,11 +698,13 @@ def main():
               + _count_line(cnt, 32 // threads))
         print(f"  {key} work, per ray of the subset: " +
               _ray_line({x: v[sub] for x, v in cnt.items()}))
-        walk = {}
-        binary(rows, shared, *lane_s, walk)
-        print(f"  {key} binary walk, per ray of the subset: "
+        walk = {}                          # a quarter of the subset
+        lane_b = [x[::4].contiguous() for x in lane_s]
+        binary(rows, shared, *lane_b, walk)
+        n_bin = lane_b[0].shape[0]
+        print(f"  {key} binary walk, per ray of {n_bin} of the subset: "
               + _ray_line(walk))
-        return err, out, cnt, walk, sub.numel(), n, plain_ms
+        return err, out, cnt, walk, sub.numel(), n_bin, n, plain_ms
 
     def check_k5(args, c, tag):
         rows = args["K4"][0][1]            # the packed rows of the frame
@@ -716,7 +719,7 @@ def main():
                 _fail("K5's origin rows are not those of the frame's rows")
             RK.trace_layers_so_binary(so_rows, origin, d_s, tm_s, n_slots,
                                       counts=walk)
-        err, out, cnt, walk, n_sub, n, plain_ms = slot_walk(
+        err, out, cnt, walk, n_sub, n_bin, n, plain_ms = slot_walk(
             "K5", launch,
             lambda *a: RK.trace_layers_so_plain(*a, n_slots),
             lambda *a: RK.trace_layers_so_counts(*a, n_slots), binary, args,
@@ -726,7 +729,7 @@ def main():
             [tree.nodes, srows, d, t_max], list(out),
             int(cnt["boxes"].sum()) * SLAB_OPS +
             int(cnt["slots"].sum()) * SO_SLOT_OPS,
-            walk["box"] * SLAB_OPS + walk["slot"] * SO_SLOT_OPS, n_sub, n,
+            walk["box"] * SLAB_OPS + walk["slot"] * SO_SLOT_OPS, n_bin, n,
             (int((out[1] >= 0).sum()) + int((out[3] >= 0).sum()))
             * SO_SLOT_OPS)
         report("so_layers" + tag,
@@ -753,7 +756,7 @@ def main():
                 _fail("K7's shadow rows are not those of the frame's rows")
             RK.trace_shadow_factor_binary(sh_rows, l, o_s, tl_s, n_slots,
                                           counts=walk)
-        err, out, cnt, walk, n_sub, n, plain_ms = slot_walk(
+        err, out, cnt, walk, n_sub, n_bin, n, plain_ms = slot_walk(
             "K7", launch,
             lambda *a: RK.trace_shadow_factor_plain(*a, n_slots),
             lambda *a: RK.trace_shadow_factor_counts(*a, n_slots), binary,
@@ -763,7 +766,7 @@ def main():
             [tree.nodes, srows, o, t_lim], list(out),
             int(cnt["boxes"].sum()) * SLAB_OPS +
             int(cnt["slots"].sum()) * WALK_SLOT_OPS,
-            walk["box"] * SLAB_OPS + walk["slot"] * WALK_SLOT_OPS, n_sub, n,
+            walk["box"] * SLAB_OPS + walk["slot"] * WALK_SLOT_OPS, n_bin, n,
             (int(((out[0] > 0) & (out[0] < 1e30)).sum()) +
              int((out[2] >= 0).sum())) * WALK_SLOT_OPS)
         report("shadow_walk" + tag,
