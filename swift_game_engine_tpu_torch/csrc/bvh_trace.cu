@@ -57,11 +57,15 @@
 // loads (two per binary node: the right child's index sat in the left
 // child's row), with its stack in local memory and a leaf's 12 slot tests
 // one after another; K4's binary walk visited 3.2x the wide walk's nodes.
-// K5-K8 ran that design until they became instances of this walk
-// (binary walk on path 6's first frame: K6 rays visit 869 nodes and test
-// 3,936 slots each on average, K8's slowest 1% 1,500 nodes; K7 followed
-// skip links and never ordered children near-first, so its prune bound
-// min(t_lim, t_opq, last slot) tightened late). The design:
+// K5-K8 ran that design until they became instances of this walk. Their
+// binary walks on the first frame's calls (H100): K6 and K5 camera rays
+// visit 869 and 882 nodes and test 3,936 and 4,003 slots each on average
+// (paths 6 and 2); K8's slowest 1% visit 1,500 nodes (path 6); K7, which
+// followed skip links and never ordered children near-first, so that its
+// prune bound min(t_lim, t_opq, last slot) tightened late, visits 316
+// nodes an origin on average and 1,661 at most (path 3). On the same rays
+// this walk visits 272, 276, 392 (K8's max) and 79 (K7; 415 at most)
+// wide nodes. The design:
 //   * one dependent load per step: a step reads one wide-node line, tests
 //     all four child boxes against the ray's bound, goes on to the nearest
 //     hit child and stacks the others farthest first;
