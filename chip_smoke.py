@@ -670,12 +670,13 @@ def main():
                 _bound(ins, outs, binary * n / n_sub))
 
     def slot_walk(key, launch, twin, counting, binary, args, rows):
-        """K5 or K7, a slot walk of the wide tree: records against the wide
-        twin on a subset of the lanes (keyed by the opaque id, or whether
-        there is an opaque hit, and the slot ids; t_opq and the slots' t
-        compared where the keys agree); the call's work by the counting
-        instantiation, the binary walk's (the design before the redesign)
-        on every 4th lane of the subset."""
+        """K5 or K7, a slot walk of the wide tree: the records of the
+        frame's call (the build its lane count chooses) at a subset of the
+        lanes against the wide twin on that subset (keyed by the opaque id,
+        or whether there is an opaque hit, and the slot ids; t_opq and the
+        slots' t compared where the keys agree); the call's work by the
+        counting instantiation, the binary walk's (the design before the
+        redesign) on every 4th lane of the subset."""
         (tree, srows, shared, *lane), _ = args[key]
         n = lane[0].shape[0]
         sub = _subset(n, dev)
@@ -684,16 +685,16 @@ def main():
         def keyed(r):
             opq = r[1].float() if key == "K5" else (r[0] < 1e30).float()
             return torch.cat([opq[:, None], r[-1]], 1), [r[0], r[-2]]
-        k = launch(tree, srows, shared, *lane_s)
+        threads = RK.walk_threads(key, n)
+        out = launch(tree, srows, shared, *lane)
+        k = [x[sub] for x in out]
         p, plain_ms = _timed(lambda: twin(tree, srows, shared, *lane_s))
         err = _compare(f"{key} ({sub.numel()} of {n} lanes, "
-                       f"{k[-1].shape[1]} slots)", keyed(k)[0], keyed(p)[0],
-                       keyed(k)[1], keyed(p)[1])
-        out = launch(tree, srows, shared, *lane)
+                       f"{k[-1].shape[1]} slots, threads a ray {threads})",
+                       keyed(k)[0], keyed(p)[0], keyed(k)[1], keyed(p)[1])
         *out_c, cnt = counting(tree, srows, shared, *lane)
         if not all(torch.equal(x, y) for x, y in zip(out_c, out)):
             _fail(f"{key}'s counting instantiation differs from the kernel")
-        threads = RK.walk_threads(key, n)
         print(f"  {key} work (threads a ray {threads}, stack {tree.stack}): "
               + _count_line(cnt, 32 // threads))
         print(f"  {key} work, per ray of the subset: " +
@@ -714,11 +715,12 @@ def main():
             return RK.trace_layers_so(*a, n_slots)
 
         def binary(rows, origin, d_s, tm_s, walk):
-            so_rows = RK.build_origin_rows(rows, origin)
-            if not torch.equal(so_rows[1], args["K5"][0][1]):
+            if not torch.equal(RK.build_origin_rows(rows, origin),
+                               args["K5"][0][1]):
                 _fail("K5's origin rows are not those of the frame's rows")
-            RK.trace_layers_so_binary(so_rows, origin, d_s, tm_s, n_slots,
-                                      counts=walk)
+            RK.trace_layers_so_binary(
+                (RK.binary_header(rows), args["K5"][0][1]), origin, d_s,
+                tm_s, n_slots, counts=walk)
         err, out, cnt, walk, n_sub, n_bin, n, plain_ms = slot_walk(
             "K5", launch,
             lambda *a: RK.trace_layers_so_plain(*a, n_slots),
@@ -750,12 +752,12 @@ def main():
             return RK.trace_shadow_factor(*a, n_slots)
 
         def binary(rows, l, o_s, tl_s, walk):
-            sh_rows = RK.build_shadow_rows(rows, torch.as_tensor(
-                l, dtype=torch.float32, device=dev))
-            if not torch.equal(sh_rows[1], args["K7"][0][1]):
+            if not torch.equal(RK.build_shadow_rows(rows, torch.as_tensor(
+                    l, dtype=torch.float32, device=dev)), args["K7"][0][1]):
                 _fail("K7's shadow rows are not those of the frame's rows")
-            RK.trace_shadow_factor_binary(sh_rows, l, o_s, tl_s, n_slots,
-                                          counts=walk)
+            RK.trace_shadow_factor_binary(
+                (RK.binary_header(rows), args["K7"][0][1]), l, o_s, tl_s,
+                n_slots, counts=walk)
         err, out, cnt, walk, n_sub, n_bin, n, plain_ms = slot_walk(
             "K7", launch,
             lambda *a: RK.trace_shadow_factor_plain(*a, n_slots),
@@ -812,12 +814,11 @@ def main():
             print(f"  K6 work {role}, per ray of the subset: " +
                   _ray_line({k: v[sub] for k, v in cnt.items()}))
             # the binary walk's work on the same rays
-            so_rows = RK.build_origin_rows(rows, origin)
-            if not torch.equal(so_rows[1], srows):
+            if not torch.equal(RK.build_origin_rows(rows, origin), srows):
                 _fail("K6's origin rows are not those of the frame's rows")
             walk = {}
-            RK.trace_rays_so_binary(so_rows, origin, d_s, tm_s, tf_s,
-                                    counts=walk)
+            RK.trace_rays_so_binary((RK.binary_header(rows), srows), origin,
+                                    d_s, tm_s, tf_s, counts=walk)
             print(f"  K6 binary walk {role}, per ray of the subset: "
                   + _ray_line(walk))
             if key == "K6":      # the dense call is timed and bounded

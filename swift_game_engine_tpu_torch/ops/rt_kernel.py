@@ -488,19 +488,27 @@ def walk_available(rows) -> bool:
 
 def _leaf_rows(rows):
     """Leaf-compacted rows (rt_kernel.py:1081-1088): every builder emits a
-    binary tree, so there are at most (M+1)//2 leaves; the header's field 7
-    becomes the leaf's 1-based rank (0 for interior nodes).
-    Returns (header (M*8,), leaf rows (Lp, 128))."""
+    binary tree, so there are at most (M+1)//2 leaves -> (Lp, 128), the
+    leaf of rank r + 1 at row r (the rest zero)."""
     m = rows.shape[0]
-    is_leaf = rows[:, 7] > 0.5
     lp = ((m + 1) // 2 + 7) // 8 * 8
-    found = torch.nonzero(is_leaf).squeeze(1)[:lp]
+    found = torch.nonzero(rows[:, 7] > 0.5).squeeze(1)[:lp]
     leaf_nodes = torch.zeros(lp, dtype=torch.int64, device=rows.device)
     leaf_nodes[:found.shape[0]] = found
+    return rows[leaf_nodes]
+
+
+def binary_header(rows):
+    """The binary tree's header as the reference's row builders give it
+    beside their rows (rt_kernel.py:1081-1088) -> (M*8,): each row's box,
+    skip link and, in field 7, the leaf's 1-based rank (0 for interior
+    nodes). Only the binary walks read it (``trace_layers_so_binary``,
+    ``trace_rays_so_binary``, ``trace_shadow_factor_binary``)."""
+    is_leaf = rows[:, 7] > 0.5
     header = rows[:, :8].clone()
     rank = torch.cumsum(is_leaf.to(torch.float32), 0)
     header[:, 7] = torch.where(is_leaf, rank, 0.0)
-    return header.reshape(-1).contiguous(), rows[leaf_nodes]
+    return header.reshape(-1).contiguous()
 
 
 def _split_tris(leaf_rows):
@@ -524,13 +532,12 @@ def _dot(a, b):
 
 def build_origin_rows(rows, o):
     """Per-frame constants for rays sharing origin ``o`` (3,)
-    (rt_kernel.py:1295-1324) -> (header (M*8,), srows (Lp, 132)): per leaf
-    triangle k_u = e2 x (o-a), k_v = (o-a) x e1, k_d = e2 x e1,
-    tn = e2 . k_v, then the ids; row r is the leaf of rank r + 1, which the
-    wide tree names (K5, K6). The header is the binary tree's, which only
-    the binary walks read (``trace_layers_so_binary``,
-    ``trace_rays_so_binary``)."""
-    header, leaf = _leaf_rows(rows)
+    (rt_kernel.py:1295-1324) -> srows (Lp, 132): per leaf triangle
+    k_u = e2 x (o-a), k_v = (o-a) x e1, k_d = e2 x e1, tn = e2 . k_v, then
+    the ids; row r is the leaf of rank r + 1, which the wide tree names
+    (K5, K6). The reference returns the binary tree's header beside them,
+    which only the binary walks read: ``binary_header``."""
+    leaf = _leaf_rows(rows)
     a, e1, e2, ids = _split_tris(leaf)
     tv = torch.as_tensor(o, dtype=torch.float32, device=rows.device) - a
     k_v = _cross(tv, e1)
@@ -538,17 +545,18 @@ def build_origin_rows(rows, o):
                       _dot(e2, k_v)[..., None]], -1)
     srows = torch.cat([slot.reshape(leaf.shape[0], SO_SLOT_F * SLOT_N), ids],
                       -1)
-    return header, srows.contiguous()
+    return srows.contiguous()
 
 
 def build_shadow_rows(rows, l):
     """Per-frame constants for rays along unit direction ``l`` (3,) toward
-    the light (rt_kernel.py:1070-1110) -> (header (M*8,), srows (Lp, 156)):
-    per leaf triangle g1, g2, g3, c with u = P.g1 - c1, v = P.g2 - c2,
+    the light (rt_kernel.py:1070-1110) -> srows (Lp, 156): per leaf
+    triangle g1, g2, g3, c with u = P.g1 - c1, v = P.g2 - c2,
     t = P.g3 - c3; ids of triangles parallel to ``l`` are -1; row r is the
-    leaf of rank r + 1, which the wide tree names (K7). The header is the
-    binary tree's, which only ``trace_shadow_factor_binary`` reads."""
-    header, leaf = _leaf_rows(rows)
+    leaf of rank r + 1, which the wide tree names (K7). The reference
+    returns the binary tree's header beside them, which only the binary
+    walk reads: ``binary_header``."""
+    leaf = _leaf_rows(rows)
     a, e1, e2, ids = _split_tris(leaf)
     lv = torch.as_tensor(l, dtype=torch.float32,
                          device=rows.device).expand_as(e2)
@@ -563,7 +571,7 @@ def build_shadow_rows(rows, l):
     slot = torch.cat([g1, g2, g3, c], -1)
     srows = torch.cat([slot.reshape(leaf.shape[0], SHADOW_SLOT_F * SLOT_N),
                        torch.where(ok, ids, -1.0)], -1)
-    return header, srows.contiguous()
+    return srows.contiguous()
 
 
 def _insert(ts, ids, hit, ct, cid):
@@ -609,7 +617,7 @@ def _launch_k5(tree, srows, o, d, t_max, n_slots, counts):
 def trace_layers_so(tree: WideTree, srows, o, d, t_max, n_slots: int = 3):
     """K5: layered records over ``tree`` of rays sharing origin ``o`` (3,)
     — the origin that ``build_origin_rows`` baked into its origin rows
-    ``srows`` (its second output), which the tree's leaf ranks name; host
+    ``srows``, which the tree's leaf ranks name; host
     floats need no device sync — with directions ``d`` (N, 3): one walk
     -> (t_opq (N,), tri_opq (N,) int32, ts (N, n_slots), ids (N, n_slots)
     float with the translucent +0.5 marker), n_slots 1..3. Rays with
@@ -724,23 +732,6 @@ def _so_inside(tid, dnp, un_s, vn_s):
         (vn_s >= 0) & (un_s + vn_s <= dnp)
 
 
-def _in_slot_order(test, take, group):
-    """A leaf's slots as the slot walks (K5, K7) take them, ``group``
-    threads a ray: test(j) -> (accepted (P,), t, id) of slot j, against
-    what the leaf's entry fixed; take(accepted, t, id) applies one slot.
-    One thread tests and takes each slot in turn; a group of threads
-    tests its slots j = k (mod group) first, then every thread takes the
-    accepted slots in slot order, each broadcast from its thread."""
-    if group == 1:
-        for j in range(SLOT_N):
-            take(*test(j))
-        return
-    tested = {j: test(j) for k in range(group)
-              for j in range(k, SLOT_N, group)}
-    for j in range(SLOT_N):
-        take(*tested[j])
-
-
 def _slot_records(n, active, n_slots, dev):
     """The slot walks' records before the walk: t_opq (BIG where active, 0
     elsewhere), tri -1, n_slots empty slots."""
@@ -761,13 +752,12 @@ def _take_slot(rec, hit, t, tid):
 
 
 def trace_layers_so_plain(tree: WideTree, srows, o, d, t_max,
-                          n_slots: int = 3, counts=None, group=1):
+                          n_slots: int = 3, counts=None):
     """Plain PyTorch twin of K5 (``_wide_walk`` with the bound
     min(t_max, t_opq, ts[-1]), the leaves by rank): at a leaf, the slots
     whose so_cross test passes with tn_s > 1e-4*dnp and t = tn_s/dnp below
-    the bound at the leaf's entry are taken in slot order
-    (``_in_slot_order`` at ``group`` threads a ray; the records do not
-    depend on it). ``counts``: as for ``_wide_walk``."""
+    the bound at the leaf's entry are taken in slot order, as the kernel
+    takes them at any threads a ray. ``counts``: as for ``_wide_walk``."""
     n, dev = d.shape[0], d.device
     active = t_max > 0
     rec_all = _slot_records(n, active, n_slots, dev)
@@ -780,15 +770,12 @@ def trace_layers_so_plain(tree: WideTree, srows, o, d, t_max,
         cnt = code % 16
         dl, bl = d[lanes], bound[lanes]
         rec = [x[lanes] for x in rec_all]
-
-        def test(j):
+        for j in range(SLOT_N):
             tid = row[:, base + j]
             t, dnp, un_s, vn_s, tn_s = _so_slot(
                 dl, row[:, SO_SLOT_F * j:SO_SLOT_F * (j + 1)])
-            return (_so_inside(tid, dnp, un_s, vn_s) & (j < cnt) &
-                    (tn_s > 1e-4 * dnp) & (t < bl)), t, tid
-
-        _in_slot_order(test, lambda *a: _take_slot(rec, *a), group)
+            _take_slot(rec, _so_inside(tid, dnp, un_s, vn_s) & (j < cnt) &
+                       (tn_s > 1e-4 * dnp) & (t < bl), t, tid)
         for x, v in zip(rec_all, rec):
             x[lanes] = v
         bound[lanes] = torch.minimum(torch.minimum(t_max[lanes], rec[0]),
@@ -805,8 +792,8 @@ def trace_layers_so_binary(origin_rows, o, d, t_max, n_slots: int = 3,
                            counts=None):
     """K5's function on the binary tree, as the reference and the design
     before the wide walk walk it (``_near_first_walk``; ``origin_rows`` the
-    (header, srows) of ``build_origin_rows``): at a leaf whose box the ray
-    hits, the slots in order. Kept to count the work of that walk
+    pair (``binary_header``, ``build_origin_rows``)): at a leaf whose box
+    the ray hits, the slots in order. Kept to count the work of that walk
     (``counts``: as for ``_near_first_walk``), the bound of K5 before its
     redesign."""
     header, srows = origin_rows
@@ -855,10 +842,10 @@ def _launch_k6(tree, srows, o, d, t_max, t_floor, counts):
 
 def trace_rays_so(tree: WideTree, srows, o, d, t_max, t_floor=None):
     """K6: closest hit over ``tree`` of rays sharing origin ``o`` (3,) — the
-    origin that ``build_origin_rows`` baked into its origin rows ``srows``
-    (its second output), which the tree's leaf ranks name; host floats need
-    no device sync — with directions ``d`` (N, 3) -> (t (N,), tri (N,)
-    int32; a miss keeps t = t_max, tri -1). A hit needs tn > t_floor * dn:
+    origin that ``build_origin_rows`` baked into its origin rows ``srows``,
+    which the tree's leaf ranks name; host floats need no device sync —
+    with directions ``d`` (N, 3) -> (t (N,), tri (N,) int32; a miss keeps
+    t = t_max, tri -1). A hit needs tn > t_floor * dn:
     ``t_floor`` (N,) is the per-lane least accepted t (default 1e-4; a
     transparency continuation passes t_hit + 2*bias). Rays with t_max <= 0
     are inactive."""
@@ -924,7 +911,8 @@ def trace_rays_so_binary(origin_rows, o, d, t_max, t_floor=None,
                          counts=None):
     """K6's function on the binary tree, as the reference and the design
     before the wide walk walk it (``_near_first_walk`` with the bound
-    t_best; ``origin_rows`` the (header, srows) of ``build_origin_rows``;
+    t_best; ``origin_rows`` the pair (``binary_header``,
+    ``build_origin_rows``);
     ``_so_closest_leaf`` at a leaf whose box the ray hits). Kept to count
     the work of that walk (``counts``: as for ``_near_first_walk``), the
     bound of K6 before its redesign."""
@@ -1073,8 +1061,7 @@ def trace_shadow_factor(tree: WideTree, srows, l, o, t_limit,
                         n_slots: int = 4):
     """K7: shadow records over ``tree`` of origins ``o`` (N, 3) along unit
     direction ``l`` (3,) — the direction ``build_shadow_rows`` baked into
-    its shadow rows ``srows`` (its second output), which the tree's leaf
-    ranks name; host floats need no device sync: one walk -> (t_opq (N,),
+    its shadow rows ``srows``, which the tree's leaf ranks name; host floats need no device sync: one walk -> (t_opq (N,),
     ts (N, n_slots), ids (N, n_slots) float with the translucent +0.5
     marker), n_slots 1..4. Origins with t_limit <= 0 are inactive (t_opq
     0, ids -1)."""
@@ -1107,12 +1094,12 @@ def _shadow_test(row, p, t_limit, j):
 
 
 def trace_shadow_factor_plain(tree: WideTree, srows, l, o, t_limit,
-                              n_slots: int = 4, counts=None, group=1):
+                              n_slots: int = 4, counts=None):
     """Plain PyTorch twin of K7 (``_wide_walk`` with the bound
     min(t_limit, t_opq, ts[-1]), the leaves by rank): at a leaf, the
-    accepted slots (``_shadow_test``) are taken in slot order
-    (``_in_slot_order`` at ``group`` threads a ray; the records do not
-    depend on it). ``counts``: as for ``_wide_walk``."""
+    accepted slots (``_shadow_test``) are taken in slot order, as the
+    kernel takes them at any threads a ray. ``counts``: as for
+    ``_wide_walk``."""
     n, dev = o.shape[0], o.device
     active = t_limit > 0
     rec_all = _slot_records(n, active, n_slots, dev)
@@ -1124,12 +1111,9 @@ def trace_shadow_factor_plain(tree: WideTree, srows, l, o, t_limit,
         cnt = code % 16
         p, tl = o[lanes], t_limit[lanes]
         rec = [x[lanes] for x in rec_all]
-
-        def test(j):
+        for j in range(SLOT_N):
             hit, t, tid = _shadow_test(row, p, tl, j)
-            return hit & (j < cnt), t, tid
-
-        _in_slot_order(test, lambda *a: _take_slot(rec, *a), group)
+            _take_slot(rec, hit & (j < cnt), t, tid)
         for x, v in zip(rec_all, rec):
             x[lanes] = v
         bound[lanes] = torch.minimum(torch.minimum(tl, rec[0]),
@@ -1145,10 +1129,11 @@ def trace_shadow_factor_plain(tree: WideTree, srows, l, o, t_limit,
 def trace_shadow_factor_binary(shadow_rows, l, o, t_limit, n_slots: int = 4,
                                counts=None):
     """K7's function on the binary tree, as the reference and the design
-    before the wide walk walk it (``shadow_rows`` the (header, srows) of
-    ``build_shadow_rows``): every live origin steps its own skip-link
-    cursor in lockstep (descend to node+1 on a box hit at an interior node,
-    else jump to skip); leaves its box hits test their slots in order.
+    before the wide walk walk it (``shadow_rows`` the pair
+    (``binary_header``, ``build_shadow_rows``)): every live origin steps
+    its own skip-link cursor in lockstep (descend to node+1 on a box hit at
+    an interior node, else jump to skip); leaves its box hits test their
+    slots in order.
     Kept to count the work of that walk, the bound of K7 before its
     redesign. ``counts``: a dict that receives the box and slot tests of
     the walk ("box", "slot") and per origin the nodes it visits and its

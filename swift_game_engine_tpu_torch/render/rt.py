@@ -239,7 +239,7 @@ def _shadow_mode(geo: SceneGeometry, fg: FrameGeometry, lights,
             alpha=torch.clamp(geo.materials.alpha[mid_t], 0.0, 1.0),
             trans_idx=geo.translucent_idx)
     if RK.walk_available(fg.bvh.rows):
-        return "walk", (RK.build_shadow_rows(fg.bvh.rows, l0)[1], l0.tolist())
+        return "walk", (RK.build_shadow_rows(fg.bvh.rows, l0), l0.tolist())
     return "loop", None
 
 
@@ -569,7 +569,7 @@ def _traced_records(fg: FrameGeometry, cam, cam_host, d, max_layers: int):
     translucent hits per ray, through the floor chain. ``cam_host``: the
     origin ``cam`` as host floats, for the kernel's arguments."""
     p = d.shape[0]
-    _, srows = RK.build_origin_rows(fg.bvh.rows, cam)
+    srows = RK.build_origin_rows(fg.bvh.rows, cam)
     t_opq, otri, lts, lids = RK.trace_layers_so(
         fg.bvh.wide, srows, cam_host, d,
         torch.full((p,), BIG, device=d.device), n_slots=max_layers)
@@ -617,7 +617,7 @@ def _floor_tracer(fg: FrameGeometry, cam, cam_host, ray_o, d):
     so no origin is parked: a parked origin would break the baked leaf
     constants. Returns trace(idx) for ``_trace_layers``."""
     bv = fg.bvh
-    _, srows = RK.build_origin_rows(bv.rows, cam)
+    srows = RK.build_origin_rows(bv.rows, cam)
     floor = None
 
     def trace(idx):

@@ -440,7 +440,7 @@ def _k5_case(bvh, n, n_slots, seed):
     d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).contiguous()
     t_max = torch.full((n,), 3.0e38, device=dev)
     t_max[::17] = 0.0                                     # inactive rays
-    _, srows = RK.build_origin_rows(bvh.rows, o)
+    srows = RK.build_origin_rows(bvh.rows, o)
     before = RK.so_launches
     k = RK.trace_layers_so(bvh.wide, srows, o.tolist(), d, t_max, n_slots)
     assert RK.so_launches == before + 1
@@ -464,6 +464,16 @@ def test_k5_kernel_matches_plain_at_scale(walk_tree):
     _k5_case(walk_tree, 131_072, 3, 12)
 
 
+@pytest.mark.parametrize("threads", [4, 1])
+def test_k5_kernel_matches_plain_per_thread_count(walk_tree, threads):
+    """K5 picks its threads a ray by the call's ray count: each build,
+    below and above the switch (a frame's dense call runs the one-thread
+    build), against the twin."""
+    n = 200_000 if threads == 4 else 300_000
+    assert RK.walk_threads("K5", n) == threads
+    _k5_case(walk_tree, n, 3, 14)
+
+
 def _k7_case(bvh, n, n_slots, seed):
     """K7 and its wide twin on n origins in and around the soup toward one
     light, every 13th inactive."""
@@ -475,7 +485,7 @@ def _k7_case(bvh, n, n_slots, seed):
                         device=dev)
     t_lim = torch.full((n,), 60.0, device=dev)
     t_lim[::13] = 0.0                                     # dead lanes
-    _, srows = RK.build_shadow_rows(bvh.rows, l)
+    srows = RK.build_shadow_rows(bvh.rows, l)
     before = RK.shadow_launches
     k = RK.trace_shadow_factor(bvh.wide, srows, l, o, t_lim, n_slots)
     assert RK.shadow_launches == before + 1
@@ -522,17 +532,17 @@ def test_wrappers_reject_bad_inputs(cuda):
                       torch.ones(4, device=cuda))
     so = RK.build_origin_rows(rows, torch.zeros(3, device=cuda))
     with pytest.raises(ValueError):
-        RK.trace_layers_so(tree, so[1], torch.zeros(3), o,
+        RK.trace_layers_so(tree, so, torch.zeros(3), o,
                            torch.ones(4, device=cuda),
                            n_slots=4)                     # K5 takes 1..3
     with pytest.raises(ValueError):                       # K5: srows width
         RK.trace_layers_so(tree, rows, [0.0, 0.0, 0.0], o,
                            torch.ones(4, device=cuda))
     with pytest.raises(ValueError):                       # K6: srows width
-        RK.trace_rays_so(tree, so[0].reshape(8, 8), [0.0, 0.0, 0.0], o,
+        RK.trace_rays_so(tree, so[:, :8].contiguous(), [0.0, 0.0, 0.0], o,
                          torch.ones(4, device=cuda))
     with pytest.raises(ValueError):                       # K6: floor shape
-        RK.trace_rays_so(tree, so[1], [0.0, 0.0, 0.0], o,
+        RK.trace_rays_so(tree, so, [0.0, 0.0, 0.0], o,
                          torch.ones(4, device=cuda),
                          torch.ones(5, device=cuda))
     with pytest.raises(ValueError):                       # K8: rows width
@@ -541,8 +551,8 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):                       # K8: stack bound
         RK.trace_shadow_any(tree._replace(stack=RK.WIDE_STACK_MAX + 1),
                             rows, o, o, torch.ones(4, device=cuda))
-    _, sr = RK.build_shadow_rows(rows, torch.tensor([0.0, 1.0, 0.0],
-                                                    device=cuda))
+    sr = RK.build_shadow_rows(rows, torch.tensor([0.0, 1.0, 0.0],
+                                                 device=cuda))
     with pytest.raises(ValueError):
         RK.trace_shadow_factor(tree, sr, torch.tensor([0.0, 1.0, 0.0]), o,
                                torch.ones(5, device=cuda))  # t_limit shape
@@ -617,7 +627,7 @@ def test_k6_kernel_matches_plain(wide_case, n, floor, origin):
     d = torch.as_tensor(d, device=dev)
     t_max = torch.full((n,), 3.0e38, device=dev)
     t_max[::17] = 0.0                                     # inactive rays
-    _, srows = RK.build_origin_rows(bvh.rows, o)
+    srows = RK.build_origin_rows(bvh.rows, o)
     t_floor = None
     if floor:   # past the first hit by a margin, or exactly at it
         t1, tri1 = RK.trace_rays_so_plain(bvh.wide, srows, o, d, t_max)

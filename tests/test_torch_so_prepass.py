@@ -148,10 +148,10 @@ def _k6_twin(k6, t_floor, walk="wide"):
     held against the reference's in test_torch_trace_kernels.py): the
     wrapper (the wide walk's twin here), or the binary walk's twin."""
     rows = _t(k6["rows"])
-    header, _ = RK.build_origin_rows(rows, _t(k6["o"]))
     args = (k6["o"].tolist(), _t(k6["d"]), _t(k6["t_max"]), t_floor)
     if walk == "binary":
-        return RK.trace_rays_so_binary((header, _t(k6["srows"])), *args)
+        return RK.trace_rays_so_binary(
+            (RK.binary_header(rows), _t(k6["srows"])), *args)
     return RK.trace_rays_so(RK.wide_tree(rows), _t(k6["srows"]), *args)
 
 

@@ -29,9 +29,10 @@ on the same rows here.
     _apply_shadow_records reads agrees (``_shadow_view``: the slots in
     front of the opaque hit as sets, the opaque t while slots remain), and
     so does the shadow factor it computes from them, to 1e-6.
-  * The wide twins' records are the same whether a leaf's slots are taken
-    one at a time or four at a time (the kernels' group broadcast order).
-  * build_origin_rows / build_shadow_rows vs the reference's, ids exactly.
+  * The wide twins' records at a lane do not depend on the call's other
+    lanes, and inactive lanes hold t_opq 0 and empty slots.
+  * build_origin_rows / build_shadow_rows (and binary_header, the binary
+    tree's header beside them) vs the reference's, ids exactly.
     The reference's XLA CPU build contracts each cross product's
     a*b - c*d into one fused multiply-add where the port rounds both
     products, so constants differ in their last bits: the origin rows agree
@@ -186,8 +187,9 @@ def _layer_view(t_opq, tri, ts, ids):
 
 
 def test_build_origin_rows_matches_reference(k5):
-    header, srows = RK.build_origin_rows(_t(k5["rows"]), _t(k5["o"]))
-    np.testing.assert_array_equal(header.numpy(), k5["header"])
+    srows = RK.build_origin_rows(_t(k5["rows"]), _t(k5["o"]))
+    np.testing.assert_array_equal(RK.binary_header(_t(k5["rows"])).numpy(),
+                                  k5["header"])
     _rows_match(srows, k5["srows"])
 
 
@@ -204,7 +206,7 @@ def _layers_agree(got, ref):
 @pytest.mark.parametrize("n_slots", [1, 2, 3])
 def test_k5_twin_matches_reference(k5, n_slots):
     rows = _t(k5["rows"])
-    _, srows = RK.build_origin_rows(rows, _t(k5["o"]))
+    srows = RK.build_origin_rows(rows, _t(k5["o"]))
     got = RK.trace_layers_so(RK.wide_tree(rows), srows, _t(k5["o"]),
                              _t(k5["d"]), torch.full((512,), BIG),
                              n_slots=n_slots)
@@ -214,7 +216,8 @@ def test_k5_twin_matches_reference(k5, n_slots):
 
 @pytest.mark.parametrize("n_slots", [1, 2, 3])
 def test_k5_binary_twin_matches_reference(k5, n_slots):
-    so = RK.build_origin_rows(_t(k5["rows"]), _t(k5["o"]))
+    rows = _t(k5["rows"])
+    so = (RK.binary_header(rows), RK.build_origin_rows(rows, _t(k5["o"])))
     got = RK.trace_layers_so_binary(so, _t(k5["o"]), _t(k5["d"]),
                                     torch.full((512,), BIG), n_slots=n_slots)
     _layers_agree(got, [k5[f"{k}{n_slots}"]
@@ -230,14 +233,16 @@ def k7(tmp_path_factory):
 
 
 def test_build_shadow_rows_matches_reference(k7):
-    header, srows = RK.build_shadow_rows(_t(k7["rows"]), _t(k7["l"]))
-    np.testing.assert_array_equal(header.numpy(), k7["header"])
+    srows = RK.build_shadow_rows(_t(k7["rows"]), _t(k7["l"]))
+    np.testing.assert_array_equal(RK.binary_header(_t(k7["rows"])).numpy(),
+                                  k7["header"])
     _rows_match(srows, k7["srows"], share=0.999)
 
 
 @pytest.mark.parametrize("n_slots", [1, 2, 3, 4])
 def test_k7_twin_matches_reference(k7, n_slots):
-    sr = RK.build_shadow_rows(_t(k7["rows"]), _t(k7["l"]))
+    rows = _t(k7["rows"])
+    sr = (RK.binary_header(rows), RK.build_shadow_rows(rows, _t(k7["l"])))
     t_opq, ts, ids = RK.trace_shadow_factor_binary(
         sr, _t(k7["l"]), _t(k7["o"]), _t(k7["t_lim"]), n_slots=n_slots)
     np.testing.assert_array_equal(ids.numpy(), k7[f"ids{n_slots}"])
@@ -278,7 +283,7 @@ def _shadow_factor(t_opq, ts, ids, t_lim, alpha):
 @pytest.mark.parametrize("n_slots", [1, 2, 3, 4])
 def test_k7_wide_twin_matches_reference(k7, n_slots):
     rows = _t(k7["rows"])
-    _, srows = RK.build_shadow_rows(rows, _t(k7["l"]))
+    srows = RK.build_shadow_rows(rows, _t(k7["l"]))
     got = [x.numpy() for x in RK.trace_shadow_factor(
         RK.wide_tree(rows), srows, _t(k7["l"]), _t(k7["o"]),
         _t(k7["t_lim"]), n_slots=n_slots)]
@@ -296,35 +301,48 @@ def test_k7_wide_twin_matches_reference(k7, n_slots):
     assert ((f_ref > 0) & (f_ref < 1)).sum() > 20 and (f_ref == 0).sum() > 20
 
 
-# ------------------------------------------------- K5, K7: the group order
+# ------------------------------------------------ K5, K7: lanes stand alone
 
 
 @pytest.mark.parametrize("kernel", ["K5", "K7"])
-def test_wide_twins_take_slots_in_group_order(request, kernel):
-    """The slot walks' groups test a leaf's slots j = k (mod G) and take
-    the accepted ones in slot order, broadcast: the records are those of
-    one thread taking the slots one at a time."""
+def test_wide_twins_lanes_are_independent(request, kernel):
+    """A lane's records do not depend on the call's other lanes, so a
+    call's records at a subset of its lanes equal the twin's on that subset
+    alone (as chip_smoke.py compares the kernels); inactive lanes hold
+    t_opq 0 and empty slots."""
     ref = request.getfixturevalue(kernel.lower())
     rows = _t(ref["rows"])
     tree = RK.wide_tree(rows)
     if kernel == "K5":
-        _, srows = RK.build_origin_rows(rows, _t(ref["o"]))
+        srows = RK.build_origin_rows(rows, _t(ref["o"]))
+        lim = torch.full((512,), BIG)
+        lim[::5] = 0.0                                    # inactive rays
 
-        def run(group):
-            return RK.trace_layers_so_plain(
-                tree, srows, _t(ref["o"]), _t(ref["d"]),
-                torch.full((512,), BIG), 3, group=group)
+        def run(lanes):
+            return RK.trace_layers_so_plain(tree, srows, _t(ref["o"]),
+                                            _t(ref["d"])[lanes], lim[lanes],
+                                            3)
     else:
-        _, srows = RK.build_shadow_rows(rows, _t(ref["l"]))
+        srows = RK.build_shadow_rows(rows, _t(ref["l"]))
+        lim = _t(ref["t_lim"])
 
-        def run(group):
-            return RK.trace_shadow_factor_plain(
-                tree, srows, _t(ref["l"]), _t(ref["o"]), _t(ref["t_lim"]), 4,
-                group=group)
-    one, four = run(1), run(4)
-    for a, b in zip(one, four):
-        assert torch.equal(a, b)
-    assert int((one[-1] >= 0).any(1).sum()) > 20
+        def run(lanes):
+            return RK.trace_shadow_factor_plain(tree, srows, _t(ref["l"]),
+                                                _t(ref["o"])[lanes],
+                                                lim[lanes], 4)
+    n = lim.shape[0]
+    every = run(torch.arange(n))
+    sub = torch.arange(1, n, 3)
+    for a, b in zip(every, run(sub)):
+        assert torch.equal(a[sub], b)
+    dead = lim <= 0
+    assert int(dead.sum()) > 20
+    assert bool((every[0][dead] == 0).all())
+    assert bool((every[-2][dead] == BIG).all() and
+                (every[-1][dead] == -1).all())
+    if kernel == "K5":
+        assert bool((every[1][dead] == -1).all())
+    assert int((every[-1][~dead] >= 0).any(1).sum()) > 20
 
 
 # --------------------------------------------------------------------- K4

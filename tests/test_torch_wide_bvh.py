@@ -11,7 +11,7 @@
     rays that start inside boxes, and the decimated DemoScene's tree fits
     the kernel's cap;
   * the leaf ranks in the wide lines (K6's origin rows) equal
-    ``_leaf_rows``' ranks, for soups and the decimated DemoScene;
+    ``binary_header``'s ranks, for soups and the decimated DemoScene;
   * the twin's records match ``trace_rays_pallas(interpret=True)`` of the
     JAX package on a soup, with inactive rays (t_max = 0) and parked
     origins among them: ids on >= 99.9% of rays (equal-t ties), t to 1e-5
@@ -142,8 +142,8 @@ def _soup_topo(t):
 @pytest.mark.parametrize("which", ["1", "13", "2500", "demo"])
 def test_leaf_ranks_match_leaf_rows(which):
     """Each leaf child's rank in the wide lines ([28:32]) is the rank that
-    ``_leaf_rows`` gives its packed row (the row of its origin rows, plus
-    one), for soups from a one-leaf tree up and for the decimated
+    ``binary_header`` gives its packed row (the row of its origin rows,
+    plus one), for soups from a one-leaf tree up and for the decimated
     DemoScene's topology; every other slot holds 0."""
     if which == "demo":
         from swift_game_engine_tpu_torch.scene.demo_scene import \
@@ -153,8 +153,8 @@ def test_leaf_ranks_match_leaf_rows(which):
         topo = _soup_topo(int(which))
     leaf = (topo.left < 0).float()
     rows = torch.zeros(((leaf.numel() + 7) // 8 * 8, RK.ROW))
-    rows[:leaf.numel(), 7] = leaf            # all _leaf_rows reads
-    header, _ = RK._leaf_rows(rows)
+    rows[:leaf.numel(), 7] = leaf            # all binary_header reads
+    header = RK.binary_header(rows)
     ref = topo.wide_tail[:, :4].to(torch.int64)
     rank = topo.wide_tail[:, 4:].to(torch.int64)
     is_leaf = ref <= -2
