@@ -43,15 +43,17 @@ and read just after. Then:
     lists, and its first layer against K9's first peel), and both are
     timed (CUDA events); each kernel's bound — the larger of its bytes over
     the card's memory rate and its operations over the FP32 rate — is
-    computed from the same inputs: for K1-K8 from the work their counting
+    computed from the same inputs: for K1-K10 from the work their counting
     instantiations count on that call (printed as "K<n> work" lines and
     checked equal to the kernel's records), with the bytes floor and a
-    one-test-per-record bound beside; K5-K8 (instances of K4's wide walk)
-    also print their bound before the redesign, the tests the binary walk
-    they replaced makes on the subset (K5, K7: on every 4th lane of it),
-    scaled (``trace_layers_so_binary``, ``trace_rays_so_binary``,
-    ``trace_shadow_factor_binary``, ``trace_shadow_any_binary``), and both
-    walks' work per ray. K1 is
+    one-test-per-record bound beside; K9 and K10 (one patch-culled
+    template) also print the bound of the one-thread-a-pixel walk they
+    replaced, and any record that differs from the plain version; K5-K8
+    (instances of K4's wide walk) also print their bound before the
+    redesign, the tests the binary walk they replaced makes on the subset
+    (K5, K7: on every 4th lane of it), scaled (``trace_layers_so_binary``,
+    ``trace_rays_so_binary``, ``trace_shadow_factor_binary``,
+    ``trace_shadow_any_binary``), and both walks' work per ray. K1 is
     reported per role (its layer count: the opaque and translucent rasters
     of path 1, path 4's raster), with every record where it differs from
     its plain version. A kernel's entry in the JSON line carries the path
@@ -113,6 +115,8 @@ SO_SLOT_OPS = 29      # K5 slot: 3 dots (15), sign fold (5), divide, compares
 WALK_SLOT_OPS = 26    # K7 slot: 3 dots (15), 3 subtracts, compares
 MT_OPS = 45           # K4 Moller-Trumbore slot test
 EDGE_OPS = 20         # K1/K9/K10 edge functions and depth of a fragment
+CULL_OPS = 80         # K9/K10 row cull: 3 forms x 25 (7 mul, 7 add, 4
+                      # min/max, 3 abs, 3 compares, a negate), 5 to combine
 SWEEP_OPS = 26        # K2/K3 slot: 3 dots (15), 3 subtracts, compares
 META_OPS = 12         # K1/K2/K3 cluster entry against a footprint or a lane
 
@@ -885,37 +889,80 @@ def main():
                f"{binary[0]:.4f} ms by {binary[1]})",
                floor=floor, records=records)
 
-    def list_bound(cnt, cand, prev, outs):
-        """As K1 is bounded: the candidate rows the tiles' counts name, read
-        once (the rest of the K-padded lists is never read), the counts,
-        ``prev`` and the outputs, and one fragment test per record
-        written."""
+    def list_work(cnt, cand, prev, outs, work, label):
+        """The bounds of a K9/K10 call, each the larger of the bytes and the
+        operations, as K1 is bounded: the bytes of the candidate rows the
+        tiles' counts name, read once (the rest of the K-padded lists is
+        never read), the counts, ``prev`` and the outputs; the operations
+        of the work the counting instantiation counts (each warp's cull
+        test of each of its tile's rows, each pixel's edge test of each row
+        its patch admits: the JSON line's bound), of one edge test per
+        record written, and of the one-thread-a-pixel walk the redesign
+        replaced (every pixel against every candidate of its tile)."""
+        print(f"  {label} work ({cand.shape[0]} tiles, K {cand.shape[1]}): "
+              + _count_line(work) + "; candidates per tile "
+              + _stats(cnt.double()))
         rows_read = int(cnt.sum()) * cand.shape[2] * cand.element_size()
-        return ([cnt, rows_read, prev], list(outs),
-                int((outs[0] >= 0).sum()) * EDGE_OPS)
+        ins, outs = [cnt, rows_read, prev], list(outs)
+        own = (int(work["warp_cull"].sum()) * CULL_OPS +
+               int(work["lane_test"].sum()) * EDGE_OPS)
+        return (_bound(ins, outs, own), _bound(ins, outs, 0),
+                _bound(ins, outs, int((outs[0] >= 0).sum()) * EDGE_OPS),
+                _bound(ins, outs, int(cnt.sum()) * TR.TILE_H * TR.TILE_W *
+                       EDGE_OPS))
+
+    def list_differing(label, cand, out_k, out_p, w):
+        """Each record (at most 8) where a list kernel and its plain
+        version differ: the pixel, the layer, both sides' id and depth w,
+        and each triangle's candidate row."""
+        tid_k, tid_p = (o[0].reshape(o[0].shape[0], -1, 32, 128)
+                        for o in (out_k, out_p))
+        w_k, w_p = (o[3].reshape(tid_k.shape) for o in (out_k, out_p))
+        tiles_x = -(-w // 128)
+        for tile, li, y, x in torch.nonzero(tid_k != tid_p).tolist()[:8]:
+            at = (tile, li, y, x)
+            print(f"    {label} differs at pixel ({(tile % tiles_x) * 128 + x}"
+                  f", {(tile // tiles_x) * 32 + y}) layer {li + 1}: kernel id "
+                  f"{int(tid_k[at])} w {float(w_k[at]):.9g}, plain id "
+                  f"{int(tid_p[at])} w {float(w_p[at]):.9g}")
+            for tid in {int(tid_k[at]), int(tid_p[at])} - {-1}:
+                row = cand[tile][cand[tile][:, 12] == tid][0]
+                print(f"      row of id {tid}: " +
+                      " ".join(f"{v:.9g}" for v in row.tolist()))
 
     def check_k9(args, c, tag):
         err = ms = plain_ms = 0.0
-        ins, outs, ops = [], [], 0
+        bounds = []
         for key in ("K9", "K9/peel"):
             (cnt, cand, w, h, *rest), kw = args[key]
             prev = rest[0] if rest else kw.get("prev_w")
+            role = "peel" if prev is not None else "first"
             k9 = TR.list_raster(cnt, cand, w, h, prev)
             p9, p_ms = _timed(lambda: TR.list_raster_plain(cnt, cand, w, h,
                                                            prev))
             plain_ms += p_ms
             err = max(err, _compare(
-                f"K9 {'peel' if prev is not None else 'first'} "
-                f"({cand.shape[0]} tiles, K {cand.shape[1]}, "
+                f"K9 {role} ({cand.shape[0]} tiles, K {cand.shape[1]}, "
                 f"{int(cnt.sum())} candidates)", k9[0], p9[0], k9[1:],
                 p9[1:]))
+            list_differing(f"K9 {role}", cand, k9, p9, w)
+            # the work of the frame's call, from the counting instantiation
+            out_c, work = TR.list_raster_counts(cnt, cand, w, h, prev)
+            if not all(torch.equal(a, b) for a, b in zip(out_c, k9)):
+                _fail("K9's counting instantiation differs from the kernel")
+            bounds.append(list_work(cnt, cand, prev, k9, work, f"K9 {role}"))
             ms += _time_ms(lambda: TR.list_raster(cnt, cand, w, h, prev), 5)
-            i9, o9, n9 = list_bound(cnt, cand, prev, k9)
-            ins, outs, ops = ins + i9, outs + o9, ops + n9
+        # both peels: the bounds add
+        own, floor, records, old = (
+            (sum(b[i][0] for b in bounds), bounds[0][i][1])
+            for i in range(4))
         report("list_raster" + tag,
                "swift_game_engine_tpu_torch/csrc/raster_lists.cu",
                "swift_game_engine_tpu/render/tile_raster.py:154", c["K9"],
-               err, ms, plain_ms, _bound(ins, outs, ops), " (both peels)")
+               err, ms, plain_ms, own,
+               f" (both peels; one-thread-a-pixel walk's bound "
+               f"{old[0]:.4f} ms by {old[1]})", floor=floor,
+               records=records)
         check_k10(args, c["K10"])
 
     def check_k10(args, launches):
@@ -926,17 +973,24 @@ def main():
         p10, plain_ms = _timed(lambda: TR.list_raster_peeled_plain(
             cnt, cand, w, h, 2))
         err = _compare("K10 (2 layers)", k10[0], p10[0], k10[1:], p10[1:])
+        list_differing("K10", cand, k10, p10, w)
         k9 = TR.list_raster(cnt, cand, w, h)
         _compare("K10 layer 1 vs K9's first peel", k10[0][:, 0], k9[0],
                  [a[:, 0] for a in k10[1:]], k9[1:])
+        out_c, work = TR.list_raster_peeled_counts(cnt, cand, w, h, 2)
+        if not all(torch.equal(a, b) for a, b in zip(out_c, k10)):
+            _fail("K10's counting instantiation differs from the kernel")
+        own, floor, records, old = list_work(cnt, cand, None, k10, work,
+                                             "K10 (2 layers)")
         report("list_raster_peeled",
                "swift_game_engine_tpu_torch/csrc/raster_lists.cu",
                "swift_game_engine_tpu/render/tile_raster.py:227", launches,
                err, _time_ms(lambda: TR.list_raster_peeled(cnt, cand, w, h, 2),
                              5),
-               plain_ms,
-               _bound(*list_bound(cnt, cand, None, k10)),
-               " (no path runs it: path 5's candidate lists)")
+               plain_ms, own,
+               f" (no path runs it: path 5's candidate lists; "
+               f"one-thread-a-pixel walk's bound {old[0]:.4f} ms by "
+               f"{old[1]})", floor=floor, records=records)
 
     checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3, "K4": check_k4,
               "K5": check_k5, "K6": check_k6, "K7": check_k7, "K8": check_k8,

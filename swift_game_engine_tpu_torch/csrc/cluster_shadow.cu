@@ -93,20 +93,6 @@ constexpr int OCCL_WARPS = 4;     // warps per block
 constexpr int CHUNK = 64;         // rows per staged chunk: 4 KB
 constexpr int GROUP = 32;         // rows per culling group
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The warp copies chunk `ch` of the cluster whose rows start at packed row
 // `base` (units of 8 rows) into `dst`: 256 float4, 8 per lane.
 __device__ __forceinline__ void stage_chunk(float4* dst,

@@ -100,6 +100,23 @@ __device__ __forceinline__ void insert_slot(float ct, float cid,
   }
 }
 
+// Asynchronous 16-byte copies from device to shared memory (cp.async,
+// bypassing L1), committed in groups; cp_async_wait<N> waits until at most
+// the N newest groups of this thread are still in flight.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Warp-wide reductions over all 32 lanes.
 constexpr unsigned FULL = 0xffffffffu;
 

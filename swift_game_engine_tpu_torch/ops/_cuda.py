@@ -57,8 +57,10 @@ _SIGNATURES = {
                      _P],
     "sge_trace_any": [_P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
     "sge_walk_threads": [_I, _I64],
-    "sge_list_raster": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P],
-    "sge_list_peeled": [_P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P],
+    "sge_list_raster": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P,
+                        _P],
+    "sge_list_peeled": [_P, _P, _I, _I, _F, _F, _I, _I, _P, _P, _P, _P, _P,
+                        _P],
 }
 
 

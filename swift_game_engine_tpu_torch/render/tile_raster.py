@@ -26,7 +26,12 @@ twin tests every pixel against every triangle (dense, in chunks); the list
 twins step every pixel through its tile's list in the kernels' order. K1
 runs one warp per 8x4 pixel patch: it culls 32 cluster entries at a time
 against the patch, then 32 rows at a time by their screen boxes, and
-edge-tests only the rows that overlap the patch. The cluster path leaves
+edge-tests only the rows that overlap the patch. K9 and K10 are one kernel
+template with two policies, a warp per 8x4 patch too: a block stages its
+tile's rows in shared memory, each warp culls each row by a proof that no
+pixel of its patch can pass the f32 inside test (``list_patch_cull_plain``
+is that cull in plain PyTorch, for the tests), and edge-tests the rest in
+list order. The cluster path leaves
 out-of-image padding lanes empty; the reference fills them with whatever
 projects there, and every caller crops them.
 """
@@ -433,17 +438,85 @@ def setup_lists(v0, v1, v2, view_proj, width: int, height: int,
             (counts_full > k).sum())
 
 
-def _list_candidates(counts, cand_rows, width: int, height: int):
+# The list kernels' warp footprint: an 8x4 pixel patch of a tile, patches
+# in tile-major order.
+PATCH_H, PATCH_W = 4, 8
+N_PATCHES = (TILE_H // PATCH_H) * (TILE_W // PATCH_W)
+# The patch cull's rounding margin (csrc/raster_lists.cu: 2^-19 = 32 unit
+# roundoffs of f32 times the form's scale, plus a floor for subnormal
+# products) and the scale past which a form is never used.
+CULL_MARGIN = 2.0 ** -19
+CULL_TINY = 1e-30
+CULL_SCALE_MAX = 1e38
+
+
+def _patch_lanes(device):
+    """(N_PATCHES, 32) within-tile pixel index of each patch's lanes, in the
+    kernels' order (lane % 8 across, lane // 8 down)."""
+    p = torch.arange(N_PATCHES, device=device)[:, None]
+    lane = torch.arange(32, device=device)
+    qx = (p % (TILE_W // PATCH_W)) * PATCH_W + lane % PATCH_W
+    qy = (p // (TILE_W // PATCH_W)) * PATCH_H + lane // PATCH_W
+    return qy * TILE_W + qx
+
+
+def _samples(width, height, device):
+    """(tiles, TILE_H*TILE_W) f32 NDC sample x, y of every pixel, as the
+    kernels compute them."""
+    _, n_tiles, sx, sy = _grid(width, height)
+    px, py = tiled_pixels(width, height, device=device)
+    x = ((px.to(torch.float32) + 0.5) * sx - 1.0).reshape(n_tiles, -1)
+    y = (1.0 - (py.to(torch.float32) + 0.5) * sy).reshape(n_tiles, -1)
+    return x, y
+
+
+def list_patch_cull_plain(counts, cand_rows, width: int, height: int):
+    """Plain PyTorch version of the list kernels' patch cull, for the tests
+    -> keep (tiles, N_PATCHES, K) bool: False where list position j lies
+    past the tile's count or where one edge form of row j is proved > 0 and
+    another < 0 at every pixel of the patch, so that no pixel there can
+    pass the kernels' f32 ``inside`` test. Each form a*x + b*y + c is
+    bounded over the patch's sample box from its corner samples and widened
+    by ``CULL_MARGIN`` * (|a|*X + |b|*Y + |c|) + ``CULL_TINY`` (X, Y: the
+    largest |x|, |y| in the patch), in the kernel's f32 operation order;
+    the derivation is in csrc/raster_lists.cu."""
+    x, y = _samples(width, height, cand_rows.device)
+    lanes = _patch_lanes(cand_rows.device)
+
+    def box(v):                              # (tiles, N_PATCHES, 1) each
+        v = v[:, lanes]
+        lo, hi = v.amin(-1, keepdim=True), v.amax(-1, keepdim=True)
+        return lo, hi, torch.maximum(lo.abs(), hi.abs())
+
+    (x0, x1, ax), (y0, y1, ay) = box(x), box(y)
+    pos = neg = torch.zeros((), dtype=torch.bool, device=cand_rows.device)
+    for f in range(3):
+        a, b, c = (cand_rows[:, None, :, 3 * f + i] for i in range(3))
+        a_x0, a_x1, b_y0, b_y1 = a * x0, a * x1, b * y0, b * y1
+        lo = (torch.minimum(a_x0, a_x1) + torch.minimum(b_y0, b_y1)) + c
+        hi = (torch.maximum(a_x0, a_x1) + torch.maximum(b_y0, b_y1)) + c
+        s = (a.abs() * ax + b.abs() * ay) + c.abs()
+        m = s * CULL_MARGIN + CULL_TINY
+        used = s < CULL_SCALE_MAX
+        pos = pos | (used & (lo > m))
+        neg = neg | (used & (hi < -m))
+    live = torch.arange(cand_rows.shape[1], device=cand_rows.device) < \
+        counts.to(torch.int64)[:, None]
+    return ~(pos & neg) & live[:, None]
+
+
+def _list_candidates(counts, cand_rows, width: int, height: int, keep=None):
     """The candidates of the list rasters in list order, in lockstep over
     every pixel of every tile: yields for each list position j the (tiles,
     TILE_H*TILE_W) terms of the kernels (tile_raster.py:186-202), in their
-    f32 operation order: (live: j < the tile's count, inside: edges, sig
-    and id, detp, sig, lam1, lam2, id)."""
-    tiles_x, n_tiles, sx, sy = _grid(width, height)
-    px, py = tiled_pixels(width, height, device=cand_rows.device)
-    x = ((px.to(torch.float32) + 0.5) * sx - 1.0).reshape(n_tiles, -1)
-    y = (1.0 - (py.to(torch.float32) + 0.5) * sy).reshape(n_tiles, -1)
+    f32 operation order: (live: j < the tile's count and, given ``keep``
+    ((tiles, N_PATCHES, K) bool), the pixel's patch keeps row j; inside:
+    edges, sig and id; detp, sig, lam1, lam2, id)."""
+    x, y = _samples(width, height, cand_rows.device)
     count = counts.to(torch.int64)[:, None]
+    within = torch.arange(TILE_H * TILE_W, device=cand_rows.device)
+    patch = (within // TILE_W // PATCH_H) * (TILE_W // PATCH_W) + \
+        within % TILE_W // PATCH_W           # each pixel's patch
     for j in range(int(counts.max()) if counts.numel() else 0):
         r = cand_rows[:, j, :, None]                     # (tiles, 16, 1)
         lam0 = r[:, 0] * x + r[:, 1] * y + r[:, 2]
@@ -456,7 +529,10 @@ def _list_candidates(counts, cand_rows, width: int, height: int):
         detp = lam0 * r[:, 9] + lam1 * r[:, 10] + lam2 * r[:, 11]
         inside = (torch.minimum(torch.minimum(lam0, lam1), lam2) >= 0) & \
             (sig > 1e-20) & (r[:, 12] >= 0)
-        yield j < count, inside, detp, sig, lam1, lam2, r[:, 12]
+        live = j < count
+        if keep is not None:
+            live = live & keep[:, patch, j]
+        yield live, inside, detp, sig, lam1, lam2, r[:, 12]
 
 
 def _list_records(zn, zd, tid, l1, l2):
@@ -467,12 +543,14 @@ def _list_records(zn, zd, tid, l1, l2):
 
 
 def list_raster_plain(counts, cand_rows, width: int, height: int,
-                      prev_w=None):
+                      prev_w=None, keep=None):
     """Plain PyTorch twin of K9: every pixel steps through its tile's
     candidates in list order, keeping a fragment that is inside, in front,
     strictly nearer (detp*zd < zn*sig: the first of equal depths stays)
-    and strictly behind ``prev_w`` (detp > prev_w*sig). Returns (id int32,
-    b1, b2, w), each (tiles, TILE_H, TILE_W)."""
+    and strictly behind ``prev_w`` (detp > prev_w*sig). ``keep``: a patch
+    cull mask (``list_patch_cull_plain``) whose culled rows the pixels of
+    their patch skip, as the kernel skips them. Returns (id int32, b1, b2,
+    w), each (tiles, TILE_H, TILE_W)."""
     n_tiles = cand_rows.shape[0]
     dev = cand_rows.device
     per = TILE_H * TILE_W
@@ -484,7 +562,7 @@ def list_raster_plain(counts, cand_rows, width: int, height: int,
     l1 = torch.zeros((n_tiles, per), device=dev)
     l2 = torch.zeros((n_tiles, per), device=dev)
     for live, inside, detp, sig, lam1, lam2, cid in _list_candidates(
-            counts, cand_rows, width, height):
+            counts, cand_rows, width, height, keep):
         win = live & inside & (detp > 0) & (detp * zd < zn * sig) & \
             (detp > pw * sig)
         zn, zd = torch.where(win, detp, zn), torch.where(win, sig, zd)
@@ -495,11 +573,12 @@ def list_raster_plain(counts, cand_rows, width: int, height: int,
 
 
 def list_raster_peeled_plain(counts, cand_rows, width: int, height: int,
-                             layers: int):
+                             layers: int, keep=None):
     """Plain PyTorch twin of K10: every pixel steps through its tile's
     candidates in list order, each inside fragment running the insertion
-    network over ``layers`` slots (tile_raster.py:285-298). Returns (id
-    int32, b1, b2, w), each (tiles, layers, TILE_H, TILE_W)."""
+    network over ``layers`` slots (tile_raster.py:285-298); ``keep`` as in
+    ``list_raster_plain``. Returns (id int32, b1, b2, w), each (tiles,
+    layers, TILE_H, TILE_W)."""
     n_tiles = cand_rows.shape[0]
     dev = cand_rows.device
     per = TILE_H * TILE_W
@@ -509,7 +588,7 @@ def list_raster_peeled_plain(counts, cand_rows, width: int, height: int,
               torch.zeros((n_tiles, per), device=dev),
               torch.zeros((n_tiles, per), device=dev)] for _ in range(layers)]
     for live, inside, detp, sig, lam1, lam2, cid in _list_candidates(
-            counts, cand_rows, width, height):
+            counts, cand_rows, width, height, keep):
         c = [detp, sig, torch.where(live & inside & (detp > 0), cid, -1.0),
              lam1, lam2]
         for l, (zn, zd, tid, *_) in enumerate(slots):
@@ -521,7 +600,9 @@ def list_raster_peeled_plain(counts, cand_rows, width: int, height: int,
                  for a in zip(*(_list_records(*sl) for sl in slots)))
 
 
-def _list_args(counts, cand_rows, width, height):
+def _launch_list(counts, cand_rows, width, height, prev_w, layers, work):
+    """K9 (``layers`` None) or K10: check, allocate, launch; ``work``: the
+    counting instantiation's buffer or None."""
     tiles_x, n_tiles, sx, sy = _grid(width, height)
     dev = cand_rows.device
     _cuda.require(counts, "counts", (n_tiles,), dtype=torch.int32,
@@ -531,7 +612,26 @@ def _list_args(counts, cand_rows, width, height):
         raise ValueError(f"cand_rows: expected ({n_tiles}, K, 16), got "
                          f"{tuple(cand_rows.shape)}")
     _cuda.require(cand_rows, "cand_rows", device=dev)
-    return tiles_x, n_tiles, sx, sy, dev
+    if prev_w is not None:
+        _cuda.require(prev_w, "prev_w", (n_tiles, TILE_H, TILE_W),
+                      device=dev)
+    shape = (n_tiles, layers or 1, TILE_H, TILE_W)
+    tid = torch.empty(shape, dtype=torch.int32, device=dev)
+    b1, b2, w = (torch.empty(shape, dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    lib = _cuda.library()
+    outs = (tid.data_ptr(), b1.data_ptr(), b2.data_ptr(), w.data_ptr(),
+            _cuda.stream_ptr(cand_rows))
+    if layers is None:
+        _cuda.check(lib.sge_list_raster(
+            counts.data_ptr(), cand_rows.data_ptr(), _cuda.ptr(prev_w),
+            n_tiles, cand_rows.shape[1], sx, sy, tiles_x, _cuda.ptr(work),
+            *outs), "sge_list_raster")
+        return tid[:, 0], b1[:, 0], b2[:, 0], w[:, 0]
+    _cuda.check(lib.sge_list_peeled(
+        counts.data_ptr(), cand_rows.data_ptr(), n_tiles, cand_rows.shape[1],
+        sx, sy, tiles_x, layers, _cuda.ptr(work), *outs), "sge_list_peeled")
+    return tid, b1, b2, w
 
 
 def list_raster(counts, cand_rows, width: int, height: int, prev_w=None):
@@ -540,50 +640,63 @@ def list_raster(counts, cand_rows, width: int, height: int, prev_w=None):
     camera) -> (id int32, b1, b2, w), each (tiles, TILE_H, TILE_W)."""
     if not cand_rows.is_cuda:
         return list_raster_plain(counts, cand_rows, width, height, prev_w)
-    tiles_x, n_tiles, sx, sy, dev = _list_args(counts, cand_rows, width,
-                                               height)
-    if prev_w is not None:
-        _cuda.require(prev_w, "prev_w", (n_tiles, TILE_H, TILE_W),
-                      device=dev)
-    shape = (n_tiles, TILE_H, TILE_W)
-    tid = torch.empty(shape, dtype=torch.int32, device=dev)
-    b1, b2, w = (torch.empty(shape, dtype=torch.float32, device=dev)
-                 for _ in range(3))
-    lib = _cuda.library()
     global list_launches
     list_launches += 1
-    _cuda.check(lib.sge_list_raster(
-        counts.data_ptr(), cand_rows.data_ptr(), _cuda.ptr(prev_w), n_tiles,
-        cand_rows.shape[1], sx, sy, tiles_x, tid.data_ptr(), b1.data_ptr(),
-        b2.data_ptr(), w.data_ptr(), _cuda.stream_ptr(cand_rows)),
-        "sge_list_raster")
-    return tid, b1, b2, w
+    return _launch_list(counts, cand_rows, width, height, prev_w, None, None)
+
+
+def _check_layers(layers):
+    if not 1 <= layers <= 3:
+        raise ValueError(f"layers must be 1..3, got {layers}")
 
 
 def list_raster_peeled(counts, cand_rows, width: int, height: int,
                        layers: int):
     """K10 wrapper: the ``layers`` nearest inside fragments per pixel ->
     (id int32, b1, b2, w), each (tiles, layers, TILE_H, TILE_W)."""
-    if not 1 <= layers <= 3:
-        raise ValueError(f"layers must be 1..3, got {layers}")
+    _check_layers(layers)
     if not cand_rows.is_cuda:
         return list_raster_peeled_plain(counts, cand_rows, width, height,
                                         layers)
-    tiles_x, n_tiles, sx, sy, dev = _list_args(counts, cand_rows, width,
-                                               height)
-    shape = (n_tiles, layers, TILE_H, TILE_W)
-    tid = torch.empty(shape, dtype=torch.int32, device=dev)
-    b1, b2, w = (torch.empty(shape, dtype=torch.float32, device=dev)
-                 for _ in range(3))
-    lib = _cuda.library()
     global peel_launches
     peel_launches += 1
-    _cuda.check(lib.sge_list_peeled(
-        counts.data_ptr(), cand_rows.data_ptr(), n_tiles, cand_rows.shape[1],
-        sx, sy, tiles_x, layers, tid.data_ptr(), b1.data_ptr(),
-        b2.data_ptr(), w.data_ptr(), _cuda.stream_ptr(cand_rows)),
-        "sge_list_peeled")
-    return tid, b1, b2, w
+    return _launch_list(counts, cand_rows, width, height, None, layers, None)
+
+
+LIST_COUNT_FIELDS = ("lane_test", "lane_inside", "warp_cull", "warp_admit")
+
+
+def _list_counts(counts, cand_rows, width, height, prev_w, layers):
+    _, n_tiles, _, _ = _grid(width, height)
+    p = n_tiles * TILE_H * TILE_W
+    w = p // 32
+    work = torch.zeros(2 * p + 2 * w, dtype=torch.int32,
+                       device=cand_rows.device)
+    out = _launch_list(counts, cand_rows, width, height, prev_w, layers,
+                       work)
+    lane = work[:2 * p].reshape(2, p)
+    warp = work[2 * p:].reshape(w, 2).T
+    return out, dict(zip(LIST_COUNT_FIELDS, (*lane, *warp)))
+
+
+def list_raster_counts(counts, cand_rows, width: int, height: int,
+                       prev_w=None):
+    """K9's counting instantiation, on the card only (a measurement, not a
+    launch of the frame) -> ((id, b1, b2, w), work). Per pixel, in the
+    kernel's thread order (32 a warp: an 8x4 patch of a tile): "lane_test"
+    (rows it edge-tests: those its patch's cull admits), "lane_inside"
+    (inside fragments among them); per warp: "warp_cull" (rows its lanes
+    cull-test: the tile's count), "warp_admit" (rows its ballots
+    admit)."""
+    return _list_counts(counts, cand_rows, width, height, prev_w, None)
+
+
+def list_raster_peeled_counts(counts, cand_rows, width: int, height: int,
+                              layers: int):
+    """K10's counting instantiation, on the card only; as
+    ``list_raster_counts``."""
+    _check_layers(layers)
+    return _list_counts(counts, cand_rows, width, height, None, layers)
 
 
 def rasterize(v0, v1, v2, view_proj, cam_pos, width: int, height: int,

@@ -10,7 +10,9 @@ layered shared-origin walk), K6 (the shared-origin closest hit), K7 (the
 shadow walk) and K8 (the any-hit prepass), the instances of the wide walk,
 walk each lane in the same order as their twins, so their records agree
 lane for lane; K9 and K10 (the list rasters) keep the same
-fragments as theirs. The twins themselves are held against the JAX
+fragments as theirs, bit for bit on adversarial lists (the inputs of
+tests/test_torch_list_cull.py), and cull exactly the rows that the plain
+version of their patch cull drops. The twins themselves are held against the JAX
 reference by the CPU tests (tests/test_torch_kernels.py,
 test_torch_trace_kernels.py, test_torch_so_prepass.py,
 test_torch_raster.py).
@@ -35,6 +37,7 @@ from swift_game_engine_tpu_torch.render import tile_raster as TR
 from swift_game_engine_tpu_torch.render.camera import Camera
 from swift_game_engine_tpu_torch.render.scene_geometry import (
     RenderGeometryBuilder, flatten_frame)
+from test_torch_list_cull import _borderline_rows, _triangles
 
 pytestmark = pytest.mark.cuda
 
@@ -731,3 +734,96 @@ def test_k10_kernel_matches_plain(list_case, layers):
     torch.cuda.synchronize()
     assert int((p[0][:, -1] >= 0).sum()) > 3000   # the deepest layer has hits
     agree(k[0], p[0], k[1:], p[1:])
+
+
+def _bits_equal(out_k, out_p):
+    """Records equal bit for bit (NaN records included)."""
+    for a, b in zip(out_k, out_p):
+        a, b = a.contiguous(), b.contiguous()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.fixture(params=["triangles", "borderline_rows"])
+def adversarial_lists(cuda, request):
+    """Adversarial candidate lists at 320x180 (18 tiles), each with one
+    tile emptied and tiles at the K cap: the CPU cull tests' triangles
+    together (far slivers and specks, triangles crossing w = 0 or wholly
+    behind the camera, a screen-filling one, degenerate and coplanar
+    duplicates at equal depth) through the list binning at K = 256, or
+    rows built directly (one edge form vanishing at a patch corner to a
+    few ulps; inf, NaN, huge and tiny coefficients; ties at depths 1, 2
+    and 3)."""
+    if request.param == "borderline_rows":
+        cand, counts = _borderline_rows(W, H, 256)
+        cand, counts = cand.to(cuda), counts.to(cuda)
+    else:
+        tris = [_triangles(c) for c in ("far_slivers", "crossing_w0",
+                                        "screen_filling", "coplanar_ties")]
+        cam = Camera()
+        cam.position = np.array([0.0, 4.0, 22.0], np.float32)
+        vp = torch.as_tensor(cam.view_proj(W, H), device=cuda)
+        cand, counts, over = TR.setup_lists(
+            *(torch.as_tensor(np.concatenate([t[i] for t in tris]),
+                              device=cuda) for i in range(3)), vp, W, H,
+            k=256)
+        assert int(over) > 0
+    counts[5] = 0                                # an empty tile
+    assert int((counts == cand.shape[1]).sum()) > 0
+    return cand, counts
+
+
+@pytest.mark.parametrize("twin", ["k9_first", "k9_peel", "k10_1", "k10_2",
+                                  "k10_3"])
+def test_list_kernels_adversarial(adversarial_lists, twin):
+    """K9 (the first peel and the peel behind it) and K10 (1..3 layers)
+    equal their twins bit for bit on adversarial lists."""
+    cand, counts = adversarial_lists
+    before = TR.list_launches + TR.peel_launches
+    if twin.startswith("k9"):
+        prev = None
+        if twin == "k9_peel":
+            w = TR.list_raster_plain(counts, cand, W, H)[3]
+            prev = torch.where(w < 1e30, w * 1.000001, 3.0e38).contiguous()
+        k = TR.list_raster(counts, cand, W, H, prev)
+        p = TR.list_raster_plain(counts, cand, W, H, prev)
+    else:
+        layers = int(twin[-1])
+        k = TR.list_raster_peeled(counts, cand, W, H, layers)
+        p = TR.list_raster_peeled_plain(counts, cand, W, H, layers)
+    torch.cuda.synchronize()
+    assert TR.list_launches + TR.peel_launches == before + 1
+    assert int((p[0] >= 0).sum()) > 1000
+    assert bool((k[0][5] == -1).all())           # the empty tile
+    _bits_equal(k, p)
+
+
+@pytest.mark.parametrize("layers", [None, 1, 3], ids=["k9", "k10_1",
+                                                      "k10_3"])
+def test_list_counting_instantiation(adversarial_lists, layers):
+    """The counting instantiation writes the production build's records
+    and counts no launch; its work is the plain cull's: each warp
+    cull-tests its tile's rows and admits the rows that
+    ``list_patch_cull_plain`` keeps for its patch, and each of its pixels
+    edge-tests every admitted row."""
+    cand, counts = adversarial_lists
+    before = TR.list_launches + TR.peel_launches
+    if layers is None:
+        k = TR.list_raster(counts, cand, W, H)
+        kc, work = TR.list_raster_counts(counts, cand, W, H)
+    else:
+        k = TR.list_raster_peeled(counts, cand, W, H, layers)
+        kc, work = TR.list_raster_peeled_counts(counts, cand, W, H, layers)
+    torch.cuda.synchronize()
+    assert TR.list_launches + TR.peel_launches == before + 1
+    _bits_equal(kc, k)
+    keep = TR.list_patch_cull_plain(counts, cand, W, H)
+    n_tiles = cand.shape[0]
+    admit = work["warp_admit"].reshape(n_tiles, TR.N_PATCHES)
+    assert torch.equal(admit, keep.sum(-1).to(torch.int32))
+    assert torch.equal(work["warp_cull"].reshape(n_tiles, -1),
+                       counts[:, None].expand(-1, TR.N_PATCHES))
+    assert torch.equal(work["lane_test"].reshape(-1, 32),
+                       work["warp_admit"][:, None].expand(-1, 32))
+    assert bool((work["lane_inside"] <= work["lane_test"]).all())
+    assert int(work["lane_inside"].sum()) > 0
+    assert int(admit.sum()) < int(counts.sum()) * TR.N_PATCHES
