@@ -47,8 +47,10 @@ and read just after. Then:
     instantiations count on that call (printed as "K<n> work" lines and
     checked equal to the kernel's records), with the bytes floor and a
     one-test-per-record bound beside; K9 and K10 (one patch-culled
-    template) also print the bound of the one-thread-a-pixel walk they
-    replaced, and any record that differs from the plain version; K5-K8
+    template), bounded like K1 by their pixels' edge tests, also print the
+    bound of their whole counted work (the warps' row cull included), that
+    of the one-thread-a-pixel walk they replaced, and any record that
+    differs from the plain version; K5-K8
     (instances of K4's wide walk) also print their bound before the
     redesign, the tests the binary walk they replaced makes on the subset
     (K5, K7: on every 4th lane of it), scaled (``trace_layers_so_binary``,
@@ -894,22 +896,30 @@ def main():
         operations, as K1 is bounded: the bytes of the candidate rows the
         tiles' counts name, read once (the rest of the K-padded lists is
         never read), the counts, ``prev`` and the outputs; the operations
-        of the work the counting instantiation counts (each warp's cull
-        test of each of its tile's rows, each pixel's edge test of each row
-        its patch admits: the JSON line's bound), of one edge test per
-        record written, and of the one-thread-a-pixel walk the redesign
+        of the pixel edge tests the counting instantiation counts (each
+        pixel's test of each row its patch admits, as K1 counts its own:
+        the JSON line's bound), of one edge test per record written, of
+        the design's whole counted work (those tests and each warp's cull
+        test of each of its tile's rows, this design's own overhead: a
+        diagnostic), and of the one-thread-a-pixel walk the redesign
         replaced (every pixel against every candidate of its tile)."""
         print(f"  {label} work ({cand.shape[0]} tiles, K {cand.shape[1]}): "
               + _count_line(work) + "; candidates per tile "
               + _stats(cnt.double()))
         rows_read = int(cnt.sum()) * cand.shape[2] * cand.element_size()
         ins, outs = [cnt, rows_read, prev], list(outs)
-        own = (int(work["warp_cull"].sum()) * CULL_OPS +
-               int(work["lane_test"].sum()) * EDGE_OPS)
-        return (_bound(ins, outs, own), _bound(ins, outs, 0),
+        tests = int(work["lane_test"].sum()) * EDGE_OPS
+        return (_bound(ins, outs, tests), _bound(ins, outs, 0),
                 _bound(ins, outs, int((outs[0] >= 0).sum()) * EDGE_OPS),
+                _bound(ins, outs, int(work["warp_cull"].sum()) * CULL_OPS +
+                       tests),
                 _bound(ins, outs, int(cnt.sum()) * TR.TILE_H * TR.TILE_W *
                        EDGE_OPS))
+
+    def list_extra(culled, old):
+        return (f"with the warps' cull counted {culled[0]:.4f} ms by "
+                f"{culled[1]}; one-thread-a-pixel walk's bound {old[0]:.4f} "
+                f"ms by {old[1]}")
 
     def list_differing(label, cand, out_k, out_p, w):
         """Each record (at most 8) where a list kernel and its plain
@@ -953,15 +963,14 @@ def main():
             bounds.append(list_work(cnt, cand, prev, k9, work, f"K9 {role}"))
             ms += _time_ms(lambda: TR.list_raster(cnt, cand, w, h, prev), 5)
         # both peels: the bounds add
-        own, floor, records, old = (
+        own, floor, records, culled, old = (
             (sum(b[i][0] for b in bounds), bounds[0][i][1])
-            for i in range(4))
+            for i in range(5))
         report("list_raster" + tag,
                "swift_game_engine_tpu_torch/csrc/raster_lists.cu",
                "swift_game_engine_tpu/render/tile_raster.py:154", c["K9"],
                err, ms, plain_ms, own,
-               f" (both peels; one-thread-a-pixel walk's bound "
-               f"{old[0]:.4f} ms by {old[1]})", floor=floor,
+               f" (both peels; {list_extra(culled, old)})", floor=floor,
                records=records)
         check_k10(args, c["K10"])
 
@@ -980,8 +989,8 @@ def main():
         out_c, work = TR.list_raster_peeled_counts(cnt, cand, w, h, 2)
         if not all(torch.equal(a, b) for a, b in zip(out_c, k10)):
             _fail("K10's counting instantiation differs from the kernel")
-        own, floor, records, old = list_work(cnt, cand, None, k10, work,
-                                             "K10 (2 layers)")
+        own, floor, records, culled, old = list_work(
+            cnt, cand, None, k10, work, "K10 (2 layers)")
         report("list_raster_peeled",
                "swift_game_engine_tpu_torch/csrc/raster_lists.cu",
                "swift_game_engine_tpu/render/tile_raster.py:227", launches,
@@ -989,8 +998,7 @@ def main():
                              5),
                plain_ms, own,
                f" (no path runs it: path 5's candidate lists; "
-               f"one-thread-a-pixel walk's bound {old[0]:.4f} ms by "
-               f"{old[1]})", floor=floor, records=records)
+               f"{list_extra(culled, old)})", floor=floor, records=records)
 
     checks = {"K1": check_k1, "K2": check_k2, "K3": check_k3, "K4": check_k4,
               "K5": check_k5, "K6": check_k6, "K7": check_k7, "K8": check_k8,

@@ -61,7 +61,10 @@
 // cull asks for lo > m (or hi < -m), m = S*2^-19 + 1e-30 with
 // S = |a|*X + |b|*Y + |c|, X = max(|x0|, |x1|), Y = max(|y0|, |y1|): a
 // margin that holds even where the two evaluations round differently (a
-// build that contracts them into FMAs, another operation order). With the
+// build that contracts them into FMAs, another operation order). The
+// build here (ops/_cuda.py: --fmad=false, both written in one order) does
+// neither, so there the margin is redundant: it guards a change of those
+// flags or of either expression, at 9 of form_sign's 25 operations. With the
 // unit roundoff u = 2^-24 and g3 = 3u/(1-3u), each term of either
 // evaluation is rounded at most three times, so each lies within g3*S of
 // the exact value and every pixel's e >= lo - 2*g3*S. S is itself rounded

@@ -505,18 +505,14 @@ def list_patch_cull_plain(counts, cand_rows, width: int, height: int):
     return ~(pos & neg) & live[:, None]
 
 
-def _list_candidates(counts, cand_rows, width: int, height: int, keep=None):
+def _list_candidates(counts, cand_rows, width: int, height: int):
     """The candidates of the list rasters in list order, in lockstep over
     every pixel of every tile: yields for each list position j the (tiles,
     TILE_H*TILE_W) terms of the kernels (tile_raster.py:186-202), in their
-    f32 operation order: (live: j < the tile's count and, given ``keep``
-    ((tiles, N_PATCHES, K) bool), the pixel's patch keeps row j; inside:
-    edges, sig and id; detp, sig, lam1, lam2, id)."""
+    f32 operation order: (live: j < the tile's count, inside: edges, sig
+    and id, detp, sig, lam1, lam2, id)."""
     x, y = _samples(width, height, cand_rows.device)
     count = counts.to(torch.int64)[:, None]
-    within = torch.arange(TILE_H * TILE_W, device=cand_rows.device)
-    patch = (within // TILE_W // PATCH_H) * (TILE_W // PATCH_W) + \
-        within % TILE_W // PATCH_W           # each pixel's patch
     for j in range(int(counts.max()) if counts.numel() else 0):
         r = cand_rows[:, j, :, None]                     # (tiles, 16, 1)
         lam0 = r[:, 0] * x + r[:, 1] * y + r[:, 2]
@@ -529,10 +525,7 @@ def _list_candidates(counts, cand_rows, width: int, height: int, keep=None):
         detp = lam0 * r[:, 9] + lam1 * r[:, 10] + lam2 * r[:, 11]
         inside = (torch.minimum(torch.minimum(lam0, lam1), lam2) >= 0) & \
             (sig > 1e-20) & (r[:, 12] >= 0)
-        live = j < count
-        if keep is not None:
-            live = live & keep[:, patch, j]
-        yield live, inside, detp, sig, lam1, lam2, r[:, 12]
+        yield j < count, inside, detp, sig, lam1, lam2, r[:, 12]
 
 
 def _list_records(zn, zd, tid, l1, l2):
@@ -543,14 +536,12 @@ def _list_records(zn, zd, tid, l1, l2):
 
 
 def list_raster_plain(counts, cand_rows, width: int, height: int,
-                      prev_w=None, keep=None):
+                      prev_w=None):
     """Plain PyTorch twin of K9: every pixel steps through its tile's
     candidates in list order, keeping a fragment that is inside, in front,
     strictly nearer (detp*zd < zn*sig: the first of equal depths stays)
-    and strictly behind ``prev_w`` (detp > prev_w*sig). ``keep``: a patch
-    cull mask (``list_patch_cull_plain``) whose culled rows the pixels of
-    their patch skip, as the kernel skips them. Returns (id int32, b1, b2,
-    w), each (tiles, TILE_H, TILE_W)."""
+    and strictly behind ``prev_w`` (detp > prev_w*sig). Returns (id int32,
+    b1, b2, w), each (tiles, TILE_H, TILE_W)."""
     n_tiles = cand_rows.shape[0]
     dev = cand_rows.device
     per = TILE_H * TILE_W
@@ -562,7 +553,7 @@ def list_raster_plain(counts, cand_rows, width: int, height: int,
     l1 = torch.zeros((n_tiles, per), device=dev)
     l2 = torch.zeros((n_tiles, per), device=dev)
     for live, inside, detp, sig, lam1, lam2, cid in _list_candidates(
-            counts, cand_rows, width, height, keep):
+            counts, cand_rows, width, height):
         win = live & inside & (detp > 0) & (detp * zd < zn * sig) & \
             (detp > pw * sig)
         zn, zd = torch.where(win, detp, zn), torch.where(win, sig, zd)
@@ -573,12 +564,11 @@ def list_raster_plain(counts, cand_rows, width: int, height: int,
 
 
 def list_raster_peeled_plain(counts, cand_rows, width: int, height: int,
-                             layers: int, keep=None):
+                             layers: int):
     """Plain PyTorch twin of K10: every pixel steps through its tile's
     candidates in list order, each inside fragment running the insertion
-    network over ``layers`` slots (tile_raster.py:285-298); ``keep`` as in
-    ``list_raster_plain``. Returns (id int32, b1, b2, w), each (tiles,
-    layers, TILE_H, TILE_W)."""
+    network over ``layers`` slots (tile_raster.py:285-298). Returns (id
+    int32, b1, b2, w), each (tiles, layers, TILE_H, TILE_W)."""
     n_tiles = cand_rows.shape[0]
     dev = cand_rows.device
     per = TILE_H * TILE_W
@@ -588,7 +578,7 @@ def list_raster_peeled_plain(counts, cand_rows, width: int, height: int,
               torch.zeros((n_tiles, per), device=dev),
               torch.zeros((n_tiles, per), device=dev)] for _ in range(layers)]
     for live, inside, detp, sig, lam1, lam2, cid in _list_candidates(
-            counts, cand_rows, width, height, keep):
+            counts, cand_rows, width, height):
         c = [detp, sig, torch.where(live & inside & (detp > 0), cid, -1.0),
              lam1, lam2]
         for l, (zn, zd, tid, *_) in enumerate(slots):

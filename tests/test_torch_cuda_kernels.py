@@ -11,7 +11,7 @@ shadow walk) and K8 (the any-hit prepass), the instances of the wide walk,
 walk each lane in the same order as their twins, so their records agree
 lane for lane; K9 and K10 (the list rasters) keep the same
 fragments as theirs, bit for bit on adversarial lists (the inputs of
-tests/test_torch_list_cull.py), and cull exactly the rows that the plain
+tests/torch_list_cases.py), and cull exactly the rows that the plain
 version of their patch cull drops. The twins themselves are held against the JAX
 reference by the CPU tests (tests/test_torch_kernels.py,
 test_torch_trace_kernels.py, test_torch_so_prepass.py,
@@ -37,7 +37,7 @@ from swift_game_engine_tpu_torch.render import tile_raster as TR
 from swift_game_engine_tpu_torch.render.camera import Camera
 from swift_game_engine_tpu_torch.render.scene_geometry import (
     RenderGeometryBuilder, flatten_frame)
-from test_torch_list_cull import _borderline_rows, _triangles
+from torch_list_cases import borderline_rows, triangles
 
 pytestmark = pytest.mark.cuda
 
@@ -754,10 +754,10 @@ def adversarial_lists(cuda, request):
     few ulps; inf, NaN, huge and tiny coefficients; ties at depths 1, 2
     and 3)."""
     if request.param == "borderline_rows":
-        cand, counts = _borderline_rows(W, H, 256)
+        cand, counts = borderline_rows(W, H, 256)
         cand, counts = cand.to(cuda), counts.to(cuda)
     else:
-        tris = [_triangles(c) for c in ("far_slivers", "crossing_w0",
+        tris = [triangles(c) for c in ("far_slivers", "crossing_w0",
                                         "screen_filling", "coplanar_ties")]
         cam = Camera()
         cam.position = np.array([0.0, 4.0, 22.0], np.float32)
