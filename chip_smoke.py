@@ -7,7 +7,12 @@ Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from ``swift_game_engine_tpu_torch/
 csrc`` (first use, one nvcc per source in parallel) and drives six paths
 of the port through its entry points, each for 2 warm-up and 10 timed
-frames at 960x540 (the RT paths with ``max_layers=3``):
+frames at 960x540 (the RT paths with ``max_layers=3``). Every frame is
+the bench headline's ``eng.frame(1/60, InputFrame(ly=1.0))``: the
+DemoScene world steps (one fixed substep a frame: the player falls and
+walks, the NPCs and platforms move), and each path checks that every
+timed frame took its substep and that the player moved and stayed above
+the ground:
 
   1. ``demo_rt_960x540``: the full DemoScene (``import_tri_budget=0``,
      181,340 triangles), ``Engine(path="rt")`` with the default hybrid
@@ -34,7 +39,24 @@ frames at 960x540 (the RT paths with ``max_layers=3``):
      bounces, no K1/K2/K3/K5/K7.
 
 Each path's kernel launch counts are zeroed just before its timed frames
-and read just after. Then:
+and read just after. Then the simulation on its own (``simulation_phase``;
+it runs no kernel of the port, only PyTorch's):
+
+  * 60 substeps of the DemoScene world with ``InputFrame(ly=1.0)``
+    intents, each started on the card from the CPU's state of the same
+    substep and held against the CPU's substep: positions and velocities
+    within 1e-4, integer and bool fields equal (a disagreement passes only
+    as a tie that rounding decides, proven as the CPU tests prove the
+    reference's: the CPU reaches the card's result with one agent moved by
+    at most 5e-5; it is printed);
+  * one substep under ``torch.cuda.set_sync_debug_mode("error")``: a
+    substep reads nothing back to the host;
+  * ms per substep (CUDA events, median of 30) and kernel launches per
+    substep (torch.profiler) for the DemoScene world and for a 256-agent
+    crowd on procedural meshes (``build_crowd``, examples/bench_crowd.py's
+    world: the separation grid).
+
+And the kernels:
 
   * every kernel is held against its plain PyTorch version on the inputs
     the first frame of each path that runs it gave it (the walks K5-K8 on
@@ -92,6 +114,10 @@ ASSETS = os.path.join(REPO, "assets")
 W, H = 960, 540
 WARMUP, TIMED = 2, 10
 LAYERS, SHADOW_LAYERS = 3, 4
+# The DemoScene's ground and the player's capsule (r 1.5, half height 1.0).
+GROUND_Y, PLAYER_CORE_TO_FOOT = -3.0, 2.5
+# Simulation phase: substeps held card against CPU; timed substeps.
+SIM_STEPS, SIM_TIMED, CROWD_AGENTS = 60, 30, 256
 PATHS = ("demo_rt_960x540", "demo_trace_960x540", "demo_trace_rtscale_0.25",
          "demo_raster_960x540", "demo_raster_lists_960x540",
          "demo_trace_so_prepass_960x540")
@@ -280,6 +306,196 @@ def path_engines(dev):
                                   device=dev)
 
 
+def build_crowd(device, n_agents=CROWD_AGENTS, seed=11):
+    """examples/bench_crowd.py's crowd with the port's builders: a 400x400
+    ground, 8 box obstacles, the player and ``n_agents - 1`` oscillating
+    agents over 140x140 -> (Stepper, state)."""
+    import numpy as np
+    from swift_game_engine_tpu_torch.assets import procedural_meshes as pm
+    from swift_game_engine_tpu_torch.ecs.world import (BODY_DYNAMIC,
+                                                       BODY_STATIC,
+                                                       WorldBuilder)
+    from swift_game_engine_tpu_torch.physics.collision_world import \
+        CollisionWorldBuilder
+    from swift_game_engine_tpu_torch.scene.step import Stepper
+    rng = np.random.default_rng(seed)
+    wb, cb = WorldBuilder(), CollisionWorldBuilder()
+
+    def body(name, pos, body_type):
+        e = wb.create_entity(name)
+        wb.add(e, "transform", translation=pos)
+        wb.add(e, "world_position")
+        wb.add(e, "body", body_type=body_type, position=pos)
+        return e
+
+    g = body("ground", [0, -3, 0], BODY_STATIC)
+    cb.add_mesh(pm.plane(400.0).positions, pm.plane(400.0).indices, entity=g,
+                mu_s=0.9, mu_k=0.8)
+    for i in range(8):
+        e = body(f"obstacle_{i}", [float(rng.uniform(-60, 60)), -1.0,
+                                   float(rng.uniform(-60, 60))], BODY_STATIC)
+        cb.add_mesh(pm.box(4.0).positions, pm.box(4.0).indices, entity=e)
+    p = body("player", [0, 0, 0], BODY_DYNAMIC)
+    for comp, kw in (("player", {}), ("intent", {}), ("movement", {}),
+                     ("controller", dict(radius=1.5, half_height=1.0)),
+                     ("agent", dict(mass_weight=3.0))):
+        wb.add(p, comp, **kw)
+    for i in range(n_agents - 1):
+        pos = [float(rng.uniform(-70, 70)), float(rng.uniform(0, 4)),
+               float(rng.uniform(-70, 70))]
+        e = body(f"agent_{i}", pos, BODY_DYNAMIC)
+        for comp, kw in (("intent", {}), ("movement", {}),
+                         ("controller", dict(radius=1.5, half_height=1.0)),
+                         ("agent", dict(mass_weight=1.0)),
+                         ("oscillate", dict(
+                             origin=pos, axis=[float(rng.uniform(-1, 1)), 0,
+                                               float(rng.uniform(-1, 1))],
+                             amplitude=6.0,
+                             speed=float(rng.uniform(0.4, 1.2))))):
+            wb.add(e, comp, **kw)
+    spec, state = wb.build(device)
+    return Stepper(spec, cb.build(device=device)), state
+
+
+def _sim_leaves(state, prefix=""):
+    out = []
+    for f in state._fields:
+        x = getattr(state, f)
+        out += _sim_leaves(x, prefix + f + ".") if isinstance(x, tuple) \
+            else [(prefix + f, x)]
+    return out
+
+
+# Float fields held card against CPU (positions and velocities).
+SIM_FLOATS = ("trs_t", "wp_local", "body_pos", "body_vel", "body_prev_pos")
+
+
+def _sim_disagree(ref, card, atol=1e-4):
+    """The first disagreement of the card's state with the CPU's: a
+    position or velocity beyond atol, or an integer/bool field that
+    differs -> message, or None."""
+    import torch
+    for (name, a), (_, b) in zip(_sim_leaves(ref), _sim_leaves(card)):
+        if a.dtype.is_floating_point:
+            if name in SIM_FLOATS:
+                d = (a - b).abs()
+                if float(d.max()) > atol:
+                    e = int(d.reshape(d.shape[0], -1).amax(1).argmax())
+                    return f"{name} of entity {e} differs by " \
+                        f"{float(d.max()):.3g}"
+        elif not torch.equal(a, b):
+            e = int((a != b).reshape(a.shape[0], -1).any(1).int().argmax())
+            return f"{name} of entity {e}: CPU {a[e].tolist()}, card " \
+                f"{b[e].tolist()}"
+    return None
+
+
+def simulation_phase(dev, world):
+    """The fixed-step simulation on the card (see the module docstring).
+    Returns {world: (ms per substep, launches per substep)}."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from swift_game_engine_tpu_torch.ecs.world import to_device
+    from swift_game_engine_tpu_torch.scene.engine import (FIXED_DT,
+                                                          apply_intent)
+    from swift_game_engine_tpu_torch.scene.input import (InputFrame,
+                                                         InputSystem)
+    from swift_game_engine_tpu_torch.scene.step import Stepper
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cstep = Stepper(world.spec.to(cpu), to_device(world.collision, cpu))
+    gstep, e = world.stepper, world.player
+    state = to_device(world.state, cpu)
+    inp, (walk, run, thresh) = InputSystem(), world.movement
+    ties = 0
+    for i in range(SIM_STEPS):
+        state = apply_intent(state, e, inp.update(
+            InputFrame(ly=1.0), FIXED_DT, False, walk, run, thresh))
+        card = to_device(gstep.substep(to_device(state, dev), FIXED_DT), cpu)
+        nxt = cstep.substep(state, FIXED_DT)
+        msg = _sim_disagree(nxt, card)
+        if msg is not None:
+            # a tie that rounding decides: the CPU's own substep reaches
+            # the card's result from its state with one agent moved by at
+            # most 5e-5 (tests/torch_sim_worlds.py reference_reaches)
+            ag = int((nxt.body_pos - card.body_pos).abs().amax(1).argmax())
+            how = None
+            for nudge in (2e-6, 1e-5, 5e-5):
+                for axis in range(3):
+                    for sign in (1.0, -1.0):
+                        moved = state
+                        for f in ("body_pos", "wp_local", "trs_t"):
+                            t = getattr(moved, f).clone()
+                            t[ag, axis] += sign * nudge
+                            moved = moved._replace(**{f: t})
+                        if how is None and _sim_disagree(
+                                cstep.substep(moved, FIXED_DT), card) is None:
+                            how = f"agent {ag} moved {sign * nudge:+g} on " \
+                                  f"axis {axis}"
+            if how is None:
+                _fail(f"simulation substep {i}: card and CPU disagree: {msg}")
+            ties += 1
+            print(f"  substep {i}: {msg}; the CPU reaches the card's result "
+                  f"with {how} (a tie rounding decides)")
+        state = nxt
+    p = state.body_pos[e].tolist()
+    print(f"simulation, DemoScene world ({world.spec.n_entities} entities, "
+          f"{int(world.collision.valid.sum())} collision triangles): "
+          f"{SIM_STEPS} substeps started on the card from the CPU's state "
+          f"agree (positions and velocities within 1e-4, integer and bool "
+          f"fields equal; {ties} ties); player at "
+          f"{[round(v, 4) for v in p]} ({time.perf_counter() - t0:.1f} s)")
+
+    # One substep under the sync checker: it reads nothing back.
+    gstate = to_device(state, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gstep.substep(gstate, FIXED_DT)
+    except RuntimeError as err:
+        import traceback
+        _fail(f"a substep synchronised with the host: {err}\n"
+              f"{traceback.format_exc()}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("simulation: one substep under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    out = {}
+    crowd_step, crowd_state = build_crowd(dev)
+    for label, stp, st in (("demo", gstep, gstate),
+                           ("crowd_256", crowd_step, crowd_state)):
+        for _ in range(3):
+            st = stp.substep(st, FIXED_DT)
+        ms = []
+        for _ in range(SIM_TIMED):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            st = stp.substep(st, FIXED_DT)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stp.substep(st, FIXED_DT)
+            torch.cuda.synchronize()
+        launches = sum(1 for ev in prof.events()
+                       if ev.device_type.name == "CUDA" and "memcpy" not in
+                       ev.name.lower() and "memset" not in ev.name.lower())
+        n = stp.spec.n_entities
+        out[label] = (float(np.median(ms)), launches)
+        print(f"simulation {label} ({n} entities, "
+              f"{int(stp.collision.valid.sum())} collision triangles): "
+              f"substep median {np.median(ms):.3f} ms (CUDA events, "
+              f"{SIM_TIMED} substeps; p90 {np.percentile(ms, 90):.3f}), "
+              f"{launches} kernel launches a substep")
+        if not bool(torch.isfinite(st.body_pos).all()):
+            _fail(f"simulation {label}: positions are not finite")
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "swift_game_engine_tpu_torch")):
         _fail("run chip_smoke.py from the root of a checkout")
@@ -332,12 +548,17 @@ def main():
                 "K7": RK.shadow_launches, "K8": RK.any_launches,
                 "K9": TR.list_launches, "K10": TR.peel_launches}
 
+    from swift_game_engine_tpu_torch.scene.input import InputFrame
+
     def run_path(name, eng, cap):
         """2 warm-up frames (inputs captured), then the timed frames with
         the launch counts and the RT shade calls zeroed just before and
-        read just after."""
+        read just after. Every frame is the bench headline's
+        ``eng.frame(1/60, InputFrame(ly=1.0))``: one substep, the player
+        walking; its snapshot is kept per timed frame."""
+        pad = InputFrame(ly=1.0)
         for _ in range(WARMUP):
-            img = eng.frame(1 / 60)
+            img = eng.frame(1 / 60, pad)
         cap.off()
         shade_calls, shade_hit = [0], RT._shade_hit
 
@@ -346,12 +567,13 @@ def main():
             return shade_hit(*a, **k)
         RT._shade_hit = counted
         zero_counts()
-        times = []
+        times, snaps = [], []
         for _ in range(TIMED):
             t0 = time.perf_counter()
-            img = eng.frame(1 / 60)
+            img = eng.frame(1 / 60, pad)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
+            snaps.append(eng._snap.copy())
         counts = read_counts()
         counts["shade_calls"] = shade_calls[0]
         RT._shade_hit = shade_hit
@@ -366,7 +588,25 @@ def main():
         if not bool(torch.isfinite(f).all()) or float(f.std()) < 1.0:
             _fail(f"{name}: frame is not finite or is constant")
         print(f"  frame mean {float(f.mean()):.4f}, std {float(f.std()):.4f}")
+        check_player(name, eng, np.array(snaps))
         return counts
+
+    def check_player(name, eng, snaps):
+        """Each timed frame took one substep; the player moved and stayed
+        above the ground (its capsule's bottom at or above y = -3)."""
+        if eng.substeps != 1 or eng.time_scale != 1.0:
+            _fail(f"{name}: {eng.substeps} substeps at time scale "
+                  f"{eng.time_scale}, expected one at 1.0")
+        cur = snaps[:, 3:6]
+        moved = float(np.linalg.norm(cur[-1] - cur[0]))
+        bottom = float(cur[:, 1].min()) - PLAYER_CORE_TO_FOOT
+        print(f"  player: {cur[0].round(4).tolist()} -> "
+              f"{cur[-1].round(4).tolist()} over the timed frames (moved "
+              f"{moved:.4f}), lowest capsule bottom y {bottom:.4f}")
+        if not np.isfinite(cur).all() or moved < 1e-3 or \
+                bottom < GROUND_Y - 0.05:
+            _fail(f"{name}: the player did not move or fell through the "
+                  f"ground")
 
     def expect(name, counts, rule, ok):
         if not ok:
@@ -461,6 +701,9 @@ def main():
            "K4 > 0, nothing else",
            c6["K6"] >= TIMED and c6["K8"] == c6["shade_calls"] > 0 and
            c6["K4"] > 0 and only(c6, "K4", "K6", "K8"))
+
+    # -- 2b. the fixed-step simulation on the card ---------------------------
+    simulation_phase(dev, scenes[PATHS[1]])
 
     # -- 3. each kernel vs its plain version, on each path's inputs ----------
     results = []

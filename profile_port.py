@@ -9,9 +9,12 @@ DemoScene; the same at RT scale 0.25; the raster path of the full scene;
 the list-binned raster path and the non-layered traced frame with the
 shadow prepass of the decimated scene), each at 960x540, and for each:
 
-  * 10 frames by host clock around ``Engine.frame`` + ``synchronize()``;
-  * the stages of one frame (flatten_frame, the path's frame
-    ``Engine.render``, ``Engine.present``: upscale, composite where the
+  * 10 frames by host clock around ``Engine.frame(1/60,
+    InputFrame(ly=1.0))`` (the bench headline's input) + ``synchronize()``;
+  * the stages of one frame (``substeps``: the frame's one fixed substep
+    of the DemoScene world, ``Stepper.substep``; ``flatten_frame``: the
+    extraction, ``Engine.extract``, and flatten_frame; the path's frame,
+    ``Engine.render``; ``Engine.present``: upscale, composite where the
     path has one, u8) by host clock with a synchronize after each, median
     of 5;
   * a torch.profiler trace of 3 frames: device busy time per frame (the
@@ -55,27 +58,33 @@ def _profile(eng, torch, np):
     from torch.profiler import ProfilerActivity, profile
 
     from swift_game_engine_tpu_torch.render.scene_geometry import flatten_frame
+    from swift_game_engine_tpu_torch.scene.engine import FIXED_DT
+    from swift_game_engine_tpu_torch.scene.input import InputFrame
 
+    pad = InputFrame(ly=1.0)    # the bench headline's input
     for _ in range(2):
-        eng.frame(1 / 60)
+        eng.frame(1 / 60, pad)
     times = []
     for _ in range(FRAMES):
         t0 = time.perf_counter()
-        eng.frame(1 / 60)
+        eng.frame(1 / 60, pad)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
 
     dev = eng.device
     cam = eng.camera
     rw, rh = eng.rt_size
-    tf = eng.transforms.clone()
-    tf[:, :3, 3] -= torch.as_tensor(cam.world_position.astype(np.float32),
-                                    device=dev)
-    stages = {"flatten_frame": [], "render": [], "present": []}
+    stages = {"substeps": [], "flatten_frame": [], "render": [],
+              "present": []}
     for _ in range(STAGE_REPS):
         torch.cuda.synchronize()
+        ts = time.perf_counter()
+        eng.stepper.substep(eng.state, FIXED_DT)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fg = flatten_frame(eng.geometry, tf, eng.palettes)
+        stages["substeps"].append((t0 - ts) * 1e3)
+        tf, palettes = eng.extract(eng.accumulator / FIXED_DT)
+        fg = flatten_frame(eng.geometry, tf, palettes)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         img = eng.render(
@@ -86,13 +95,14 @@ def _profile(eng, torch, np):
         eng.present(img)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+        for k, v in zip(("flatten_frame", "render", "present"),
+                        (t1 - t0, t2 - t1, t3 - t2)):
             stages[k].append(v * 1e3)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED):
-            eng.frame(1 / 60)
+            eng.frame(1 / 60, pad)
         torch.cuda.synchronize()
     intervals, kernels, launches, memcpys, syncs = [], {}, 0, 0, 0
     for ev in prof.events():

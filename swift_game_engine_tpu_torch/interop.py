@@ -1,5 +1,9 @@
 """Carry the reference's state across: numpy arrays -> the port's tensors.
 
+Render side: ``scene_geometry``, ``frame_geometry``, ``lights``, ``ibl``;
+simulation side: ``world_state``, ``scene_spec``, ``controller_params``,
+``local_triangles``.
+
 Each function takes the JAX package's NamedTuple (or a dict with the same
 fields) whose leaves are numpy arrays — or anything ``np.asarray`` accepts,
 so the caller converts on the JAX side — and returns the port's
@@ -10,10 +14,18 @@ This module imports no jax.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from . import resolve_device
+from .anim.locomotion import LocomotionTuning
+from .anim.pose import LocoParams, LocoState
+from .ecs.world import SceneSpec, WorldState
+from .physics.character import ControllerParams, ControllerState
+from .physics.collision_world import LocalTriangles
+from .physics.systems import ActionClock, DodgeState
 from .ops.rt_kernel import wide_tree
 from .render.bvh import BVHArrays
 from .render.ibl import IBL
@@ -92,3 +104,69 @@ def ibl(tables, device="cuda") -> IBL:
                sh1=_t(_get(tables, "sh1"), device),
                brdf_lut=_t(_get(tables, "brdf_lut"), device),
                env_mip_count=int(_get(tables, "env_mip_count")))
+
+
+# ---------------------------------------------------------------------------
+# The simulation: world state, scene spec, controller params, collision.
+
+
+def _keep(x, device):
+    """A leaf with its dtype kept (int32 stays int32: chunk arithmetic and
+    triangle ids depend on it); uint32 layer masks become int64."""
+    a = np.array(x)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.as_tensor(a, device=device)
+
+
+def _tuple(cls, obj, device, nested=None):
+    nested = nested or {}
+    return cls(**{k: nested[k](_get(obj, k)) if k in nested
+                  else _keep(_get(obj, k), device) for k in cls._fields})
+
+
+def controller_params(cp, device="cuda") -> ControllerParams:
+    """The reference's ControllerParams (collision_mask uint32 -> int64)."""
+    return _tuple(ControllerParams, cp, resolve_device(device))
+
+
+def world_state(ws, device="cuda") -> WorldState:
+    """The reference's WorldState with its nested ControllerState,
+    LocoState, ActionClock and DodgeState."""
+    device = resolve_device(device)
+    sub = {"ctrl": ControllerState, "loco": LocoState,
+           "action": ActionClock, "dodge": DodgeState}
+    return _tuple(WorldState, ws, device, {
+        k: (lambda o, c=c: _tuple(c, o, device)) for k, c in sub.items()})
+
+
+def scene_spec(spec, device="cuda") -> SceneSpec:
+    """The reference's SceneSpec: masks and driver tables as numpy, the
+    controller and pose parameters as tensors on ``device``."""
+    device = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(SceneSpec):
+        v = getattr(spec, f.name, None)
+        if f.name == "controller_params":
+            v = controller_params(v, device)
+        elif f.name == "loco_params":
+            v = _tuple(LocoParams, v, device)
+        elif f.name == "loco_tuning":
+            v = None if v is None else LocomotionTuning(
+                *(np.array(x) for x in v))
+        elif isinstance(v, dict):
+            v = {k: np.array(x) for k, x in v.items()}
+        elif f.name not in ("n_entities", "names", "gravity"):
+            v = np.array(v)
+        kw[f.name] = v
+    kw["gravity"] = tuple(float(g) for g in spec.gravity)
+    return SceneSpec(**kw)
+
+
+def local_triangles(lt, device="cuda") -> LocalTriangles:
+    """The reference's LocalTriangles (entity and layer as int64)."""
+    device = resolve_device(device)
+    return LocalTriangles(**{
+        k: torch.as_tensor(np.array(_get(lt, k)).astype(
+            np.int64) if k in ("entity", "layer") else np.array(_get(lt, k)),
+            device=device) for k in LocalTriangles._fields})

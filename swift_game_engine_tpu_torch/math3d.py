@@ -17,7 +17,7 @@ def normalize(v, eps: float = 1e-12):
 
 
 def cross(a, b):
-    return torch.linalg.cross(a, b, dim=-1)
+    return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
 
 
 def mat3_from_quat(q):
@@ -59,3 +59,95 @@ def quat_mul_np(a, b) -> np.ndarray:
         aw * bz + ax * by - ay * bx + az * bw,
         aw * bw - ax * bx - ay * by - az * bz,
     ], np.float32)
+
+
+# ---------------------------------------------------------------------------
+# What the fixed-step simulation needs (physics/systems.py, scene/step.py).
+
+
+def dot(a, b):
+    return (a * b).sum(-1)
+
+
+def norm(v):
+    """|v| over the last axis, as ``jnp.linalg.norm(v, axis=-1)``."""
+    return torch.sqrt((v * v).sum(-1))
+
+
+def xz(v):
+    """``v`` with its Y component zeroed (``v * (1, 0, 1)``)."""
+    out = v.clone()
+    out[..., 1] = 0.0
+    return out
+
+
+def where_rows(cond, a, b):
+    """torch.where with a per-row ``cond`` (N,) broadcast over the
+    trailing dims of ``a``/``b`` (tensors or numbers)."""
+    nd = max(x.dim() if isinstance(x, torch.Tensor) else 0 for x in (a, b))
+    return torch.where(cond.reshape(cond.shape + (1,) * (nd - cond.dim())),
+                       a, b)
+
+
+def quat_normalize(q, eps: float = 1e-12):
+    return normalize(q, eps)
+
+
+def quat_from_axis_angle(angle, axis):
+    """simd_quatf(angle:axis:): ``angle`` (...,), ``axis`` (..., 3)."""
+    axis = normalize(axis)
+    half = angle * 0.5
+    return torch.cat([axis * torch.sin(half)[..., None],
+                      torch.cos(half)[..., None]], -1)
+
+
+def quat_from_yaw(yaw):
+    """The rotation by ``yaw`` (...,) about +Y: quat_from_axis_angle(yaw,
+    (0, 1, 0)) without building the axis."""
+    half = yaw * 0.5
+    z = torch.zeros_like(half)
+    return torch.stack([z, torch.sin(half), z, torch.cos(half)], -1)
+
+
+def quat_mul(a, b):
+    """Hamilton product ``a * b`` (apply b first, then a)."""
+    ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bx, by, bz, bw = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ], -1)
+
+
+def quat_act(q, v):
+    """Rotate ``v`` by the unit quaternion ``q`` (simd_act)."""
+    qv = q[..., :3]
+    t = 2.0 * cross(qv, v)
+    return v + q[..., 3:4] * t + cross(qv, t)
+
+
+def quat_forward(q):
+    """quat_act(q, (0, 0, -1)): the facing direction of a rotation."""
+    qv = q[..., :3]
+    v = torch.zeros_like(qv)
+    v[..., 2] = -1.0
+    return quat_act(q, v)
+
+
+def quat_slerp(q0, q1, t):
+    """Shortest-arc slerp with an nlerp fallback for nearly parallel
+    inputs; ``t`` a float or a tensor broadcastable to (...,)."""
+    if isinstance(t, torch.Tensor):
+        t = t[..., None]
+    d = (q0 * q1).sum(-1, keepdim=True)
+    q1 = torch.where(d < 0.0, -q1, q1)
+    d = torch.clamp(d.abs(), -1.0, 1.0)
+    theta = torch.arccos(d)
+    sin_theta = torch.sin(theta)
+    use_lerp = sin_theta < 1e-5
+    safe_sin = torch.where(use_lerp, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / safe_sin)
+    w1 = torch.where(use_lerp, t, torch.sin(t * theta) / safe_sin)
+    return quat_normalize(w0 * q0 + w1 * q1)

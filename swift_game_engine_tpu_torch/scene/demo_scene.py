@@ -1,22 +1,29 @@
-"""DemoScene render world: port of swift_game_engine_tpu/scene/demo_scene.py.
+"""DemoScene: port of swift_game_engine_tpu/scene/demo_scene.py.
 
-Builds the render geometry of the reference demo world, item for item and
-in the same entity order (scene/demo_scene.py:116-272,282-426):
+Builds the reference demo world, entity for entity and in the same order
+(scene/demo_scene.py:116-272,282-426): its render geometry, its
+simulation world (``WorldBuilder`` components, ``CollisionWorldBuilder``
+meshes) and the ``Stepper`` that advances it:
 
-  * 80x80 ground at y=-3; 17-Cheese and Semla (+18,0,10) with their
-    translucent unlit collision hulls; the ornate mirror when its asset is
+  * 80x80 ground at y=-3 (mu .9/.8); 17-Cheese and Semla (+18,0,10) with
+    their translucent unlit collision hulls (static bodies; collision
+    layers 1 and 1<<3, mu .6/.5); the ornate mirror when its asset is
     present (it is not in the repository, and the reference skips it too);
-  * elevator + ground_mover platforms, the oscillating capsule, the
-    player's body and capsule overlay, three NPC capsules, the red mirror
-    wall, the ramp, the dome and the emissive step; the two sun lights.
+  * the elevator and ground_mover kinematic platforms, the oscillating
+    capsule NPC (mass 500), the player (body, intent, movement, controller
+    r 1.5 / hh 1.0, agent of mass 3) with its capsule overlay following
+    it, three separation-test NPCs, the red mirror wall, the flattenGround
+    ramp, the dome and the emissive step; the two sun lights.
 
 The player's body is ``assets/YBot.skinned.json``. Its skeleton and motion
 profiles (``YBot.skeleton.json``, ``*.motionProfile.json``) are not in the
 repository, so a 52-bone stand-in skeleton is built from the skin's own
 bone names (unitScale 0.026); each bone's inverse bind comes from the skin
 file, so the bind pose is exactly the identity palette and the body is drawn
-at bind pose. This stands in until those files are in the repository and
-the fixed-step simulation is ported.
+at bind pose. For the same reason the player goes without the four
+components that read those files: ``motion_profile``, ``locomotion``,
+``action`` and ``dodge`` (the dodge lasts 34 frames of the dodge profile's
+sample rate). It walks, falls, jumps and collides; pose waits for M4b.
 
 Import decimation follows the reference's ``import_tri_budget``
 (config.py:83 SGE_IMPORT_TRI_BUDGET = 20000, scene/demo_scene.py:79,
@@ -25,19 +32,20 @@ exactly one submesh is vertex-clustered down to the budget, and each YBot
 submesh to its share of it (at least 2000 triangles). The default scene is
 this decimated one (53,342 triangles, a tree under the 22,000-row cap of
 the shared-origin and shadow walks); ``import_tri_budget=0`` keeps full
-fidelity (181,340 triangles).
+fidelity (181,340 triangles). Collision always uses the exact hulls.
 
-There is no simulation here: ``transforms`` are the instance transforms of
-the initial state in world space — what the reference's ``Stepper._extract``
-gives when the previous and current states agree — and the Engine rebases
-them to the camera each frame.
+``transforms`` are the instance transforms of the initial state in world
+space (``Stepper.extract`` with the previous and current states equal);
+the builders stay readable (``world_builder``, ``collision_builder``:
+their staged components and meshes are plain numpy), so that a test can
+replay them into the reference's builders.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,26 +58,38 @@ from ..assets.skeleton import build_skeleton
 from ..assets.skinned_mesh import dense_weight_matrix, load_skinned_mesh
 from ..assets.static_mesh import load_static_mesh
 from .. import resolve_device
-from ..math3d import quat_from_axis_angle_np, quat_mul_np, trs_matrices
+from ..ecs.world import (BODY_DYNAMIC, BODY_KINEMATIC, BODY_STATIC, SceneSpec,
+                         WorldBuilder, WorldState)
+from ..math3d import quat_from_axis_angle_np, quat_mul_np
+from ..physics.collision_world import CollisionWorldBuilder, LocalTriangles
 from ..render.rt import DirectionalLights
 from ..render.scene_geometry import RenderGeometryBuilder, SceneGeometry
+from .step import Stepper
 
 GROUND_Y = -3.0
 UNIT_SCALE = 0.026   # the YBot skeleton's unitScale (BASELINE.md)
-# MovementComponent defaults (ecs/world.py): walk, run, run threshold
-PLAYER_MOVEMENT = (4.5, 12.5, 0.78)
 # Render-mesh triangle budget per imported part (config.py:83
 # SGE_IMPORT_TRI_BUDGET); 0 disables decimation.
 IMPORT_TRI_BUDGET = 20000
 
 
 class DemoWorld(NamedTuple):
+    """A world the Engine renders and, with a ``stepper``, simulates. A
+    render-only world (no stepper) has fixed ``transforms``."""
+
     geometry: SceneGeometry
-    transforms: torch.Tensor       # (E,4,4) world-space instance transforms
-    palettes: torch.Tensor         # (1,B,4,4) skinning palettes (bind pose)
+    transforms: torch.Tensor       # (E,4,4) initial world-space instances
+    palettes: torch.Tensor         # (C,B,4,4) skinning palettes (bind pose)
     lights: DirectionalLights
-    player_position: np.ndarray    # (3,) player world position
+    player_position: np.ndarray    # (3,) initial player world position
     movement: tuple                # (walk, run, run_threshold) of the player
+    spec: Optional[SceneSpec] = None
+    state: Optional[WorldState] = None
+    stepper: Optional[Stepper] = None
+    player: Optional[int] = None   # the player's entity index
+    collision: Optional[LocalTriangles] = None
+    world_builder: Optional[WorldBuilder] = None
+    collision_builder: Optional[CollisionWorldBuilder] = None
 
 
 def _solid_mat(name, rgb, roughness, metallic=0.0, alpha=1.0, unlit=False,
@@ -81,41 +101,12 @@ def _solid_mat(name, rgb, roughness, metallic=0.0, alpha=1.0, unlit=False,
                     emissive_factor=tuple(emissive_factor or (0.0, 0.0, 0.0)))
 
 
-class _Entities:
-    """Entity table in creation order: translation, rotation, scale."""
-
-    def __init__(self):
-        self.t, self.q, self.s, self.follow, self.body = [], [], [], [], []
-
-    def add(self, t, q=(0, 0, 0, 1), s=(1, 1, 1), follow=-1, body=False):
-        self.t.append(np.asarray(t, np.float32))
-        self.q.append(np.asarray(q, np.float32))
-        self.s.append(np.broadcast_to(np.asarray(s, np.float32), (3,)))
-        self.follow.append(follow)
-        self.body.append(body)
-        return len(self.t) - 1
-
-    def transforms(self, device):
-        """Initial-state render extraction (scene/step.py _extract with
-        prev == curr): body rotations pass through the slerp's normalize;
-        followers take their target's transform."""
-        q = np.stack(self.q)
-        body = np.asarray(self.body)
-        norm = np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
-        q = np.where(body[:, None], (q / norm).astype(np.float32), q)
-        src = np.where(np.asarray(self.follow) >= 0, self.follow,
-                       np.arange(len(self.t)))
-        t = torch.as_tensor(np.stack(self.t)[src], device=device)
-        return trs_matrices(t, torch.as_tensor(q[src], device=device),
-                            torch.as_tensor(np.stack(self.s)[src],
-                                            device=device))
-
-
-def _add_imported(ents, rb, path, materials_path, offset, hull_color,
-                  budget, scale=None, upright_flip=False):
+def _add_imported(wb, cb, rb, path, materials_path, offset, layer,
+                  hull_color, budget, scale=None, upright_flip=False):
     if not os.path.exists(path):
         print(f"DemoScene: missing static mesh asset: {os.path.basename(path)}")
         return
+    name = os.path.basename(path)
     asset = load_static_mesh(path)
     materials = load_materials(materials_path) \
         if os.path.exists(materials_path) else {}
@@ -137,7 +128,9 @@ def _add_imported(ents, rb, path, materials_path, offset, hull_color,
         if scale is not None:
             s = s * scale
         t = t + np.asarray(offset, np.float32)
-        e = ents.add(t, q, s)
+        e = wb.create_entity(f"{name}:{part.name}")
+        wb.add(e, "transform", translation=t, rotation=q, scale=s)
+        wb.add(e, "world_position")
         mesh = part.mesh
         if mesh.triangle_count > budget and len(part.submeshes) == 1:
             mesh = simplify_mesh(mesh.with_tangents() if mesh.uvs is not None
@@ -149,8 +142,13 @@ def _add_imported(ents, rb, path, materials_path, offset, hull_color,
             for sub in part.submeshes:
                 rb.add_static_mesh(mesh, materials.get(sub.material, fallback),
                                    instance=e, tri_range=(sub.start, sub.count))
-        for hull in part.collision_hulls:
-            he = ents.add(t, q, s, body=True)
+        for i, hull in enumerate(part.collision_hulls):
+            he = wb.create_entity(f"{name}:{part.name}:hull{i}")
+            wb.add(he, "transform", translation=t, rotation=q, scale=s)
+            wb.add(he, "world_position")
+            wb.add(he, "body", body_type=BODY_STATIC, position=t, rotation=q)
+            cb.add_mesh(hull.positions, hull.indices, entity=he, mu_s=0.6,
+                        mu_k=0.5, layer=layer)
             rb.add_static_mesh(hull, hull_mat, instance=he)
 
 
@@ -183,17 +181,29 @@ def _add_player_body(rb, skinned_path, instance, budget):
 
 def build_demo_scene(asset_dir: str = "assets", device="cuda",
                      import_tri_budget: int = IMPORT_TRI_BUDGET) -> DemoWorld:
-    """The DemoScene render world on ``device`` (the card unless asked
-    otherwise; see the module docstring). ``asset_dir`` holds the
-    *.static.json / *.skinned.json files; ``import_tri_budget`` is the
-    per-part triangle budget of the imported meshes (0: full fidelity)."""
+    """The DemoScene world on ``device`` (the card unless asked otherwise;
+    see the module docstring). ``asset_dir`` holds the *.static.json /
+    *.skinned.json files; ``import_tri_budget`` is the per-part triangle
+    budget of the imported meshes (0: full fidelity)."""
     device = resolve_device(device)
     budget = import_tri_budget or (1 << 30)
-    ents = _Entities()
+    wb = WorldBuilder()
+    cb = CollisionWorldBuilder()
     rb = RenderGeometryBuilder()
 
     def asset(name):
         return os.path.join(asset_dir, name)
+
+    def add_static(e, mesh, surface=(0.8, 0.6, False)):
+        cb.add_mesh(mesh.positions, mesh.indices, entity=e, mu_s=surface[0],
+                    mu_k=surface[1], flatten=bool(surface[2]))
+
+    def body_entity(name, pos, body_type, **transform):
+        e = wb.create_entity(name)
+        wb.add(e, "transform", translation=pos, **transform)
+        wb.add(e, "world_position")
+        wb.add(e, "body", body_type=body_type, position=pos)
+        return e
 
     lights = DirectionalLights(
         direction=torch.tensor([[0.6, -0.7, -0.1], [-0.3, -0.6, 0.6]],
@@ -204,67 +214,110 @@ def build_demo_scene(asset_dir: str = "assets", device="cuda",
         enabled=torch.tensor([True, True], device=device),
         max_distance=torch.tensor([450.0, 300.0], device=device))
 
-    ground = ents.add([0, GROUND_Y, 0], body=True)
+    ground = body_entity("ground", [0, GROUND_Y, 0], BODY_STATIC)
+    add_static(ground, pm.plane(80.0), surface=(0.9, 0.8, False))
     rb.add_static_mesh(pm.plane(80.0),
                        _solid_mat("GroundMat", (80, 80, 80), 0.8),
                        instance=ground)
 
-    _add_imported(ents, rb, asset("17-Cheese.static.json"),
-                  asset("17-Cheese.materials.json"), (0, 0, 0),
+    _add_imported(wb, cb, rb, asset("17-Cheese.static.json"),
+                  asset("17-Cheese.materials.json"), (0, 0, 0), 1,
                   (80, 180, 255), budget)
-    _add_imported(ents, rb, asset("Semla.static.json"),
-                  asset("Semla.materials.json"), (18, 0, 10), (120, 220, 180),
-                  budget)
-    _add_imported(ents, rb, asset("ornate_mirror.static.json"),
-                  asset("ornate-mirror.materials.json"), (-10, 1, 4),
+    _add_imported(wb, cb, rb, asset("Semla.static.json"),
+                  asset("Semla.materials.json"), (18, 0, 10), 1 << 3,
+                  (120, 220, 180), budget)
+    _add_imported(wb, cb, rb, asset("ornate_mirror.static.json"),
+                  asset("ornate-mirror.materials.json"), (-10, 1, 4), 1 << 4,
                   (200, 160, 255), budget, scale=8.0, upright_flip=True)
 
     plat_mesh = pm.box(4.0)
-    for name, pos, color in (("elevator", [16, -1.0, 0], (120, 200, 255)),
-                             ("ground_mover", [-16, -2.0, 12],
-                              (160, 255, 140))):
-        e = ents.add(pos, s=(1.5, 0.2, 1.5), body=True)
+    plat_scale = np.array([1.5, 0.2, 1.5], np.float32)
+    local_aabb = plat_mesh.positions * plat_scale
+    for name, pos, axis, amp, speed, phase, color in (
+            ("elevator", [16, -1.0, 0], [0, 1, 0], 2.0, 1.1, 0.0,
+             (120, 200, 255)),
+            ("ground_mover", [-16, -2.0, 12], [1, 0, 0], 4.0, 0.9, 0.7,
+             (160, 255, 140))):
+        e = body_entity(name, pos, BODY_KINEMATIC, scale=plat_scale)
+        wb.add(e, "platform", origin=pos, axis=axis, amplitude=amp,
+               speed=speed, phase=phase, aabb_min=local_aabb.min(axis=0),
+               aabb_max=local_aabb.max(axis=0))
+        add_static(e, plat_mesh, surface=(0.9, 0.7, False))
         rb.add_static_mesh(plat_mesh, _solid_mat(f"{name}Mat", color, 0.6),
                            instance=e)
 
+    def controller(e, mass):
+        wb.add(e, "controller", radius=1.5, half_height=1.0, skin_width=0.3,
+               ground_snap_skin=0.05)
+        wb.add(e, "agent", mass_weight=mass)
+
     cap_mesh = pm.capsule(1.5, 1.0)
-    osc = ents.add([24.0, GROUND_Y + 2.5 + 2.0, 16.0], body=True)
+    osc_pos = [24.0, GROUND_Y + 2.5 + 2.0, 16.0]
+    osc = body_entity("osc_npc", osc_pos, BODY_DYNAMIC)
+    wb.add(osc, "intent")
+    wb.add(osc, "movement", max_acceleration=14.0, max_deceleration=28.0)
+    controller(osc, 500.0)
+    wb.add(osc, "oscillate", origin=osc_pos, axis=[1, 0, 0], amplitude=6.0,
+           speed=0.6)
     rb.add_static_mesh(cap_mesh, _solid_mat("KinematicCapsuleMat",
                                             (220, 120, 255), 0.5, alpha=0.2),
                        instance=osc)
 
-    start = np.array([0.0, GROUND_Y + 2.5 + 8.0, 0.0], np.float32)
-    player = ents.add(start, body=True)
+    # The player (CharacterFactory.swift:12-135) without motion_profile,
+    # locomotion, action and dodge (see the module docstring).
+    start = [0.0, GROUND_Y + 2.5 + 8.0, 0.0]
+    player = body_entity("player", start, BODY_DYNAMIC)
+    wb.add(player, "player")
+    wb.add(player, "intent")
+    wb.add(player, "movement", max_acceleration=20.0, max_deceleration=36.0)
+    controller(player, 3.0)
     n_bones = _add_player_body(rb, asset("YBot.skinned.json"), player, budget)
-    overlay = ents.add(start, follow=player)
+    wb.add(player, "character", slot=0, bone_count=n_bones)
+    overlay = wb.create_entity("player_overlay")
+    wb.add(overlay, "transform", translation=start)
+    wb.add(overlay, "follow", target=player)
     rb.add_static_mesh(pm.capsule(1.5, 1.0),
                        _solid_mat("PlayerCapsuleOverlayMat", (120, 160, 255),
                                   0.4, alpha=0.2), instance=overlay)
 
-    for pos in ([-16.0, 0.9, 12.0], [8.0, 3.5, -2.5], [0.0, 5.5, -10.0]):
-        e = ents.add(pos, body=True)
+    for i, pos in enumerate([[-16.0, 0.9, 12.0], [8.0, 3.5, -2.5],
+                             [0.0, 5.5, -10.0]]):
+        e = body_entity(f"npc_{i}", pos, BODY_DYNAMIC)
+        controller(e, 1.0)
         rb.add_static_mesh(cap_mesh, _solid_mat("NPCMat", (255, 180, 80), 0.5,
                                                 alpha=0.2), instance=e)
 
-    wall = ents.add([0, 0, -10], body=True)
+    wall = body_entity("test_wall", [0, 0, -10], BODY_STATIC)
+    add_static(wall, pm.box(6.0))
     rb.add_static_mesh(pm.box(6.0), _solid_mat("WallMat", (255, 80, 80), 0.02,
                                                metallic=1.0), instance=wall)
-    ramp = ents.add([8, GROUND_Y + 2.0, 0], body=True)
+    ramp = body_entity("test_ramp", [8, GROUND_Y + 2.0, 0], BODY_STATIC)
+    add_static(ramp, pm.ramp(8.0, 10.0, 4.0), surface=(0.35, 0.25, True))
     rb.add_static_mesh(pm.ramp(8.0, 10.0, 4.0),
                        _solid_mat("RampMat", (80, 160, 255), 0.6),
                        instance=ramp)
-    dome = ents.add([-10, GROUND_Y, -6], body=True)
+    dome = body_entity("test_dome", [-10, GROUND_Y, -6], BODY_STATIC)
+    add_static(dome, pm.dome(4.0, 12, 6), surface=(0.3, 0.2, False))
     rb.add_static_mesh(pm.dome(4.0, 12, 6),
                        _solid_mat("DomeMat", (120, 200, 140), 0.5),
                        instance=dome)
-    step = ents.add([-6, -2, 4], body=True)
+    step = body_entity("test_step", [-6, -2, 4], BODY_STATIC)
+    add_static(step, pm.box(2.0))
     rb.add_static_mesh(pm.box(2.0),
                        _solid_mat("StepMat", (255, 220, 120), 0.8,
                                   emissive_factor=(2.5, 2.0, 1.2)),
                        instance=step)
 
-    palettes = torch.eye(4, device=device).expand(1, n_bones, 4, 4).contiguous()
-    return DemoWorld(geometry=rb.build(device), transforms=ents.transforms(device),
-                     palettes=palettes, lights=lights,
-                     player_position=start.astype(np.float64),
-                     movement=PLAYER_MOVEMENT)
+    spec, state = wb.build(device)
+    collision = cb.build(device=device)
+    stepper = Stepper(spec, collision)
+    transforms, palettes = stepper.extract(state, 1.0, np.zeros(3, np.float32))
+    mv = spec.movement
+    return DemoWorld(
+        geometry=rb.build(device), transforms=transforms, palettes=palettes,
+        lights=lights, player_position=np.asarray(start, np.float64),
+        movement=(float(mv["walk_speed"][player]),
+                  float(mv["run_speed"][player]),
+                  float(mv["run_threshold"][player])),
+        spec=spec, state=state, stepper=stepper, player=player,
+        collision=collision, world_builder=wb, collision_builder=cb)

@@ -1,12 +1,18 @@
 """Engine: the host frame loop — port of swift_game_engine_tpu/scene/engine.py.
 
 ``frame(dt, pad)`` follows the reference's fused frame
-(scene/engine.py:385-459) step for step: dt clamp <= 0.1, time advance
-(scaled and unscaled) and the fixed-step accumulator, player intent and
-exposure input, the chase camera, the camera-relative rebase of the
-instance transforms (scene/step.py:387), ``flatten_frame``, the frame at
-the RT target size, the bilinear upscale to the drawable, ``composite_frame``,
-u8 quantisation and the FPS overlay. The frame is the reference's ``path``
+(scene/engine.py:385-459, at ``pipeline_depth=1``) step for step: dt clamp
+<= 0.1, time advance (scaled and unscaled) and the fixed-step accumulator
+(<= ``MAX_SUBSTEPS`` substeps, reset at the cap), the player's intent
+written into its WorldState row (jump and dodge OR-ed in), the chase
+camera from the previous frame's player snapshot interpolated by
+``alpha``, the substeps (``Stepper.substep``), render extraction
+(``Stepper.extract``: camera-relative instance transforms), ``flatten_frame``,
+the frame at the RT target size, the bilinear upscale to the drawable,
+``composite_frame``, u8 quantisation, the FPS overlay, and the player
+snapshot the next frame's camera reads (prev and current world position
+and the dodge flag: one 7-float read a frame). The frame is the
+reference's ``path``
 (scene/engine.py:143-177,226-237):
 
   * ``"rt"``: the RT ``render_frame`` (``primary="hybrid"`` or
@@ -21,11 +27,14 @@ Renderer.swift:175); ``set_rt_resolution_scale`` changes it between frames
 size and caches them; PyTorch runs eagerly, so the port needs no program
 cache and a new scale takes effect on the next frame.
 
-The fixed-step simulation is not ported yet, so the Engine starts paused
-(``time_scale = 0``): the accumulator receives scaled time and never asks
-for a substep, while the camera, input and overlay run on unscaled time.
-If it does ask (a time_scale above 0), ``frame`` raises instead of skipping
-the substep.
+A world with a ``stepper`` starts at ``time_scale = 1.0``, as the
+reference does. A render-only world (no stepper: fixed ``transforms``)
+starts paused (``time_scale = 0``): the accumulator receives scaled time
+and never asks for a substep, while the camera, input and overlay run on
+unscaled time; if it does ask (a time_scale above 0), ``frame`` raises
+rather than skip the substep. ``save_state`` / ``load_state`` keep the
+world state (and the accumulator and time) in one ``.npz``.
+``pipeline_depth`` (frames in flight) is not ported (ROADMAP M5).
 """
 
 from __future__ import annotations
@@ -42,12 +51,68 @@ from ..render.composite import FPSOverlay, composite_frame, overlay_blit_device
 from ..render.ibl import IBL
 from ..render import rt as RT
 from ..render.raster import RASTER_MODES, render_frame_raster
+from ..ecs.world import chunk_local_to_world
 from ..render.scene_geometry import flatten_frame
 from .input import InputFrame, InputSystem
 
 FIXED_DT = 1.0 / 60.0
 MAX_SUBSTEPS = 4
 PATHS = ("rt", "raster", "raster_pbr")
+
+
+def _leaves(state):
+    """The tensors of a NamedTuple of tensors (nested), in field order."""
+    out = []
+    for x in state:
+        out.extend(_leaves(x) if isinstance(x, tuple) else [x])
+    return out
+
+
+def _rebuild(like, leaves):
+    """``like``'s structure filled from the iterator ``leaves``."""
+    return type(like)(*(_rebuild(x, leaves) if isinstance(x, tuple)
+                        else next(leaves) for x in like))
+
+
+def save_world_state(path: str, state, **scalars):
+    """Checkpoint a WorldState (+ host scalars) to one .npz."""
+    np.savez(path, *[x.cpu().numpy() for x in _leaves(state)], **scalars)
+
+
+def load_world_state(path: str, like_state):
+    """Restore a WorldState saved by save_world_state onto ``like_state``'s
+    device and structure -> (state, the npz data for the scalars)."""
+    data = np.load(path)
+    like = _leaves(like_state)
+    it = iter(torch.as_tensor(data[f"arr_{i}"], device=x.device)
+              for i, x in enumerate(like))
+    return _rebuild(like_state, it), data
+
+
+def apply_intent(state, e: int, intent: dict):
+    """Entity ``e``'s MoveIntent (InputSystem.update's dict) written into
+    the state: velocity, yaw and the yaw flag replaced, jump and dodge
+    OR-ed in. Each value is a fill of a one-element slice: assigning to a
+    single element of a CUDA tensor from a Python number copies it from
+    the host and syncs."""
+    r = slice(e, e + 1)
+    vel = state.intent_vel.clone()
+    for i, v in enumerate(np.asarray(intent["desired_velocity"], np.float32)):
+        vel[r, i] = float(v)
+    yaw = state.intent_yaw.clone()
+    yaw[r] = float(np.float32(intent["facing_yaw"]))
+    has_yaw = state.intent_has_yaw.clone()
+    has_yaw[r] = bool(intent["has_facing_yaw"])
+    jump, dodge = state.intent_jump, state.intent_dodge
+    if intent["jump_requested"]:
+        jump = jump.clone()
+        jump[r] = True
+    if intent["dodge_requested"]:
+        dodge = dodge.clone()
+        dodge[r] = True
+    return state._replace(intent_vel=vel, intent_yaw=yaw,
+                          intent_has_yaw=has_yaw, intent_jump=jump,
+                          intent_dodge=dodge)
 
 
 class Engine:
@@ -59,7 +124,8 @@ class Engine:
                  device="cuda"):
         """``scene``: a scene.demo_scene.DemoWorld (or anything with its
         fields: geometry, transforms, palettes, lights, player_position,
-        movement) on ``device`` (the card unless asked otherwise).
+        movement, and for a simulated world stepper, state, player) on
+        ``device`` (the card unless asked otherwise).
         ``path``: "rt", "raster" or "raster_pbr" (see the module docstring).
         ``primary``, ``layered``, ``shadow_prepass``, ``max_layers`` and
         ``shadow_layers`` go to the RT frame (paths "rt", "raster_pbr"),
@@ -80,6 +146,9 @@ class Engine:
         self.palettes = scene.palettes
         self.player_position = np.asarray(scene.player_position, np.float64)
         self.movement = scene.movement
+        self.stepper = getattr(scene, "stepper", None)
+        self.state = getattr(scene, "state", None)
+        self.player = getattr(scene, "player", None)
         self.width, self.height = width, height
         self.path = path
         self.primary = primary
@@ -94,12 +163,16 @@ class Engine:
         self.accumulator = 0.0
         self.time = 0.0
         self.unscaled_time = 0.0
-        self.time_scale = 0.0   # paused: no fixed-step simulation yet
+        # a render-only world is paused: it has nothing to step
+        self.time_scale = 1.0 if self.stepper is not None else 0.0
         self.delta_time = 0.0
         self.unscaled_delta_time = 0.0
         self.frame_index = 0
         self.tone_mapping_exposure = 1.0
         self.intent = None      # the last frame's player MoveIntent
+        self.substeps = 0       # substeps of the last frame
+        self._snap = None       # the last frame's player snapshot (7,)
+        self._dodge_active = False
 
     def set_rt_resolution_scale(self, scale: float):
         """rtResolutionScale (Renderer.swift:175,232-258): the RT target is
@@ -166,33 +239,85 @@ class Engine:
             img = composite_frame(img, self.tone_mapping_exposure, True)
         return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
 
+    def _player_snapshot(self) -> np.ndarray:
+        """The player's previous and current world position and its dodge
+        flag (7 floats), read to the host."""
+        st, e = self.state, self.player
+        prev = chunk_local_to_world(st.wp_prev_chunk[e], st.wp_prev_local[e])
+        curr = chunk_local_to_world(st.wp_chunk[e], st.wp_local[e])
+        return torch.cat([prev, curr, st.dodge.active[e, None].float()]) \
+            .cpu().numpy()
+
+    def extract(self, alpha: float):
+        """Camera-relative instance transforms and the palettes of the
+        current state (render-only world: the fixed transforms rebased)."""
+        cam_world = self.camera.world_position.astype(np.float32)
+        if self.stepper is not None:
+            return self.stepper.extract(self.state, alpha, cam_world)
+        transforms = self.transforms.clone()
+        transforms[:, :3, 3] -= torch.as_tensor(cam_world, device=self.device)
+        return transforms, self.palettes
+
+    def save_state(self, path: str):
+        save_world_state(path, self.state, accumulator=self.accumulator,
+                         time=self.time)
+
+    def load_state(self, path: str):
+        self.state, data = load_world_state(path, self.state)
+        self.accumulator = float(data["accumulator"])
+        self.time = float(data["time"])
+        self._snap = None
+
     def frame(self, dt: float, pad: Optional[InputFrame] = None,
               with_overlay: bool = True) -> torch.Tensor:
         """One frame -> (H, W, 3) uint8 tensor on the engine's device."""
         dt = min(max(dt, 0.0), 0.1)  # Renderer.swift:161-163
         sdt = self._advance_time(dt)
         walk, run, thresh = self.movement
-        self.intent = self.input.update(pad or InputFrame(), dt, False, walk,
-                                        run, thresh)
+        self.intent = self.input.update(pad or InputFrame(), dt,
+                                        self._dodge_active, walk, run, thresh)
         self._apply_exposure_input(dt)
 
         self.accumulator += sdt
-        if self.accumulator >= FIXED_DT:
-            raise NotImplementedError("fixed-step simulation is not ported yet")
-        # Chase camera. The reference interpolates the player between the
-        # previous and current snapshots by accumulator / FIXED_DT; with no
-        # stepper the two agree, so the interpolant is the player position.
-        self.input.update_camera(self.camera, self.player_position)
+        n = 0
+        while self.accumulator >= FIXED_DT and n < MAX_SUBSTEPS:
+            self.accumulator -= FIXED_DT
+            n += 1
+        if n == MAX_SUBSTEPS and self.accumulator >= FIXED_DT:
+            self.accumulator = 0.0
+        if n and self.stepper is None:
+            raise NotImplementedError(
+                "a render-only world (no stepper) cannot take a substep")
+        alpha = min(max(self.accumulator / FIXED_DT, 0.0), 1.0)
+        self.substeps = n
+
+        # Chase camera from the previous frame's player snapshot (the
+        # reference's one-frame lag); a render-only world's player stands
+        # at its fixed position.
+        if self.stepper is None:
+            player = self.player_position
+        else:
+            if self._snap is None:
+                self._snap = self._player_snapshot()
+            snap = self._snap
+            player = snap[0:3] + (snap[3:6] - snap[0:3]) * alpha
+        self.input.update_camera(self.camera, player)
         rw, rh = self.rt_size
         ivp = self.camera.inv_view_proj(rw, rh)
         vp = self.camera.view_proj(rw, rh)
-        cam_world = self.camera.world_position.astype(np.float32)
         fps = self.overlay.update(dt) if with_overlay else -1
 
+        if self.stepper is not None:
+            self.state = apply_intent(self.state, self.player, self.intent)
+            for _ in range(n):
+                self.state = self.stepper.substep(self.state, FIXED_DT)
+        transforms, palettes = self.extract(alpha)
+        fg = flatten_frame(self.geometry, transforms, palettes)
         dev = self.device
-        transforms = self.transforms.clone()
-        transforms[:, :3, 3] -= torch.as_tensor(cam_world, device=dev)
-        fg = flatten_frame(self.geometry, transforms, self.palettes)
         u8 = self.present(self.render(fg, torch.as_tensor(ivp, device=dev),
                                       torch.as_tensor(vp, device=dev)))
-        return overlay_blit_device(u8, fps)
+        u8 = overlay_blit_device(u8, fps)
+        if self.stepper is not None:
+            self._snap = self._player_snapshot()
+            self._dodge_active = bool(self._snap[6] > 0.5)
+        return u8

@@ -1,0 +1,272 @@
+"""World step: port of swift_game_engine_tpu/scene/step.py.
+
+``Stepper.substep`` advances every system in the reference's order
+(Game/DemoScene.swift:56-75 wiring + Game/Systems.swift:52-94
+FixedStepRunner), as plain tensor code on the world's device:
+
+  pre:   Spin -> OscillateMove -> ActiveChunk -> PhysicsLocalize -> Dodge ->
+         PhysicsIntent -> Jump -> PhysicsBeginStep
+  fixed: PlatformMotion -> CollisionQueryRefresh (soup retransform) ->
+         Gravity -> KinematicMoveStop -> AgentSeparation -> PhysicsIntegrate
+  post:  PhysicsWriteback -> WorldPositionSync
+
+The pose systems (LocomotionProfile, ActionAnimation, PoseStack) wait for
+M4b: a Stepper given a pose engine, a profile bank or an action profile
+raises, and without them the reference's substep skips those systems too
+(scene/step.py:253-307), so this is the reference's substep of a world
+whose agents carry no motion profile.
+
+A substep reads nothing back to the host: every branch is a
+``torch.where`` and every loop runs its fixed count, so it can be
+captured in a CUDA graph later.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import math3d as m3
+from ..ecs.world import (BODY_DYNAMIC, BODY_KINEMATIC, BODY_STATIC,
+                         CHUNK_SIZE, SceneSpec, WorldState, canonicalize,
+                         chunk_local_to_world, world_to_chunk_local)
+from ..math3d import trs_matrices, where_rows as _w
+from ..physics import systems as S
+from ..physics.character import CharacterPipeline, PlatformSet
+from ..physics.collision_world import LocalTriangles, transform_soup
+from ..physics.separation import separate_agents
+
+_MASKS = ("has_body", "has_controller", "has_intent", "has_loco",
+          "has_action", "has_dodge", "has_osc", "has_spin", "has_platform",
+          "has_wp", "is_player")
+
+
+class Stepper:
+    """The fixed substep and render extraction of one scene."""
+
+    def __init__(self, spec: SceneSpec, collision: LocalTriangles,
+                 pose_engine=None, bank=None, action_profile=None,
+                 chunk_radius: int = 2):
+        if pose_engine is not None or bank is not None or \
+                action_profile is not None:
+            raise NotImplementedError(
+                "pose (PoseEngine, profile bank, action profile) is not "
+                "ported yet (M4b): the Stepper runs worlds whose agents "
+                "carry no motion profile")
+        self.spec = spec
+        self.collision = collision
+        dev = collision.p0.device
+        self.device = dev
+        # ActiveChunk radius (Components.swift:150 default 2); without a
+        # player with a WorldPosition the system is a no-op
+        # (Systems.swift:2360-2364).
+        self.chunk_radius = int(chunk_radius)
+        p = np.nonzero(spec.is_player & spec.has_wp)[0]
+        self.player_idx = int(p[0]) if len(p) else None
+        self.pipeline = CharacterPipeline(gravity=spec.gravity)
+
+        def tt(a):
+            return torch.as_tensor(np.asarray(a), device=dev)
+
+        self.m = {k: tt(getattr(spec, k)) for k in _MASKS}
+        self.body_type = tt(spec.body_type)
+        self.spin = {k: tt(v) for k, v in spec.spin.items()}
+        self.osc = {k: tt(v) for k, v in spec.osc.items()}
+        self.platform = {k: tt(v) for k, v in spec.platform.items()}
+        self.movement = {k: tt(v) for k, v in spec.movement.items()}
+        self.follow = tt(spec.follow_target).long()
+        ax = self.platform["axis"]
+        ax_len = m3.norm(ax)[:, None]
+        up = torch.zeros_like(ax)
+        up[:, 1] = 1.0
+        self.platform_axis_n = torch.where(
+            ax_len > 1e-4, ax / torch.clamp(ax_len, min=1e-20), up)
+
+    # ------------------------------------------------------------------
+
+    def substep(self, state: WorldState, dt: float) -> WorldState:
+        return self._substep_impl(state, dt)
+
+    def _substep_impl(self, state: WorldState, dt: float) -> WorldState:
+        spec, sm = self.spec, self.m
+        dt = float(np.float32(dt))
+        alive = state.alive
+        m = {k: v & alive for k, v in sm.items()}
+        static = self.body_type == BODY_STATIC
+
+        # --- pre: Spin (Systems.swift:97-119)
+        body_rot = _w(m["has_spin"] & m["has_body"],
+                      S.spin_step(state.body_rot, self.spin["speed"],
+                                  self.spin["axis"], dt), state.body_rot)
+        trs_r = _w(m["has_spin"] & ~m["has_body"],
+                   S.spin_step(state.trs_r, self.spin["speed"],
+                               self.spin["axis"], dt), state.trs_r)
+
+        # --- pre: OscillateMove -> intent velocity
+        osc_time, osc_vel = S.oscillate_move(
+            self.osc["axis"], self.osc["amplitude"], self.osc["speed"],
+            state.osc_time, dt, m["has_osc"])
+        intent_vel = _w(m["has_osc"] & m["has_intent"], osc_vel,
+                        state.intent_vel)
+
+        # --- pre: ActiveChunk (Systems.swift:2354-2411): the Chebyshev
+        # chunk-radius set around the player's chunk; the rest stop
+        # simulating and their collision drops out (they still render).
+        # --- pre: PhysicsLocalize (Systems.swift:2310-2351): positions
+        # rebased to that chunk, exact in int32.
+        trs_t, body_pos = state.trs_t, state.body_pos
+        center = torch.zeros(3, dtype=torch.int32, device=self.device)
+        if self.player_idx is not None:
+            center = state.wp_chunk[self.player_idx]
+            rel_chunk = state.wp_chunk - center
+            cheb = rel_chunk.abs().amax(-1) <= self.chunk_radius
+            chunk_active = ~sm["has_wp"] | cheb
+            alive = alive & chunk_active
+            m = {k: v & chunk_active for k, v in m.items()}
+            local_world = rel_chunk.to(torch.float32) * CHUNK_SIZE + \
+                state.wp_local
+            haswp_alive = state.alive & sm["has_wp"]
+            trs_t = _w(haswp_alive, local_world, trs_t)
+            body_pos = _w(haswp_alive & sm["has_body"], local_world,
+                          body_pos)
+
+        # --- pre: Dodge (drives intent, restarts the action clip)
+        dodge, ov = S.dodge_step(state.dodge, body_rot,
+                                 state.intent_dodge & m["has_dodge"], dt)
+        apply_d = ov["apply"] & m["has_dodge"]
+        intent_vel = _w(apply_d, ov["desired_velocity"], intent_vel)
+        intent_yaw = torch.where(apply_d, ov["facing_yaw"], state.intent_yaw)
+        intent_has_yaw = state.intent_has_yaw | apply_d
+        intent_jump = state.intent_jump & ~apply_d
+        intent_dodge = torch.zeros_like(state.intent_dodge)
+
+        # --- pre: PhysicsIntent
+        body_vel, body_rot = S.physics_intent(
+            state.body_vel, body_rot, intent_vel, intent_yaw, intent_has_yaw,
+            dodge.active, m["has_controller"], self.movement["max_accel"],
+            self.movement["max_decel"], dt,
+            m["has_intent"] & m["has_body"] & ~static)
+
+        # --- pre: Jump
+        body_vel, grounded, intent_jump = S.jump_step(
+            body_vel, state.ctrl.grounded,
+            intent_jump & m["has_intent"] & m["has_controller"])
+        ctrl = state.ctrl._replace(grounded=grounded)
+
+        # --- pre: PhysicsBeginStep (latch prev, in the localized frame)
+        latch = m["has_body"] & ~static
+        body_prev_pos = _w(latch, body_pos, state.body_prev_pos)
+        body_prev_rot = _w(latch, body_rot, state.body_prev_rot)
+
+        # --- fixed: PlatformMotion. The orbit origin is the localized
+        # position minus the current offset (Systems.swift:2339-2348).
+        pl = self.platform
+        offset_now = torch.sin(state.platform_time * pl["speed"] +
+                               pl["phase"]) * pl["amplitude"]
+        plat_origin = _w(m["has_platform"] & sm["has_wp"],
+                         body_pos - self.platform_axis_n * offset_now[:, None],
+                         pl["origin"])
+        plat_time, plat_pos = S.kinematic_platform_motion(
+            plat_origin, pl["axis"], pl["amplitude"], pl["speed"],
+            pl["phase"], state.platform_time, dt, m["has_platform"])
+        is_plat = m["has_platform"] & (self.body_type == BODY_KINEMATIC)
+        body_pos = _w(is_plat, plat_pos, body_pos)
+        body_vel = _w(is_plat, torch.zeros_like(body_vel), body_vel)
+        trs_t = _w(is_plat, plat_pos, trs_t)
+
+        # --- fixed: CollisionQueryRefresh: the soup from the current
+        # entity transforms (body pose for bodies, TRS otherwise).
+        ent_t = _w(m["has_body"], body_pos, trs_t)
+        ent_r = _w(m["has_body"], body_rot, trs_r)
+        soup = transform_soup(self.collision,
+                              trs_matrices(ent_t, ent_r, state.trs_s),
+                              entity_alive=alive)
+        platforms = PlatformSet(aabb_min=body_pos + pl["aabb_min"],
+                                aabb_max=body_pos + pl["aabb_max"],
+                                delta=body_pos - body_prev_pos,
+                                valid=is_plat)
+
+        # --- fixed: Gravity (dynamic bodies, not while grounded & near)
+        body_vel = S.gravity_step(body_vel, ctrl.grounded, ctrl.grounded_near,
+                                  m["has_body"] &
+                                  (self.body_type == BODY_DYNAMIC), dt,
+                                  spec.gravity)
+
+        # --- fixed: KinematicMoveStop; despawned agents stay inert
+        cp = spec.controller_params
+        cp = cp._replace(active=cp.active & alive)
+        body_pos, body_vel, ctrl = self.pipeline.step(
+            soup, body_pos, body_vel, ctrl, cp, platforms, dt)
+
+        # --- fixed: AgentSeparation
+        body_pos, body_vel, ctrl = separate_agents(soup, body_pos, body_vel,
+                                                   ctrl, cp)
+
+        # --- fixed: PhysicsIntegrate (plain bodies only)
+        integ = m["has_body"] & ~m["has_controller"] & ~m["has_platform"]
+        int_pos, int_rot = S.integrate_bodies(
+            body_pos, body_rot, body_vel, state.body_ang_vel, ~static & integ,
+            dt)
+        body_pos = _w(integ, int_pos, body_pos)
+        body_rot = _w(integ, int_rot, body_rot)
+
+        # --- post: PhysicsWriteback (body -> transform)
+        trs_t = _w(m["has_body"], body_pos, trs_t)
+        trs_r = _w(m["has_body"], body_rot, trs_r)
+
+        # --- post: WorldPositionSync (chunk/local, latch prev). Body
+        # positions are relative to the active chunk: re-anchor before
+        # canonicalizing (Systems.swift:2270-2307).
+        has_wp = m["has_wp"]
+        chunk_b, local_b = world_to_chunk_local(body_pos)
+        chunk_b = chunk_b + center
+        chunk_c, local_c = canonicalize(state.wp_chunk, state.wp_local)
+        use_body = has_wp & m["has_body"]
+        return state._replace(
+            trs_t=trs_t, trs_r=trs_r,
+            wp_chunk=_w(use_body, chunk_b, _w(has_wp, chunk_c,
+                                              state.wp_chunk)),
+            wp_local=_w(use_body, local_b, _w(has_wp, local_c,
+                                              state.wp_local)),
+            wp_prev_chunk=_w(has_wp, state.wp_chunk, state.wp_prev_chunk),
+            wp_prev_local=_w(has_wp, state.wp_local, state.wp_prev_local),
+            body_pos=body_pos, body_vel=body_vel, body_rot=body_rot,
+            body_prev_pos=body_prev_pos, body_prev_rot=body_prev_rot,
+            ctrl=ctrl, intent_vel=intent_vel, intent_yaw=intent_yaw,
+            intent_has_yaw=intent_has_yaw, intent_jump=intent_jump,
+            intent_dodge=intent_dodge, dodge=dodge, osc_time=osc_time,
+            platform_time=plat_time)
+
+    # ------------------------------------------------------------------
+
+    def extract(self, state: WorldState, alpha: float, camera_world):
+        """RenderExtract (Systems.swift:2415-2547): camera-relative instance
+        transforms (E,4,4) interpolated between the previous and current
+        physics state by ``alpha``, with follow-target substitution, and
+        the palettes."""
+        cam = torch.as_tensor(np.asarray(camera_world, np.float32),
+                              device=self.device)
+        return self._extract(state, float(np.float32(alpha)), cam)
+
+    def _extract(self, state: WorldState, alpha: float, camera_world):
+        m = self.m
+        prev_w = chunk_local_to_world(state.wp_prev_chunk, state.wp_prev_local)
+        curr_w = chunk_local_to_world(state.wp_chunk, state.wp_local)
+        interp_wp = prev_w + (curr_w - prev_w) * alpha
+        interp_body = state.body_prev_pos + \
+            (state.body_pos - state.body_prev_pos) * alpha
+        pos = _w(m["has_wp"], interp_wp,
+                 _w(m["has_body"], interp_body, state.trs_t))
+        rot = _w(m["has_body"],
+                 m3.quat_slerp(state.body_prev_rot, state.body_rot, alpha),
+                 state.trs_r)
+        idx = torch.arange(self.spec.n_entities, device=self.device)
+        src = torch.where(self.follow >= 0, self.follow, idx)
+        # a follower renders with its target's scale too
+        pos, rot, scale = pos[src], rot[src], state.trs_s[src]
+        pos = pos - camera_world
+        # despawned entities: zero-scale instances parked far away
+        alive = state.alive[src] & state.alive
+        pos = _w(alive, pos, torch.full_like(pos, 1.0e7))
+        scale = _w(alive, scale, torch.zeros_like(scale))
+        return trs_matrices(pos, rot, scale), state.palettes

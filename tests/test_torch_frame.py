@@ -1,5 +1,6 @@
 """PyTorch port, the whole slice vs the JAX reference (CPU), plus the port's
-own guarantees: no jax import, the DemoScene render world, the paused Engine.
+own guarantees: no jax import, the DemoScene world, the paused render-only
+Engine and the stepping one.
 
 One procedural scene — textured ground, a normal-mapped box, a translucent
 capsule, a mirror box, a glass box, an unlit emissive box and a skinned
@@ -147,20 +148,95 @@ def test_engine_frame_matches_reference_chain(scene):
 
 
 def test_engine_is_paused_and_refuses_substeps(scene):
+    """A render-only world (no stepper) starts paused: camera, input and
+    overlay run on unscaled time; a substep due raises."""
     eng = Engine(_port_world(scene, [0.0, 0.5, 1.0]), 32, 18, device="cpu")
     from swift_game_engine_tpu_torch.scene.input import InputFrame
+    assert eng.time_scale == 0.0
     eng.frame(0.05, InputFrame(rx=0.8, exposure_delta=1.0))
     assert eng.time == 0.0 and eng.unscaled_time == pytest.approx(0.05)
     assert eng.input.yaw != 0.0                       # camera animates
     assert eng.tone_mapping_exposure == pytest.approx(1.05)
     eng.time_scale = 1.0
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="render-only"):
         eng.frame(1 / 60)
+
+
+def _stepping_world():
+    """A small world built by the port alone: ground, player and box, with
+    render meshes and the simulation (CPU)."""
+    from swift_game_engine_tpu_torch.assets import procedural_meshes as ppm
+    from swift_game_engine_tpu_torch.assets.materials import Material as PM
+    from swift_game_engine_tpu_torch.ecs.world import WorldBuilder
+    from swift_game_engine_tpu_torch.physics.collision_world import \
+        CollisionWorldBuilder
+    from swift_game_engine_tpu_torch.render.scene_geometry import \
+        RenderGeometryBuilder
+    from swift_game_engine_tpu_torch.scene.step import Stepper
+    wb, cb, rb = WorldBuilder(), CollisionWorldBuilder(), \
+        RenderGeometryBuilder(texture_size=4)
+    g = wb.create_entity("ground")
+    wb.add(g, "transform", translation=[0, -3, 0])
+    wb.add(g, "world_position")
+    wb.add(g, "body", body_type=0, position=[0, -3, 0])
+    cb.add_mesh(ppm.plane(40.0).positions, ppm.plane(40.0).indices, entity=g)
+    rb.add_static_mesh(ppm.plane(40.0), PM(name="g"), instance=g)
+    p = wb.create_entity("player")
+    for comp, kw in (("transform", dict(translation=[0.3, 1.0, 0.2])),
+                     ("world_position", {}), ("player", {}),
+                     ("body", dict(body_type=2, position=[0.3, 1.0, 0.2])),
+                     ("intent", {}), ("movement", {}),
+                     ("controller", dict(radius=1.5, half_height=1.0)),
+                     ("agent", dict(mass_weight=3.0))):
+        wb.add(p, comp, **kw)
+    rb.add_static_mesh(ppm.capsule(1.5, 1.0), PM(name="p"), instance=p)
+    spec, state = wb.build(device="cpu")
+    stepper = Stepper(spec, cb.build(device="cpu"))
+    tf, pal = stepper.extract(state, 1.0, np.zeros(3, np.float32))
+    return DemoWorld(geometry=rb.build(device="cpu"), transforms=tf,
+                     palettes=pal,
+                     lights=p_rt.DirectionalLights.from_list([], device="cpu"),
+                     player_position=np.array([0.3, 1.0, 0.2]),
+                     movement=(4.5, 12.5, 0.78), spec=spec, state=state,
+                     stepper=stepper, player=p)
+
+
+def test_stepping_engine_starts_running_and_advances(tmp_path):
+    """A world with a Stepper starts at time_scale 1.0, as the reference's
+    Engine does: each 1/60 s frame takes one substep, the player falls and
+    walks, and the camera follows the previous frame's snapshot. The
+    checkpoint (.npz of the state's tensors, accumulator and time) restores
+    the run exactly."""
+    from swift_game_engine_tpu_torch.scene.input import InputFrame
+    world = _stepping_world()
+    eng = Engine(world, 32, 18, device="cpu")
+    assert eng.time_scale == 1.0
+    y0 = float(world.state.body_pos[world.player, 1])
+    for _ in range(3):
+        u8 = eng.frame(1 / 60, InputFrame(ly=1.0))
+        assert eng.substeps == 1 and u8.shape == (18, 32, 3)
+    assert eng.time == pytest.approx(3 / 60)
+    assert float(eng.state.body_pos[world.player, 1]) < y0     # falls
+    assert eng._snap[4] < y0 and eng._snap[6] == 0.0
+    np.testing.assert_allclose(eng._snap[3:6],
+                               eng.state.body_pos[world.player].numpy())
+    # a frame of 1/12 s takes the most substeps and resets the rest
+    eng.frame(1 / 12, InputFrame(ly=1.0))
+    assert eng.substeps == 4 and eng.accumulator == 0.0
+    eng.save_state(str(tmp_path / "w.npz"))
+    after = eng.stepper.substep(eng.state, 1 / 60)
+    eng.load_state(str(tmp_path / "w.npz"))
+    again = eng.stepper.substep(eng.state, 1 / 60)
+    for a, b in zip(after, again):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+    assert eng.time == pytest.approx(3 / 60 + 1 / 12)
 
 
 def test_port_runs_without_jax():
     """The port renders both primary modes, from a scene its own builder
-    made, with no jax and no module of the JAX package loaded."""
+    made, and steps one Engine frame of a world its own WorldBuilder made,
+    with no jax and no module of the JAX package loaded."""
     code = (
         "import os, sys\n"
         "import numpy as np, torch\n"
@@ -186,6 +262,34 @@ def test_port_runs_without_jax():
         "primary=primary)\n"
         "    assert img.shape == (18, 32, 3)\n"
         "    assert bool(torch.isfinite(img).all())\n"
+        "from swift_game_engine_tpu_torch.ecs.world import WorldBuilder\n"
+        "from swift_game_engine_tpu_torch.physics.collision_world import "
+        "CollisionWorldBuilder\n"
+        "from swift_game_engine_tpu_torch.scene.step import Stepper\n"
+        "from swift_game_engine_tpu_torch.scene.demo_scene import DemoWorld\n"
+        "from swift_game_engine_tpu_torch.scene.engine import Engine\n"
+        "wb, cb = WorldBuilder(), CollisionWorldBuilder()\n"
+        "g = wb.create_entity('ground')\n"
+        "wb.add(g, 'transform', translation=[0, -3, 0])\n"
+        "wb.add(g, 'body', body_type=0, position=[0, -3, 0])\n"
+        "cb.add_mesh(pm.plane(20.0).positions, pm.plane(20.0).indices, "
+        "entity=g)\n"
+        "p = wb.create_entity('player')\n"
+        "for c, kw in (('transform', dict(translation=[0.2, 1, 0.1])), "
+        "('world_position', {}), ('player', {}), ('body', dict(body_type=2, "
+        "position=[0.2, 1, 0.1])), ('intent', {}), ('movement', {}), "
+        "('controller', {}), ('agent', {})):\n"
+        "    wb.add(p, c, **kw)\n"
+        "spec, state = wb.build(device='cpu')\n"
+        "st = Stepper(spec, cb.build(device='cpu'))\n"
+        "tf, pal = st.extract(state, 1.0, np.zeros(3, np.float32))\n"
+        "world = DemoWorld(geo, tf, pal, rt.DirectionalLights.from_list([], "
+        "device='cpu'), np.array([0.2, 1, 0.1]), (4.5, 12.5, 0.78), spec, "
+        "state, st, p)\n"
+        "eng = Engine(world, 32, 18, device='cpu')\n"
+        "u8 = eng.frame(1 / 60)\n"
+        "assert eng.substeps == 1 and u8.shape == (18, 32, 3)\n"
+        "assert float(eng.state.body_pos[p, 1]) < 1.0\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "ref = os.path.join(os.getcwd(), 'swift_game_engine_tpu') + os.sep\n"
         "bad = [m for m, mod in list(sys.modules.items()) if "
