@@ -9,10 +9,11 @@ csrc`` (first use, one nvcc per source in parallel) and drives six paths
 of the port through its entry points, each for 2 warm-up and 10 timed
 frames at 960x540 (the RT paths with ``max_layers=3``). Every frame is
 the bench headline's ``eng.frame(1/60, InputFrame(ly=1.0))``: the
-DemoScene world steps (one fixed substep a frame: the player falls and
-walks, the NPCs and platforms move), and each path checks that every
-timed frame took its substep and that the player moved and stayed above
-the ground:
+DemoScene world steps (one fixed substep a frame, one replay of the
+Engine's CUDA graph of the substep: the player falls and walks, the NPCs
+and platforms move), and each path checks that its Engine captured the
+graph, that every timed frame took its substep and that the player moved
+and stayed above the ground:
 
   1. ``demo_rt_960x540``: the full DemoScene (``import_tri_budget=0``,
      181,340 triangles), ``Engine(path="rt")`` with the default hybrid
@@ -39,8 +40,11 @@ the ground:
      bounces, no K1/K2/K3/K5/K7.
 
 Each path's kernel launch counts are zeroed just before its timed frames
-and read just after. Then the simulation on its own (``simulation_phase``;
-it runs no kernel of the port, only PyTorch's):
+and read just after. Path 1 also runs at ``pipeline_depth=3`` (2 + 10
+frames on a new Engine): its first two frames are zero, the rest are not
+constant, and its frame median is printed beside depth 1's. Then the
+simulation on its own (``simulation_phase``; it runs no kernel of the
+port, only PyTorch's):
 
   * 60 substeps of the DemoScene world with ``InputFrame(ly=1.0)``
     intents, each started on the card from the CPU's state of the same
@@ -48,13 +52,18 @@ it runs no kernel of the port, only PyTorch's):
     within 1e-4, integer and bool fields equal (a disagreement passes only
     as a tie that rounding decides, proven as the CPU tests prove the
     reference's: the CPU reaches the card's result with one agent moved by
-    at most 5e-5; it is printed);
-  * one substep under ``torch.cuda.set_sync_debug_mode("error")``: a
-    substep reads nothing back to the host;
-  * ms per substep (CUDA events, median of 30) and kernel launches per
-    substep (torch.profiler) for the DemoScene world and for a 256-agent
-    crowd on procedural meshes (``build_crowd``, examples/bench_crowd.py's
-    world: the separation grid).
+    at most 5e-5; it is printed); each also loaded into a
+    ``SubstepGraph`` and replayed, which must equal the eager card
+    substep bit for bit;
+  * one substep and one replay under
+    ``torch.cuda.set_sync_debug_mode("error")``: neither reads anything
+    back to the host;
+  * ms per substep eager and graphed (CUDA events, median and p90 of 30),
+    the kernels the card runs and the launches the host makes for one
+    eager substep and for one replay (torch.profiler), the capture's
+    seconds and the graph pool's size, for the DemoScene world and for a
+    256-agent crowd on procedural meshes (``build_crowd``,
+    examples/bench_crowd.py's world: the separation grid).
 
 And the kernels:
 
@@ -390,30 +399,85 @@ def _sim_disagree(ref, card, atol=1e-4):
     return None
 
 
-def simulation_phase(dev, world):
-    """The fixed-step simulation on the card (see the module docstring).
-    Returns {world: (ms per substep, launches per substep)}."""
-    import numpy as np
+def _bits_differ(a, b):
+    """The name of the first leaf where two world states differ in any
+    bit, or None."""
+    import torch
+    for (name, x), (_, y) in zip(_sim_leaves(a), _sim_leaves(b)):
+        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(
+                x.contiguous().reshape(-1).view(torch.uint8),
+                y.contiguous().reshape(-1).view(torch.uint8)):
+            return name
+    return None
+
+
+def _event_ms(fn):
+    """ms of each of SIM_TIMED calls of fn (CUDA events)."""
+    import torch
+    ms = []
+    for _ in range(SIM_TIMED):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return ms
+
+
+def _launches(fn):
+    """(kernels the card ran, launch calls the host made) in one call of
+    fn (torch.profiler; memcpys and memsets not counted)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from swift_game_engine_tpu_torch.ecs.world import to_device
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = host = 0
+    for ev in prof.events():
+        name = ev.name.lower()
+        if ev.device_type.name == "CUDA":
+            kernels += "memcpy" not in name and "memset" not in name
+        elif name.startswith("cu") and "launch" in name:
+            host += 1
+    return kernels, host
+
+
+def simulation_phase(dev, world):
+    """The fixed-step simulation on the card (see the module docstring).
+    Returns {world: dict of ms and launches a substep, eager and graphed}."""
+    import numpy as np
+    import torch
+    from swift_game_engine_tpu_torch.ecs.world import copy_state, to_device
     from swift_game_engine_tpu_torch.scene.engine import (FIXED_DT,
                                                           apply_intent)
     from swift_game_engine_tpu_torch.scene.input import (InputFrame,
                                                          InputSystem)
-    from swift_game_engine_tpu_torch.scene.step import Stepper
+    from swift_game_engine_tpu_torch.scene.step import Stepper, SubstepGraph
 
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
     cstep = Stepper(world.spec.to(cpu), to_device(world.collision, cpu))
     gstep, e = world.stepper, world.player
+    graph = SubstepGraph(gstep, world.state, FIXED_DT)
     state = to_device(world.state, cpu)
     inp, (walk, run, thresh) = InputSystem(), world.movement
     ties = 0
     for i in range(SIM_STEPS):
-        state = apply_intent(state, e, inp.update(
+        apply_intent(state, e, inp.update(
             InputFrame(ly=1.0), FIXED_DT, False, walk, run, thresh))
-        card = to_device(gstep.substep(to_device(state, dev), FIXED_DT), cpu)
+        start = to_device(state, dev)
+        card = gstep.substep(start, FIXED_DT)
+        # the graph's replay from the same state: the eager card substep's
+        # kernels on the same inputs, so bit for bit its result
+        copy_state(graph.state, start)
+        graph.step()
+        leaf = _bits_differ(graph.state, card)
+        if leaf is not None:
+            _fail(f"simulation substep {i}: the graph's replay differs from "
+                  f"the eager card substep in {leaf}")
+        card = to_device(card, cpu)
         nxt = cstep.substep(state, FIXED_DT)
         msg = _sim_disagree(nxt, card)
         if msg is not None:
@@ -445,7 +509,8 @@ def simulation_phase(dev, world):
           f"{int(world.collision.valid.sum())} collision triangles): "
           f"{SIM_STEPS} substeps started on the card from the CPU's state "
           f"agree (positions and velocities within 1e-4, integer and bool "
-          f"fields equal; {ties} ties); player at "
+          f"fields equal; {ties} ties), and the graph's replays equal the "
+          f"eager card substeps bit for bit; player at "
           f"{[round(v, 4) for v in p]} ({time.perf_counter() - t0:.1f} s)")
 
     # One substep under the sync checker: it reads nothing back.
@@ -454,6 +519,7 @@ def simulation_phase(dev, world):
     torch.cuda.set_sync_debug_mode("error")
     try:
         gstep.substep(gstate, FIXED_DT)
+        graph.step()
     except RuntimeError as err:
         import traceback
         _fail(f"a substep synchronised with the host: {err}\n"
@@ -461,7 +527,7 @@ def simulation_phase(dev, world):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    print("simulation: one substep under "
+    print("simulation: one substep and one replay under "
           "torch.cuda.set_sync_debug_mode('error'): no host sync")
 
     out = {}
@@ -470,28 +536,30 @@ def simulation_phase(dev, world):
                            ("crowd_256", crowd_step, crowd_state)):
         for _ in range(3):
             st = stp.substep(st, FIXED_DT)
-        ms = []
-        for _ in range(SIM_TIMED):
-            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            a.record()
-            st = stp.substep(st, FIXED_DT)
-            b.record()
-            torch.cuda.synchronize()
-            ms.append(a.elapsed_time(b))
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            stp.substep(st, FIXED_DT)
-            torch.cuda.synchronize()
-        launches = sum(1 for ev in prof.events()
-                       if ev.device_type.name == "CUDA" and "memcpy" not in
-                       ev.name.lower() and "memset" not in ev.name.lower())
+        g = graph if label == "demo" else SubstepGraph(stp, st, FIXED_DT)
+        copy_state(g.state, st)
+        eager, replay = (_event_ms(lambda: stp.substep(st, FIXED_DT)),
+                         _event_ms(g.step))
+        launches, host = _launches(lambda: stp.substep(st, FIXED_DT))
+        g_launches, g_host = _launches(g.step)
         n = stp.spec.n_entities
-        out[label] = (float(np.median(ms)), launches)
+        out[label] = dict(eager_ms=float(np.median(eager)),
+                          graph_ms=float(np.median(replay)),
+                          launches=launches, graph_launches=g_launches,
+                          graph_host_launches=g_host)
         print(f"simulation {label} ({n} entities, "
               f"{int(stp.collision.valid.sum())} collision triangles): "
-              f"substep median {np.median(ms):.3f} ms (CUDA events, "
-              f"{SIM_TIMED} substeps; p90 {np.percentile(ms, 90):.3f}), "
-              f"{launches} kernel launches a substep")
-        if not bool(torch.isfinite(st.body_pos).all()):
+              f"substep median {np.median(eager):.3f} ms eager, "
+              f"{np.median(replay):.3f} ms graphed (CUDA events, "
+              f"{SIM_TIMED} substeps each; p90 {np.percentile(eager, 90):.3f}"
+              f", {np.percentile(replay, 90):.3f}); {launches} kernels from "
+              f"{host} host launches a substep eager, {g_launches} kernels "
+              f"from {g_host} host launch(es) a replay; capture "
+              f"{g.capture_seconds:.3f} s, graph pool "
+              f"{g.pool_bytes / 2**20:.1f} MiB")
+        if g_host > 1:
+            _fail(f"simulation {label}: a replay took {g_host} host launches")
+        if not bool(torch.isfinite(g.state.body_pos).all()):
             _fail(f"simulation {label}: positions are not finite")
     return out
 
@@ -548,6 +616,7 @@ def main():
                 "K7": RK.shadow_launches, "K8": RK.any_launches,
                 "K9": TR.list_launches, "K10": TR.peel_launches}
 
+    from swift_game_engine_tpu_torch.scene.engine import Engine
     from swift_game_engine_tpu_torch.scene.input import InputFrame
 
     def run_path(name, eng, cap):
@@ -577,11 +646,16 @@ def main():
         counts = read_counts()
         counts["shade_calls"] = shade_calls[0]
         RT._shade_hit = shade_hit
+        medians[name] = float(np.median(times))
         print(f"path {name}: frame median {np.median(times):.2f} ms, p90 "
               f"{np.percentile(times, 90):.2f} ms over {TIMED} frames (min "
               f"{min(times):.2f}, max {max(times):.2f}); RT target "
-              f"{eng.rt_size[0]}x{eng.rt_size[1]}")
+              f"{eng.rt_size[0]}x{eng.rt_size[1]}; substep graph captured "
+              f"in {eng._sim.capture_seconds:.3f} s "
+              f"({eng._sim.pool_bytes / 2**20:.1f} MiB pool)")
         print(f"  launches in {TIMED} frames: {counts}")
+        if eng._sim.graph is None:
+            _fail(f"{name}: the Engine's substep is not a CUDA graph")
         if tuple(img.shape) != (H, W, 3) or img.dtype != torch.uint8:
             _fail(f"{name}: frame has shape {tuple(img.shape)} {img.dtype}")
         f = img.float()
@@ -590,6 +664,39 @@ def main():
         print(f"  frame mean {float(f.mean()):.4f}, std {float(f.std()):.4f}")
         check_player(name, eng, np.array(snaps))
         return counts
+
+    def run_pipelined(name, scene, depth):
+        """Path 1's Engine at ``pipeline_depth=depth``: the first depth-1
+        frames are zero, the rest are not constant; the frame median
+        (timed as ``run_path`` times it) beside depth 1's."""
+        eng = Engine(scene, W, H, path="rt", max_layers=LAYERS,
+                     shadow_layers=SHADOW_LAYERS, pipeline_depth=depth,
+                     device=dev)
+        pad, times, stds, snaps = InputFrame(ly=1.0), [], [], []
+        for i in range(WARMUP + TIMED):
+            t0 = time.perf_counter()
+            img = eng.frame(1 / 60, pad)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if tuple(img.shape) != (H, W, 3) or img.dtype != torch.uint8:
+                _fail(f"{name} at depth {depth}: frame has shape "
+                      f"{tuple(img.shape)} {img.dtype}")
+            if i < depth - 1 and int(img.max()) != 0:
+                _fail(f"{name} at depth {depth}: warm-up frame {i} is not "
+                      f"zero")
+            stds.append(float(img.float().std()))
+            snaps.append(eng._snap.copy())
+        ms = times[WARMUP:]
+        print(f"path {name} at pipeline_depth={depth}: frame median "
+              f"{np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms "
+              f"over {TIMED} frames (depth 1: {medians[name]:.2f} ms); "
+              f"warm-up frames 0..{depth - 2} zero, the rest std "
+              f"{min(stds[depth - 1:]):.2f} at least")
+        if min(stds[depth - 1:]) < 1.0:
+            _fail(f"{name} at depth {depth}: a frame after the warm-up is "
+                  f"constant")
+        check_player(f"{name} at depth {depth}", eng,
+                     np.array(snaps[WARMUP:]))
 
     def check_player(name, eng, snaps):
         """Each timed frame took one substep; the player moved and stayed
@@ -646,6 +753,7 @@ def main():
             PATHS[4]: ("K9", "K9/peel"),
             PATHS[5]: ("K4", "K6", "K6/floor", "K8")}
     caps, counts, scenes, engines, overflow = {}, {}, {}, {}, []
+    medians = {}
     t0 = time.perf_counter()
     for name, scene, eng in path_engines(dev):
         if all(scene is not s for s in scenes.values()):
@@ -672,6 +780,8 @@ def main():
         for key in runs[name]:
             if key not in cap.args:
                 _fail(f"{key} was not called in the first frame of {name}")
+        if name == PATHS[0]:
+            run_pipelined(name, scene, 3)
         t0 = time.perf_counter()
     print(f"  path 5: overflowed tiles per peel (warm-up frames): "
           f"{overflow}")

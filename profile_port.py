@@ -12,11 +12,13 @@ shadow prepass of the decimated scene), each at 960x540, and for each:
   * 10 frames by host clock around ``Engine.frame(1/60,
     InputFrame(ly=1.0))`` (the bench headline's input) + ``synchronize()``;
   * the stages of one frame (``substeps``: the frame's one fixed substep
-    of the DemoScene world, ``Stepper.substep``; ``flatten_frame``: the
-    extraction, ``Engine.extract``, and flatten_frame; the path's frame,
-    ``Engine.render``; ``Engine.present``: upscale, composite where the
-    path has one, u8) by host clock with a synchronize after each, median
-    of 5;
+    of the DemoScene world, one replay of the Engine's CUDA graph of it,
+    with ``substep_eager``, the same substep run eagerly by
+    ``Stepper.substep``, beside it; ``flatten_frame``: the extraction,
+    ``Engine.extract``, and flatten_frame; ``render``: the path's frame,
+    ``Engine.render_target``; ``present``: upscale, the render graph's
+    composite pass, u8) by host clock with a synchronize after each,
+    median of 5;
   * a torch.profiler trace of 3 frames: device busy time per frame (the
     union of the kernel and memcpy intervals, so overlaps count once), the
     idle share against the unprofiled frame, kernel launches, memcpys and
@@ -74,29 +76,35 @@ def _profile(eng, torch, np):
     dev = eng.device
     cam = eng.camera
     rw, rh = eng.rt_size
-    stages = {"substeps": [], "flatten_frame": [], "render": [],
-              "present": []}
+    stages = {"substeps": [], "substep_eager": [], "flatten_frame": [],
+              "render": [], "present": []}
+    composite = next(p for p in eng.graph.passes if p.name == "composite")
     for _ in range(STAGE_REPS):
         torch.cuda.synchronize()
         ts = time.perf_counter()
         eng.stepper.substep(eng.state, FIXED_DT)
         torch.cuda.synchronize()
+        tg = time.perf_counter()
+        eng._sim.step()
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stages["substeps"].append((t0 - ts) * 1e3)
         tf, palettes = eng.extract(eng.accumulator / FIXED_DT)
         fg = flatten_frame(eng.geometry, tf, palettes)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        img = eng.render(
+        img = eng.render_target(
             fg, torch.as_tensor(cam.inv_view_proj(rw, rh), device=dev),
-            torch.as_tensor(cam.view_proj(rw, rh), device=dev))
+            torch.as_tensor(cam.view_proj(rw, rh), device=dev), cam.position)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        eng.present(img)
+        view = composite.execute({"rt_output": eng._upscale(img),
+                                  "exposure": eng.tone_mapping_exposure})
+        (torch.clamp(view["view"], 0.0, 1.0) * 255.0).to(torch.uint8)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        for k, v in zip(("flatten_frame", "render", "present"),
-                        (t1 - t0, t2 - t1, t3 - t2)):
+        for k, v in zip(("substep_eager", "substeps", "flatten_frame",
+                         "render", "present"),
+                        (tg - ts, t0 - tg, t1 - t0, t2 - t1, t3 - t2)):
             stages[k].append(v * 1e3)
 
     with profile(activities=[ProfilerActivity.CPU,

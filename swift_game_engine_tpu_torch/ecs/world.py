@@ -131,6 +131,45 @@ def to_device(tree, device):
                         else x.to(device) for x in tree))
 
 
+def state_leaves(tree):
+    """The tensors of a (nested) NamedTuple of tensors, in field order."""
+    out = []
+    for x in tree:
+        out.extend(state_leaves(x) if isinstance(x, tuple) else [x])
+    return out
+
+
+def rebuild_state(like, leaves):
+    """``like``'s structure filled from the iterator ``leaves``."""
+    return type(like)(*(rebuild_state(x, leaves) if isinstance(x, tuple)
+                        else next(leaves) for x in like))
+
+
+def clone_state(tree):
+    """A (nested) NamedTuple of tensors with every tensor cloned."""
+    return rebuild_state(tree, iter([x.clone() for x in state_leaves(tree)]))
+
+
+def copy_state(dst, src):
+    """Copy every leaf of ``src`` into ``dst``'s tensor of the same leaf, in
+    place; ``dst``'s tensors stay the same objects. A leaf of ``src`` that
+    shares storage with another leaf of ``dst`` is cloned before any copy,
+    so no copy overwrites a value that a later one reads. Raises where a
+    leaf's shape or dtype differs (a copy would cast or broadcast it)."""
+    d, s = state_leaves(dst), state_leaves(src)
+    owner = {x.untyped_storage().data_ptr(): i for i, x in enumerate(d)
+             if x.numel()}
+    s = [x.clone() if x.numel() and owner.get(
+        x.untyped_storage().data_ptr(), i) != i else x
+        for i, x in enumerate(s)]
+    for i, (a, b) in enumerate(zip(d, s)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"state leaf {i}: {tuple(b.shape)} {b.dtype} "
+                             f"into {tuple(a.shape)} {a.dtype}")
+        if b is not a:
+            a.copy_(b)
+
+
 class WorldBuilder:
     """Host-side scene assembly (the reference's World.add(...) calls):
     components are staged per entity and densified by build()."""

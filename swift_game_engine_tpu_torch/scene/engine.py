@@ -1,19 +1,42 @@
 """Engine: the host frame loop — port of swift_game_engine_tpu/scene/engine.py.
 
 ``frame(dt, pad)`` follows the reference's fused frame
-(scene/engine.py:385-459, at ``pipeline_depth=1``) step for step: dt clamp
-<= 0.1, time advance (scaled and unscaled) and the fixed-step accumulator
-(<= ``MAX_SUBSTEPS`` substeps, reset at the cap), the player's intent
-written into its WorldState row (jump and dodge OR-ed in), the chase
-camera from the previous frame's player snapshot interpolated by
-``alpha``, the substeps (``Stepper.substep``), render extraction
-(``Stepper.extract``: camera-relative instance transforms), ``flatten_frame``,
-the frame at the RT target size, the bilinear upscale to the drawable,
-``composite_frame``, u8 quantisation, the FPS overlay, and the player
-snapshot the next frame's camera reads (prev and current world position
-and the dodge flag: one 7-float read a frame). The frame is the
-reference's ``path``
-(scene/engine.py:143-177,226-237):
+(scene/engine.py:385-459) step for step: dt clamp <= 0.1, time advance
+(scaled and unscaled) and the fixed-step accumulator (<= ``MAX_SUBSTEPS``
+substeps, reset at the cap), the player's intent written into its
+WorldState row (jump and dodge OR-ed in), the chase camera from the player
+snapshot of the last completed frame interpolated by ``alpha``, the
+substeps, then ``render(alpha)``: render extraction (``Stepper.extract``:
+camera-relative instance transforms) and the render graph
+(``render/graph.py``), whose "rt" pass runs ``flatten_frame``, the frame at
+the RT target size (``render_target``) and the bilinear upscale to the
+drawable, and whose "composite" pass runs ``composite_frame``
+(scene/engine.py:173-196); then u8 quantisation, the FPS overlay, and the
+player snapshot the next frames' camera reads (prev and current world
+position and the dodge flag: 7 floats). ``update(dt, pad)`` and
+``render(alpha)`` are the reference's split of the same frame
+(scene/engine.py:324-370): ``update`` takes the substeps and reads the
+current player snapshot for the camera, ``render`` returns the float view.
+
+The world state lives in buffers the Engine owns (``state``: a clone of
+its world's state, so Engines built on one world step independently). On
+the card they are the buffers of a ``SubstepGraph``: every substep is one
+replay of a CUDA graph of ``Stepper._substep_impl`` (the reference's
+``fori_loop`` over it inside ``_fused``), and the eager substep runs only
+for CPU tensors. ``apply_intent`` and ``load_state`` write into the
+buffers in place.
+
+``pipeline_depth`` keeps that many frames in flight (scene/engine.py:51-61,
+440-459): each frame starts its player snapshot's copy to the host
+(pinned, non-blocking) and records an event; ``frame`` returns the oldest
+frame once ``pipeline_depth`` are queued (zero frames before), and the
+chase camera reads that frame's snapshot, ``pipeline_depth - 1`` frames
+older than the last. Its image is the (H, W, 3) uint8 tensor on the
+engine's device at every depth; at depth 1 each frame waits for its own
+snapshot. ``set_rt_resolution_scale`` and ``load_state`` drop the frames
+in flight and the snapshot.
+
+The frame is the reference's ``path`` (scene/engine.py:143-177,226-237):
 
   * ``"rt"``: the RT ``render_frame`` (``primary="hybrid"`` or
     ``"trace"``) with its mirror and refraction bounces;
@@ -24,8 +47,8 @@ reference's ``path``
 The RT target is ``rt_resolution_scale`` times the drawable (at least 0.25,
 Renderer.swift:175); ``set_rt_resolution_scale`` changes it between frames
 (Renderer.swift:232-258). The reference compiles one frame program per RT
-size and caches them; PyTorch runs eagerly, so the port needs no program
-cache and a new scale takes effect on the next frame.
+size and caches them; PyTorch runs the render eagerly, so the port needs no
+program cache and a new scale takes effect on the next frame.
 
 A world with a ``stepper`` starts at ``time_scale = 1.0``, as the
 reference does. A render-only world (no stepper: fixed ``transforms``)
@@ -34,7 +57,6 @@ and never asks for a substep, while the camera, input and overlay run on
 unscaled time; if it does ask (a time_scale above 0), ``frame`` raises
 rather than skip the substep. ``save_state`` / ``load_state`` keep the
 world state (and the accumulator and time) in one ``.npz``.
-``pipeline_depth`` (frames in flight) is not ported (ROADMAP M5).
 """
 
 from __future__ import annotations
@@ -46,73 +68,54 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..ecs.world import (chunk_local_to_world, copy_state, rebuild_state,
+                         state_leaves)
+from ..render import rt as RT
 from ..render.camera import Camera
 from ..render.composite import FPSOverlay, composite_frame, overlay_blit_device
+from ..render.graph import RenderGraph, RenderPass
 from ..render.ibl import IBL
-from ..render import rt as RT
 from ..render.raster import RASTER_MODES, render_frame_raster
-from ..ecs.world import chunk_local_to_world
 from ..render.scene_geometry import flatten_frame
 from .input import InputFrame, InputSystem
+from .step import SubstepGraph
 
 FIXED_DT = 1.0 / 60.0
 MAX_SUBSTEPS = 4
 PATHS = ("rt", "raster", "raster_pbr")
 
 
-def _leaves(state):
-    """The tensors of a NamedTuple of tensors (nested), in field order."""
-    out = []
-    for x in state:
-        out.extend(_leaves(x) if isinstance(x, tuple) else [x])
-    return out
-
-
-def _rebuild(like, leaves):
-    """``like``'s structure filled from the iterator ``leaves``."""
-    return type(like)(*(_rebuild(x, leaves) if isinstance(x, tuple)
-                        else next(leaves) for x in like))
-
-
 def save_world_state(path: str, state, **scalars):
     """Checkpoint a WorldState (+ host scalars) to one .npz."""
-    np.savez(path, *[x.cpu().numpy() for x in _leaves(state)], **scalars)
+    np.savez(path, *[x.cpu().numpy() for x in state_leaves(state)],
+             **scalars)
 
 
 def load_world_state(path: str, like_state):
     """Restore a WorldState saved by save_world_state onto ``like_state``'s
     device and structure -> (state, the npz data for the scalars)."""
     data = np.load(path)
-    like = _leaves(like_state)
+    like = state_leaves(like_state)
     it = iter(torch.as_tensor(data[f"arr_{i}"], device=x.device)
               for i, x in enumerate(like))
-    return _rebuild(like_state, it), data
+    return rebuild_state(like_state, it), data
 
 
 def apply_intent(state, e: int, intent: dict):
     """Entity ``e``'s MoveIntent (InputSystem.update's dict) written into
-    the state: velocity, yaw and the yaw flag replaced, jump and dodge
-    OR-ed in. Each value is a fill of a one-element slice: assigning to a
-    single element of a CUDA tensor from a Python number copies it from
-    the host and syncs."""
+    ``state``'s tensors in place: velocity, yaw and the yaw flag replaced,
+    jump and dodge OR-ed in. Each value is a fill of a one-element slice:
+    assigning to a single element of a CUDA tensor from a Python number
+    copies it from the host and syncs."""
     r = slice(e, e + 1)
-    vel = state.intent_vel.clone()
     for i, v in enumerate(np.asarray(intent["desired_velocity"], np.float32)):
-        vel[r, i] = float(v)
-    yaw = state.intent_yaw.clone()
-    yaw[r] = float(np.float32(intent["facing_yaw"]))
-    has_yaw = state.intent_has_yaw.clone()
-    has_yaw[r] = bool(intent["has_facing_yaw"])
-    jump, dodge = state.intent_jump, state.intent_dodge
+        state.intent_vel[r, i].fill_(float(v))
+    state.intent_yaw[r].fill_(float(np.float32(intent["facing_yaw"])))
+    state.intent_has_yaw[r].fill_(bool(intent["has_facing_yaw"]))
     if intent["jump_requested"]:
-        jump = jump.clone()
-        jump[r] = True
+        state.intent_jump[r].fill_(True)
     if intent["dodge_requested"]:
-        dodge = dodge.clone()
-        dodge[r] = True
-    return state._replace(intent_vel=vel, intent_yaw=yaw,
-                          intent_has_yaw=has_yaw, intent_jump=jump,
-                          intent_dodge=dodge)
+        state.intent_dodge[r].fill_(True)
 
 
 class Engine:
@@ -121,7 +124,7 @@ class Engine:
                  max_layers: int = 3, shadow_layers: int = 4,
                  primary: str = "hybrid", raster_mode: str = "clusters",
                  layered: bool = True, shadow_prepass: bool = False,
-                 device="cuda"):
+                 pipeline_depth: int = 1, device="cuda"):
         """``scene``: a scene.demo_scene.DemoWorld (or anything with its
         fields: geometry, transforms, palettes, lights, player_position,
         movement, and for a simulated world stepper, state, player) on
@@ -130,7 +133,7 @@ class Engine:
         ``primary``, ``layered``, ``shadow_prepass``, ``max_layers`` and
         ``shadow_layers`` go to the RT frame (paths "rt", "raster_pbr"),
         ``raster_mode`` to the raster frame; each keeps the reference's
-        default."""
+        default. ``pipeline_depth``: frames in flight (at least 1)."""
         if path not in PATHS:
             raise ValueError(f"path must be one of {PATHS}, got {path!r}")
         if primary not in RT.PRIMARY_MODES:
@@ -140,6 +143,9 @@ class Engine:
             raise ValueError(f"raster_mode must be one of {RASTER_MODES}, "
                              f"got {raster_mode!r}")
         self.device = resolve_device(device)
+        self.pipeline_depth = max(int(pipeline_depth), 1)
+        self._pending = []      # frames in flight: (u8, snapshot, event)
+        self._snap = None       # the last completed frame's snapshot (7,)
         self.geometry = scene.geometry
         self.lights = scene.lights
         self.transforms = scene.transforms
@@ -147,14 +153,18 @@ class Engine:
         self.player_position = np.asarray(scene.player_position, np.float64)
         self.movement = scene.movement
         self.stepper = getattr(scene, "stepper", None)
-        self.state = getattr(scene, "state", None)
         self.player = getattr(scene, "player", None)
+        self.state, self._sim = None, None
+        if self.stepper is not None:
+            self._sim = SubstepGraph(self.stepper, scene.state, FIXED_DT)
+            self.state = self._sim.state
         self.width, self.height = width, height
         self.path = path
         self.primary = primary
         self.raster_mode = raster_mode
         self.layered, self.shadow_prepass = layered, shadow_prepass
         self.max_layers, self.shadow_layers = max_layers, shadow_layers
+        self.rt_scale = None
         self.set_rt_resolution_scale(rt_resolution_scale)
         self.camera = Camera()
         self.input = InputSystem()
@@ -171,15 +181,48 @@ class Engine:
         self.tone_mapping_exposure = 1.0
         self.intent = None      # the last frame's player MoveIntent
         self.substeps = 0       # substeps of the last frame
-        self._snap = None       # the last frame's player snapshot (7,)
         self._dodge_active = False
+        self.graph = self._render_graph()
 
     def set_rt_resolution_scale(self, scale: float):
         """rtResolutionScale (Renderer.swift:175,232-258): the RT target is
-        (int(width * s), int(height * s)) with s >= 0.25."""
-        self.rt_scale = max(float(scale), 0.25)
-        self.rt_size = (max(int(self.width * self.rt_scale), 1),
-                        max(int(self.height * self.rt_scale), 1))
+        (int(width * s), int(height * s)) with s >= 0.25. A new scale drops
+        the frames in flight and the player snapshot (engine.py:107-114)."""
+        scale = max(float(scale), 0.25)
+        if scale == self.rt_scale:
+            return
+        self.rt_scale = scale
+        self.rt_size = (max(int(self.width * scale), 1),
+                        max(int(self.height * scale), 1))
+        self._pending.clear()
+        self._snap = None
+
+    def _render_graph(self) -> RenderGraph:
+        """The reference's two passes (scene/engine.py:173-196): "rt" (the
+        frame geometry, the RT-target frame, the upscale) and "composite"
+        (where the path has one) into the float view."""
+        graph = RenderGraph()
+
+        def rt_pass(res):
+            fg = flatten_frame(self.geometry, res["transforms"],
+                               res["palettes"])
+            return {"rt_output": self._upscale(self.render_target(
+                fg, res["ivp"], res["vp"], res["cam_pos"]))}
+
+        def composite_pass(res):
+            img = res["rt_output"]
+            if self.path != "raster":
+                img = composite_frame(img, res["exposure"], True)
+            return {"view": img}
+
+        graph.add_pass(RenderPass("rt", rt_pass,
+                                  reads=("transforms", "palettes", "ivp",
+                                         "vp", "cam_pos"),
+                                  writes=("rt_output",)))
+        graph.add_pass(RenderPass("composite", composite_pass,
+                                  reads=("rt_output", "exposure"),
+                                  target="view"))
+        return graph
 
     def _upscale(self, img):
         """RT target -> drawable, bilinear (engine.py:132-141): the
@@ -212,41 +255,74 @@ class Engine:
             self.tone_mapping_exposure = min(
                 max(self.tone_mapping_exposure + delta * dt, 0.1), 2.0)
 
-    def render(self, fg, ivp, vp) -> torch.Tensor:
+    def _begin(self, dt: float, pad: Optional[InputFrame]):
+        """The frame's start, shared by ``frame`` and ``update``: time,
+        input, exposure, the player's intent, the accumulator -> (clamped
+        dt, substeps due, alpha)."""
+        dt = min(max(dt, 0.0), 0.1)  # Renderer.swift:161-163
+        sdt = self._advance_time(dt)
+        walk, run, thresh = self.movement
+        self.intent = self.input.update(pad or InputFrame(), dt,
+                                        self._dodge_active, walk, run, thresh)
+        self._apply_exposure_input(dt)
+        self.accumulator += sdt
+        n = 0
+        while self.accumulator >= FIXED_DT and n < MAX_SUBSTEPS:
+            self.accumulator -= FIXED_DT
+            n += 1
+        if n == MAX_SUBSTEPS and self.accumulator >= FIXED_DT:
+            self.accumulator = 0.0
+        if n and self.stepper is None:
+            raise NotImplementedError(
+                "a render-only world (no stepper) cannot take a substep")
+        if self.stepper is not None:
+            apply_intent(self.state, self.player, self.intent)
+        self.substeps = n
+        return dt, n, min(max(self.accumulator / FIXED_DT, 0.0), 1.0)
+
+    def _step(self, n: int):
+        """``n`` substeps: on the card ``n`` replays of the graph."""
+        for _ in range(n):
+            self._sim.step()
+
+    def _follow(self, snap, alpha: float):
+        """The chase camera onto the player interpolated by ``alpha``
+        between a snapshot's previous and current position; a render-only
+        world's player stands at its fixed position."""
+        if self.stepper is None:
+            player = self.player_position
+        else:
+            player = snap[0:3] + (snap[3:6] - snap[0:3]) * alpha
+        self.input.update_camera(self.camera, player)
+
+    def render_target(self, fg, ivp, vp, cam_pos) -> torch.Tensor:
         """The RT-target-size linear frame of ``self.path`` from the frame
-        geometry ``fg`` and the camera's (inverse) view-projection at the RT
-        size (scene/engine.py:155-169)."""
+        geometry ``fg``, the camera's (inverse) view-projection at the RT
+        size and its position (scene/engine.py:155-169)."""
         rw, rh = self.rt_size
         if self.path == "raster":
             return render_frame_raster(
-                self.geometry, fg, ivp, self.camera.position, rw, rh,
-                view_proj=vp, raster_mode=self.raster_mode)
+                self.geometry, fg, ivp, cam_pos, rw, rh, view_proj=vp,
+                raster_mode=self.raster_mode)
         bounce = self.path == "rt"
         return RT.render_frame(
-            self.geometry, fg, self.ibl, self.lights, ivp,
-            self.camera.position, rw, rh, max_layers=self.max_layers,
-            shadow_layers=self.shadow_layers, view_proj=vp,
-            enable_mirror=bounce, enable_refraction=bounce,
+            self.geometry, fg, self.ibl, self.lights, ivp, cam_pos, rw, rh,
+            max_layers=self.max_layers, shadow_layers=self.shadow_layers,
+            view_proj=vp, enable_mirror=bounce, enable_refraction=bounce,
             primary=self.primary, layered=self.layered,
             shadow_prepass=self.shadow_prepass)
 
-    def present(self, img) -> torch.Tensor:
-        """RT-target frame -> drawable-size u8: the upscale, the composite
-        where the path has one (not "raster", which tone-maps per
-        material), u8 quantisation (scene/engine.py:226-238)."""
-        img = self._upscale(img)
-        if self.path != "raster":
-            img = composite_frame(img, self.tone_mapping_exposure, True)
-        return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
-
-    def _player_snapshot(self) -> np.ndarray:
+    def _snapshot_device(self) -> torch.Tensor:
         """The player's previous and current world position and its dodge
-        flag (7 floats), read to the host."""
+        flag (7 floats) on the device."""
         st, e = self.state, self.player
         prev = chunk_local_to_world(st.wp_prev_chunk[e], st.wp_prev_local[e])
         curr = chunk_local_to_world(st.wp_chunk[e], st.wp_local[e])
-        return torch.cat([prev, curr, st.dodge.active[e, None].float()]) \
-            .cpu().numpy()
+        return torch.cat([prev, curr, st.dodge.active[e, None].float()])
+
+    def _player_snapshot(self) -> np.ndarray:
+        """The current player snapshot, read to the host."""
+        return self._snapshot_device().cpu().numpy()
 
     def extract(self, alpha: float):
         """Camera-relative instance transforms and the palettes of the
@@ -263,61 +339,75 @@ class Engine:
                          time=self.time)
 
     def load_state(self, path: str):
-        self.state, data = load_world_state(path, self.state)
+        """Restore a checkpoint into the Engine's buffers; drops the frames
+        in flight and the player snapshot."""
+        state, data = load_world_state(path, self.state)
+        copy_state(self.state, state)
         self.accumulator = float(data["accumulator"])
         self.time = float(data["time"])
+        self._pending.clear()
         self._snap = None
+
+    def update(self, dt: float, pad: Optional[InputFrame] = None) -> float:
+        """Simulation update (scene/engine.py:324-358): time, input, the
+        fixed substeps, then the chase camera from the current player
+        snapshot (one 7-float read) -> alpha."""
+        _, n, alpha = self._begin(dt, pad)
+        self._step(n)
+        snap = None
+        if self.stepper is not None:
+            snap = self._player_snapshot()
+            self._dodge_active = bool(snap[6] > 0.5)
+        self._follow(snap, alpha)
+        return alpha
+
+    def render(self, alpha: float) -> torch.Tensor:
+        """Render extraction + the render graph (scene/engine.py:360-370)
+        -> the (H, W, 3) float view on the engine's device."""
+        transforms, palettes = self.extract(alpha)
+        rw, rh = self.rt_size
+        dev = self.device
+        res = self.graph.execute(dict(
+            transforms=transforms, palettes=palettes,
+            ivp=torch.as_tensor(self.camera.inv_view_proj(rw, rh), device=dev),
+            vp=torch.as_tensor(self.camera.view_proj(rw, rh), device=dev),
+            cam_pos=self.camera.position,
+            exposure=self.tone_mapping_exposure))
+        return res["view"]
 
     def frame(self, dt: float, pad: Optional[InputFrame] = None,
               with_overlay: bool = True) -> torch.Tensor:
-        """One frame -> (H, W, 3) uint8 tensor on the engine's device."""
-        dt = min(max(dt, 0.0), 0.1)  # Renderer.swift:161-163
-        sdt = self._advance_time(dt)
-        walk, run, thresh = self.movement
-        self.intent = self.input.update(pad or InputFrame(), dt,
-                                        self._dodge_active, walk, run, thresh)
-        self._apply_exposure_input(dt)
-
-        self.accumulator += sdt
-        n = 0
-        while self.accumulator >= FIXED_DT and n < MAX_SUBSTEPS:
-            self.accumulator -= FIXED_DT
-            n += 1
-        if n == MAX_SUBSTEPS and self.accumulator >= FIXED_DT:
-            self.accumulator = 0.0
-        if n and self.stepper is None:
-            raise NotImplementedError(
-                "a render-only world (no stepper) cannot take a substep")
-        alpha = min(max(self.accumulator / FIXED_DT, 0.0), 1.0)
-        self.substeps = n
-
-        # Chase camera from the previous frame's player snapshot (the
-        # reference's one-frame lag); a render-only world's player stands
-        # at its fixed position.
-        if self.stepper is None:
-            player = self.player_position
-        else:
-            if self._snap is None:
-                self._snap = self._player_snapshot()
-            snap = self._snap
-            player = snap[0:3] + (snap[3:6] - snap[0:3]) * alpha
-        self.input.update_camera(self.camera, player)
-        rw, rh = self.rt_size
-        ivp = self.camera.inv_view_proj(rw, rh)
-        vp = self.camera.view_proj(rw, rh)
-        fps = self.overlay.update(dt) if with_overlay else -1
-
-        if self.stepper is not None:
-            self.state = apply_intent(self.state, self.player, self.intent)
-            for _ in range(n):
-                self.state = self.stepper.substep(self.state, FIXED_DT)
-        transforms, palettes = self.extract(alpha)
-        fg = flatten_frame(self.geometry, transforms, palettes)
-        dev = self.device
-        u8 = self.present(self.render(fg, torch.as_tensor(ivp, device=dev),
-                                      torch.as_tensor(vp, device=dev)))
-        u8 = overlay_blit_device(u8, fps)
-        if self.stepper is not None:
+        """One frame -> (H, W, 3) uint8 tensor on the engine's device: the
+        oldest frame in flight once ``pipeline_depth`` are queued, zeros
+        before."""
+        dt, n, alpha = self._begin(dt, pad)
+        # Chase camera from the last completed frame's player snapshot (the
+        # reference's one-frame lag at depth 1).
+        if self.stepper is not None and self._snap is None:
             self._snap = self._player_snapshot()
+        self._follow(self._snap, alpha)
+        fps = self.overlay.update(dt) if with_overlay else -1
+        self._step(n)
+        view = self.render(alpha)
+        u8 = (torch.clamp(view, 0.0, 1.0) * 255.0).to(torch.uint8)
+        u8 = overlay_blit_device(u8, fps)
+        snap = event = None
+        if self.stepper is not None:
+            snap = self._snapshot_device()
+            if snap.is_cuda:
+                host = torch.empty(snap.shape, dtype=snap.dtype,
+                                   pin_memory=True)
+                host.copy_(snap, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                snap = host
+        self._pending.append((u8, snap, event))
+        if len(self._pending) < self.pipeline_depth:
+            return torch.zeros_like(u8)
+        u8, snap, event = self._pending.pop(0)
+        if snap is not None:
+            if event is not None:
+                event.synchronize()
+            self._snap = snap.numpy()
             self._dodge_active = bool(self._snap[6] > 0.5)
         return u8

@@ -17,11 +17,16 @@ raises, and without them the reference's substep skips those systems too
 whose agents carry no motion profile.
 
 A substep reads nothing back to the host: every branch is a
-``torch.where`` and every loop runs its fixed count, so it can be
-captured in a CUDA graph later.
+``torch.where`` and every loop runs its fixed count. ``SubstepGraph``
+captures one substep on the card as a CUDA graph over world-state buffers
+it owns (the port of the reference's ``fori_loop`` over ``_substep_impl``
+inside its one-dispatch frame, scene/engine.py:220-223): one ``replay()``
+issues the substep's ~31,000 kernels with one launch from the host.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -29,7 +34,8 @@ import torch
 from .. import math3d as m3
 from ..ecs.world import (BODY_DYNAMIC, BODY_KINEMATIC, BODY_STATIC,
                          CHUNK_SIZE, SceneSpec, WorldState, canonicalize,
-                         chunk_local_to_world, world_to_chunk_local)
+                         chunk_local_to_world, clone_state, copy_state,
+                         world_to_chunk_local)
 from ..math3d import trs_matrices, where_rows as _w
 from ..physics import systems as S
 from ..physics.character import CharacterPipeline, PlatformSet
@@ -270,3 +276,65 @@ class Stepper:
         pos = _w(alive, pos, torch.full_like(pos, 1.0e7))
         scale = _w(alive, scale, torch.zeros_like(scale))
         return trs_matrices(pos, rot, scale), state.palettes
+
+
+class SubstepGraph:
+    """One fixed substep of ``stepper`` over world-state buffers this object
+    owns: ``state`` holds one fixed tensor per WorldState leaf, cloned from
+    the state it is given, and ``step()`` advances them in place by one
+    substep of ``dt``.
+
+    On the card ``step()`` replays a CUDA graph: ``Stepper._substep_impl``
+    is captured once, after ``WARMUP`` eager runs on a side stream (which
+    write nothing back), and the capture ends by copying each leaf of the
+    substep's result into its buffer. Everything the substep varies is read
+    from the buffers on the device (the player's chunk, the intents); ``dt``
+    and the scene's configuration are the only values the capture bakes
+    in. A capture that fails raises. For CPU tensors ``step()`` runs the
+    eager substep and copies its result into the same buffers.
+
+    ``capture_seconds`` and ``pool_bytes`` (the memory the graph's private
+    pool reserved) describe the capture; both are 0 on the CPU.
+    """
+
+    WARMUP = 3
+
+    def __init__(self, stepper: Stepper, state: WorldState, dt: float):
+        self.stepper, self.dt = stepper, float(dt)
+        self.state = clone_state(state)
+        self.graph = None
+        self.capture_seconds, self.pool_bytes = 0.0, 0
+        if self.state.alive.is_cuda:
+            self._capture()
+
+    def _advance(self):
+        copy_state(self.state,
+                   self.stepper._substep_impl(self.state, self.dt))
+
+    def _capture(self):
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                self.stepper._substep_impl(self.state, self.dt)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        # the capture empties the allocator's cache first: empty it here so
+        # that the reserved memory's growth is the graph's pool alone
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._advance()
+        torch.cuda.synchronize()
+        self.graph = graph
+        self.pool_bytes = torch.cuda.memory_reserved() - reserved
+        self.capture_seconds = time.perf_counter() - t0
+
+    def step(self):
+        """Advance ``state`` in place by one substep."""
+        if self.graph is None:
+            self._advance()
+        else:
+            self.graph.replay()

@@ -2,10 +2,11 @@
 (``pipeline_depth=1``) on the CPU.
 
 One small world (test_world_step.py's ground, player and elevator, with
-render meshes for each) is built by the reference and carried across
-with ``interop``. Both Engines take three 1/60 s frames of
-``InputFrame(ly=1.0)`` at 64x36: one substep each, the chase camera from
-the previous frame's player snapshot, extraction, render, composite. The
+render meshes for each: ``torch_sim_worlds.engine_scenes``) is built by
+the reference and carried across with ``interop``. Both Engines take
+three 1/60 s frames of ``InputFrame(ly=1.0)`` at 64x36: one substep each,
+the chase camera from the previous frame's player snapshot, extraction,
+render, composite. The
 reference renders with its CPU test configuration (traced visibility,
 tests/conftest.py sets SGE_JAX_TRAVERSAL=1), the port with hybrid raster
 visibility; they differ by design at sub-pixel triangle edges, so the u8
@@ -19,16 +20,9 @@ import sys
 
 import numpy as np
 import pytest
-import jax.numpy as jnp
 
-from swift_game_engine_tpu.assets import procedural_meshes as pm
-from swift_game_engine_tpu.assets.materials import Material
-from swift_game_engine_tpu.render import rt as j_rt
-from swift_game_engine_tpu.render import scene_geometry as j_sg
 from swift_game_engine_tpu.scene.engine import Engine as JEngine
 from swift_game_engine_tpu.scene.input import InputFrame as JInput
-from swift_game_engine_tpu_torch import interop
-from swift_game_engine_tpu_torch.scene.demo_scene import DemoWorld
 from swift_game_engine_tpu_torch.scene.engine import Engine
 from swift_game_engine_tpu_torch.scene.input import InputFrame
 
@@ -39,43 +33,8 @@ W_, H_ = 64, 36
 LAYERS, SHADOW_LAYERS = 2, 1
 
 
-def _scenes():
-    jspec, jstate, jstep, h, local = W.jax_world(W.tiny)
-    b = j_sg.RenderGeometryBuilder(texture_size=8)
-    b.add_static_mesh(pm.plane(80.0), Material(
-        name="ground", base_color_factor=(0.5, 0.5, 0.5)), instance=0)
-    b.add_static_mesh(pm.capsule(1.5, 1.0), Material(
-        name="player", base_color_factor=(0.2, 0.4, 0.9)),
-        instance=h["player"])
-    b.add_static_mesh(pm.box(4.0), Material(
-        name="platform", base_color_factor=(0.8, 0.6, 0.2)),
-        instance=h["platform"])
-    geo = b.build()
-    lights = j_rt.DirectionalLights(
-        direction=jnp.array([[0.6, -0.7, -0.1], [-0.3, -0.6, 0.6]]),
-        intensity=jnp.array([2.0, 0.4]),
-        color=jnp.array([[1.0, 0.86, 0.68], [0.95, 0.85, 0.75]]),
-        enabled=jnp.array([True, True]),
-        max_distance=jnp.array([450.0, 300.0]))
-    jscene = dict(spec=jspec, state=jstate, stepper=jstep, geometry=geo,
-                  lights=lights, player=h["player"])
-    pstep = W.port_stepper(jspec, local)
-    pstate = interop.world_state(jstate, device="cpu")
-    tf, pal = pstep.extract(pstate, 1.0, np.zeros(3, np.float32))
-    mv = jspec.movement
-    p = h["player"]
-    world = DemoWorld(
-        geometry=interop.scene_geometry(geo, device="cpu"), transforms=tf,
-        palettes=pal, lights=interop.lights(lights, device="cpu"),
-        player_position=np.asarray(jstate.body_pos[p], np.float64),
-        movement=(float(mv["walk_speed"][p]), float(mv["run_speed"][p]),
-                  float(mv["run_threshold"][p])),
-        spec=pstep.spec, state=pstate, stepper=pstep, player=p)
-    return jscene, world
-
-
 def test_stepping_engine_frames_match_reference():
-    jscene, world = _scenes()
+    jscene, world = W.engine_scenes()
     jeng = JEngine(jscene, W_, H_, path="rt", max_layers=LAYERS,
                    shadow_layers=SHADOW_LAYERS, pipeline_depth=1)
     peng = Engine(world, W_, H_, path="rt", max_layers=LAYERS,

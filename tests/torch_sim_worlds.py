@@ -15,14 +15,15 @@ DT = 1.0 / 60.0
 STATIC, KINEMATIC, DYNAMIC = 0, 1, 2
 
 
-def _plane(size):
-    from swift_game_engine_tpu.assets import procedural_meshes as pm
-    return pm.plane(size)
-
-
-def _box(size):
-    from swift_game_engine_tpu.assets import procedural_meshes as pm
-    return pm.box(size)
+def _pm(cb):
+    """The procedural meshes of the package whose builder ``cb`` is (the
+    port's copy has the same geometry), so that a port world imports
+    nothing of the JAX package."""
+    if type(cb).__module__.startswith("swift_game_engine_tpu_torch"):
+        from swift_game_engine_tpu_torch.assets import procedural_meshes
+    else:
+        from swift_game_engine_tpu.assets import procedural_meshes
+    return procedural_meshes
 
 
 def _static(wb, cb, name, pos, mesh, mu=(0.8, 0.6), **kw):
@@ -52,7 +53,7 @@ def _agent(wb, name, pos, mass=1.0, intent=False, player=False, **ctrl):
 
 
 def _platform(wb, cb, name, pos, axis, amp, speed, phase=0.0):
-    box = _box(4.0)
+    box = _pm(cb).box(4.0)
     scale = np.array([1.5, 0.2, 1.5], np.float32)
     e = wb.create_entity(name)
     wb.add(e, "transform", translation=pos, scale=scale)
@@ -68,7 +69,7 @@ def _platform(wb, cb, name, pos, axis, amp, speed, phase=0.0):
 def tiny(wb, cb):
     """tests/test_world_step.py's ``tiny`` world: ground, a falling player,
     an elevator platform. -> {"player", "platform"}"""
-    _static(wb, cb, "ground", [0, -3, 0], _plane(80.0), mu=(0.9, 0.8))
+    _static(wb, cb, "ground", [0, -3, 0], _pm(cb).plane(80.0), mu=(0.9, 0.8))
     player = _agent(wb, "player", [0.0, 2.0, 0.0], mass=3.0, intent=True,
                     player=True)
     plat = _platform(wb, cb, "platform", [16, -1, 0], [0, 1, 0], 2.0, 1.1)
@@ -85,10 +86,9 @@ def multi(wb, cb):
     and which one wins is then decided by f32 rounding (the reference's
     fused multiply-adds tilt its ground normal by ~6e-7). -> entity
     indices by role"""
-    _static(wb, cb, "ground", [0, -3, 0], _plane(80.0), mu=(0.9, 0.8))
-    _static(wb, cb, "wall", [6, 0, 0], _box(6.0))
-    from swift_game_engine_tpu.assets import procedural_meshes as pm
-    _static(wb, cb, "ramp", [-8, -1, 6], pm.ramp(8.0, 10.0, 4.0),
+    _static(wb, cb, "ground", [0, -3, 0], _pm(cb).plane(80.0), mu=(0.9, 0.8))
+    _static(wb, cb, "wall", [6, 0, 0], _pm(cb).box(6.0))
+    _static(wb, cb, "ramp", [-8, -1, 6], _pm(cb).ramp(8.0, 10.0, 4.0),
             mu=(0.35, 0.25), flatten=True)
     player = _agent(wb, "player", [-2.0, 0.3, 0.1], mass=3.0, intent=True,
                     player=True)
@@ -125,12 +125,12 @@ def crowd(wb, cb, n_agents=72, seed=11):
     at one depth; the reference's own jitted and op-by-op runs of one
     such substep part by 0.03."""
     rng = np.random.default_rng(seed)
-    _static(wb, cb, "ground", [0, -3, 0], _plane(400.0), mu=(0.9, 0.8))
+    _static(wb, cb, "ground", [0, -3, 0], _pm(cb).plane(400.0), mu=(0.9, 0.8))
     boxes = []
     for i in range(4):
         c = [float(rng.uniform(-15, 15)), -1.0, float(rng.uniform(-15, 15))]
         boxes.append(c)
-        _static(wb, cb, f"obstacle_{i}", c, _box(4.0))
+        _static(wb, cb, f"obstacle_{i}", c, _pm(cb).box(4.0))
     player = _agent(wb, "player", [0.0, 0.0, 0.0], mass=3.0, intent=True,
                     player=True)
     i = 0
@@ -154,8 +154,8 @@ def chunk_edge(wb, cb):
     """The player 1.5 units short of the chunk border x = 256 walking +x
     over a ground that spans it; a static box four chunks away (outside
     the active radius). -> {"player", "far"}"""
-    _static(wb, cb, "ground", [256, -3, 0], _plane(60.0), mu=(0.9, 0.8))
-    far = _static(wb, cb, "far_box", [256 + 4 * 512, 0, 0], _box(4.0))
+    _static(wb, cb, "ground", [256, -3, 0], _pm(cb).plane(60.0), mu=(0.9, 0.8))
+    far = _static(wb, cb, "far_box", [256 + 4 * 512, 0, 0], _pm(cb).box(4.0))
     player = _agent(wb, "player", [254.5, 0.2, 0.1], mass=3.0, intent=True,
                     player=True)
     return dict(player=player, far=far)
@@ -180,6 +180,97 @@ def port_stepper(jspec, jlocal):
     from swift_game_engine_tpu_torch.scene.step import Stepper
     return Stepper(interop.scene_spec(jspec, device="cpu"),
                    interop.local_triangles(jlocal, device="cpu"))
+
+
+def port_world(recipe, device="cpu", **kw):
+    """-> (spec, state, Stepper, handles) built by the port's own builders
+    (no module of the JAX package)."""
+    from swift_game_engine_tpu_torch.ecs.world import WorldBuilder
+    from swift_game_engine_tpu_torch.physics.collision_world import \
+        CollisionWorldBuilder
+    from swift_game_engine_tpu_torch.scene.step import Stepper
+    wb, cb = WorldBuilder(), CollisionWorldBuilder()
+    handles = recipe(wb, cb, **kw)
+    spec, state = wb.build(device)
+    return spec, state, Stepper(spec, cb.build(device=device)), handles
+
+
+# The tiny world's render meshes (instance by role), materials and lights.
+RENDER_MESHES = (("ground", "plane", (80.0,), (0.5, 0.5, 0.5)),
+                 ("player", "capsule", (1.5, 1.0), (0.2, 0.4, 0.9)),
+                 ("platform", "box", (4.0,), (0.8, 0.6, 0.2)))
+LIGHTS = dict(direction=[[0.6, -0.7, -0.1], [-0.3, -0.6, 0.6]],
+              intensity=[2.0, 0.4],
+              color=[[1.0, 0.86, 0.68], [0.95, 0.85, 0.75]],
+              enabled=[True, True], max_distance=[450.0, 300.0])
+
+
+def _render_geometry(builder, pm, material, handles):
+    b = builder(texture_size=8)
+    for role, mesh, args, rgb in RENDER_MESHES:
+        b.add_static_mesh(getattr(pm, mesh)(*args),
+                          material(name=role, base_color_factor=rgb),
+                          instance=handles.get(role, 0))
+    return b
+
+
+def _demo_world(geometry, lights, spec, state, stepper, player):
+    from swift_game_engine_tpu_torch.scene.demo_scene import DemoWorld
+    tf, pal = stepper.extract(state, 1.0, np.zeros(3, np.float32))
+    mv = spec.movement
+    return DemoWorld(
+        geometry=geometry, transforms=tf, palettes=pal, lights=lights,
+        player_position=state.body_pos[player].cpu().numpy().astype(
+            np.float64),
+        movement=(float(mv["walk_speed"][player]),
+                  float(mv["run_speed"][player]),
+                  float(mv["run_threshold"][player])),
+        spec=spec, state=state, stepper=stepper, player=player)
+
+
+def engine_scenes():
+    """The tiny world with render meshes (a ground plane, the player's
+    capsule, the platform's box) for the Engine tests: the JAX Engine's
+    scene dict, built by the reference, and the port's DemoWorld carried
+    across with ``interop`` (CPU)."""
+    import jax.numpy as jnp
+    from swift_game_engine_tpu.assets import procedural_meshes as pm
+    from swift_game_engine_tpu.assets.materials import Material
+    from swift_game_engine_tpu.render import rt as j_rt
+    from swift_game_engine_tpu.render import scene_geometry as j_sg
+    from swift_game_engine_tpu_torch import interop
+    jspec, jstate, jstep, h, local = jax_world(tiny)
+    h = dict(h, ground=0)
+    geo = _render_geometry(j_sg.RenderGeometryBuilder, pm, Material,
+                           h).build()
+    lights = j_rt.DirectionalLights(**{k: jnp.array(v)
+                                       for k, v in LIGHTS.items()})
+    jscene = dict(spec=jspec, state=jstate, stepper=jstep, geometry=geo,
+                  lights=lights, player=h["player"])
+    pstep = port_stepper(jspec, local)
+    world = _demo_world(interop.scene_geometry(geo, device="cpu"),
+                        interop.lights(lights, device="cpu"), pstep.spec,
+                        interop.world_state(jstate, device="cpu"), pstep,
+                        h["player"])
+    return jscene, world
+
+
+def port_engine_world(device):
+    """The tiny world with the render meshes of ``engine_scenes``, built by
+    the port alone on ``device`` -> DemoWorld."""
+    import torch
+    from swift_game_engine_tpu_torch.assets import procedural_meshes as pm
+    from swift_game_engine_tpu_torch.assets.materials import Material
+    from swift_game_engine_tpu_torch.render.rt import DirectionalLights
+    from swift_game_engine_tpu_torch.render.scene_geometry import \
+        RenderGeometryBuilder
+    spec, state, stepper, h = port_world(tiny, device)
+    h = dict(h, ground=0)
+    geo = _render_geometry(RenderGeometryBuilder, pm, Material, h).build(
+        device)
+    lights = DirectionalLights(**{k: torch.tensor(v, device=device)
+                                  for k, v in LIGHTS.items()})
+    return _demo_world(geo, lights, spec, state, stepper, h["player"])
 
 
 def set_player_intent(state, e, vel, yaw=None, jump=False):
