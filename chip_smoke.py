@@ -11,9 +11,16 @@ frames at 960x540 (the RT paths with ``max_layers=3``). Every frame is
 the bench headline's ``eng.frame(1/60, InputFrame(ly=1.0))``: the
 DemoScene world steps (one fixed substep a frame, one replay of the
 Engine's CUDA graph of the substep: the player falls and walks, the NPCs
-and platforms move), and each path checks that its Engine captured the
-graph, that every timed frame took its substep and that the player moved
-and stayed above the ground:
+and platforms move), then one replay of the Engine's frame graph
+(extraction, flatten, render, composite, u8, overlay, snapshot: captured
+once per RT size), and each path checks that its Engine captured both
+graphs, that every timed frame took its substep and that the player moved
+and stayed above the ground; then three more frames, with the camera
+turning and the exposure and the fps digits changing, each of whose
+replays must equal the frame program run eagerly on the card at the same
+inputs bit for bit (image and snapshot), and one whole frame under
+``torch.cuda.set_sync_debug_mode("error")``: no host read from the
+intent to the snapshot's copy:
 
   1. ``demo_rt_960x540``: the full DemoScene (``import_tri_budget=0``,
      181,340 triangles), ``Engine(path="rt")`` with the default hybrid
@@ -40,9 +47,13 @@ and stayed above the ground:
      bounces, no K1/K2/K3/K5/K7.
 
 Each path's kernel launch counts are zeroed just before its timed frames
-and read just after. Path 1 also runs at ``pipeline_depth=3`` (2 + 10
-frames on a new Engine): its first two frames are zero, the rest are not
-constant, and its frame median is printed beside depth 1's. Then the
+and read just after (a replay adds the launches its capture recorded:
+``scene/cuda_graph.py``); the capture seconds and the pool of every
+(path, RT size) graph are printed. Path 1 also runs at
+``pipeline_depth=3`` (2 + 10 frames on a new Engine): its first two
+frames are zero, the rest are not constant, its frame median is printed
+beside depth 1's, and four more calls each return the frame of two calls
+before, equal to the eager card frame of that call's inputs. Then the
 simulation on its own (``simulation_phase``; it runs no kernel of the
 port, only PyTorch's):
 
@@ -619,22 +630,74 @@ def main():
     from swift_game_engine_tpu_torch.scene.engine import Engine
     from swift_game_engine_tpu_torch.scene.input import InputFrame
 
+    def shade_calls_of(eng):
+        """The RT shade calls of one frame: the frame program run eagerly
+        (a replay calls no Python)."""
+        calls, shade_hit = [0], RT._shade_hit
+
+        def counted(*a, **k):
+            calls[0] += 1
+            return shade_hit(*a, **k)
+        RT._shade_hit = counted
+        try:
+            eng.program().eager()
+        finally:
+            RT._shade_hit = shade_hit
+        return calls[0]
+
+    def same_bits(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+    def check_graph(name, eng, frames=3):
+        """Frames through the graph against the frame program run eagerly
+        on the card at the same inputs, bit for bit (image and snapshot),
+        with the camera turning, the exposure and the fps digits changing
+        between replays; then one whole frame under
+        ``torch.cuda.set_sync_debug_mode("error")``."""
+        for i in range(frames):
+            pad = InputFrame(ly=1.0, rx=0.7 - 0.5 * i,
+                             exposure_delta=(1.0, -1.0, 0.5)[i % 3])
+            img = eng.frame((1 / 60, 1 / 24, 1 / 144)[i % 3], pad)
+            u8_g, snap_g = eng.program().out
+            u8_e, snap_e = eng.program().eager()
+            if not (same_bits(img, u8_g) and same_bits(u8_g, u8_e) and
+                    same_bits(snap_g, snap_e)):
+                u8_e2, _ = eng.program().eager()
+                apart = int((u8_e2 != u8_e).any(-1).sum())
+                _fail(f"{name}: the frame graph's replay differs from the "
+                      f"eager card frame at the same inputs ("
+                      f"{int((u8_g != u8_e).any(-1).sum())} pixels; two eager "
+                      f"frames differ in {apart})")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.frame(1 / 60, InputFrame(ly=1.0, rx=0.3))
+        except RuntimeError as err:
+            import traceback
+            _fail(f"{name}: a frame synchronised with the host: {err}\n"
+                  f"{traceback.format_exc()}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        x = eng.frame_inputs()
+        print(f"  frame graph: {frames} replays equal the eager card frames "
+              f"bit for bit (exposure {float(x['exposure']):.4f}, fps "
+              f"{int(x['fps'])} at the last), and a frame under "
+              f"set_sync_debug_mode('error') reads nothing back")
+
     def run_path(name, eng, cap):
         """2 warm-up frames (inputs captured), then the timed frames with
-        the launch counts and the RT shade calls zeroed just before and
-        read just after. Every frame is the bench headline's
-        ``eng.frame(1/60, InputFrame(ly=1.0))``: one substep, the player
-        walking; its snapshot is kept per timed frame."""
+        the launch counts zeroed just before and read just after. Every
+        frame is the bench headline's ``eng.frame(1/60,
+        InputFrame(ly=1.0))``: one substep (a replay), the player walking,
+        and one replay of the frame graph; its snapshot is kept per timed
+        frame. Then the frame graph against eager card frames
+        (``check_graph``)."""
         pad = InputFrame(ly=1.0)
         for _ in range(WARMUP):
             img = eng.frame(1 / 60, pad)
         cap.off()
-        shade_calls, shade_hit = [0], RT._shade_hit
-
-        def counted(*a, **k):
-            shade_calls[0] += 1
-            return shade_hit(*a, **k)
-        RT._shade_hit = counted
         zero_counts()
         times, snaps = [], []
         for _ in range(TIMED):
@@ -644,18 +707,23 @@ def main():
             times.append((time.perf_counter() - t0) * 1e3)
             snaps.append(eng._snap.copy())
         counts = read_counts()
-        counts["shade_calls"] = shade_calls[0]
-        RT._shade_hit = shade_hit
+        counts["shade_calls"] = TIMED * shade_calls_of(eng)
         medians[name] = float(np.median(times))
+        prog = eng.program()
         print(f"path {name}: frame median {np.median(times):.2f} ms, p90 "
               f"{np.percentile(times, 90):.2f} ms over {TIMED} frames (min "
               f"{min(times):.2f}, max {max(times):.2f}); RT target "
               f"{eng.rt_size[0]}x{eng.rt_size[1]}; substep graph captured "
               f"in {eng._sim.capture_seconds:.3f} s "
-              f"({eng._sim.pool_bytes / 2**20:.1f} MiB pool)")
+              f"({eng._sim.pool_bytes / 2**20:.1f} MiB pool); frame graph "
+              f"captured in {prog.capture_seconds:.3f} s "
+              f"({prog.pool_bytes / 2**20:.1f} MiB pool)")
         print(f"  launches in {TIMED} frames: {counts}")
-        if eng._sim.graph is None:
-            _fail(f"{name}: the Engine's substep is not a CUDA graph")
+        captures.append((name, eng.rt_size, prog.capture_seconds,
+                         prog.pool_bytes))
+        if eng._sim.graph is None or prog.captured is None:
+            _fail(f"{name}: the Engine's substep or frame is not a CUDA "
+                  f"graph")
         if tuple(img.shape) != (H, W, 3) or img.dtype != torch.uint8:
             _fail(f"{name}: frame has shape {tuple(img.shape)} {img.dtype}")
         f = img.float()
@@ -663,6 +731,7 @@ def main():
             _fail(f"{name}: frame is not finite or is constant")
         print(f"  frame mean {float(f.mean()):.4f}, std {float(f.std()):.4f}")
         check_player(name, eng, np.array(snaps))
+        check_graph(name, eng)
         return counts
 
     def run_pipelined(name, scene, depth):
@@ -687,6 +756,18 @@ def main():
             stds.append(float(img.float().std()))
             snaps.append(eng._snap.copy())
         ms = times[WARMUP:]
+        # the ring returns the frames in order: each call returns the
+        # frame submitted depth - 1 calls before, which equals the eager
+        # card frame of that call's inputs
+        eager = []
+        for i in range(depth + 2):
+            img = eng.frame(1 / 60, InputFrame(ly=1.0, rx=0.5))
+            eager.append(eng.program().eager()[0])
+            if i >= depth - 1 and not same_bits(img, eager[i - depth + 1]):
+                _fail(f"{name} at depth {depth}: call {i} did not return the "
+                      f"frame of call {i - depth + 1}")
+        print(f"  at depth {depth}: {depth + 2 - (depth - 1)} frames returned "
+              f"in order, each equal to the eager card frame of its inputs")
         print(f"path {name} at pipeline_depth={depth}: frame median "
               f"{np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms "
               f"over {TIMED} frames (depth 1: {medians[name]:.2f} ms); "
@@ -753,7 +834,7 @@ def main():
             PATHS[4]: ("K9", "K9/peel"),
             PATHS[5]: ("K4", "K6", "K6/floor", "K8")}
     caps, counts, scenes, engines, overflow = {}, {}, {}, {}, []
-    medians = {}
+    medians, captures = {}, []
     t0 = time.perf_counter()
     for name, scene, eng in path_engines(dev):
         if all(scene is not s for s in scenes.values()):
@@ -772,7 +853,9 @@ def main():
 
             def peel(*a, **k):
                 hits = orig(*a, **k)
-                overflow.append(int(hits.overflow))
+                # read in the eager warm-up runs; the capture reads nothing
+                if not torch.cuda.is_current_stream_capturing():
+                    overflow.append(int(hits.overflow))
                 return hits
             cap._orig.append((RA, "rasterize", orig))
             RA.rasterize = peel
@@ -783,8 +866,12 @@ def main():
         if name == PATHS[0]:
             run_pipelined(name, scene, 3)
         t0 = time.perf_counter()
-    print(f"  path 5: overflowed tiles per peel (warm-up frames): "
+    print(f"  path 5: overflowed tiles per peel (the capture's eager warm-up "
+          f"frames): "
           f"{overflow}")
+    for name, size, secs, pool in captures:
+        print(f"frame graph capture, {name} at {size[0]}x{size[1]}: "
+              f"{secs:.3f} s, pool {pool / 2**20:.1f} MiB")
     c1, c2, c3, c4, c5, c6 = (counts[p] for p in PATHS)
 
     def only(c, *keys):
@@ -807,10 +894,10 @@ def main():
            c4["K1/layers=2"] == TIMED and only(c4, "K1/layers=2"))
     expect("path 5", c5, "K9 twice a frame, nothing else",
            c5["K9"] == 2 * TIMED and only(c5, "K9"))
-    expect("path 6", c6, "K6 >= once a frame, K8 once per shade call, "
-           "K4 > 0, nothing else",
-           c6["K6"] >= TIMED and c6["K8"] == c6["shade_calls"] > 0 and
-           c6["K4"] > 0 and only(c6, "K4", "K6", "K8"))
+    expect("path 6", c6, "K6 max_layers times a frame, K8 once per shade "
+           "call, K4 > 0, nothing else",
+           c6["K6"] == LAYERS * TIMED and c6["K8"] == c6["shade_calls"] > 0
+           and c6["K4"] > 0 and only(c6, "K4", "K6", "K8"))
 
     # -- 2b. the fixed-step simulation on the card ---------------------------
     simulation_phase(dev, scenes[PATHS[1]])
@@ -992,15 +1079,20 @@ def main():
                               * SWEEP_OPS))
 
     def check_k4(args, c, tag):
-        (tree, rows, o, d, t_max), _ = args["K4"]
-        t_k, tri_k = RK.trace_rays(tree, rows, o, d, t_max)
+        """The frame's first call: a compacted batch, its live lanes'
+        count on the device (K4 walks the lanes below it)."""
+        (tree, rows, o, d, t_max, *rest), _ = args["K4"]
+        count = rest[0] if rest else None
+        live = o.shape[0] if count is None else int(count)
+        t_k, tri_k = RK.trace_rays(tree, rows, o, d, t_max, count)
         (t_p, tri_p), plain_ms = _timed(lambda: RK.trace_rays_plain(
-            tree, rows, o, d, t_max))
-        err = _compare(f"K4 ({o.shape[0]} rays, {rows.shape[0]} rows, "
-                       f"{tree.nodes.shape[0]} wide nodes)", tri_k, tri_p,
-                       [t_k], [t_p])
+            tree, rows, o, d, t_max, count))
+        err = _compare(f"K4 ({live} live of {o.shape[0]} rays, "
+                       f"{rows.shape[0]} rows, {tree.nodes.shape[0]} wide "
+                       f"nodes)", tri_k, tri_p, [t_k], [t_p])
         # the work of the frame's call, from the counting instantiation
-        t_c, tri_c, cnt = RK.trace_rays_counts(tree, rows, o, d, t_max)
+        t_c, tri_c, cnt = RK.trace_rays_counts(tree, rows, o, d, t_max,
+                                               count)
         if not (torch.equal(tri_c, tri_k) and torch.equal(t_c, t_k)):
             _fail("K4's counting instantiation differs from the kernel")
         threads = RK.walk_threads("K4")
@@ -1010,11 +1102,14 @@ def main():
         # tests; records: one triangle test per ray with a hit
         ops = int(cnt["boxes"].sum()) * SLAB_OPS + \
             int(cnt["slots"].sum()) * MT_OPS
-        ins, outs = [tree.nodes, rows, o, d, t_max], [t_k, tri_k]
+        # the lanes past the count read only their t_max
+        ins = [tree.nodes, rows, o[:live], d[:live], t_max]
+        outs = [t_k, tri_k]
         report("trace_closest" + tag, "swift_game_engine_tpu_torch/csrc/"
                "bvh_trace.cu", "swift_game_engine_tpu/ops/rt_kernel.py:794",
                c["K4"], err,
-               _time_ms(lambda: RK.trace_rays(tree, rows, o, d, t_max), 5),
+               _time_ms(lambda: RK.trace_rays(tree, rows, o, d, t_max, count),
+                        5),
                plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
                records=_bound(ins, outs, int((tri_k >= 0).sum()) * MT_OPS))
 
@@ -1151,6 +1246,9 @@ def main():
         for key in ("K6", "K6/floor"):
             (tree, srows, origin, d, t_max, *rest), kw = args[key]
             t_floor = rest[0] if rest else kw.get("t_floor")
+            # a continuation's lanes past its count are parked (t_max 0),
+            # so the subset's records need no count; the full call takes it
+            count = kw.get("count")
             n = d.shape[0]
             sub = _subset(n, dev)
             d_s, tm_s = d[sub].contiguous(), t_max[sub].contiguous()
@@ -1163,8 +1261,9 @@ def main():
                                     k6[1], p6[1], [k6[0]], [p6[0]]))
             # the work of the frame's call, from the counting instantiation
             t_c, tri_c, cnt = RK.trace_rays_so_counts(tree, srows, origin, d,
-                                                      t_max, t_floor)
-            out6 = RK.trace_rays_so(tree, srows, origin, d, t_max, t_floor)
+                                                      t_max, t_floor, count)
+            out6 = RK.trace_rays_so(tree, srows, origin, d, t_max, t_floor,
+                                    count)
             if not (torch.equal(tri_c, out6[1]) and torch.equal(t_c,
                                                                 out6[0])):
                 _fail("K6's counting instantiation differs from the kernel")

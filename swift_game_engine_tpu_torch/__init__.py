@@ -23,11 +23,27 @@ Numerics follow the reference, which forces true float32 matmuls
 
 __version__ = "0.1.0"
 
+import numpy as _np
 import torch as _torch
 
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
+
+
+_CONSTANTS = {}
+
+
+def constant(values, device, dtype=_torch.float32) -> _torch.Tensor:
+    """``values`` as a tensor on ``device``, built once per value, device and
+    dtype. A host value made a device tensor inside a frame is a copy from
+    pageable host memory every frame: the host waits for it, and a CUDA
+    graph cannot capture it. Callers must not write to the result."""
+    a = _np.asarray(values)
+    key = (a.tobytes(), a.shape, a.dtype.str, dtype, str(device))
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = _torch.as_tensor(a, dtype=dtype, device=device)
+    return _CONSTANTS[key]
 
 
 def resolve_device(device="cuda") -> _torch.device:

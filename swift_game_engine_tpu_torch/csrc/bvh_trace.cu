@@ -98,6 +98,14 @@
 //   * a counting instantiation (COUNT, with a null counts pointer in
 //     production) reports each ray's wide nodes, the child boxes it tests
 //     (the non-empty slots of those nodes), leaves and slot tests.
+//
+// Per-frame values come from device memory, so that a CUDA graph that
+// captured a launch reads each replay's own: K5's and K6's shared origin
+// and K7's inverse light direction (3 floats each). K4 and K6 also take an
+// optional lane count (int32, device memory; null: every lane): a lane at
+// or past it is not walked and keeps its miss record (t = t_max, id -1),
+// so a call on compacted lanes costs its live lanes, not its capacity, and
+// a block past the count ends after one read and one write a lane.
 
 #include "common.cuh"
 
@@ -260,6 +268,13 @@ __device__ __forceinline__ int ranked_ref(const float* __restrict__ nd,
   return -2 - (16 * (rank - 1) + ((-2 - rf) & 15));
 }
 
+// Whether lane i lies at or past the lane count in device memory (null: no
+// count), which a call's compacted lanes give K4 and K6.
+__device__ __forceinline__ bool beyond_count(const int32_t* __restrict__ count,
+                                             int64_t i) {
+  return count != nullptr && i >= int64_t(__ldg(count));
+}
+
 // The closest-hit policies' state (K4, K6): the best hit so far, which is
 // also the walk bound.
 struct NearestHit : Ray {
@@ -299,17 +314,21 @@ struct NearestHit : Ray {
 struct Closest : NearestHit {
   struct Args {
     const float* rows; const float* o; const float* d; const float* t_max;
-    float* t_out; int32_t* tri_out;
+    const int32_t* count; float* t_out; int32_t* tri_out;
   };
   static constexpr int G = WIDE;
+  bool past;
   __device__ Closest(const Args& a, int64_t i) {
-    load_o(a.o, i);
-    load_d(a.d, i);
     t_best = __ldg(a.t_max + i);
     tri_best = -1.0f;
+    past = beyond_count(a.count, i);
+    if (!past) {
+      load_o(a.o, i);
+      load_d(a.d, i);
+    }
   }
   // a lane with t_max <= 0 walks and finds nothing (its origin is parked)
-  __device__ bool live() const { return true; }
+  __device__ bool live() const { return !past; }
   __device__ int child_ref(const float* nd, int k) const {
     return packed_ref(nd, k);
   }
@@ -329,19 +348,24 @@ struct Closest : NearestHit {
 // all rays from one origin; leaves name their origin row by rank.
 struct SharedOrigin : NearestHit {
   struct Args {
-    const float* srows; float ox, oy, oz; const float* d; const float* t_max;
-    const float* t_floor; float* t_out; int32_t* tri_out;
+    const float* srows; const float* origin; const float* d;
+    const float* t_max; const float* t_floor; const int32_t* count;
+    float* t_out; int32_t* tri_out;
   };
   static constexpr int G = 1;
   float fl;
+  bool past;
   __device__ SharedOrigin(const Args& a, int64_t i) {
-    ox = a.ox; oy = a.oy; oz = a.oz;
-    load_d(a.d, i);
     t_best = __ldg(a.t_max + i);       // a miss keeps t_max
     tri_best = -1.0f;
-    fl = a.t_floor != nullptr ? __ldg(a.t_floor + i) : 1e-4f;
+    past = beyond_count(a.count, i);
+    if (!past) {
+      load_o(a.origin, 0);
+      load_d(a.d, i);
+      fl = a.t_floor != nullptr ? __ldg(a.t_floor + i) : 1e-4f;
+    }
   }
-  __device__ bool live() const { return t_best > 0.0f; }
+  __device__ bool live() const { return t_best > 0.0f && !past; }
   __device__ int child_ref(const float* nd, int k) const {
     return ranked_ref(nd, k);
   }
@@ -404,8 +428,9 @@ struct SlotRecords : Ray {
 // ones with tn_s > 1e-4*dnp and t = tn_s/dnp below the bound at the leaf's
 // entry, all rays from one origin; leaves name their origin row by rank.
 struct LayeredArgs {
-  const float* srows; float ox, oy, oz; const float* d; const float* t_max;
-  float* t_out; int32_t* tri_out; float* ts_out; float* ids_out;
+  const float* srows; const float* origin; const float* d;
+  const float* t_max; float* t_out; int32_t* tri_out; float* ts_out;
+  float* ids_out;
 };
 
 template <int NS, int G_>
@@ -415,7 +440,7 @@ struct LayeredOrigin : SlotRecords<NS> {
   static constexpr int MAX_NS = 3;
   float tm;
   __device__ LayeredOrigin(const Args& a, int64_t i) {
-    this->ox = a.ox; this->oy = a.oy; this->oz = a.oz;
+    this->load_o(a.origin, 0);
     this->load_d(a.d, i);
     tm = __ldg(a.t_max + i);
     this->init(tm > 0.0f);
@@ -454,8 +479,8 @@ struct LayeredOrigin : SlotRecords<NS> {
 // 1e-4 < t < t_lim along the light, each origin its own; leaves name their
 // shadow row by rank.
 struct ShadowArgs {
-  const float* srows; float ix, iy, iz; const float* o; const float* t_lim;
-  float* t_out; float* ts_out; float* ids_out;
+  const float* srows; const float* inv_l; const float* o;
+  const float* t_lim; float* t_out; float* ts_out; float* ids_out;
 };
 
 // K7 runs four threads an origin: its calls (40,960 origins at RT scale
@@ -472,7 +497,8 @@ struct ShadowSlots : SlotRecords<NS> {
   float tl;
   __device__ ShadowSlots(const Args& a, int64_t i) {
     this->load_o(a.o, i);
-    this->ix = a.ix; this->iy = a.iy; this->iz = a.iz;
+    this->ix = __ldg(a.inv_l); this->iy = __ldg(a.inv_l + 1);
+    this->iz = __ldg(a.inv_l + 2);
     tl = __ldg(a.t_lim + i);
     this->init(tl > 0.0f);
   }
@@ -711,25 +737,26 @@ __host__ __device__ constexpr int k5_threads(int64_t n) {
 // Each entry: nodes (W,32) wide nodes, n rays, stack_n the tree's stack
 // bound, counts (4,N) int32 per-ray work or null.
 
-// K4: rows (M_pad,128), o/d (N,3), t_max (N,). Out: t (N,), tri (N,) int32.
+// K4: rows (M_pad,128), o/d (N,3), t_max (N,), count (1,) int32 or null.
+// Out: t (N,), tri (N,) int32.
 SGE_API int sge_trace_closest(const float* nodes, const float* rows,
                               const float* o, const float* d,
-                              const float* t_max, int64_t n, int stack_n,
-                              int32_t* counts, float* t, int32_t* tri,
-                              void* stream) {
-  return sge::launch_walk<sge::Closest>(nodes, {rows, o, d, t_max, t, tri}, n,
-                                        stack_n, counts, stream);
+                              const float* t_max, const int32_t* count,
+                              int64_t n, int stack_n, int32_t* counts,
+                              float* t, int32_t* tri, void* stream) {
+  return sge::launch_walk<sge::Closest>(
+      nodes, {rows, o, d, t_max, count, t, tri}, n, stack_n, counts, stream);
 }
 
-// K5: srows (Lp,132) origin rows, origin (ox, oy, oz), d (N,3), t_max (N,),
+// K5: srows (Lp,132) origin rows, origin (3,), d (N,3), t_max (N,),
 // n_slots 1..3. Out: t_opq (N,), tri (N,) int32, ts (N, n_slots),
 // ids (N, n_slots).
-SGE_API int sge_so_layers(const float* nodes, const float* srows, float ox,
-                          float oy, float oz, const float* d,
+SGE_API int sge_so_layers(const float* nodes, const float* srows,
+                          const float* origin, const float* d,
                           const float* t_max, int64_t n, int stack_n,
                           int n_slots, int32_t* counts, float* t_opq,
                           int32_t* tri, float* ts, float* ids, void* stream) {
-  const sge::LayeredArgs a{srows, ox, oy, oz, d, t_max, t_opq, tri, ts, ids};
+  const sge::LayeredArgs a{srows, origin, d, t_max, t_opq, tri, ts, ids};
   if (sge::k5_threads(n) == 1)
     return sge::launch_slots<sge::LayeredOrigin, 1>(n_slots, nodes, a, n,
                                                      stack_n, counts, stream);
@@ -737,29 +764,31 @@ SGE_API int sge_so_layers(const float* nodes, const float* srows, float ox,
       n_slots, nodes, a, n, stack_n, counts, stream);
 }
 
-// K6: srows (Lp,132) origin rows, origin (ox, oy, oz), d (N,3), t_max (N,),
-// t_floor (N,) or null (1e-4). Out: t (N,), tri (N,) int32.
-SGE_API int sge_trace_so(const float* nodes, const float* srows, float ox,
-                         float oy, float oz, const float* d,
-                         const float* t_max, const float* t_floor, int64_t n,
-                         int stack_n, int32_t* counts, float* t, int32_t* tri,
+// K6: srows (Lp,132) origin rows, origin (3,), d (N,3), t_max (N,),
+// t_floor (N,) or null (1e-4), count (1,) int32 or null. Out: t (N,),
+// tri (N,) int32.
+SGE_API int sge_trace_so(const float* nodes, const float* srows,
+                         const float* origin, const float* d,
+                         const float* t_max, const float* t_floor,
+                         const int32_t* count, int64_t n, int stack_n,
+                         int32_t* counts, float* t, int32_t* tri,
                          void* stream) {
   return sge::launch_walk<sge::SharedOrigin>(
-      nodes, {srows, ox, oy, oz, d, t_max, t_floor, t, tri}, n, stack_n,
+      nodes, {srows, origin, d, t_max, t_floor, count, t, tri}, n, stack_n,
       counts, stream);
 }
 
 // K7: srows (Lp,156) shadow rows, the light direction's safe inverse
-// (ix, iy, iz), o (N,3), t_lim (N,), n_slots 1..4. Out: t_opq (N,),
+// inv_l (3,), o (N,3), t_lim (N,), n_slots 1..4. Out: t_opq (N,),
 // ts (N, n_slots), ids (N, n_slots).
-SGE_API int sge_shadow_walk(const float* nodes, const float* srows, float ix,
-                            float iy, float iz, const float* o,
+SGE_API int sge_shadow_walk(const float* nodes, const float* srows,
+                            const float* inv_l, const float* o,
                             const float* t_lim, int64_t n, int stack_n,
                             int n_slots, int32_t* counts, float* t_opq,
                             float* ts, float* ids, void* stream) {
   return sge::launch_slots<sge::ShadowSlots, sge::K7_THREADS>(
-      n_slots, nodes, {srows, ix, iy, iz, o, t_lim, t_opq, ts, ids}, n,
-      stack_n, counts, stream);
+      n_slots, nodes, {srows, inv_l, o, t_lim, t_opq, ts, ids}, n, stack_n,
+      counts, stream);
 }
 
 // K8: rows (M_pad,128), o/d (N,3), t_lim (N,). Out: blocked (N,) bool.

@@ -39,7 +39,7 @@ def trs_matrices(t, r, s):
     m = torch.zeros((*t.shape[:-1], 4, 4), dtype=t.dtype, device=t.device)
     m[..., :3, :3] = mat3_from_quat(r) * s[..., None, :]
     m[..., :3, 3] = t
-    m[..., 3, 3] = 1.0
+    m[..., 3, 3].fill_(1.0)    # a fill: setting a number copies it from the host
     return m
 
 

@@ -48,13 +48,13 @@ _SIGNATURES = {
                         _P],
     "sge_shadow_slots": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _I,
                          _P, _P, _P, _P, _P],
-    "sge_trace_closest": [_P, _P, _P, _P, _P, _I64, _I, _P, _P, _P, _P],
-    "sge_so_layers": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _I, _P, _P, _P,
-                      _P, _P, _P],
-    "sge_shadow_walk": [_P, _P, _F, _F, _F, _P, _P, _I64, _I, _I, _P, _P, _P,
-                        _P, _P],
-    "sge_trace_so": [_P, _P, _F, _F, _F, _P, _P, _P, _I64, _I, _P, _P, _P,
-                     _P],
+    "sge_trace_closest": [_P, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P,
+                          _P],
+    "sge_so_layers": [_P, _P, _P, _P, _P, _I64, _I, _I, _P, _P, _P, _P, _P,
+                      _P],
+    "sge_shadow_walk": [_P, _P, _P, _P, _P, _I64, _I, _I, _P, _P, _P, _P,
+                        _P],
+    "sge_trace_so": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _P, _P, _P, _P],
     "sge_trace_any": [_P, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
     "sge_walk_threads": [_I, _I64],
     "sge_list_raster": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P,

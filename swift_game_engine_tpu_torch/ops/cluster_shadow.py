@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import constant
 from . import _cuda
 
 BIG = 3.0e38
@@ -73,11 +74,10 @@ def _part1by1(x):
 
 
 def _ortho_basis(l):
-    """Orthonormal (e1, e2) spanning the plane perpendicular to unit l."""
-    if float(l[0].abs()) < 0.9:
-        up = torch.tensor([1.0, 0.0, 0.0], device=l.device)
-    else:
-        up = torch.tensor([0.0, 1.0, 0.0], device=l.device)
+    """Orthonormal (e1, e2) spanning the plane perpendicular to unit l; the
+    helper axis is chosen on the device (no host read)."""
+    up = torch.where(l[0].abs() < 0.9, constant((1.0, 0.0, 0.0), l.device),
+                     constant((0.0, 1.0, 0.0), l.device))
     e1 = torch.linalg.cross(l, up, dim=-1)
     e1 = e1 / torch.clamp(torch.linalg.vector_norm(e1), min=1e-12)
     return e1, torch.linalg.cross(l, e1, dim=-1)
@@ -238,7 +238,17 @@ def _hits(sc: ShadowClusters, o, t_lim, tri_slice):
 def trace_shadow_clusters_plain(sc: ShadowClusters, o, t_limit, n_slots,
                                 alpha_payload=False):
     """Exact t_opq plus the n_slots nearest translucent (t, payload) per
-    lane (t_opq 0 and empty slots for dead lanes)."""
+    lane (t_opq 0 and empty slots for dead lanes, which it skips)."""
+    live = torch.nonzero(t_limit > 0).squeeze(1)
+    if live.numel() < o.shape[0]:
+        n = o.shape[0]
+        t_opq = torch.zeros(n, device=o.device)
+        ts = torch.full((n, n_slots), BIG, device=o.device)
+        ids = torch.full((n, n_slots), -1.0, device=o.device)
+        if live.numel():
+            t_opq[live], ts[live], ids[live] = trace_shadow_clusters_plain(
+                sc, o[live], t_limit[live], n_slots, alpha_payload)
+        return t_opq, ts, ids
     n, tn = o.shape[0], sc.rows.shape[0]
     t_opq = torch.full((n,), BIG, device=o.device)
     ts = torch.full((n, n_slots), BIG, device=o.device)

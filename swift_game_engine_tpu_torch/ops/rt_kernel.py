@@ -50,6 +50,14 @@ Each wrapper launches its CUDA kernel for CUDA tensors (and counts the
 launch) and runs its plain twin only for CPU tensors. The twins walk every
 lane in lockstep with masked tensor ops, in the kernel's own per-lane node
 order and f32 operation order.
+
+The kernels read their per-frame values from device memory, so that a CUDA
+graph that captured a launch reads each replay's own: K5's and K6's shared
+origin and K7's light direction (its safe inverse) are (3,) tensors on the
+device (a wrapper given host values copies them there first). K4 and K6
+take an optional ``count``, a 0-d int32 tensor on the device: lanes at or
+past it are not walked and keep their miss record, so a call on compacted
+lanes (``render/compact.py``) costs its live lanes.
 """
 
 from __future__ import annotations
@@ -129,10 +137,13 @@ class WideTree(NamedTuple):
     """The wide nodes of K4-K8; their leaf refs name packed rows
     (pack_bvh), which K4 and K8 take beside them, and their leaf ranks the
     origin rows (build_origin_rows) that K5 and K6 take and the shadow rows
-    (build_shadow_rows) that K7 takes."""
+    (build_shadow_rows) that K7 takes. ``leaves``: the packed row of each
+    leaf rank (``leaf_index``), the topology's, or None (the row builders
+    then find the leaves in the rows)."""
 
     nodes: torch.Tensor   # (W, NODE_F) wide-node lines
     stack: int            # stack entries a walk can need (collapse_wide)
+    leaves: torch.Tensor | None = None   # (Lp,) int64
 
 
 def collapse_wide(left, right, leaf_count):
@@ -221,7 +232,8 @@ def wide_tree(rows) -> WideTree:
     nodes = wide_nodes(rows[:m, 0:3], rows[:m, 3:6],
                        torch.as_tensor(index, device=rows.device),
                        torch.as_tensor(tail, device=rows.device))
-    return WideTree(nodes=nodes, stack=stack)
+    leaves = torch.as_tensor(leaf_index(r[:, 7] > 0.5), device=rows.device)
+    return WideTree(nodes=nodes, stack=stack, leaves=leaves)
 
 
 def _check_tree(tree: WideTree, rows, width, t_max, o=None, d=None):
@@ -254,36 +266,57 @@ def _count_dict(counts):
     return dict(zip(("nodes", "boxes", "leaves", "slots"), counts))
 
 
-def _launch_k4(tree, rows, o, d, t_max, counts):
+def _device_vec3(x, dev):
+    """A (3,) f32 tensor on ``dev``: a per-frame value the kernels read from
+    device memory (host values are copied there)."""
+    return torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(
+        3).contiguous()
+
+
+def _check_count(count, dev):
+    if count is not None:
+        _cuda.require(count, "count", (), dtype=torch.int32, device=dev)
+
+
+def _lanes_below(n, count, dev):
+    """(N,) bool: the lanes a call with ``count`` walks (all without)."""
+    if count is None:
+        return torch.ones(n, dtype=torch.bool, device=dev)
+    return torch.arange(n, device=dev) < count
+
+
+def _launch_k4(tree, rows, o, d, t_max, counts, count=None):
     dev, n = _check_tree(tree, rows, ROW, t_max, o, d)
+    _check_count(count, dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     _cuda.check(_cuda.library().sge_trace_closest(
         tree.nodes.data_ptr(), rows.data_ptr(), o.data_ptr(),
-        d.data_ptr(), t_max.data_ptr(), n, tree.stack, _cuda.ptr(counts),
-        t.data_ptr(), tri.data_ptr(), _cuda.stream_ptr(o)),
+        d.data_ptr(), t_max.data_ptr(), _cuda.ptr(count), n, tree.stack,
+        _cuda.ptr(counts), t.data_ptr(), tri.data_ptr(), _cuda.stream_ptr(o)),
         "sge_trace_closest")
     return t, tri
 
 
-def trace_rays(tree: WideTree, rows, o, d, t_max):
+def trace_rays(tree: WideTree, rows, o, d, t_max, count=None):
     """Nearest hit per ray over ``tree`` and the packed ``rows`` its leaves
     name -> (t (N,) f32, tri (N,) int32; -1 on a miss, t = t_max). Rays
-    with t_max <= 0 are inactive."""
+    with t_max <= 0, and with ``count`` (0-d int32 on the device) the rays
+    at or past it, are inactive."""
     if not tree.nodes.is_cuda:
-        return trace_rays_plain(tree, rows, o, d, t_max)
+        return trace_rays_plain(tree, rows, o, d, t_max, count)
     global launches
     launches += 1
-    return _launch_k4(tree, rows, o, d, t_max, None)
+    return _launch_k4(tree, rows, o, d, t_max, None, count)
 
 
-def trace_rays_counts(tree: WideTree, rows, o, d, t_max):
+def trace_rays_counts(tree: WideTree, rows, o, d, t_max, count=None):
     """K4's counting instantiation, on the card only (a measurement, not a
     launch of the frame): (t, tri, per-ray counts {"nodes": wide nodes
     visited, "boxes": child boxes tested (the non-empty slots of those
     nodes), "leaves": leaves visited, "slots": triangle tests})."""
     counts = _counts(o.shape[0], o.device)
-    t, tri = _launch_k4(tree, rows, o, d, t_max, counts)
+    t, tri = _launch_k4(tree, rows, o, d, t_max, counts, count)
     return t, tri, _count_dict(counts)
 
 
@@ -396,11 +429,11 @@ def _wide_walk(tree: WideTree, o, inv, bound, active, visit_leaf,
         idx = idx[cur[idx] != -1]
 
 
-def trace_rays_plain(tree: WideTree, rows, o, d, t_max):
+def trace_rays_plain(tree: WideTree, rows, o, d, t_max, count=None):
     """Plain PyTorch twin of the K4 kernel (``_wide_walk`` with the bound
     t_best): at a leaf the slots' Moller-Trumbore tests (the kernel's
     arithmetic) keep the nearest hit below the best, the first slot among
-    equals."""
+    equals; lanes at or past ``count`` are not walked."""
     n, dev = o.shape[0], o.device
     t_best = t_max.clone()
     tri_best = torch.full((n,), -1.0, device=dev)
@@ -419,8 +452,8 @@ def trace_rays_plain(tree: WideTree, rows, o, d, t_max):
             got, ids.gather(1, j[:, None])[:, 0], tri_best[lanes])
         return None, code % 16
 
-    _wide_walk(tree, o, _safe_inv(d), t_best,
-               torch.ones(n, dtype=torch.bool, device=dev), visit_leaf)
+    _wide_walk(tree, o, _safe_inv(d), t_best, _lanes_below(n, count, dev),
+               visit_leaf)
     return t_best, tri_best.to(torch.int32)
 
 
@@ -463,13 +496,15 @@ def barycentrics(bvh, o, d, t, tri):
     return u, v, found
 
 
-def trace_batch(bvh, o, d, active):
+def trace_batch(bvh, o, d, active, count=None):
     """Nearest-hit records for a ray batch; inactive lanes miss at once
-    (rt.py _trace_batch). Returns (t, tri int64, u, v, found)."""
+    (rt.py _trace_batch). ``count``: a compacted batch's live lanes (0-d
+    int32 on the device; the lanes past it must be inactive), which K4
+    skips. Returns (t, tri int64, u, v, found)."""
     t_max = torch.where(active, BIG, 0.0)
     # park inactive rays far outside the scene: they fail the root box
     o = torch.where(active[:, None], o, 1.0e9).contiguous()
-    t, tri = trace_rays(bvh.wide, bvh.rows, o, d.contiguous(), t_max)
+    t, tri = trace_rays(bvh.wide, bvh.rows, o, d.contiguous(), t_max, count)
     u, v, found = barycentrics(bvh, o, d, t, tri)
     found = found & active & (t < BIG)
     return (torch.where(found, t, BIG), torch.where(found, tri.long(), -1),
@@ -486,16 +521,32 @@ def walk_available(rows) -> bool:
     return rows.shape[0] <= WALK_MAX_ROWS
 
 
-def _leaf_rows(rows):
-    """Leaf-compacted rows (rt_kernel.py:1081-1088): every builder emits a
-    binary tree, so there are at most (M+1)//2 leaves -> (Lp, 128), the
-    leaf of rank r + 1 at row r (the rest zero)."""
-    m = rows.shape[0]
+def leaf_index(is_leaf):
+    """The packed row of each leaf rank (rt_kernel.py:1081-1088) from the
+    (M_pad,) leaf flags of the packed rows (numpy or a tensor): every
+    builder emits a binary tree, so there are at most (M_pad+1)//2 leaves
+    -> (Lp,) int64, the leaf of rank r + 1 at r, then zeros. The leaves
+    are the topology's, so ``BVHTopology`` computes this once; refit keeps
+    it."""
+    m = is_leaf.shape[0]
     lp = ((m + 1) // 2 + 7) // 8 * 8
-    found = torch.nonzero(rows[:, 7] > 0.5).squeeze(1)[:lp]
-    leaf_nodes = torch.zeros(lp, dtype=torch.int64, device=rows.device)
-    leaf_nodes[:found.shape[0]] = found
-    return rows[leaf_nodes]
+    if isinstance(is_leaf, torch.Tensor):
+        found = torch.nonzero(is_leaf).squeeze(1)[:lp]
+        out = torch.zeros(lp, dtype=torch.int64, device=is_leaf.device)
+    else:
+        found = np.nonzero(np.asarray(is_leaf))[0][:lp]
+        out = np.zeros(lp, np.int64)
+    out[:found.shape[0]] = found
+    return out
+
+
+def _leaf_rows(rows, leaves=None):
+    """Leaf-compacted rows -> (Lp, 128), the leaf of rank r + 1 at row r
+    (the rest row 0's copies, which no rank names): ``leaves`` the
+    topology's ``leaf_index``, else found in the rows."""
+    if leaves is None:
+        leaves = leaf_index(rows[:, 7] > 0.5)
+    return rows[leaves]
 
 
 def binary_header(rows):
@@ -530,14 +581,16 @@ def _dot(a, b):
     return (p[..., 0] + p[..., 1]) + p[..., 2]
 
 
-def build_origin_rows(rows, o):
+def build_origin_rows(rows, o, leaves=None):
     """Per-frame constants for rays sharing origin ``o`` (3,)
     (rt_kernel.py:1295-1324) -> srows (Lp, 132): per leaf triangle
     k_u = e2 x (o-a), k_v = (o-a) x e1, k_d = e2 x e1, tn = e2 . k_v, then
     the ids; row r is the leaf of rank r + 1, which the wide tree names
-    (K5, K6). The reference returns the binary tree's header beside them,
-    which only the binary walks read: ``binary_header``."""
-    leaf = _leaf_rows(rows)
+    (K5, K6); ``leaves``: the tree's ``leaf_index`` (the frame passes the
+    topology's; without it the leaves are found in the rows, a host read).
+    The reference returns the binary tree's header beside them, which only
+    the binary walks read: ``binary_header``."""
+    leaf = _leaf_rows(rows, leaves)
     a, e1, e2, ids = _split_tris(leaf)
     tv = torch.as_tensor(o, dtype=torch.float32, device=rows.device) - a
     k_v = _cross(tv, e1)
@@ -548,15 +601,15 @@ def build_origin_rows(rows, o):
     return srows.contiguous()
 
 
-def build_shadow_rows(rows, l):
+def build_shadow_rows(rows, l, leaves=None):
     """Per-frame constants for rays along unit direction ``l`` (3,) toward
     the light (rt_kernel.py:1070-1110) -> srows (Lp, 156): per leaf
     triangle g1, g2, g3, c with u = P.g1 - c1, v = P.g2 - c2,
     t = P.g3 - c3; ids of triangles parallel to ``l`` are -1; row r is the
-    leaf of rank r + 1, which the wide tree names (K7). The reference
-    returns the binary tree's header beside them, which only the binary
-    walk reads: ``binary_header``."""
-    leaf = _leaf_rows(rows)
+    leaf of rank r + 1, which the wide tree names (K7); ``leaves`` as for
+    ``build_origin_rows``. The reference returns the binary tree's header
+    beside them, which only the binary walk reads: ``binary_header``."""
+    leaf = _leaf_rows(rows, leaves)
     a, e1, e2, ids = _split_tris(leaf)
     lv = torch.as_tensor(l, dtype=torch.float32,
                          device=rows.device).expand_as(e2)
@@ -601,14 +654,15 @@ def _launch_k5(tree, srows, o, d, t_max, n_slots, counts):
     if not 1 <= n_slots <= 3:
         raise ValueError(f"n_slots must be 1..3, got {n_slots}")
     dev, n = _check_tree(tree, srows, SO_ROW_W, t_max, d=d)
-    ox, oy, oz = (float(x) for x in torch.as_tensor(o).tolist())
+    origin = _device_vec3(o, dev)
     t_opq = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     ts = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
     ids = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
     _cuda.check(_cuda.library().sge_so_layers(
-        tree.nodes.data_ptr(), srows.data_ptr(), ox, oy, oz, d.data_ptr(),
-        t_max.data_ptr(), n, tree.stack, n_slots, _cuda.ptr(counts),
+        tree.nodes.data_ptr(), srows.data_ptr(), origin.data_ptr(),
+        d.data_ptr(), t_max.data_ptr(), n, tree.stack, n_slots,
+        _cuda.ptr(counts),
         t_opq.data_ptr(), tri.data_ptr(), ts.data_ptr(), ids.data_ptr(),
         _cuda.stream_ptr(d)), "sge_so_layers")
     return t_opq, tri, ts, ids
@@ -617,8 +671,8 @@ def _launch_k5(tree, srows, o, d, t_max, n_slots, counts):
 def trace_layers_so(tree: WideTree, srows, o, d, t_max, n_slots: int = 3):
     """K5: layered records over ``tree`` of rays sharing origin ``o`` (3,)
     — the origin that ``build_origin_rows`` baked into its origin rows
-    ``srows``, which the tree's leaf ranks name; host
-    floats need no device sync — with directions ``d`` (N, 3): one walk
+    ``srows``, which the tree's leaf ranks name; a tensor on the device,
+    which the kernel reads there — with directions ``d`` (N, 3): one walk
     -> (t_opq (N,), tri_opq (N,) int32, ts (N, n_slots), ids (N, n_slots)
     float with the translucent +0.5 marker), n_slots 1..3. Rays with
     t_max <= 0 are inactive (t_opq 0, tri -1)."""
@@ -825,42 +879,47 @@ def trace_layers_so_binary(origin_rows, o, d, t_max, n_slots: int = 3,
     return t_opq, tri.to(torch.int32), ts, ids
 
 
-def _launch_k6(tree, srows, o, d, t_max, t_floor, counts):
+def _launch_k6(tree, srows, o, d, t_max, t_floor, counts, count=None):
     dev, n = _check_tree(tree, srows, SO_ROW_W, t_max, d=d)
     if t_floor is not None:
         _cuda.require(t_floor, "t_floor", (n,), device=dev)
-    ox, oy, oz = (float(x) for x in torch.as_tensor(o).tolist())
+    _check_count(count, dev)
+    origin = _device_vec3(o, dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     _cuda.check(_cuda.library().sge_trace_so(
-        tree.nodes.data_ptr(), srows.data_ptr(), ox, oy, oz, d.data_ptr(),
-        t_max.data_ptr(), _cuda.ptr(t_floor), n, tree.stack,
-        _cuda.ptr(counts), t.data_ptr(), tri.data_ptr(),
+        tree.nodes.data_ptr(), srows.data_ptr(), origin.data_ptr(),
+        d.data_ptr(), t_max.data_ptr(), _cuda.ptr(t_floor), _cuda.ptr(count),
+        n, tree.stack, _cuda.ptr(counts), t.data_ptr(), tri.data_ptr(),
         _cuda.stream_ptr(d)), "sge_trace_so")
     return t, tri
 
 
-def trace_rays_so(tree: WideTree, srows, o, d, t_max, t_floor=None):
+def trace_rays_so(tree: WideTree, srows, o, d, t_max, t_floor=None,
+                  count=None):
     """K6: closest hit over ``tree`` of rays sharing origin ``o`` (3,) — the
     origin that ``build_origin_rows`` baked into its origin rows ``srows``,
-    which the tree's leaf ranks name; host floats need no device sync —
-    with directions ``d`` (N, 3) -> (t (N,), tri (N,) int32; a miss keeps
-    t = t_max, tri -1). A hit needs tn > t_floor * dn:
+    which the tree's leaf ranks name; a tensor on the device, which the
+    kernel reads there — with directions ``d`` (N, 3) -> (t (N,), tri (N,)
+    int32; a miss keeps t = t_max, tri -1). A hit needs tn > t_floor * dn:
     ``t_floor`` (N,) is the per-lane least accepted t (default 1e-4; a
-    transparency continuation passes t_hit + 2*bias). Rays with t_max <= 0
+    transparency continuation passes t_hit + 2*bias). Rays with t_max <= 0,
+    and with ``count`` (0-d int32 on the device) the rays at or past it,
     are inactive."""
     if not tree.nodes.is_cuda:
-        return trace_rays_so_plain(tree, srows, o, d, t_max, t_floor)
+        return trace_rays_so_plain(tree, srows, o, d, t_max, t_floor,
+                                   count=count)
     global so_closest_launches
     so_closest_launches += 1
-    return _launch_k6(tree, srows, o, d, t_max, t_floor, None)
+    return _launch_k6(tree, srows, o, d, t_max, t_floor, None, count)
 
 
-def trace_rays_so_counts(tree: WideTree, srows, o, d, t_max, t_floor=None):
+def trace_rays_so_counts(tree: WideTree, srows, o, d, t_max, t_floor=None,
+                         count=None):
     """K6's counting instantiation, on the card only (not a launch of the
     frame): (t, tri, per-ray counts as ``trace_rays_counts``'s)."""
     counts = _counts(d.shape[0], d.device)
-    t, tri = _launch_k6(tree, srows, o, d, t_max, t_floor, counts)
+    t, tri = _launch_k6(tree, srows, o, d, t_max, t_floor, counts, count)
     return t, tri, _count_dict(counts)
 
 
@@ -886,10 +945,10 @@ def _so_closest_leaf(srows, d, t_floor, t_best, tri, lanes, row, mask):
 
 
 def trace_rays_so_plain(tree: WideTree, srows, o, d, t_max, t_floor=None,
-                        counts=None):
+                        counts=None, count=None):
     """Plain PyTorch twin of K6 (``_wide_walk`` with the bound t_best, the
-    leaves by rank, ``_so_closest_leaf`` at a leaf). ``counts``: as for
-    ``_wide_walk``."""
+    leaves by rank, ``_so_closest_leaf`` at a leaf); lanes at or past
+    ``count`` are not walked. ``counts``: as for ``_wide_walk``."""
     n, dev = d.shape[0], d.device
     if t_floor is None:
         t_floor = torch.full((n,), 1e-4, device=dev)
@@ -902,8 +961,9 @@ def trace_rays_so_plain(tree: WideTree, srows, o, d, t_max, t_floor=None,
         return None, code % 16
 
     o = torch.as_tensor(o, dtype=torch.float32, device=dev)
-    _wide_walk(tree, o.expand(n, 3), _safe_inv(d), t_best, t_max > 0,
-               visit_leaf, by_rank=True, counts=counts)
+    _wide_walk(tree, o.expand(n, 3), _safe_inv(d), t_best,
+               (t_max > 0) & _lanes_below(n, count, dev), visit_leaf,
+               by_rank=True, counts=counts)
     return t_best, tri.to(torch.int32)
 
 
@@ -1044,14 +1104,14 @@ def _launch_k7(tree, srows, l, o, t_limit, n_slots, counts):
     if not 1 <= n_slots <= 4:
         raise ValueError(f"n_slots must be 1..4, got {n_slots}")
     dev, n = _check_tree(tree, srows, SHADOW_ROW_W, t_limit, o)
-    ix, iy, iz = (float(x) for x in _safe_inv(
-        torch.as_tensor(l, dtype=torch.float32)).tolist())
+    inv_l = _safe_inv(_device_vec3(l, dev))
     t_opq = torch.empty(n, dtype=torch.float32, device=dev)
     ts = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
     ids = torch.empty((n, n_slots), dtype=torch.float32, device=dev)
     _cuda.check(_cuda.library().sge_shadow_walk(
-        tree.nodes.data_ptr(), srows.data_ptr(), ix, iy, iz, o.data_ptr(),
-        t_limit.data_ptr(), n, tree.stack, n_slots, _cuda.ptr(counts),
+        tree.nodes.data_ptr(), srows.data_ptr(), inv_l.data_ptr(),
+        o.data_ptr(), t_limit.data_ptr(), n, tree.stack, n_slots,
+        _cuda.ptr(counts),
         t_opq.data_ptr(), ts.data_ptr(), ids.data_ptr(), _cuda.stream_ptr(o)),
         "sge_shadow_walk")
     return t_opq, ts, ids
@@ -1061,7 +1121,9 @@ def trace_shadow_factor(tree: WideTree, srows, l, o, t_limit,
                         n_slots: int = 4):
     """K7: shadow records over ``tree`` of origins ``o`` (N, 3) along unit
     direction ``l`` (3,) — the direction ``build_shadow_rows`` baked into
-    its shadow rows ``srows``, which the tree's leaf ranks name; host floats need no device sync: one walk -> (t_opq (N,),
+    its shadow rows ``srows``, which the tree's leaf ranks name; a tensor
+    on the device, whose safe inverse the kernel reads there: one walk ->
+    (t_opq (N,),
     ts (N, n_slots), ids (N, n_slots) float with the translucent +0.5
     marker), n_slots 1..4. Origins with t_limit <= 0 are inactive (t_opq
     0, ids -1)."""

@@ -40,6 +40,9 @@ class BVHTopology(NamedTuple):
     # the 4-wide tree of K4 (ops.rt_kernel.collapse_wide)
     wide_index: torch.Tensor  # (W, 24) int64 gather of the wide boxes
     wide_tail: torch.Tensor   # (W, 8) f32 child refs and zeros
+    # the packed row of each leaf rank (ops.rt_kernel.leaf_index): the rows
+    # the origin and shadow rows (K5-K7) gather, fixed by the topology
+    leaf_index: torch.Tensor  # (Lp,) int64
     wide_stack: int           # the most stack entries a wide walk holds
 
     @property
@@ -67,7 +70,12 @@ class BVHTopology(NamedTuple):
             levels=tuple(t(lv, torch.int64) for lv in get("levels")),
             leaf_slots=t(get("leaf_slots"), torch.int64),
             wide_index=t(index, torch.int64),
-            wide_tail=t(tail, torch.float32), wide_stack=stack)
+            wide_tail=t(tail, torch.float32),
+            # over the packed rows: the nodes padded to a multiple of 8
+            leaf_index=t(RK.leaf_index(np.pad(
+                np.asarray(get("tri_count")) > 0,
+                (0, (-len(get("tri_count"))) % 8))), torch.int64),
+            wide_stack=stack)
 
 
 class BVHArrays(NamedTuple):
@@ -111,5 +119,5 @@ def refit(topo: BVHTopology, v0, v1, v2, translucent=None) -> BVHArrays:
     rows = RK.pack_bvh(out, translucent=translucent)
     wide = RK.WideTree(nodes=RK.wide_nodes(bmin, bmax, topo.wide_index,
                                            topo.wide_tail),
-                       stack=topo.wide_stack)
+                       stack=topo.wide_stack, leaves=topo.leaf_index)
     return out._replace(rows=rows, wide=wide)

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import constant, resolve_device
 
 ENV_MIP_COUNT = 8
 LUT_SIZE = 128
@@ -40,12 +40,10 @@ def eval_env_sh(n, sh0, sh1):
 def sample_env(direction, roughness):
     """Analytic prefiltered environment (IBLResources.swift:106-121)."""
     d = direction
-    sky = torch.tensor(_SKY, device=d.device)
-    ground = torch.tensor(_GROUND, device=d.device)
+    sky, ground = constant(_SKY, d.device), constant(_GROUND, d.device)
     t = torch.clamp(d[..., 1] * 0.5 + 0.5, 0.0, 1.0)[..., None]
     color = ground + (sky - ground) * t
-    ndotl = torch.clamp((d * torch.as_tensor(_SUN_DIR, device=d.device)).sum(-1),
-                        min=0.0)
+    ndotl = torch.clamp((d * constant(_SUN_DIR, d.device)).sum(-1), min=0.0)
     exponent = 800.0 + (30.0 - 800.0) * torch.clamp(roughness, 0.0, 1.0)
     sun = torch.pow(torch.clamp(ndotl, min=1e-6), exponent) * 4.0
     return torch.clamp(color + sun[..., None], 0.0, 1.0)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import constant
 from ..math3d import normalize
 from .camera import generate_rays
 from .rt import BG_COLOR, _sample_material
@@ -73,7 +74,7 @@ def _raster_shade(geo: SceneGeometry, fg: FrameGeometry, d, tri, u, v,
     occlusion = torch.ones_like(m["alpha"])
     if geo.usage.occlusion:
         occ_t = sample_bilinear(geo.textures, mats.occlusion_tex[mid], uv,
-                                torch.ones(4, device=uv.device))[:, 0]
+                                constant((1.0,) * 4, uv.device))[:, 0]
         occlusion = 1.0 + (occ_t - 1.0) * torch.clamp(
             mats.occlusion_strength[mid], 0.0, 1.0)
     n = normalize(_interp(fg.nrm, tri_v, u, v))
@@ -81,11 +82,11 @@ def _raster_shade(geo: SceneGeometry, fg: FrameGeometry, d, tri, u, v,
         tan4 = _interp(fg.tan, tri_v, u, v)
         n_tex = sample_bilinear(
             geo.textures, mats.normal_tex[mid], uv,
-            torch.tensor([0.5, 0.5, 1.0, 1.0], device=uv.device))[:, :3]
+            constant((0.5, 0.5, 1.0, 1.0), uv.device))[:, :3]
         n = apply_normal_map(n, n, normalize(tan4[:, :3]),
                              torch.sign(tan4[:, 3]), n_tex,
                              mats.normal_scale[mid], normalize(-d))
-    light = torch.as_tensor(RASTER_L, device=n.device)
+    light = constant(RASTER_L, n.device)
     nl = torch.clamp((n * light).sum(-1), 0.0, 1.0) * 0.85 + 0.15
     albedo, emissive = m["base"], m["emissive"]
     lit = albedo * (nl * occlusion)[:, None] + emissive
@@ -138,6 +139,5 @@ def render_frame_raster(geo: SceneGeometry, fg: FrameGeometry, inv_view_proj,
         # a small relative margin, so that the just-shaded fragment's
         # divided-then-compared depth cannot re-win the next peel
         prev_w = torch.where(found, hits.w_depth * 1.000001, BIG)
-    out = accum + torch.as_tensor(background, dtype=torch.float32,
-                                  device=dev) * (1.0 - accum_alpha)[:, None]
+    out = accum + constant(background, dev) * (1.0 - accum_alpha)[:, None]
     return out.reshape(height, width, 3)

@@ -41,11 +41,19 @@ Then, in both modes:
   * one mirror bounce and one refraction bounce, traced with kernel K4.
 
 Compaction: wherever the reference runs ``_chunked`` (fixed-size chunks of
-the set lanes, looped until drained), this port gathers ALL set lanes with
-``torch.nonzero`` and runs the body once. Every record is shaded
-independently of the others, so any compaction order and chunking gives
-the same image. Likewise the reference's live-first shadow-origin sort is a
-pure permutation for its packet kernels and is left out.
+the set lanes, looped until drained), this port compacts the set lanes into
+one chunk of fixed capacity, the site's whole lane universe (``p`` for a
+shade batch's lanes, ``nl * p`` for the continuation records), with
+``render/compact.py``: the set lanes in ascending order, then fill slots
+that gathers clamp and scatters drop, and the count on the device. Nothing
+is read back to the host: every loop runs its fixed count (all max_layers
+layers, all shadow_layers shadow steps), a lane with nothing left to do is
+parked, and the bodies run at their capacity while K4 and K6 skip the
+lanes past the count. So the frame can be captured as one CUDA graph
+(``scene/engine.py``). Every record is shaded independently of the others,
+so any compaction order and chunking gives the same image. Likewise the
+reference's live-first shadow-origin sort is a pure permutation for its
+packet kernels and is left out.
 """
 
 from __future__ import annotations
@@ -54,12 +62,13 @@ from typing import NamedTuple
 
 import torch
 
-from .. import resolve_device
+from .. import constant, resolve_device
 from ..math3d import normalize
 from ..ops import rt_kernel as RK
 from ..ops.cluster_shadow import build_shadow_split, trace_shadow_split
 from ..ops.rt_kernel import barycentrics, trace_batch
 from .camera import generate_rays_tiled, untile_image
+from .compact import compact, gather, scatter
 from .ibl import IBL, eval_env_sh, eval_spec_ibl
 from .scene_geometry import FrameGeometry, SceneGeometry
 from .shading import (apply_normal_map, eval_brdf, fresnel_schlick,
@@ -115,7 +124,7 @@ class _Frame(NamedTuple):
     lights: DirectionalLights
     cam: torch.Tensor
     shadow: object            # light 0: ShadowSplit ("clusters"), (shadow
-    shadow_layers: int        # rows, host l) ("walk") or None ("loop")
+    shadow_layers: int        # rows, l) ("walk") or None ("loop")
     enable_mirror: bool
     enable_refraction: bool
     shadow_mode: str = "clusters"
@@ -123,20 +132,19 @@ class _Frame(NamedTuple):
 
 
 def _bg(device):
-    return torch.tensor(BG_COLOR, device=device)
+    return constant(BG_COLOR, device)
 
 
 def _sparse_tap(textures, tex_ids, uv, default, active=None):
-    """Bilinear taps only for lanes that bind a texture (tex_id >= 0);
-    other lanes get ``default`` (4,)."""
+    """Bilinear taps only for lanes that bind a texture (tex_id >= 0),
+    compacted; other lanes get ``default`` (4,)."""
     bound = tex_ids >= 0
     if active is not None:
         bound = bound & active
-    out = default.expand(tex_ids.shape[0], 4).clone()
-    idx = torch.nonzero(bound).squeeze(1)
-    if idx.numel():
-        out[idx] = sample_bilinear(textures, tex_ids[idx], uv[idx], default)
-    return out
+    c = compact(bound)
+    taps = sample_bilinear(textures, gather(tex_ids, c), gather(uv, c),
+                           default)
+    return scatter(default.expand(tex_ids.shape[0], 4), c, taps)
 
 
 def _sample_material(geo: SceneGeometry, mid, uv, unlit, active=None):
@@ -149,7 +157,7 @@ def _sample_material(geo: SceneGeometry, mid, uv, unlit, active=None):
     roughness = torch.clamp(row[:, 5], 0.05, 1.0)
     emissive = row[:, 6:9]
     occlusion = torch.clamp(row[:, 9], 0.0, 1.0)
-    white = torch.ones(4, device=mid.device)
+    white = constant((1.0,) * 4, mid.device)
     if usage.base:
         t = _sparse_tap(geo.textures, row[:, 13].long(), uv, white, active)
         base = base * t[:, :3]
@@ -185,7 +193,7 @@ def _sample_alpha(geo: SceneGeometry, tri, u, v):
     w = (1.0 - u - v)[:, None]
     uv = srow[:, 0:2] * w + srow[:, 2:4] * u[:, None] + srow[:, 4:6] * v[:, None]
     t = _sparse_tap(geo.textures, geo.materials.base_tex[mid].long(), uv,
-                    torch.ones(4, device=tri.device))
+                    constant((1.0,) * 4, tri.device))
     return alpha * t[:, 3]
 
 
@@ -226,8 +234,9 @@ def _shadow_mode(geo: SceneGeometry, fg: FrameGeometry, lights,
                  lanes: int, shadow_layers: int):
     """The frame's light-0 shadow source (rt.py:1420-1452) -> (mode, the
     per-frame constants its shade calls share). The record kernels hold 1..4
-    slots; other layer counts take the loop. The walk's direction is read
-    to the host once here, so its shade calls need no device sync."""
+    slots; other layer counts take the loop. The mode depends on the lane
+    count and the tree's row count alone, so it is fixed for a frame size;
+    the walk's direction stays on the device, where K7 reads it."""
     if not 1 <= shadow_layers <= 4:
         return "loop", None
     l0 = normalize(-lights.direction[0])
@@ -239,7 +248,8 @@ def _shadow_mode(geo: SceneGeometry, fg: FrameGeometry, lights,
             alpha=torch.clamp(geo.materials.alpha[mid_t], 0.0, 1.0),
             trans_idx=geo.translucent_idx)
     if RK.walk_available(fg.bvh.rows):
-        return "walk", (RK.build_shadow_rows(fg.bvh.rows, l0), l0.tolist())
+        return "walk", (RK.build_shadow_rows(fg.bvh.rows, l0,
+                                             fg.bvh.wide.leaves), l0)
     return "loop", None
 
 
@@ -247,7 +257,9 @@ def _shadow_loop(fr: _Frame, o, l, max_dist, bias, active):
     """The per-layer shadow loop (rt.py:865-910): closest hit toward the
     light, multiply by (1 - alpha), continue past the surface, at most
     shadow_layers times while the factor stays above 0.02; after the
-    any-hit prepass when the frame takes it."""
+    any-hit prepass when the frame takes it. All shadow_layers steps run;
+    each traces its live lanes compacted (K4 skips past their count), so a
+    lane that is done is parked."""
     shadow = torch.ones(o.shape[0], device=o.device)
     act = active
     d = l.expand_as(o).contiguous()
@@ -261,16 +273,18 @@ def _shadow_loop(fr: _Frame, o, l, max_dist, bias, active):
         shadow = torch.where(blocked, 0.0, shadow)
         act = active & ~blocked
     for _ in range(fr.shadow_layers):
-        live = act & (shadow > 0.02)
-        if not bool(live.any()):
-            break
-        t, tri, u, v, found = trace_batch(fr.fg.bvh, o, d, live)
+        c = compact(act & (shadow > 0.02))
+        o_c, sh_c = gather(o, c), gather(shadow, c)
+        # every lane's direction is l: d serves the compacted lanes as is
+        t, tri, u, v, found = trace_batch(fr.fg.bvh, o_c, d, c.valid,
+                                          c.count)
         found = found & (t < max_dist)
         a = _sample_alpha(fr.geo, tri, u, v)
-        shadow = torch.where(found, shadow * (1.0 - a), shadow)
-        sh_pos = o + l * t[:, None]
-        o = torch.where(found[:, None], sh_pos + l * (bias * 2.0)[:, None], o)
-        act = live & found
+        shadow = scatter(shadow, c, torch.where(found, sh_c * (1.0 - a), sh_c))
+        sh_pos = o_c + l * t[:, None]
+        step = l * (gather(bias, c) * 2.0)[:, None]
+        o = scatter(o, c, torch.where(found[:, None], sh_pos + step, o_c))
+        act = scatter(torch.zeros_like(act), c, found)
     return shadow
 
 
@@ -286,9 +300,9 @@ def _shadow_factor(fr: _Frame, hit_pos, n, light_dir, max_dist, bias,
     if fr.shadow_mode == "walk":
         # rt.py:853-864: the t limit is the light's range alone
         t_lim = torch.where(active, torch.clamp(max_dist, max=BIG), 0.0)
-        srows, l_host = fr.shadow
+        srows, l0 = fr.shadow
         t_opq, ts, ids = RK.trace_shadow_factor(
-            fr.fg.bvh.wide, srows, l_host, o_sh, t_lim.contiguous(),
+            fr.fg.bvh.wide, srows, l0, o_sh, t_lim.contiguous(),
             n_slots=fr.shadow_layers)
         return _apply_shadow_records(fr, o_sh, l, t_opq, ts, ids, active,
                                      max_dist, False)
@@ -328,30 +342,29 @@ def _gbuffer(fr: _Frame, ray_o, ray_d, t_hit, tri, u, v, active):
                          active)
     n = n_geom
     if geo.usage.normal:
-        idx = torch.nonzero((m["normal_tex"] >= 0) & active).squeeze(1)
-        if idx.numel():
-            tv = geo.tri[safe_tri[idx]]
-            uc, vc = u[idx], v[idx]
-            wc = (1.0 - uc - vc)[:, None]
+        c = compact((m["normal_tex"] >= 0) & active)
+        tv = geo.tri[gather(safe_tri, c)]
+        uc, vc = gather(u, c), gather(v, c)
+        wc = (1.0 - uc - vc)[:, None]
 
-            def interp(attr):
-                return attr[tv[:, 0]] * wc + attr[tv[:, 1]] * uc[:, None] \
-                    + attr[tv[:, 2]] * vc[:, None]
+        def interp(attr):
+            return attr[tv[:, 0]] * wc + attr[tv[:, 1]] * uc[:, None] \
+                + attr[tv[:, 2]] * vc[:, None]
 
-            n_vert = normalize(interp(fg.nrm))
-            tan4 = interp(fg.tan)
-            n_tex = sample_bilinear(
-                geo.textures, m["normal_tex"][idx], uv[idx],
-                torch.tensor([0.5, 0.5, 1.0, 1.0], device=uv.device))[:, :3]
-            n_mapped = apply_normal_map(n_geom[idx], n_vert,
-                                        normalize(tan4[:, :3]),
-                                        torch.sign(tan4[:, 3]), n_tex,
-                                        m["normal_scale"][idx], view[idx])
-            n_mapped = torch.where(
-                (n_mapped * ray_d[idx]).sum(-1, keepdim=True) > 0,
-                -n_mapped, n_mapped)
-            n = n_geom.clone()
-            n[idx] = n_mapped
+        n_vert = normalize(interp(fg.nrm))
+        tan4 = interp(fg.tan)
+        n_tex = sample_bilinear(
+            geo.textures, gather(m["normal_tex"], c), gather(uv, c),
+            constant((0.5, 0.5, 1.0, 1.0), uv.device))[:, :3]
+        n_mapped = apply_normal_map(gather(n_geom, c), n_vert,
+                                    normalize(tan4[:, :3]),
+                                    torch.sign(tan4[:, 3]), n_tex,
+                                    gather(m["normal_scale"], c),
+                                    gather(view, c))
+        n_mapped = torch.where(
+            (n_mapped * gather(ray_d, c)).sum(-1, keepdim=True) > 0,
+            -n_mapped, n_mapped)
+        n = scatter(n_geom, c, n_mapped)
     hit_pos = ray_o + ray_d * t_hit[:, None]
     return m, n, hit_pos, shadow_bias(t_hit)
 
@@ -406,26 +419,22 @@ def _shade_hit(fr: _Frame, ray_o, ray_d, t_hit, tri, u, v, active,
 def _mirror_pass(fr: _Frame, d, n, hit_pos, bias, metallic, base, mask,
                  color):
     """One deterministic mirror bounce for the set lanes of ``mask``
-    (RayTracing.metalinc:382-542)."""
-    idx = torch.nonzero(mask).squeeze(1)
-    if not idx.numel():
-        return color
-    n_c, d_c = n[idx], d[idx]
+    (RayTracing.metalinc:382-542), compacted."""
+    c = compact(mask)
+    n_c, d_c = gather(n, c), gather(d, c)
     r_dir = normalize(reflect(d_c, n_c))
-    r_o = hit_pos[idx] + n_c * bias[idx][:, None]
-    live = torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device)
-    rt, rtri, ru, rv, rfound = trace_batch(fr.fg.bvh, r_o, r_dir, live)
+    r_o = gather(hit_pos, c) + n_c * gather(bias, c)[:, None]
+    rt, rtri, ru, rv, rfound = trace_batch(fr.fg.bvh, r_o, r_dir, c.valid,
+                                           c.count)
     r_color, r_m, _, _, _ = _shade_hit(fr, r_o, r_dir, rt, rtri, ru, rv,
                                        rfound, False)
     refl_alpha = torch.where(rfound, r_m["alpha"], 0.0)
     refl = torch.where(rfound[:, None], r_color * refl_alpha[:, None], 0.0) \
         + _bg(d.device) * (1.0 - refl_alpha)[:, None]
     nov = torch.clamp((n_c * normalize(-d_c)).sum(-1), 0.0, 1.0)
-    met = metallic[idx][:, None]
-    f = fresnel_schlick3(nov, 0.04 * (1.0 - met) + base[idx] * met)
-    color = color.clone()
-    color[idx] = color[idx] * (1.0 - f) + refl * f
-    return color
+    met = gather(metallic, c)[:, None]
+    f = fresnel_schlick3(nov, 0.04 * (1.0 - met) + gather(base, c) * met)
+    return scatter(color, c, gather(color, c) * (1.0 - f) + refl * f)
 
 
 def refraction_setup(d, n, ior):
@@ -443,31 +452,27 @@ def refraction_setup(d, n, ior):
 def _refraction_pass(fr: _Frame, d, n, hit_pos, bias, base, transmission,
                      ior, found, color):
     """One refraction bounce with a Fresnel mix for transmissive hits
-    (RayTracing.metalinc:544-713)."""
+    (RayTracing.metalinc:544-713), compacted."""
     t_dir, t_len, _ = refraction_setup(d, n, ior)
-    idx = torch.nonzero(found & (transmission > 0.001) & (t_len > 0)) \
-        .squeeze(1)
-    if not idx.numel():
-        return color
-    t_dir_c = t_dir[idx]
-    t_dir_n = t_dir_c / torch.clamp(t_len[idx][:, None], min=1e-20)
-    t_o = hit_pos[idx] + t_dir_c * bias[idx][:, None]
-    live = torch.ones(idx.shape[0], dtype=torch.bool, device=idx.device)
-    ft, ftri, fu, fv, ffound = trace_batch(fr.fg.bvh, t_o, t_dir_n, live)
+    c = compact(found & (transmission > 0.001) & (t_len > 0))
+    t_dir_c = gather(t_dir, c)
+    t_dir_n = t_dir_c / torch.clamp(gather(t_len, c)[:, None], min=1e-20)
+    t_o = gather(hit_pos, c) + t_dir_c * gather(bias, c)[:, None]
+    ft, ftri, fu, fv, ffound = trace_batch(fr.fg.bvh, t_o, t_dir_n, c.valid,
+                                           c.count)
     f_color, f_m, _, _, _ = _shade_hit(fr, t_o, t_dir_n, ft, ftri, fu, fv,
                                        ffound, False)
     refr_alpha = torch.where(ffound, f_m["alpha"], 0.0)
     refr_bg = eval_env_sh(t_dir_n, fr.ibl.sh0, fr.ibl.sh1) * AMBIENT_INTENSITY
     refr = torch.where(ffound[:, None], f_color * refr_alpha[:, None], 0.0) \
         + refr_bg * (1.0 - refr_alpha)[:, None]
-    view = normalize(-d[idx])
-    f_s = fresnel_schlick(torch.clamp((n[idx] * view).sum(-1), 0.0, 1.0),
-                          0.04)[:, None]
-    old = color[idx]
-    mix = refr * base[idx] * (1.0 - f_s) + old * f_s
-    color = color.clone()
-    color[idx] = old + (mix - old) * transmission[idx][:, None]
-    return color
+    view = normalize(-gather(d, c))
+    f_s = fresnel_schlick(torch.clamp((gather(n, c) * view).sum(-1), 0.0,
+                                      1.0), 0.04)[:, None]
+    old = gather(color, c)
+    mix = refr * gather(base, c) * (1.0 - f_s) + old * f_s
+    return scatter(color, c,
+                   old + (mix - old) * gather(transmission, c)[:, None])
 
 
 def _shade_layer(fr: _Frame, o_l, d_l, t, tri, u, v, found, alpha_in):
@@ -486,31 +491,28 @@ def _shade_layer(fr: _Frame, o_l, d_l, t, tri, u, v, found, alpha_in):
 
 def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
                          live):
-    """Layers 2.. shaded as one compacted record set, then the alpha chain
-    elementwise (per-record color does not depend on the chain). Records
-    without barycentrics (u is None: traced layers) get them on the
-    compacted set (rt.py:1533-1536)."""
+    """Layers 2.. shaded as one compacted record set (capacity nl * p, every
+    record), then the alpha chain elementwise (per-record color does not
+    depend on the chain). Records without barycentrics (u is None: traced
+    layers) get them on the compacted set (rt.py:1533-1536)."""
     nl, p = len(recs), ray_o.shape[0]
     t_s = torch.cat([r[0] for r in recs])
     tri_s = torch.cat([r[1] for r in recs])
     f_s = [r[4] for r in recs]
     chain_open = live & (accum_alpha < 0.99)
-    idx = torch.nonzero(torch.cat([f & chain_open for f in f_s])).squeeze(1)
-    colors = torch.zeros((nl * p, 3), device=d.device)
-    alphas = torch.zeros(nl * p, device=d.device)
-    if idx.numel():
-        lane = idx % p
-        oc, dc, tc, tric = ray_o[lane], d[lane], t_s[idx], tri_s[idx]
-        if recs[0][2] is None:
-            uc, vc, _ = barycentrics(fr.fg.bvh, oc, dc, tc, tric)
-        else:
-            uc = torch.cat([r[2] for r in recs])[idx]
-            vc = torch.cat([r[3] for r in recs])[idx]
-        ok = torch.ones(idx.shape[0], dtype=torch.bool, device=d.device)
-        color, alpha = _shade_layer(fr, oc, dc, tc, tric, uc, vc, ok,
-                                    torch.zeros(idx.shape[0], device=d.device))
-        colors[idx] = color
-        alphas[idx] = alpha
+    c = compact(torch.cat([f & chain_open for f in f_s]))
+    lane = c.safe % p
+    oc, dc = ray_o[lane], d[lane]
+    tc, tric = gather(t_s, c), gather(tri_s, c)
+    if recs[0][2] is None:
+        uc, vc, _ = barycentrics(fr.fg.bvh, oc, dc, tc, tric)
+    else:
+        uc = gather(torch.cat([r[2] for r in recs]), c)
+        vc = gather(torch.cat([r[3] for r in recs]), c)
+    color, alpha = _shade_layer(fr, oc, dc, tc, tric, uc, vc, c.valid,
+                                torch.zeros_like(tc))
+    colors = scatter(torch.zeros((nl * p, 3), device=d.device), c, color)
+    alphas = scatter(torch.zeros(nl * p, device=d.device), c, alpha)
     colors = colors.reshape(nl, p, 3)
     alphas = alphas.reshape(nl, p)
     for li in range(nl):
@@ -563,15 +565,15 @@ def _layer_records(opq, trs, max_layers: int):
     return recs
 
 
-def _traced_records(fg: FrameGeometry, cam, cam_host, d, max_layers: int):
+def _traced_records(fg: FrameGeometry, cam, d, max_layers: int):
     """Layer records of the camera rays ``d`` from ONE layered shared-origin
     walk (K5, rt.py:1687-1719): the nearest opaque hit and max_layers
-    translucent hits per ray, through the floor chain. ``cam_host``: the
-    origin ``cam`` as host floats, for the kernel's arguments."""
+    translucent hits per ray, through the floor chain. ``cam``: the origin
+    on the device, where the kernel reads it."""
     p = d.shape[0]
-    srows = RK.build_origin_rows(fg.bvh.rows, cam)
+    srows = RK.build_origin_rows(fg.bvh.rows, cam, fg.bvh.wide.leaves)
     t_opq, otri, lts, lids = RK.trace_layers_so(
-        fg.bvh.wide, srows, cam_host, d,
+        fg.bvh.wide, srows, cam, d,
         torch.full((p,), BIG, device=d.device), n_slots=max_layers)
     trs = [(lts[:, k], torch.floor(lids[:, k]).long(), None, None,
             lids[:, k] >= 0) for k in range(max_layers)]
@@ -589,54 +591,56 @@ def _next_origin(o, d, t):
 def _offset_tracer(bvh, ray_o, d):
     """Traced layers past the walks' row cap (rt.py:1779,1866-1896): a
     closest-hit trace (K4) from each lane's origin, which then moves past
-    the hit (``_next_origin``). Returns trace(idx) for ``_trace_layers``."""
+    the hit (``_next_origin``). Returns trace(lanes) for
+    ``_trace_layers``."""
     o = ray_o
 
-    def trace(idx):
+    def trace(c):
         nonlocal o
-        oc, dc = (o, d) if idx is None else (o[idx], d[idx])
-        t, tri, u, v, found = trace_batch(bvh, oc, dc, torch.ones(
-            oc.shape[0], dtype=torch.bool, device=oc.device))
+        if c is None:
+            oc, dc, live, count = o, d, torch.ones(
+                o.shape[0], dtype=torch.bool, device=o.device), None
+        else:
+            oc, dc, live, count = gather(o, c), gather(d, c), c.valid, c.count
+        t, tri, u, v, found = trace_batch(bvh, oc, dc, live, count)
         nxt = torch.where(found[:, None], _next_origin(
             oc, dc, torch.where(found, t, 1.0)), oc)
-        if idx is None:
-            o = nxt
-        else:
-            o = o.clone()
-            o[idx] = nxt
+        o = nxt if c is None else scatter(o, c, nxt)
         return oc, t, tri, u, v, found
 
     return trace
 
 
-def _floor_tracer(fg: FrameGeometry, cam, cam_host, ray_o, d):
+def _floor_tracer(fg: FrameGeometry, cam, ray_o, d):
     """Non-layered traced layers on a tree the walks serve (rt.py:1767-1777,
     1815-1865): the camera rays themselves, traced by the shared-origin
     closest-hit kernel (K6) past a per-lane t floor that moves to
-    t + 2*bias after each hit. Compacted lanes are all live (t_max BIG),
-    so no origin is parked: a parked origin would break the baked leaf
-    constants. Returns trace(idx) for ``_trace_layers``."""
+    t + 2*bias after each hit. The live lanes of a continuation are
+    compacted; the fill slots are parked by t_max 0 (not by their origin:
+    a parked origin would break the baked leaf constants) and K6 skips
+    them by the count. Returns trace(lanes) for ``_trace_layers``."""
     bv = fg.bvh
-    srows = RK.build_origin_rows(bv.rows, cam)
+    srows = RK.build_origin_rows(bv.rows, cam, bv.wide.leaves)
     floor = None
 
-    def trace(idx):
+    def trace(c):
         nonlocal floor
-        oc, dc = (ray_o, d) if idx is None else (ray_o[idx], d[idx])
-        n = dc.shape[0]
-        t, tri = RK.trace_rays_so(
-            bv.wide, srows, cam_host, dc,
-            torch.full((n,), BIG, device=dc.device),
-            t_floor=None if idx is None else floor[idx].contiguous())
+        if c is None:
+            oc, dc, fl, count = ray_o, d, None, None
+            t_max = torch.full((d.shape[0],), BIG, device=d.device)
+        else:
+            oc, dc, count = gather(ray_o, c), gather(d, c), c.count
+            fl = gather(floor, c)
+            t_max = torch.where(c.valid, BIG, 0.0)
+        t, tri = RK.trace_rays_so(bv.wide, srows, cam, dc, t_max,
+                                  t_floor=fl, count=count)
         u, v, found = barycentrics(bv, oc, dc, t, tri)
         found = found & (t < BIG)
         t = torch.where(found, t, BIG)
         tri = torch.where(found, tri.long(), -1)
         nxt = torch.where(found, t + 2.0 * shadow_bias(t), 0.0)
-        if idx is None:
-            floor = nxt
-        else:
-            floor[idx] = torch.where(found, nxt, floor[idx])
+        floor = nxt if c is None else \
+            scatter(floor, c, torch.where(found, nxt, fl))
         return oc, t, tri, u, v, found
 
     return trace
@@ -645,8 +649,9 @@ def _floor_tracer(fg: FrameGeometry, cam, cam_host, ray_o, d):
 def _trace_layers(fr: _Frame, ray_o, d, max_layers: int, trace):
     """Traced layers one trace at a time: ``trace(None)`` gives every
     lane's layer-1 record, shaded densely; each continuation layer then
-    re-traces the live lanes, ``trace(idx)``, compacted (rt.py:1760-1898).
-    ``trace`` returns (shading origin, t, tri, u, v, found)."""
+    re-traces the live lanes, ``trace(lanes)``, compacted
+    (rt.py:1760-1898); all max_layers layers run. ``trace`` returns
+    (shading origin, t, tri, u, v, found)."""
     p, dev = ray_o.shape[0], ray_o.device
     oc, t, tri, u, v, found = trace(None)
     color, contrib = _shade_layer(fr, oc, d, t, tri, u, v, found,
@@ -655,17 +660,14 @@ def _trace_layers(fr: _Frame, ray_o, d, max_layers: int, trace):
     accum_alpha = contrib
     live = found
     for _ in range(1, max_layers):
-        live = live & (accum_alpha < 0.99)
-        idx = torch.nonzero(live).squeeze(1)
-        if not idx.numel():
-            break
-        oc, t, tri, u, v, found = trace(idx)
-        color, contrib = _shade_layer(fr, oc, d[idx], t, tri, u, v, found,
-                                      accum_alpha[idx])
-        accum = accum.index_add(0, idx, color * contrib[:, None])
-        accum_alpha = accum_alpha.index_add(0, idx, contrib)
-        live = torch.zeros(p, dtype=torch.bool, device=dev)
-        live[idx] = found
+        c = compact(live & (accum_alpha < 0.99))
+        oc, t, tri, u, v, found = trace(c)
+        alpha_c = gather(accum_alpha, c)
+        color, contrib = _shade_layer(fr, oc, gather(d, c), t, tri, u, v,
+                                      found, alpha_c)
+        accum = scatter(accum, c, gather(accum, c) + color * contrib[:, None])
+        accum_alpha = scatter(accum_alpha, c, alpha_c + contrib)
+        live = scatter(torch.zeros_like(live), c, found)
     return accum + _bg(dev) * (1.0 - accum_alpha)[:, None]
 
 
@@ -678,7 +680,8 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                  shadow_prepass: bool = False):
     """Full RT frame -> (H, W, 3) linear color. ``inv_view_proj`` and
     ``view_proj`` are tensors on the geometry's device; ``cam_pos`` (3,) is
-    host values (numpy) or a tensor.
+    host values (numpy) or a tensor. With all three on the device the frame
+    reads nothing back to the host.
     ``primary`` is the primary visibility mode, "hybrid" or "trace" (see
     the module docstring); the reference's "raster" and "peels" modes are
     not ported. ``layered`` (SGE_RT_LAYERED) chooses the layered walk K5
@@ -730,13 +733,11 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                 ids=ti.to(torch.float32), prior_w=h_o.w_depth)]
         recs = _layer_records(rec_of(h_o), trs, max_layers)
     elif RK.walk_available(bv.rows):
-        # the origin as host floats: no device sync when cam_pos is on the
-        # host, as the Engine passes it
-        cam_host = torch.as_tensor(cam_pos, dtype=torch.float32).tolist()
+        # K5 and K6 read the origin from the device
         if layered:
-            recs = _traced_records(fg, cam, cam_host, ray_d, max_layers)
+            recs = _traced_records(fg, cam, ray_d, max_layers)
         else:
-            trace = _floor_tracer(fg, cam, cam_host, ray_o, ray_d)
+            trace = _floor_tracer(fg, cam, ray_o, ray_d)
     else:
         trace = _offset_tracer(bv, ray_o, ray_d)
 

@@ -426,12 +426,13 @@ def setup_lists(v0, v1, v2, view_proj, width: int, height: int,
         ~cull
     counts_full = overlap.sum(1)
     # jnp.nonzero(row, size=k, fill_value=T) keeps the first k set entries
-    # of each row: rank them by a running count
+    # of each row: rank them by a running count and drop-scatter each
+    # triangle into its rank's column (the rest into column k, cut off)
     rank = torch.cumsum(overlap, 1) - 1
-    tile, tri = torch.nonzero(overlap & (rank < k), as_tuple=True)
-    cands = torch.full((tiles_x * tiles_y, k), tcount, dtype=torch.int64,
-                       device=dev)
-    cands[tile, rank[tile, tri]] = tri
+    col = torch.where(overlap & (rank < k), rank, k)
+    cands = torch.full((tiles_x * tiles_y, k + 1), tcount, dtype=torch.int64,
+                       device=dev).scatter_(
+        1, col, torch.arange(tcount, device=dev).expand_as(col))[:, :k]
     rows_pad = torch.cat([rows, rows.new_full((1, 16), -1.0)])
     return (rows_pad[cands].contiguous(),
             torch.clamp(counts_full, max=k).to(torch.int32),

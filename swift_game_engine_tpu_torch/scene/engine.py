@@ -1,22 +1,38 @@
 """Engine: the host frame loop — port of swift_game_engine_tpu/scene/engine.py.
 
 ``frame(dt, pad)`` follows the reference's fused frame
-(scene/engine.py:385-459) step for step: dt clamp <= 0.1, time advance
-(scaled and unscaled) and the fixed-step accumulator (<= ``MAX_SUBSTEPS``
-substeps, reset at the cap), the player's intent written into its
-WorldState row (jump and dodge OR-ed in), the chase camera from the player
-snapshot of the last completed frame interpolated by ``alpha``, the
-substeps, then ``render(alpha)``: render extraction (``Stepper.extract``:
-camera-relative instance transforms) and the render graph
-(``render/graph.py``), whose "rt" pass runs ``flatten_frame``, the frame at
-the RT target size (``render_target``) and the bilinear upscale to the
-drawable, and whose "composite" pass runs ``composite_frame``
+(scene/engine.py:198-262, 385-459) step for step: dt clamp <= 0.1, time
+advance (scaled and unscaled) and the fixed-step accumulator (<=
+``MAX_SUBSTEPS`` substeps, reset at the cap), the player's intent written
+into its WorldState row (jump and dodge OR-ed in), the chase camera from
+the player snapshot of the last completed frame interpolated by ``alpha``,
+the substeps, then the frame program: render extraction
+(``Stepper.extract``: camera-relative instance transforms) and the render
+graph (``render/graph.py``), whose "rt" pass runs ``flatten_frame``, the
+frame at the RT target size (``render_target``) and the bilinear upscale
+to the drawable, and whose "composite" pass runs ``composite_frame``
 (scene/engine.py:173-196); then u8 quantisation, the FPS overlay, and the
 player snapshot the next frames' camera reads (prev and current world
 position and the dodge flag: 7 floats). ``update(dt, pad)`` and
 ``render(alpha)`` are the reference's split of the same frame
 (scene/engine.py:324-370): ``update`` takes the substeps and reads the
 current player snapshot for the camera, ``render`` returns the float view.
+
+The frame program reads the frame's values from one input buffer on the
+device (``FRAME_INPUTS``: alpha, the camera's world position, the
+(inverse) view-projection at the RT size, the camera position, exposure and
+fps, -1 without the overlay), written each frame by one non-blocking copy
+from pinned host memory (the caching host allocator hands a pinned block
+out again only once the copy that read it has run, so frames in flight
+never share one). On the card the program is one CUDA graph per RT size
+(the reference's ``_program_cache``), captured at the first frame of that
+size (``cuda_graph.capture``; ``programs`` holds them): a frame is its
+substep replays, the input copy and one replay, with no host read from the
+end of the substeps to the snapshot's copy. Every value the capture bakes
+in is fixed for the Engine and the RT size (the RT size, the path, the
+layer counts, the shadow mode, which the lane count and the tree fix, K5's
+threads a ray); the rest comes from the buffer. A capture that fails
+raises; for CPU tensors the same program runs eagerly.
 
 The world state lives in buffers the Engine owns (``state``: a clone of
 its world's state, so Engines built on one world step independently). On
@@ -46,9 +62,8 @@ The frame is the reference's ``path`` (scene/engine.py:143-177,226-237):
 
 The RT target is ``rt_resolution_scale`` times the drawable (at least 0.25,
 Renderer.swift:175); ``set_rt_resolution_scale`` changes it between frames
-(Renderer.swift:232-258). The reference compiles one frame program per RT
-size and caches them; PyTorch runs the render eagerly, so the port needs no
-program cache and a new scale takes effect on the next frame.
+(Renderer.swift:232-258): the next frame takes the size's program, captured
+then if the size is new.
 
 A world with a ``stepper`` starts at ``time_scale = 1.0``, as the
 reference does. A render-only world (no stepper: fixed ``transforms``)
@@ -77,12 +92,17 @@ from ..render.graph import RenderGraph, RenderPass
 from ..render.ibl import IBL
 from ..render.raster import RASTER_MODES, render_frame_raster
 from ..render.scene_geometry import flatten_frame
+from .cuda_graph import capture
 from .input import InputFrame, InputSystem
 from .step import SubstepGraph
 
 FIXED_DT = 1.0 / 60.0
 MAX_SUBSTEPS = 4
 PATHS = ("rt", "raster", "raster_pbr")
+# The frame program's inputs, in the order of its input buffer (f32).
+FRAME_INPUTS = (("alpha", ()), ("cam_world", (3,)), ("ivp", (4, 4)),
+                ("vp", (4, 4)), ("cam_pos", (3,)), ("exposure", ()),
+                ("fps", ()))
 
 
 def save_world_state(path: str, state, **scalars):
@@ -118,6 +138,41 @@ def apply_intent(state, e: int, intent: dict):
         state.intent_dodge[r].fill_(True)
 
 
+class FrameProgram:
+    """The frame after its substeps, ``body() -> (u8, snapshot or None)``,
+    for one RT size. On the card it is captured once as a CUDA graph
+    (``WARMUP`` eager runs first) and ``run()`` replays it, returning the
+    graph's own output tensors (the next replay overwrites them); for CPU
+    tensors ``run()`` is the eager body. ``eager()`` runs the body eagerly
+    on the current inputs whatever the device: on the card, the frame the
+    graph must equal bit for bit."""
+
+    WARMUP = 2
+
+    def __init__(self, body, device):
+        self.body = body
+        self.captured, self.out = None, None
+        if device.type == "cuda":
+            self.captured, self.out = capture(body, body, self.WARMUP)
+
+    @property
+    def capture_seconds(self) -> float:
+        return 0.0 if self.captured is None else self.captured.seconds
+
+    @property
+    def pool_bytes(self) -> int:
+        return 0 if self.captured is None else self.captured.pool_bytes
+
+    def run(self):
+        if self.captured is None:
+            return self.body()
+        self.captured.replay()
+        return self.out
+
+    def eager(self):
+        return self.body()
+
+
 class Engine:
     def __init__(self, scene, width: int = 640, height: int = 360,
                  path: str = "rt", rt_resolution_scale: float = 1.0,
@@ -144,6 +199,9 @@ class Engine:
                              f"got {raster_mode!r}")
         self.device = resolve_device(device)
         self.pipeline_depth = max(int(pipeline_depth), 1)
+        self.programs = {}      # RT size -> FrameProgram
+        n_in = sum(int(np.prod(shape)) for _, shape in FRAME_INPUTS)
+        self._inputs = torch.zeros(n_in, device=self.device)
         self._pending = []      # frames in flight: (u8, snapshot, event)
         self._snap = None       # the last completed frame's snapshot (7,)
         self.geometry = scene.geometry
@@ -312,6 +370,61 @@ class Engine:
             primary=self.primary, layered=self.layered,
             shadow_prepass=self.shadow_prepass)
 
+    def _stage_inputs(self, alpha: float, fps: int):
+        """The frame's values into the input buffer: one non-blocking copy
+        from pinned host memory on the card."""
+        rw, rh = self.rt_size
+        cam = self.camera
+        host = torch.from_numpy(np.concatenate([
+            [alpha], cam.world_position, np.ravel(cam.inv_view_proj(rw, rh)),
+            np.ravel(cam.view_proj(rw, rh)), cam.position,
+            [self.tone_mapping_exposure, fps]]).astype(np.float32))
+        if self._inputs.is_cuda:
+            host = host.pin_memory()
+        self._inputs.copy_(host, non_blocking=True)
+
+    def frame_inputs(self) -> dict:
+        """Views of the input buffer by name (``FRAME_INPUTS``)."""
+        out, i = {}, 0
+        for name, shape in FRAME_INPUTS:
+            n = int(np.prod(shape))
+            out[name] = self._inputs[i:i + n].reshape(shape)
+            i += n
+        return out
+
+    def _view(self, x) -> torch.Tensor:
+        """Extraction and the render graph on the frame inputs ``x``
+        (``frame_inputs``) -> the (H, W, 3) float view."""
+        if self.stepper is not None:
+            transforms, palettes = self.stepper._extract(
+                self.state, x["alpha"], x["cam_world"])
+        else:
+            transforms = self.transforms.clone()
+            transforms[:, :3, 3] -= x["cam_world"]
+            palettes = self.palettes
+        return self.graph.execute(dict(
+            transforms=transforms, palettes=palettes, ivp=x["ivp"],
+            vp=x["vp"], cam_pos=x["cam_pos"],
+            exposure=x["exposure"]))["view"]
+
+    def _frame_body(self):
+        """The frame program: the view, u8, the overlay and the player
+        snapshot, all read from the input buffer and the state."""
+        x = self.frame_inputs()
+        u8 = (torch.clamp(self._view(x), 0.0, 1.0) * 255.0).to(torch.uint8)
+        u8 = overlay_blit_device(u8, x["fps"])
+        snap = self._snapshot_device() if self.stepper is not None else None
+        return u8, snap
+
+    def program(self) -> FrameProgram:
+        """The frame program of the current RT size, captured at first
+        use."""
+        prog = self.programs.get(self.rt_size)
+        if prog is None:
+            prog = self.programs[self.rt_size] = FrameProgram(
+                self._frame_body, self.device)
+        return prog
+
     def _snapshot_device(self) -> torch.Tensor:
         """The player's previous and current world position and its dodge
         flag (7 floats) on the device."""
@@ -363,23 +476,17 @@ class Engine:
 
     def render(self, alpha: float) -> torch.Tensor:
         """Render extraction + the render graph (scene/engine.py:360-370)
-        -> the (H, W, 3) float view on the engine's device."""
-        transforms, palettes = self.extract(alpha)
-        rw, rh = self.rt_size
-        dev = self.device
-        res = self.graph.execute(dict(
-            transforms=transforms, palettes=palettes,
-            ivp=torch.as_tensor(self.camera.inv_view_proj(rw, rh), device=dev),
-            vp=torch.as_tensor(self.camera.view_proj(rw, rh), device=dev),
-            cam_pos=self.camera.position,
-            exposure=self.tone_mapping_exposure))
-        return res["view"]
+        -> the (H, W, 3) float view on the engine's device: the frame
+        program's first part, run eagerly on the staged inputs."""
+        self._stage_inputs(alpha, -1)
+        return self._view(self.frame_inputs())
 
     def frame(self, dt: float, pad: Optional[InputFrame] = None,
               with_overlay: bool = True) -> torch.Tensor:
         """One frame -> (H, W, 3) uint8 tensor on the engine's device: the
         oldest frame in flight once ``pipeline_depth`` are queued, zeros
-        before."""
+        before. On the card: the substep replays, the input copy and one
+        replay of the RT size's frame program."""
         dt, n, alpha = self._begin(dt, pad)
         # Chase camera from the last completed frame's player snapshot (the
         # reference's one-frame lag at depth 1).
@@ -388,12 +495,13 @@ class Engine:
         self._follow(self._snap, alpha)
         fps = self.overlay.update(dt) if with_overlay else -1
         self._step(n)
-        view = self.render(alpha)
-        u8 = (torch.clamp(view, 0.0, 1.0) * 255.0).to(torch.uint8)
-        u8 = overlay_blit_device(u8, fps)
-        snap = event = None
-        if self.stepper is not None:
-            snap = self._snapshot_device()
+        self._stage_inputs(alpha, fps)
+        u8, snap = self.program().run()
+        # the next replay overwrites the graph's outputs: each frame keeps
+        # its own image
+        u8 = u8.clone()
+        event = None
+        if snap is not None:
             if snap.is_cuda:
                 host = torch.empty(snap.shape, dtype=snap.dtype,
                                    pin_memory=True)

@@ -26,8 +26,6 @@ issues the substep's ~31,000 kernels with one launch from the host.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -41,6 +39,7 @@ from ..physics import systems as S
 from ..physics.character import CharacterPipeline, PlatformSet
 from ..physics.collision_world import LocalTriangles, transform_soup
 from ..physics.separation import separate_agents
+from .cuda_graph import capture
 
 _MASKS = ("has_body", "has_controller", "has_intent", "has_loco",
           "has_action", "has_dodge", "has_osc", "has_spin", "has_platform",
@@ -254,7 +253,10 @@ class Stepper:
                               device=self.device)
         return self._extract(state, float(np.float32(alpha)), cam)
 
-    def _extract(self, state: WorldState, alpha: float, camera_world):
+    def _extract(self, state: WorldState, alpha, camera_world):
+        """``extract`` with ``alpha`` a float or a 0-d tensor and
+        ``camera_world`` a (3,) tensor, both on the state's device (the
+        Engine's frame program passes its input buffers)."""
         m = self.m
         prev_w = chunk_local_to_world(state.wp_prev_chunk, state.wp_prev_local)
         curr_w = chunk_local_to_world(state.wp_chunk, state.wp_local)
@@ -312,25 +314,11 @@ class SubstepGraph:
                    self.stepper._substep_impl(self.state, self.dt))
 
     def _capture(self):
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP):
-                self.stepper._substep_impl(self.state, self.dt)
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        # the capture empties the allocator's cache first: empty it here so
-        # that the reserved memory's growth is the graph's pool alone
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._advance()
-        torch.cuda.synchronize()
-        self.graph = graph
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        self.capture_seconds = time.perf_counter() - t0
+        cap, _ = capture(lambda: self.stepper._substep_impl(self.state,
+                                                           self.dt),
+                         self._advance, self.WARMUP)
+        self.graph = cap.graph
+        self.capture_seconds, self.pool_bytes = cap.seconds, cap.pool_bytes
 
     def step(self):
         """Advance ``state`` in place by one substep."""
