@@ -5,9 +5,10 @@
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from ``swift_game_engine_tpu_torch/
-csrc`` (first use, one nvcc per source in parallel) and drives six paths
+csrc`` (first use, one nvcc per source in parallel) and drives nine paths
 of the port through its entry points, each for 2 warm-up and 10 timed
-frames at 960x540 (the RT paths with ``max_layers=3``). Every frame is
+frames (paths 8a and 8b: 3) at 960x540 (the RT paths with
+``max_layers=3``). Every frame is
 the bench headline's ``eng.frame(1/60, InputFrame(ly=1.0))``: the
 DemoScene world steps (one fixed substep a frame, one replay of the
 Engine's CUDA graph of the substep: the player falls and walks, the NPCs
@@ -44,7 +45,26 @@ intent to the snapshot's copy:
      ``Engine(primary="trace", layered=False, shadow_layers=5,
      shadow_prepass=True)``: K6 once dense and once per continuation layer,
      K8 once per shade call in front of the per-layer K4 shadow loop, K4
-     bounces, no K1/K2/K3/K5/K7.
+     bounces, no K1/K2/K3/K5/K7;
+  7. ``demo_rt_posed_960x540``: path 1's Engine on the full DemoScene built
+     from the synthetic rig's directory (tests/torch_pose_rig.py, written
+     into ``local/pose_rig``: the skeleton and five motion profiles the
+     reference's posed player reads, beside links to the repository's
+     assets), so the player is posed: the locomotion FSM, the action clock
+     and the pose stack run in the substep graph, and its palettes skin the
+     body; the timed frame ``DODGE_FRAME`` carries a dodge. It prints the
+     substep graph's kernels beside path 1's, the locomotion states met,
+     the action weight after the dodge and that the palettes are finite and
+     rigid (|det - 1| < 1e-3), and one replay of the substep must equal an
+     eager card substep from the same state bit for bit;
+  8. ``demo_peels_960x540`` (8a) and ``demo_raster_primary_960x540`` (8b):
+     the decimated scene with ``primary="peels"`` (K1 over every triangle,
+     3 peeled layers, once a frame) and ``primary="raster"`` (K1 over every
+     triangle, 1 layer, once a frame; K4 continuations), 2 + 3 frames each.
+
+Every path asserts the DemoScene branch its scene took: the stand-in player
+on paths 1-6 and 8, the posed one on path 7. Paths 7 and 8 also print the
+device busy time and the syncs a frame of 3 profiled frames (at most 1).
 
 Each path's kernel launch counts are zeroed just before its timed frames
 and read just after (a replay adds the launches its capture recorded:
@@ -69,12 +89,20 @@ port, only PyTorch's):
   * one substep and one replay under
     ``torch.cuda.set_sync_debug_mode("error")``: neither reads anything
     back to the host;
-  * ms per substep eager and graphed (CUDA events, median and p90 of 30),
-    the kernels the card runs and the launches the host makes for one
-    eager substep and for one replay (torch.profiler), the capture's
-    seconds and the graph pool's size, for the DemoScene world and for a
-    256-agent crowd on procedural meshes (``build_crowd``,
+  * ms per substep eager and graphed (CUDA events, median and p90 of
+    ``SIM_TIMED`` = 10), the kernels the card runs and the launches the
+    host makes for one eager substep and for one replay (torch.profiler),
+    the capture's seconds and the graph pool's size, for the DemoScene
+    world and for a 256-agent crowd on procedural meshes (``build_crowd``,
     examples/bench_crowd.py's world: the separation grid).
+
+The simulation phase then runs again on path 7's posed world (60 substeps
+card against CPU, the pose clocks and palettes held too, a dodge at
+substep ``SIM_DODGE``; the replays bit-equal; its substep timed). Then the
+pose phase (``pose_phase``): bench.py's pose configuration #2, 64
+characters x 120 steps of ``PoseEngine.step_character`` with the action
+layer, each card step held against the CPU's (1e-4), and char-steps/s
+eager and as one captured step.
 
 And the kernels:
 
@@ -82,7 +110,8 @@ And the kernels:
     the first frame of each path that runs it gave it (the walks K5-K8 on
     a fixed subset of the captured lanes: their twins walk lane by lane in
     lockstep and are slow; K10, which no path runs, on path 5's candidate
-    lists, and its first layer against K9's first peel), and both are
+    lists, and its first layer against K9's first peel; path 7's kernels
+    are path 1's and are held there), and both are
     timed (CUDA events); each kernel's bound — the larger of its bytes over
     the card's memory rate and its operations over the FP32 rate — is
     computed from the same inputs: for K1-K10 from the work their counting
@@ -99,18 +128,19 @@ And the kernels:
     ``trace_rays_so_binary``, ``trace_shadow_factor_binary``,
     ``trace_shadow_any_binary``), and both walks' work per ray. K1 is
     reported per role (its layer count: the opaque and translucent rasters
-    of path 1, path 4's raster), with every record where it differs from
+    of path 1, path 4's raster, path 8's peels and 1-layer primary), with
+    every record where it differs from
     its plain version. A kernel's entry in the JSON line carries the path
     name after an ``@`` for every path but the first that runs it;
   * four small renders, each through the kernels and through the plain
     versions, must agree (>= 99% of pixels within 1e-4, means within
     0.1%): a 320x180 hybrid render of the full scene (73,728 lanes, with
     the cluster threshold lowered to 0 so that its shadows take the
-    cluster sweeps K2/K3, as paths 1 and 2 do), a 160x90 traced render of
+    cluster sweeps K2/K3, as paths 1 and 2 do), a 128x72 traced render of
     the decimated scene (K5, K7), a 480x270 list-binned raster frame (K9)
-    and a 160x90 frame configured as path 6 (K6, K8, K4).
+    and a 128x72 frame configured as path 6 (K6, K8, K4).
 
-``path_engines`` is the one definition of the six paths;
+``path_engines`` is the one definition of the nine paths;
 ``profile_port.py`` drives the same ones.
 
 It prints the card (``nvidia-smi`` name and power limit), the build and
@@ -137,10 +167,16 @@ LAYERS, SHADOW_LAYERS = 3, 4
 # The DemoScene's ground and the player's capsule (r 1.5, half height 1.0).
 GROUND_Y, PLAYER_CORE_TO_FOOT = -3.0, 2.5
 # Simulation phase: substeps held card against CPU; timed substeps.
-SIM_STEPS, SIM_TIMED, CROWD_AGENTS = 60, 30, 256
+SIM_STEPS, SIM_TIMED, CROWD_AGENTS = 60, 10, 256
 PATHS = ("demo_rt_960x540", "demo_trace_960x540", "demo_trace_rtscale_0.25",
          "demo_raster_960x540", "demo_raster_lists_960x540",
-         "demo_trace_so_prepass_960x540")
+         "demo_trace_so_prepass_960x540", "demo_rt_posed_960x540",
+         "demo_peels_960x540", "demo_raster_primary_960x540")
+# Path 7: the timed frame whose input carries the dodge. Paths 8a/8b: timed
+# frames each.
+DODGE_FRAME, PRIMARY_TIMED = 3, 3
+# The pose phase: bench.py's pose configuration (#2), characters x steps.
+POSE_CHARS, POSE_STEPS = 64, 120
 
 # Tolerances of kernel vs plain version. Both compute the same records with
 # the same f32 operation order (the kernels build with --fmad=false), so
@@ -301,11 +337,21 @@ class Capture:
         self._orig = []
 
 
+def pose_rig_dir():
+    """The synthetic rig (tests/torch_pose_rig.py: the skeleton and five
+    motion profiles the posed player reads, with links to the repository's
+    other assets), written into the checkout's ``local/pose_rig``."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_pose_rig
+    return torch_pose_rig.write_rig(os.path.join(REPO, "local", "pose_rig"),
+                                    ASSETS)
+
+
 def path_engines(dev):
-    """The six paths, in order: yields (name, scene, Engine). The two scenes
-    are built once each, when a path first needs them; paths 2 and 3 share
-    one Engine (path 3 is path 2's Engine after
-    ``set_rt_resolution_scale(0.25)``)."""
+    """The nine paths, in order: yields (name, scene, Engine). The three
+    scenes (full, decimated, full posed) are built once each, when a path
+    first needs them; paths 2 and 3 share one Engine (path 3 is path 2's
+    Engine after ``set_rt_resolution_scale(0.25)``)."""
     from swift_game_engine_tpu_torch.scene.demo_scene import build_demo_scene
     from swift_game_engine_tpu_torch.scene.engine import Engine
     kw = dict(max_layers=LAYERS, shadow_layers=SHADOW_LAYERS, device=dev)
@@ -324,6 +370,11 @@ def path_engines(dev):
                                   layered=False, shadow_layers=5,
                                   shadow_prepass=True, max_layers=LAYERS,
                                   device=dev)
+    posed = build_demo_scene(pose_rig_dir(), device=dev, import_tri_budget=0)
+    yield PATHS[6], posed, Engine(posed, W, H, path="rt", **kw)
+    del posed
+    yield PATHS[7], world, Engine(world, W, H, primary="peels", **kw)
+    yield PATHS[8], world, Engine(world, W, H, primary="raster", **kw)
 
 
 def build_crowd(device, n_agents=CROWD_AGENTS, seed=11):
@@ -386,8 +437,14 @@ def _sim_leaves(state, prefix=""):
     return out
 
 
-# Float fields held card against CPU (positions and velocities).
-SIM_FLOATS = ("trs_t", "wp_local", "body_pos", "body_vel", "body_prev_pos")
+# Float fields held card against CPU (positions, velocities and the pose
+# systems' clocks and palettes).
+SIM_FLOATS = ("trs_t", "wp_local", "body_pos", "body_vel", "body_prev_pos",
+              "loco.times", "loco.blend_t", "loco.idle_inertia",
+              "action.time", "action.weight", "palettes", "pose_phase")
+# The substep of the simulation phase whose input carries a dodge (it
+# restarts the posed player's action clip; other players have no dodge).
+SIM_DODGE = 20
 
 
 def _sim_disagree(ref, card, atol=1e-4):
@@ -455,9 +512,37 @@ def _launches(fn):
     return kernels, host
 
 
-def simulation_phase(dev, world):
-    """The fixed-step simulation on the card (see the module docstring).
-    Returns {world: dict of ms and launches a substep, eager and graphed}."""
+def _busy_syncs(eng, frames=3):
+    """(device busy ms a frame: the union of the kernel and memcpy
+    intervals; the stream and event synchronisations a frame) of
+    ``frames`` frames of ``eng`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from swift_game_engine_tpu_torch.scene.input import InputFrame
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            eng.frame(1 / 60, InputFrame(ly=1.0))
+        torch.cuda.synchronize()
+    spans, syncs = [], 0
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            spans.append((ev.time_range.start, ev.time_range.end))
+        elif "Synchronize" in ev.name and "Device" not in ev.name:
+            syncs += 1
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / 1e3 / frames, syncs / frames
+
+
+def simulation_phase(dev, world, label="demo", crowd=True):
+    """The fixed-step simulation on the card (see the module docstring) of
+    ``world`` (and, with ``crowd``, the 256-agent crowd's timing). Returns
+    {label: dict of ms and launches a substep, eager and graphed}."""
     import numpy as np
     import torch
     from swift_game_engine_tpu_torch.ecs.world import copy_state, to_device
@@ -465,11 +550,11 @@ def simulation_phase(dev, world):
                                                           apply_intent)
     from swift_game_engine_tpu_torch.scene.input import (InputFrame,
                                                          InputSystem)
-    from swift_game_engine_tpu_torch.scene.step import Stepper, SubstepGraph
+    from swift_game_engine_tpu_torch.scene.step import SubstepGraph
 
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    cstep = Stepper(world.spec.to(cpu), to_device(world.collision, cpu))
+    cstep = world.stepper.to(cpu)
     gstep, e = world.stepper, world.player
     graph = SubstepGraph(gstep, world.state, FIXED_DT)
     state = to_device(world.state, cpu)
@@ -477,7 +562,8 @@ def simulation_phase(dev, world):
     ties = 0
     for i in range(SIM_STEPS):
         apply_intent(state, e, inp.update(
-            InputFrame(ly=1.0), FIXED_DT, False, walk, run, thresh))
+            InputFrame(ly=1.0, dodge=i == SIM_DODGE), FIXED_DT, False, walk,
+            run, thresh))
         start = to_device(state, dev)
         card = gstep.substep(start, FIXED_DT)
         # the graph's replay from the same state: the eager card substep's
@@ -516,13 +602,17 @@ def simulation_phase(dev, world):
                   f"with {how} (a tie rounding decides)")
         state = nxt
     p = state.body_pos[e].tolist()
-    print(f"simulation, DemoScene world ({world.spec.n_entities} entities, "
+    print(f"simulation, {label} DemoScene world ({world.spec.n_entities} "
+          f"entities, "
           f"{int(world.collision.valid.sum())} collision triangles): "
           f"{SIM_STEPS} substeps started on the card from the CPU's state "
-          f"agree (positions and velocities within 1e-4, integer and bool "
-          f"fields equal; {ties} ties), and the graph's replays equal the "
-          f"eager card substeps bit for bit; player at "
-          f"{[round(v, 4) for v in p]} ({time.perf_counter() - t0:.1f} s)")
+          f"agree (positions, velocities, pose clocks and palettes within "
+          f"1e-4, integer and bool fields equal; {ties} ties), and the "
+          f"graph's replays equal the eager card substeps bit for bit; "
+          f"player at {[round(v, 4) for v in p]}, locomotion state "
+          f"{int(state.loco.state[e])}, action weight "
+          f"{float(state.action.weight[e]):.4f} "
+          f"({time.perf_counter() - t0:.1f} s)")
 
     # One substep under the sync checker: it reads nothing back.
     gstate = to_device(state, dev)
@@ -538,27 +628,28 @@ def simulation_phase(dev, world):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    print("simulation: one substep and one replay under "
-          "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    print(f"simulation, {label}: one substep and one replay under "
+          f"torch.cuda.set_sync_debug_mode('error'): no host sync")
 
     out = {}
-    crowd_step, crowd_state = build_crowd(dev)
-    for label, stp, st in (("demo", gstep, gstate),
-                           ("crowd_256", crowd_step, crowd_state)):
+    worlds = [(label, gstep, gstate)]
+    if crowd:
+        worlds.append(("crowd_256", *build_crowd(dev)))
+    for name, stp, st in worlds:
         for _ in range(3):
             st = stp.substep(st, FIXED_DT)
-        g = graph if label == "demo" else SubstepGraph(stp, st, FIXED_DT)
+        g = graph if name == label else SubstepGraph(stp, st, FIXED_DT)
         copy_state(g.state, st)
         eager, replay = (_event_ms(lambda: stp.substep(st, FIXED_DT)),
                          _event_ms(g.step))
         launches, host = _launches(lambda: stp.substep(st, FIXED_DT))
         g_launches, g_host = _launches(g.step)
         n = stp.spec.n_entities
-        out[label] = dict(eager_ms=float(np.median(eager)),
-                          graph_ms=float(np.median(replay)),
-                          launches=launches, graph_launches=g_launches,
-                          graph_host_launches=g_host)
-        print(f"simulation {label} ({n} entities, "
+        out[name] = dict(eager_ms=float(np.median(eager)),
+                         graph_ms=float(np.median(replay)),
+                         launches=launches, graph_launches=g_launches,
+                         graph_host_launches=g_host)
+        print(f"simulation {name} ({n} entities, "
               f"{int(stp.collision.valid.sum())} collision triangles): "
               f"substep median {np.median(eager):.3f} ms eager, "
               f"{np.median(replay):.3f} ms graphed (CUDA events, "
@@ -569,9 +660,138 @@ def simulation_phase(dev, world):
               f"{g.capture_seconds:.3f} s, graph pool "
               f"{g.pool_bytes / 2**20:.1f} MiB")
         if g_host > 1:
-            _fail(f"simulation {label}: a replay took {g_host} host launches")
+            _fail(f"simulation {name}: a replay took {g_host} host launches")
         if not bool(torch.isfinite(g.state.body_pos).all()):
-            _fail(f"simulation {label}: positions are not finite")
+            _fail(f"simulation {name}: positions are not finite")
+    return out
+
+
+def pose_inputs(n, device, seed=5):
+    """``n`` characters' pose inputs, made from ``seed``: every locomotion
+    state, half of them blending, clocks spread over the clips, the dodge
+    clip playing at weights in (0, 1) on most, facings all round, ground
+    normals tilted up to ~30 degrees, grounded or not -> (LocoState,
+    LocoParams, ActionState, PoseInputs) on ``device``."""
+    import numpy as np
+    import torch
+    from swift_game_engine_tpu_torch.anim import pose as P
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    state = np.arange(n) % 4
+    yaw = rng.uniform(0, 2 * np.pi, n)
+    normal = np.stack([rng.normal(0, 0.3, n), np.ones(n),
+                       rng.normal(0, 0.3, n)], 1)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    loco = P.LocoState(
+        state=t(state, torch.int32),
+        from_state=t(rng.integers(0, 4, n), torch.int32),
+        times=t(rng.uniform(0, 2, (n, 4))), blend_t=t(rng.uniform(0, 1, n)),
+        idle_inertia=t(rng.uniform(0, 1, n)),
+        is_blending=t(np.arange(n) % 2 == 1, torch.bool))
+    action = P.ActionState(time=t(rng.uniform(0, 1, n)),
+                           weight=t(rng.uniform(0, 1, n)),
+                           active=t(rng.uniform(size=n) < 0.8, torch.bool))
+    inputs = P.PoseInputs(
+        forward=t(np.stack([-np.sin(yaw), np.zeros(n), -np.cos(yaw)], 1)),
+        ground_normal=t(normal),
+        grounded_near=t(rng.uniform(size=n) < 0.7, torch.bool))
+    return loco, P.LocoParams.default((n,), device), action, inputs
+
+
+def pose_phase(dev, rig_dir):
+    """bench.py's pose configuration (#2): POSE_CHARS characters x
+    POSE_STEPS steps of ``PoseEngine.step_character`` with the action
+    layer, on the synthetic rig. Each card step starts from the CPU's
+    locomotion state of that step and is held against the CPU's step:
+    palettes and model matrices within 1e-4, the phase and clocks within
+    1e-5, the states and flags equal. Then char-steps/s eager and as one
+    captured step (CUDA graph, replayed) by CUDA events."""
+    import numpy as np
+    import torch
+    from swift_game_engine_tpu_torch.anim.pose import LocoState
+    from swift_game_engine_tpu_torch.ecs.world import copy_state, to_device
+    from swift_game_engine_tpu_torch.scene.cuda_graph import capture
+    from swift_game_engine_tpu_torch.scene.demo_scene import load_pose_rig
+    from swift_game_engine_tpu_torch.scene.engine import FIXED_DT
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    card, host = load_pose_rig(rig_dir, dev), load_pose_rig(rig_dir, cpu)
+    loco, params, action, inputs = pose_inputs(POSE_CHARS, cpu)
+    g_params, g_action, g_inputs = (to_device(x, dev)
+                                    for x in (params, action, inputs))
+    err = 0.0
+    for i in range(POSE_STEPS):
+        ref = host.engine.step_character(host.bank, host.action, loco,
+                                         params, action, inputs, FIXED_DT)
+        got = card.engine.step_character(card.bank, card.action,
+                                         to_device(loco, dev), g_params,
+                                         g_action, g_inputs, FIXED_DT)
+        for f in ("palette", "model"):
+            d = float((getattr(got, f).cpu() - getattr(ref, f)).abs().max())
+            err = max(err, d)
+            if d > 1e-4:
+                _fail(f"pose step {i}: the card's {f} differs from the "
+                      f"CPU's by {d:.3g}")
+        for a, b, f in zip(ref.loco, got.loco, LocoState._fields):
+            b = b.cpu()
+            if a.dtype.is_floating_point:
+                if float((a - b).abs().max()) > 1e-5:
+                    _fail(f"pose step {i}: loco.{f} differs")
+            elif not torch.equal(a, b):
+                _fail(f"pose step {i}: loco.{f} differs")
+        if float((got.phase.cpu() - ref.phase).abs().max()) > 1e-5:
+            _fail(f"pose step {i}: the phase differs")
+        loco = ref.loco
+        action = action._replace(time=action.time + FIXED_DT)
+        g_action = to_device(action, dev)
+    pal = got.palette[..., :3, :3]
+    rigid = float((torch.det(pal) - 1).abs().max())
+    if not bool(torch.isfinite(got.palette).all()) or rigid > 1e-3:
+        _fail("pose phase: the card's palettes are not finite and rigid")
+    print(f"pose phase ({POSE_CHARS} characters x {POSE_STEPS} steps, "
+          f"{card.skeleton.bone_count} bones, the action layer on): each "
+          f"card step agrees with the CPU's (palettes and model within "
+          f"1e-4, max abs err {err:.3g}; clocks within 1e-5, states equal);"
+          f" palettes finite, |det - 1| <= {rigid:.2e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # timing: POSE_STEPS chained steps eager, and one captured step replayed
+    g_loco = to_device(loco, dev)
+
+    def step():
+        res = card.engine.step_character(card.bank, card.action, g_loco,
+                                         g_params, g_action, g_inputs,
+                                         FIXED_DT)
+        copy_state(g_loco, res.loco)
+        return res
+
+    def run(fn):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(POSE_STEPS):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+    step()
+    eager_ms = run(step)
+    cap, _ = capture(step, step, 3)
+    graph_ms = run(cap.graph.replay)
+    kernels, host_launches = _launches(step)
+    rate = POSE_CHARS * POSE_STEPS
+    out = dict(eager_ms=eager_ms / POSE_STEPS, graph_ms=graph_ms / POSE_STEPS,
+               eager_char_steps_per_s=rate / eager_ms * 1e3,
+               graph_char_steps_per_s=rate / graph_ms * 1e3, kernels=kernels)
+    print(f"pose phase timing: {out['eager_ms']:.3f} ms a step eager "
+          f"({out['eager_char_steps_per_s']:.0f} char-steps/s), "
+          f"{out['graph_ms']:.3f} ms a step as one captured step "
+          f"({out['graph_char_steps_per_s']:.0f} char-steps/s); {kernels} "
+          f"kernels from {host_launches} host launches a step eager; capture "
+          f"{cap.seconds:.3f} s (CUDA events, {POSE_STEPS} steps each)")
     return out
 
 
@@ -686,39 +906,44 @@ def main():
               f"{int(x['fps'])} at the last), and a frame under "
               f"set_sync_debug_mode('error') reads nothing back")
 
-    def run_path(name, eng, cap):
-        """2 warm-up frames (inputs captured), then the timed frames with
+    def run_path(name, eng, cap, timed=TIMED, pad_of=None, watch=None):
+        """2 warm-up frames (inputs captured), then ``timed`` frames with
         the launch counts zeroed just before and read just after. Every
         frame is the bench headline's ``eng.frame(1/60,
-        InputFrame(ly=1.0))``: one substep (a replay), the player walking,
-        and one replay of the frame graph; its snapshot is kept per timed
-        frame. Then the frame graph against eager card frames
-        (``check_graph``)."""
+        InputFrame(ly=1.0))`` (or ``pad_of(i)`` on timed frame i): one
+        substep (a replay), the player walking, and one replay of the frame
+        graph; its snapshot is kept per timed frame, and ``watch()`` reads
+        the state after it, untimed. Then the frame graph against eager
+        card frames (``check_graph``)."""
         pad = InputFrame(ly=1.0)
         for _ in range(WARMUP):
             img = eng.frame(1 / 60, pad)
+            if watch is not None:
+                watch()
         cap.off()
         zero_counts()
         times, snaps = [], []
-        for _ in range(TIMED):
+        for i in range(timed):
             t0 = time.perf_counter()
-            img = eng.frame(1 / 60, pad)
+            img = eng.frame(1 / 60, pad if pad_of is None else pad_of(i))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             snaps.append(eng._snap.copy())
+            if watch is not None:
+                watch()
         counts = read_counts()
-        counts["shade_calls"] = TIMED * shade_calls_of(eng)
+        counts["shade_calls"] = timed * shade_calls_of(eng)
         medians[name] = float(np.median(times))
         prog = eng.program()
         print(f"path {name}: frame median {np.median(times):.2f} ms, p90 "
-              f"{np.percentile(times, 90):.2f} ms over {TIMED} frames (min "
+              f"{np.percentile(times, 90):.2f} ms over {timed} frames (min "
               f"{min(times):.2f}, max {max(times):.2f}); RT target "
               f"{eng.rt_size[0]}x{eng.rt_size[1]}; substep graph captured "
               f"in {eng._sim.capture_seconds:.3f} s "
               f"({eng._sim.pool_bytes / 2**20:.1f} MiB pool); frame graph "
               f"captured in {prog.capture_seconds:.3f} s "
               f"({prog.pool_bytes / 2**20:.1f} MiB pool)")
-        print(f"  launches in {TIMED} frames: {counts}")
+        print(f"  launches in {timed} frames: {counts}")
         captures.append((name, eng.rt_size, prog.capture_seconds,
                          prog.pool_bytes))
         if eng._sim.graph is None or prog.captured is None:
@@ -796,6 +1021,41 @@ def main():
             _fail(f"{name}: the player did not move or fell through the "
                   f"ground")
 
+    def posed_checks(name, eng, scene, eng1, states):
+        """Path 7 after its frames: the substep graph's kernels beside path
+        1's (``eng1``), the locomotion states its frames met, the action
+        weight after the dodge, the palettes finite and rigid, and one
+        replay of the substep graph bit-equal to an eager card substep from
+        the same state."""
+        from swift_game_engine_tpu_torch.ecs.world import clone_state
+        from swift_game_engine_tpu_torch.scene.engine import FIXED_DT
+        p = scene.player
+        weight = float(eng.state.action.weight[p])
+        pal = eng.state.palettes
+        rigid = float((torch.det(pal[..., :3, :3]) - 1).abs().max())
+        k_posed, _ = _launches(eng._sim.step)
+        k_stand, _ = _launches(eng1._sim.step)
+        print(f"  {name}: the substep graph runs {k_posed} kernels a replay "
+              f"({k_stand} on path 1's stand-in world); locomotion states "
+              f"met {sorted(states)} (0 idle, 1 walk, 2 run, 3 falling); "
+              f"action weight {weight:.4f} after the dodge (timed frame "
+              f"{DODGE_FRAME}); {pal.shape[1]} palettes finite: "
+              f"{bool(torch.isfinite(pal).all())}, max |det - 1| "
+              f"{rigid:.2e}")
+        if weight <= 0.0:
+            _fail(f"{name}: the dodge did not start the action clip")
+        if not bool(torch.isfinite(pal).all()) or rigid > 1e-3:
+            _fail(f"{name}: the palettes are not finite and rigid")
+        start = clone_state(eng._sim.state)
+        eager = eng.stepper.substep(start, FIXED_DT)
+        eng._sim.step()
+        leaf = _bits_differ(eng._sim.state, eager)
+        if leaf is not None:
+            _fail(f"{name}: the substep graph's replay differs from the "
+                  f"eager card substep in {leaf}")
+        print(f"  {name}: a replay of the posed substep equals the eager "
+              f"card substep from the same state bit for bit")
+
     def expect(name, counts, rule, ok):
         if not ok:
             _fail(f"{name}: expected {rule}, got {counts}")
@@ -813,7 +1073,7 @@ def main():
               f"{seconds:.1f} s")
         return rows_n
 
-    # -- 2. the six paths -----------------------------------------------------
+    # -- 2. the nine paths ----------------------------------------------------
     # Each path captures the first call of every kernel it runs, keyed by
     # kernel and, where a frame calls it in two roles, by role: K1 by its
     # layer count, K6 dense or past a t floor, K9 first or behind a peel.
@@ -832,15 +1092,27 @@ def main():
             PATHS[2]: ("K4", "K5", "K7"),
             PATHS[3]: ("K1/layers=2",),
             PATHS[4]: ("K9", "K9/peel"),
-            PATHS[5]: ("K4", "K6", "K6/floor", "K8")}
+            PATHS[5]: ("K4", "K6", "K6/floor", "K8"),
+            # path 7 runs path 1's kernels, held against their twins there
+            PATHS[6]: (),
+            PATHS[7]: (f"K1/layers={LAYERS}",),
+            PATHS[8]: ("K1/layers=1",)}
     caps, counts, scenes, engines, overflow = {}, {}, {}, {}, []
-    medians, captures = {}, []
+    medians, captures, states = {}, [], set()
     t0 = time.perf_counter()
     for name, scene, eng in path_engines(dev):
+        # the DemoScene's branch: only path 7's asset directory holds the
+        # skeleton and profiles
+        if scene.posed != (name == PATHS[6]):
+            _fail(f"{name}: the DemoScene took the "
+                  f"{'posed' if scene.posed else 'stand-in'} branch")
+        print(f"path {name}: {'posed' if scene.posed else 'stand-in'} "
+              f"player")
         if all(scene is not s for s in scenes.values()):
-            rows_n = scene_stats("decimated" if scenes else "full", scene,
-                                 t0)
-            if scenes and rows_n > RK.WALK_MAX_ROWS:
+            label = "full, posed" if scene.posed else \
+                "decimated" if scenes else "full"
+            rows_n = scene_stats(label, scene, t0)
+            if label == "decimated" and rows_n > RK.WALK_MAX_ROWS:
                 _fail(f"the decimated tree has {rows_n} rows, over the "
                       f"walks' cap")
         scenes[name], engines[name] = scene, eng
@@ -859,7 +1131,25 @@ def main():
                 return hits
             cap._orig.append((RA, "rasterize", orig))
             RA.rasterize = peel
-        counts[name] = run_path(name, eng, cap)
+        if name == PATHS[6]:
+            p = scene.player
+
+            def watch():
+                states.add(int(eng.state.loco.state[p]))
+            counts[name] = run_path(
+                name, eng, cap, watch=watch,
+                pad_of=lambda i: InputFrame(ly=1.0, dodge=i == DODGE_FRAME))
+            posed_checks(name, eng, scene, engines[PATHS[0]], states)
+        elif name in PATHS[7:]:
+            counts[name] = run_path(name, eng, cap, timed=PRIMARY_TIMED)
+        else:
+            counts[name] = run_path(name, eng, cap)
+        if name in PATHS[6:]:
+            busy, syncs = _busy_syncs(eng)
+            print(f"  device busy {busy:.3f} ms a frame, {syncs:.2f} syncs "
+                  f"a frame (torch.profiler, 3 frames)")
+            if syncs > 1:
+                _fail(f"{name}: {syncs} syncs a frame")
         for key in runs[name]:
             if key not in cap.args:
                 _fail(f"{key} was not called in the first frame of {name}")
@@ -872,7 +1162,7 @@ def main():
     for name, size, secs, pool in captures:
         print(f"frame graph capture, {name} at {size[0]}x{size[1]}: "
               f"{secs:.3f} s, pool {pool / 2**20:.1f} MiB")
-    c1, c2, c3, c4, c5, c6 = (counts[p] for p in PATHS)
+    c1, c2, c3, c4, c5, c6, c7, c8, c9 = (counts[p] for p in PATHS)
 
     def only(c, *keys):
         """No other kernel of the port was launched."""
@@ -899,8 +1189,23 @@ def main():
            c6["K6"] == LAYERS * TIMED and c6["K8"] == c6["shade_calls"] > 0
            and c6["K4"] > 0 and only(c6, "K4", "K6", "K8"))
 
-    # -- 2b. the fixed-step simulation on the card ---------------------------
+    expect("path 7", c7, "K1 once a frame in each role, K2 = K3 > 0, K4 > 0, "
+           "nothing else", c7[opq] == c7[trans] == TIMED and
+           c7["K2"] == c7["K3"] > 0 and c7["K4"] > 0 and
+           only(c7, opq, trans, "K2", "K3", "K4"))
+    expect("path 8a (peels)", c8, f"K1 with {LAYERS} layers once a frame, "
+           "K2 = K3 > 0, K4 > 0 (the bounces), nothing else",
+           c8[trans] == PRIMARY_TIMED and c8["K2"] == c8["K3"] > 0 and
+           c8["K4"] > 0 and only(c8, trans, "K2", "K3", "K4"))
+    expect("path 8b (raster)", c9, "K1 with 1 layer once a frame, K2 = K3 > "
+           "0, K4 > 0 (continuations and bounces), nothing else",
+           c9[opq] == PRIMARY_TIMED and c9["K2"] == c9["K3"] > 0 and
+           c9["K4"] > 0 and only(c9, opq, "K2", "K3", "K4"))
+
+    # -- 2b. the fixed-step simulation and the pose stack on the card --------
     simulation_phase(dev, scenes[PATHS[1]])
+    simulation_phase(dev, scenes[PATHS[6]], "posed", crowd=False)
+    pose_phase(dev, pose_rig_dir())
 
     # -- 3. each kernel vs its plain version, on each path's inputs ----------
     results = []
@@ -970,7 +1275,7 @@ def main():
             prior = rest[0] if rest else kw.get("prior_w")
             out_k = TR.cluster_raster(rows, meta, boxes, w, h, lay, prior)
             out_p, plain_ms = _timed(lambda: TR.cluster_raster_plain(
-                rows, w, h, lay, prior))
+                rows, w, h, lay, prior, meta))
             behind = behind_opaque(rows, out_p[0])
             if bool(behind.any()):
                 print(f"  K1 layers={lay}: {int(behind.sum())} records lie "
@@ -1468,7 +1773,7 @@ def main():
     plain = {
         (TR, "cluster_raster"):
             lambda rows, meta, boxes, w, h, lay, prior_w=None:
-            TR.cluster_raster_plain(rows, w, h, lay, prior_w),
+            TR.cluster_raster_plain(rows, w, h, lay, prior_w, meta),
         (TR, "list_raster"): TR.list_raster_plain,
         (CS, "trace_shadow_occl"): lambda sc, o, t, tt=None:
             CS.trace_shadow_occl_plain(sc, o, t),
@@ -1531,14 +1836,14 @@ def main():
                primary="hybrid")
     # the shadow walk under the cluster threshold, as path 3 takes it
     end_to_end("trace, decimated scene, shadow walk", engines[PATHS[1]],
-               scenes[PATHS[1]], 160, 90, shadow_layers=SHADOW_LAYERS,
+               scenes[PATHS[1]], 128, 72, shadow_layers=SHADOW_LAYERS,
                primary="trace")
     # path 5's list raster (K9, two peels)
     end_to_end("raster, decimated scene, lists", engines[PATHS[4]],
                scenes[PATHS[4]], 480, 270, raster_mode="lists")
     # path 6's configuration: K6, K8 in front of the K4 shadow loop
     end_to_end("trace, decimated scene, non-layered, 5 shadow layers, "
-               "prepass", engines[PATHS[5]], scenes[PATHS[5]], 160, 90,
+               "prepass", engines[PATHS[5]], scenes[PATHS[5]], 128, 72,
                primary="trace", layered=False, shadow_layers=5,
                shadow_prepass=True)
 

@@ -3,11 +3,13 @@
 
     python3 profile_port.py [--out profile.json] [--repo DIR]
 
-Drives the six paths that chip_smoke.py defines (``path_engines``: the
+Drives the paths that chip_smoke.py defines (``path_engines``: the
 hybrid RT frame of the full DemoScene; the traced frame of the decimated
 DemoScene; the same at RT scale 0.25; the raster path of the full scene;
 the list-binned raster path and the non-layered traced frame with the
-shadow prepass of the decimated scene), each at 960x540, and for each:
+shadow prepass of the decimated scene; the hybrid frame of the full
+DemoScene with its player posed; the decimated scene's "peels" and
+"raster" primaries), each at 960x540, and for each:
 
   * 10 frames by host clock around ``Engine.frame(1/60,
     InputFrame(ly=1.0))`` (the bench headline's input) + ``synchronize()``;

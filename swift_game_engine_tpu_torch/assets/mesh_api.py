@@ -1,13 +1,13 @@
 """Procedural mesh API: validated vertex-stream descriptors.
 
 The port's copy of swift_game_engine_tpu/assets/mesh_api.py: the static
-mesh descriptor, the two vertex-clustering decimators and the tangent
-builder.
+and skinned mesh descriptors, the two vertex-clustering decimators and the
+tangent builder.
 
 Array-of-structs interleaved vertex buffers (reference:
 Game/VertexLayouts.swift, Game/ProceduralMeshAPI.swift:19-181,
 Game/ProceduralMeshBuilder.swift) become plain struct-of-arrays numpy — the
-natural layout for TPU consumption. Tangents are computed on demand per
+natural layout for device tensors. Tangents are computed on demand per
 Game/MeshTangents.swift semantics (accumulated per-triangle UV-space tangent
 frames, orthonormalized per vertex with handedness in w).
 """
@@ -68,6 +68,48 @@ class MeshDescriptor:
             positions=self.positions, indices=self.indices, normals=self.normals,
             uvs=self.uvs, tangents=compute_tangents(self.positions, self.normals,
                                                     self.uvs, self.indices),
+            name=self.name)
+
+
+@dataclass(frozen=True)
+class SkinnedMeshDescriptor:
+    """Skinned triangle mesh (reference SkinnedMeshDescriptor)."""
+
+    positions: np.ndarray      # (V,3)
+    normals: np.ndarray        # (V,3)
+    uvs: np.ndarray            # (V,2)
+    joints: np.ndarray         # (V,4) i32
+    weights: np.ndarray        # (V,4) f32
+    indices: np.ndarray        # (I,) i32
+    inv_bind_model: Optional[np.ndarray] = None  # (B,4,4) override
+    tangents: Optional[np.ndarray] = None
+    name: str = "skinned"
+
+    def __post_init__(self):
+        v = len(self.positions)
+        _check(v > 0, f"{self.name}: empty positions")
+        for arr, shape, nm in ((self.normals, (v, 3), "normals"),
+                               (self.uvs, (v, 2), "uvs"),
+                               (self.joints, (v, 4), "joints"),
+                               (self.weights, (v, 4), "weights")):
+            _check(arr.shape == shape, f"{self.name}: {nm} shape {arr.shape} != {shape}")
+        _check(len(self.indices) % 3 == 0, f"{self.name}: indices not a triangle list")
+        _check(self.indices.min(initial=0) >= 0 and self.indices.max(initial=0) < v,
+               f"{self.name}: index out of range")
+
+    @property
+    def vertex_count(self) -> int:
+        return len(self.positions)
+
+    def with_tangents(self) -> "SkinnedMeshDescriptor":
+        if self.tangents is not None:
+            return self
+        return SkinnedMeshDescriptor(
+            positions=self.positions, normals=self.normals, uvs=self.uvs,
+            joints=self.joints, weights=self.weights, indices=self.indices,
+            inv_bind_model=self.inv_bind_model,
+            tangents=compute_tangents(self.positions, self.normals, self.uvs,
+                                      self.indices),
             name=self.name)
 
 

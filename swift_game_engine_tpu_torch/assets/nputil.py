@@ -1,8 +1,7 @@
 """Host-side (numpy) math helpers for asset loading.
 
-The port's copy of swift_game_engine_tpu/assets/nputil.py, less the pose
-engine's FK levels. Conventions match math3d: column-vector 4x4s,
-(x, y, z, w) quaternions.
+The port's copy of swift_game_engine_tpu/assets/nputil.py. Conventions
+match math3d: column-vector 4x4s, (x, y, z, w) quaternions.
 """
 
 from __future__ import annotations
@@ -75,3 +74,15 @@ def quat_from_mat(m: np.ndarray) -> np.ndarray:
         q = np.array([(r[0, 2] + r[2, 0]) / s, (r[1, 2] + r[2, 1]) / s,
                       0.25 * s, (r[1, 0] - r[0, 1]) / s])
     return (q / np.linalg.norm(q)).astype(np.float32)
+
+
+def topological_levels(parent: np.ndarray) -> list[np.ndarray]:
+    """Bone indices grouped by tree depth, for level-parallel FK (parents
+    come before their children)."""
+    n = len(parent)
+    depth = np.zeros(n, np.int32)
+    for i in range(n):
+        p = int(parent[i])
+        depth[i] = 0 if p < 0 else depth[p] + 1
+    return [np.nonzero(depth == d)[0].astype(np.int32)
+            for d in range(int(depth.max()) + 1 if n else 0)]

@@ -3,14 +3,18 @@
 The port's copy of the primitives of swift_game_engine_tpu/assets/
 procedural_meshes.py that the DemoScene uses (reference:
 Game/ProceduralMeshes.swift:130-738) — plane, box, ramp, dome and capsule,
-with the same geometry, built vectorized in numpy.
+with the same geometry, built vectorized in numpy — and its two skinned
+bodies: ``skeleton_capsules``, the posed DemoScene player's body when the
+skin file is absent, and ``humanoid_skinned``, a small posed test body.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .mesh_api import MeshDescriptor
+from . import nputil
+from .mesh_api import MeshDescriptor, SkinnedMeshDescriptor
+from .skeleton import Skeleton
 
 TWO_PI = 2.0 * np.pi
 
@@ -200,3 +204,190 @@ def capsule(radius: float = 1.5, half_height: float = 1.0,
 
     return _mesh("capsule", np.concatenate(pos), np.concatenate(nrm),
                  np.concatenate(uvs), idx)
+
+
+# ---------------------------------------------------------------------------
+# Skinned test bodies
+
+
+def _cylinder_grid(center, radius, height, radial_segs, height_segs):
+    """Open cylinder grid with duplicated seam column; returns pos/nrm/uv/(t per row)."""
+    slices = max(radial_segs, 3)
+    stacks = max(height_segs, 1)
+    t = np.linspace(0.0, 1.0, stacks + 1, dtype=np.float32)
+    yy = center[1] - height * 0.5 + height * t
+    u = np.linspace(0.0, 1.0, slices + 1, dtype=np.float32)
+    theta = u * TWO_PI
+    x = np.cos(theta) * radius + center[0]
+    z = np.sin(theta) * radius + center[2]
+
+    pos = np.stack([np.broadcast_to(x, (stacks + 1, slices + 1)),
+                    np.broadcast_to(yy[:, None], (stacks + 1, slices + 1)),
+                    np.broadcast_to(z, (stacks + 1, slices + 1))], axis=-1)
+    n = np.stack([x - center[0], np.zeros_like(x), z - center[2]], axis=-1)
+    n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-8)
+    nrm = np.broadcast_to(n, pos.shape)
+    uv = np.stack(np.broadcast_arrays(u[None, :], t[:, None]), axis=-1)
+
+    ring = slices + 1
+    yi = np.arange(stacks)[:, None]
+    si = np.arange(slices)[None, :]
+    i0 = yi * ring + si
+    i1 = (yi + 1) * ring + si
+    i2 = (yi + 1) * ring + si + 1
+    i3 = yi * ring + si + 1
+    idx = np.stack([i0, i1, i2, i0, i2, i3], axis=-1).reshape(-1)
+
+    t_per_vert = np.broadcast_to(t[:, None], (stacks + 1, slices + 1)).reshape(-1)
+    return (pos.reshape(-1, 3).astype(np.float32), nrm.reshape(-1, 3).astype(np.float32),
+            uv.reshape(-1, 2).astype(np.float32), idx.astype(np.int64), t_per_vert)
+
+
+def humanoid_skinned(leg_height=1.8, leg_radius=0.35, torso_height=2.0,
+                     torso_radius=0.5, hip_separation=0.45,
+                     radial_segments=12, height_segments=4) -> SkinnedMeshDescriptor:
+    """Procedural skinned test body: torso + two legs, simple 2-bone blends.
+
+    Bone indices follow the reference's hard-coded test-rig layout
+    (Game/ProceduralMeshes.swift:415-472): pelvis=0 spine=1 head=2 chest=7,
+    thighs/calves = 3/4 (L) and 5/6 (R).
+    """
+    positions, normals, uvs_l, joints, weights, indices = [], [], [], [], [], []
+
+    def add(center, radius, height, weight_fn):
+        base = sum(len(p) for p in positions)
+        p, n, uv, idx, t = _cylinder_grid(center, radius, height,
+                                          radial_segments, height_segments)
+        j, w = weight_fn(t)
+        positions.append(p); normals.append(n); uvs_l.append(uv)
+        joints.append(j); weights.append(w)
+        indices.append(idx + base)
+
+    def torso_weights(t):
+        j = np.tile(np.array([0, 1, 7, 2], np.int32), (len(t), 1))
+        w = np.zeros((len(t), 4), np.float32)
+        lo = t < 0.4
+        mid = (t >= 0.4) & (t < 0.7)
+        hi = t >= 0.7
+        a_lo = t / 0.4
+        a_mid = (t - 0.4) / 0.3
+        a_hi = (t - 0.7) / 0.3
+        w[:, 0] = np.where(lo, 1 - a_lo, 0)
+        w[:, 1] = np.where(lo, a_lo, np.where(mid, 1 - a_mid, 0))
+        w[:, 2] = np.where(mid, a_mid, np.where(hi, 1 - a_hi, 0))
+        w[:, 3] = np.where(hi, a_hi, 0)
+        return j, w
+
+    def leg_weights(thigh, calf):
+        def fn(t):
+            a = np.clip(t, 0, 1)
+            j = np.tile(np.array([thigh, calf, 0, 0], np.int32), (len(t), 1))
+            w = np.stack([a, 1 - a, np.zeros_like(a), np.zeros_like(a)], axis=-1)
+            return j, w.astype(np.float32)
+        return fn
+
+    add((0.0, torso_height * 0.5, 0.0), torso_radius, torso_height, torso_weights)
+    add((-hip_separation, -leg_height * 0.5, 0.0), leg_radius, leg_height, leg_weights(3, 4))
+    add((hip_separation, -leg_height * 0.5, 0.0), leg_radius, leg_height, leg_weights(5, 6))
+
+    return SkinnedMeshDescriptor(
+        positions=np.concatenate(positions),
+        normals=np.concatenate(normals),
+        uvs=np.concatenate(uvs_l),
+        joints=np.concatenate(joints).astype(np.int32),
+        weights=np.concatenate(weights),
+        indices=np.concatenate(indices).astype(np.int32),
+        name="humanoidSkinned")
+
+
+def _rotation_from_to(f, t):
+    """Quaternion rotating unit vector f to t (reference ProceduralMeshes.swift:131-146)."""
+    f = f / np.linalg.norm(f)
+    t = t / np.linalg.norm(t)
+    d = float(np.clip(np.dot(f, t), -1.0, 1.0))
+    if d > 0.999:
+        return np.array([0.0, 0, 0, 1])
+    if d < -0.999:
+        axis = np.cross(f, np.array([1.0, 0, 0]))
+        if np.linalg.norm(axis) < 1e-4:
+            axis = np.array([0.0, 0, 1])
+        axis = axis / np.linalg.norm(axis)
+        return np.array([*(axis * np.sin(np.pi / 2)), np.cos(np.pi / 2)])
+    axis = np.cross(f, t)
+    axis = axis / np.linalg.norm(axis)
+    ang = np.arccos(d)
+    return np.array([*(axis * np.sin(ang / 2)), np.cos(ang / 2)])
+
+
+def _quat_mat3(q):
+    x, y, z, w = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def skeleton_capsules(skeleton: Skeleton, radius: float = 0.03,
+                      radial_segments: int = 10,
+                      hemisphere_segments: int = 6) -> SkinnedMeshDescriptor:
+    """One capsule per bone segment, skinned to (parent, bone) by height.
+
+    reference: Game/ProceduralMeshes.swift:493-581 — debug visualization of a
+    rig as capsules between each bone and its parent in bind pose.
+    """
+    bind_model = nputil.fk_model_transforms(skeleton.parent, skeleton.bind_local)
+    positions, normals, uvs_l, joints, weights, indices = [], [], [], [], [], []
+    total = 0
+
+    for bone in range(skeleton.bone_count):
+        parent = int(skeleton.parent[bone])
+        if parent < 0:
+            continue
+        p_pos = bind_model[parent][:3, 3]
+        b_pos = bind_model[bone][:3, 3]
+        d = b_pos - p_pos
+        length = float(np.linalg.norm(d))
+        if length < 1e-4:
+            continue
+        axis = d / length
+        half_len = length * 0.5
+        r = min(radius, half_len)
+        half_h = max(0.0, half_len - r)
+
+        cap = capsule(radius=r, half_height=half_h,
+                      radial_segments=radial_segments,
+                      hemisphere_segments=hemisphere_segments)
+        rot = _quat_mat3(_rotation_from_to(np.array([0.0, 1, 0]), axis))
+        center = p_pos + axis * half_len
+        world_pos = cap.positions @ rot.T + center
+        world_nrm = cap.normals @ rot.T
+        world_nrm = world_nrm / np.maximum(np.linalg.norm(world_nrm, axis=1, keepdims=True), 1e-8)
+
+        half_extent = half_h + r
+        if half_extent > 0:
+            t = (cap.positions[:, 1] + half_extent) / (2 * half_extent)
+        else:
+            t = np.ones(len(cap.positions))
+        w_parent = np.clip(1.0 - t, 0, 1)
+        w_child = np.clip(t, 0, 1)
+
+        v = len(cap.positions)
+        positions.append(world_pos.astype(np.float32))
+        normals.append(world_nrm.astype(np.float32))
+        uvs_l.append(cap.uvs)
+        joints.append(np.stack([np.full(v, parent), np.full(v, bone),
+                                np.zeros(v), np.zeros(v)], axis=-1).astype(np.int32))
+        weights.append(np.stack([w_parent, w_child, np.zeros(v), np.zeros(v)],
+                                axis=-1).astype(np.float32))
+        indices.append(cap.indices.astype(np.int64) + total)
+        total += v
+
+    return SkinnedMeshDescriptor(
+        positions=np.concatenate(positions),
+        normals=np.concatenate(normals),
+        uvs=np.concatenate(uvs_l),
+        joints=np.concatenate(joints),
+        weights=np.concatenate(weights),
+        indices=np.concatenate(indices).astype(np.int32),
+        name="skeletonCapsules")

@@ -2,7 +2,8 @@
 
 Render side: ``scene_geometry``, ``frame_geometry``, ``lights``, ``ibl``;
 simulation side: ``world_state``, ``scene_spec``, ``controller_params``,
-``local_triangles``.
+``local_triangles``; pose: ``skeleton``, ``profile_bank``,
+``action_profile``, ``loco_state``, ``loco_params``.
 
 Each function takes the JAX package's NamedTuple (or a dict with the same
 fields) whose leaves are numpy arrays — or anything ``np.asarray`` accepts,
@@ -21,7 +22,8 @@ import torch
 
 from . import resolve_device
 from .anim.locomotion import LocomotionTuning
-from .anim.pose import LocoParams, LocoState
+from .anim.pose import ActionProfile, LocoParams, LocoState, ProfileBank
+from .assets.skeleton import Skeleton
 from .ecs.world import SceneSpec, WorldState
 from .physics.character import ControllerParams, ControllerState
 from .physics.collision_world import LocalTriangles
@@ -170,3 +172,30 @@ def local_triangles(lt, device="cuda") -> LocalTriangles:
         k: torch.as_tensor(np.array(_get(lt, k)).astype(
             np.int64) if k in ("entity", "layer") else np.array(_get(lt, k)),
             device=device) for k in LocalTriangles._fields})
+
+
+# ---------------------------------------------------------------------------
+# Pose: the skeleton, the profile bank, the action profile, loco state.
+
+
+def skeleton(sk) -> Skeleton:
+    """The reference's Skeleton (a dataclass of numpy arrays) as the
+    port's, field for field."""
+    return Skeleton(**{f.name: getattr(sk, f.name)
+                       for f in dataclasses.fields(Skeleton)})
+
+
+def profile_bank(bank, device="cuda") -> ProfileBank:
+    return _tuple(ProfileBank, bank, resolve_device(device))
+
+
+def action_profile(action, device="cuda") -> ActionProfile:
+    return _tuple(ActionProfile, action, resolve_device(device))
+
+
+def loco_state(loco, device="cuda") -> LocoState:
+    return _tuple(LocoState, loco, resolve_device(device))
+
+
+def loco_params(params, device="cuda") -> LocoParams:
+    return _tuple(LocoParams, params, resolve_device(device))

@@ -7,6 +7,8 @@ the ``*_np`` helpers are host-side numpy for the scene builder.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -18,6 +20,11 @@ def normalize(v, eps: float = 1e-12):
 
 def cross(a, b):
     return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
+
+
+def radians_from_degrees(deg):
+    """Game/Math.swift:48-50 (math3d.py:27)."""
+    return deg / 180.0 * math.pi
 
 
 def mat3_from_quat(q):
@@ -151,3 +158,71 @@ def quat_slerp(q0, q1, t):
     w0 = torch.where(use_lerp, 1.0 - t, torch.sin((1.0 - t) * theta) / safe_sin)
     w1 = torch.where(use_lerp, t, torch.sin(t * theta) / safe_sin)
     return quat_normalize(w0 * q0 + w1 * q1)
+
+
+# ---------------------------------------------------------------------------
+# What the pose stack needs (anim/pose.py, anim/fk.py; math3d.py:255-388).
+
+
+def quat_conj(q):
+    return torch.cat([-q[..., :3], q[..., 3:]], -1)
+
+
+def mat4_from_quat(q):
+    """(..., 4) -> (..., 4, 4): the rotation with a zero translation."""
+    m = torch.zeros((*q.shape[:-1], 4, 4), dtype=q.dtype, device=q.device)
+    m[..., :3, :3] = mat3_from_quat(q)
+    m[..., 3, 3].fill_(1.0)
+    return m
+
+
+def quat_from_mat3(r):
+    """Rotation matrix (..., 3, 3) -> unit quaternion, branch-free
+    (Shepperd's method: the candidate built from the largest of the four
+    4 q_i^2 - 1 terms), as math3d.py:275; q and -q are one rotation."""
+    m00, m01, m02 = r[..., 0, 0], r[..., 0, 1], r[..., 0, 2]
+    m10, m11, m12 = r[..., 1, 0], r[..., 1, 1], r[..., 1, 2]
+    m20, m21, m22 = r[..., 2, 0], r[..., 2, 1], r[..., 2, 2]
+    qw2 = m00 + m11 + m22
+    qx2 = m00 - m11 - m22
+    qy2 = m11 - m00 - m22
+    qz2 = m22 - m00 - m11
+
+    def build(dom2, a, b, c):
+        s = torch.sqrt(torch.clamp(dom2 + 1.0, min=0.0)) * 0.5
+        inv = 0.25 / torch.clamp(s, min=1e-12)
+        return s, a * inv, b * inv, c * inv
+
+    s, a, b, c = build(qw2, m21 - m12, m02 - m20, m10 - m01)
+    qw = torch.stack([a, b, c, s], -1)
+    s, a, b, c = build(qx2, m21 - m12, m01 + m10, m02 + m20)
+    qx = torch.stack([s, b, c, a], -1)
+    s, a, b, c = build(qy2, m02 - m20, m01 + m10, m12 + m21)
+    qy = torch.stack([b, s, c, a], -1)
+    s, a, b, c = build(qz2, m10 - m01, m02 + m20, m12 + m21)
+    qz = torch.stack([b, c, s, a], -1)
+    cands = torch.stack([qw, qx, qy, qz], -2)
+    best = torch.stack([qw2, qx2, qy2, qz2], -1).argmax(-1)
+    q = torch.gather(cands, -2, best[..., None, None].expand(
+        *best.shape, 1, 4))[..., 0, :]
+    return quat_normalize(q)
+
+
+def quat_from_euler_xyz_degrees(deg):
+    """The Euler XYZ rotation Rz @ Ry @ Rx of ``deg`` (..., 3) as the
+    quaternion qz * qy * qx, expanded as math3d.py:341 expands it."""
+    half = radians_from_degrees(deg) * 0.5
+    cx, cy, cz = (torch.cos(half[..., i]) for i in range(3))
+    sx, sy, sz = (torch.sin(half[..., i]) for i in range(3))
+    return torch.stack([
+        cz * cy * sx - sz * sy * cx,
+        cz * sy * cx + sz * cy * sx,
+        sz * cy * cx - cz * sy * sx,
+        cz * cy * cx + sz * sy * sx,
+    ], -1)
+
+
+def smootherstep01(t):
+    """Quintic smootherstep of an already clamped t: t^3 (t (6t - 15) + 10)
+    (Game/ProceduralPoseSystem.swift:108)."""
+    return t * t * t * (t * (t * 6.0 - 15.0) + 10.0)

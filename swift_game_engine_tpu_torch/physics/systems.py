@@ -138,6 +138,49 @@ class ActionClock(NamedTuple):
     exiting: torch.Tensor
 
 
+def _at_least(x, lo: float):
+    return torch.clamp(x, min=lo) if isinstance(x, torch.Tensor) else \
+        max(float(x), lo)
+
+
+def action_animation_step(clock: ActionClock, cycle, dodge_end_time,
+                          has_dodge, dt, playback_rate=1.0, loop: bool = False,
+                          blend_in_time=0.08, blend_out_half_life=0.12,
+                          trigger=None) -> ActionClock:
+    """ActionAnimationSystem (Systems.swift:472-518): the clip clock runs
+    to its end (the dodge's end time where the entity dodges), then the
+    weight decays and the clip ends; ``trigger`` restarts it (weight ramp
+    from 0: DodgeSystem's restart, :551-557). ``loop`` is static; the other
+    parameters are numbers or tensors over the entities."""
+    if trigger is not None:
+        clock = ActionClock(
+            active=clock.active | trigger,
+            time=torch.where(trigger, 0.0, clock.time),
+            weight=torch.where(trigger, 0.0, clock.weight),
+            exiting=clock.exiting & ~trigger)
+    cycle = torch.clamp(cycle, min=0.001)
+    end = torch.where(dodge_end_time > 0, dodge_end_time, cycle)
+    cap = torch.where(has_dodge,
+                      torch.clamp(torch.minimum(end, cycle), min=0.001), cycle)
+    adv = clock.active & ~clock.exiting
+    time = torch.where(adv, clock.time + dt * playback_rate, clock.time)
+    hit_end = time >= cap
+    time = torch.where(adv, torch.remainder(time, cap) if loop else
+                       torch.where(hit_end, cap, time), time)
+    exiting = clock.exiting if loop else clock.exiting | (adv & hit_end)
+
+    half = _at_least(blend_out_half_life, 0.001)
+    decayed = clock.weight * torch.pow(0.5, dt / half)
+    w_out = torch.where(decayed <= 0.001, 0.0, decayed)
+    done = clock.active & exiting & (decayed <= 0.001)
+    blend_in = _at_least(blend_in_time, 0.001)
+    w_in = torch.clamp(clock.weight + dt / blend_in, max=1.0)
+    weight = torch.where(clock.active, torch.where(exiting, w_out, w_in),
+                         clock.weight)
+    return ActionClock(active=clock.active & ~done, time=time, weight=weight,
+                       exiting=exiting & ~done)
+
+
 def kinematic_platform_motion(origin, axis, amplitude, speed, phase, time,
                               dt, enabled):
     """KinematicPlatformMotionSystem (Systems.swift:122-154) ->

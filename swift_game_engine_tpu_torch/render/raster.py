@@ -30,7 +30,7 @@ import torch
 from .. import constant
 from ..math3d import normalize
 from .camera import generate_rays
-from .rt import BG_COLOR, _sample_material
+from .rt import BG_COLOR, _sample_material, opaque_tris
 from .scene_geometry import FrameGeometry, SceneGeometry
 from .shading import apply_normal_map, tone_map_aces
 from .textures import sample_bilinear
@@ -48,17 +48,6 @@ def _interp(attr, tri_v, u, v):
     w = (1.0 - u - v)[:, None]
     return attr[tri_v[:, 0]] * w + attr[tri_v[:, 1]] * u[:, None] \
         + attr[tri_v[:, 2]] * v[:, None]
-
-
-def opaque_tris(geo: SceneGeometry):
-    """Per-triangle 'fragment fully occludes' flag of the raster's early
-    exit (rt.py:1139-1148 _opaque_tris): material alpha factor >= 0.99 and
-    no alpha-carrying base texture bound."""
-    mid = geo.tri_material.clamp(min=0)
-    opaque = geo.materials.alpha[mid] >= 0.99
-    if geo.usage.base and geo.usage.alpha_tex:
-        opaque = opaque & (geo.materials.base_tex[mid] < 0)
-    return opaque
 
 
 def _raster_shade(geo: SceneGeometry, fg: FrameGeometry, d, tri, u, v,

@@ -1,6 +1,6 @@
 """Ray-traced frame: port of swift_game_engine_tpu/render/rt.py.
 
-The reference's RT frame at its config.py defaults, in its two primary
+The reference's RT frame at its config.py defaults, in its four primary
 visibility modes (``render_frame(primary=...)``, the reference's
 ``SGE_RT_PRIMARY``):
 
@@ -17,9 +17,15 @@ visibility modes (``render_frame(primary=...)``, the reference's
     trace (K6) gives layer 1 and each continuation layer re-traces the live
     camera rays with K6 past a per-lane t floor (t + 2*bias), compacted. On
     a larger tree a dense closest-hit trace (K4) gives layer 1 and the
-    continuation layers re-trace from offset origins (K4), compacted.
+    continuation layers re-trace from offset origins (K4), compacted;
+  * ``"peels"``: one cluster raster (K1) of every triangle with max_layers
+    peeled layers, opaque fragments ending a pixel's walk, gives every
+    layer's records (t the ray distance from the barycentrics);
+  * ``"raster"``: one cluster raster (K1) of every triangle, 1 layer, gives
+    layer 1; the continuation layers re-trace from offset origins (K4),
+    compacted, as on a large tree in "trace" mode.
 
-Then, in both modes:
+Then, in every mode:
 
   * layer 1 shaded densely, continuation layers 2.. shaded together as one
     compacted record set (the reference's SGE_RT_LBATCH=2), then the
@@ -83,7 +89,7 @@ BIG = 3.0e38
 # shadow sweeps (config.py:53 SGE_SHADOW_CLUSTER_MIN_LANES); smaller frames
 # take the shadow walk (K7) or, on a large tree, the per-layer loop.
 SHADOW_CLUSTER_MIN_LANES = 100_000
-PRIMARY_MODES = ("hybrid", "trace")
+PRIMARY_MODES = ("hybrid", "trace", "raster", "peels")
 
 
 class DirectionalLights(NamedTuple):
@@ -180,6 +186,17 @@ def _sample_material(geo: SceneGeometry, mid, uv, unlit, active=None):
                 ior=torch.clamp(row[:, 11], min=1.0),
                 normal_tex=row[:, 14].long(), normal_scale=row[:, 12],
                 unlit=unlit)
+
+
+def opaque_tris(geo: SceneGeometry):
+    """Per-triangle 'fragment fully occludes' flag of the raster's early
+    exit (rt.py:1139-1148 _opaque_tris): material alpha factor >= 0.99 and
+    no alpha-carrying base texture bound."""
+    mid = geo.tri_material.clamp(min=0)
+    opaque = geo.materials.alpha[mid] >= 0.99
+    if geo.usage.base and geo.usage.alpha_tex:
+        opaque = opaque & (geo.materials.base_tex[mid] < 0)
+    return opaque
 
 
 def _sample_alpha(geo: SceneGeometry, tri, u, v):
@@ -588,10 +605,12 @@ def _next_origin(o, d, t):
     return hit_pos + d * (shadow_bias(t) * 2.0)[:, None]
 
 
-def _offset_tracer(bvh, ray_o, d):
+def _offset_tracer(bvh, ray_o, d, first=None):
     """Traced layers past the walks' row cap (rt.py:1779,1866-1896): a
     closest-hit trace (K4) from each lane's origin, which then moves past
-    the hit (``_next_origin``). Returns trace(lanes) for
+    the hit (``_next_origin``). ``first``: layer 1's records (t, tri, u, v,
+    found) from elsewhere (the "raster" primary, rt.py:1765-1784), which
+    then only the continuations trace. Returns trace(lanes) for
     ``_trace_layers``."""
     o = ray_o
 
@@ -602,7 +621,10 @@ def _offset_tracer(bvh, ray_o, d):
                 o.shape[0], dtype=torch.bool, device=o.device), None
         else:
             oc, dc, live, count = gather(o, c), gather(d, c), c.valid, c.count
-        t, tri, u, v, found = trace_batch(bvh, oc, dc, live, count)
+        if c is None and first is not None:
+            t, tri, u, v, found = first
+        else:
+            t, tri, u, v, found = trace_batch(bvh, oc, dc, live, count)
         nxt = torch.where(found[:, None], _next_origin(
             oc, dc, torch.where(found, t, 1.0)), oc)
         o = nxt if c is None else scatter(o, c, nxt)
@@ -682,14 +704,12 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     ``view_proj`` are tensors on the geometry's device; ``cam_pos`` (3,) is
     host values (numpy) or a tensor. With all three on the device the frame
     reads nothing back to the host.
-    ``primary`` is the primary visibility mode, "hybrid" or "trace" (see
-    the module docstring); the reference's "raster" and "peels" modes are
-    not ported. ``layered`` (SGE_RT_LAYERED) chooses the layered walk K5
-    over the per-layer K6 traces of "trace" mode; ``shadow_prepass``
+    ``primary`` is the primary visibility mode, "hybrid", "trace",
+    "raster" or "peels" (see the module docstring). ``layered``
+    (SGE_RT_LAYERED) chooses the layered walk K5 over the per-layer K6
+    traces of "trace" mode; ``shadow_prepass``
     (SGE_SHADOW_PREPASS) runs K8 in front of the per-layer shadow loop.
     Both keep the reference's defaults."""
-    if primary in ("raster", "peels"):
-        raise NotImplementedError(f"primary={primary!r} is not ported")
     if primary not in PRIMARY_MODES:
         raise ValueError(f"primary must be one of {PRIMARY_MODES}, got "
                          f"{primary!r}")
@@ -705,9 +725,22 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     bv = fg.bvh
 
     recs = trace = None
-    if primary == "hybrid":
+    if primary != "trace":
         vp = torch.linalg.inv(ivp) if view_proj is None else \
             torch.as_tensor(view_proj, dtype=torch.float32, device=dev)
+    if primary in ("raster", "peels"):
+        # K1 over every triangle, records in lane order with the ray t
+        # resolved from the barycentrics (rt.py:1257-1281)
+        hits = [(h.t, h.tri, h.u, h.v, h.found) for h in rasterize_clusters(
+            bv.v0, bv.v1, bv.v2, vp, width, height,
+            layers=max_layers if primary == "peels" else 1,
+            opaque=opaque_tris(geo) if primary == "peels" else None,
+            cluster=CLUSTER, cam_pos=cam, scanline=False)]
+        if primary == "peels":   # every layer's records
+            recs = hits
+        else:                    # layer 1; the continuations trace (K4)
+            trace = _offset_tracer(bv, ray_o, ray_d, first=hits[0])
+    elif primary == "hybrid":
         # Exact w -> t for pinhole rays p = cam + d*t: the raster's view
         # depth is w = w(cam) + t * (vp[3,:3] . d).
         vp3 = vp[3]

@@ -171,13 +171,20 @@ def _grid(width, height):
 
 
 def cluster_raster_plain(rows, width: int, height: int, layers: int,
-                         prior_w=None):
+                         prior_w=None, meta=None):
     """Plain PyTorch twin of the K1 kernel: every in-image pixel against
     every triangle row (chunked), the ``layers`` nearest inside fragments
-    by view depth. Returns (id int32, b1, b2, w), each (tiles, layers,
-    TILE_H, TILE_W)."""
+    by view depth. Of fragments at equal depth the one met first is kept
+    first, as the kernel's insertion keeps it: rows are met in row order,
+    or, given ``meta``, in the kernel's walk order (clusters in ``meta``'s
+    front-to-back order, rows in order within a cluster). Returns (id
+    int32, b1, b2, w), each (tiles, layers, TILE_H, TILE_W)."""
     tiles_x, n_tiles, sx, sy = _grid(width, height)
     dev = rows.device
+    if meta is not None:
+        per = rows.shape[0] // meta.shape[0]
+        walk = (meta[:, 5].long() * 8) // per
+        rows = rows.reshape(meta.shape[0], per, 16)[walk].reshape(-1, 16)
     px, py = tiled_pixels(width, height, device=dev)
     p = px.shape[0]
     x = (px.to(torch.float32) + 0.5) * sx - 1.0
@@ -216,8 +223,13 @@ def cluster_raster_plain(rows, width: int, height: int, layers: int,
                 inside), -1.0)], 1)
             all_1 = torch.cat([c1, lam1 * inv], 1)
             all_2 = torch.cat([c2, lam2 * inv], 1)
-            cw, pos = torch.topk(all_w, layers, dim=1, largest=False,
-                                 sorted=True)
+            # nearest first, ties by position (the kept records, then the
+            # chunk's rows in order): w > 0, so its bits order as it does
+            key = all_w.view(torch.int32).to(torch.int64) * all_w.shape[1] + \
+                torch.arange(all_w.shape[1], device=dev)
+            _, pos = torch.topk(key, layers, dim=1, largest=False,
+                                sorted=True)
+            cw = torch.gather(all_w, 1, pos)
             ct = torch.gather(all_t, 1, pos)
             c1 = torch.where(ct >= 0, torch.gather(all_1, 1, pos), 0.0)
             c2 = torch.where(ct >= 0, torch.gather(all_2, 1, pos), 0.0)
@@ -262,7 +274,8 @@ def cluster_raster(rows, meta, boxes, width: int, height: int, layers: int,
     if not 1 <= layers <= 3:
         raise ValueError(f"layers must be 1..3, got {layers}")
     if not rows.is_cuda:
-        return cluster_raster_plain(rows, width, height, layers, prior_w)
+        return cluster_raster_plain(rows, width, height, layers, prior_w,
+                                    meta)
     launches[layers - 1] += 1
     return _launch_raster(rows, meta, boxes, width, height, layers, prior_w,
                           None)
@@ -296,16 +309,19 @@ def cluster_raster_counts(rows, meta, boxes, width: int, height: int,
 
 
 def _scanline_hits(tid, b1, b2, w, width, height, tris, cam_pos,
-                   overflow=0):
+                   overflow=0, scanline=True):
     """Tile-major (tiles, layers, TILE_H, TILE_W) records -> per layer
-    scanline (H*W,) RasterHits with ray t = |p_world - cam| from the
-    barycentrics (tile_raster.py:346-369, 429-448). ``tris``: the
-    (v0, v1, v2) the ids index."""
+    RasterHits with ray t = |p_world - cam| from the barycentrics
+    (tile_raster.py:346-369, 429-448, 962-981), in scanline (H*W,) order,
+    or with ``scanline=False`` in the padded tile-major lane order.
+    ``tris``: the (v0, v1, v2) the ids index."""
     v0, v1, v2 = tris
     cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=v0.device)
     outs = []
     for l in range(tid.shape[1]):
         def untile(a):
+            if not scanline:
+                return a[:, l].reshape(-1)
             return untile_image(a[:, l].reshape(-1, 1), width,
                                 height).reshape(-1)
 
@@ -326,13 +342,16 @@ def _scanline_hits(tid, b1, b2, w, width, height, tris, cam_pos,
 
 def rasterize_clusters(v0, v1, v2, view_proj, width: int, height: int,
                        layers: int = 1, opaque=None, cluster: int = CLUSTER,
-                       ids=None, prior_w=None, cam_pos=None):
+                       ids=None, prior_w=None, cam_pos=None,
+                       scanline: bool = True):
     """Cluster-binned depth-peeled rasterization -> list of ``layers``
     RasterHits, nearest first. Without ``cam_pos``: padded tile-major lane
     order, ``t`` the view depth w (the reference's ``flat_tiles=True,
-    resolve_t=False``). With ``cam_pos`` (3,): scanline order, ``t`` the ray
-    distance from it (``flat_tiles=False, resolve_t=True``; needs
-    ``ids=None``).
+    resolve_t=False``). With ``cam_pos`` (3,): ``t`` the ray distance from
+    it (``resolve_t=True``; needs ``ids=None``), in scanline order
+    (``flat_tiles=False``) or, with ``scanline=False``, in the padded
+    tile-major lane order (``flat_tiles=True``: the RT frame's "raster" and
+    "peels" primaries).
 
     ``opaque``: (T,) bool — opaque fragments end their pixel's walk once
     ``layers`` > 1. ``ids``: (T,) original triangle ids baked into the rows
@@ -347,7 +366,7 @@ def rasterize_clusters(v0, v1, v2, view_proj, width: int, height: int,
                                     prior_w)
     if cam_pos is not None:
         return _scanline_hits(tid, b1, b2, w, width, height, (v0, v1, v2),
-                              cam_pos)
+                              cam_pos, scanline=scanline)
     outs = []
     for l in range(layers):
         tid_l = tid[:, l].reshape(-1).long()

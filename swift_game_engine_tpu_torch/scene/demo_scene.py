@@ -15,15 +15,27 @@ meshes) and the ``Stepper`` that advances it:
     it, three separation-test NPCs, the red mirror wall, the flattenGround
     ramp, the dome and the emissive step; the two sun lights.
 
-The player's body is ``assets/YBot.skinned.json``. Its skeleton and motion
-profiles (``YBot.skeleton.json``, ``*.motionProfile.json``) are not in the
-repository, so a 52-bone stand-in skeleton is built from the skin's own
-bone names (unitScale 0.026); each bone's inverse bind comes from the skin
-file, so the bind pose is exactly the identity palette and the body is drawn
-at bind pose. For the same reason the player goes without the four
-components that read those files: ``motion_profile``, ``locomotion``,
-``action`` and ``dodge`` (the dodge lasts 34 frames of the dodge profile's
-sample rate). It walks, falls, jumps and collides; pose waits for M4b.
+The player takes one of two branches, and ``DemoWorld.posed`` says which:
+
+  * **posed** (the reference's player, scene/demo_scene.py:346-411), when
+    ``asset_dir`` holds the reference's ``YBot.skeleton.json`` and the five
+    profiles ``Idle``, ``Walking``, ``Running``, ``FallingIdle`` and
+    ``StandingDodgeBackward`` (``*.motionProfile.json``): the skeleton and
+    profiles are loaded, a ``PoseEngine`` with its locomotion bank and the
+    dodge's action profile steps the player in every substep, and the
+    player carries ``motion_profile``, ``locomotion`` (idle exit 0.3, run
+    enter 6 / exit 5, fall drop 50), ``action`` (the dodge profile's cycle,
+    blend 0.08 in / 0.18 out) and ``dodge`` (34 frames of the dodge
+    profile's sample rate, distance 8). The body is ``YBot.skinned.json``
+    loaded against that skeleton, whose own inverse binds override the
+    palette's (``inv_bind_override``); without the skin file it is the
+    skeleton's capsules (``skeleton_capsules``);
+  * **stand-in**, otherwise (the repository holds neither file; the tests
+    write a synthetic rig in their schemas, tests/torch_pose_rig.py): a
+    52-bone skeleton built from the skin's own bone names (unitScale
+    0.026), each bone's inverse bind from the skin file, so the palette is
+    the identity and the body is drawn at bind pose, and the player goes
+    without the four components above. It walks, falls, jumps and collides.
 
 Import decimation follows the reference's ``import_tri_budget``
 (config.py:83 SGE_IMPORT_TRI_BUDGET = 20000, scene/demo_scene.py:79,
@@ -54,7 +66,9 @@ from ..assets import procedural_meshes as pm
 from ..assets.materials import Material, load_materials
 from ..assets.mesh_api import simplify_mesh, simplify_skinned
 from ..assets.nputil import quat_from_mat
-from ..assets.skeleton import build_skeleton
+from ..anim.pose import ActionProfile, PoseEngine, ProfileBank
+from ..assets.motion_profile import load_motion_profile, pack_profile
+from ..assets.skeleton import Skeleton, build_skeleton, load_skeleton
 from ..assets.skinned_mesh import dense_weight_matrix, load_skinned_mesh
 from ..assets.static_mesh import load_static_mesh
 from .. import resolve_device
@@ -90,6 +104,7 @@ class DemoWorld(NamedTuple):
     collision: Optional[LocalTriangles] = None
     world_builder: Optional[WorldBuilder] = None
     collision_builder: Optional[CollisionWorldBuilder] = None
+    posed: bool = False            # the player has a skeleton and profiles
 
 
 def _solid_mat(name, rgb, roughness, metallic=0.0, alpha=1.0, unlit=False,
@@ -152,15 +167,9 @@ def _add_imported(wb, cb, rb, path, materials_path, offset, layer,
             rb.add_static_mesh(hull, hull_mat, instance=he)
 
 
-def _add_player_body(rb, skinned_path, instance, budget):
-    """The YBot skin on a stand-in skeleton of its own bone names, each
-    submesh decimated to its share of ``budget``."""
-    with open(skinned_path) as f:
-        names = [b["name"] for b in json.load(f)["skin"]["bones"]]
-    b = len(names)
-    skeleton = build_skeleton(names, [-1] * b, np.zeros((b, 3), np.float32),
-                              np.zeros((b, 3), np.float32),
-                              unit_scale=UNIT_SCALE)
+def _add_skin(rb, skinned_path, skeleton, instance, budget):
+    """The YBot skin loaded against ``skeleton``, each submesh decimated to
+    its share of ``budget`` -> the skin's inverse binds (B, 4, 4)."""
     sm = load_skinned_mesh(skinned_path, skeleton)
     for s in sm.submeshes:
         mat = Material(name=s.material)
@@ -176,7 +185,94 @@ def _add_player_body(rb, skinned_path, instance, budget):
                             dense_weight_matrix(j4, w4, skeleton.bone_count),
                             [mat], [(0, len(tri))], instance=instance,
                             character=0)
+    return sm.inv_bind_model
+
+
+def _add_player_body(rb, skinned_path, instance, budget):
+    """The stand-in: the YBot skin on a skeleton of its own bone names."""
+    with open(skinned_path) as f:
+        names = [b["name"] for b in json.load(f)["skin"]["bones"]]
+    b = len(names)
+    skeleton = build_skeleton(names, [-1] * b, np.zeros((b, 3), np.float32),
+                              np.zeros((b, 3), np.float32),
+                              unit_scale=UNIT_SCALE)
+    _add_skin(rb, skinned_path, skeleton, instance, budget)
     return skeleton.bone_count
+
+
+POSE_PROFILES = ("Idle", "Walking", "Running", "FallingIdle",
+                 "StandingDodgeBackward")
+
+
+def has_pose_assets(asset_dir: str) -> bool:
+    """Whether ``asset_dir`` holds the skeleton and the five profiles the
+    posed player reads."""
+    return all(os.path.exists(os.path.join(asset_dir, n)) for n in
+               ["YBot.skeleton.json"] +
+               [f"{p}.motionProfile.json" for p in POSE_PROFILES])
+
+
+class PoseRig(NamedTuple):
+    """What the posed player reads from its asset directory."""
+
+    skeleton: Skeleton
+    engine: PoseEngine
+    bank: ProfileBank
+    action: ActionProfile          # the dodge's
+    dodge_cycle: float
+    dodge_sample_fps: int
+
+
+def load_pose_rig(asset_dir: str, device="cuda") -> PoseRig:
+    """The skeleton and the five profiles of ``asset_dir``: a PoseEngine on
+    ``device``, its locomotion bank and the dodge's action profile."""
+    def asset(name):
+        return os.path.join(asset_dir, name)
+    skeleton = load_skeleton(asset("YBot.skeleton.json"))
+    profiles = {n: load_motion_profile(asset(f"{n}.motionProfile.json"))
+                for n in POSE_PROFILES}
+    engine = PoseEngine(skeleton, resolve_device(device))
+    bank = engine.make_bank(*(pack_profile(profiles[n], skeleton)
+                              for n in POSE_PROFILES[:4]))
+    dodge = profiles["StandingDodgeBackward"]
+    return PoseRig(skeleton, engine, bank,
+                   engine.make_action(pack_profile(dodge, skeleton)),
+                   dodge.cycle, dodge.sample_fps)
+
+
+def add_pose_components(wb, player: int, rig: PoseRig):
+    """The posed player's components (scene/demo_scene.py:361-377):
+    motion_profile, locomotion, action, dodge and its character slot."""
+    wb.add(player, "motion_profile", playback_rate=1.0, loop=True,
+           in_place=True)
+    wb.add(player, "locomotion", idle_enter_speed=0.15, idle_exit_speed=0.3,
+           run_enter_speed=6.0, run_exit_speed=5.0, fall_min_drop_height=50.0)
+    end_time = 34.0 / max(rig.dodge_sample_fps, 1)
+    wb.add(player, "action", cycle=rig.dodge_cycle, blend_in=0.08,
+           blend_out=0.18)
+    wb.add(player, "dodge", duration=end_time, distance=8.0, start_time=0.0,
+           end_time=end_time)
+    wb.add(player, "character", slot=0, bone_count=rig.skeleton.bone_count)
+
+
+def _add_posed_player(wb, rb, asset_dir, player, budget, device):
+    """The reference's posed player (scene/demo_scene.py:346-411): its pose
+    components and body -> (PoseRig, the skin's inverse binds (1, B, 4, 4)
+    or None)."""
+    rig = load_pose_rig(asset_dir, device)
+    add_pose_components(wb, player, rig)
+    skeleton = rig.skeleton
+    skinned = os.path.join(asset_dir, "YBot.skinned.json")
+    if os.path.exists(skinned):
+        return rig, _add_skin(rb, skinned, skeleton, player, budget)[None]
+    print("DemoScene: missing YBot.skinned.json, using skeletonCapsules body")
+    body = pm.skeleton_capsules(skeleton, radius=0.05)
+    rb.add_skinned_mesh(
+        body.positions, body.normals, body.uvs, body.indices,
+        dense_weight_matrix(body.joints, body.weights, skeleton.bone_count),
+        [_solid_mat("YBotBody", (25, 107, 133), 0.55)],
+        [(0, len(body.indices))], instance=player, character=0)
+    return rig, None
 
 
 def build_demo_scene(asset_dir: str = "assets", device="cuda",
@@ -263,16 +359,23 @@ def build_demo_scene(asset_dir: str = "assets", device="cuda",
                                             (220, 120, 255), 0.5, alpha=0.2),
                        instance=osc)
 
-    # The player (CharacterFactory.swift:12-135) without motion_profile,
-    # locomotion, action and dodge (see the module docstring).
+    # The player (CharacterFactory.swift:12-135), posed or the stand-in
+    # (see the module docstring).
     start = [0.0, GROUND_Y + 2.5 + 8.0, 0.0]
     player = body_entity("player", start, BODY_DYNAMIC)
     wb.add(player, "player")
     wb.add(player, "intent")
     wb.add(player, "movement", max_acceleration=20.0, max_deceleration=36.0)
     controller(player, 3.0)
-    n_bones = _add_player_body(rb, asset("YBot.skinned.json"), player, budget)
-    wb.add(player, "character", slot=0, bone_count=n_bones)
+    posed = has_pose_assets(asset_dir)
+    rig = inv_bind = None
+    if posed:
+        rig, inv_bind = _add_posed_player(wb, rb, asset_dir, player, budget,
+                                          device)
+    else:
+        n_bones = _add_player_body(rb, asset("YBot.skinned.json"), player,
+                                   budget)
+        wb.add(player, "character", slot=0, bone_count=n_bones)
     overlay = wb.create_entity("player_overlay")
     wb.add(overlay, "transform", translation=start)
     wb.add(overlay, "follow", target=player)
@@ -310,7 +413,9 @@ def build_demo_scene(asset_dir: str = "assets", device="cuda",
 
     spec, state = wb.build(device)
     collision = cb.build(device=device)
-    stepper = Stepper(spec, collision)
+    pose = dict(pose_engine=rig.engine, bank=rig.bank,
+                action_profile=rig.action) if posed else {}
+    stepper = Stepper(spec, collision, inv_bind_override=inv_bind, **pose)
     transforms, palettes = stepper.extract(state, 1.0, np.zeros(3, np.float32))
     mv = spec.movement
     return DemoWorld(
@@ -320,4 +425,5 @@ def build_demo_scene(asset_dir: str = "assets", device="cuda",
                   float(mv["run_speed"][player]),
                   float(mv["run_threshold"][player])),
         spec=spec, state=state, stepper=stepper, player=player,
-        collision=collision, world_builder=wb, collision_builder=cb)
+        collision=collision, world_builder=wb, collision_builder=cb,
+        posed=posed)

@@ -54,8 +54,8 @@ in flight and the snapshot.
 
 The frame is the reference's ``path`` (scene/engine.py:143-177,226-237):
 
-  * ``"rt"``: the RT ``render_frame`` (``primary="hybrid"`` or
-    ``"trace"``) with its mirror and refraction bounces;
+  * ``"rt"``: the RT ``render_frame`` (``primary`` "hybrid", "trace",
+    "raster" or "peels") with its mirror and refraction bounces;
   * ``"raster_pbr"``: the same RT frame with both bounces off;
   * ``"raster"``: ``render_frame_raster`` (2 layers, ``raster_mode``
     "clusters" or "lists"), which tone-maps per material: no composite.

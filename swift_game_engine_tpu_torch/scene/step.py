@@ -7,14 +7,17 @@ FixedStepRunner), as plain tensor code on the world's device:
   pre:   Spin -> OscillateMove -> ActiveChunk -> PhysicsLocalize -> Dodge ->
          PhysicsIntent -> Jump -> PhysicsBeginStep
   fixed: PlatformMotion -> CollisionQueryRefresh (soup retransform) ->
-         Gravity -> KinematicMoveStop -> AgentSeparation -> PhysicsIntegrate
+         Gravity -> KinematicMoveStop -> AgentSeparation -> PhysicsIntegrate ->
+         LocomotionProfile -> ActionAnimation -> PoseStack
   post:  PhysicsWriteback -> WorldPositionSync
 
-The pose systems (LocomotionProfile, ActionAnimation, PoseStack) wait for
-M4b: a Stepper given a pose engine, a profile bank or an action profile
-raises, and without them the reference's substep skips those systems too
-(scene/step.py:253-307), so this is the reference's substep of a world
-whose agents carry no motion profile.
+The pose systems run as the reference's do (scene/step.py:236-290): the
+locomotion FSM with a profile ``bank``, the action clock with an
+``action_profile``, and with a ``pose_engine`` the pose stack
+(anim/pose.py) over the characters (``character_slot >= 0``), whose
+palettes are scattered by slot (``model @ inv_bind_override`` where the
+skin gives its own inverse binds). Without them those systems are
+skipped, as in the reference.
 
 A substep reads nothing back to the host: every branch is a
 ``torch.where`` and every loop runs its fixed count. ``SubstepGraph``
@@ -35,7 +38,10 @@ from ..ecs.world import (BODY_DYNAMIC, BODY_KINEMATIC, BODY_STATIC,
                          chunk_local_to_world, clone_state, copy_state,
                          world_to_chunk_local)
 from ..math3d import trs_matrices, where_rows as _w
+from ..anim.locomotion import LocomotionTuning, locomotion_fsm_step
+from ..anim.pose import ActionState, LocoParams, LocoState, PoseInputs
 from ..physics import systems as S
+from ..physics.systems import ActionClock
 from ..physics.character import CharacterPipeline, PlatformSet
 from ..physics.collision_world import LocalTriangles, transform_soup
 from ..physics.separation import separate_agents
@@ -51,13 +57,7 @@ class Stepper:
 
     def __init__(self, spec: SceneSpec, collision: LocalTriangles,
                  pose_engine=None, bank=None, action_profile=None,
-                 chunk_radius: int = 2):
-        if pose_engine is not None or bank is not None or \
-                action_profile is not None:
-            raise NotImplementedError(
-                "pose (PoseEngine, profile bank, action profile) is not "
-                "ported yet (M4b): the Stepper runs worlds whose agents "
-                "carry no motion profile")
+                 inv_bind_override=None, chunk_radius: int = 2):
         self.spec = spec
         self.collision = collision
         dev = collision.p0.device
@@ -86,6 +86,39 @@ class Stepper:
         up[:, 1] = 1.0
         self.platform_axis_n = torch.where(
             ax_len > 1e-4, ax / torch.clamp(ax_len, min=1e-20), up)
+
+        # the pose systems and what they read
+        self.pose_engine, self.bank = pose_engine, bank
+        self.action_profile = action_profile
+        # the skin's inverse binds win over the skeleton's
+        # (Systems.swift:2507-2527): (C, B, 4, 4) or None
+        self.inv_bind_override = None if inv_bind_override is None else \
+            tt(np.asarray(inv_bind_override, np.float32))
+        self.character_slot = tt(spec.character_slot).long()
+        ce = np.nonzero(spec.character_slot >= 0)[0]
+        self.char_entities = tt(ce).long()
+        self.n_chars = len(ce)
+        self.loco_tuning = None if spec.loco_tuning is None else \
+            LocomotionTuning(*(tt(x) for x in spec.loco_tuning))
+        self.action_cfg = {k: tt(v) for k, v in spec.action_cfg.items()}
+        dc = spec.dodge_cfg
+        self.dodge_end = tt(np.where(dc["end_time"] > 0, dc["end_time"],
+                                     dc["duration"]))
+
+    def to(self, device) -> "Stepper":
+        """The same scene's Stepper with every tensor on ``device``."""
+        from ..ecs.world import to_device
+        dev = torch.device(device)
+
+        def move(x):
+            return None if x is None else to_device(x, dev)
+        return Stepper(self.spec.to(dev), to_device(self.collision, dev),
+                       None if self.pose_engine is None else
+                       self.pose_engine.to(dev), move(self.bank),
+                       move(self.action_profile),
+                       None if self.inv_bind_override is None else
+                       self.inv_bind_override.cpu().numpy(),
+                       self.chunk_radius)
 
     # ------------------------------------------------------------------
 
@@ -144,6 +177,7 @@ class Stepper:
         intent_has_yaw = state.intent_has_yaw | apply_d
         intent_jump = state.intent_jump & ~apply_d
         intent_dodge = torch.zeros_like(state.intent_dodge)
+        action_trigger = ov["action_trigger"] & m["has_action"]
 
         # --- pre: PhysicsIntent
         body_vel, body_rot = S.physics_intent(
@@ -215,6 +249,9 @@ class Stepper:
         body_pos = _w(integ, int_pos, body_pos)
         body_rot = _w(integ, int_rot, body_rot)
 
+        loco, action, palettes, pose_phase = self._pose_systems(
+            state, m, body_vel, body_rot, ctrl, action_trigger, dt)
+
         # --- post: PhysicsWriteback (body -> transform)
         trs_t = _w(m["has_body"], body_pos, trs_t)
         trs_r = _w(m["has_body"], body_rot, trs_r)
@@ -240,7 +277,52 @@ class Stepper:
             ctrl=ctrl, intent_vel=intent_vel, intent_yaw=intent_yaw,
             intent_has_yaw=intent_has_yaw, intent_jump=intent_jump,
             intent_dodge=intent_dodge, dodge=dodge, osc_time=osc_time,
-            platform_time=plat_time)
+            platform_time=plat_time, loco=loco, action=action,
+            palettes=palettes, pose_phase=pose_phase)
+
+    def _pose_systems(self, state, m, body_vel, body_rot, ctrl,
+                      action_trigger, dt):
+        """LocomotionProfile -> ActionAnimation -> PoseStack (the
+        reference's step.py:253-290) -> (loco, action, palettes,
+        pose_phase)."""
+        spec = self.spec
+        loco, action = state.loco, state.action
+        palettes, pose_phase = state.palettes, state.pose_phase
+        if self.bank is not None:
+            new = locomotion_fsm_step(loco, self.bank, self.loco_tuning,
+                                      body_vel, ctrl.grounded_near,
+                                      ctrl.ground_distance)
+            loco = LocoState(*(_w(m["has_loco"], a, b)
+                               for a, b in zip(new, loco)))
+        if self.action_profile is not None:
+            cfg = self.action_cfg
+            new = S.action_animation_step(
+                action, cfg["cycle"], self.dodge_end, m["has_dodge"], dt,
+                playback_rate=cfg["rate"], blend_in_time=cfg["blend_in"],
+                blend_out_half_life=cfg["blend_out"], trigger=action_trigger)
+            action = ActionClock(*(torch.where(m["has_action"], a, b)
+                                   for a, b in zip(new, action)))
+        if self.pose_engine is not None and self.n_chars:
+            ce = self.char_entities
+            inputs = PoseInputs(forward=m3.quat_forward(body_rot[ce]),
+                                ground_normal=ctrl.ground_normal[ce],
+                                grounded_near=ctrl.grounded_near[ce])
+            res = self.pose_engine.step_character(
+                self.bank, self.action_profile,
+                LocoState(*(x[ce] for x in loco)),
+                LocoParams(*(x[ce] for x in spec.loco_params)),
+                ActionState(time=action.time[ce], weight=action.weight[ce],
+                            active=action.active[ce]), inputs, dt)
+            loco = LocoState(*(full.index_put((ce,), upd)
+                               for full, upd in zip(loco, res.loco)))
+            # palettes by character_slot (slots need not follow entity
+            # order)
+            slots = self.character_slot[ce]
+            pal = res.palette if self.inv_bind_override is None else \
+                torch.matmul(res.model, self.inv_bind_override[slots])
+            palettes = palettes.index_put((slots,), pal)
+            pose_phase = pose_phase.index_put((ce,), res.phase)
+        return loco, action, palettes, pose_phase
 
     # ------------------------------------------------------------------
 

@@ -9,9 +9,12 @@ this file imports no jax and runs there without the conftest:
 Here (no CUDA device) every test skips. A replay launches the kernels that
 the eager substep launches, on the same inputs, and no op of the substep
 uses atomics, so replays equal the eager ``Stepper.substep`` bit for bit:
-on the tiny world of tests/torch_sim_worlds.py (built by the port alone)
-and on chip_smoke.py's 256-agent crowd (the separation grid), over 30
-substeps of changing player intents; after ``load_state`` into the
+on the tiny world of tests/torch_sim_worlds.py (built by the port alone),
+on that world with its player posed (the synthetic rig of
+tests/torch_pose_rig.py: the locomotion FSM, the action clock and the pose
+stack in the graph, a dodge among the intents) and on chip_smoke.py's
+256-agent crowd (the separation grid), over 30 substeps of changing player
+intents; after ``load_state`` into the
 captured buffers; and two Engines built on one world each step their own
 buffers.
 
@@ -63,9 +66,10 @@ def cuda():
 
 
 def _pads():
-    """Player input over the substeps: walking, turning, two jumps."""
-    return [InputFrame(ly=1.0, lx=0.6 if i >= 10 else 0.0, jump=i in (5, 20))
-            for i in range(STEPS)]
+    """Player input over the substeps: walking, turning, two jumps, a
+    dodge."""
+    return [InputFrame(ly=1.0, lx=0.6 if i >= 10 else 0.0, jump=i in (5, 20),
+                       dodge=i == 14) for i in range(STEPS)]
 
 
 def _bits(x):
@@ -80,10 +84,16 @@ def assert_bit_equal(a, b, what):
             f"{what}: leaf {i} differs by {gap}"
 
 
-def _world(name, dev):
+def _world(name, dev, tmp_path):
     """-> (Stepper, state, player) of a test world on ``dev``."""
     if name == "tiny":
         _, state, stepper, h = W.port_world(W.tiny, dev)
+        return stepper, state, h["player"]
+    if name == "posed_tiny":
+        import torch_pose_rig
+        rig = torch_pose_rig.write_rig(str(tmp_path / "rig"), os.path.join(
+            os.path.dirname(__file__), "..", "assets"))
+        _, state, stepper, h = W.posed_port_world(rig, dev)
         return stepper, state, h["player"]
     sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
     from chip_smoke import build_crowd
@@ -91,9 +101,9 @@ def _world(name, dev):
     return stepper, state, stepper.player_idx
 
 
-@pytest.mark.parametrize("name", ["tiny", "crowd_256"])
-def test_replays_equal_eager_substeps(cuda, name):
-    stepper, state, player = _world(name, cuda)
+@pytest.mark.parametrize("name", ["tiny", "posed_tiny", "crowd_256"])
+def test_replays_equal_eager_substeps(cuda, name, tmp_path):
+    stepper, state, player = _world(name, cuda, tmp_path)
     g = SubstepGraph(stepper, state, FIXED_DT)
     assert g.graph is not None and g.capture_seconds > 0
     assert_bit_equal(g.state, state, "capture left the state")
@@ -109,6 +119,10 @@ def test_replays_equal_eager_substeps(cuda, name):
     moved = (g.state.body_pos - state.body_pos).abs().amax(1)
     assert float(moved[player]) > 0.1
     assert bool(torch.isfinite(g.state.body_pos).all())
+    if name == "posed_tiny":     # the pose stack ran in the graph
+        assert bool(torch.isfinite(g.state.palettes).all())
+        assert not torch.equal(g.state.palettes, state.palettes)
+        assert float(g.state.action.weight[player]) > 0
 
 
 def test_load_state_after_capture(cuda, tmp_path):

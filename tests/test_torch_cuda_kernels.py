@@ -91,7 +91,7 @@ def test_k1_kernel_matches_plain(cuda, which):
     before = sum(TR.launches)
     k = TR.cluster_raster(rows, meta, boxes, W, H, layers, prior)
     assert sum(TR.launches) == before + 1
-    p = TR.cluster_raster_plain(rows, W, H, layers, prior)
+    p = TR.cluster_raster_plain(rows, W, H, layers, prior, meta)
     torch.cuda.synchronize()
     assert int((k[0][:, -1] >= 0).sum()) > 100   # the deepest layer has hits
     agree(k[0], p[0], k[1:], p[1:])
@@ -168,7 +168,7 @@ def test_k1_cull_stress(cuda, case):
     kc, cnt = TR.cluster_raster_counts(rows, meta, boxes, width, height,
                                        layers, prior)
     assert sum(TR.launches) == before + 1  # the counting build is no launch
-    p = TR.cluster_raster_plain(rows, width, height, layers, prior)
+    p = TR.cluster_raster_plain(rows, width, height, layers, prior, meta)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(kc, k))
     key_k = torch.where(k[0] >= 0, k[0] // dup, -1)

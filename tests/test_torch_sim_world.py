@@ -169,14 +169,48 @@ def test_systems_match_reference():
     _close(PS.integrate_bodies(*_t(target, q, v, w, b[2] & ~b[3]), float(dt)),
            JS.integrate_bodies(target, q, v, w, b[2], b[3], dt))
 
+    # the action clock: running, at its end (the dodge's end time or the
+    # cycle), exiting, restarted by a trigger
+    clock = JS.ActionClock(active=b[0], time=rng.uniform(0, 1.2, n).astype(f),
+                           weight=rng.uniform(0, 1, n).astype(f),
+                           exiting=b[1] & (rng.random(n) < 0.5))
+    cycle = rng.uniform(0.5, 1.5, n).astype(f)
+    end = np.where(b[2], rng.uniform(0.3, 0.8, n), 0.0).astype(f)
+    rate, blend_in, blend_out = rng.uniform(0.5, 1.5, (3, n)).astype(f) * \
+        np.array([[1.0], [0.08], [0.12]], f)
+    _close(tuple(PS.action_animation_step(
+        PS.ActionClock(*_t(*clock)), *_t(cycle, end, b[3]), float(dt),
+        playback_rate=torch.as_tensor(rate),
+        blend_in_time=torch.as_tensor(blend_in),
+        blend_out_half_life=torch.as_tensor(blend_out),
+        trigger=torch.as_tensor(b[4]))),
+           tuple(JS.action_animation_step(
+               clock, cycle, end, b[3], dt, playback_rate=rate,
+               blend_in_time=blend_in, blend_out_half_life=blend_out,
+               trigger=b[4])))
 
-def test_stepper_refuses_pose():
-    """Pose waits for M4b: a Stepper given a pose engine, a profile bank or
-    an action profile raises instead of skipping pose."""
-    (jspec, _), _, _ = _build_both(W.tiny)
+
+def test_stepper_refuses_pose(tmp_path):
+    """A Stepper takes pose parts (it no longer refuses them). Without them
+    it skips the pose systems, as the reference's substep does
+    (scene/step.py:253-290): the locomotion and action clocks and the
+    palettes stay as they were; with the posed player of the synthetic rig
+    it runs them: clocks advance and the palettes leave the identity."""
+    import torch_pose_rig
+    (jspec, jstate), _, _ = _build_both(W.tiny)
     spec = interop.scene_spec(jspec, device="cpu")
+    state = interop.world_state(jstate, device="cpu")
     local = PCB().build(device="cpu")
-    for kw in (dict(pose_engine=object()), dict(bank=object()),
-               dict(action_profile=object())):
-        with pytest.raises(NotImplementedError, match="M4b"):
-            Stepper(spec, local, **kw)
+    out = Stepper(spec, local).substep(state, 1 / 60)
+    for part in ("loco", "action"):
+        for a, b in zip(getattr(out, part), getattr(state, part)):
+            assert torch.equal(a, b), part
+    assert torch.equal(out.palettes, state.palettes)
+    rig = torch_pose_rig.write_rig(str(tmp_path / "rig"), os.path.join(
+        os.path.dirname(__file__), "..", "assets"))
+    _, pstate, stepper, ph = W.posed_port_world(rig)
+    out = stepper.substep(pstate, 1 / 60)
+    p = ph["player"]
+    assert float(out.loco.times[p].sum()) > 0
+    assert bool(torch.isfinite(out.palettes).all())
+    assert not torch.equal(out.palettes, pstate.palettes)

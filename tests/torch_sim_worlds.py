@@ -195,6 +195,26 @@ def port_world(recipe, device="cpu", **kw):
     return spec, state, Stepper(spec, cb.build(device=device)), handles
 
 
+def posed_port_world(rig_dir, device="cpu"):
+    """The tiny world with its player posed as the posed DemoScene's player
+    is (the skeleton and profiles of ``rig_dir``, the synthetic rig of
+    tests/torch_pose_rig.py), built by the port alone -> (spec, state,
+    Stepper, handles)."""
+    from swift_game_engine_tpu_torch.ecs.world import WorldBuilder
+    from swift_game_engine_tpu_torch.physics.collision_world import \
+        CollisionWorldBuilder
+    from swift_game_engine_tpu_torch.scene.demo_scene import (
+        add_pose_components, load_pose_rig)
+    from swift_game_engine_tpu_torch.scene.step import Stepper
+    wb, cb = WorldBuilder(), CollisionWorldBuilder()
+    handles = tiny(wb, cb)
+    rig = load_pose_rig(rig_dir, device)
+    add_pose_components(wb, handles["player"], rig)
+    spec, state = wb.build(device)
+    return spec, state, Stepper(spec, cb.build(device=device), rig.engine,
+                                rig.bank, rig.action), handles
+
+
 # The tiny world's render meshes (instance by role), materials and lights.
 RENDER_MESHES = (("ground", "plane", (80.0,), (0.5, 0.5, 0.5)),
                  ("player", "capsule", (1.5, 1.0), (0.2, 0.4, 0.9)),
