@@ -5,9 +5,9 @@
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit. It builds the port's kernels from ``swift_game_engine_tpu_torch/
-csrc`` (first use, one nvcc per source in parallel) and drives nine paths
-of the port through its entry points, each for 2 warm-up and 10 timed
-frames (paths 8a and 8b: 3) at 960x540 (the RT paths with
+csrc`` (first use, one nvcc per source in parallel) and drives eleven
+paths of the port through its entry points, each for 2 warm-up and 10
+timed frames (paths 8a, 8b, 9 and 10: 3) at 960x540 (the RT paths with
 ``max_layers=3``). Every frame is
 the bench headline's ``eng.frame(1/60, InputFrame(ly=1.0))``: the
 DemoScene world steps (one fixed substep a frame, one replay of the
@@ -60,11 +60,27 @@ intent to the snapshot's copy:
   8. ``demo_peels_960x540`` (8a) and ``demo_raster_primary_960x540`` (8b):
      the decimated scene with ``primary="peels"`` (K1 over every triangle,
      3 peeled layers, once a frame) and ``primary="raster"`` (K1 over every
-     triangle, 1 layer, once a frame; K4 continuations), 2 + 3 frames each.
+     triangle, 1 layer, once a frame; K4 continuations), 2 + 3 frames each;
+  9. ``demo_rt_deferred_960x540``: path 1's Engine with ``deferred=True``
+     (render/deferred.py) on the full scene, 2 + 3 frames: K1 twice, one
+     K4 call over the merged bounce stream (none if the static pruning
+     drops every bounce segment; the surviving segments are printed) and
+     one K2/K3 pair over every shadow origin of the frame, sorted live
+     first, a frame. Its image is held against path 1's sequential frame
+     from the same state (``save_state`` / ``load_state``) with
+     tests/test_deferred.py's bounds (>= 99.5% of pixels within 1e-4, max
+     < 0.1, means within 1e-3 relative), and the sweep's dead-tail warps
+     must test no cluster;
+ 10. ``demo_raster_trace_960x540``: the full scene,
+     ``Engine(path="raster", raster_vis="trace")``: K4 twice a frame (the
+     raster path's 2 layers), nothing else, 2 + 3 frames.
 
 Every path asserts the DemoScene branch its scene took: the stand-in player
-on paths 1-6 and 8, the posed one on path 7. Paths 7 and 8 also print the
+on paths 1-6 and 8-10, the posed one on path 7. Paths 7-10 also print the
 device busy time and the syncs a frame of 3 profiled frames (at most 1).
+Paths 1 and 9 time each of a frame's sorted shadow sweeps (K2 + K3) on
+its sorted origins and on the same origins unsorted, and print the lanes
+each sort moved.
 
 Each path's kernel launch counts are zeroed just before its timed frames
 and read just after (a replay adds the launches its capture recorded:
@@ -109,9 +125,12 @@ And the kernels:
   * every kernel is held against its plain PyTorch version on the inputs
     the first frame of each path that runs it gave it (the walks K5-K8 on
     a fixed subset of the captured lanes: their twins walk lane by lane in
-    lockstep and are slow; K10, which no path runs, on path 5's candidate
-    lists, and its first layer against K9's first peel; path 7's kernels
-    are path 1's and are held there), and both are
+    lockstep and are slow; K2, K3 and K4 of paths 9 and 10, whose streams
+    reach 5M lanes, on a subset too: a strided sample of the live lanes
+    and a slice of the dead ones; K10, which no path runs, on path 5's
+    candidate lists, and its first layer against K9's first peel; path
+    7's kernels are path 1's and are held there, as are path 9's K1
+    calls), and both are
     timed (CUDA events); each kernel's bound — the larger of its bytes over
     the card's memory rate and its operations over the FP32 rate — is
     computed from the same inputs: for K1-K10 from the work their counting
@@ -138,9 +157,13 @@ And the kernels:
     the cluster threshold lowered to 0 so that its shadows take the
     cluster sweeps K2/K3, as paths 1 and 2 do), a 128x72 traced render of
     the decimated scene (K5, K7), a 480x270 list-binned raster frame (K9)
-    and a 128x72 frame configured as path 6 (K6, K8, K4).
+    and a 128x72 frame configured as path 6 (K6, K8, K4);
+  * the layer schedules: 320x180 hybrid renders of the full scene with
+    ``lbatch`` 0, 1 and 3 (cluster shadows, the threshold lowered to 0)
+    through the kernels, each against ``lbatch=2`` (>= 99.9% of pixels
+    within 1e-4, means within 1e-4 relative).
 
-``path_engines`` is the one definition of the nine paths;
+``path_engines`` is the one definition of the eleven paths;
 ``profile_port.py`` drives the same ones.
 
 It prints the card (``nvidia-smi`` name and power limit), the build and
@@ -171,9 +194,10 @@ SIM_STEPS, SIM_TIMED, CROWD_AGENTS = 60, 10, 256
 PATHS = ("demo_rt_960x540", "demo_trace_960x540", "demo_trace_rtscale_0.25",
          "demo_raster_960x540", "demo_raster_lists_960x540",
          "demo_trace_so_prepass_960x540", "demo_rt_posed_960x540",
-         "demo_peels_960x540", "demo_raster_primary_960x540")
-# Path 7: the timed frame whose input carries the dodge. Paths 8a/8b: timed
-# frames each.
+         "demo_peels_960x540", "demo_raster_primary_960x540",
+         "demo_rt_deferred_960x540", "demo_raster_trace_960x540")
+# Path 7: the timed frame whose input carries the dodge. Paths 8a-10:
+# timed frames each.
 DODGE_FRAME, PRIMARY_TIMED = 3, 3
 # The pose phase: bench.py's pose configuration (#2), characters x steps.
 POSE_CHARS, POSE_STEPS = 64, 120
@@ -188,6 +212,9 @@ MAX_MISMATCH = 1e-3
 MAX_REL_ERR = 1e-5
 # The walks' twins run on at most this many of the captured lanes.
 TWIN_LANES = 65_536
+# On paths 9 and 10, K2/K3's twins run on at most this many live lanes
+# and a quarter as many dead ones, K4's on at most a quarter of those.
+STREAM_TWIN_LANES = 32_768
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # device memory rate and FP32 rate outside the tensor cores.
@@ -316,6 +343,19 @@ def _subset(n, device):
     return torch.arange(0, n, step, device=device)
 
 
+def _stream_subset(live, n_live):
+    """A subset of a long, mostly dead stream: every k-th live lane, at
+    most ``n_live`` of them, then every k-th dead lane, at most a quarter
+    as many; the live lanes first."""
+    import torch
+
+    def strided(idx, n):
+        return idx[::max(1, math.ceil(idx.numel() / n))][:n]
+    return torch.cat([strided(torch.nonzero(live).squeeze(1), n_live),
+                      strided(torch.nonzero(~live).squeeze(1),
+                              n_live // 4)])
+
+
 class Capture:
     """Records the first call's arguments of chosen kernel wrappers."""
 
@@ -348,7 +388,7 @@ def pose_rig_dir():
 
 
 def path_engines(dev):
-    """The nine paths, in order: yields (name, scene, Engine). The three
+    """The eleven paths, in order: yields (name, scene, Engine). The three
     scenes (full, decimated, full posed) are built once each, when a path
     first needs them; paths 2 and 3 share one Engine (path 3 is path 2's
     Engine after ``set_rt_resolution_scale(0.25)``)."""
@@ -363,7 +403,6 @@ def path_engines(dev):
     eng.set_rt_resolution_scale(0.25)
     yield PATHS[2], world, eng
     yield PATHS[3], full, Engine(full, W, H, path="raster", device=dev)
-    del full
     yield PATHS[4], world, Engine(world, W, H, path="raster",
                                   raster_mode="lists", device=dev)
     yield PATHS[5], world, Engine(world, W, H, primary="trace",
@@ -375,6 +414,9 @@ def path_engines(dev):
     del posed
     yield PATHS[7], world, Engine(world, W, H, primary="peels", **kw)
     yield PATHS[8], world, Engine(world, W, H, primary="raster", **kw)
+    yield PATHS[9], full, Engine(full, W, H, path="rt", deferred=True, **kw)
+    yield PATHS[10], full, Engine(full, W, H, path="raster",
+                                  raster_vis="trace", device=dev)
 
 
 def build_crowd(device, n_agents=CROWD_AGENTS, seed=11):
@@ -1073,7 +1115,78 @@ def main():
               f"{seconds:.1f} s")
         return rows_n
 
-    # -- 2. the nine paths ----------------------------------------------------
+    def sorted_sweeps(name, eng):
+        """Each sorted shadow sweep (K2 + K3) of one eager frame of
+        ``eng``, timed (CUDA events) on its sorted origins and on the same
+        origins in the shade call's order; the lanes each sort moved."""
+        calls, split, shadow_order = [], RT.trace_shadow_split, \
+            RT._shadow_order
+
+        def order(*a, **k):
+            order = shadow_order(*a, **k)
+            calls.append([order])
+            return order
+
+        def sweep(sp, o, t_lim, **k):
+            if calls and len(calls[-1]) == 1:
+                calls[-1] += [sp, o, t_lim, k]
+            return split(sp, o, t_lim, **k)
+        RT._shadow_order, RT.trace_shadow_split = order, sweep
+        try:
+            eng.program().eager()
+        finally:
+            RT._shadow_order, RT.trace_shadow_split = shadow_order, split
+        total_s = total_u = 0.0
+        for i, (order, sp, o, t_lim, k) in enumerate(calls):
+            o_u, t_u = (torch.empty_like(x).index_copy_(0, order, x)
+                        for x in (o, t_lim))
+            ms_s = _time_ms(lambda: split(sp, o, t_lim, **k), 5)
+            ms_u = _time_ms(lambda: split(sp, o_u, t_u, **k), 5)
+            moved = int((order != torch.arange(order.shape[0],
+                                               device=dev)).sum())
+            total_s, total_u = total_s + ms_s, total_u + ms_u
+            print(f"  {name}: sorted sweep {i + 1} ({o.shape[0]} origins, "
+                  f"{int((t_lim > 0).sum())} live, {moved} moved by the "
+                  f"sort): K2 + K3 {ms_s:.3f} ms sorted, {ms_u:.3f} ms "
+                  f"unsorted")
+        print(f"  {name}: the frame's {len(calls)} sorted sweeps: K2 + K3 "
+              f"{total_s:.3f} ms sorted, {total_u:.3f} ms on the same "
+              f"origins unsorted (CUDA events, 5 calls each)")
+
+    def deferred_vs_sequential(name, eng, eng1):
+        """Path 9's frame against path 1's sequential frame from the same
+        state: path 9's state saved and loaded into path 1's Engine, the
+        same camera; the RT-size float frames of both from their own
+        extraction, with tests/test_deferred.py's bounds."""
+        state = os.path.join(REPO, "local", "deferred_state.npz")
+        os.makedirs(os.path.dirname(state), exist_ok=True)
+        eng.save_state(state)
+        eng1.load_state(state)
+        eng1.camera = eng.camera
+        cam, (rw, rh) = eng.camera, eng.rt_size
+        ivp = torch.as_tensor(cam.inv_view_proj(rw, rh), device=dev)
+        vp = torch.as_tensor(cam.view_proj(rw, rh), device=dev)
+        pos = torch.as_tensor(cam.position, device=dev)
+        imgs = []
+        for e in (eng, eng1):
+            tf, pal = e.extract(0.5)
+            imgs.append(e.render_target(
+                flatten_frame(e.geometry, tf, pal), ivp, vp, pos))
+        img_d, img_s = imgs
+        diff = (img_d - img_s).abs()
+        frac = float((diff.amax(-1) < 1e-4).float().mean())
+        mean_d, mean_s = float(img_d.mean()), float(img_s.mean())
+        print(f"  {name}: the deferred frame against path 1's sequential "
+              f"frame from the same state: {frac:.5f} of pixels within "
+              f"1e-4, max {float(diff.max()):.3e}, means {mean_d:.6f} vs "
+              f"{mean_s:.6f}")
+        if not bool(torch.isfinite(img_d).all()) or frac <= 0.995 or \
+                float(diff.max()) >= 0.1 or \
+                abs(mean_d - mean_s) >= 1e-3 * max(mean_s, 1e-3):
+            _fail(f"{name}: the deferred frame is not within the bounds of "
+                  f"the sequential one")
+
+    # -- 2. the eleven paths --------------------------------------------------
     # Each path captures the first call of every kernel it runs, keyed by
     # kernel and, where a frame calls it in two roles, by role: K1 by its
     # layer count, K6 dense or past a t floor, K9 first or behind a peel.
@@ -1096,7 +1209,11 @@ def main():
             # path 7 runs path 1's kernels, held against their twins there
             PATHS[6]: (),
             PATHS[7]: (f"K1/layers={LAYERS}",),
-            PATHS[8]: ("K1/layers=1",)}
+            PATHS[8]: ("K1/layers=1",),
+            # path 9's K1 calls are path 1's, held there; its K4 call is
+            # added where a bounce segment survives the pruning
+            PATHS[9]: ("K2", "K3"),
+            PATHS[10]: ("K4",)}
     caps, counts, scenes, engines, overflow = {}, {}, {}, {}, []
     medians, captures, states = {}, [], set()
     t0 = time.perf_counter()
@@ -1116,6 +1233,13 @@ def main():
                 _fail(f"the decimated tree has {rows_n} rows, over the "
                       f"walks' cap")
         scenes[name], engines[name] = scene, eng
+        if name == PATHS[9]:
+            bounces = scene.geometry.bounces
+            print(f"  {name}: bounce segments that survive the static "
+                  f"pruning: mirror {bounces.mirror}, refraction "
+                  f"{bounces.refraction}")
+            if any(bounces):
+                runs[name] += ("K4",)
         cap = caps[name] = Capture()
         for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
             cap.on(*wrappers[fam], roles.get(fam, lambda *a, fam=fam, **k:
@@ -1144,6 +1268,10 @@ def main():
             counts[name] = run_path(name, eng, cap, timed=PRIMARY_TIMED)
         else:
             counts[name] = run_path(name, eng, cap)
+        if name in (PATHS[0], PATHS[9]):
+            sorted_sweeps(name, eng)
+        if name == PATHS[9]:
+            deferred_vs_sequential(name, eng, engines[PATHS[0]])
         if name in PATHS[6:]:
             busy, syncs = _busy_syncs(eng)
             print(f"  device busy {busy:.3f} ms a frame, {syncs:.2f} syncs "
@@ -1162,7 +1290,7 @@ def main():
     for name, size, secs, pool in captures:
         print(f"frame graph capture, {name} at {size[0]}x{size[1]}: "
               f"{secs:.3f} s, pool {pool / 2**20:.1f} MiB")
-    c1, c2, c3, c4, c5, c6, c7, c8, c9 = (counts[p] for p in PATHS)
+    c1, c2, c3, c4, c5, c6, c7, c8, c9, c10, c11 = (counts[p] for p in PATHS)
 
     def only(c, *keys):
         """No other kernel of the port was launched."""
@@ -1201,6 +1329,16 @@ def main():
            "0, K4 > 0 (continuations and bounces), nothing else",
            c9[opq] == PRIMARY_TIMED and c9["K2"] == c9["K3"] > 0 and
            c9["K4"] > 0 and only(c9, opq, "K2", "K3", "K4"))
+    k4_9 = PRIMARY_TIMED if "K4" in runs[PATHS[9]] else 0
+    expect("path 9 (deferred)", c10, "K1 once a frame in each role, one K2 "
+           "and one K3 a frame, one K4 a frame where a bounce segment "
+           "survives the pruning, nothing else",
+           c10[opq] == c10[trans] == PRIMARY_TIMED and
+           c10["K2"] == c10["K3"] == PRIMARY_TIMED and c10["K4"] == k4_9
+           and only(c10, opq, trans, "K2", "K3", "K4"))
+    expect("path 10 (raster, traced visibility)", c11, "K4 twice a frame "
+           "(the raster path's 2 layers), nothing else",
+           c11["K4"] == 2 * PRIMARY_TIMED and only(c11, "K4"))
 
     # -- 2b. the fixed-step simulation and the pose stack on the card --------
     simulation_phase(dev, scenes[PATHS[1]])
@@ -1313,29 +1451,55 @@ def main():
                    records=_bound(ins, outs, int((out_k[0] >= 0).sum()) *
                                   EDGE_OPS))
 
-    def check_k2(args, c, tag):
+    def shadow_subset(t_lim, subset):
+        """(the lanes the twin runs on, a label): all of them, or a
+        subset of a long stream (``_stream_subset``)."""
+        if not subset:
+            return slice(None), f"{t_lim.shape[0]} lanes"
+        sub = _stream_subset(t_lim > 0, STREAM_TWIN_LANES)
+        return sub, (f"{sub.numel()} of {t_lim.shape[0]} lanes: "
+                     f"{int((t_lim[sub] > 0).sum())} of the "
+                     f"{int((t_lim > 0).sum())} live, the rest dead")
+
+    def dead_warps(t_lim, cnt):
+        """The warps of 32 lanes all dead (t_lim <= 0) must test no
+        cluster: they retire at once."""
+        n = t_lim.shape[0]
+        dead = torch.cat([t_lim <= 0, t_lim.new_ones((-n) % 32, dtype=bool)])
+        dead = dead.reshape(-1, 32).all(1)
+        tested = int(cnt["warp_meta"][dead].sum())
+        print(f"  {int(dead.sum())} of {dead.numel()} warps all dead: "
+              f"{tested} cluster entries tested by them")
+        if tested:
+            _fail("a warp of dead lanes tested clusters")
+
+    def check_k2(args, c, tag, subset=False):
         (sc, o, t_lim), kw = args["K2"][0][:3], args["K2"][1]
         tt = kw.get("tt")
-        exact_k = CS.trace_shadow_occl(sc, o, t_lim)
+        sub, label = shadow_subset(t_lim, subset)
+        exact_k = CS.trace_shadow_occl(sc, o, t_lim)[sub]
         exact_p, plain_ms = _timed(lambda: CS.trace_shadow_occl_plain(
-            sc, o, t_lim))
-        err = _compare(f"K2 exact ({o.shape[0]} lanes)", exact_k < 1e30,
+            sc, o[sub].contiguous(), t_lim[sub].contiguous()))
+        err = _compare(f"K2 exact ({label})", exact_k < 1e30,
                        exact_p < 1e30, [exact_k], [exact_p])
         if tt is not None:   # any-hit: settled lanes return SOME t < tt
             any_k = CS.trace_shadow_occl(sc, o, t_lim, tt=tt)
-            bad = (any_k != exact_p) & ~((any_k < tt) & (exact_p < tt))
+            any_s, tt_s = any_k[sub], tt[sub]
+            bad = (any_s != exact_p) & ~((any_s < tt_s) & (exact_p < tt_s))
             print(f"  K2 any-hit: {int(bad.sum())} lanes not "
                   f"factor-equivalent")
             if float(bad.float().mean()) > MAX_MISMATCH:
                 _fail("K2 any-hit records are not factor-equivalent")
         else:
-            any_k = exact_k
+            any_k = CS.trace_shadow_occl(sc, o, t_lim)
         # the work of the frame's call, from the counting instantiation
         any_c, cnt = CS.trace_shadow_occl_counts(sc, o, t_lim, tt)
         if not torch.equal(any_c, any_k):
             _fail("K2's counting instantiation differs from the kernel")
         print(f"  K2 work ({sc.meta.shape[0]} clusters of {sc.cluster}): "
               + _count_line(cnt))
+        if subset:
+            dead_warps(t_lim, cnt)
         # counted: each lane's own test of each cluster the warp's cull
         # admits, and the opaque rows it tests; records: one row test per
         # lane with a hit
@@ -1348,19 +1512,23 @@ def main():
                _time_ms(lambda: CS.trace_shadow_occl(sc, o, t_lim, tt=tt), 5),
                plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
                records=_bound(ins, outs, int((any_k < 1e30).sum()) *
-                              SWEEP_OPS))
+                              SWEEP_OPS),
+               extra=f" (plain on {label})" if subset else "")
 
-    def check_k3(args, c, tag):
+    def check_k3(args, c, tag, subset=False):
         (sc, o, t_lim, *rest), kw = args["K3"]
         n_slots = rest[0] if rest else kw.get("n_slots", 4)
         alpha = rest[1] if len(rest) > 1 else kw.get("alpha_payload", False)
+        sub, label = shadow_subset(t_lim, subset)
         k3 = CS.trace_shadow_clusters(sc, o, t_lim, n_slots, alpha)
         p3, plain_ms = _timed(lambda: CS.trace_shadow_clusters_plain(
-            sc, o, t_lim, n_slots, alpha))
-        err = max(_compare(f"K3 t_opq ({o.shape[0]} lanes)", k3[0] < 1e30,
-                           p3[0] < 1e30, [k3[0]], [p3[0]]),
-                  _compare(f"K3 slots ({n_slots} per lane)", k3[2], p3[2],
-                           [k3[1]], [p3[1]]))
+            sc, o[sub].contiguous(), t_lim[sub].contiguous(), n_slots,
+            alpha))
+        k3s = [x[sub] for x in k3]
+        err = max(_compare(f"K3 t_opq ({label})", k3s[0] < 1e30,
+                           p3[0] < 1e30, [k3s[0]], [p3[0]]),
+                  _compare(f"K3 slots ({n_slots} per lane)", k3s[2], p3[2],
+                           [k3s[1]], [p3[1]]))
         # the work of the frame's call, from the counting instantiation
         k3c, cnt = CS.trace_shadow_clusters_counts(sc, o, t_lim, n_slots,
                                                    alpha)
@@ -1381,20 +1549,36 @@ def main():
                plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
                records=_bound(ins, outs, (int((k3[2] >= 0).sum()) +
                                           int((k3[0] < 1e30).sum()))
-                              * SWEEP_OPS))
+                              * SWEEP_OPS),
+               extra=f" (plain on {label})" if subset else "")
 
-    def check_k4(args, c, tag):
+    def check_k4(args, c, tag, subset=False):
         """The frame's first call: a compacted batch, its live lanes'
-        count on the device (K4 walks the lanes below it)."""
+        count on the device (K4 walks the lanes below it); with
+        ``subset``, the twin runs on a strided sample of the live lanes
+        and a slice of the rest."""
         (tree, rows, o, d, t_max, *rest), _ = args["K4"]
         count = rest[0] if rest else None
         live = o.shape[0] if count is None else int(count)
         t_k, tri_k = RK.trace_rays(tree, rows, o, d, t_max, count)
+        sub, count_s, label = slice(None), count, ""
+        if subset:
+            walked = t_max > 0
+            if count is not None:
+                walked &= torch.arange(o.shape[0], device=dev) < count
+            sub = _stream_subset(walked, STREAM_TWIN_LANES // 4)
+            n_walked = int(walked[sub].sum())
+            if count is not None:
+                count_s = torch.tensor(n_walked, dtype=torch.int32,
+                                       device=dev)
+            label = f"; plain on {sub.numel()} of them, {n_walked} walked"
         (t_p, tri_p), plain_ms = _timed(lambda: RK.trace_rays_plain(
-            tree, rows, o, d, t_max, count))
+            tree, rows, o[sub].contiguous(), d[sub].contiguous(),
+            t_max[sub].contiguous(), count_s))
         err = _compare(f"K4 ({live} live of {o.shape[0]} rays, "
                        f"{rows.shape[0]} rows, {tree.nodes.shape[0]} wide "
-                       f"nodes)", tri_k, tri_p, [t_k], [t_p])
+                       f"nodes{label})", tri_k[sub], tri_p, [t_k[sub]],
+                       [t_p])
         # the work of the frame's call, from the counting instantiation
         t_c, tri_c, cnt = RK.trace_rays_counts(tree, rows, o, d, t_max,
                                                count)
@@ -1416,7 +1600,8 @@ def main():
                _time_ms(lambda: RK.trace_rays(tree, rows, o, d, t_max, count),
                         5),
                plain_ms, _bound(ins, outs, ops), floor=_bound(ins, outs, 0),
-               records=_bound(ins, outs, int((tri_k >= 0).sum()) * MT_OPS))
+               records=_bound(ins, outs, int((tri_k >= 0).sum()) * MT_OPS),
+               extra=f" (plain on {sub.numel()} rays)" if subset else "")
 
     def walk_bounds(ins, outs, own, binary, n_sub, n, records):
         """The bounds of a wide walk's call, each the larger of the bytes
@@ -1764,10 +1949,14 @@ def main():
     for name, cap in caps.items():
         print(f"kernel vs plain version on the first frame's inputs of "
               f"{name}:")
+        t0 = time.perf_counter()
         for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
             tag = f"@{name}" if fam in seen else ""
             seen.add(fam)
-            checks[fam](cap.args, counts[name], tag)
+            # paths 9 and 10: the merged streams and the dense traces
+            kw = dict(subset=True) if name in PATHS[9:] else {}
+            checks[fam](cap.args, counts[name], tag, **kw)
+        print(f"  ({time.perf_counter() - t0:.1f} s)")
 
     # -- 4. kernel path vs plain path, end to end ----------------------------
     plain = {
@@ -1846,6 +2035,39 @@ def main():
                "prepass", engines[PATHS[5]], scenes[PATHS[5]], 128, 72,
                primary="trace", layered=False, shadow_layers=5,
                shadow_prepass=True)
+
+    # the layer schedules against the default, through the kernels
+    t0 = time.perf_counter()
+    eng1, full = engines[PATHS[0]], scenes[PATHS[0]]
+    cam = eng1.camera
+    tf = full.transforms.clone()
+    tf[:, :3, 3] -= torch.as_tensor(cam.world_position.astype(np.float32),
+                                    device=dev)
+    fg = flatten_frame(full.geometry, tf, full.palettes)
+    sw, sh = 320, 180
+    threshold = RT.SHADOW_CLUSTER_MIN_LANES
+    RT.SHADOW_CLUSTER_MIN_LANES = 0
+    try:
+        imgs = {lb: RT.render_frame(
+            full.geometry, fg, eng1.ibl, full.lights,
+            torch.as_tensor(cam.inv_view_proj(sw, sh), device=dev),
+            cam.position, sw, sh, max_layers=LAYERS,
+            shadow_layers=SHADOW_LAYERS,
+            view_proj=torch.as_tensor(cam.view_proj(sw, sh), device=dev),
+            lbatch=lb) for lb in (2, 0, 1, 3)}
+    finally:
+        RT.SHADOW_CLUSTER_MIN_LANES = threshold
+    for lb in (0, 1, 3):
+        frac = float(((imgs[lb] - imgs[2]).abs().amax(-1) < 1e-4).float()
+                     .mean())
+        mean, mean2 = float(imgs[lb].mean()), float(imgs[2].mean())
+        print(f"end to end lbatch={lb}, full scene {sw}x{sh}, cluster "
+              f"shadows: {frac:.5f} of pixels within 1e-4 of lbatch=2; "
+              f"means {mean:.6f} vs {mean2:.6f}")
+        if not bool(torch.isfinite(imgs[lb]).all()) or frac < 0.999 or \
+                abs(mean - mean2) > 1e-4 * mean2:
+            _fail(f"lbatch={lb} disagrees with lbatch=2")
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))

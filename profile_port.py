@@ -9,7 +9,9 @@ DemoScene; the same at RT scale 0.25; the raster path of the full scene;
 the list-binned raster path and the non-layered traced frame with the
 shadow prepass of the decimated scene; the hybrid frame of the full
 DemoScene with its player posed; the decimated scene's "peels" and
-"raster" primaries), each at 960x540, and for each:
+"raster" primaries; the hybrid frame of the full DemoScene shaded
+deferred; the raster path of the full scene with traced visibility), each
+at 960x540, and for each:
 
   * 10 frames by host clock around ``Engine.frame(1/60,
     InputFrame(ly=1.0))`` (the bench headline's input) + ``synchronize()``;
@@ -40,13 +42,15 @@ DemoScene with its player posed; the decimated scene's "peels" and
     (the frame's first ``_shade_layer``), "continuations" (layers 2..,
     compacted, with their traces), "mirror", "refraction", "shadows"
     (``_shadow_mode``'s per-frame setup and every ``_shadow_factor``),
+    "deferred" (``render/deferred.py``'s shade but its one shadow sweep:
+    the G-buffers, the merged bounce trace, the light passes),
     "raster" (the raster path's frame), "flatten" (``flatten_frame``),
     "composite" (``composite_frame``) and "other" (extraction, upscale).
 
 ``--repo DIR`` profiles the port in another checkout (its package and its
 ``chip_smoke.path_engines``), so that a parent commit and a change are
-measured in one run on one card; the stage wrappers name functions that
-both have.
+measured in one run on one card; a stage whose function that checkout
+lacks is left out.
 
 Prints one line per path and, with ``--out``, writes the numbers there as
 JSON.
@@ -86,6 +90,7 @@ STAGES = (("render.rt", "render_frame", "primary"),
           ("render.rt", "_refraction_pass", "refraction"),
           ("render.rt", "_shadow_mode", "shadows"),
           ("render.rt", "_shadow_factor", "shadows"),
+          ("render.deferred", "shade_deferred", "deferred"),
           ("scene.engine", "render_frame_raster", "raster"),
           ("scene.engine", "flatten_frame", "flatten"),
           ("scene.engine", "composite_frame", "composite"))
@@ -127,8 +132,12 @@ def _stage_wrappers(torch):
 
     pkg = "swift_game_engine_tpu_torch."
     for mod_name, attr, stage in STAGES:
-        mod = importlib.import_module(pkg + mod_name)
-        patch(mod, attr, ranged(getattr(mod, attr), stage))
+        try:
+            mod = importlib.import_module(pkg + mod_name)
+        except ModuleNotFoundError:
+            continue
+        if hasattr(mod, attr):
+            patch(mod, attr, ranged(getattr(mod, attr), stage))
     rt = importlib.import_module(pkg + "render.rt")
     for attr in TRACERS:
         def tracer(*a, _make=getattr(rt, attr), **k):

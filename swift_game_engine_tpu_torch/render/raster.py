@@ -6,8 +6,8 @@ nearest ``max_layers`` fragments per pixel, shaded with the raster fragment
 model (normal-mapped hemispherical wrap diffuse toward a fixed light,
 emissive, occlusion, the unlit branch, per-material ACES tone map) and
 composed front to back by alpha — the reference's fixed-function blending
-(PipelineBuilder.swift:37-45). Records and lanes are in scanline order
-throughout.
+(PipelineBuilder.swift:37-45). With the rasterizers, records and lanes
+are in scanline order.
 
 Visibility binning (``raster_mode``, the reference's SGE_RASTER_MODE):
 
@@ -18,8 +18,17 @@ Visibility binning (``raster_mode``, the reference's SGE_RASTER_MODE):
     raster (kernel K9): each layer rasterizes the nearest fragment strictly
     behind the previous layer's view depth.
 
-The reference's primary-ray visibility (SGE_RASTER_VIS=trace) is not
-ported.
+Visibility source (``raster_vis``, the reference's SGE_RASTER_VIS):
+
+  * ``"tile"`` (default): the rasterizers above;
+  * ``"trace"``: primary-ray visibility (raster.py:163-189), max_layers
+    dense closest-hit traces (kernel K4) of the live rays, each layer
+    starting 2*bias past the last hit. The reference traces its scanline
+    rays in square tiles (``camera.tile_permutation``) and permutes the
+    image back; here the rays come in the RT frame's padded tile-major
+    order (``generate_rays_tiled``) and ``untile_image`` crops the same
+    (H, W) image: each ray's records are its own, so the order only
+    groups the rays of a warp.
 """
 
 from __future__ import annotations
@@ -29,8 +38,9 @@ import torch
 
 from .. import constant
 from ..math3d import normalize
-from .camera import generate_rays
-from .rt import BG_COLOR, _sample_material, opaque_tris
+from ..ops.rt_kernel import trace_batch
+from .camera import generate_rays, generate_rays_tiled, untile_image
+from .rt import BG_COLOR, _next_origin, _sample_material, opaque_tris
 from .scene_geometry import FrameGeometry, SceneGeometry
 from .shading import apply_normal_map, tone_map_aces
 from .textures import sample_bilinear
@@ -40,6 +50,7 @@ from .tile_raster import BIG, rasterize, rasterize_clusters
 RASTER_L = (np.array([-0.2, 1.0, -0.4]) /
             np.linalg.norm([-0.2, 1.0, -0.4])).astype(np.float32)
 RASTER_MODES = ("clusters", "lists")
+RASTER_VIS = ("tile", "trace")
 
 
 def _interp(attr, tri_v, u, v):
@@ -87,19 +98,32 @@ def _raster_shade(geo: SceneGeometry, fg: FrameGeometry, d, tri, u, v,
             torch.where(active, m["alpha"], 0.0))
 
 
-def render_frame_raster(geo: SceneGeometry, fg: FrameGeometry, inv_view_proj,
-                        cam_pos, width: int, height: int, max_layers: int = 2,
-                        background=BG_COLOR, view_proj=None,
-                        raster_mode: str = "clusters"):
-    """Raster-path frame -> (H, W, 3). ``inv_view_proj`` and ``view_proj``
-    are tensors on the geometry's device; ``cam_pos`` (3,) is host values
-    or a tensor. ``raster_mode``: "clusters" or "lists" (see the module
-    docstring)."""
+def check_raster(raster_mode: str, raster_vis: str):
+    """Raise on a binning or visibility source the raster frame does not
+    know."""
     if raster_mode not in RASTER_MODES:
         raise ValueError(f"raster_mode must be one of {RASTER_MODES}, got "
                          f"{raster_mode!r}")
+    if raster_vis not in RASTER_VIS:
+        raise ValueError(f"raster_vis must be one of {RASTER_VIS}, got "
+                         f"{raster_vis!r}")
+
+
+def render_frame_raster(geo: SceneGeometry, fg: FrameGeometry, inv_view_proj,
+                        cam_pos, width: int, height: int, max_layers: int = 2,
+                        background=BG_COLOR, view_proj=None,
+                        raster_mode: str = "clusters",
+                        raster_vis: str = "tile"):
+    """Raster-path frame -> (H, W, 3). ``inv_view_proj`` and ``view_proj``
+    are tensors on the geometry's device; ``cam_pos`` (3,) is host values
+    or a tensor. ``raster_mode``: "clusters" or "lists"; ``raster_vis``:
+    "tile" or "trace" (see the module docstring)."""
+    check_raster(raster_mode, raster_vis)
     dev = fg.pos.device
     ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=dev)
+    if raster_vis == "trace":
+        return _render_trace(geo, fg, ivp, cam_pos, width, height,
+                             max_layers, background)
     vp = torch.linalg.inv(ivp) if view_proj is None else \
         torch.as_tensor(view_proj, dtype=torch.float32, device=dev)
     cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
@@ -130,3 +154,29 @@ def render_frame_raster(geo: SceneGeometry, fg: FrameGeometry, inv_view_proj,
         prev_w = torch.where(found, hits.w_depth * 1.000001, BIG)
     out = accum + constant(background, dev) * (1.0 - accum_alpha)[:, None]
     return out.reshape(height, width, 3)
+
+
+def _render_trace(geo: SceneGeometry, fg: FrameGeometry, ivp, cam_pos,
+                  width: int, height: int, max_layers: int, background):
+    """Primary-ray visibility (raster.py:163-189): ``max_layers`` dense K4
+    traces of the live rays, shaded with the raster model and composed
+    front to back; a hit moves its ray's origin 2*bias past it."""
+    dev = fg.pos.device
+    cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
+    o, d, _, _ = generate_rays_tiled(ivp, cam, width, height)
+    p = d.shape[0]
+    accum = torch.zeros((p, 3), device=dev)
+    accum_alpha = torch.zeros(p, device=dev)
+    live = torch.ones(p, dtype=torch.bool, device=dev)
+    for _ in range(max_layers):
+        live = live & (accum_alpha < 0.99)
+        t, tri, u, v, found = trace_batch(fg.bvh, o, d, live)
+        color, alpha = _raster_shade(geo, fg, d, tri, u, v, found)
+        contrib = torch.where(found, alpha * (1.0 - accum_alpha), 0.0)
+        accum = accum + color * contrib[:, None]
+        accum_alpha = accum_alpha + contrib
+        o = torch.where(found[:, None],
+                        _next_origin(o, d, torch.where(found, t, 1.0)), o)
+        live = live & found
+    out = accum + constant(background, dev) * (1.0 - accum_alpha)[:, None]
+    return untile_image(out, width, height)

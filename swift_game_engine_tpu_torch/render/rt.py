@@ -25,11 +25,24 @@ visibility modes (``render_frame(primary=...)``, the reference's
     layer 1; the continuation layers re-trace from offset origins (K4),
     compacted, as on a large tree in "trace" mode.
 
-Then, in every mode:
+Then, in every mode, the layer records are shaded by the schedule
+``lbatch`` picks (the reference's SGE_RT_LBATCH; records the visibility
+pass gives up front: "hybrid", "peels", the layered walk):
 
-  * layer 1 shaded densely, continuation layers 2.. shaded together as one
-    compacted record set (the reference's SGE_RT_LBATCH=2), then the
-    front-to-back alpha chain elementwise;
+  * 2 (default): layer 1 shaded densely, continuation layers 2.. shaded
+    together as one compacted record set, then the front-to-back alpha
+    chain elementwise;
+  * 1: every layer, layer 1 included, through that batched shade;
+  * 0: layer 1 densely, then one compacted shade per continuation layer,
+    gated by the chain;
+  * 3: as 0, but each continuation layer shaded densely, gated by the
+    chain ("hybrid" only, as in the reference; the others take 0).
+
+With ``deferred=True`` (the reference's SGE_RT_DEFERRED) the "hybrid"
+records are shaded by ``render/deferred.py`` instead: one G-buffer pass,
+one merged bounce trace, one shadow sweep and one light pass for the frame.
+Per shade call:
+
   * per hit: the static shade row gathers (SROW), the material sample with
     sparse texture taps, normal mapping, GGX direct light per directional
     light, SH ambient, split-sum specular IBL and the unlit fast path;
@@ -46,6 +59,17 @@ Then, in every mode:
     (kernel K8): blocked lanes are in shadow and leave the loop;
   * one mirror bounce and one refraction bounce, traced with kernel K4.
 
+The sorted shadow sweep (rt.py:424-491, ``_shadow_factor(sort=)``): in the
+cluster mode a sorted call traces K2/K3 on its origins reordered, live
+lanes first in their order (``shadow_sort_mode="partition"``) or by a
+light-space Morton code ("morton"), and copies the records back to the
+lanes' order. The records are per lane, so the factors equal the
+unsorted sweep's bit for bit; the order only packs a warp's lanes. As in
+the reference, the bounce shades and the compacted shades sort (their live
+lanes are scattered among dead ones: bounce misses and light-gate
+failures) and ``shadow_sort=True`` (SGE_SHADOW_SORT) sorts the dense calls
+too; the walk and loop modes ignore it.
+
 Compaction: wherever the reference runs ``_chunked`` (fixed-size chunks of
 the set lanes, looped until drained), this port compacts the set lanes into
 one chunk of fixed capacity, the site's whole lane universe (``p`` for a
@@ -57,9 +81,7 @@ layers, all shadow_layers shadow steps), a lane with nothing left to do is
 parked, and the bodies run at their capacity while K4 and K6 skip the
 lanes past the count. So the frame can be captured as one CUDA graph
 (``scene/engine.py``). Every record is shaded independently of the others,
-so any compaction order and chunking gives the same image. Likewise the
-reference's live-first shadow-origin sort is a pure permutation for its
-packet kernels and is left out.
+so any compaction order and chunking gives the same image.
 """
 
 from __future__ import annotations
@@ -71,7 +93,8 @@ import torch
 from .. import constant, resolve_device
 from ..math3d import normalize
 from ..ops import rt_kernel as RK
-from ..ops.cluster_shadow import build_shadow_split, trace_shadow_split
+from ..ops.cluster_shadow import (_part1by1, build_shadow_split,
+                                  trace_shadow_split)
 from ..ops.rt_kernel import barycentrics, trace_batch
 from .camera import generate_rays_tiled, untile_image
 from .compact import compact, gather, scatter
@@ -90,6 +113,8 @@ BIG = 3.0e38
 # take the shadow walk (K7) or, on a large tree, the per-layer loop.
 SHADOW_CLUSTER_MIN_LANES = 100_000
 PRIMARY_MODES = ("hybrid", "trace", "raster", "peels")
+SHADOW_SORT_MODES = ("partition", "morton")
+LBATCH_MODES = (0, 1, 2, 3)
 
 
 class DirectionalLights(NamedTuple):
@@ -135,6 +160,8 @@ class _Frame(NamedTuple):
     enable_refraction: bool
     shadow_mode: str = "clusters"
     shadow_prepass: bool = False  # "loop": the K8 any-hit prepass first
+    shadow_sort: bool = False     # sort the dense calls' sweeps too
+    shadow_sort_mode: str = "partition"
 
 
 def _bg(device):
@@ -199,9 +226,10 @@ def opaque_tris(geo: SceneGeometry):
     return opaque
 
 
-def _sample_alpha(geo: SceneGeometry, tri, u, v):
+def _sample_alpha(geo: SceneGeometry, tri, u, v, active=None):
     """Shadow-filter alpha (RayTracing.metalinc:178-195): the material
-    factor, times the base texture's alpha where one carries alpha."""
+    factor, times the base texture's alpha where one carries alpha (tapped
+    for the ``active`` lanes only, when given)."""
     srow = geo.tri_shade[tri.clamp(min=0)]
     mid = srow[:, 6].long()
     alpha = torch.clamp(geo.materials.alpha[mid], 0.0, 1.0)
@@ -210,7 +238,7 @@ def _sample_alpha(geo: SceneGeometry, tri, u, v):
     w = (1.0 - u - v)[:, None]
     uv = srow[:, 0:2] * w + srow[:, 2:4] * u[:, None] + srow[:, 4:6] * v[:, None]
     t = _sparse_tap(geo.textures, geo.materials.base_tex[mid].long(), uv,
-                    constant((1.0,) * 4, tri.device))
+                    constant((1.0,) * 4, tri.device), active)
     return alpha * t[:, 3]
 
 
@@ -305,10 +333,51 @@ def _shadow_loop(fr: _Frame, o, l, max_dist, bias, active):
     return shadow
 
 
+def _light_morton_order(basis, o, t_lim):
+    """Permutation grouping shadow origins by light-space locality
+    (rt.py:433-455): Morton codes of the (e1, e2) light-plane coordinates
+    (``basis`` rows 0-1), 10 bits an axis over the live lanes' bounding
+    rectangle; dead lanes (t_lim <= 0) sort last."""
+    a = o @ basis[0]
+    b = o @ basis[1]
+    live = t_lim > 0.0
+
+    def quantize(x):
+        x0 = torch.where(live, x, BIG).amin()
+        x1 = torch.where(live, x, -BIG).amax()
+        q = (x - x0) / torch.clamp(x1 - x0, min=1e-6) * 1023.0
+        return torch.clamp(q, 0.0, 1023.0).to(torch.int32)
+
+    code = (_part1by1(quantize(b)) << 1) | _part1by1(quantize(a))
+    code = torch.where(live, code, 1 << 22)
+    return torch.argsort(code, stable=True)
+
+
+def _live_first_order(live):
+    """Stable permutation putting the live lanes first in their order
+    (rt.py:468-482, which builds it by a cumsum and a scatter): one stable
+    sort of the dead flags."""
+    return torch.argsort((~live).to(torch.uint8), stable=True)
+
+
+def _shadow_order(mode: str, basis, o, t_lim):
+    """The order of a sorted sweep (rt.py:485-490): the live-first
+    partition, or the light-space Morton order."""
+    if mode == "partition":
+        return _live_first_order(t_lim > 0.0)
+    return _light_morton_order(basis, o, t_lim)
+
+
 def _shadow_factor(fr: _Frame, hit_pos, n, light_dir, max_dist, bias,
-                   active):
+                   active, sort=None):
     """Alpha-filtered shadow toward directional light 0
-    (RayTracing.metalinc:332-372) from the frame's shadow source."""
+    (RayTracing.metalinc:332-372) from the frame's shadow source.
+    ``sort`` (default: the frame's ``shadow_sort``): the cluster sweeps
+    run on the origins in ``_shadow_order``'s order and their records are
+    copied back to the lanes' order (rt.py:756-850); bit-equal records,
+    since each lane's are its own. The copy back scatters by the order
+    (``index_copy_``): on the card a gather of the (n, 4) slot records by
+    the inverse permutation cost several times the sweep (PERF.md)."""
     l = normalize(-light_dir)
     o0 = hit_pos + n * bias[:, None]
     if fr.shadow_mode == "loop":
@@ -334,9 +403,19 @@ def _shadow_factor(fr: _Frame, hit_pos, n, light_dir, max_dist, bias,
         torch.clamp(max_dist, max=BIG), torch.clamp(t_exit, min=0.0)), 0.0)
     # alpha payload unless a bound base texture carries alpha
     ap = not (fr.geo.usage.base and fr.geo.usage.alpha_tex)
-    t_opq, ts, ids = trace_shadow_split(fr.shadow, o_sh, t_lim.contiguous(),
-                                        n_slots=fr.shadow_layers,
-                                        alpha_payload=ap, anyhit=True)
+    t_lim = t_lim.contiguous()
+    if fr.shadow_sort if sort is None else sort:
+        order = _shadow_order(fr.shadow_sort_mode, fr.shadow.full.basis,
+                              o_sh, t_lim)
+        t_opq, ts, ids = (torch.empty_like(r).index_copy_(0, order, r)
+                          for r in trace_shadow_split(
+                              fr.shadow, o_sh[order], t_lim[order],
+                              n_slots=fr.shadow_layers, alpha_payload=ap,
+                              anyhit=True))
+    else:
+        t_opq, ts, ids = trace_shadow_split(fr.shadow, o_sh, t_lim,
+                                            n_slots=fr.shadow_layers,
+                                            alpha_payload=ap, anyhit=True)
     return _apply_shadow_records(fr, o_sh, l, t_opq, ts, ids, active,
                                  max_dist, ap)
 
@@ -400,21 +479,21 @@ def _light_gate(fr: _Frame, i: int, m, n, hit_pos, active):
     return gate, ndotl, max_dist, l
 
 
-def _shade_hit(fr: _Frame, ray_o, ray_d, t_hit, tri, u, v, active,
-               with_ibl_spec: bool):
-    """Shade one hit batch -> (color, m, n, hit_pos, bias); inactive lanes
-    are sanitized and their color is 0."""
-    m, n, hit_pos, bias = _gbuffer(fr, ray_o, ray_d, t_hit, tri, u, v, active)
+def _light_records(fr: _Frame, ray_d, m, n, hit_pos, active,
+                   with_ibl_spec: bool, shadow0=None, gates=None):
+    """The lighting of G-buffer records (rt.py:1023-1063): GGX direct per
+    light, SH ambient, split-sum specular IBL (``with_ibl_spec``), the
+    unlit override, all elementwise. ``shadow0``: light 0's shadow factor
+    per record (1 if None); ``gates``: the lights' ``_light_gate`` results
+    (computed here if None). Inactive records are 0."""
     lights = fr.lights
-    gates = [_light_gate(fr, i, m, n, hit_pos, active)
-             for i in range(lights.direction.shape[0])]
-    gate0, _, max_dist0, _ = gates[0]
-    shadow0 = _shadow_factor(fr, hit_pos, n, lights.direction[0], max_dist0,
-                             bias, gate0)
     view = normalize(-ray_d)
     direct = torch.zeros_like(hit_pos)
-    for i, (gate, ndotl, _, l) in enumerate(gates):
-        shadow = shadow0 if i == 0 else torch.ones_like(ndotl)
+    for i in range(lights.direction.shape[0]):
+        gate, ndotl, _, l = gates[i] if gates is not None else \
+            _light_gate(fr, i, m, n, hit_pos, active)
+        shadow = shadow0 if i == 0 and shadow0 is not None else \
+            torch.ones_like(ndotl)
         brdf = eval_brdf(n, view, l.expand_as(n), m["base"], m["metallic"],
                          m["roughness"])
         li = lights.color[i] * lights.intensity[i]
@@ -430,7 +509,24 @@ def _shade_hit(fr: _Frame, ray_o, ray_d, t_hit, tri, u, v, active,
         color = color + spec * m["occlusion"][:, None]
     # unlit: albedo + emissive, the raster unlit branch
     color = torch.where(m["unlit"][:, None], m["base"] + m["emissive"], color)
-    return torch.where(active[:, None], color, 0.0), m, n, hit_pos, bias
+    return torch.where(active[:, None], color, 0.0)
+
+
+def _shade_hit(fr: _Frame, ray_o, ray_d, t_hit, tri, u, v, active,
+               with_ibl_spec: bool, sort=None):
+    """Shade one hit batch -> (color, m, n, hit_pos, bias): ``_gbuffer``,
+    the light gates, light 0's shadow (``sort``: see ``_shadow_factor``)
+    and ``_light_records``; inactive lanes are sanitized and their color
+    is 0."""
+    m, n, hit_pos, bias = _gbuffer(fr, ray_o, ray_d, t_hit, tri, u, v, active)
+    gates = [_light_gate(fr, i, m, n, hit_pos, active)
+             for i in range(fr.lights.direction.shape[0])]
+    gate0, _, max_dist0, _ = gates[0]
+    shadow0 = _shadow_factor(fr, hit_pos, n, fr.lights.direction[0],
+                             max_dist0, bias, gate0, sort=sort)
+    color = _light_records(fr, ray_d, m, n, hit_pos, active, with_ibl_spec,
+                           shadow0, gates)
+    return color, m, n, hit_pos, bias
 
 
 def _mirror_pass(fr: _Frame, d, n, hit_pos, bias, metallic, base, mask,
@@ -444,7 +540,7 @@ def _mirror_pass(fr: _Frame, d, n, hit_pos, bias, metallic, base, mask,
     rt, rtri, ru, rv, rfound = trace_batch(fr.fg.bvh, r_o, r_dir, c.valid,
                                            c.count)
     r_color, r_m, _, _, _ = _shade_hit(fr, r_o, r_dir, rt, rtri, ru, rv,
-                                       rfound, False)
+                                       rfound, False, sort=True)
     refl_alpha = torch.where(rfound, r_m["alpha"], 0.0)
     refl = torch.where(rfound[:, None], r_color * refl_alpha[:, None], 0.0) \
         + _bg(d.device) * (1.0 - refl_alpha)[:, None]
@@ -478,7 +574,7 @@ def _refraction_pass(fr: _Frame, d, n, hit_pos, bias, base, transmission,
     ft, ftri, fu, fv, ffound = trace_batch(fr.fg.bvh, t_o, t_dir_n, c.valid,
                                            c.count)
     f_color, f_m, _, _, _ = _shade_hit(fr, t_o, t_dir_n, ft, ftri, fu, fv,
-                                       ffound, False)
+                                       ffound, False, sort=True)
     refr_alpha = torch.where(ffound, f_m["alpha"], 0.0)
     refr_bg = eval_env_sh(t_dir_n, fr.ibl.sh0, fr.ibl.sh1) * AMBIENT_INTENSITY
     refr = torch.where(ffound[:, None], f_color * refr_alpha[:, None], 0.0) \
@@ -492,10 +588,14 @@ def _refraction_pass(fr: _Frame, d, n, hit_pos, bias, base, transmission,
                    old + (mix - old) * gather(transmission, c)[:, None])
 
 
-def _shade_layer(fr: _Frame, o_l, d_l, t, tri, u, v, found, alpha_in):
-    """Shade one layer's records incl. bounces -> (color, contrib)."""
+def _shade_layer(fr: _Frame, o_l, d_l, t, tri, u, v, found, alpha_in,
+                 compacted: bool = False):
+    """Shade one layer's records incl. bounces -> (color, contrib).
+    ``compacted``: the records are a compacted set, whose shadow sweep
+    sorts (rt.py:1464-1475)."""
     color, m, n, hit_pos, bias = _shade_hit(fr, o_l, d_l, t, tri, u, v,
-                                            found, True)
+                                            found, True,
+                                            sort=True if compacted else None)
     if fr.enable_mirror:
         mirror = found & (m["roughness"] <= 0.08) & (m["metallic"] >= 0.8)
         color = _mirror_pass(fr, d_l, n, hit_pos, bias, m["metallic"],
@@ -508,10 +608,12 @@ def _shade_layer(fr: _Frame, o_l, d_l, t, tri, u, v, found, alpha_in):
 
 def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
                          live):
-    """Layers 2.. shaded as one compacted record set (capacity nl * p, every
-    record), then the alpha chain elementwise (per-record color does not
-    depend on the chain). Records without barycentrics (u is None: traced
-    layers) get them on the compacted set (rt.py:1533-1536)."""
+    """The layers ``recs`` (layers 2.., or all of them: SGE_RT_LBATCH 2 or
+    1) shaded as one compacted record set (capacity nl * p, every record),
+    then the alpha chain elementwise from ``accum``, ``accum_alpha`` and
+    ``live`` (per-record color does not depend on the chain). Records
+    without barycentrics (u is None: traced layers) get them on the
+    compacted set (rt.py:1533-1536)."""
     nl, p = len(recs), ray_o.shape[0]
     t_s = torch.cat([r[0] for r in recs])
     tri_s = torch.cat([r[1] for r in recs])
@@ -527,7 +629,7 @@ def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
         uc = gather(torch.cat([r[2] for r in recs]), c)
         vc = gather(torch.cat([r[3] for r in recs]), c)
     color, alpha = _shade_layer(fr, oc, dc, tc, tric, uc, vc, c.valid,
-                                torch.zeros_like(tc))
+                                torch.zeros_like(tc), compacted=True)
     colors = scatter(torch.zeros((nl * p, 3), device=d.device), c, color)
     alphas = scatter(torch.zeros(nl * p, device=d.device), c, alpha)
     colors = colors.reshape(nl, p, 3)
@@ -538,6 +640,66 @@ def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
         accum = accum + colors[li] * contrib[:, None]
         accum_alpha = accum_alpha + contrib
     return accum + _bg(d.device) * (1.0 - accum_alpha)[:, None]
+
+
+def _shade_layers_compacted(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
+                            live):
+    """Layers 2.. one compacted shade per layer, gated by the chain
+    (SGE_RT_LBATCH=0, rt.py:1667-1683, 1739-1756, 1792-1811); records
+    without barycentrics get them on the compacted set."""
+    for t_l, tri_l, u_l, v_l, f_l in recs:
+        live = live & f_l & (accum_alpha < 0.99)
+        c = compact(live)
+        oc, dc = gather(ray_o, c), gather(d, c)
+        tc = torch.where(c.valid, gather(t_l, c), 1.0)
+        tric = torch.where(c.valid, gather(tri_l, c), -1)
+        if u_l is None:
+            uc, vc, _ = barycentrics(fr.fg.bvh, oc, dc, tc, tric)
+        else:
+            uc, vc = gather(u_l, c), gather(v_l, c)
+        alpha_c = gather(accum_alpha, c)
+        color, contrib = _shade_layer(fr, oc, dc, tc, tric, uc, vc, c.valid,
+                                      alpha_c, compacted=True)
+        accum = scatter(accum, c, gather(accum, c) + color * contrib[:, None])
+        accum_alpha = scatter(accum_alpha, c, alpha_c + contrib)
+    return accum + _bg(d.device) * (1.0 - accum_alpha)[:, None]
+
+
+def _shade_layers_dense(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
+                        live):
+    """Layers 2.. each shaded densely, the chain gate the shade mask
+    (SGE_RT_LBATCH=3, rt.py:1654-1666)."""
+    for t_l, tri_l, u_l, v_l, f_l in recs:
+        live = live & f_l & (accum_alpha < 0.99)
+        color, contrib = _shade_layer(fr, ray_o, d, t_l, tri_l, u_l, v_l,
+                                      live, accum_alpha)
+        accum = accum + color * contrib[:, None]
+        accum_alpha = accum_alpha + contrib
+    return accum + _bg(d.device) * (1.0 - accum_alpha)[:, None]
+
+
+def _shade_records(fr: _Frame, ray_o, d, recs, lbatch: int, dense: bool):
+    """Every layer's records shaded by the ``lbatch`` schedule (see the
+    module docstring); ``dense``: mode 3 shades densely (the "hybrid"
+    records), else it is mode 0."""
+    p, dev = ray_o.shape[0], ray_o.device
+    if lbatch == 1:
+        return _shade_continuations(
+            fr, ray_o, d, recs, torch.zeros((p, 3), device=dev),
+            torch.zeros(p, device=dev), torch.ones(p, dtype=torch.bool,
+                                                   device=dev))
+    t1, tri1, u1, v1, f1 = recs[0]
+    if u1 is None:                       # traced layer 1: dense barycentrics
+        u1, v1, _ = barycentrics(fr.fg.bvh, ray_o, d, t1, tri1)
+    color, contrib = _shade_layer(fr, ray_o, d, t1, tri1, u1, v1, f1,
+                                  torch.zeros(p, device=dev))
+    accum = color * contrib[:, None]
+    if len(recs) == 1:
+        return accum + _bg(dev) * (1.0 - contrib)[:, None]
+    shade = _shade_continuations if lbatch == 2 else \
+        _shade_layers_dense if lbatch == 3 and dense else \
+        _shade_layers_compacted
+    return shade(fr, ray_o, d, recs[1:], accum, contrib, f1)
 
 
 def _layer_records(opq, trs, max_layers: int):
@@ -686,11 +848,23 @@ def _trace_layers(fr: _Frame, ray_o, d, max_layers: int, trace):
         oc, t, tri, u, v, found = trace(c)
         alpha_c = gather(accum_alpha, c)
         color, contrib = _shade_layer(fr, oc, gather(d, c), t, tri, u, v,
-                                      found, alpha_c)
+                                      found, alpha_c, compacted=True)
         accum = scatter(accum, c, gather(accum, c) + color * contrib[:, None])
         accum_alpha = scatter(accum_alpha, c, alpha_c + contrib)
         live = scatter(torch.zeros_like(live), c, found)
     return accum + _bg(dev) * (1.0 - accum_alpha)[:, None]
+
+
+def check_schedule(primary: str, shadow_sort_mode: str, lbatch: int):
+    """Raise on a primary mode, sort order or layer schedule the frame
+    does not know."""
+    for name, value, known in (("primary", primary, PRIMARY_MODES),
+                               ("shadow_sort_mode", shadow_sort_mode,
+                                SHADOW_SORT_MODES),
+                               ("lbatch", lbatch, LBATCH_MODES)):
+        if value not in known:
+            raise ValueError(f"{name} must be one of {known}, got "
+                             f"{value!r}")
 
 
 def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
@@ -699,7 +873,9 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                  shadow_layers: int = 4, enable_mirror: bool = True,
                  enable_refraction: bool = True, view_proj=None,
                  primary: str = "hybrid", layered: bool = True,
-                 shadow_prepass: bool = False):
+                 shadow_prepass: bool = False, deferred: bool = False,
+                 shadow_sort: bool = False,
+                 shadow_sort_mode: str = "partition", lbatch: int = 2):
     """Full RT frame -> (H, W, 3) linear color. ``inv_view_proj`` and
     ``view_proj`` are tensors on the geometry's device; ``cam_pos`` (3,) is
     host values (numpy) or a tensor. With all three on the device the frame
@@ -708,11 +884,13 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     "raster" or "peels" (see the module docstring). ``layered``
     (SGE_RT_LAYERED) chooses the layered walk K5 over the per-layer K6
     traces of "trace" mode; ``shadow_prepass``
-    (SGE_SHADOW_PREPASS) runs K8 in front of the per-layer shadow loop.
-    Both keep the reference's defaults."""
-    if primary not in PRIMARY_MODES:
-        raise ValueError(f"primary must be one of {PRIMARY_MODES}, got "
-                         f"{primary!r}")
+    (SGE_SHADOW_PREPASS) runs K8 in front of the per-layer shadow loop;
+    ``deferred`` (SGE_RT_DEFERRED) shades the "hybrid" records with
+    ``render/deferred.py``; ``shadow_sort`` (SGE_SHADOW_SORT) sorts the
+    dense calls' shadow sweeps too, in the ``shadow_sort_mode``
+    (SGE_SHADOW_SORT_MODE) order; ``lbatch`` (SGE_RT_LBATCH) is the layer
+    schedule. Each keeps the reference's default."""
+    check_schedule(primary, shadow_sort_mode, lbatch)
     if not 1 <= max_layers <= 3:
         raise ValueError(f"max_layers must be 1..3, got {max_layers}")
     if shadow_layers < 0:
@@ -781,22 +959,17 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                 enable_mirror=enable_mirror,
                 enable_refraction=enable_refraction, shadow_mode=mode,
                 shadow_prepass=shadow_prepass and mode == "loop" and
-                RK.walk_available(bv.rows))
+                RK.walk_available(bv.rows), shadow_sort=shadow_sort,
+                shadow_sort_mode=shadow_sort_mode)
 
     if recs is None:
         out = _trace_layers(fr, ray_o, ray_d, max_layers, trace)
+    elif deferred and primary == "hybrid":
+        from .deferred import shade_deferred
+        out = shade_deferred(fr, ray_o, ray_d, recs)
     else:
-        t1, tri1, u1, v1, f1 = recs[0]
-        if u1 is None:                   # traced layer 1: dense barycentrics
-            u1, v1, _ = barycentrics(bv, ray_o, ray_d, t1, tri1)
-        color, contrib = _shade_layer(fr, ray_o, ray_d, t1, tri1, u1, v1, f1,
-                                      torch.zeros(p, device=dev))
-        accum = color * contrib[:, None]
-        if max_layers > 1:
-            out = _shade_continuations(fr, ray_o, ray_d, recs[1:], accum,
-                                       contrib, f1)
-        else:
-            out = accum + _bg(dev) * (1.0 - contrib)[:, None]
+        out = _shade_records(fr, ray_o, ray_d, recs, lbatch,
+                             dense=primary == "hybrid")
 
     # per-pixel hash dither in lane order, then one reshape to the image
     noise = hash12(torch.stack([px.to(torch.float32), py.to(torch.float32)],

@@ -7,11 +7,12 @@ material table, a texture bank, one native-SAH BVH over the build pose);
 ``flatten_frame`` produces the frame's world-space arrays and refits the
 BVH.
 
-Two things the reference recomputes per trace are computed once here and
+Three things the reference recomputes per trace are computed once here and
 stored on the geometry: the static ``TextureUsage`` (the reference memoizes
-it in a global cache) and the static opaque/translucent triangle partition
+it in a global cache), the static opaque/translucent triangle partition
 the hybrid visibility rasterizes separately (``opaque_idx`` /
-``translucent_idx``).
+``translucent_idx``) and which bounces some material can start
+(``BounceUsage``: the deferred shade's static pruning).
 """
 
 from __future__ import annotations
@@ -90,6 +91,23 @@ def texture_usage_np(mats: dict, tex_data: np.ndarray) -> TextureUsage:
                         normal=used("normal_tex"), alpha_tex=alpha_tex)
 
 
+class BounceUsage(NamedTuple):
+    """Which bounces some material can start (render/deferred.py:84-95):
+    a mirror (metallic >= 0.8 and roughness <= 0.08), a refraction
+    (transmission > 0.001)."""
+
+    mirror: bool
+    refraction: bool
+
+
+def bounce_usage_np(mats: dict) -> BounceUsage:
+    """BounceUsage from numpy material-table fields."""
+    return BounceUsage(
+        mirror=bool(((np.asarray(mats["metallic"]) >= 0.8) &
+                     (np.asarray(mats["roughness"]) <= 0.08)).any()),
+        refraction=bool((np.asarray(mats["transmission"]) > 0.001).any()))
+
+
 class SceneGeometry(NamedTuple):
     """Static packing; world-space arrays come from flatten_frame."""
 
@@ -111,6 +129,7 @@ class SceneGeometry(NamedTuple):
     usage: TextureUsage           # static texture-slot usage
     opaque_idx: torch.Tensor      # (To,) int64: ~tri_translucent
     translucent_idx: torch.Tensor  # (Tt,) int64: tri_translucent
+    bounces: BounceUsage          # static: the bounces materials can start
 
 
 def pack_scene(arrays: dict, topo, device=None) -> SceneGeometry:
@@ -149,7 +168,8 @@ def pack_scene(arrays: dict, topo, device=None) -> SceneGeometry:
         tri_shade=t(arrays["tri_shade"]),
         usage=texture_usage_np(m, tex),
         opaque_idx=t(np.nonzero(~tr)[0], torch.int64),
-        translucent_idx=t(np.nonzero(tr)[0], torch.int64))
+        translucent_idx=t(np.nonzero(tr)[0], torch.int64),
+        bounces=bounce_usage_np(m))
 
 
 @dataclass

@@ -58,7 +58,13 @@ The frame is the reference's ``path`` (scene/engine.py:143-177,226-237):
     "raster" or "peels") with its mirror and refraction bounces;
   * ``"raster_pbr"``: the same RT frame with both bounces off;
   * ``"raster"``: ``render_frame_raster`` (2 layers, ``raster_mode``
-    "clusters" or "lists"), which tone-maps per material: no composite.
+    "clusters" or "lists", ``raster_vis`` "tile" or "trace"), which
+    tone-maps per material: no composite.
+
+The reference's render schedules are keyword arguments with its defaults
+(never environment reads): ``deferred``, ``shadow_sort``,
+``shadow_sort_mode`` and ``lbatch`` go to the RT frame, ``raster_vis`` to
+the raster frame; the frame program bakes them in.
 
 The RT target is ``rt_resolution_scale`` times the drawable (at least 0.25,
 Renderer.swift:175); ``set_rt_resolution_scale`` changes it between frames
@@ -90,7 +96,7 @@ from ..render.camera import Camera
 from ..render.composite import FPSOverlay, composite_frame, overlay_blit_device
 from ..render.graph import RenderGraph, RenderPass
 from ..render.ibl import IBL
-from ..render.raster import RASTER_MODES, render_frame_raster
+from ..render.raster import check_raster, render_frame_raster
 from ..render.scene_geometry import flatten_frame
 from .cuda_graph import capture
 from .input import InputFrame, InputSystem
@@ -179,24 +185,25 @@ class Engine:
                  max_layers: int = 3, shadow_layers: int = 4,
                  primary: str = "hybrid", raster_mode: str = "clusters",
                  layered: bool = True, shadow_prepass: bool = False,
-                 pipeline_depth: int = 1, device="cuda"):
+                 deferred: bool = False, shadow_sort: bool = False,
+                 shadow_sort_mode: str = "partition", lbatch: int = 2,
+                 raster_vis: str = "tile", pipeline_depth: int = 1,
+                 device="cuda"):
         """``scene``: a scene.demo_scene.DemoWorld (or anything with its
         fields: geometry, transforms, palettes, lights, player_position,
         movement, and for a simulated world stepper, state, player) on
         ``device`` (the card unless asked otherwise).
         ``path``: "rt", "raster" or "raster_pbr" (see the module docstring).
-        ``primary``, ``layered``, ``shadow_prepass``, ``max_layers`` and
-        ``shadow_layers`` go to the RT frame (paths "rt", "raster_pbr"),
-        ``raster_mode`` to the raster frame; each keeps the reference's
-        default. ``pipeline_depth``: frames in flight (at least 1)."""
+        ``primary``, ``layered``, ``shadow_prepass``, ``deferred``,
+        ``shadow_sort``, ``shadow_sort_mode``, ``lbatch``, ``max_layers``
+        and ``shadow_layers`` go to the RT frame (paths "rt",
+        "raster_pbr"), ``raster_mode`` and ``raster_vis`` to the raster
+        frame; each keeps the reference's default. ``pipeline_depth``:
+        frames in flight (at least 1)."""
         if path not in PATHS:
             raise ValueError(f"path must be one of {PATHS}, got {path!r}")
-        if primary not in RT.PRIMARY_MODES:
-            raise ValueError(f"primary must be one of {RT.PRIMARY_MODES}, "
-                             f"got {primary!r}")
-        if raster_mode not in RASTER_MODES:
-            raise ValueError(f"raster_mode must be one of {RASTER_MODES}, "
-                             f"got {raster_mode!r}")
+        RT.check_schedule(primary, shadow_sort_mode, lbatch)
+        check_raster(raster_mode, raster_vis)
         self.device = resolve_device(device)
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self.programs = {}      # RT size -> FrameProgram
@@ -219,7 +226,10 @@ class Engine:
         self.width, self.height = width, height
         self.path = path
         self.primary = primary
-        self.raster_mode = raster_mode
+        self.raster_mode, self.raster_vis = raster_mode, raster_vis
+        self.schedule = dict(deferred=deferred, shadow_sort=shadow_sort,
+                             shadow_sort_mode=shadow_sort_mode,
+                             lbatch=lbatch)
         self.layered, self.shadow_prepass = layered, shadow_prepass
         self.max_layers, self.shadow_layers = max_layers, shadow_layers
         self.rt_scale = None
@@ -361,14 +371,14 @@ class Engine:
         if self.path == "raster":
             return render_frame_raster(
                 self.geometry, fg, ivp, cam_pos, rw, rh, view_proj=vp,
-                raster_mode=self.raster_mode)
+                raster_mode=self.raster_mode, raster_vis=self.raster_vis)
         bounce = self.path == "rt"
         return RT.render_frame(
             self.geometry, fg, self.ibl, self.lights, ivp, cam_pos, rw, rh,
             max_layers=self.max_layers, shadow_layers=self.shadow_layers,
             view_proj=vp, enable_mirror=bounce, enable_refraction=bounce,
             primary=self.primary, layered=self.layered,
-            shadow_prepass=self.shadow_prepass)
+            shadow_prepass=self.shadow_prepass, **self.schedule)
 
     def _stage_inputs(self, alpha: float, fps: int):
         """The frame's values into the input buffer: one non-blocking copy

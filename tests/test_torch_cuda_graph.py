@@ -174,6 +174,9 @@ PATH_KW = {
                              shadow_layers=5, shadow_prepass=True),
     "raster_pbr": dict(path="raster_pbr"),
     "raster_lists": dict(path="raster", raster_mode="lists"),
+    "rt_deferred": dict(path="rt", deferred=True),
+    "rt_lbatch_0": dict(path="rt", lbatch=0),
+    "raster_trace": dict(path="raster", raster_vis="trace"),
 }
 
 
@@ -208,6 +211,40 @@ def test_frame_replays_equal_eager_frames(cuda, path):
     assert eng.program().captured is not None and len(eng.programs) == 1
     assert not torch.equal(seen[0], seen[1])          # the camera moved
     assert float(eng.frame_inputs()["fps"]) > 0
+
+
+@pytest.mark.parametrize("shadows", ["walk", "clusters"])
+def test_deferred_frame_graph(cuda, monkeypatch, shadows):
+    """The deferred shade (render/deferred.py: one merged K4 call where a
+    material starts a bounce, one sorted sweep) in the frame graph:
+    replays equal the eager card frames
+    bit for bit, and a whole frame under
+    ``torch.cuda.set_sync_debug_mode("error")`` reads nothing back; with
+    the lane threshold at 0 its one sweep is the sorted K2/K3 pair."""
+    from swift_game_engine_tpu_torch.ops import cluster_shadow as CS
+    from swift_game_engine_tpu_torch.render import rt as RT
+    if shadows == "clusters":
+        monkeypatch.setattr(RT, "SHADOW_CLUSTER_MIN_LANES", 0)
+    world = W.port_engine_world(cuda)
+    eng = Engine(world, FRAME_W, FRAME_H, max_layers=3, deferred=True,
+                 device=cuda)
+    _replays_equal_eager(eng, 3)
+    before = (CS.occl_launches, CS.slots_launches, RK.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img = eng.frame(1 / 60, InputFrame(ly=1.0, rx=0.3))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert float(img.float().std()) > 1.0
+    k2, k3, k4 = (a - b for a, b in zip(
+        (CS.occl_launches, CS.slots_launches, RK.launches), before))
+    # the tiny world's materials start no bounce (pruned: no K4 call) and
+    # it has no translucent triangle (no K3 sweep)
+    assert k4 == int(any(world.geometry.bounces)), k4
+    trans = int(world.geometry.translucent_idx.numel() > 0)
+    assert (k2, k3) == ((1, trans) if shadows == "clusters" else (0, 0))
 
 
 def test_frame_graph_two_scales(cuda):

@@ -280,6 +280,52 @@ def test_k2_incoherent_lanes(shadow_case):
         CS.trace_shadow_occl(split.full._replace(groups=None), o, t_lim)
 
 
+def test_k2_k3_live_first_stream_with_dead_tail(shadow_case):
+    """The deferred shade's sweep (render/deferred.py): the live lanes
+    scattered among a dead majority (t_lim 0), put first by the live-first
+    partition (render/rt.py ``_live_first_order``), then a long dead tail.
+    K2 (any-hit, settled by K3's nearest slot, as the frame runs them) and
+    K3 on the sorted stream agree with their twins, and gathered back they
+    equal the kernels' records on the unsorted stream bit for bit; every
+    warp of the dead tail retires at once (it tests no cluster)."""
+    from swift_game_engine_tpu_torch.render.rt import _live_first_order
+    split, o, t_lim = shadow_case
+    rng = np.random.default_rng(21)
+    n = 6 * o.shape[0] + 5
+    pick = torch.as_tensor(rng.integers(0, o.shape[0], n), device=o.device)
+    o_u = o[pick].contiguous()
+    t_u = torch.where(torch.as_tensor(rng.random(n) < 0.2, device=o.device),
+                      t_lim[pick], 0.0).contiguous()
+    order = _live_first_order(t_u > 0)
+    inv = torch.argsort(order)
+    live = int((t_u > 0).sum())
+    assert 0.1 * n < live < 0.25 * n
+    assert not torch.equal(order, torch.arange(n, device=o.device))
+    o_s, t_s = o_u[order].contiguous(), t_u[order].contiguous()
+    assert bool((t_s[:live] > 0).all()) and bool((t_s[live:] == 0).all())
+    for n_slots in (1, 4):
+        k3 = CS.trace_shadow_clusters(split.trans, o_s, t_s, n_slots, True)
+        p3 = CS.trace_shadow_clusters_plain(split.trans, o_s, t_s, n_slots,
+                                            True)
+        agree(k3[0] < 1e30, p3[0] < 1e30, [k3[0]], [p3[0]])
+        same = (k3[2] == p3[2]).all(1)
+        assert float(same.float().mean()) >= 0.999
+        u3 = CS.trace_shadow_clusters(split.trans, o_u, t_u, n_slots, True)
+        for a, b in zip(k3, u3):
+            assert torch.equal(a[inv], b)
+        tt = k3[1][:, 0].contiguous()
+        k2 = CS.trace_shadow_occl(split.full, o_s, t_s, tt=tt)
+        p2 = CS.trace_shadow_occl_plain(split.full, o_s, t_s)
+        assert torch.equal(k2 < tt, p2 < tt)
+        u2 = CS.trace_shadow_occl(split.full, o_u, t_u, tt=u3[1][:, 0]
+                                  .contiguous())
+        assert torch.equal(k2[inv], u2)
+    _, cnt = CS.trace_shadow_occl_counts(split.full, o_s, t_s, tt)
+    first_dead_warp = -(-live // 32)
+    assert int(cnt["warp_meta"][first_dead_warp:].sum()) == 0
+    assert int(cnt["warp_meta"][:first_dead_warp].min()) > 0
+
+
 @pytest.mark.parametrize("n_slots,alpha_payload", [(4, True), (4, False),
                                                    (2, True)])
 def test_k3_kernel_matches_plain(shadow_case, n_slots, alpha_payload):

@@ -24,6 +24,7 @@ from swift_game_engine_tpu.assets.static_mesh import load_static_mesh
 from swift_game_engine_tpu.render import scene_geometry as j_sg
 from swift_game_engine_tpu_torch import interop
 from swift_game_engine_tpu_torch.render import scene_geometry as p_sg
+from torch_threads import one_thread  # noqa: E402,F401
 
 CHEESE = os.path.join(os.path.dirname(__file__), "..", "assets",
                       "17-Cheese.static.json")

@@ -41,6 +41,7 @@ from swift_game_engine_tpu_torch.ops import cluster_shadow as p_cs
 from swift_game_engine_tpu_torch.ops import rt_kernel as p_rk
 from swift_game_engine_tpu_torch.render import rt as p_rt
 from swift_game_engine_tpu_torch.render import tile_raster as p_tr
+from torch_threads import one_thread  # noqa: E402,F401
 
 W, H = 160, 80
 BIG = 3.0e38

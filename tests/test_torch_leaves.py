@@ -27,6 +27,7 @@ from swift_game_engine_tpu_torch.render import composite as p_comp
 from swift_game_engine_tpu_torch.render import ibl as p_ibl
 from swift_game_engine_tpu_torch.render import shading as p_sh
 from swift_game_engine_tpu_torch.render import textures as p_tex
+from torch_threads import one_thread  # noqa: E402,F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

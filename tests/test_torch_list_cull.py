@@ -25,6 +25,7 @@ import torch
 from swift_game_engine_tpu_torch.render import tile_raster as TR
 from swift_game_engine_tpu_torch.render.camera import Camera
 from torch_list_cases import borderline_rows, triangles
+from torch_threads import one_thread  # noqa: E402,F401
 
 W, H = 256, 96
 

@@ -50,6 +50,7 @@ from swift_game_engine_tpu_torch.assets import skinned_mesh as pskin
 sys.path.insert(0, os.path.dirname(__file__))
 import oracle_pose as O  # noqa: E402
 import torch_pose_rig as R  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 ASSETS = os.path.join(os.path.dirname(__file__), "..", "assets")
 LOCO = ("Idle", "Walking", "Running", "FallingIdle")

@@ -44,6 +44,7 @@ from swift_game_engine_tpu_torch.scene.input import InputFrame, InputSystem
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_pose_rig as R  # noqa: E402
 import torch_sim_worlds as W  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 ASSETS = os.path.join(os.path.dirname(__file__), "..", "assets")
 DODGE_AT = 22          # the substep whose intent carries the dodge

@@ -33,6 +33,7 @@ from swift_game_engine_tpu_torch.scene.engine import Engine
 
 sys.path.insert(0, os.path.dirname(__file__))
 import test_torch_trace_frame as T  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -52,6 +52,7 @@ from swift_game_engine_tpu_torch.render import tile_raster as TR
 from swift_game_engine_tpu_torch.scene.engine import Engine
 
 from test_torch_trace_frame import _port_world, build_scene, camera
+from torch_threads import one_thread  # noqa: E402,F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 W, H = 96, 54

@@ -24,6 +24,7 @@ from swift_game_engine_tpu_torch.physics import separation as PSep
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_sim_worlds as W  # noqa: E402
 from test_torch_sim_trajectory import run_both  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 
 def test_separation_grid_matches_dense_threshold():

@@ -27,6 +27,7 @@ from swift_game_engine_tpu_torch.scene.input import InputFrame, InputSystem
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_sim_worlds as W  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 

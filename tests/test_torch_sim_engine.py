@@ -28,6 +28,7 @@ from swift_game_engine_tpu_torch.scene.input import InputFrame
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_sim_worlds as W  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 W_, H_ = 64, 36
 LAYERS, SHADOW_LAYERS = 2, 1

@@ -37,6 +37,7 @@ from swift_game_engine_tpu_torch.assets.static_mesh import load_static_mesh
 
 sys.path.insert(0, os.path.dirname(__file__))
 import oracle_collision as O  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 TOL = 1e-4

@@ -32,6 +32,7 @@ from swift_game_engine_tpu_torch.ecs import world as PW
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_sim_worlds as W  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 POS_TOL = 1e-3
 

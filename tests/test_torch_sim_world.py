@@ -29,6 +29,7 @@ from swift_game_engine_tpu_torch.scene.step import Stepper
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_sim_worlds as W  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 TOL = 1e-5
 

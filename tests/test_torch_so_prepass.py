@@ -65,6 +65,7 @@ from swift_game_engine_tpu_torch.render.scene_geometry import \
 
 from test_torch_trace_frame import build_scene, camera
 from test_torch_trace_kernels import SOUP, _reference, _t
+from torch_threads import one_thread  # noqa: E402,F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 W, H, LAYERS = 96, 54, 3

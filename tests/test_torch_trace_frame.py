@@ -70,6 +70,7 @@ from swift_game_engine_tpu_torch.render import scene_geometry as p_sg
 from swift_game_engine_tpu_torch.scene import demo_scene as p_demo
 from swift_game_engine_tpu_torch.scene.demo_scene import DemoWorld
 from swift_game_engine_tpu_torch.scene.engine import Engine
+from torch_threads import one_thread  # noqa: E402,F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 ASSETS = os.path.join(REPO, "assets")

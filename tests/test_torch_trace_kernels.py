@@ -61,6 +61,7 @@ import torch
 
 from swift_game_engine_tpu_torch.ops import rt_kernel as RK
 from swift_game_engine_tpu_torch.render import rt as p_rt
+from torch_threads import one_thread  # noqa: E402,F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 BIG = 3.0e38

@@ -33,6 +33,7 @@ from swift_game_engine_tpu_torch.assets.mesh_api import MeshDescriptor
 from swift_game_engine_tpu_torch.ops import rt_kernel as RK
 from swift_game_engine_tpu_torch.render.scene_geometry import (
     RenderGeometryBuilder, flatten_frame)
+from torch_threads import one_thread  # noqa: E402,F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 ASSETS = os.path.join(REPO, "assets")
