@@ -8,7 +8,8 @@ toolkit. It builds the port's kernels from ``swift_game_engine_tpu_torch/
 csrc`` (first use, one nvcc per source in parallel) and drives eleven
 paths of the port through its entry points, each for 2 warm-up and 10
 timed frames (paths 8a, 8b, 9 and 10: 3) at 960x540 (the RT paths with
-``max_layers=3``). Every frame is
+``max_layers=3``), then path 11, the sharded frame (below). Every frame
+of paths 1-10 is
 the bench headline's ``eng.frame(1/60, InputFrame(ly=1.0))``: the
 DemoScene world steps (one fixed substep a frame, one replay of the
 Engine's CUDA graph of the substep: the player falls and walks, the NPCs
@@ -73,11 +74,31 @@ intent to the snapshot's copy:
      must test no cluster;
  10. ``demo_raster_trace_960x540``: the full scene,
      ``Engine(path="raster", raster_vis="trace")``: K4 twice a frame (the
-     raster path's 2 layers), nothing else, 2 + 3 frames.
+     raster path's 2 layers), nothing else, 2 + 3 frames;
+ 11. ``demo_rt_sharded_960x540``: the full scene through
+     ``parallel/sharding.py`` ``sharded_fused_step`` (one substep replay,
+     the extraction, the flatten and the image-plane-sharded traced frame,
+     ``max_layers=3``, 4 shadow layers, mirror and refraction on, no
+     dither) in an NCCL group of ``min(cards, 4)`` ranks, one spawned
+     process a card, rendezvous through a ``file://`` store in a
+     temporary directory; 2 + 3 frames from a fixed camera, the launch
+     counts of rank 0 (K4 and K2/K3: shards of at least 100,000 lanes on
+     a tree past the walks' row cap), the frame median, and one frame
+     with the shard's render under ``set_sync_debug_mode("error")``. On
+     this card the last timed frame is rendered again from its starting
+     state, whole and as 4 and 8 virtual shards (``sharded_render`` with
+     an int group): each shard's shadow source must be the reference's
+     rule for its lane count (4 shards of 139,264 lanes: the cluster
+     sweeps; 8 of 69,632: the K4 loop), the 4-slice image must equal the
+     ranks' and the whole batch's (1e-5) and the 8-slice image meet the
+     whole batch's (>= 99% of pixels within 1e-4); the whole render's
+     K4, K2 and K3 calls are held against their twins on subsets, as paths
+     9 and 10's are.
 
-Every path asserts the DemoScene branch its scene took: the stand-in player
-on paths 1-6 and 8-10, the posed one on path 7. Paths 7-10 also print the
-device busy time and the syncs a frame of 3 profiled frames (at most 1).
+Every path but 11 asserts the DemoScene branch its scene took: the
+stand-in player on paths 1-6 and 8-10, the posed one on path 7. Paths
+7-10 also print the device busy time and the syncs a frame of 3
+profiled frames (at most 1).
 Paths 1 and 9 time each of a frame's sorted shadow sweeps (K2 + K3) on
 its sorted origins and on the same origins unsorted, and print the lanes
 each sort moved.
@@ -109,8 +130,9 @@ port, only PyTorch's):
     ``SIM_TIMED`` = 10), the kernels the card runs and the launches the
     host makes for one eager substep and for one replay (torch.profiler),
     the capture's seconds and the graph pool's size, for the DemoScene
-    world and for a 256-agent crowd on procedural meshes (``build_crowd``,
-    examples/bench_crowd.py's world: the separation grid).
+    world and for a 256-agent crowd on procedural meshes
+    (``swift_game_engine_tpu_torch/examples/bench_crowd.build``: the
+    separation grid).
 
 The simulation phase then runs again on path 7's posed world (60 substeps
 card against CPU, the pose clocks and palettes held too, a dodge at
@@ -118,7 +140,12 @@ substep ``SIM_DODGE``; the replays bit-equal; its substep timed). Then the
 pose phase (``pose_phase``): bench.py's pose configuration #2, 64
 characters x 120 steps of ``PoseEngine.step_character`` with the action
 layer, each card step held against the CPU's (1e-4), and char-steps/s
-eager and as one captured step.
+eager and as one captured step. Then the examples phase
+(``examples_phase``): the port's entry points as a user runs them,
+``run_demo`` (3 frames at 320x180; each PNG, decoded with zlib and
+struct, must be its frame), ``bench_crowd`` at 4 and 1,024 agents (its
+table: K = 32 substep replays a count) and ``play --frames 10`` at
+192x108.
 
 And the kernels:
 
@@ -419,55 +446,32 @@ def path_engines(dev):
                                   raster_vis="trace", device=dev)
 
 
-def build_crowd(device, n_agents=CROWD_AGENTS, seed=11):
-    """examples/bench_crowd.py's crowd with the port's builders: a 400x400
-    ground, 8 box obstacles, the player and ``n_agents - 1`` oscillating
-    agents over 140x140 -> (Stepper, state)."""
-    import numpy as np
-    from swift_game_engine_tpu_torch.assets import procedural_meshes as pm
-    from swift_game_engine_tpu_torch.ecs.world import (BODY_DYNAMIC,
-                                                       BODY_STATIC,
-                                                       WorldBuilder)
-    from swift_game_engine_tpu_torch.physics.collision_world import \
-        CollisionWorldBuilder
-    from swift_game_engine_tpu_torch.scene.step import Stepper
-    rng = np.random.default_rng(seed)
-    wb, cb = WorldBuilder(), CollisionWorldBuilder()
+def zero_counts():
+    """Every kernel wrapper's launch count set to 0 (after the card is
+    idle)."""
+    import torch
+    from swift_game_engine_tpu_torch.ops import cluster_shadow as CS
+    from swift_game_engine_tpu_torch.ops import rt_kernel as RK
+    from swift_game_engine_tpu_torch.render import tile_raster as TR
+    torch.cuda.synchronize()
+    TR.launches = [0] * len(TR.launches)
+    TR.list_launches = TR.peel_launches = 0
+    CS.occl_launches = CS.slots_launches = 0
+    RK.launches = RK.so_launches = RK.so_closest_launches = 0
+    RK.shadow_launches = RK.any_launches = 0
 
-    def body(name, pos, body_type):
-        e = wb.create_entity(name)
-        wb.add(e, "transform", translation=pos)
-        wb.add(e, "world_position")
-        wb.add(e, "body", body_type=body_type, position=pos)
-        return e
 
-    g = body("ground", [0, -3, 0], BODY_STATIC)
-    cb.add_mesh(pm.plane(400.0).positions, pm.plane(400.0).indices, entity=g,
-                mu_s=0.9, mu_k=0.8)
-    for i in range(8):
-        e = body(f"obstacle_{i}", [float(rng.uniform(-60, 60)), -1.0,
-                                   float(rng.uniform(-60, 60))], BODY_STATIC)
-        cb.add_mesh(pm.box(4.0).positions, pm.box(4.0).indices, entity=e)
-    p = body("player", [0, 0, 0], BODY_DYNAMIC)
-    for comp, kw in (("player", {}), ("intent", {}), ("movement", {}),
-                     ("controller", dict(radius=1.5, half_height=1.0)),
-                     ("agent", dict(mass_weight=3.0))):
-        wb.add(p, comp, **kw)
-    for i in range(n_agents - 1):
-        pos = [float(rng.uniform(-70, 70)), float(rng.uniform(0, 4)),
-               float(rng.uniform(-70, 70))]
-        e = body(f"agent_{i}", pos, BODY_DYNAMIC)
-        for comp, kw in (("intent", {}), ("movement", {}),
-                         ("controller", dict(radius=1.5, half_height=1.0)),
-                         ("agent", dict(mass_weight=1.0)),
-                         ("oscillate", dict(
-                             origin=pos, axis=[float(rng.uniform(-1, 1)), 0,
-                                               float(rng.uniform(-1, 1))],
-                             amplitude=6.0,
-                             speed=float(rng.uniform(0.4, 1.2))))):
-            wb.add(e, comp, **kw)
-    spec, state = wb.build(device)
-    return Stepper(spec, cb.build(device=device)), state
+def read_counts():
+    """Launches by kernel; K1's by role (its layer count)."""
+    from swift_game_engine_tpu_torch.ops import cluster_shadow as CS
+    from swift_game_engine_tpu_torch.ops import rt_kernel as RK
+    from swift_game_engine_tpu_torch.render import tile_raster as TR
+    k1 = {f"K1/layers={n}": v for n, v in enumerate(TR.launches, 1)}
+    return {**k1, "K2": CS.occl_launches,
+            "K3": CS.slots_launches, "K4": RK.launches,
+            "K5": RK.so_launches, "K6": RK.so_closest_launches,
+            "K7": RK.shadow_launches, "K8": RK.any_launches,
+            "K9": TR.list_launches, "K10": TR.peel_launches}
 
 
 def _sim_leaves(state, prefix=""):
@@ -676,7 +680,8 @@ def simulation_phase(dev, world, label="demo", crowd=True):
     out = {}
     worlds = [(label, gstep, gstate)]
     if crowd:
-        worlds.append(("crowd_256", *build_crowd(dev)))
+        from swift_game_engine_tpu_torch.examples.bench_crowd import build
+        worlds.append(("crowd_256", *build(CROWD_AGENTS, dev)))
     for name, stp, st in worlds:
         for _ in range(3):
             st = stp.substep(st, FIXED_DT)
@@ -837,6 +842,270 @@ def pose_phase(dev, rig_dir):
     return out
 
 
+# Path 11: the image-plane-sharded traced frame (parallel/sharding.py) on
+# the full scene, one spawned rank per card (at most 4), WARMUP +
+# SHARD_TIMED frames of ``sharded_fused_step``; on this card the frame is
+# also rendered as SHARD_VIRTUAL virtual shards. A fixed camera over the
+# scene (the extraction is relative to the world origin).
+SHARD_PATH = "demo_rt_sharded_960x540"
+SHARD_TIMED, SHARD_VIRTUAL = 3, (4, 8)
+SHARD_CAMERA = ((0.0, 8.0, 24.0), (0.0, 0.0, 0.0))
+# The ranks' deadline, seconds (the scene build and the NCCL set-up
+# included).
+SHARD_SECONDS = 600
+
+
+def shard_inputs(dev):
+    """(inverse view-projection, camera position, camera world position)
+    of path 11's camera, on ``dev``."""
+    import numpy as np
+    import torch
+    from swift_game_engine_tpu_torch.render.camera import Camera
+    cam = Camera()
+    cam.position = np.array(SHARD_CAMERA[0], np.float32)
+    cam.target = np.array(SHARD_CAMERA[1], np.float32)
+    return (torch.as_tensor(cam.inv_view_proj(W, H), device=dev),
+            torch.as_tensor(cam.position, device=dev),
+            torch.zeros(3, device=dev))
+
+
+def sharded_worker(rank, world, store, out):
+    """Rank ``rank`` of path 11, a process of its own on card ``rank``: an
+    NCCL group through the ``file://`` store, the full DemoScene,
+    ``sharded_fused_step`` (one substep a frame, max_layers 3, 4 shadow
+    layers) for WARMUP frames, then SHARD_TIMED timed frames with the
+    launch counts zeroed just before and read just after, then one frame
+    with the shard's render (``render_shard``) under
+    ``torch.cuda.set_sync_debug_mode("error")``. Rank 0 saves to ``out``
+    the last timed frame's image, the state it started from, the counts,
+    the times and any host sync."""
+    sys.path.insert(0, REPO)
+    import torch
+    from swift_game_engine_tpu_torch.ecs.world import to_device
+    from swift_game_engine_tpu_torch.parallel import sharding as SH
+    from swift_game_engine_tpu_torch.render.ibl import IBL
+    from swift_game_engine_tpu_torch.scene.demo_scene import build_demo_scene
+    group = SH.make_group(rank, world, "file://" + store)
+    dev = torch.device("cuda", rank)
+    try:
+        full = build_demo_scene(ASSETS, device=dev, import_tri_budget=0)
+        step = SH.sharded_fused_step(group, full, IBL.build(dev), W, H, 1,
+                                     LAYERS, SHADOW_LAYERS, device=dev)
+        ivp, cam, cam_world = shard_inputs(dev)
+        state = full.state
+        for _ in range(WARMUP):
+            state, img = step(state, ivp, cam, cam_world)
+        zero_counts()
+        times = []
+        for _ in range(SHARD_TIMED):
+            before = state
+            t0 = time.perf_counter()
+            state, img = step(state, ivp, cam, cam_world)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        syncs, render_shard = [], SH.render_shard
+
+        def checked(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return render_shard(*a, **k)
+            except RuntimeError as err:
+                # noted for the phase to fail on; the shard renders again
+                # so that every rank reaches the all-gather
+                syncs.append(str(err))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            return render_shard(*a, **k)
+        SH.render_shard = checked
+        try:
+            step(state, ivp, cam, cam_world)
+        finally:
+            SH.render_shard = render_shard
+        torch.cuda.synchronize()
+        if rank == 0:
+            torch.save(dict(before=to_device(before, "cpu"), image=img.cpu(),
+                            counts=counts, times=times, syncs=syncs,
+                            backend=torch.distributed.get_backend(group)),
+                       out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def sharded_phase(dev, full, ibl, cap):
+    """Path 11 (see the module docstring): the ranks, then on this card
+    the last timed frame again from the state it started from (one eager
+    substep, the extraction) rendered whole and as SHARD_VIRTUAL virtual
+    shards, the kernels' first calls of the whole render captured by
+    ``cap``. The 4-slice image must equal the ranks' and the whole
+    batch's (1e-5), the 8-slice image, whose shards take another shadow
+    source, meet the whole batch's (>= 99% of pixels within 1e-4). Returns
+    the ranks' launch counts."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+    from swift_game_engine_tpu_torch.ecs.world import to_device
+    from swift_game_engine_tpu_torch.ops import rt_kernel as RK
+    from swift_game_engine_tpu_torch.parallel import sharding as SH
+    from swift_game_engine_tpu_torch.render import rt as RT
+    from swift_game_engine_tpu_torch.render.scene_geometry import \
+        flatten_frame
+    from swift_game_engine_tpu_torch.scene.engine import FIXED_DT
+    world = min(torch.cuda.device_count(), 4)
+    tmp = tempfile.mkdtemp()
+    out = os.path.join(tmp, "rank0.pt")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(sharded_worker, args=(world, os.path.join(
+        tmp, "store"), out), nprocs=world, join=False, start_method="spawn")
+    try:
+        deadline = time.monotonic() + SHARD_SECONDS
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                _fail(f"{SHARD_PATH}: the ranks did not end in "
+                      f"{SHARD_SECONDS} s")
+    except ProcessException as err:
+        _fail(f"{SHARD_PATH}: a rank failed: {err}")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+    r = torch.load(out, weights_only=False)
+    shutil.rmtree(tmp)
+    times, counts = r["times"], r["counts"]
+    print(f"path {SHARD_PATH}: {world} rank(s), {r['backend']}, one process "
+          f"a card; "
+          f"frame median {np.median(times):.2f} ms over {SHARD_TIMED} frames "
+          f"(min {min(times):.2f}, max {max(times):.2f}; eager step: one "
+          f"substep replay, extraction, flatten, the shard's render, the "
+          f"all-gather); ranks' phase {time.perf_counter() - t0:.1f} s")
+    print(f"  launches in {SHARD_TIMED} frames (rank 0): {counts}")
+    print(f"  the shard's render under set_sync_debug_mode('error'): "
+          f"{'no host sync' if not r['syncs'] else r['syncs'][0]}")
+    if r["syncs"]:
+        _fail(f"{SHARD_PATH}: the shard's render synchronised with the host")
+
+    t0 = time.perf_counter()
+    state = full.stepper.substep(to_device(r["before"], dev), FIXED_DT)
+    ivp, cam, cam_world = shard_inputs(dev)
+    tf, pal = full.stepper._extract(state, 1.0, cam_world)
+    walks = RK.walk_available(flatten_frame(full.geometry, tf,
+                                            pal).bvh.rows)
+    modes, shadow_mode = [], RT._shadow_mode
+
+    def logged(geo, fg, lights, lanes, shadow_layers):
+        mode, consts = shadow_mode(geo, fg, lights, lanes, shadow_layers)
+        modes.append((lanes, mode))
+        return mode, consts
+    RT._shadow_mode = logged
+    imgs = {}
+    try:
+        for k in (1,) + SHARD_VIRTUAL:
+            modes.clear()
+            imgs[k] = SH.sharded_render(k, full.geometry, ibl, full.lights,
+                                        W, H, LAYERS, SHADOW_LAYERS,
+                                        dev)(tf, pal, ivp, cam)
+            cap.off()    # the kernels' first calls: the whole batch's
+            rule = "clusters" if modes[0][0] >= RT.SHADOW_CLUSTER_MIN_LANES \
+                else "walk" if walks else "loop"
+            print(f"  {k} shard(s) of {modes[0][0]} lanes: shadow source "
+                  f"{modes[0][1]} (the reference's rule: {rule})")
+            if modes != [(modes[0][0], rule)] * k:
+                _fail(f"{SHARD_PATH}: a shard's shadow source is not the "
+                      f"reference's for its lane count: {modes}")
+    finally:
+        RT._shadow_mode = shadow_mode
+        cap.off()
+    whole, four, eight = imgs[1], imgs[SHARD_VIRTUAL[0]], \
+        imgs[SHARD_VIRTUAL[1]]
+    ranks = r["image"].to(dev)
+    gap_ranks = float((four - ranks).abs().max())
+    gap_whole = float((four - whole).abs().max())
+    diff8 = (eight - whole).abs().amax(-1)
+    frac8 = float((diff8 < 1e-4).float().mean())
+    print(f"  virtual shards ({time.perf_counter() - t0:.1f} s): the "
+          f"4-slice image against the ranks' max {gap_ranks:.3e}, against "
+          f"the whole batch max {gap_whole:.3e}; the 8-slice image against "
+          f"the whole batch: {frac8:.5f} of pixels within 1e-4, max "
+          f"{float(diff8.max()):.3e}; means {float(whole.mean()):.6f}, "
+          f"{float(four.mean()):.6f}, {float(eight.mean()):.6f}")
+    if not all(bool(torch.isfinite(x).all()) and float(x.std()) > 1e-3
+               for x in (whole, four, eight, ranks)) or \
+            tuple(ranks.shape) != (H, W, 3):
+        _fail(f"{SHARD_PATH}: an image is not finite, or constant, or of "
+              f"the wrong shape")
+    if gap_ranks > 1e-5 or gap_whole > 1e-5 or frac8 < 0.99:
+        _fail(f"{SHARD_PATH}: the shards' images disagree")
+    return counts
+
+
+def read_png(path):
+    """An 8-bit RGB PNG with filter 0 on every row -> (H, W, 3) uint8, by
+    zlib and struct; each chunk's CRC checked."""
+    import struct
+    import zlib
+    import numpy as np
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        _fail(f"{path} is not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != \
+                zlib.crc32(tag + body) & 0xFFFFFFFF:
+            _fail(f"{path}: chunk {tag} has a bad CRC")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color, _, _, interlace = header
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h,
+                                                                  1 + 3 * w)
+    if (depth, color, interlace) != (8, 2, 0) or rows[:, 0].any():
+        _fail(f"{path} is not 8-bit RGB with filter 0 on every row")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def examples_phase():
+    """The port's entry points on the card, as a user runs them:
+    ``run_demo`` (3 frames at 320x180 into a temporary directory; each PNG
+    must decode to the frame), ``bench_crowd`` at 4 and 1,024 agents (its
+    table) and ``play --frames 10`` at 192x108."""
+    import tempfile
+    import numpy as np
+    from swift_game_engine_tpu_torch.examples import (bench_crowd, play,
+                                                      run_demo)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        frames = run_demo.main(["--frames", "3", "--width", "320",
+                                "--height", "180", "--out", d])
+        for i, u8 in enumerate(frames):
+            if not np.array_equal(read_png(os.path.join(
+                    d, f"frame_{i:03d}.png")), u8):
+                _fail(f"run_demo: frame_{i:03d}.png is not the frame")
+    if len(frames) != 3 or frames[-1].shape != (180, 320, 3) or \
+            float(frames[-1].std()) < 1.0:
+        _fail("run_demo: its frames are missing, misshapen or constant")
+    print(f"examples: run_demo wrote 3 frames, each PNG decodes to its "
+          f"frame ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    rows = bench_crowd.main(["4", "1024"])
+    if not all(np.isfinite(ms) and ms > 0 for _, ms in rows):
+        _fail("bench_crowd: a time is not finite")
+    print(f"examples: bench_crowd ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    u8 = play.main(["--frames", "10"])
+    if u8.shape != (108, 192, 3) or float(u8.std()) < 1.0:
+        _fail("play: its last frame is misshapen or constant")
+    print(f"examples: play ({time.perf_counter() - t0:.1f} s)")
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "swift_game_engine_tpu_torch")):
         _fail("run chip_smoke.py from the root of a checkout")
@@ -871,23 +1140,6 @@ def main():
     for line in _cuda.build_log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
-
-    def zero_counts():
-        torch.cuda.synchronize()
-        TR.launches = [0] * len(TR.launches)
-        TR.list_launches = TR.peel_launches = 0
-        CS.occl_launches = CS.slots_launches = 0
-        RK.launches = RK.so_launches = RK.so_closest_launches = 0
-        RK.shadow_launches = RK.any_launches = 0
-
-    def read_counts():
-        """Launches by kernel; K1's by role (its layer count)."""
-        k1 = {f"K1/layers={n}": v for n, v in enumerate(TR.launches, 1)}
-        return {**k1, "K2": CS.occl_launches,
-                "K3": CS.slots_launches, "K4": RK.launches,
-                "K5": RK.so_launches, "K6": RK.so_closest_launches,
-                "K7": RK.shadow_launches, "K8": RK.any_launches,
-                "K9": TR.list_launches, "K10": TR.peel_launches}
 
     from swift_game_engine_tpu_torch.scene.engine import Engine
     from swift_game_engine_tpu_torch.scene.input import InputFrame
@@ -1340,10 +1592,29 @@ def main():
            "(the raster path's 2 layers), nothing else",
            c11["K4"] == 2 * PRIMARY_TIMED and only(c11, "K4"))
 
+    # -- 2a. path 11: the image plane sharded over the cards -----------------
+    cap = caps[SHARD_PATH] = Capture()
+    runs[SHARD_PATH] = ("K2", "K3", "K4")
+    for fam in runs[SHARD_PATH]:
+        cap.on(*wrappers[fam], lambda *a, fam=fam, **k: fam)
+    c12 = counts[SHARD_PATH] = sharded_phase(dev, scenes[PATHS[0]],
+                                             engines[PATHS[0]].ibl, cap)
+    expect("path 11 (sharded)", c12, "K4 > 0, K2 = K3 > 0 (shards of at "
+           "least 100,000 lanes, a tree past the walks' row cap), nothing "
+           "else", c12["K4"] > 0 and c12["K2"] == c12["K3"] > 0 and
+           only(c12, "K2", "K3", "K4"))
+    for key in runs[SHARD_PATH]:
+        if key not in cap.args:
+            _fail(f"{key} was not called in the whole render of "
+                  f"{SHARD_PATH}")
+
     # -- 2b. the fixed-step simulation and the pose stack on the card --------
     simulation_phase(dev, scenes[PATHS[1]])
     simulation_phase(dev, scenes[PATHS[6]], "posed", crowd=False)
     pose_phase(dev, pose_rig_dir())
+
+    # -- 2c. the entry points a user runs ------------------------------------
+    examples_phase()
 
     # -- 3. each kernel vs its plain version, on each path's inputs ----------
     results = []
@@ -1954,7 +2225,8 @@ def main():
             tag = f"@{name}" if fam in seen else ""
             seen.add(fam)
             # paths 9 and 10: the merged streams and the dense traces
-            kw = dict(subset=True) if name in PATHS[9:] else {}
+            kw = dict(subset=True) if name in PATHS[9:] + (SHARD_PATH,) \
+                else {}
             checks[fam](cap.args, counts[name], tag, **kw)
         print(f"  ({time.perf_counter() - t0:.1f} s)")
 

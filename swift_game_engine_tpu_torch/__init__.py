@@ -10,9 +10,13 @@ Subpackages mirror the reference:
   render  — BVH refit, camera rays, shading, IBL, composite, tile raster, RT
   ops     — the hand-written Hopper kernels (csrc/) and their plain twins
   scene   — input, the DemoScene render world, the Engine frame loop
+  parallel — the image plane sharded over cards (torch.distributed)
+  examples — the user entry points: run_demo, bench_crowd, play
 
 Entry points (``build_demo_scene``, ``Engine``, ``RenderGeometryBuilder.
-build``, ``IBL.build``, ``DirectionalLights.from_list``) put their tensors
+build``, ``IBL.build``, ``DirectionalLights.from_list``, ``parallel.
+sharding``'s ``make_group``, ``sharded_render`` and ``sharded_fused_step``,
+the ``examples``' ``--device``) put their tensors
 on ``device="cuda"`` unless the caller passes another device; the CPU is
 used only when asked for (``device="cpu"``), and a call without a device
 raises where CUDA is absent.

@@ -17,7 +17,9 @@ visibility modes (``render_frame(primary=...)``, the reference's
     trace (K6) gives layer 1 and each continuation layer re-traces the live
     camera rays with K6 past a per-lane t floor (t + 2*bias), compacted. On
     a larger tree a dense closest-hit trace (K4) gives layer 1 and the
-    continuation layers re-trace from offset origins (K4), compacted;
+    continuation layers re-trace from offset origins (K4), compacted.
+    This mode is ``_render_rays`` (rt.py:1393), the flat-ray core that
+    ``parallel/sharding.py`` runs on each shard's slice of the lanes;
   * ``"peels"``: one cluster raster (K1) of every triangle with max_layers
     peeled layers, opaque fragments ending a pixel's walk, gives every
     layer's records (t the ray distance from the barycentrics);
@@ -867,6 +869,72 @@ def check_schedule(primary: str, shadow_sort_mode: str, lbatch: int):
                              f"{value!r}")
 
 
+def _check_layers(max_layers: int, shadow_layers: int):
+    if not 1 <= max_layers <= 3:
+        raise ValueError(f"max_layers must be 1..3, got {max_layers}")
+    if shadow_layers < 0:
+        raise ValueError(f"shadow_layers must be >= 0, got {shadow_layers}")
+
+
+def _frame(geo, fg, ibl, lights, cam, lanes: int, shadow_layers: int,
+           enable_mirror: bool, enable_refraction: bool,
+           shadow_prepass: bool, shadow_sort: bool,
+           shadow_sort_mode: str) -> _Frame:
+    """The per-frame constants of a batch of ``lanes`` lanes: the light-0
+    shadow source its lane count selects (``_shadow_mode``) and its
+    constants, shared by every shade call of the batch."""
+    mode, shadow = _shadow_mode(geo, fg, lights, lanes, shadow_layers)
+    return _Frame(geo=geo, fg=fg, ibl=ibl, lights=lights, cam=cam,
+                  shadow=shadow, shadow_layers=shadow_layers,
+                  enable_mirror=enable_mirror,
+                  enable_refraction=enable_refraction, shadow_mode=mode,
+                  shadow_prepass=shadow_prepass and mode == "loop" and
+                  RK.walk_available(fg.bvh.rows), shadow_sort=shadow_sort,
+                  shadow_sort_mode=shadow_sort_mode)
+
+
+def _render_rays(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
+                 lights: DirectionalLights, cam_pos, ray_o, ray_d,
+                 max_layers: int = 3, shadow_layers: int = 4,
+                 enable_mirror: bool = True, enable_refraction: bool = True,
+                 layered: bool = True, shadow_prepass: bool = False,
+                 shadow_sort: bool = False,
+                 shadow_sort_mode: str = "partition",
+                 lbatch: int = 2) -> torch.Tensor:
+    """Trace and shade a flat batch of camera rays -> (P, 3) linear colour,
+    no dither and no reshape (rt.py:1393, ``primary=None``): the shardable
+    core of the traced frame (``parallel/sharding.py`` runs it on each
+    rank's slice of the frame's lanes).
+
+    ``cam_pos`` is the rays' shared origin (a tensor or host values): the
+    shared-origin walks K5 and K6 read it, not ``ray_o``, whose rows the
+    shading and the K4 traces past the walks' row cap read. On a tree of at
+    most ``WALK_MAX_ROWS`` rows the layered walk (K5; ``layered=False``:
+    K6 dense, then per continuation layer past a t floor) gives the layer
+    records, else a dense K4 trace and K4 continuations from offset
+    origins. The light-0 shadow source follows the batch's own lane count
+    P (rt.py:1420-1423), so a shard of a frame may take another source
+    than the whole frame. Reads nothing back to the host."""
+    dev = fg.pos.device
+    cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
+    bv = fg.bvh
+    recs = trace = None
+    if RK.walk_available(bv.rows):
+        # K5 and K6 read the origin from the device
+        if layered:
+            recs = _traced_records(fg, cam, ray_d, max_layers)
+        else:
+            trace = _floor_tracer(fg, cam, ray_o, ray_d)
+    else:
+        trace = _offset_tracer(bv, ray_o, ray_d)
+    fr = _frame(geo, fg, ibl, lights, cam, ray_o.shape[0], shadow_layers,
+                enable_mirror, enable_refraction, shadow_prepass,
+                shadow_sort, shadow_sort_mode)
+    if recs is None:
+        return _trace_layers(fr, ray_o, ray_d, max_layers, trace)
+    return _shade_records(fr, ray_o, ray_d, recs, lbatch, dense=False)
+
+
 def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                  lights: DirectionalLights, inv_view_proj, cam_pos,
                  width: int, height: int, max_layers: int = 3,
@@ -881,7 +949,8 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     host values (numpy) or a tensor. With all three on the device the frame
     reads nothing back to the host.
     ``primary`` is the primary visibility mode, "hybrid", "trace",
-    "raster" or "peels" (see the module docstring). ``layered``
+    "raster" or "peels" (see the module docstring); "trace" is
+    ``_render_rays`` over the frame's lanes. ``layered``
     (SGE_RT_LAYERED) chooses the layered walk K5 over the per-layer K6
     traces of "trace" mode; ``shadow_prepass``
     (SGE_SHADOW_PREPASS) runs K8 in front of the per-layer shadow loop;
@@ -891,21 +960,50 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     (SGE_SHADOW_SORT_MODE) order; ``lbatch`` (SGE_RT_LBATCH) is the layer
     schedule. Each keeps the reference's default."""
     check_schedule(primary, shadow_sort_mode, lbatch)
-    if not 1 <= max_layers <= 3:
-        raise ValueError(f"max_layers must be 1..3, got {max_layers}")
-    if shadow_layers < 0:
-        raise ValueError(f"shadow_layers must be >= 0, got {shadow_layers}")
+    _check_layers(max_layers, shadow_layers)
     dev = fg.pos.device
     ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=dev)
     cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     ray_o, ray_d, px, py = generate_rays_tiled(ivp, cam, width, height)
-    p = ray_o.shape[0]
-    bv = fg.bvh
+    if primary == "trace":
+        out = _render_rays(geo, fg, ibl, lights, cam, ray_o, ray_d,
+                           max_layers, shadow_layers, enable_mirror,
+                           enable_refraction, layered=layered,
+                           shadow_prepass=shadow_prepass,
+                           shadow_sort=shadow_sort,
+                           shadow_sort_mode=shadow_sort_mode, lbatch=lbatch)
+    else:
+        recs, trace = _raster_records(geo, fg, ivp, view_proj, cam, ray_o,
+                                      ray_d, width, height, max_layers,
+                                      primary)
+        fr = _frame(geo, fg, ibl, lights, cam, ray_o.shape[0],
+                    shadow_layers, enable_mirror, enable_refraction,
+                    shadow_prepass, shadow_sort, shadow_sort_mode)
+        if recs is None:
+            out = _trace_layers(fr, ray_o, ray_d, max_layers, trace)
+        elif deferred and primary == "hybrid":
+            from .deferred import shade_deferred
+            out = shade_deferred(fr, ray_o, ray_d, recs)
+        else:
+            out = _shade_records(fr, ray_o, ray_d, recs, lbatch,
+                                 dense=primary == "hybrid")
+    # per-pixel hash dither in lane order, then one reshape to the image
+    noise = hash12(torch.stack([px.to(torch.float32), py.to(torch.float32)],
+                               -1))
+    out = torch.clamp(out + ((noise - 0.5) * (1.0 / 255.0))[:, None], min=0.0)
+    return untile_image(out, width, height)
 
+
+def _raster_records(geo, fg, ivp, view_proj, cam, ray_o, ray_d, width,
+                    height, max_layers, primary):
+    """The rasterized primaries ("hybrid", "raster", "peels") over the
+    whole image plane -> (every layer's records, None), or for "raster"
+    (None, the ``_trace_layers`` tracer of its K4 continuations)."""
+    dev = fg.pos.device
+    bv = fg.bvh
     recs = trace = None
-    if primary != "trace":
-        vp = torch.linalg.inv(ivp) if view_proj is None else \
-            torch.as_tensor(view_proj, dtype=torch.float32, device=dev)
+    vp = torch.linalg.inv(ivp) if view_proj is None else \
+        torch.as_tensor(view_proj, dtype=torch.float32, device=dev)
     if primary in ("raster", "peels"):
         # K1 over every triangle, records in lane order with the ray t
         # resolved from the barycentrics (rt.py:1257-1281)
@@ -918,7 +1016,7 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
             recs = hits
         else:                    # layer 1; the continuations trace (K4)
             trace = _offset_tracer(bv, ray_o, ray_d, first=hits[0])
-    elif primary == "hybrid":
+    else:                        # "hybrid"
         # Exact w -> t for pinhole rays p = cam + d*t: the raster's view
         # depth is w = w(cam) + t * (vp[3,:3] . d).
         vp3 = vp[3]
@@ -943,36 +1041,4 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                 layers=max_layers, cluster=TRANS_CLUSTER,
                 ids=ti.to(torch.float32), prior_w=h_o.w_depth)]
         recs = _layer_records(rec_of(h_o), trs, max_layers)
-    elif RK.walk_available(bv.rows):
-        # K5 and K6 read the origin from the device
-        if layered:
-            recs = _traced_records(fg, cam, ray_d, max_layers)
-        else:
-            trace = _floor_tracer(fg, cam, ray_o, ray_d)
-    else:
-        trace = _offset_tracer(bv, ray_o, ray_d)
-
-    # light-0 shadow constants: shared by every shade call of the frame
-    mode, shadow = _shadow_mode(geo, fg, lights, p, shadow_layers)
-    fr = _Frame(geo=geo, fg=fg, ibl=ibl, lights=lights, cam=cam,
-                shadow=shadow, shadow_layers=shadow_layers,
-                enable_mirror=enable_mirror,
-                enable_refraction=enable_refraction, shadow_mode=mode,
-                shadow_prepass=shadow_prepass and mode == "loop" and
-                RK.walk_available(bv.rows), shadow_sort=shadow_sort,
-                shadow_sort_mode=shadow_sort_mode)
-
-    if recs is None:
-        out = _trace_layers(fr, ray_o, ray_d, max_layers, trace)
-    elif deferred and primary == "hybrid":
-        from .deferred import shade_deferred
-        out = shade_deferred(fr, ray_o, ray_d, recs)
-    else:
-        out = _shade_records(fr, ray_o, ray_d, recs, lbatch,
-                             dense=primary == "hybrid")
-
-    # per-pixel hash dither in lane order, then one reshape to the image
-    noise = hash12(torch.stack([px.to(torch.float32), py.to(torch.float32)],
-                               -1))
-    out = torch.clamp(out + ((noise - 0.5) * (1.0 / 255.0))[:, None], min=0.0)
-    return untile_image(out, width, height)
+    return recs, trace

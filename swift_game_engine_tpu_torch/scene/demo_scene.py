@@ -9,6 +9,7 @@ meshes) and the ``Stepper`` that advances it:
     their translucent unlit collision hulls (static bodies; collision
     layers 1 and 1<<3, mu .6/.5); the ornate mirror when its asset is
     present (it is not in the repository, and the reference skips it too);
+    ``include_imported_assets=False`` leaves out these three;
   * the elevator and ground_mover kinematic platforms, the oscillating
     capsule NPC (mass 500), the player (body, intent, movement, controller
     r 1.5 / hh 1.0, agent of mass 3) with its capsule overlay following
@@ -276,11 +277,15 @@ def _add_posed_player(wb, rb, asset_dir, player, budget, device):
 
 
 def build_demo_scene(asset_dir: str = "assets", device="cuda",
-                     import_tri_budget: int = IMPORT_TRI_BUDGET) -> DemoWorld:
+                     import_tri_budget: int = IMPORT_TRI_BUDGET,
+                     include_imported_assets: bool = True) -> DemoWorld:
     """The DemoScene world on ``device`` (the card unless asked otherwise;
     see the module docstring). ``asset_dir`` holds the *.static.json /
     *.skinned.json files; ``import_tri_budget`` is the per-part triangle
-    budget of the imported meshes (0: full fidelity)."""
+    budget of the imported meshes (0: full fidelity);
+    ``include_imported_assets=False`` leaves out 17-Cheese, Semla and the
+    mirror with their hulls (scene/demo_scene.py:72,149: the small
+    world)."""
     device = resolve_device(device)
     budget = import_tri_budget or (1 << 30)
     wb = WorldBuilder()
@@ -316,15 +321,17 @@ def build_demo_scene(asset_dir: str = "assets", device="cuda",
                        _solid_mat("GroundMat", (80, 80, 80), 0.8),
                        instance=ground)
 
-    _add_imported(wb, cb, rb, asset("17-Cheese.static.json"),
-                  asset("17-Cheese.materials.json"), (0, 0, 0), 1,
-                  (80, 180, 255), budget)
-    _add_imported(wb, cb, rb, asset("Semla.static.json"),
-                  asset("Semla.materials.json"), (18, 0, 10), 1 << 3,
-                  (120, 220, 180), budget)
-    _add_imported(wb, cb, rb, asset("ornate_mirror.static.json"),
-                  asset("ornate-mirror.materials.json"), (-10, 1, 4), 1 << 4,
-                  (200, 160, 255), budget, scale=8.0, upright_flip=True)
+    if include_imported_assets:
+        _add_imported(wb, cb, rb, asset("17-Cheese.static.json"),
+                      asset("17-Cheese.materials.json"), (0, 0, 0), 1,
+                      (80, 180, 255), budget)
+        _add_imported(wb, cb, rb, asset("Semla.static.json"),
+                      asset("Semla.materials.json"), (18, 0, 10), 1 << 3,
+                      (120, 220, 180), budget)
+        _add_imported(wb, cb, rb, asset("ornate_mirror.static.json"),
+                      asset("ornate-mirror.materials.json"), (-10, 1, 4),
+                      1 << 4, (200, 160, 255), budget, scale=8.0,
+                      upright_flip=True)
 
     plat_mesh = pm.box(4.0)
     plat_scale = np.array([1.5, 0.2, 1.5], np.float32)

@@ -495,3 +495,28 @@ def reference_reaches(jstep, j_before, p_before, p_after, atol=1e-4,
             continue
         return what
     return None
+
+
+def compare_specs(jspec, pspec):
+    """The port's SceneSpec equals the reference's: names, counts, masks,
+    component tables and parameter tuples exactly."""
+    import torch
+    from swift_game_engine_tpu_torch import interop
+    ref = interop.scene_spec(jspec, device="cpu")
+    for f in ("n_entities", "names", "gravity"):
+        assert getattr(pspec, f) == getattr(ref, f), f
+    for f in ("has_body", "body_type", "has_controller", "has_intent",
+              "has_movement", "has_loco", "has_action", "has_dodge",
+              "has_osc", "has_spin", "has_platform", "has_wp", "is_player",
+              "character_slot", "follow_target"):
+        np.testing.assert_array_equal(getattr(pspec, f), getattr(ref, f), f)
+    for f in ("movement", "osc", "spin", "platform", "dodge_cfg",
+              "action_cfg"):
+        for k, v in getattr(ref, f).items():
+            np.testing.assert_array_equal(getattr(pspec, f)[k], v, f"{f}.{k}")
+    for a, b in ((pspec.controller_params, ref.controller_params),
+                 (pspec.loco_params, ref.loco_params),
+                 (pspec.loco_tuning, ref.loco_tuning)):
+        for f in a._fields:
+            x, y = getattr(a, f), getattr(b, f)
+            assert torch.equal(torch.as_tensor(x), torch.as_tensor(y)), f
