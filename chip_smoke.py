@@ -8,8 +8,9 @@ toolkit. It builds the port's kernels from ``swift_game_engine_tpu_torch/
 csrc`` (first use, one nvcc per source in parallel) and drives eleven
 paths of the port through its entry points, each for 2 warm-up and 10
 timed frames (paths 8a, 8b, 9 and 10: 3) at 960x540 (the RT paths with
-``max_layers=3``), then path 11, the sharded frame (below). Every frame
-of paths 1-10 is
+``max_layers=3``), then path 11, the sharded frame, path 12, the
+entity-sharded substep, and the knob paths' first frames (below). Every
+frame of paths 1-10 is
 the bench headline's ``eng.frame(1/60, InputFrame(ly=1.0))``: the
 DemoScene world steps (one fixed substep a frame, one replay of the
 Engine's CUDA graph of the substep: the player falls and walks, the NPCs
@@ -93,7 +94,39 @@ intent to the snapshot's copy:
      ranks' and the whole batch's (1e-5) and the 8-slice image meet the
      whole batch's (>= 99% of pixels within 1e-4); the whole render's
      K4, K2 and K3 calls are held against their twins on subsets, as paths
-     9 and 10's are.
+     9 and 10's are;
+ 12. ``crowd_entity_sharded_1024``: the entity axis
+     (``shard_world_state``, ``EntityShardedSubstep``; ``entity_phase``).
+     The 1,024-agent crowd of ``examples/bench_crowd.build`` (separation's
+     grid branch) takes 8 substeps from one state replicated (a
+     ``SubstepGraph``), on path 11's NCCL ranks (``entity_worker``, in the
+     same processes) and on 3, 4 and 8 virtual shards on this card; each
+     final state must be the replicated run's bit for bit or within 1e-5
+     (the count of leaves that differ printed), and ms a substep and the
+     all-gathers' share are printed for each. Then path 11's DemoScene
+     frame again from the state its last timed frame started from, on an
+     entity-sharded state (``demo_rt_entity_sharded_960x540``: 4 virtual
+     shards here, padded by ``pad_entities_to`` to the rank count on the
+     ranks where it does not divide), against the replicated state's
+     frame: the states equal, the images within 1e-5; its K2, K3 and K4
+     calls are held against their twins on subsets.
+
+The knob paths' first frames (``knob_frames``, KNOB_FRAMES): one eager
+frame at 960x540 of each of ``layer_slots=2`` (path 2), ``trans_subdiv=1``
+(path 1, printing whether its gate held), ``unlit_split`` and
+``unlit_dense`` (path 1) and ``packet_compact`` (paths 1 and 6), each
+against its path's default eager frame: bit for bit (the reference
+reports identical images), but for ``layer_slots`` (the share of pixels
+that differ printed: fewer slots than layers change records by design)
+and ``trans_subdiv`` (at most 1e-4 of the pixels may differ, by less than
+0.1, each explained by its translucent K1 records: the children's
+corners are f32 midpoints, so on the parent's outer edges their edge
+tests, and their depths, round otherwise than the parent's; each such
+pixel's records are printed), with one eager time beside the default's.
+The kernel calls of the role each knob changes (K5 at 2 slots; K1 over
+the subdivided translucent subset; K2, K3 and K4 in the batched
+continuation shade; K4 on packet-compacted bounce retraces) are held
+against their twins, tagged with the knob frame's name.
 
 Every path but 11 asserts the DemoScene branch its scene took: the
 stand-in player on paths 1-6 and 8-10, the posed one on path 7. Paths
@@ -363,10 +396,10 @@ def _ray_line(cnt):
                      for k in ("nodes", "slots"))
 
 
-def _subset(n, device):
-    """Every k-th lane, at most TWIN_LANES of them."""
+def _subset(n, device, lanes=TWIN_LANES):
+    """Every k-th lane, at most ``lanes`` of them."""
     import torch
-    step = max(1, math.ceil(n / TWIN_LANES))
+    step = max(1, math.ceil(n / lanes))
     return torch.arange(0, n, step, device=device)
 
 
@@ -853,6 +886,35 @@ SHARD_CAMERA = ((0.0, 8.0, 24.0), (0.0, 0.0, 0.0))
 # The ranks' deadline, seconds (the scene build and the NCCL set-up
 # included).
 SHARD_SECONDS = 600
+# Path 12: the crowd whose entity axis is sharded, its substeps from one
+# state, the virtual shard counts on this card (3 does not divide 1,024),
+# and the DemoScene frame on an entity-sharded state (4 virtual shards).
+ENTITY_PATH = "crowd_entity_sharded_1024"
+ENTITY_DEMO = "demo_rt_entity_sharded_960x540"
+ENTITY_AGENTS, ENTITY_STEPS, ENTITY_VIRTUAL = 1024, 8, (3, 4, 8)
+ENTITY_DEMO_SHARDS = 4
+# The knob paths' first frames: (name, the path it applies to, the
+# render_frame keyword, the kernel roles whose inputs it changes, how far
+# the frame may be from the path's default frame: 0, bit for bit; None,
+# the share of pixels that differ printed only (fewer slots than layers
+# change the records by design); (share, max), at most that share of
+# pixels differing, by less than max: the subdivided translucent subset's
+# children have f32 midpoints for corners, so on the parent's outer edges
+# K1's edge tests, and everywhere the depths, round otherwise than the
+# parent's). A trans_subdiv pixel that differs from the default frame
+# must lie within SUBDIV_EDGE (barycentric) of its parent's outer edge, or
+# differ only in depths, by at most SUBDIV_DEPTH relative (subdiv_pixels).
+SUBDIV_EDGE, SUBDIV_DEPTH = 1e-3, 1e-4
+KNOB_FRAMES = (
+    ("knob_layer_slots_2", 1, dict(layer_slots=2), ("K5",), None),
+    ("knob_trans_subdiv_1", 0, dict(trans_subdiv=1), ("K1/layers=3",),
+     (1e-4, 0.1)),
+    ("knob_unlit_split", 0, dict(unlit_split=True), ("K2", "K3", "K4"), 0),
+    ("knob_unlit_dense", 0, dict(unlit_dense=True), ("K2", "K3", "K4"), 0),
+    ("knob_packet_compact", 0, dict(packet_compact=True), ("K4",), 0),
+    ("knob_packet_compact_p6", 5, dict(packet_compact=True), ("K4",), 0))
+# The walks' twins of the knob frames run on at most this many lanes.
+KNOB_TWIN_LANES = 8_192
 
 
 def shard_inputs(dev):
@@ -889,7 +951,8 @@ def sharded_worker(rank, world, store, out):
     dev = torch.device("cuda", rank)
     try:
         full = build_demo_scene(ASSETS, device=dev, import_tri_budget=0)
-        step = SH.sharded_fused_step(group, full, IBL.build(dev), W, H, 1,
+        ibl = IBL.build(dev)
+        step = SH.sharded_fused_step(group, full, ibl, W, H, 1,
                                      LAYERS, SHADOW_LAYERS, device=dev)
         ivp, cam, cam_world = shard_inputs(dev)
         state = full.state
@@ -924,13 +987,79 @@ def sharded_worker(rank, world, store, out):
         finally:
             SH.render_shard = render_shard
         torch.cuda.synchronize()
+        entity = entity_worker(group, world, dev, full, ibl, before, state,
+                               img)
         if rank == 0:
             torch.save(dict(before=to_device(before, "cpu"), image=img.cpu(),
                             counts=counts, times=times, syncs=syncs,
-                            backend=torch.distributed.get_backend(group)),
-                       out)
+                            backend=torch.distributed.get_backend(group),
+                            entity=entity), out)
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _entity_rows(small, padded, n):
+    """``padded``'s state with its first ``n`` entity rows from ``small``
+    (a state of ``n`` entities): the dormant slots of a padded scene
+    appended to a state."""
+    from swift_game_engine_tpu_torch.ecs.world import (rebuild_state,
+                                                       state_leaves)
+    import torch
+    return rebuild_state(padded, iter([
+        x if x.shape == y.shape else torch.cat([x, y[n:]])
+        for x, y in zip(state_leaves(small), state_leaves(padded))]))
+
+
+def entity_worker(group, world, dev, full, ibl, before, state, img):
+    """Path 12 on the ranks of path 11's group (see ``entity_phase``):
+    ENTITY_STEPS substeps of the ENTITY_AGENTS crowd on its entity-sharded
+    state (``EntityShardedSubstep``: each rank's phases graph replays, the
+    two NCCL all-gathers a substep between them), timed by CUDA events;
+    then the DemoScene frame of path 11's last timed frame again, from the
+    state it started from, sharded over the entities too (padded by
+    ``pad_entities_to`` to the rank count where it does not divide), its
+    state and image held to that frame's. Returns what rank 0 saves."""
+    import torch
+    from swift_game_engine_tpu_torch.ecs.world import state_leaves
+    from swift_game_engine_tpu_torch.examples import bench_crowd
+    from swift_game_engine_tpu_torch.parallel import sharding as SH
+    from swift_game_engine_tpu_torch.scene.demo_scene import build_demo_scene
+    from swift_game_engine_tpu_torch.scene.engine import FIXED_DT
+    stepper, cstate = bench_crowd.build(ENTITY_AGENTS, device=dev)
+    t0 = time.perf_counter()
+    sim = SH.EntityShardedSubstep(stepper, SH.shard_world_state(group,
+                                                                cstate),
+                                  FIXED_DT, group)
+    capture_s = time.perf_counter() - t0
+    sim.gather_events = []
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(ENTITY_STEPS):
+        sim.step()
+    b.record()
+    torch.cuda.synchronize()
+    gather = sum(x.elapsed_time(y) for x, y in sim.gather_events)
+    crowd = dict(leaves=[x.cpu() for x in state_leaves(sim.state)],
+                 ms=a.elapsed_time(b) / ENTITY_STEPS,
+                 gather_ms=gather / ENTITY_STEPS, capture_s=capture_s,
+                 ranges=sim.ranges)
+    del sim
+    n = full.spec.n_entities
+    scene, start = full, before
+    if n % world:
+        scene = build_demo_scene(ASSETS, device=dev, import_tri_budget=0,
+                                 pad_entities_to=world)
+        start = _entity_rows(before, scene.state, n)
+    step = SH.sharded_fused_step(group, scene, ibl, W, H, 1, LAYERS,
+                                 SHADOW_LAYERS, device=dev)
+    est, eimg = step(SH.shard_world_state(group, start),
+                     *shard_inputs(dev))
+    differ = [i for i, (x, y) in enumerate(zip(state_leaves(est.state),
+                                               state_leaves(state)))
+              if not torch.equal(x if x.shape == y.shape else x[:n], y)]
+    return dict(crowd=crowd, demo_gap=float((eimg - img).abs().max()),
+                demo_differ=differ, demo_entities=(n, scene.spec.n_entities),
+                demo_ranges=est.ranges)
 
 
 def sharded_phase(dev, full, ibl, cap):
@@ -941,7 +1070,7 @@ def sharded_phase(dev, full, ibl, cap):
     ``cap``. The 4-slice image must equal the ranks' and the whole
     batch's (1e-5), the 8-slice image, whose shards take another shadow
     source, meet the whole batch's (>= 99% of pixels within 1e-4). Returns
-    the ranks' launch counts."""
+    (the ranks' launch counts, rank 0's saved results)."""
     import shutil
     import tempfile
     import numpy as np
@@ -1040,7 +1169,141 @@ def sharded_phase(dev, full, ibl, cap):
               f"the wrong shape")
     if gap_ranks > 1e-5 or gap_whole > 1e-5 or frac8 < 0.99:
         _fail(f"{SHARD_PATH}: the shards' images disagree")
-    return counts
+    return counts, r
+
+
+def _leaves_agree(label, got, want):
+    """Two final states' leaves: bit for bit, or every float leaf within
+    1e-5 (tests/test_multichip.py:172-174) and every other leaf equal;
+    prints which, with the count of leaves that differ in bits."""
+    import torch
+    differ = [i for i, (x, y) in enumerate(zip(got, want))
+              if not torch.equal(x, y)]
+    worst = 0.0
+    for i in differ:
+        x, y = got[i], want[i]
+        if not x.dtype.is_floating_point:
+            _fail(f"{label}: leaf {i} ({x.dtype}) differs")
+        worst = max(worst, float((x - y).abs().max()))
+    print(f"  {label}: " + ("bit for bit the replicated run's" if not differ
+                            else f"{len(differ)} of {len(want)} leaves "
+                            f"differ in bits, max {worst:.3e}"))
+    if worst > 1e-5:
+        _fail(f"{label}: the state is more than 1e-5 from the replicated "
+              f"run's")
+
+
+def entity_phase(dev, full, ibl, ranks, before, capture):
+    """Path 12, the entity axis of the multi-device path
+    (``shard_world_state`` / ``EntityShardedSubstep``):
+
+      * the ENTITY_AGENTS crowd (examples/bench_crowd.build: separation's
+        grid branch) takes ENTITY_STEPS substeps from one state on the
+        replicated state (``SubstepGraph``), on the ranks of path 11's
+        NCCL group (``entity_worker``) and on ENTITY_VIRTUAL virtual shards
+        here (each range's phases graph replays, the all-gathers a
+        concatenation); each final state must be the replicated run's bit
+        for bit or within 1e-5; ms per substep (CUDA events) and the
+        all-gathers' share of it are printed for each;
+      * the DemoScene frame of path 11 (``sharded_fused_step``: one
+        substep, the extraction, the image-plane-sharded render) from the
+        state path 11's last timed frame started from, on an
+        entity-sharded state of ENTITY_DEMO_SHARDS virtual shards, against
+        the replicated state's step over the same shards: the states equal
+        bit for bit, the images within 1e-5; the ranks' run of it (in
+        ``entity_worker``) against path 11's frame the same way. The
+        frame's kernel calls are captured by ``capture()`` (a Capture
+        hooked on just before it) and its launches counted.
+
+    Returns (the DemoScene frame's launch counts, its Capture)."""
+    import torch
+    from swift_game_engine_tpu_torch.ecs.world import state_leaves
+    from swift_game_engine_tpu_torch.examples import bench_crowd
+    from swift_game_engine_tpu_torch.parallel import sharding as SH
+    from swift_game_engine_tpu_torch.scene.engine import FIXED_DT
+    from swift_game_engine_tpu_torch.scene.step import SubstepGraph
+    t0 = time.perf_counter()
+    stepper, state = bench_crowd.build(ENTITY_AGENTS, device=dev)
+
+    def run(sim):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(ENTITY_STEPS):
+            sim.step()
+        b.record()
+        torch.cuda.synchronize()
+        return (a.elapsed_time(b) / ENTITY_STEPS,
+                [x.clone() for x in state_leaves(sim.state)])
+
+    ms, want = run(SubstepGraph(stepper, state, FIXED_DT))
+    print(f"path {ENTITY_PATH}: {state.alive.shape[0]} entities, "
+          f"{ENTITY_STEPS} substeps from one state; replicated "
+          f"(SubstepGraph) {ms:.3f} ms a substep (CUDA events)")
+    c = ranks["crowd"]
+    print(f"  {len(c['ranges'])} rank(s) over NCCL, rows {c['ranges']}: "
+          f"{c['ms']:.3f} ms a substep, the all-gathers {c['gather_ms']:.3f} "
+          f"ms of it ({c['gather_ms'] / c['ms']:.1%}); captures "
+          f"{c['capture_s']:.1f} s")
+    _leaves_agree(f"{len(c['ranges'])} rank(s)",
+                  [x.to(dev) for x in c["leaves"]], want)
+    for k in ENTITY_VIRTUAL:
+        tc = time.perf_counter()
+        sim = SH.EntityShardedSubstep(stepper, SH.shard_world_state(k, state),
+                                      FIXED_DT, k)
+        cap_s = time.perf_counter() - tc
+        sim.gather_events = []
+        ms, got = run(sim)
+        gather = sum(x.elapsed_time(y) for x, y in sim.gather_events) / \
+            ENTITY_STEPS
+        rows = sorted({hi - lo for lo, hi in sim.ranges})
+        print(f"  {k} virtual shards, rows of {rows}: {ms:.3f} ms a substep "
+              f"(the ranges' phases in turn), the all-gathers "
+              f"{gather:.3f} ms of it ({gather / ms:.1%}); captures "
+              f"{cap_s:.1f} s")
+        _leaves_agree(f"{k} virtual shards", got, want)
+        del sim
+    args = shard_inputs(dev)
+    k = ENTITY_DEMO_SHARDS
+    rst, rimg = SH.sharded_fused_step(k, full, ibl, W, H, 1, LAYERS,
+                                      SHADOW_LAYERS, dev)(before, *args)
+    step = SH.sharded_fused_step(k, full, ibl, W, H, 1, LAYERS,
+                                 SHADOW_LAYERS, dev)
+    sharded = SH.shard_world_state(k, before)
+    cap = capture()
+    zero_counts()
+    try:
+        t1 = time.perf_counter()
+        est, eimg = step(sharded, *args)
+        torch.cuda.synchronize()
+        ms_first = (time.perf_counter() - t1) * 1e3
+    finally:
+        cap.off()
+    counts = read_counts()
+    t1 = time.perf_counter()
+    step(sharded, *args)
+    torch.cuda.synchronize()
+    ms_next = (time.perf_counter() - t1) * 1e3
+    gap = float((eimg - rimg).abs().max())
+    differ = _bits_differ(est.state, rst)
+    print(f"  {ENTITY_DEMO}: the full DemoScene's frame on an entity-sharded "
+          f"state ({k} virtual shards, rows {est.ranges}) against the "
+          f"replicated state's over the same shards: image max {gap:.3e}, "
+          f"state " + ("bit for bit" if differ is None else
+                       f"differs at {differ}") +
+          f"; {ms_first:.1f} ms with the captures, {ms_next:.1f} ms the "
+          f"next (host clock)")
+    print(f"  launches in the frame: {counts}")
+    n, n_pad = ranks["demo_entities"]
+    print(f"  the ranks' run ({n} entities, {n_pad} with the padding, rows "
+          f"{ranks['demo_ranges']}) against path 11's frame: image max "
+          f"{ranks['demo_gap']:.3e}, leaves differing "
+          f"{ranks['demo_differ'] or 'none'}")
+    if gap > 1e-5 or differ is not None or ranks["demo_gap"] > 1e-5 or \
+            ranks["demo_differ"] or tuple(eimg.shape) != (H, W, 3):
+        _fail(f"{ENTITY_DEMO}: the entity-sharded frame disagrees with the "
+              f"replicated state's")
+    print(f"  ({time.perf_counter() - t0:.1f} s)")
+    return counts, cap
 
 
 def read_png(path):
@@ -1438,6 +1701,182 @@ def main():
             _fail(f"{name}: the deferred frame is not within the bounds of "
                   f"the sequential one")
 
+    def subdiv_pixels(whole, halves, diff):
+        """Where the ``trans_subdiv`` frame differs from the default frame
+        (``diff`` > 0): the translucent K1 records at each such pixel of
+        the default frame's call (whole triangles: id, depth w, the
+        parent's barycentrics b0 b1 b2) and of the subdivided call (the
+        children, which carry the parent's id: id, w), and what differs:
+        "coverage" (a parent id in one call's layers and not the other's;
+        where the whole call holds it, the smallest |b|, 0 on the parent's
+        outer edges, and |b - 1/2|, 0 on the children's inner edges),
+        "depth" (the same ids, other depths) or "none" (the same records).
+        A pixel is explained when a whole-call record there lies within
+        SUBDIV_EDGE of its parent's outer edge (the children's outer
+        edges run to f32 midpoints, so their edge tests there round
+        otherwise than the parent's) or only the depths differ, by at most
+        SUBDIV_DEPTH relative (the children's planes through those
+        midpoints) -> the pixels not explained."""
+        outs = []
+        for (rows, meta, boxes, w, h, lay, *rest), k in (whole, halves):
+            prior = rest[0] if rest else k.get("prior_w")
+            outs.append(TR.cluster_raster(rows, meta, boxes, w, h, lay,
+                                          prior))
+        tiles_x = -(-W // 128)
+        kinds, unexplained = {}, []
+        for n, (y, x) in enumerate(torch.nonzero(diff > 0).tolist()):
+            at = (y // 32 * tiles_x + x // 128, slice(None), y % 32,
+                  x % 128)
+            (ia, b0, b1, wa), (ib, _, _, wb) = (
+                [t[at].tolist() for t in o] for o in outs)
+            b2 = [1.0 - u - v for u, v in zip(b0, b1)]
+            bs = [(b0[li], b1[li], b2[li]) for li in range(len(ia))]
+            only = (set(ia) ^ set(ib)) - {-1}
+            if only:
+                kind, ok = "coverage", False
+                for li, i in enumerate(ia):
+                    if i >= 0:
+                        edge = min(abs(v) for v in bs[li])
+                        ok |= edge <= SUBDIV_EDGE
+                        if i in only:
+                            kind += (f" (id {i} only in the whole call: "
+                                     f"min |b| {edge:.3g}, min |b - 1/2| "
+                                     f"{min(abs(v - 0.5) for v in bs[li]):.3g})")
+                if set(ib) - set(ia) - {-1}:
+                    kind += (f" (ids {sorted(set(ib) - set(ia) - {-1})} "
+                             f"only in the subdivided call)")
+            elif ia != ib or wa != wb:
+                apart = max(abs(u - v) / max(abs(u), 1.0)
+                            for u, v in zip(wa, wb) if u < 1e30)
+                kind = f"depth (max relative w apart {apart:.3g})"
+                ok = ia == ib and apart <= SUBDIV_DEPTH
+            else:
+                kind, ok = "none", False
+            kinds[kind.split(" ")[0]] = kinds.get(kind.split(" ")[0], 0) + 1
+            if not ok:
+                unexplained.append((x, y))
+            if n < 16 or not ok:
+                print(f"    ({x}, {y}; max channel diff "
+                      f"{float(diff[y, x]):.3e}): whole " + "; ".join(
+                          f"{int(i)} w {u:.9g} b {p:.6g} {q:.6g} {r:.6g}"
+                          for i, u, (p, q, r) in zip(ia, wa, bs)) +
+                      " | subdivided " + "; ".join(
+                          f"{int(i)} w {u:.9g}" for i, u in zip(ib, wb)) +
+                      f" -> {kind}{'' if ok else ', NOT EXPLAINED'}")
+        print(f"  trans_subdiv: the differing pixels' translucent records: "
+              f"{kinds}; not explained: {len(unexplained)}")
+        return unexplained
+
+    def knob_frames():
+        """One first frame for each knob keyword on the path it applies to
+        (KNOB_FRAMES), eager through the kernels at the path's size from
+        its Engine's camera and first-frame transforms, against the
+        path's default frame made the same way, within its KNOB_FRAMES
+        bound (bit for bit where the reference reports identical images),
+        the share of pixels that differ printed. Each frame's kernel calls
+        of the roles the knob changes are captured (K4 in the bounce
+        passes for ``packet_compact``; K2, K3 and K4 in the batched
+        continuation shade for the unlit knobs) for the checks against the
+        twins in section 3, its launches counted, and one eager time
+        printed beside the default's. Where ``trans_subdiv`` differs
+        from the default, ``subdiv_pixels`` prints why."""
+        flags = {"bounce": False, "cont": False}
+
+        def flagged(fn, key):
+            def run(*a, **k):
+                flags[key] = True
+                try:
+                    return fn(*a, **k)
+                finally:
+                    flags[key] = False
+            return run
+        for name, pi, kw, keys, bound in KNOB_FRAMES:
+            path = PATHS[pi]
+            eng, scene = engines[path], scenes[path]
+            scope = "bounce" if "packet_compact" in kw else \
+                "cont" if ("unlit_split" in kw or "unlit_dense" in kw) \
+                else None
+            cam = eng.camera
+            tf = scene.transforms.clone()
+            tf[:, :3, 3] -= torch.as_tensor(
+                cam.world_position.astype(np.float32), device=dev)
+            fg = flatten_frame(scene.geometry, tf, scene.palettes)
+            ivp = torch.as_tensor(cam.inv_view_proj(W, H), device=dev)
+            vp = torch.as_tensor(cam.view_proj(W, H), device=dev)
+
+            def render(**k):
+                return RT.render_frame(
+                    scene.geometry, fg, eng.ibl, scene.lights, ivp,
+                    cam.position, W, H, max_layers=eng.max_layers,
+                    shadow_layers=eng.shadow_layers, view_proj=vp,
+                    primary=eng.primary, layered=eng.layered,
+                    shadow_prepass=eng.shadow_prepass, **k)
+            whole = Capture()      # the default frame's translucent K1
+            if "trans_subdiv" in kw:
+                whole.on(*wrappers["K1"], roles["K1"])
+            try:
+                base, base_ms = _timed(render)
+            finally:
+                whole.off()
+            cap = caps[name] = Capture()
+            runs[name] = keys
+            for fam in dict.fromkeys(k.split("/")[0] for k in keys + ("K4",)):
+                if fam == "K1":
+                    def key_of(*a, **k):
+                        return f"K1/layers={a[5]}" if a[5] == LAYERS else "-"
+                elif fam == "K6":
+                    key_of = roles["K6"]
+                else:
+                    def key_of(*a, fam=fam, **k):
+                        return fam if scope is None or flags[scope] else "-"
+                cap.on(*wrappers[fam], key_of)
+            hooks = [(RT, f, getattr(RT, f)) for f in (
+                "_mirror_pass", "_refraction_pass", "_shade_continuations")]
+            for mod, f, fn in hooks:
+                setattr(mod, f, flagged(fn, "cont" if f ==
+                                        "_shade_continuations" else "bounce"))
+            zero_counts()
+            try:
+                out, ms = _timed(lambda: render(**kw))
+            finally:
+                cap.off()
+                for mod, f, fn in hooks:
+                    setattr(mod, f, fn)
+            counts[name] = read_counts()
+            for key in keys:
+                if key not in cap.args:
+                    _fail(f"{name}: {key} was not called in its frame")
+            diff = (out - base).abs().amax(-1)
+            share = float((diff > 0).float().mean())
+            gate = ""
+            if "trans_subdiv" in kw:
+                held = scene.geometry.trans_untextured
+                gate = (f"; the gate (no texture in the translucent set) "
+                        f"{'held' if held else 'did not hold'}")
+            print(f"knob {name} on {path}: {kw}: {share:.5f} of pixels "
+                  f"differ from the default frame (max "
+                  f"{float(diff.max()):.3e}){gate}; eager frame "
+                  f"{ms:.2f} ms, default {base_ms:.2f} ms (CUDA events, one "
+                  f"cold frame each)")
+            print(f"  launches in the frame: {counts[name]}")
+            if 0 < share < 1e-3:
+                ys, xs = torch.nonzero(diff > 0, as_tuple=True)
+                print(f"  the pixels that differ (x, y; max channel "
+                      f"difference): " + ", ".join(
+                          f"({int(x)}, {int(y)}; {float(diff[y, x]):.3e})"
+                          for x, y in list(zip(xs, ys))[:12]))
+            if "trans_subdiv" in kw and share > 0 and subdiv_pixels(
+                    whole.args[f"K1/layers={LAYERS}"],
+                    cap.args[f"K1/layers={LAYERS}"], diff):
+                _fail(f"{name}: pixels differ from the default frame where "
+                      f"the translucent records do not explain it")
+            if not bool(torch.isfinite(out).all()) or float(out.std()) < 1e-3:
+                _fail(f"{name}: the frame is not finite or is constant")
+            if bound == 0 and not same_bits(out, base) or bound and (
+                    share > bound[0] or float(diff.max()) >= bound[1]):
+                _fail(f"{name}: the frame is not within {bound} of the "
+                      f"default frame")
+
     # -- 2. the eleven paths --------------------------------------------------
     # Each path captures the first call of every kernel it runs, keyed by
     # kernel and, where a frame calls it in two roles, by role: K1 by its
@@ -1597,8 +2036,9 @@ def main():
     runs[SHARD_PATH] = ("K2", "K3", "K4")
     for fam in runs[SHARD_PATH]:
         cap.on(*wrappers[fam], lambda *a, fam=fam, **k: fam)
-    c12 = counts[SHARD_PATH] = sharded_phase(dev, scenes[PATHS[0]],
-                                             engines[PATHS[0]].ibl, cap)
+    c12, shard_r = sharded_phase(dev, scenes[PATHS[0]],
+                                 engines[PATHS[0]].ibl, cap)
+    counts[SHARD_PATH] = c12
     expect("path 11 (sharded)", c12, "K4 > 0, K2 = K3 > 0 (shards of at "
            "least 100,000 lanes, a tree past the walks' row cap), nothing "
            "else", c12["K4"] > 0 and c12["K2"] == c12["K3"] > 0 and
@@ -1608,12 +2048,35 @@ def main():
             _fail(f"{key} was not called in the whole render of "
                   f"{SHARD_PATH}")
 
-    # -- 2b. the fixed-step simulation and the pose stack on the card --------
+    # -- 2b. path 12: the entity axis ---------------------------------------
+    def entity_capture():
+        cap = Capture()
+        for fam in ("K2", "K3", "K4"):
+            cap.on(*wrappers[fam], lambda *a, fam=fam, **k: fam)
+        return cap
+    runs[ENTITY_DEMO] = ("K2", "K3", "K4")
+    from swift_game_engine_tpu_torch.ecs.world import to_device
+    counts[ENTITY_DEMO], caps[ENTITY_DEMO] = entity_phase(
+        dev, scenes[PATHS[0]], engines[PATHS[0]].ibl, shard_r["entity"],
+        to_device(shard_r["before"], dev), entity_capture)
+    ce = counts[ENTITY_DEMO]
+    expect(f"path 12 ({ENTITY_DEMO})", ce, "K4 > 0, K2 = K3 > 0 (path 11's "
+           "render over 4 shards of 139,264 lanes), nothing else",
+           ce["K4"] > 0 and ce["K2"] == ce["K3"] > 0 and
+           only(ce, "K2", "K3", "K4"))
+    for key in runs[ENTITY_DEMO]:
+        if key not in caps[ENTITY_DEMO].args:
+            _fail(f"{key} was not called in {ENTITY_DEMO}")
+
+    # -- 2c. the knob paths' first frames ----------------------------------
+    knob_frames()
+
+    # -- 2d. the fixed-step simulation and the pose stack on the card --------
     simulation_phase(dev, scenes[PATHS[1]])
     simulation_phase(dev, scenes[PATHS[6]], "posed", crowd=False)
     pose_phase(dev, pose_rig_dir())
 
-    # -- 2c. the entry points a user runs ------------------------------------
+    # -- 2e. the entry points a user runs ------------------------------------
     examples_phase()
 
     # -- 3. each kernel vs its plain version, on each path's inputs ----------
@@ -1884,17 +2347,20 @@ def main():
                 _bound(ins, outs, records),
                 _bound(ins, outs, binary * n / n_sub))
 
-    def slot_walk(key, launch, twin, counting, binary, args, rows):
+    def slot_walk(key, launch, twin, counting, binary, args, rows,
+                  lanes=TWIN_LANES):
         """K5 or K7, a slot walk of the wide tree: the records of the
         frame's call (the build its lane count chooses) at a subset of the
         lanes against the wide twin on that subset (keyed by the opaque id,
         or whether there is an opaque hit, and the slot ids; t_opq and the
         slots' t compared where the keys agree); the call's work by the
         counting instantiation, the binary walk's (the design before the
-        redesign) on every 4th lane of the subset."""
+        redesign) on every 4th lane of the subset (``binary`` None: not
+        run; the walk's counts are then empty); the twin on at most
+        ``lanes`` lanes."""
         (tree, srows, shared, *lane), _ = args[key]
         n = lane[0].shape[0]
-        sub = _subset(n, dev)
+        sub = _subset(n, dev, lanes)
         lane_s = [x[sub].contiguous() for x in lane]
 
         def keyed(r):
@@ -1914,22 +2380,25 @@ def main():
               + _count_line(cnt, 32 // threads))
         print(f"  {key} work, per ray of the subset: " +
               _ray_line({x: v[sub] for x, v in cnt.items()}))
-        walk = {}                          # a quarter of the subset
-        lane_b = [x[::4].contiguous() for x in lane_s]
-        binary(rows, shared, *lane_b, walk)
-        n_bin = lane_b[0].shape[0]
-        print(f"  {key} binary walk, per ray of {n_bin} of the subset: "
-              + _ray_line(walk))
+        walk, n_bin = dict(box=0, slot=0), 0
+        if binary is not None:             # a quarter of the subset
+            lane_b = [x[::4].contiguous() for x in lane_s]
+            binary(rows, shared, *lane_b, walk)
+            n_bin = lane_b[0].shape[0]
+            print(f"  {key} binary walk, per ray of {n_bin} of the subset: "
+                  + _ray_line(walk))
         return err, out, cnt, walk, sub.numel(), n_bin, n, plain_ms
 
-    def check_k5(args, c, tag):
+    def check_k5(args, c, tag, binary=True, lanes=TWIN_LANES):
+        """``binary=False``: the binary walk (the bound before the
+        redesign) is not run; the twin on at most ``lanes`` lanes."""
         rows = args["K4"][0][1]            # the packed rows of the frame
         n_slots = args["K5"][1].get("n_slots", 3)
 
         def launch(*a):
             return RK.trace_layers_so(*a, n_slots)
 
-        def binary(rows, origin, d_s, tm_s, walk):
+        def binary_walk(rows, origin, d_s, tm_s, walk):
             if not torch.equal(RK.build_origin_rows(rows, origin),
                                args["K5"][0][1]):
                 _fail("K5's origin rows are not those of the frame's rows")
@@ -1939,14 +2408,15 @@ def main():
         err, out, cnt, walk, n_sub, n_bin, n, plain_ms = slot_walk(
             "K5", launch,
             lambda *a: RK.trace_layers_so_plain(*a, n_slots),
-            lambda *a: RK.trace_layers_so_counts(*a, n_slots), binary, args,
-            rows)
+            lambda *a: RK.trace_layers_so_counts(*a, n_slots),
+            binary_walk if binary else None, args, rows, lanes)
         tree, srows, origin, d, t_max = args["K5"][0]
         own, floor, records, bin_bound = walk_bounds(
             [tree.nodes, srows, d, t_max], list(out),
             int(cnt["boxes"].sum()) * SLAB_OPS +
             int(cnt["slots"].sum()) * SO_SLOT_OPS,
-            walk["box"] * SLAB_OPS + walk["slot"] * SO_SLOT_OPS, n_bin, n,
+            walk["box"] * SLAB_OPS + walk["slot"] * SO_SLOT_OPS,
+            max(n_bin, 1), n,
             (int((out[1] >= 0).sum()) + int((out[3] >= 0).sum()))
             * SO_SLOT_OPS)
         report("so_layers" + tag,
@@ -1955,8 +2425,9 @@ def main():
                _time_ms(lambda: RK.trace_layers_so(tree, srows, origin, d,
                                                    t_max, n_slots), 5),
                plain_ms, own,
-               f" (plain on {n_sub} of {n} rays; binary walk's bound "
-               f"{bin_bound[0]:.4f} ms by {bin_bound[1]})",
+               f" (plain on {n_sub} of {n} rays; " + (
+                   f"binary walk's bound {bin_bound[0]:.4f} ms by "
+                   f"{bin_bound[1]})" if binary else "binary walk not run)"),
                floor=floor, records=records)
 
     def check_k7(args, c, tag):
@@ -2217,6 +2688,7 @@ def main():
               "K5": check_k5, "K6": check_k6, "K7": check_k7, "K8": check_k8,
               "K9": check_k9}
     seen = set()
+    knob_names = tuple(k[0] for k in KNOB_FRAMES)
     for name, cap in caps.items():
         print(f"kernel vs plain version on the first frame's inputs of "
               f"{name}:")
@@ -2224,9 +2696,15 @@ def main():
         for fam in dict.fromkeys(k.split("/")[0] for k in runs[name]):
             tag = f"@{name}" if fam in seen else ""
             seen.add(fam)
-            # paths 9 and 10: the merged streams and the dense traces
-            kw = dict(subset=True) if name in PATHS[9:] + (SHARD_PATH,) \
-                else {}
+            # paths 9-12 and the knob frames: the merged streams, the dense
+            # traces and the frames' first calls: K2-K4 on subsets
+            kw = dict(subset=True) if name in PATHS[9:] + (
+                SHARD_PATH, ENTITY_DEMO) + knob_names and \
+                fam in ("K2", "K3", "K4") else {}
+            if name == "knob_layer_slots_2":
+                # K5's bound before the redesign is path 2's, printed
+                # there; the knob frame's walk twin on fewer lanes
+                kw = dict(binary=False, lanes=KNOB_TWIN_LANES)
             checks[fam](cap.args, counts[name], tag, **kw)
         print(f"  ({time.perf_counter() - t0:.1f} s)")
 

@@ -1,9 +1,9 @@
 """Procedural mesh generators.
 
 The port's copy of the primitives of swift_game_engine_tpu/assets/
-procedural_meshes.py that the DemoScene uses (reference:
-Game/ProceduralMeshes.swift:130-738) — plane, box, ramp, dome and capsule,
-with the same geometry, built vectorized in numpy — and its two skinned
+procedural_meshes.py (reference: Game/ProceduralMeshes.swift:130-738) —
+plane, box, tetrahedron, triangular prism, ramp, quad, dome and capsule,
+with the same geometry — and its two skinned
 bodies: ``skeleton_capsules``, the posed DemoScene player's body when the
 skin file is absent, and ``humanoid_skinned``, a small posed test body.
 """
@@ -66,6 +66,48 @@ def box(size: float = 4.0) -> MeshDescriptor:
     return _mesh("box", *_face_quads(quads, "box"))
 
 
+def tetrahedron(size: float = 4.0) -> MeshDescriptor:
+    s = size * 0.5
+    p0, p1, p2, p3 = (0, s, 0), (-s, -s, s), (s, -s, s), (0, -s, -s)
+    pos, nrm, uv, idx = [], [], [], []
+    for a, b, c in [(p0, p1, p2), (p0, p2, p3), (p0, p3, p1), (p1, p3, p2)]:
+        n = _tri_normal(a, b, c)
+        base = len(pos)
+        pos += [a, b, c]
+        nrm += [n] * 3
+        uv += [(0, 0), (1, 0), (0.5, 1)]
+        idx += [base, base + 1, base + 2]
+    return _mesh("tetrahedron", pos, nrm, uv, idx)
+
+
+def triangular_prism(size: float = 4.0, height: float = 3.0) -> MeshDescriptor:
+    s, h = size * 0.5, height * 0.5
+    a0, b0, c0 = (-s, -h, s), (s, -h, s), (0, -h, -s)
+    a1, b1, c1 = (-s, h, s), (s, h, s), (0, h, -s)
+    pos, nrm, uv, idx = [], [], [], []
+
+    def tri(a, b, c):
+        n = _tri_normal(a, b, c)
+        base = len(pos)
+        pos.extend([a, b, c]); nrm.extend([n] * 3)
+        uv.extend([(0, 0), (1, 0), (0.5, 1)])
+        idx.extend([base, base + 1, base + 2])
+
+    def quad(p0, p1, p2, p3):
+        n = _tri_normal(p0, p1, p2)
+        base = len(pos)
+        pos.extend([p0, p1, p2, p3]); nrm.extend([n] * 4)
+        uv.extend([(0, 0), (1, 0), (1, 1), (0, 1)])
+        idx.extend([base, base + 1, base + 2, base, base + 2, base + 3])
+
+    tri(a1, b1, c1)
+    tri(a0, c0, b0)
+    quad(a0, b0, b1, a1)
+    quad(b0, c0, c1, b1)
+    quad(c0, a0, a1, c1)
+    return _mesh("triangularPrism", pos, nrm, uv, idx)
+
+
 def ramp(width: float = 8.0, depth: float = 8.0, height: float = 4.0) -> MeshDescriptor:
     w, d, h = width * 0.5, depth * 0.5, height * 0.5
     fl, fr = (-w, -h, d), (w, -h, d)
@@ -93,6 +135,16 @@ def ramp(width: float = 8.0, depth: float = 8.0, height: float = 4.0) -> MeshDes
     tri(bl, blt, fl)            # left
     tri(fr, brt, br)            # right
     return _mesh("ramp", pos, nrm, uv, idx)
+
+
+def quad(width: float = 1.0, height: float = 1.0,
+         uv_min=(0.0, 0.0), uv_max=(1.0, 1.0)) -> MeshDescriptor:
+    """UV-sub-rect quad in the XY plane (used by the FPS digit overlay)."""
+    u0, v0 = uv_min
+    u1, v1 = uv_max
+    pos = [(0, 0, 0), (width, 0, 0), (width, height, 0), (0, height, 0)]
+    return _mesh("quad", pos, [(0, 0, 1)] * 4,
+                 [(u0, v0), (u1, v0), (u1, v1), (u0, v1)], [0, 1, 2, 0, 2, 3])
 
 
 def dome(radius: float = 4.0, radial_segments: int = 32,

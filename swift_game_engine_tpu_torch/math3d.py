@@ -1,8 +1,11 @@
-"""The subset of swift_game_engine_tpu.math3d the port's modules use.
+"""Port of swift_game_engine_tpu/math3d.py.
 
 Column-vector 4x4 matrices and (x, y, z, w) quaternions, as in the
-reference (Game/Math.swift). Tensor functions broadcast over leading dims;
-the ``*_np`` helpers are host-side numpy for the scene builder.
+reference (Game/Math.swift). Tensor functions broadcast over leading dims
+and keep their inputs' device; the builders from numbers (``mat4_identity``,
+``mat4_perspective_rh``, ...) take ``device`` (torch's default if None:
+host-side matrix math, as the camera's); the ``*_np`` helpers are
+host-side numpy for the scene builder.
 """
 
 from __future__ import annotations
@@ -226,3 +229,157 @@ def smootherstep01(t):
     """Quintic smootherstep of an already clamped t: t^3 (t (6t - 15) + 10)
     (Game/ProceduralPoseSystem.swift:108)."""
     return t * t * t * (t * (t * 6.0 - 15.0) + 10.0)
+
+
+# ---------------------------------------------------------------------------
+# 4x4 matrix builders and the rest of the reference's helpers
+# (math3d.py:45-230, 227-317).
+
+
+def _t(x, device=None):
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def mat4_identity(batch_shape=(), device=None):
+    return torch.eye(4, device=device).expand(*batch_shape, 4, 4)
+
+
+def mat4_rotation(radians, axis):
+    """Axis-angle rotation (Game/Math.swift:11-24): ``radians`` (...,),
+    ``axis`` (..., 3)."""
+    radians = _t(radians, getattr(axis, "device", None))
+    axis = normalize(_t(axis, radians.device))
+    ct, st = torch.cos(radians), torch.sin(radians)
+    ci = 1.0 - ct
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    zeros, ones = torch.zeros_like(ct), torch.ones_like(ct)
+    zeros, ones, ct, st, ci = torch.broadcast_tensors(zeros, ones, ct, st,
+                                                      ci)
+    return torch.stack([
+        torch.stack([ct + x * x * ci, x * y * ci - z * st,
+                     x * z * ci + y * st, zeros], -1),
+        torch.stack([y * x * ci + z * st, ct + y * y * ci,
+                     y * z * ci - x * st, zeros], -1),
+        torch.stack([z * x * ci - y * st, z * y * ci + x * st,
+                     ct + z * z * ci, zeros], -1),
+        torch.stack([zeros, zeros, zeros, ones], -1)], -2)
+
+
+def mat4_translation(t):
+    """Game/Math.swift:26-33: ``t`` (..., 3)."""
+    t = _t(t, getattr(t, "device", None))
+    m = mat4_identity(t.shape[:-1], t.device).clone()
+    m[..., :3, 3] = t
+    return m
+
+
+def mat4_from_rt(rot3, t):
+    """A 4x4 from a 3x3 rotation block and a translation."""
+    batch = torch.broadcast_shapes(rot3.shape[:-2], t.shape[:-1])
+    m = mat4_identity(batch, rot3.device).clone()
+    m[..., :3, :3] = rot3.expand(*batch, 3, 3)
+    m[..., :3, 3] = t.expand(*batch, 3)
+    return m
+
+
+def _perspective(fovy_radians, aspect, near, far):
+    ys = 1.0 / np.tan(np.float32(fovy_radians) * np.float32(0.5))
+    xs = ys / np.float32(aspect)
+    zs = np.float32(far) / (np.float32(near) - np.float32(far))
+    return np.float32(xs), np.float32(ys), np.float32(zs)
+
+
+def mat4_perspective_rh(fovy_radians, aspect, near, far, device=None):
+    """Right-handed perspective, [0, 1] depth (Game/Math.swift:35-46)."""
+    xs, ys, zs = _perspective(fovy_radians, aspect, near, far)
+    m = np.zeros((4, 4), np.float32)
+    m[0, 0], m[1, 1], m[2, 2] = xs, ys, zs
+    m[2, 3], m[3, 2] = zs * np.float32(near), -1.0
+    return _t(m, device)
+
+
+def mat4_perspective_rh_inverse(fovy_radians, aspect, near, far,
+                                device=None):
+    """The closed-form inverse of ``mat4_perspective_rh`` (exact where a
+    numeric inverse cancels at the far plane)."""
+    xs, ys, zs = _perspective(fovy_radians, aspect, near, far)
+    m = np.zeros((4, 4), np.float32)
+    m[0, 0], m[1, 1], m[2, 3] = 1.0 / xs, 1.0 / ys, -1.0
+    m[3, 2] = 1.0 / (zs * np.float32(near))
+    m[3, 3] = 1.0 / np.float32(near)
+    return _t(m, device)
+
+
+def mat4_look_at_rh(eye, center, up):
+    """Game/Math.swift:52-66: (..., 3) each."""
+    eye = _t(eye, getattr(eye, "device", None))
+    f = normalize(_t(center, eye.device) - eye)
+    r = normalize(cross(f, _t(up, eye.device)))
+    u = cross(r, f)
+    last = _t([0.0, 0.0, 0.0, 1.0], eye.device).expand(*eye.shape[:-1], 4)
+    return torch.stack([
+        torch.cat([r, -dot(r, eye)[..., None]], -1),
+        torch.cat([u, -dot(u, eye)[..., None]], -1),
+        torch.cat([-f, dot(f, eye)[..., None]], -1), last], -2)
+
+
+def mat4_ortho_rh(left, right, bottom, top, near, far, device=None):
+    """Game/Math.swift:68-82."""
+    left, right, bottom, top, near, far = (np.float32(v) for v in (
+        left, right, bottom, top, near, far))
+    rl, tb, fn = right - left, top - bottom, far - near
+    m = np.zeros((4, 4), np.float32)
+    m[0, 0], m[1, 1], m[2, 2] = 2.0 / rl, 2.0 / tb, -1.0 / fn
+    m[0, 3], m[1, 3] = -(right + left) / rl, -(top + bottom) / tb
+    m[2, 3], m[3, 3] = -near / fn, 1.0
+    return _t(m, device)
+
+
+def rotation_xyz_degrees(deg):
+    """Euler XYZ, Rz @ Ry @ Rx (Game/Skeleton.swift:212-217): ``deg``
+    (..., 3) -> (..., 4, 4)."""
+    rad = radians_from_degrees(_t(deg, getattr(deg, "device", None)))
+    cx, cy, cz = (torch.cos(rad[..., i]) for i in range(3))
+    sx, sy, sz = (torch.sin(rad[..., i]) for i in range(3))
+    zeros, ones = torch.zeros_like(cx), torch.ones_like(cx)
+    return torch.stack([
+        torch.stack([cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx,
+                     zeros], -1),
+        torch.stack([sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx,
+                     zeros], -1),
+        torch.stack([-sy, cy * sx, cy * cx, zeros], -1),
+        torch.stack([zeros, zeros, zeros, ones], -1)], -2)
+
+
+def mat4_translation_part(m):
+    """Game/Skeleton.swift:219-221."""
+    return m[..., :3, 3]
+
+
+def transform_point(m, p):
+    """(M @ [p, 1]).xyz for ``m`` (..., 4, 4), ``p`` (..., 3)."""
+    return torch.einsum("...ij,...j->...i", m[..., :3, :3], p) + m[..., :3, 3]
+
+
+def transform_dir(m, d):
+    return torch.einsum("...ij,...j->...i", m[..., :3, :3], d)
+
+
+def mat4_inverse_rigid(m):
+    """The inverse of a rotation + translation (no scale)."""
+    rt = m[..., :3, :3].transpose(-1, -2)
+    return mat4_from_rt(rt, -torch.einsum("...ij,...j->...i", rt,
+                                           m[..., :3, 3]))
+
+
+def quat_identity(batch_shape=(), device=None):
+    return _t([0.0, 0.0, 0.0, 1.0], device).expand(*batch_shape, 4)
+
+
+def quat_inverse(q):
+    return quat_conj(q) / torch.clamp((q * q).sum(-1, keepdim=True),
+                                      min=1e-20)
+
+
+def quat_from_mat4(m):
+    return quat_from_mat3(m[..., :3, :3])

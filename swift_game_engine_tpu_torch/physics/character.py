@@ -585,9 +585,10 @@ def _ground_contact(soup, position, velocity, p, was_grounded,
 
 
 def _agent_sweep(position, remaining, remaining_len, base_move_len, dt,
-                 p: ControllerParams, snapshot: AgentSnapshot):
+                 p: ControllerParams, snapshot: AgentSnapshot, rows=None):
     """Earliest agent-agent hit of each agent (Systems.swift:1053-1091) ->
-    (toi, normal, hit)."""
+    (toi, normal, hit). ``rows``: the moving agents' indices into the
+    snapshot (all of them if None)."""
     time_scale = torch.where(
         base_move_len > 1e-6,
         torch.clamp(remaining_len / torch.clamp(base_move_len, min=1e-20),
@@ -600,7 +601,8 @@ def _agent_sweep(position, remaining, remaining_len, base_move_len, dt,
         snapshot.radius[None], snapshot.half_height[None])
     n = snapshot.position.shape[0]
     idx = torch.arange(n, device=position.device)
-    others = snapshot.solid[None] & (idx[None] != idx[:, None]) & \
+    own = idx if rows is None else rows
+    others = snapshot.solid[None] & (idx[None] != own[:, None]) & \
         p.agent_solid[:, None]
     toi = torch.where(hit & others, toi, torch.full_like(toi, BIG))
     best = toi.argmin(1, keepdim=True)
@@ -625,11 +627,13 @@ class CharacterPipeline:
 
     def step(self, soup: TriangleSoup, position, velocity,
              state: ControllerState, params: ControllerParams,
-             platforms: PlatformSet, dt: float):
+             platforms: PlatformSet, dt: float, rows=None):
         """Advance all agents one fixed substep -> (position, velocity,
-        ControllerState)."""
+        ControllerState). ``rows`` (lo, hi): move only agents lo..hi-1 and
+        return theirs; the inputs still hold every agent, since the
+        agent-agent sweep reads all of them as they were at the start of
+        the substep (an entity-sharded substep, parallel/sharding.py)."""
         p = params
-        n = position.shape[0]
         # fills, not element assignments: setting one element of a CUDA
         # tensor from a Python number copies it from the host and syncs
         gravity = torch.stack([torch.full((), g, device=position.device)
@@ -638,6 +642,14 @@ class CharacterPipeline:
                                  radius=p.agent_radius,
                                  half_height=p.half_height,
                                  solid=p.agent_solid & p.active)
+        own = None
+        if rows is not None:
+            lo, hi = rows
+            position, velocity = position[lo:hi], velocity[lo:hi]
+            state = ControllerState(*(x[lo:hi] for x in state))
+            p = ControllerParams(*(x[lo:hi] for x in p))
+            own = torch.arange(lo, hi, device=position.device)
+        n = position.shape[0]
         cap = self.broadphase_cap
         if 0 < cap < soup.v0.shape[0]:
             # Conservative per-substep reach: integrate + slide move at most
@@ -706,7 +718,8 @@ class CharacterPipeline:
             s_normal = _sel(sub_ok, cached_aligned, s_hit.normal)
 
             a_toi, a_normal, a_hit = _agent_sweep(
-                position, remaining, length, base_move_len, dt, p, snapshot)
+                position, remaining, length, base_move_len, dt, p, snapshot,
+                own)
 
             # Best-hit select (Systems.swift:1378-1398).
             static_skin = torch.where(s_normal[:, 1] >= p.min_ground_dot,

@@ -11,6 +11,13 @@ gathers ``CELL_CAP`` sorted entries from each of its 9 neighbour cells.
 Then every agent's accumulated correction is re-run through the
 move-and-slide resolver against the static world and re-snapped to the
 ground (Systems.swift:2048-2123), batched over agents.
+
+An entity-sharded substep (parallel/sharding.py) passes ``rows``: the pair
+passes still run over every agent, since each pass reads every partner's
+position after the pass before it (the dense/grid choice and the sorted
+cell order follow the whole set), and the re-slide and re-snap, the
+pass's capsule casts, run over the rows alone. Each row's result is then
+the unsharded pass's.
 """
 
 from __future__ import annotations
@@ -106,9 +113,12 @@ def _grid_candidates(position, params, separation_margin):
 def separate_agents(soup: TriangleSoup, position, velocity,
                     state: ControllerState, params: ControllerParams,
                     iterations: int = 2, separation_margin: float = 0.2,
-                    height_margin: float = 0.1, slide_iterations: int = 2):
+                    height_margin: float = 0.1, slide_iterations: int = 2,
+                   rows=None):
     """Resolve agent-agent overlaps -> (position, velocity, state);
-    position/velocity (N,3)."""
+    position/velocity (N,3). ``rows`` (lo, hi): ``position``, ``velocity``
+    and ``params`` hold every agent, ``state`` agents lo..hi-1 alone, and
+    the result is theirs (see the module docstring)."""
     n = position.shape[0]
     dev = position.device
     solid = params.agent_solid & params.active
@@ -138,6 +148,12 @@ def separate_agents(soup: TriangleSoup, position, velocity,
     # Post-process: re-run each accumulated delta through move-and-slide vs
     # the static world, then re-snap to the ground (Systems.swift:2048-2123).
     p = params
+    if rows is not None:
+        lo, hi = rows
+        n = hi - lo
+        p = ControllerParams(*(x[lo:hi] for x in p))
+        position, velocity = position[lo:hi], velocity[lo:hi]
+        start_position, velocity0 = start_position[lo:hi], velocity0[lo:hi]
     delta = position - start_position
     moved = m3.norm(delta) > 1e-6
     pos = _sel(moved, start_position, position)

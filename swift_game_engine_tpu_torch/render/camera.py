@@ -15,6 +15,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import math3d as m3
 from ..math3d import normalize
 
 TILE_H = 32
@@ -54,6 +55,20 @@ class Camera:
         zs = np.float32(self.far_z / (self.near_z - self.far_z))
         return xs, ys, zs
 
+    def projection(self, width: float, height: float, device=None):
+        """The perspective P (camera.py:29-32) as a (4, 4) tensor on
+        ``device`` (torch's default if None)."""
+        aspect = max(width / max(height, 1.0), 1e-4)
+        return m3.mat4_perspective_rh(
+            m3.radians_from_degrees(self.fov_degrees), aspect, self.near_z,
+            self.far_z, device)
+
+    def view(self, device=None):
+        """The look-at view V (camera.py:34-37) as a (4, 4) tensor."""
+        return m3.mat4_look_at_rh(*(torch.as_tensor(
+            np.asarray(x, np.float32), device=device) for x in (
+                self.position, self.target, self.up)))
+
     def inv_view_proj(self, width: float, height: float) -> np.ndarray:
         """inv(P @ V) = rigidInv(V) @ analyticInv(P), exact in f32."""
         xs, ys, zs = self._proj_scales(width, height)
@@ -88,6 +103,24 @@ class Camera:
     def world_position(self) -> np.ndarray:
         """f64 world-space camera position (chunk*512 + local)."""
         return self.world_chunk.astype(np.float64) * 512.0 + self.world_local
+
+
+def tile_permutation(width: int, height: int, tile: int | None = None):
+    """The permutation from scanline ray order to square pixel tiles of
+    ``tile`` (camera.py:107-126; default: the side of the reference's
+    4,096-lane packet, 64) -> (perm, inv_perm) int32 numpy arrays of
+    width * height. The frame itself runs in tile-major lanes
+    (``tiled_pixels``)."""
+    if tile is None:
+        tile = max(int(np.sqrt(TILE_H * TILE_W)), 8)
+    ys, xs = np.mgrid[0:height, 0:width]
+    tile_id = (ys // tile) * ((width + tile - 1) // tile) + (xs // tile)
+    key = tile_id.astype(np.int64) * (tile * tile) + \
+        (ys % tile) * tile + (xs % tile)
+    perm = np.argsort(key.reshape(-1), kind="stable")
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return perm.astype(np.int32), inv.astype(np.int32)
 
 
 def tiled_pixels(width: int, height: int, tile_h: int = TILE_H,

@@ -19,7 +19,11 @@ device and loops a ``while_loop`` until the mask is drained; here
   * ``chunks(mask, cap)`` gives every chunk of ``cap`` slots, ceil(p / cap)
     of them whatever the mask holds: the reference's data-dependent trip
     count becomes its fixed bound. The frame compacts with ``compact``:
-    one chunk of ``cap = p``, the lane universe, so no set lane is dropped.
+    one chunk of ``cap = p``, the lane universe, so no set lane is dropped;
+  * ``packets(mask, block)`` compacts by whole runs of ``block`` lanes, the
+    reference's ``_chunked_packets`` (rt.py:493-552): each run holding a
+    set lane keeps its lanes at their offsets, the run's unset lanes are
+    fill slots.
 
 Nothing reads the count back, so a frame built on it can be captured as
 one CUDA graph; its bodies run at their capacity, and the kernels that take
@@ -67,6 +71,30 @@ def compact(mask) -> Lanes:
     """The set lanes of the (p,) bool ``mask`` in one chunk of ``p``
     slots, the lane universe: no set lane is ever dropped."""
     return chunks(mask)[0]
+
+
+def packets(mask, block: int) -> Lanes:
+    """The set lanes of the (p,) bool ``mask`` by packets, runs of
+    ``block`` consecutive lanes: every packet holding a set lane, in lane
+    order, takes ``block`` slots, a set lane at its offset in the packet
+    and the packet's unset lanes as fill; the slots past the live packets
+    are fill too (capacity p). ``count`` is the slots the live packets
+    take, so a kernel that skips the lanes past it still reads every set
+    lane. A mask of at most ``block`` lanes, or of lanes that ``block``
+    does not divide, is compacted by lanes (``compact``), as the reference
+    falls back."""
+    p = mask.shape[0]
+    if p <= block or p % block:
+        return compact(mask)
+    nb = p // block
+    pk = mask.reshape(nb, block)
+    live = pk.any(1)
+    pid = torch.nonzero_static(live, size=nb, fill_value=nb).squeeze(1)
+    safe = pid.clamp(max=nb - 1)
+    lanes = safe[:, None] * block + torch.arange(block, device=mask.device)
+    valid = (pk[safe] & (pid < nb)[:, None]).reshape(-1)
+    return Lanes(idx=torch.where(valid, lanes.reshape(-1), p), valid=valid,
+                 count=live.sum(dtype=torch.int32) * block, p=p)
 
 
 def gather(x, lanes: Lanes):

@@ -96,7 +96,7 @@ def overlay_blit_device(u8_img, fps):
 
 
 class FPSOverlay:
-    """EMA-smoothed FPS counter (0.9/0.1)."""
+    """EMA-smoothed FPS counter (0.9/0.1) and its host blit."""
 
     MARGIN = 12
     SPACING = 2
@@ -104,6 +104,36 @@ class FPSOverlay:
 
     def __init__(self):
         self.fps_smoothed = 0.0
+        self.cell_w = pt.DIGITS_CELL_W
+        self.cell_h = pt.DIGITS_CELL_H
+        self.atlas = pt.digits_atlas().pixels  # (12, 80, 4) uint8
+
+    def blit(self, frame_u8: np.ndarray, fps_value: int) -> np.ndarray:
+        """Alpha-blend the digits onto a (H, W, 3) uint8 numpy frame,
+        top-right (composite.py:109-136: FPSOverlaySystem.update's layout,
+        nearest scaling of the atlas cells); the host counterpart of
+        ``overlay_blit_device``."""
+        h, w = frame_u8.shape[:2]
+        digits = [int(c) for c in str(max(fps_value, 0))]
+        dw, dh = int(self.cell_w * self.SCALE), int(self.cell_h * self.SCALE)
+        total = len(digits) * dw + max(0, len(digits) - 1) * self.SPACING
+        x = int(max(self.MARGIN, w - self.MARGIN - total))
+        y = self.MARGIN
+        rows = ((np.arange(dh) + 0.5) * self.cell_h / dh).astype(np.int64)
+        cols = ((np.arange(dw) + 0.5) * self.cell_w / dw).astype(np.int64)
+        out = frame_u8.copy()
+        for d in digits:
+            img = self.atlas[:, d * self.cell_w:(d + 1) * self.cell_w][
+                rows][:, cols]
+            y0, y1 = y, min(y + dh, h)
+            x0, x1 = x, min(x + dw, w)
+            if y1 > y0 and x1 > x0:
+                a = img[:y1 - y0, :x1 - x0, 3:4].astype(np.float32) / 255.0
+                rgb = img[:y1 - y0, :x1 - x0, :3].astype(np.float32)
+                dst = out[y0:y1, x0:x1].astype(np.float32)
+                out[y0:y1, x0:x1] = (rgb * a + dst * (1 - a)).astype(np.uint8)
+            x += dw + self.SPACING
+        return out
 
     def update(self, dt: float) -> int:
         if dt <= 0:

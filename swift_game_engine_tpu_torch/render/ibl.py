@@ -15,6 +15,7 @@ import torch
 from .. import constant, resolve_device
 
 ENV_MIP_COUNT = 8
+ENV_SIZE = 128
 LUT_SIZE = 128
 
 _SKY = (0.65, 0.72, 0.9)
@@ -121,6 +122,37 @@ def eval_spec_ibl(n, v, roughness, metallic, base, lut):
     brdf = sample_brdf_lut(lut, nov, roughness)
     f0 = 0.04 * (1.0 - metallic[..., None]) + base * metallic[..., None]
     return prefiltered * (f0 * brdf[..., 0:1] + brdf[..., 1:2])
+
+
+# Env cube faces (the reference's parity export; on no frame's path).
+
+
+def _cube_direction(face, u, v):
+    """IBLResources.swift:93-104 face conventions: numpy (..., 3) unit
+    directions of the face's (u, v) in [-1, 1]."""
+    one = np.ones_like(u)
+    d = np.stack({0: (one, -v, -u), 1: (-one, -v, u), 2: (u, one, v),
+                  3: (u, -one, -v), 4: (u, -v, one)}.get(
+                      face, (-u, -v, -one)), axis=-1)
+    return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
+def make_env_cube(size: int = ENV_SIZE):
+    """Every mip of the analytic environment's 6 faces, as float32 numpy
+    arrays (mip, 6, s, s, 3) with the roughness of mip / (mips - 1)
+    (ibl.py:172-186); ``sample_env`` on the host."""
+    mips = []
+    mip_count = int(np.log2(size)) + 1
+    for mip in range(mip_count):
+        s = max(size >> mip, 1)
+        roughness = mip / (mip_count - 1) if mip_count > 1 else 0.0
+        xs = (2.0 * (np.arange(s) + 0.5) / s) - 1.0
+        u, v = np.meshgrid(xs, xs)  # v rows, u cols
+        r = torch.full((), roughness, dtype=torch.float32)
+        mips.append(np.stack([sample_env(torch.as_tensor(
+            _cube_direction(face, u, v), dtype=torch.float32), r).numpy()
+            for face in range(6)]))
+    return mips
 
 
 class IBL(NamedTuple):

@@ -99,7 +99,7 @@ from ..ops.cluster_shadow import (_part1by1, build_shadow_split,
                                   trace_shadow_split)
 from ..ops.rt_kernel import barycentrics, trace_batch
 from .camera import generate_rays_tiled, untile_image
-from .compact import compact, gather, scatter
+from .compact import compact, gather, packets, scatter
 from .ibl import IBL, eval_env_sh, eval_spec_ibl
 from .scene_geometry import FrameGeometry, SceneGeometry
 from .shading import (apply_normal_map, eval_brdf, fresnel_schlick,
@@ -114,6 +114,10 @@ BIG = 3.0e38
 # shadow sweeps (config.py:53 SGE_SHADOW_CLUSTER_MIN_LANES); smaller frames
 # take the shadow walk (K7) or, on a large tree, the per-layer loop.
 SHADOW_CLUSTER_MIN_LANES = 100_000
+# Lanes of a traversal packet, the unit of packet compaction
+# (config.py:25 SGE_RT_BLOCK): one 32x128 pixel tile of the tile-major
+# lanes.
+PACKET_BLOCK = 4096
 PRIMARY_MODES = ("hybrid", "trace", "raster", "peels")
 SHADOW_SORT_MODES = ("partition", "morton")
 LBATCH_MODES = (0, 1, 2, 3)
@@ -127,6 +131,12 @@ class DirectionalLights(NamedTuple):
     color: torch.Tensor         # (L,3)
     enabled: torch.Tensor       # (L,) bool
     max_distance: torch.Tensor  # (L,)
+
+    @staticmethod
+    def default_sun(device="cuda") -> "DirectionalLights":
+        """The reference's fallback sun (RayTracingRenderer.swift:163-168)
+        on ``device`` (the card unless asked otherwise)."""
+        return DirectionalLights.from_list([], device)
 
     @staticmethod
     def from_list(lights, device="cuda") -> "DirectionalLights":
@@ -164,6 +174,10 @@ class _Frame(NamedTuple):
     shadow_prepass: bool = False  # "loop": the K8 any-hit prepass first
     shadow_sort: bool = False     # sort the dense calls' sweeps too
     shadow_sort_mode: str = "partition"
+    unlit_fast: bool = True       # unlit records: albedo + emissive, unlit
+    unlit_split: bool = False     # the continuation shade's unlit passes
+    unlit_dense: bool = False
+    packet_compact: bool = False  # retraces compacted by whole packets
 
 
 def _bg(device):
@@ -476,8 +490,9 @@ def _light_gate(fr: _Frame, i: int, m, n, hit_pos, active):
     l = normalize(-lights.direction[i])
     ndotl = torch.clamp((n * l).sum(-1), min=0.0)
     cam_dist = torch.linalg.vector_norm(hit_pos - fr.cam, dim=-1)
-    gate = active & ~m["unlit"] & lights.enabled[i] & \
-        (cam_dist <= max_dist) & (ndotl > 0)
+    gate = active & lights.enabled[i] & (cam_dist <= max_dist) & (ndotl > 0)
+    if fr.unlit_fast:
+        gate = gate & ~m["unlit"]
     return gate, ndotl, max_dist, l
 
 
@@ -509,8 +524,9 @@ def _light_records(fr: _Frame, ray_d, m, n, hit_pos, active,
         spec = eval_spec_ibl(n, view, m["roughness"], m["metallic"],
                              m["base"], fr.ibl.brdf_lut)
         color = color + spec * m["occlusion"][:, None]
-    # unlit: albedo + emissive, the raster unlit branch
-    color = torch.where(m["unlit"][:, None], m["base"] + m["emissive"], color)
+    if fr.unlit_fast:   # unlit: albedo + emissive, the raster unlit branch
+        color = torch.where(m["unlit"][:, None], m["base"] + m["emissive"],
+                            color)
     return torch.where(active[:, None], color, 0.0)
 
 
@@ -531,11 +547,19 @@ def _shade_hit(fr: _Frame, ray_o, ray_d, t_hit, tri, u, v, active,
     return color, m, n, hit_pos, bias
 
 
+def _retrace_lanes(fr: _Frame, mask):
+    """The compaction of lanes that re-trace (the reference's
+    ``_chunked_trace``, rt.py:319-326): whole packets of ``PACKET_BLOCK``
+    lanes with ``packet_compact``, else the set lanes."""
+    return packets(mask, PACKET_BLOCK) if fr.packet_compact else \
+        compact(mask)
+
+
 def _mirror_pass(fr: _Frame, d, n, hit_pos, bias, metallic, base, mask,
                  color):
     """One deterministic mirror bounce for the set lanes of ``mask``
     (RayTracing.metalinc:382-542), compacted."""
-    c = compact(mask)
+    c = _retrace_lanes(fr, mask)
     n_c, d_c = gather(n, c), gather(d, c)
     r_dir = normalize(reflect(d_c, n_c))
     r_o = gather(hit_pos, c) + n_c * gather(bias, c)[:, None]
@@ -569,7 +593,7 @@ def _refraction_pass(fr: _Frame, d, n, hit_pos, bias, base, transmission,
     """One refraction bounce with a Fresnel mix for transmissive hits
     (RayTracing.metalinc:544-713), compacted."""
     t_dir, t_len, _ = refraction_setup(d, n, ior)
-    c = compact(found & (transmission > 0.001) & (t_len > 0))
+    c = _retrace_lanes(fr, found & (transmission > 0.001) & (t_len > 0))
     t_dir_c = gather(t_dir, c)
     t_dir_n = t_dir_c / torch.clamp(gather(t_len, c)[:, None], min=1e-20)
     t_o = gather(hit_pos, c) + t_dir_c * gather(bias, c)[:, None]
@@ -608,6 +632,37 @@ def _shade_layer(fr: _Frame, o_l, d_l, t, tri, u, v, found, alpha_in,
     return color, torch.where(found, m["alpha"] * (1.0 - alpha_in), 0.0)
 
 
+def simple_unlit_tri(geo: SceneGeometry, enable_mirror: bool,
+                     enable_refraction: bool):
+    """(T,) bool: triangles whose shade is their material's factors alone
+    (rt.py:664-686 _simple_unlit_tri): unlit, no texture that could change
+    base, alpha or emissive or put the material into the mirror gate, no
+    transmission. Under the unlit fast path such a record's full shade is
+    base + emissive with the factor alpha."""
+    mats, usage = geo.materials, geo.usage
+    simple = mats.unlit.clone()
+    if usage.base:
+        simple = simple & (mats.base_tex < 0)
+    if usage.emissive:
+        simple = simple & (mats.emissive_tex < 0)
+    if usage.mr:    # a bound MR texture could enter the mirror gate
+        simple = simple & (mats.mr_tex < 0)
+    if enable_refraction:
+        simple = simple & (torch.clamp(mats.transmission, 0.0, 1.0) <= 0.0)
+    if enable_mirror:
+        simple = simple & ~((torch.clamp(mats.metallic, 0.0, 1.0) >= 0.8) &
+                            (torch.clamp(mats.roughness, 0.05, 1.0) <= 0.08))
+    return simple[geo.tri_material.clamp(min=0)]
+
+
+def _simple_unlit_shade(geo: SceneGeometry, tri):
+    """(color, alpha) of simple-unlit records from their triangles'
+    material rows: base + emissive factors, the clamped alpha factor."""
+    row = geo.materials.packed[geo.tri_material[tri.clamp(min=0)].clamp(
+        min=0)]
+    return row[:, 0:3] + row[:, 6:9], torch.clamp(row[:, 3], 0.0, 1.0)
+
+
 def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
                          live):
     """The layers ``recs`` (layers 2.., or all of them: SGE_RT_LBATCH 2 or
@@ -615,13 +670,42 @@ def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
     then the alpha chain elementwise from ``accum``, ``accum_alpha`` and
     ``live`` (per-record color does not depend on the chain). Records
     without barycentrics (u is None: traced layers) get them on the
-    compacted set (rt.py:1533-1536)."""
+    compacted set (rt.py:1533-1536).
+
+    Under the unlit fast path, simple-unlit records (``simple_unlit_tri``)
+    may leave the full shade (rt.py:1550-1591): with ``unlit_dense`` their
+    color and alpha come from one gather of a per-triangle table over
+    every record, with ``unlit_split`` from a second compacted pass over
+    them alone; the full shade then takes the other records. Either gives
+    the same colors and alphas as the full shade."""
     nl, p = len(recs), ray_o.shape[0]
+    dev = d.device
     t_s = torch.cat([r[0] for r in recs])
     tri_s = torch.cat([r[1] for r in recs])
     f_s = [r[4] for r in recs]
     chain_open = live & (accum_alpha < 0.99)
-    c = compact(torch.cat([f & chain_open for f in f_s]))
+    flat = torch.cat([f & chain_open for f in f_s])
+    heavy, simple = flat, None
+    colors = torch.zeros((nl * p, 3), device=dev)
+    alphas = torch.zeros(nl * p, device=dev)
+    if fr.unlit_fast and (fr.unlit_dense or fr.unlit_split):
+        simple_tri = simple_unlit_tri(fr.geo, fr.enable_mirror,
+                                      fr.enable_refraction)
+        if fr.unlit_dense:
+            col_t, alpha_t = _simple_unlit_shade(fr.geo, torch.arange(
+                simple_tri.shape[0], device=dev))
+            tab = torch.cat([col_t, alpha_t[:, None],
+                             simple_tri.to(torch.float32)[:, None]], 1)
+            rec = tab[tri_s.clamp(min=0)]         # one (nl * p, 5) gather
+            simple_d = flat & (rec[:, 4] > 0.5)
+            heavy = flat & ~simple_d
+            sd = simple_d.to(torch.float32)
+            colors = rec[:, 0:3] * sd[:, None]
+            alphas = rec[:, 3] * sd
+        else:
+            simple = flat & simple_tri[tri_s.clamp(min=0)]
+            heavy = flat & ~simple
+    c = compact(heavy)
     lane = c.safe % p
     oc, dc = ray_o[lane], d[lane]
     tc, tric = gather(t_s, c), gather(tri_s, c)
@@ -632,8 +716,14 @@ def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
         vc = gather(torch.cat([r[3] for r in recs]), c)
     color, alpha = _shade_layer(fr, oc, dc, tc, tric, uc, vc, c.valid,
                                 torch.zeros_like(tc), compacted=True)
-    colors = scatter(torch.zeros((nl * p, 3), device=d.device), c, color)
-    alphas = scatter(torch.zeros(nl * p, device=d.device), c, alpha)
+    colors = scatter(colors, c, color)
+    alphas = scatter(alphas, c, alpha)
+    if simple is not None:     # the split's second, cheap pass
+        cs = compact(simple)
+        color, alpha = _simple_unlit_shade(fr.geo, gather(tri_s, cs))
+        colors = scatter(colors, cs, torch.where(cs.valid[:, None], color,
+                                                 0.0))
+        alphas = scatter(alphas, cs, torch.where(cs.valid, alpha, 0.0))
     colors = colors.reshape(nl, p, 3)
     alphas = alphas.reshape(nl, p)
     for li in range(nl):
@@ -641,7 +731,7 @@ def _shade_continuations(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
         contrib = torch.where(live, alphas[li] * (1.0 - accum_alpha), 0.0)
         accum = accum + colors[li] * contrib[:, None]
         accum_alpha = accum_alpha + contrib
-    return accum + _bg(d.device) * (1.0 - accum_alpha)[:, None]
+    return accum + _bg(dev) * (1.0 - accum_alpha)[:, None]
 
 
 def _shade_layers_compacted(fr: _Frame, ray_o, d, recs, accum, accum_alpha,
@@ -746,18 +836,23 @@ def _layer_records(opq, trs, max_layers: int):
     return recs
 
 
-def _traced_records(fg: FrameGeometry, cam, d, max_layers: int):
+def _traced_records(fg: FrameGeometry, cam, d, max_layers: int,
+                    layer_slots: int = 0):
     """Layer records of the camera rays ``d`` from ONE layered shared-origin
-    walk (K5, rt.py:1687-1719): the nearest opaque hit and max_layers
-    translucent hits per ray, through the floor chain. ``cam``: the origin
-    on the device, where the kernel reads it."""
+    walk (K5, rt.py:1687-1719): the nearest opaque hit and ``layer_slots``
+    (0: max_layers) translucent hits per ray, through the floor chain.
+    Fewer slots than layers tighten the walk's prune bound; the records
+    then differ only where at least that many translucent surfaces lie in
+    front of the opaque hit (rt.py:197-205). ``cam``: the origin on the
+    device, where the kernel reads it."""
     p = d.shape[0]
+    n_slots = layer_slots or max_layers
     srows = RK.build_origin_rows(fg.bvh.rows, cam, fg.bvh.wide.leaves)
     t_opq, otri, lts, lids = RK.trace_layers_so(
         fg.bvh.wide, srows, cam, d,
-        torch.full((p,), BIG, device=d.device), n_slots=max_layers)
+        torch.full((p,), BIG, device=d.device), n_slots=n_slots)
     trs = [(lts[:, k], torch.floor(lids[:, k]).long(), None, None,
-            lids[:, k] >= 0) for k in range(max_layers)]
+            lids[:, k] >= 0) for k in range(n_slots)]
     return _layer_records((t_opq, otri.long(), None, None, t_opq < BIG), trs,
                           max_layers)
 
@@ -846,7 +941,7 @@ def _trace_layers(fr: _Frame, ray_o, d, max_layers: int, trace):
     accum_alpha = contrib
     live = found
     for _ in range(1, max_layers):
-        c = compact(live & (accum_alpha < 0.99))
+        c = _retrace_lanes(fr, live & (accum_alpha < 0.99))
         oc, t, tri, u, v, found = trace(c)
         alpha_c = gather(accum_alpha, c)
         color, contrib = _shade_layer(fr, oc, gather(d, c), t, tri, u, v,
@@ -869,6 +964,15 @@ def check_schedule(primary: str, shadow_sort_mode: str, lbatch: int):
                              f"{value!r}")
 
 
+def check_knobs(layer_slots: int, trans_subdiv: int):
+    """Raise on a slot count or a subdivision depth the frame does not
+    take: K5 holds 1..3 slots (0: max_layers); a depth is >= 0."""
+    if not 0 <= layer_slots <= 3:
+        raise ValueError(f"layer_slots must be 0..3, got {layer_slots}")
+    if trans_subdiv < 0:
+        raise ValueError(f"trans_subdiv must be >= 0, got {trans_subdiv}")
+
+
 def _check_layers(max_layers: int, shadow_layers: int):
     if not 1 <= max_layers <= 3:
         raise ValueError(f"max_layers must be 1..3, got {max_layers}")
@@ -879,10 +983,12 @@ def _check_layers(max_layers: int, shadow_layers: int):
 def _frame(geo, fg, ibl, lights, cam, lanes: int, shadow_layers: int,
            enable_mirror: bool, enable_refraction: bool,
            shadow_prepass: bool, shadow_sort: bool,
-           shadow_sort_mode: str) -> _Frame:
+           shadow_sort_mode: str, **knobs) -> _Frame:
     """The per-frame constants of a batch of ``lanes`` lanes: the light-0
     shadow source its lane count selects (``_shadow_mode``) and its
-    constants, shared by every shade call of the batch."""
+    constants, shared by every shade call of the batch; ``knobs``: the
+    ``_Frame`` switches (unlit_fast, unlit_split, unlit_dense,
+    packet_compact)."""
     mode, shadow = _shadow_mode(geo, fg, lights, lanes, shadow_layers)
     return _Frame(geo=geo, fg=fg, ibl=ibl, lights=lights, cam=cam,
                   shadow=shadow, shadow_layers=shadow_layers,
@@ -890,7 +996,7 @@ def _frame(geo, fg, ibl, lights, cam, lanes: int, shadow_layers: int,
                   enable_refraction=enable_refraction, shadow_mode=mode,
                   shadow_prepass=shadow_prepass and mode == "loop" and
                   RK.walk_available(fg.bvh.rows), shadow_sort=shadow_sort,
-                  shadow_sort_mode=shadow_sort_mode)
+                  shadow_sort_mode=shadow_sort_mode, **knobs)
 
 
 def _render_rays(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
@@ -900,7 +1006,10 @@ def _render_rays(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                  layered: bool = True, shadow_prepass: bool = False,
                  shadow_sort: bool = False,
                  shadow_sort_mode: str = "partition",
-                 lbatch: int = 2) -> torch.Tensor:
+                 lbatch: int = 2, layer_slots: int = 0,
+                 unlit_fast: bool = True, unlit_split: bool = False,
+                 unlit_dense: bool = False,
+                 packet_compact: bool = False) -> torch.Tensor:
     """Trace and shade a flat batch of camera rays -> (P, 3) linear colour,
     no dither and no reshape (rt.py:1393, ``primary=None``): the shardable
     core of the traced frame (``parallel/sharding.py`` runs it on each
@@ -914,7 +1023,8 @@ def _render_rays(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     records, else a dense K4 trace and K4 continuations from offset
     origins. The light-0 shadow source follows the batch's own lane count
     P (rt.py:1420-1423), so a shard of a frame may take another source
-    than the whole frame. Reads nothing back to the host."""
+    than the whole frame. The knob keywords are ``render_frame``'s. Reads
+    nothing back to the host."""
     dev = fg.pos.device
     cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
     bv = fg.bvh
@@ -922,14 +1032,16 @@ def _render_rays(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     if RK.walk_available(bv.rows):
         # K5 and K6 read the origin from the device
         if layered:
-            recs = _traced_records(fg, cam, ray_d, max_layers)
+            recs = _traced_records(fg, cam, ray_d, max_layers, layer_slots)
         else:
             trace = _floor_tracer(fg, cam, ray_o, ray_d)
     else:
         trace = _offset_tracer(bv, ray_o, ray_d)
     fr = _frame(geo, fg, ibl, lights, cam, ray_o.shape[0], shadow_layers,
                 enable_mirror, enable_refraction, shadow_prepass,
-                shadow_sort, shadow_sort_mode)
+                shadow_sort, shadow_sort_mode, unlit_fast=unlit_fast,
+                unlit_split=unlit_split, unlit_dense=unlit_dense,
+                packet_compact=packet_compact)
     if recs is None:
         return _trace_layers(fr, ray_o, ray_d, max_layers, trace)
     return _shade_records(fr, ray_o, ray_d, recs, lbatch, dense=False)
@@ -943,7 +1055,10 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                  primary: str = "hybrid", layered: bool = True,
                  shadow_prepass: bool = False, deferred: bool = False,
                  shadow_sort: bool = False,
-                 shadow_sort_mode: str = "partition", lbatch: int = 2):
+                 shadow_sort_mode: str = "partition", lbatch: int = 2,
+                 layer_slots: int = 0, trans_subdiv: int = 0,
+                 unlit_fast: bool = True, unlit_split: bool = False,
+                 unlit_dense: bool = False, packet_compact: bool = False):
     """Full RT frame -> (H, W, 3) linear color. ``inv_view_proj`` and
     ``view_proj`` are tensors on the geometry's device; ``cam_pos`` (3,) is
     host values (numpy) or a tensor. With all three on the device the frame
@@ -958,9 +1073,23 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     ``render/deferred.py``; ``shadow_sort`` (SGE_SHADOW_SORT) sorts the
     dense calls' shadow sweeps too, in the ``shadow_sort_mode``
     (SGE_SHADOW_SORT_MODE) order; ``lbatch`` (SGE_RT_LBATCH) is the layer
-    schedule. Each keeps the reference's default."""
+    schedule; ``layer_slots`` (SGE_RT_LAYER_SLOTS) gives the layered walk
+    K5 that many slots (0: max_layers); ``trans_subdiv``
+    (SGE_RASTER_TRANS_SUBDIV) splits the "hybrid" translucent subset into
+    4**depth coplanar children before K1 where the gate
+    (``SceneGeometry.trans_untextured``) holds; ``unlit_fast``
+    (SGE_RT_UNLIT) shades unlit records as albedo + emissive, unlit;
+    ``unlit_split`` / ``unlit_dense`` (SGE_RT_UNLIT_SPLIT /
+    SGE_RT_UNLIT_DENSE, under the unlit fast path) take simple-unlit
+    records out of the batched continuation shade; ``packet_compact``
+    (SGE_RT_PACKET_COMPACT) compacts the retraced lanes (bounces, traced
+    continuations) by whole packets of ``PACKET_BLOCK`` lanes. Each keeps
+    the reference's default."""
     check_schedule(primary, shadow_sort_mode, lbatch)
+    check_knobs(layer_slots, trans_subdiv)
     _check_layers(max_layers, shadow_layers)
+    knobs = dict(unlit_fast=unlit_fast, unlit_split=unlit_split,
+                 unlit_dense=unlit_dense, packet_compact=packet_compact)
     dev = fg.pos.device
     ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=dev)
     cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
@@ -971,14 +1100,15 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
                            enable_refraction, layered=layered,
                            shadow_prepass=shadow_prepass,
                            shadow_sort=shadow_sort,
-                           shadow_sort_mode=shadow_sort_mode, lbatch=lbatch)
+                           shadow_sort_mode=shadow_sort_mode, lbatch=lbatch,
+                           layer_slots=layer_slots, **knobs)
     else:
         recs, trace = _raster_records(geo, fg, ivp, view_proj, cam, ray_o,
                                       ray_d, width, height, max_layers,
-                                      primary)
+                                      primary, trans_subdiv)
         fr = _frame(geo, fg, ibl, lights, cam, ray_o.shape[0],
                     shadow_layers, enable_mirror, enable_refraction,
-                    shadow_prepass, shadow_sort, shadow_sort_mode)
+                    shadow_prepass, shadow_sort, shadow_sort_mode, **knobs)
         if recs is None:
             out = _trace_layers(fr, ray_o, ray_d, max_layers, trace)
         elif deferred and primary == "hybrid":
@@ -994,11 +1124,27 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     return untile_image(out, width, height)
 
 
+def subdivide(v0, v1, v2, ids, depth: int):
+    """``depth`` levels of midpoint subdivision (rt.py:1235-1247): each
+    triangle becomes (A, M01, M20), (M01, B, M12), (M20, M12, C),
+    (M01, M12, M20), the same winding, the children of a parent adjacent
+    and carrying its id."""
+    for _ in range(depth):
+        m01, m12, m20 = (v0 + v1) * 0.5, (v1 + v2) * 0.5, (v2 + v0) * 0.5
+        v0, v1, v2 = (torch.stack([v0, m01, m20, m01], 1).reshape(-1, 3),
+                      torch.stack([m01, v1, m12, m12], 1).reshape(-1, 3),
+                      torch.stack([m20, m12, v2, m20], 1).reshape(-1, 3))
+        ids = ids.repeat_interleave(4)
+    return v0, v1, v2, ids
+
+
 def _raster_records(geo, fg, ivp, view_proj, cam, ray_o, ray_d, width,
-                    height, max_layers, primary):
+                    height, max_layers, primary, trans_subdiv: int = 0):
     """The rasterized primaries ("hybrid", "raster", "peels") over the
     whole image plane -> (every layer's records, None), or for "raster"
-    (None, the ``_trace_layers`` tracer of its K4 continuations)."""
+    (None, the ``_trace_layers`` tracer of its K4 continuations).
+    ``trans_subdiv``: the "hybrid" translucent subset's subdivision depth,
+    taken where ``geo.trans_untextured`` holds (0 otherwise)."""
     dev = fg.pos.device
     bv = fg.bvh
     recs = trace = None
@@ -1036,9 +1182,11 @@ def _raster_records(geo, fg, ivp, view_proj, cam, ray_o, ray_d, width,
         trs = []
         ti = geo.translucent_idx
         if ti.numel():
+            v0t, v1t, v2t, ids_t = subdivide(
+                bv.v0[ti], bv.v1[ti], bv.v2[ti], ti.to(torch.float32),
+                trans_subdiv if geo.trans_untextured else 0)
             trs = [rec_of(h) for h in rasterize_clusters(
-                bv.v0[ti], bv.v1[ti], bv.v2[ti], vp, width, height,
-                layers=max_layers, cluster=TRANS_CLUSTER,
-                ids=ti.to(torch.float32), prior_w=h_o.w_depth)]
+                v0t, v1t, v2t, vp, width, height, layers=max_layers,
+                cluster=TRANS_CLUSTER, ids=ids_t, prior_w=h_o.w_depth)]
         recs = _layer_records(rec_of(h_o), trs, max_layers)
     return recs, trace

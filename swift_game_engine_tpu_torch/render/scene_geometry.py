@@ -130,6 +130,22 @@ class SceneGeometry(NamedTuple):
     opaque_idx: torch.Tensor      # (To,) int64: ~tri_translucent
     translucent_idx: torch.Tensor  # (Tt,) int64: tri_translucent
     bounces: BounceUsage          # static: the bounces materials can start
+    # static: some triangle is translucent and no material of the
+    # translucent set binds a texture (rt.py:1120 _trans_subdiv_ok)
+    trans_untextured: bool = False
+
+
+def trans_untextured_np(mats: dict, tri_material, tri_translucent) -> bool:
+    """The gate of the translucent subset's subdivision (rt.py:1120-1136
+    _trans_subdiv_ok): some triangle is translucent and no material of the
+    translucent set binds a texture slot, so sub-triangle barycentrics,
+    which feed only texture taps, change no shade."""
+    tr = np.asarray(tri_translucent, bool)
+    if not tr.any():
+        return False
+    mids = np.unique(np.maximum(np.asarray(tri_material), 0)[tr])
+    return not any((np.asarray(mats[f])[mids] >= 0).any() for f in (
+        "base_tex", "normal_tex", "mr_tex", "emissive_tex", "occlusion_tex"))
 
 
 def pack_scene(arrays: dict, topo, device=None) -> SceneGeometry:
@@ -169,7 +185,8 @@ def pack_scene(arrays: dict, topo, device=None) -> SceneGeometry:
         usage=texture_usage_np(m, tex),
         opaque_idx=t(np.nonzero(~tr)[0], torch.int64),
         translucent_idx=t(np.nonzero(tr)[0], torch.int64),
-        bounces=bounce_usage_np(m))
+        bounces=bounce_usage_np(m),
+        trans_untextured=trans_untextured_np(m, arrays["tri_material"], tr))
 
 
 @dataclass

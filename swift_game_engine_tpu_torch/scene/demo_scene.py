@@ -78,7 +78,8 @@ from ..ecs.world import (BODY_DYNAMIC, BODY_KINEMATIC, BODY_STATIC, SceneSpec,
 from ..math3d import quat_from_axis_angle_np, quat_mul_np
 from ..physics.collision_world import CollisionWorldBuilder, LocalTriangles
 from ..render.rt import DirectionalLights
-from ..render.scene_geometry import RenderGeometryBuilder, SceneGeometry
+from ..render.scene_geometry import (TEXTURE_SIZE, RenderGeometryBuilder,
+                                     SceneGeometry)
 from .step import Stepper
 
 GROUND_Y = -3.0
@@ -278,19 +279,25 @@ def _add_posed_player(wb, rb, asset_dir, player, budget, device):
 
 def build_demo_scene(asset_dir: str = "assets", device="cuda",
                      import_tri_budget: int = IMPORT_TRI_BUDGET,
-                     include_imported_assets: bool = True) -> DemoWorld:
+                     include_imported_assets: bool = True,
+                     pad_entities_to: int = 1,
+                     texture_size: int = TEXTURE_SIZE) -> DemoWorld:
     """The DemoScene world on ``device`` (the card unless asked otherwise;
     see the module docstring). ``asset_dir`` holds the *.static.json /
     *.skinned.json files; ``import_tri_budget`` is the per-part triangle
     budget of the imported meshes (0: full fidelity);
     ``include_imported_assets=False`` leaves out 17-Cheese, Semla and the
     mirror with their hulls (scene/demo_scene.py:72,149: the small
-    world)."""
+    world); ``pad_entities_to`` pads the entity table with dormant slots
+    (``alive=False``, skipped by every system) to a multiple of that count
+    (scene/demo_scene.py:80-82, 256-264: an entity axis split over ranks;
+    0 or 1: no padding); ``texture_size`` is the texture bank's side
+    (demo_scene.py:121, SGE_TEX_SIZE)."""
     device = resolve_device(device)
     budget = import_tri_budget or (1 << 30)
     wb = WorldBuilder()
     cb = CollisionWorldBuilder()
-    rb = RenderGeometryBuilder()
+    rb = RenderGeometryBuilder(texture_size=texture_size)
 
     def asset(name):
         return os.path.join(asset_dir, name)
@@ -418,6 +425,9 @@ def build_demo_scene(asset_dir: str = "assets", device="cuda",
                                   emissive_factor=(2.5, 2.0, 1.2)),
                        instance=step)
 
+    if pad_entities_to > 1:
+        while wb.n % pad_entities_to:
+            wb.create_entity(alive=False)
     spec, state = wb.build(device)
     collision = cb.build(device=device)
     pose = dict(pose_engine=rig.engine, bank=rig.bank,

@@ -61,10 +61,12 @@ The frame is the reference's ``path`` (scene/engine.py:143-177,226-237):
     "clusters" or "lists", ``raster_vis`` "tile" or "trace"), which
     tone-maps per material: no composite.
 
-The reference's render schedules are keyword arguments with its defaults
-(never environment reads): ``deferred``, ``shadow_sort``,
-``shadow_sort_mode`` and ``lbatch`` go to the RT frame, ``raster_vis`` to
-the raster frame; the frame program bakes them in.
+The reference's render schedules and knob paths are keyword arguments
+with its defaults (never environment reads): ``deferred``,
+``shadow_sort``, ``shadow_sort_mode``, ``lbatch``, ``layer_slots``,
+``trans_subdiv``, ``unlit_fast``, ``unlit_split``, ``unlit_dense`` and
+``packet_compact`` go to the RT frame, ``raster_vis`` to the raster frame;
+the frame program bakes them in.
 
 The RT target is ``rt_resolution_scale`` times the drawable (at least 0.25,
 Renderer.swift:175); ``set_rt_resolution_scale`` changes it between frames
@@ -188,6 +190,9 @@ class Engine:
                  deferred: bool = False, shadow_sort: bool = False,
                  shadow_sort_mode: str = "partition", lbatch: int = 2,
                  raster_vis: str = "tile", pipeline_depth: int = 1,
+                 layer_slots: int = 0, trans_subdiv: int = 0,
+                 unlit_fast: bool = True, unlit_split: bool = False,
+                 unlit_dense: bool = False, packet_compact: bool = False,
                  device="cuda"):
         """``scene``: a scene.demo_scene.DemoWorld (or anything with its
         fields: geometry, transforms, palettes, lights, player_position,
@@ -195,14 +200,18 @@ class Engine:
         ``device`` (the card unless asked otherwise).
         ``path``: "rt", "raster" or "raster_pbr" (see the module docstring).
         ``primary``, ``layered``, ``shadow_prepass``, ``deferred``,
-        ``shadow_sort``, ``shadow_sort_mode``, ``lbatch``, ``max_layers``
-        and ``shadow_layers`` go to the RT frame (paths "rt",
+        ``shadow_sort``, ``shadow_sort_mode``, ``lbatch``, ``max_layers``,
+        ``shadow_layers`` and the knob paths (``layer_slots``,
+        ``trans_subdiv``, ``unlit_fast``, ``unlit_split``, ``unlit_dense``,
+        ``packet_compact``; see ``rt.render_frame``) go to the RT frame
+        (paths "rt",
         "raster_pbr"), ``raster_mode`` and ``raster_vis`` to the raster
         frame; each keeps the reference's default. ``pipeline_depth``:
         frames in flight (at least 1)."""
         if path not in PATHS:
             raise ValueError(f"path must be one of {PATHS}, got {path!r}")
         RT.check_schedule(primary, shadow_sort_mode, lbatch)
+        RT.check_knobs(layer_slots, trans_subdiv)
         check_raster(raster_mode, raster_vis)
         self.device = resolve_device(device)
         self.pipeline_depth = max(int(pipeline_depth), 1)
@@ -229,7 +238,11 @@ class Engine:
         self.raster_mode, self.raster_vis = raster_mode, raster_vis
         self.schedule = dict(deferred=deferred, shadow_sort=shadow_sort,
                              shadow_sort_mode=shadow_sort_mode,
-                             lbatch=lbatch)
+                             lbatch=lbatch, layer_slots=layer_slots,
+                             trans_subdiv=trans_subdiv,
+                             unlit_fast=unlit_fast, unlit_split=unlit_split,
+                             unlit_dense=unlit_dense,
+                             packet_compact=packet_compact)
         self.layered, self.shadow_prepass = layered, shadow_prepass
         self.max_layers, self.shadow_layers = max_layers, shadow_layers
         self.rt_scale = None

@@ -29,6 +29,8 @@ issues the substep's ~31,000 kernels with one launch from the host.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -50,6 +52,35 @@ from .cuda_graph import capture
 _MASKS = ("has_body", "has_controller", "has_intent", "has_loco",
           "has_action", "has_dodge", "has_osc", "has_spin", "has_platform",
           "has_wp", "is_player")
+
+
+class Begun(NamedTuple):
+    """The values of a substep's stages before the mover (``Stepper._begin``)
+    that the mover, separation and the stages after them read."""
+
+    m: dict
+    static: torch.Tensor
+    center: torch.Tensor
+    body_pos: torch.Tensor
+    body_vel: torch.Tensor
+    body_rot: torch.Tensor
+    trs_r: torch.Tensor
+    trs_t: torch.Tensor
+    body_prev_pos: torch.Tensor
+    body_prev_rot: torch.Tensor
+    osc_time: torch.Tensor
+    intent_vel: torch.Tensor
+    intent_yaw: torch.Tensor
+    intent_has_yaw: torch.Tensor
+    intent_jump: torch.Tensor
+    intent_dodge: torch.Tensor
+    dodge: object
+    action_trigger: torch.Tensor
+    plat_time: torch.Tensor
+    soup: object
+    platforms: PlatformSet
+    cp: object
+    ctrl: object
 
 
 class Stepper:
@@ -125,7 +156,33 @@ class Stepper:
     def substep(self, state: WorldState, dt: float) -> WorldState:
         return self._substep_impl(state, dt)
 
-    def _substep_impl(self, state: WorldState, dt: float) -> WorldState:
+    def _substep_impl(self, state: WorldState, dt: float, rows=None,
+                      gather=None) -> WorldState:
+        """One fixed substep -> the next WorldState: ``_begin``, ``_move``,
+        ``_separate`` and ``_end``.
+
+        ``rows`` (lo, hi) and ``gather``: one rank's substep of an
+        entity-sharded state (parallel/sharding.py). The mover and
+        separation's casts then run over the rows, and ``gather(list of
+        (hi - lo, ...) tensors)`` gives each over every entity (the ranks'
+        all-gather): after the mover (separation reads every agent) and
+        after separation (the stages after it run over every entity). With
+        no ``rows`` every stage runs over every entity."""
+        dt = float(np.float32(dt))
+        b = self._begin(state, dt)
+        pos, vel, ctrl = self._move(b, dt, rows)
+        if rows is not None:
+            pos, vel = gather([pos, vel])
+        pos, vel, ctrl = self._separate(b, pos, vel, ctrl, rows)
+        if rows is not None:
+            pos, vel, *c = gather([pos, vel, *ctrl])
+            ctrl = type(ctrl)(*c)
+        return self._end(state, b, pos, vel, ctrl, dt)
+
+    def _begin(self, state: WorldState, dt: float) -> Begun:
+        """The substep's stages before the mover, over every entity (the
+        collision soup and the platform set are built from every
+        collider's and platform's pose) -> their values (Begun)."""
         spec, sm = self.spec, self.m
         dt = float(np.float32(dt))
         alive = state.alive
@@ -231,15 +288,39 @@ class Stepper:
                                   (self.body_type == BODY_DYNAMIC), dt,
                                   spec.gravity)
 
-        # --- fixed: KinematicMoveStop; despawned agents stay inert
         cp = spec.controller_params
         cp = cp._replace(active=cp.active & alive)
-        body_pos, body_vel, ctrl = self.pipeline.step(
-            soup, body_pos, body_vel, ctrl, cp, platforms, dt)
+        return Begun(m=m, static=static, center=center, body_pos=body_pos,
+                     body_vel=body_vel, body_rot=body_rot, trs_r=trs_r,
+                     trs_t=trs_t, body_prev_pos=body_prev_pos,
+                     body_prev_rot=body_prev_rot, osc_time=osc_time,
+                     intent_vel=intent_vel, intent_yaw=intent_yaw,
+                     intent_has_yaw=intent_has_yaw, intent_jump=intent_jump,
+                     intent_dodge=intent_dodge, dodge=dodge,
+                     action_trigger=action_trigger, plat_time=plat_time,
+                     soup=soup, platforms=platforms, cp=cp, ctrl=ctrl)
 
-        # --- fixed: AgentSeparation
-        body_pos, body_vel, ctrl = separate_agents(soup, body_pos, body_vel,
-                                                   ctrl, cp)
+    def _move(self, b: Begun, dt: float, rows=None):
+        """KinematicMoveStop over agents ``rows`` (lo, hi), all if None ->
+        their (body_pos, body_vel, ctrl). Despawned agents stay inert."""
+        return self.pipeline.step(b.soup, b.body_pos, b.body_vel, b.ctrl,
+                                  b.cp, b.platforms, float(np.float32(dt)),
+                                  rows)
+
+    def _separate(self, b: Begun, body_pos, body_vel, ctrl, rows=None):
+        """AgentSeparation: ``body_pos`` and ``body_vel`` after the mover
+        over every agent, ``ctrl`` over ``rows`` (all agents if None) ->
+        (body_pos, body_vel, ctrl) over ``rows``."""
+        return separate_agents(b.soup, body_pos, body_vel, ctrl, b.cp,
+                               rows=rows)
+
+    def _end(self, state: WorldState, b: Begun, body_pos, body_vel, ctrl,
+             dt: float) -> WorldState:
+        """The stages after separation, over every entity -> the next
+        WorldState."""
+        dt = float(np.float32(dt))
+        m, static, center = b.m, b.static, b.center
+        body_rot, trs_r, trs_t = b.body_rot, b.trs_r, b.trs_t
 
         # --- fixed: PhysicsIntegrate (plain bodies only)
         integ = m["has_body"] & ~m["has_controller"] & ~m["has_platform"]
@@ -250,7 +331,7 @@ class Stepper:
         body_rot = _w(integ, int_rot, body_rot)
 
         loco, action, palettes, pose_phase = self._pose_systems(
-            state, m, body_vel, body_rot, ctrl, action_trigger, dt)
+            state, m, body_vel, body_rot, ctrl, b.action_trigger, dt)
 
         # --- post: PhysicsWriteback (body -> transform)
         trs_t = _w(m["has_body"], body_pos, trs_t)
@@ -273,11 +354,11 @@ class Stepper:
             wp_prev_chunk=_w(has_wp, state.wp_chunk, state.wp_prev_chunk),
             wp_prev_local=_w(has_wp, state.wp_local, state.wp_prev_local),
             body_pos=body_pos, body_vel=body_vel, body_rot=body_rot,
-            body_prev_pos=body_prev_pos, body_prev_rot=body_prev_rot,
-            ctrl=ctrl, intent_vel=intent_vel, intent_yaw=intent_yaw,
-            intent_has_yaw=intent_has_yaw, intent_jump=intent_jump,
-            intent_dodge=intent_dodge, dodge=dodge, osc_time=osc_time,
-            platform_time=plat_time, loco=loco, action=action,
+            body_prev_pos=b.body_prev_pos, body_prev_rot=b.body_prev_rot,
+            ctrl=ctrl, intent_vel=b.intent_vel, intent_yaw=b.intent_yaw,
+            intent_has_yaw=b.intent_has_yaw, intent_jump=b.intent_jump,
+            intent_dodge=b.intent_dodge, dodge=b.dodge, osc_time=b.osc_time,
+            platform_time=b.plat_time, loco=loco, action=action,
             palettes=palettes, pose_phase=pose_phase)
 
     def _pose_systems(self, state, m, body_vel, body_rot, ctrl,
