@@ -77,18 +77,26 @@ intent to the snapshot's copy:
      ``Engine(path="raster", raster_vis="trace")``: K4 twice a frame (the
      raster path's 2 layers), nothing else, 2 + 3 frames;
  11. ``demo_rt_sharded_960x540``: the full scene through
-     ``parallel/sharding.py`` ``sharded_fused_step`` (one substep replay,
-     the extraction, the flatten and the image-plane-sharded traced frame,
+     ``parallel/sharding.py`` ``sharded_fused_step`` (one substep, the
+     extraction, the flatten and the image-plane-sharded traced frame,
      ``max_layers=3``, 4 shadow layers, mirror and refraction on, no
      dither) in an NCCL group of ``min(cards, 4)`` ranks, one spawned
      process a card, rendezvous through a ``file://`` store in a
-     temporary directory; 2 + 3 frames from a fixed camera, the launch
-     counts of rank 0 (K4 and K2/K3: shards of at least 100,000 lanes on
-     a tree past the walks' row cap), the frame median, and one frame
-     with the shard's render under ``set_sync_debug_mode("error")``. On
-     this card the last timed frame is rendered again from its starting
-     state, whole and as 4 and 8 virtual shards (``sharded_render`` with
-     an int group): each shard's shadow source must be the reference's
+     temporary directory. The step is captured at its first call: a step
+     copies the state in and makes two graph replays, the substep's and
+     the frame's (the extraction, flatten, the shard's render and the
+     NCCL all-gather inside it). 2 + 3 frames from a fixed camera, the
+     launch counts of rank 0 (K4 and K2/K3: shards of at least 100,000
+     lanes on a tree past the walks' row cap), the frame median, the
+     host's CUDA API calls of one step (torch.profiler), the captures'
+     seconds and pool; on every rank the last timed frame run again
+     eagerly from the state it started from must equal the replayed
+     frame bit for bit (image and state), and one whole step under
+     ``set_sync_debug_mode("error")`` must make no host sync. On this
+     card the last timed frame is rendered again from its starting state,
+     whole and as 4 and 8 virtual shards (``sharded_render`` with an int
+     group, captured at its first call; the 4-shard replay bit for bit
+     its eager body): each shard's shadow source must be the reference's
      rule for its lane count (4 shards of 139,264 lanes: the cluster
      sweeps; 8 of 69,632: the K4 loop), the 4-slice image must equal the
      ranks' and the whole batch's (1e-5) and the 8-slice image meet the
@@ -100,16 +108,20 @@ intent to the snapshot's copy:
      The 1,024-agent crowd of ``examples/bench_crowd.build`` (separation's
      grid branch) takes 8 substeps from one state replicated (a
      ``SubstepGraph``), on path 11's NCCL ranks (``entity_worker``, in the
-     same processes) and on 3, 4 and 8 virtual shards on this card; each
-     final state must be the replicated run's bit for bit or within 1e-5
-     (the count of leaves that differ printed), and ms a substep and the
-     all-gathers' share are printed for each. Then path 11's DemoScene
-     frame again from the state its last timed frame started from, on an
-     entity-sharded state (``demo_rt_entity_sharded_960x540``: 4 virtual
-     shards here, padded by ``pad_entities_to`` to the rank count on the
-     ranks where it does not divide), against the replicated state's
-     frame: the states equal, the images within 1e-5; its K2, K3 and K4
-     calls are held against their twins on subsets.
+     same processes) and on 3, 4 and 8 virtual shards on this card, each
+     one graph replay a substep with its all-gathers inside; each final
+     state must be the replicated run's bit for bit or within 1e-5 (the
+     count of leaves that differ printed), and ms a substep and each
+     capture's seconds and pool are printed, and on the ranks the device
+     busy ms of a replay and the NCCL kernels' share of it. Then path 11's
+     DemoScene frame again from the state its last timed frame started
+     from, on an entity-sharded state through the captured
+     ``sharded_fused_step`` (``demo_rt_entity_sharded_960x540``: 4
+     virtual shards here, padded by ``pad_entities_to`` to the rank count
+     on the ranks where it does not divide), against the replicated
+     state's frame: the states equal, the images within 1e-5, a second
+     call bit for bit the first; its K2, K3 and K4 calls are held against
+     their twins on subsets.
 
 The knob paths' first frames (``knob_frames``, KNOB_FRAMES): one eager
 frame at 960x540 of each of ``layer_slots=2`` (path 2), ``trans_subdiv=1``
@@ -591,6 +603,59 @@ def _launches(fn):
     return kernels, host
 
 
+def _api_calls(fn):
+    """The CUDA API calls the host makes in one call of fn, by name
+    (torch.profiler; the closing ``cudaDeviceSynchronize`` not counted)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = {}
+    for ev in prof.events():
+        if ev.device_type.name != "CUDA" and re.match(r"cu(da)?[A-Z]",
+                                                      ev.name):
+            calls[ev.name] = calls.get(ev.name, 0) + 1
+    calls["cudaDeviceSynchronize"] = calls.get("cudaDeviceSynchronize", 1) - 1
+    return {k: v for k, v in sorted(calls.items()) if v}
+
+
+def _union_ms(spans):
+    """The length of the union of (start, end) intervals, us -> ms."""
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy / 1e3
+
+
+def _device_share(fn, reps):
+    """(device busy ms a call: the union of the kernel and memcpy
+    intervals; ms a call of the NCCL kernels; NCCL kernels a call) of
+    ``reps`` calls of fn under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans, nccl = [], []
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            span = (ev.time_range.start, ev.time_range.end)
+            spans.append(span)
+            if "nccl" in ev.name.lower():
+                nccl.append(span)
+    return (_union_ms(spans) / reps, _union_ms(nccl) / reps,
+            len(nccl) / reps)
+
+
 def _busy_syncs(eng, frames=3):
     """(device busy ms a frame: the union of the kernel and memcpy
     intervals; the stream and event synchronisations a frame) of
@@ -609,13 +674,7 @@ def _busy_syncs(eng, frames=3):
             spans.append((ev.time_range.start, ev.time_range.end))
         elif "Synchronize" in ev.name and "Device" not in ev.name:
             syncs += 1
-    busy, end = 0.0, None
-    for a, b in sorted(spans):
-        if end is None or a > end:
-            busy, end = busy + b - a, b
-        elif b > end:
-            busy, end = busy + b - end, b
-    return busy / 1e3 / frames, syncs / frames
+    return _union_ms(spans) / frames, syncs / frames
 
 
 def simulation_phase(dev, world, label="demo", crowd=True):
@@ -931,71 +990,113 @@ def shard_inputs(dev):
             torch.zeros(3, device=dev))
 
 
+def _same_bits(a, b):
+    """Two tensors of one shape and dtype, equal bit for bit."""
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
+
+
 def sharded_worker(rank, world, store, out):
     """Rank ``rank`` of path 11, a process of its own on card ``rank``: an
     NCCL group through the ``file://`` store, the full DemoScene,
     ``sharded_fused_step`` (one substep a frame, max_layers 3, 4 shadow
-    layers) for WARMUP frames, then SHARD_TIMED timed frames with the
-    launch counts zeroed just before and read just after, then one frame
-    with the shard's render (``render_shard``) under
-    ``torch.cuda.set_sync_debug_mode("error")``. Rank 0 saves to ``out``
-    the last timed frame's image, the state it started from, the counts,
-    the times and any host sync."""
+    layers; captured at its first call: the substep graph, and the graph
+    of the extraction and the render with the NCCL all-gather inside) for
+    WARMUP frames, then SHARD_TIMED timed frames (replays) with the launch
+    counts zeroed just before and read just after; then the last timed
+    frame again eagerly (``step.eager``) from the state it started from,
+    which must equal the replayed frame bit for bit, the host's CUDA API
+    calls of one step (torch.profiler), and one whole step under
+    ``torch.cuda.set_sync_debug_mode("error")``; then path 12's part
+    (``entity_worker``). Each rank saves what the phase checks to
+    ``out`` + its rank + ``.pt``; rank 0 also the last timed frame's image,
+    the state it started from, the counts, the times and path 12's
+    results. A rank drops every captured program before it destroys the
+    group: NCCL's communicator waits for the graphs that captured its
+    collectives (a 2-rank run hung there otherwise)."""
     sys.path.insert(0, REPO)
+    import gc
+    import torch
+    from swift_game_engine_tpu_torch.parallel import sharding as SH
+    start = time.perf_counter()
+    group = SH.make_group(rank, world, "file://" + store)
+    _sharded_rank(rank, world, group, out, start)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.distributed.destroy_process_group()
+
+
+def _sharded_rank(rank, world, group, out, start):
+    """``sharded_worker``'s work in its NCCL group ``group``."""
     import torch
     from swift_game_engine_tpu_torch.ecs.world import to_device
     from swift_game_engine_tpu_torch.parallel import sharding as SH
     from swift_game_engine_tpu_torch.render.ibl import IBL
     from swift_game_engine_tpu_torch.scene.demo_scene import build_demo_scene
-    group = SH.make_group(rank, world, "file://" + store)
+    clock = [start]
     dev = torch.device("cuda", rank)
-    try:
-        full = build_demo_scene(ASSETS, device=dev, import_tri_budget=0)
-        ibl = IBL.build(dev)
-        step = SH.sharded_fused_step(group, full, ibl, W, H, 1,
-                                     LAYERS, SHADOW_LAYERS, device=dev)
-        ivp, cam, cam_world = shard_inputs(dev)
-        state = full.state
-        for _ in range(WARMUP):
-            state, img = step(state, ivp, cam, cam_world)
-        zero_counts()
-        times = []
-        for _ in range(SHARD_TIMED):
-            before = state
-            t0 = time.perf_counter()
-            state, img = step(state, ivp, cam, cam_world)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        counts = read_counts()
-        syncs, render_shard = [], SH.render_shard
+    seconds = {}
 
-        def checked(*a, **k):
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return render_shard(*a, **k)
-            except RuntimeError as err:
-                # noted for the phase to fail on; the shard renders again
-                # so that every rank reaches the all-gather
-                syncs.append(str(err))
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            return render_shard(*a, **k)
-        SH.render_shard = checked
-        try:
-            step(state, ivp, cam, cam_world)
-        finally:
-            SH.render_shard = render_shard
+    def lap(name):
         torch.cuda.synchronize()
-        entity = entity_worker(group, world, dev, full, ibl, before, state,
-                               img)
-        if rank == 0:
-            torch.save(dict(before=to_device(before, "cpu"), image=img.cpu(),
-                            counts=counts, times=times, syncs=syncs,
-                            backend=torch.distributed.get_backend(group),
-                            entity=entity), out)
+        clock.append(time.perf_counter())
+        seconds[name] = clock[-1] - clock[-2]
+    full = build_demo_scene(ASSETS, device=dev, import_tri_budget=0)
+    ibl = IBL.build(dev)
+    lap("group and scene")
+    step = SH.sharded_fused_step(group, full, ibl, W, H, 1,
+                                 LAYERS, SHADOW_LAYERS, device=dev)
+    args = shard_inputs(dev)
+    state = full.state
+    for _ in range(WARMUP):
+        state, img = step(state, *args)
+    lap("warm-up frames (captures)")
+    zero_counts()
+    times = []
+    for _ in range(SHARD_TIMED):
+        before = state
+        t0 = time.perf_counter()
+        state, img = step(state, *args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    lap("timed frames")
+    est, eimg = step.eager(before, *args)
+    eager = dict(image=_same_bits(img, eimg),
+                 state=_bits_differ(est, state),
+                 gap=float((img - eimg).abs().max()))
+    lap("eager frame")
+    api = _api_calls(lambda: step(state, *args))
+    lap("API calls' profile")
+    syncs = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, *args)
+    except RuntimeError as err:
+        # noted for the phase to fail on; every rank stops at the same
+        # call, and the step runs again so that every rank makes the
+        # same collectives
+        syncs.append(str(err))
     finally:
-        torch.distributed.destroy_process_group()
+        torch.cuda.set_sync_debug_mode(0)
+    if syncs:
+        step(state, *args)
+    lap("step under sync debug")
+    res = dict(eager=eager, syncs=syncs, api=api,
+               capture_s=step.capture_seconds, pool=step.pool_bytes,
+               seconds=seconds)
+    entity = entity_worker(group, world, dev, full, ibl, before, state,
+                           img)
+    lap("path 12")
+    if rank == 0:
+        res.update(before=to_device(before, "cpu"), image=img.cpu(),
+                   counts=counts, times=times,
+                   backend=torch.distributed.get_backend(group),
+                   entity=entity)
+    torch.save(res, f"{out}{rank}.pt")
 
 
 def _entity_rows(small, padded, n):
@@ -1013,12 +1114,14 @@ def _entity_rows(small, padded, n):
 def entity_worker(group, world, dev, full, ibl, before, state, img):
     """Path 12 on the ranks of path 11's group (see ``entity_phase``):
     ENTITY_STEPS substeps of the ENTITY_AGENTS crowd on its entity-sharded
-    state (``EntityShardedSubstep``: each rank's phases graph replays, the
-    two NCCL all-gathers a substep between them), timed by CUDA events;
-    then the DemoScene frame of path 11's last timed frame again, from the
-    state it started from, sharded over the entities too (padded by
-    ``pad_entities_to`` to the rank count where it does not divide), its
-    state and image held to that frame's. Returns what rank 0 saves."""
+    state (``EntityShardedSubstep``: one graph replay a substep, its two
+    NCCL all-gathers inside), timed by CUDA events, and the NCCL kernels'
+    share of the device time of one more replay (torch.profiler); then the
+    DemoScene frame of path 11's last timed frame again, from the state it
+    started from, sharded over the entities too (padded by
+    ``pad_entities_to`` to the rank count where it does not divide)
+    through the captured ``sharded_fused_step``, its state and image held
+    to that frame's. Returns what rank 0 saves."""
     import torch
     from swift_game_engine_tpu_torch.ecs.world import state_leaves
     from swift_game_engine_tpu_torch.examples import bench_crowd
@@ -1026,22 +1129,20 @@ def entity_worker(group, world, dev, full, ibl, before, state, img):
     from swift_game_engine_tpu_torch.scene.demo_scene import build_demo_scene
     from swift_game_engine_tpu_torch.scene.engine import FIXED_DT
     stepper, cstate = bench_crowd.build(ENTITY_AGENTS, device=dev)
-    t0 = time.perf_counter()
     sim = SH.EntityShardedSubstep(stepper, SH.shard_world_state(group,
                                                                 cstate),
                                   FIXED_DT, group)
-    capture_s = time.perf_counter() - t0
-    sim.gather_events = []
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     a.record()
     for _ in range(ENTITY_STEPS):
         sim.step()
     b.record()
     torch.cuda.synchronize()
-    gather = sum(x.elapsed_time(y) for x, y in sim.gather_events)
-    crowd = dict(leaves=[x.cpu() for x in state_leaves(sim.state)],
-                 ms=a.elapsed_time(b) / ENTITY_STEPS,
-                 gather_ms=gather / ENTITY_STEPS, capture_s=capture_s,
+    leaves = [x.cpu() for x in state_leaves(sim.state)]
+    busy, nccl, n_nccl = _device_share(sim.step, 1)
+    crowd = dict(leaves=leaves, ms=a.elapsed_time(b) / ENTITY_STEPS,
+                 busy_ms=busy, nccl_ms=nccl, nccl_kernels=n_nccl,
+                 capture_s=sim.capture_seconds, pool=sim.pool_bytes,
                  ranges=sim.ranges)
     del sim
     n = full.spec.n_entities
@@ -1066,11 +1167,14 @@ def sharded_phase(dev, full, ibl, cap):
     """Path 11 (see the module docstring): the ranks, then on this card
     the last timed frame again from the state it started from (one eager
     substep, the extraction) rendered whole and as SHARD_VIRTUAL virtual
-    shards, the kernels' first calls of the whole render captured by
-    ``cap``. The 4-slice image must equal the ranks' and the whole
+    shards through the captured ``sharded_render`` (the 4-slice one also
+    eagerly, bit for bit the replay's), the kernels' first calls of the
+    whole render (its program's first warm-up) captured by ``cap``. Every
+    rank's replayed frame must equal its eager frame bit for bit and make
+    no host sync; the 4-slice image must equal the ranks' and the whole
     batch's (1e-5), the 8-slice image, whose shards take another shadow
-    source, meet the whole batch's (>= 99% of pixels within 1e-4). Returns
-    (the ranks' launch counts, rank 0's saved results)."""
+    source, meet the whole batch's (>= 99% of pixels within 1e-4).
+    Returns (the ranks' launch counts, rank 0's saved results)."""
     import shutil
     import tempfile
     import numpy as np
@@ -1083,10 +1187,11 @@ def sharded_phase(dev, full, ibl, cap):
     from swift_game_engine_tpu_torch.render import rt as RT
     from swift_game_engine_tpu_torch.render.scene_geometry import \
         flatten_frame
-    from swift_game_engine_tpu_torch.scene.engine import FIXED_DT
+    from swift_game_engine_tpu_torch.scene.engine import FIXED_DT, \
+        FrameProgram
     world = min(torch.cuda.device_count(), 4)
     tmp = tempfile.mkdtemp()
-    out = os.path.join(tmp, "rank0.pt")
+    out = os.path.join(tmp, "rank")
     t0 = time.perf_counter()
     ctx = mp.start_processes(sharded_worker, args=(world, os.path.join(
         tmp, "store"), out), nprocs=world, join=False, start_method="spawn")
@@ -1103,20 +1208,38 @@ def sharded_phase(dev, full, ibl, cap):
             if proc.is_alive():
                 proc.terminate()
             proc.join()
-    r = torch.load(out, weights_only=False)
+    ranks = [torch.load(f"{out}{r}.pt", weights_only=False)
+             for r in range(world)]
     shutil.rmtree(tmp)
+    r = ranks[0]
     times, counts = r["times"], r["counts"]
     print(f"path {SHARD_PATH}: {world} rank(s), {r['backend']}, one process "
           f"a card; "
           f"frame median {np.median(times):.2f} ms over {SHARD_TIMED} frames "
-          f"(min {min(times):.2f}, max {max(times):.2f}; eager step: one "
-          f"substep replay, extraction, flatten, the shard's render, the "
-          f"all-gather); ranks' phase {time.perf_counter() - t0:.1f} s")
+          f"(min {min(times):.2f}, max {max(times):.2f}; a step: the state's "
+          f"copy in, one substep graph replay, one replay of the extraction, "
+          f"flatten, the shard's render and the all-gather, the copies out); "
+          f"ranks' phase {time.perf_counter() - t0:.1f} s")
     print(f"  launches in {SHARD_TIMED} frames (rank 0): {counts}")
-    print(f"  the shard's render under set_sync_debug_mode('error'): "
-          f"{'no host sync' if not r['syncs'] else r['syncs'][0]}")
-    if r["syncs"]:
-        _fail(f"{SHARD_PATH}: the shard's render synchronised with the host")
+    print(f"  CUDA API calls of one step (rank 0, torch.profiler): "
+          f"{r['api']}")
+    print(f"  captures (rank 0): {r['capture_s']:.3f} s, pool "
+          f"{r['pool'] / 2**20:.1f} MiB; rank 0's seconds: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in r["seconds"].items()))
+    for k, x in enumerate(ranks):
+        e = x["eager"]
+        print(f"  rank {k}: the replayed frame against the eager frame from "
+              f"the same state: image " + ("bit for bit" if e["image"] else
+                                           f"max {e['gap']:.3e}") +
+              ", state " + ("bit for bit" if e["state"] is None else
+                            f"differs at {e['state']}") +
+              "; the whole step under set_sync_debug_mode('error'): " +
+              ("no host sync" if not x["syncs"] else x["syncs"][0]))
+    if any(x["syncs"] for x in ranks):
+        _fail(f"{SHARD_PATH}: a step synchronised with the host")
+    if not all(x["eager"]["image"] and x["eager"]["state"] is None
+               for x in ranks):
+        _fail(f"{SHARD_PATH}: a replayed frame differs from its eager frame")
 
     t0 = time.perf_counter()
     state = full.stepper.substep(to_device(r["before"], dev), FIXED_DT)
@@ -1135,24 +1258,39 @@ def sharded_phase(dev, full, ibl, cap):
     try:
         for k in (1,) + SHARD_VIRTUAL:
             modes.clear()
-            imgs[k] = SH.sharded_render(k, full.geometry, ibl, full.lights,
-                                        W, H, LAYERS, SHADOW_LAYERS,
-                                        dev)(tf, pal, ivp, cam)
+            render = SH.sharded_render(k, full.geometry, ibl, full.lights,
+                                       W, H, LAYERS, SHADOW_LAYERS, dev)
+            imgs[k] = render(tf, pal, ivp, cam)
             cap.off()    # the kernels' first calls: the whole batch's
+            prog = render.program
             rule = "clusters" if modes[0][0] >= RT.SHADOW_CLUSTER_MIN_LANES \
                 else "walk" if walks else "loop"
             print(f"  {k} shard(s) of {modes[0][0]} lanes: shadow source "
-                  f"{modes[0][1]} (the reference's rule: {rule})")
-            if modes != [(modes[0][0], rule)] * k:
+                  f"{modes[0][1]} (the reference's rule: {rule}); captured "
+                  f"in {prog.capture_seconds:.3f} s, pool "
+                  f"{prog.pool_bytes / 2**20:.1f} MiB")
+            # each warm-up and the capture render every shard once
+            if prog.captured is None or modes != [(modes[0][0], rule)] * (
+                    k * (FrameProgram.WARMUP + 1)):
                 _fail(f"{SHARD_PATH}: a shard's shadow source is not the "
-                      f"reference's for its lane count: {modes}")
+                      f"reference's for its lane count, or the render was "
+                      f"not captured: {modes}")
+            if k == SHARD_VIRTUAL[0]:
+                eager = render.eager(tf, pal, ivp, cam)
+                print(f"  {k} shards: the replay against the eager body: " +
+                      ("bit for bit" if _same_bits(imgs[k], eager) else
+                       f"max {float((imgs[k] - eager).abs().max()):.3e}"))
+                if not _same_bits(imgs[k], eager):
+                    _fail(f"{SHARD_PATH}: the {k}-shard replay differs from "
+                          f"its eager body")
+            del render, prog
     finally:
         RT._shadow_mode = shadow_mode
         cap.off()
     whole, four, eight = imgs[1], imgs[SHARD_VIRTUAL[0]], \
         imgs[SHARD_VIRTUAL[1]]
-    ranks = r["image"].to(dev)
-    gap_ranks = float((four - ranks).abs().max())
+    ranks_img = r["image"].to(dev)
+    gap_ranks = float((four - ranks_img).abs().max())
     gap_whole = float((four - whole).abs().max())
     diff8 = (eight - whole).abs().amax(-1)
     frac8 = float((diff8 < 1e-4).float().mean())
@@ -1163,8 +1301,8 @@ def sharded_phase(dev, full, ibl, cap):
           f"{float(diff8.max()):.3e}; means {float(whole.mean()):.6f}, "
           f"{float(four.mean()):.6f}, {float(eight.mean()):.6f}")
     if not all(bool(torch.isfinite(x).all()) and float(x.std()) > 1e-3
-               for x in (whole, four, eight, ranks)) or \
-            tuple(ranks.shape) != (H, W, 3):
+               for x in (whole, four, eight, ranks_img)) or \
+            tuple(ranks_img.shape) != (H, W, 3):
         _fail(f"{SHARD_PATH}: an image is not finite, or constant, or of "
               f"the wrong shape")
     if gap_ranks > 1e-5 or gap_whole > 1e-5 or frac8 < 0.99:
@@ -1201,19 +1339,25 @@ def entity_phase(dev, full, ibl, ranks, before, capture):
         grid branch) takes ENTITY_STEPS substeps from one state on the
         replicated state (``SubstepGraph``), on the ranks of path 11's
         NCCL group (``entity_worker``) and on ENTITY_VIRTUAL virtual shards
-        here (each range's phases graph replays, the all-gathers a
-        concatenation); each final state must be the replicated run's bit
-        for bit or within 1e-5; ms per substep (CUDA events) and the
-        all-gathers' share of it are printed for each;
+        here, each one graph replay a substep (the all-gathers inside: NCCL
+        on the ranks, concatenations here); each final state must be the
+        replicated run's bit for bit or within 1e-5; ms per substep (CUDA
+        events) and the capture's seconds and pool are printed for each,
+        and for the ranks the device busy ms of a replay and the NCCL
+        kernels' share of it (torch.profiler; ``profile_port.py --crowd``
+        profiles the replicated and virtual-shard replays);
       * the DemoScene frame of path 11 (``sharded_fused_step``: one
-        substep, the extraction, the image-plane-sharded render) from the
-        state path 11's last timed frame started from, on an
-        entity-sharded state of ENTITY_DEMO_SHARDS virtual shards, against
-        the replicated state's step over the same shards: the states equal
-        bit for bit, the images within 1e-5; the ranks' run of it (in
-        ``entity_worker``) against path 11's frame the same way. The
-        frame's kernel calls are captured by ``capture()`` (a Capture
-        hooked on just before it) and its launches counted.
+        substep, the extraction, the image-plane-sharded render; captured
+        at its first call) from the state path 11's last timed frame
+        started from, on an entity-sharded state of ENTITY_DEMO_SHARDS
+        virtual shards, against the replicated state's step over the same
+        shards run eagerly (``eager``): the states equal bit for bit, the
+        images within 1e-5; a
+        second call (replays only) equals the first bit for bit; the
+        ranks' run of it (in ``entity_worker``) against path 11's frame
+        the same way. The kernel calls of the first call's warm-ups are
+        captured by ``capture()`` (a Capture hooked on just before it), and
+        the launches of the second call counted.
 
     Returns (the DemoScene frame's launch counts, its Capture)."""
     import torch
@@ -1241,36 +1385,37 @@ def entity_phase(dev, full, ibl, ranks, before, capture):
           f"(SubstepGraph) {ms:.3f} ms a substep (CUDA events)")
     c = ranks["crowd"]
     print(f"  {len(c['ranges'])} rank(s) over NCCL, rows {c['ranges']}: "
-          f"{c['ms']:.3f} ms a substep, the all-gathers {c['gather_ms']:.3f} "
-          f"ms of it ({c['gather_ms'] / c['ms']:.1%}); captures "
-          f"{c['capture_s']:.1f} s")
+          f"{c['ms']:.3f} ms a substep (one replay), device busy "
+          f"{c['busy_ms']:.3f} ms a replay, the NCCL kernels "
+          f"{c['nccl_ms']:.3f} ms of it (" + (
+              f"{c['nccl_ms'] / c['busy_ms']:.1%}" if c["busy_ms"] else
+              "the trace shows no device time") +
+          f"; {c['nccl_kernels']:.0f} a replay); capture "
+          f"{c['capture_s']:.1f} s, pool {c['pool'] / 2**20:.1f} MiB")
     _leaves_agree(f"{len(c['ranges'])} rank(s)",
                   [x.to(dev) for x in c["leaves"]], want)
     for k in ENTITY_VIRTUAL:
-        tc = time.perf_counter()
         sim = SH.EntityShardedSubstep(stepper, SH.shard_world_state(k, state),
                                       FIXED_DT, k)
-        cap_s = time.perf_counter() - tc
-        sim.gather_events = []
+        if sim.graph is None:
+            _fail(f"{ENTITY_PATH}: {k} virtual shards were not captured")
         ms, got = run(sim)
-        gather = sum(x.elapsed_time(y) for x, y in sim.gather_events) / \
-            ENTITY_STEPS
         rows = sorted({hi - lo for lo, hi in sim.ranges})
         print(f"  {k} virtual shards, rows of {rows}: {ms:.3f} ms a substep "
-              f"(the ranges' phases in turn), the all-gathers "
-              f"{gather:.3f} ms of it ({gather / ms:.1%}); captures "
-              f"{cap_s:.1f} s")
+              f"(one replay: the ranges' phases in turn, the "
+              f"concatenations inside); capture "
+              f"{sim.capture_seconds:.1f} s, pool "
+              f"{sim.pool_bytes / 2**20:.1f} MiB")
         _leaves_agree(f"{k} virtual shards", got, want)
         del sim
     args = shard_inputs(dev)
     k = ENTITY_DEMO_SHARDS
     rst, rimg = SH.sharded_fused_step(k, full, ibl, W, H, 1, LAYERS,
-                                      SHADOW_LAYERS, dev)(before, *args)
+                                      SHADOW_LAYERS, dev).eager(before, *args)
     step = SH.sharded_fused_step(k, full, ibl, W, H, 1, LAYERS,
                                  SHADOW_LAYERS, dev)
     sharded = SH.shard_world_state(k, before)
     cap = capture()
-    zero_counts()
     try:
         t1 = time.perf_counter()
         est, eimg = step(sharded, *args)
@@ -1278,20 +1423,29 @@ def entity_phase(dev, full, ibl, ranks, before, capture):
         ms_first = (time.perf_counter() - t1) * 1e3
     finally:
         cap.off()
-    counts = read_counts()
+    zero_counts()
     t1 = time.perf_counter()
-    step(sharded, *args)
+    est2, eimg2 = step(sharded, *args)
     torch.cuda.synchronize()
     ms_next = (time.perf_counter() - t1) * 1e3
+    counts = read_counts()
     gap = float((eimg - rimg).abs().max())
     differ = _bits_differ(est.state, rst)
+    again = _same_bits(eimg2, eimg) and _bits_differ(est2.state,
+                                                     est.state) is None
     print(f"  {ENTITY_DEMO}: the full DemoScene's frame on an entity-sharded "
           f"state ({k} virtual shards, rows {est.ranges}) against the "
-          f"replicated state's over the same shards: image max {gap:.3e}, "
+          f"replicated state's eager step over the same shards: image max "
+          f"{gap:.3e}, "
           f"state " + ("bit for bit" if differ is None else
                        f"differs at {differ}") +
+          f"; the second call " + ("bit for bit the first" if again else
+                                   "differs from the first") +
           f"; {ms_first:.1f} ms with the captures, {ms_next:.1f} ms the "
-          f"next (host clock)")
+          f"next (host clock: two graph replays, the substep's and the "
+          f"frame's, and the copies in and out); captures "
+          f"{step.capture_seconds:.1f} s, pool "
+          f"{step.pool_bytes / 2**20:.1f} MiB")
     print(f"  launches in the frame: {counts}")
     n, n_pad = ranks["demo_entities"]
     print(f"  the ranks' run ({n} entities, {n_pad} with the padding, rows "
@@ -1299,7 +1453,8 @@ def entity_phase(dev, full, ibl, ranks, before, capture):
           f"{ranks['demo_gap']:.3e}, leaves differing "
           f"{ranks['demo_differ'] or 'none'}")
     if gap > 1e-5 or differ is not None or ranks["demo_gap"] > 1e-5 or \
-            ranks["demo_differ"] or tuple(eimg.shape) != (H, W, 3):
+            ranks["demo_differ"] or tuple(eimg.shape) != (H, W, 3) or \
+            not again:
         _fail(f"{ENTITY_DEMO}: the entity-sharded frame disagrees with the "
               f"replicated state's")
     print(f"  ({time.perf_counter() - t0:.1f} s)")
@@ -1422,10 +1577,6 @@ def main():
             RT._shade_hit = shade_hit
         return calls[0]
 
-    def same_bits(a, b):
-        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-            a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
-
     def check_graph(name, eng, frames=3):
         """Frames through the graph against the frame program run eagerly
         on the card at the same inputs, bit for bit (image and snapshot),
@@ -1438,8 +1589,8 @@ def main():
             img = eng.frame((1 / 60, 1 / 24, 1 / 144)[i % 3], pad)
             u8_g, snap_g = eng.program().out
             u8_e, snap_e = eng.program().eager()
-            if not (same_bits(img, u8_g) and same_bits(u8_g, u8_e) and
-                    same_bits(snap_g, snap_e)):
+            if not (_same_bits(img, u8_g) and _same_bits(u8_g, u8_e) and
+                    _same_bits(snap_g, snap_e)):
                 u8_e2, _ = eng.program().eager()
                 apart = int((u8_e2 != u8_e).any(-1).sum())
                 _fail(f"{name}: the frame graph's replay differs from the "
@@ -1545,7 +1696,7 @@ def main():
         for i in range(depth + 2):
             img = eng.frame(1 / 60, InputFrame(ly=1.0, rx=0.5))
             eager.append(eng.program().eager()[0])
-            if i >= depth - 1 and not same_bits(img, eager[i - depth + 1]):
+            if i >= depth - 1 and not _same_bits(img, eager[i - depth + 1]):
                 _fail(f"{name} at depth {depth}: call {i} did not return the "
                       f"frame of call {i - depth + 1}")
         print(f"  at depth {depth}: {depth + 2 - (depth - 1)} frames returned "
@@ -1872,7 +2023,7 @@ def main():
                       f"the translucent records do not explain it")
             if not bool(torch.isfinite(out).all()) or float(out.std()) < 1e-3:
                 _fail(f"{name}: the frame is not finite or is constant")
-            if bound == 0 and not same_bits(out, base) or bound and (
+            if bound == 0 and not _same_bits(out, base) or bound and (
                     share > bound[0] or float(diff.max()) >= bound[1]):
                 _fail(f"{name}: the frame is not within {bound} of the "
                       f"default frame")

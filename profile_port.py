@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a port frame goes, on one NVIDIA GPU.
 
-    python3 profile_port.py [--out profile.json] [--repo DIR]
+    python3 profile_port.py [--out profile.json] [--repo DIR] [--crowd]
 
 Drives the paths that chip_smoke.py defines (``path_engines``: the
 hybrid RT frame of the full DemoScene; the traced frame of the decimated
@@ -46,6 +46,14 @@ at 960x540, and for each:
     the G-buffers, the merged bounce trace, the light passes),
     "raster" (the raster path's frame), "flatten" (``flatten_frame``),
     "composite" (``composite_frame``) and "other" (extraction, upscale).
+
+``--crowd`` profiles chip_smoke.py's path 12 crowd instead of the paths:
+the ``ENTITY_AGENTS`` crowd's substep replicated (a ``SubstepGraph``)
+and on each of ``ENTITY_VIRTUAL`` virtual shards (an
+``EntityShardedSubstep``), one graph replay a substep each: ms a replay
+by CUDA events (mean of 10), and from a torch.profiler trace of one
+replay its device busy time, the share of the replay the card is idle
+(gaps between the graph's kernels), and the kernels it runs.
 
 ``--repo DIR`` profiles the port in another checkout (its package and its
 ``chip_smoke.path_engines``), so that a parent commit and a change are
@@ -330,12 +338,56 @@ def _profile(eng, torch, np):
     }
 
 
+def _crowd(torch):
+    """Path 12's crowd substep replicated and on virtual shards: ms a
+    replay (CUDA events), device busy ms, idle share and kernels of one
+    profiled replay."""
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import ENTITY_AGENTS, ENTITY_VIRTUAL
+    from swift_game_engine_tpu_torch.examples import bench_crowd
+    from swift_game_engine_tpu_torch.parallel import sharding as SH
+    from swift_game_engine_tpu_torch.scene.engine import FIXED_DT
+    from swift_game_engine_tpu_torch.scene.step import SubstepGraph
+    stepper, state = bench_crowd.build(ENTITY_AGENTS,
+                                       device=torch.device("cuda:0"))
+    out = {}
+    for k in (1,) + ENTITY_VIRTUAL:
+        sim = SubstepGraph(stepper, state, FIXED_DT) if k == 1 else \
+            SH.EntityShardedSubstep(stepper, SH.shard_world_state(k, state),
+                                    FIXED_DT, k)
+        sim.step()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(FRAMES):
+            sim.step()
+        b.record()
+        torch.cuda.synchronize()
+        ms = a.elapsed_time(b) / FRAMES
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sim.step()
+            torch.cuda.synchronize()
+        spans = [(ev.time_range.start, ev.time_range.end)
+                 for ev in prof.events() if ev.device_type.name == "CUDA"]
+        busy = _union_ms(spans)
+        name = f"crowd_{ENTITY_AGENTS}_" + ("replicated" if k == 1 else
+                                            f"{k}_virtual_shards")
+        out[name] = dict(ms=ms, busy_ms=busy, idle=1 - busy / ms,
+                         kernels=len(spans),
+                         capture_s=sim.capture_seconds)
+        del sim
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="write the numbers as JSON to this file")
     ap.add_argument("--repo", default=REPO,
                     help="the checkout whose port is profiled (default: "
                          "this one)")
+    ap.add_argument("--crowd", action="store_true",
+                    help="profile path 12's crowd substep in place of the "
+                         "paths")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
     import numpy as np
@@ -350,8 +402,11 @@ def main():
     print(f"card (nvidia-smi name, power limit): {card}")
     print(f"profiling the port in {os.path.abspath(args.repo)}")
     result = {"card": card, "repo": os.path.abspath(args.repo)}
-    for name, _, eng in path_engines(torch.device("cuda:0")):
-        result[name] = _profile(eng, torch, np)
+    if args.crowd:
+        result.update(_crowd(torch))
+    else:
+        for name, _, eng in path_engines(torch.device("cuda:0")):
+            result[name] = _profile(eng, torch, np)
     for name, r in result.items():
         if name not in ("card", "repo"):
             print(name, json.dumps(r))

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .. import math3d as m3
+from .. import resolve_device
 
 
 def compose_tq(t, q):
@@ -26,9 +27,11 @@ def compose_tq(t, q):
 class FKSolver:
     """The FK plan of one skeleton: the level-order permutation, its
     inverse and each level's range and (permuted) parent indices, all
-    static; the index tensors live on ``device``."""
+    static; the index tensors live on ``device``, the card unless the
+    caller names another (raises where CUDA is asked for and absent)."""
 
-    def __init__(self, parent, levels, device="cpu"):
+    def __init__(self, parent, levels, device="cuda"):
+        device = resolve_device(device)
         parent = np.asarray(parent, np.int64)
         b = len(parent)
         perm = np.concatenate([np.asarray(lv, np.int64) for lv in levels]) \

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import constant
+from .. import constant, resolve_device
 from .. import math3d as m3
 from ..assets import nputil
 from ..assets.motion_profile import PackedMotionProfile
@@ -279,12 +279,13 @@ def apply_action_layer(t, q, run_lean_weight, action: ActionProfile,
 
 
 class PoseEngine:
-    """The pose pipeline of one skeleton: its tensors on ``device``, the
-    static FK plan and semantic bone indices."""
+    """The pose pipeline of one skeleton: its tensors on ``device`` (the
+    card unless the caller names another; raises where CUDA is asked for
+    and absent), the static FK plan and semantic bone indices."""
 
-    def __init__(self, skeleton: Skeleton, device="cpu"):
+    def __init__(self, skeleton: Skeleton, device="cuda"):
         self.skeleton = skeleton
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.unit_scale = float(skeleton.unit_scale)
         self.fk = FKSolver(skeleton.parent, skeleton.levels, self.device)
         pre_q = np.stack([nputil.quat_from_mat(m) for m in skeleton.pre_rot])

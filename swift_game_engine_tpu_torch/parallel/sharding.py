@@ -44,6 +44,15 @@ A group is made by ``make_group`` (one process per card, NCCL; gloo for
 after another in this process and concatenated in rank order, the
 all-gather's result with no collective (a one-card check of the sharded
 frame).
+
+The programs: as the reference jits each entry point into one program
+over its mesh, the port captures each on the card as CUDA graphs
+(``scene/cuda_graph.capture``) with the NCCL all-gathers inside: a
+``ShardedRender`` (``sharded_render``) is one replay a call, an
+``EntityShardedSubstep`` one replay a substep, a ``ShardedFusedStep``
+(``sharded_fused_step``) ``n_substeps`` substep replays and one replay of
+the extraction and the render. Every rank captures the same programs in
+the same order. For CPU tensors the same bodies run eagerly.
 """
 
 from __future__ import annotations
@@ -51,16 +60,17 @@ from __future__ import annotations
 from datetime import timedelta
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from .. import constant, resolve_device
 from ..ecs.world import WorldState, clone_state, copy_state
-from ..scene.cuda_graph import capture
 from ..render import rt as RT
-from ..render.camera import generate_rays_tiled, untile_image
+from ..render.camera import (TILE_H, TILE_W, generate_rays_tiled,
+                             untile_image)
 from ..render.scene_geometry import flatten_frame
-from ..scene.engine import FIXED_DT
+from ..scene.engine import FIXED_DT, FrameProgram
 from ..scene.step import SubstepGraph
 
 
@@ -72,7 +82,10 @@ def make_group(rank: int, world: int, init_method: str, device="cuda",
     ``file://`` path needs no network; ``tcp://localhost:<port>`` works
     too). On the card each rank uses ``cuda:<rank>`` unless ``device``
     names its index. ``timeout``: seconds a collective may wait. A failure
-    raises."""
+    raises. Before ``torch.distributed.destroy_process_group()``, drop
+    every program captured over the group and ``gc.collect()``: NCCL's
+    communicator waits for the CUDA graphs that captured its collectives
+    (with two ranks, the destroy otherwise blocks)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev.index if dev.index is not None else rank)
@@ -162,12 +175,13 @@ def _unpack_rows(buf, like):
 
 def gather_rows(group, ranges, parts):
     """The all-gather of an entity-sharded step -> every tensor over all
-    rows. ``parts``: for an int group, one list of tensors per range (the
-    virtual shards'); for a process group, this rank's list alone. The
-    tensors of one rank are packed into one byte buffer, padded to the
-    longest range and gathered in one collective."""
+    rows. ``parts``: one list of tensors per range of this process (every
+    range for an int group, the virtual shards'; this rank's alone for a
+    process group). The tensors of one rank are packed into one byte
+    buffer, padded to the longest range and gathered in one collective."""
     if isinstance(group, int):
         return [torch.cat(xs) for xs in zip(*parts)]
+    (parts,) = parts
     world = len(ranges)
     per = max(hi - lo for lo, hi in ranges)
     own = _pack_rows(parts)
@@ -180,24 +194,26 @@ def gather_rows(group, ranges, parts):
     return _unpack_rows(rows, parts)
 
 
-class EntityShardedSubstep:
+def _mode(group) -> str:
+    """The capture error mode of a program over ``group``: a process
+    group's collective is captured beside its watchdog thread."""
+    return "global" if isinstance(group, int) else "thread_local"
+
+
+class EntityShardedSubstep(SubstepGraph):
     """Fixed substeps of ``stepper`` on an entity-sharded state over
     ``group`` (see the module docstring): ``state`` holds the whole
     WorldState's buffers, cloned from ``sharded.state``, and ``step()``
     advances them in place by one substep of ``dt``.
 
-    On the card each phase is a CUDA graph replay (``scene/cuda_graph
-    .capture``, as ``SubstepGraph``): ``Stepper._begin`` once, then for
-    each of this process's ranges ``_move`` and ``_separate``, then
-    ``_end`` once; the all-gathers between them run eagerly (NCCL for a
-    process group, concatenation for virtual shards). For CPU tensors
-    every phase runs eagerly (``Stepper._substep_impl`` with the rank's
-    rows and the all-gather, or for virtual shards each phase over every
-    range in turn). ``gather_events``: set to a list to have
-    ``step()`` append a (start, end) CUDA event pair around each
-    all-gather."""
+    The substep is ``Stepper._substep_impl`` over this process's ranges
+    (a rank's own, or every virtual shard's in turn) with ``gather_rows``
+    for its two all-gathers (NCCL for a process group, concatenations for
+    virtual shards): one composition, run eagerly for CPU tensors and
+    captured on the card as one CUDA graph with the all-gathers inside
+    (``SubstepGraph``), so ``step()`` is one replay."""
 
-    # each phase's kernels and caches are first used in its one warm-up
+    # the substep's kernels and caches are first used in its one warm-up
     WARMUP = 1
 
     def __init__(self, stepper, sharded: ShardedWorldState, dt: float,
@@ -206,107 +222,14 @@ class EntityShardedSubstep:
         if len(sharded.ranges) != world:
             raise ValueError(f"a state sharded over {len(sharded.ranges)} "
                              f"ranks stepped over {world}")
-        self.stepper, self.dt, self.group = stepper, float(dt), group
+        self.group, self.mode = group, _mode(group)
         self.ranges, self.ranks = sharded.ranges, tuple(ranks)
-        self.state = clone_state(sharded.state)
-        self.gather_events = None
-        self.capture_seconds, self.pool_bytes = 0.0, 0
-        self.graphs = None
-        if self.state.alive.is_cuda:
-            self._capture()
+        super().__init__(stepper, sharded.state, dt)
 
-    def _gather(self, parts):
-        """``parts``: one list of tensors per range of this process."""
-        ev = None
-        if self.gather_events is not None and self.state.alive.is_cuda:
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        out = gather_rows(self.group, self.ranges,
-                          parts if isinstance(self.group, int) else parts[0])
-        if ev is not None:
-            ev[1].record()
-            self.gather_events.append(ev)
-        return out
-
-    def _begin(self):
-        return self.stepper._begin(self.state, self.dt)
-
-    def _move(self, b, r):
-        return list(self.stepper._move(b, self.dt, self.ranges[r]))
-
-    def _separate(self, b, moved, ctrl, r):
-        pos, vel, ctrl = self.stepper._separate(b, *moved, ctrl,
-                                                self.ranges[r])
-        return [pos, vel, *ctrl]
-
-    def _end(self, b, sep):
-        return self.stepper._end(self.state, b, sep[0], sep[1],
-                                 type(b.ctrl)(*sep[2:]), self.dt)
-
-    def _advance(self):
-        if not isinstance(self.group, int):
-            r = self.ranks[0]
-            copy_state(self.state, self.stepper._substep_impl(
-                self.state, self.dt, self.ranges[r],
-                lambda xs: self._gather([xs])))
-            return
-        # virtual shards: each phase over every range before the gather
-        b = self._begin()
-        moves = [self._move(b, r) for r in self.ranks]
-        moved = self._gather([m[:2] for m in moves])
-        seps = [self._separate(b, moved, m[2], r)
-                for r, m in zip(self.ranks, moves)]
-        copy_state(self.state, self._end(b, self._gather(seps)))
-
-    def _capture(self):
-        """Capture each phase after the phases before it have run once,
-        so that its warm-up reads their values; the gathers' results live
-        in buffers the later graphs read."""
-        total, pool = 0.0, 0
-
-        def rec(fn, record=None, run=True):
-            nonlocal total, pool
-            cap, out = capture(fn, record or fn, self.WARMUP)
-            total, pool = total + cap.seconds, pool + cap.pool_bytes
-            if run:     # fills the outputs the next phase reads
-                cap.graph.replay()
-            return cap.graph, out
-
-        begin, b = rec(self._begin)
-        moves = [rec(lambda r=r: self._move(b, r)) for r in self.ranks]
-        self.moved = [x.clone() for x in self._gather(
-            [out[:2] for _, out in moves])]
-        seps = [rec(lambda r=r, m=out: self._separate(b, self.moved, m[2],
-                                                        r))
-                for r, (_, out) in zip(self.ranks, moves)]
-        self.seps = [x.clone() for x in self._gather(
-            [out for _, out in seps])]
-        end, _ = rec(lambda: self._end(b, self.seps),
-                     lambda: copy_state(self.state, self._end(b, self.seps)),
-                     run=False)
-        self.graphs = (begin, [g for g, _ in moves], [g for g, _ in seps],
-                       end)
-        self.outputs = ([out for _, out in moves], [out for _, out in seps])
-        self.capture_seconds, self.pool_bytes = total, pool
-
-    def step(self):
-        """Advance ``state`` in place by one substep."""
-        if self.graphs is None:
-            self._advance()
-            return
-        begin, moves, seps, end = self.graphs
-        begin.replay()
-        for g in moves:
-            g.replay()
-        for dst, src in zip(self.moved, self._gather(
-                [out[:2] for out in self.outputs[0]])):
-            dst.copy_(src)
-        for g in seps:
-            g.replay()
-        for dst, src in zip(self.seps, self._gather(self.outputs[1])):
-            dst.copy_(src)
-        end.replay()
+    def _next(self):
+        return self.stepper._substep_impl(
+            self.state, self.dt, [self.ranges[r] for r in self.ranks],
+            lambda parts: gather_rows(self.group, self.ranges, parts))
 
 
 def render_shard(geo, fg, ibl, lights, cam, o, d, rank: int, world: int,
@@ -318,89 +241,240 @@ def render_shard(geo, fg, ibl, lights, cam, o, d, rank: int, world: int,
                            True, True)
 
 
+def _render_body(group, geo, ibl, lights, width: int, height: int,
+                 max_layers: int, shadow_layers: int, dev):
+    """-> ``body(transforms, palettes, inv_view_proj, cam_pos)``, the
+    sharded frame from device tensors to the (height, width, 3) image:
+    flatten, the tiled camera rays written into padded ray buffers (the
+    padding rays parked far outside the scene, sharding.py:105-109), this
+    process's shard render(s), the all-gather (a concatenation for virtual
+    shards) into a (P, 3) buffer, crop and untile. The buffers are made
+    here, so a CUDA graph of the body writes at fixed addresses."""
+    world, ranks = _ranks(group)
+    n = -(-width // TILE_W) * -(-height // TILE_H) * TILE_W * TILE_H
+    p = n + (-n) % world
+    o = torch.full((p, 3), 1.0e9, device=dev)
+    d = constant((0.0, 1.0, 0.0), dev).expand(p, 3).clone()
+    img = torch.empty((p, 3), device=dev)
+
+    def body(transforms, palettes, inv_view_proj, cam_pos):
+        fg = flatten_frame(geo, transforms, palettes)
+        ro, rd, _, _ = generate_rays_tiled(inv_view_proj, cam_pos, width,
+                                           height)
+        o[:n].copy_(ro)
+        d[:n].copy_(rd)
+        parts = [render_shard(geo, fg, ibl, lights, cam_pos, o, d, r, world,
+                              max_layers, shadow_layers) for r in ranks]
+        if isinstance(group, int):
+            torch.cat(parts, out=img)
+        else:
+            dist.all_gather_into_tensor(img, parts[0].contiguous(),
+                                        group=group)
+        return untile_image(img[:n], width, height)
+
+    return body
+
+
+def _put(dst, value):
+    """``value`` (a tensor, or a host value) into the buffer ``dst``: a
+    device copy, or one non-blocking copy from pinned host memory."""
+    if isinstance(value, torch.Tensor) and value.device == dst.device:
+        dst.copy_(value.reshape(dst.shape))
+        return
+    host = torch.as_tensor(np.asarray(value, np.float32)).reshape(dst.shape)
+    if dst.is_cuda:
+        dst.copy_(host.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(host)
+
+
+def _camera_buffer(dev, count: int):
+    """A flat f32 buffer and its views: the inverse view-projection (4, 4)
+    and ``count - 1`` (3,) vectors (the camera position, and the world
+    position the extraction is relative to)."""
+    buf = torch.empty(16 + 3 * (count - 1), device=dev)
+    return buf, [buf[:16].view(4, 4)] + [buf[16 + 3 * i:19 + 3 * i]
+                                         for i in range(count - 1)]
+
+
+def _stage_camera(buf, views, values):
+    """The camera's values into ``buf``: with every value on the host, one
+    copy of them all (as ``Engine._stage_inputs``), else each by ``_put``."""
+    if any(isinstance(v, torch.Tensor) and v.device == buf.device
+           for v in values):
+        for dst, v in zip(views, values):
+            _put(dst, v)
+        return
+    _put(buf, np.concatenate([np.ravel(np.asarray(v, np.float32))
+                              for v in values]))
+
+
+class ShardedRender:
+    """The image-plane-sharded traced frame of one size, ``sharded_render``'s
+    result: ``render(transforms, palettes, inv_view_proj, cam_pos)``.
+
+    Each call copies its inputs into buffers it owns (device tensors by
+    device copies, host values by one copy from pinned memory) and runs
+    the frame's body (``_render_body``) on them: on the card one replay of
+    a ``FrameProgram`` captured at the first call (``WARMUP`` eager runs
+    first; a capture that fails raises; a process group's all-gather is
+    in the graph), eagerly for CPU tensors. The image is a copy of the
+    body's output (on the card, the graph's). ``eager(...)`` runs the body
+    eagerly at the same inputs whatever the device: on the card, the image
+    a replay must equal bit for bit."""
+
+    def __init__(self, group, geo, ibl, lights, width, height, max_layers,
+                 shadow_layers, dev):
+        self.body = _render_body(group, geo, ibl, lights, width, height,
+                                 max_layers, shadow_layers, dev)
+        self.device, self.mode = dev, _mode(group)
+        self.inputs, (self.ivp, self.cam) = _camera_buffer(dev, 2)
+        self.frame, self.program = None, None
+
+    def _stage(self, transforms, palettes, inv_view_proj, cam_pos):
+        if self.frame is None:
+            self.frame = tuple(torch.empty(tuple(x.shape), device=self.device)
+                               for x in (transforms, palettes))
+        for dst, x in zip(self.frame, (transforms, palettes)):
+            _put(dst, x)
+        _stage_camera(self.inputs, (self.ivp, self.cam),
+                      (inv_view_proj, cam_pos))
+
+    def _run(self):
+        return self.body(*self.frame, self.ivp, self.cam)
+
+    def __call__(self, transforms, palettes, inv_view_proj, cam_pos):
+        self._stage(transforms, palettes, inv_view_proj, cam_pos)
+        if self.program is None:
+            self.program = FrameProgram(self._run, self.device, self.mode)
+        return self.program.run().clone()
+
+    def eager(self, transforms, palettes, inv_view_proj, cam_pos):
+        self._stage(transforms, palettes, inv_view_proj, cam_pos)
+        return self._run().clone()
+
+
 def sharded_render(group, geo, ibl, lights, width: int, height: int,
                    max_layers: int = 2, shadow_layers: int = 1,
-                   device="cuda"):
+                   device="cuda") -> ShardedRender:
     """The image-plane-sharded traced frame (sharding.py:68-118) ->
     ``render(transforms, palettes, inv_view_proj, cam_pos)`` giving the
-    (height, width, 3) linear image, no dither, on every rank.
+    (height, width, 3) linear image, no dither, on every rank (a
+    ``ShardedRender``: on the card one CUDA graph replay a call).
 
     ``group``: a process group from ``make_group`` or an int (virtual
     shards; see the module docstring). ``device``: where the frame runs,
     the card unless the caller asks otherwise; the geometry, lights and
     IBL are on it. Each call flattens the frame, makes the tiled camera
     rays, pads them to a multiple of the world size with rays parked far
-    outside the scene (sharding.py:105-109), renders this rank's slice,
-    gathers the slices and crops and untiles. ``inv_view_proj`` and
-    ``cam_pos`` may be host values or tensors; with tensors on the device
-    the shard's render reads nothing back to the host."""
+    outside the scene, renders this rank's slice, gathers the slices and
+    crops and untiles. ``inv_view_proj`` and ``cam_pos`` may be host values
+    or tensors; nothing is read back to the host."""
     dev = resolve_device(device)
     RT._check_layers(max_layers, shadow_layers)
-    world, ranks = _ranks(group)
+    return ShardedRender(group, geo, ibl, lights, width, height, max_layers,
+                         shadow_layers, dev)
 
-    def render(transforms, palettes, inv_view_proj, cam_pos):
-        fg = flatten_frame(geo, transforms, palettes)
-        ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=dev)
-        cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
-        o, d, _, _ = generate_rays_tiled(ivp, cam, width, height)
-        n = o.shape[0]
-        pad = (-n) % world
-        if pad:
-            o = torch.cat([o, torch.full((pad, 3), 1.0e9, device=dev)])
-            d = torch.cat([d, constant((0.0, 1.0, 0.0), dev).expand(pad, 3)])
-        parts = [render_shard(geo, fg, ibl, lights, cam, o, d, r, world,
-                              max_layers, shadow_layers) for r in ranks]
-        if isinstance(group, int):
-            img = torch.cat(parts)
+
+class ShardedFusedStep:
+    """``sharded_fused_step``'s result: ``step(state, inv_view_proj,
+    cam_pos, cam_world)`` -> (the state after the substeps, the image).
+
+    A call copies ``state`` into the substep's buffers (``copy_state``)
+    and the camera into its input buffer, then makes ``n_substeps``
+    replays of the substep graph (a ``SubstepGraph`` for a WorldState, an
+    ``EntityShardedSubstep`` for a ShardedWorldState) and one replay of a
+    ``FrameProgram`` of the extraction (``Stepper._extract`` at alpha 1
+    relative to ``cam_world``) and the sharded render: at most
+    ``n_substeps + 1`` graph launches and no host read. Both graphs are
+    captured at the first call; for CPU tensors both run eagerly. The
+    returned state (a ShardedWorldState with the same ranges for a
+    sharded one) and image are device copies. ``eager(...)`` runs the
+    same step with every substep and the frame eager (on the card, what
+    the replays must equal bit for bit)."""
+
+    def __init__(self, group, world, ibl, width, height, n_substeps,
+                 max_layers, shadow_layers, dev):
+        self.body = _render_body(group, world.geometry, ibl, world.lights,
+                                 width, height, max_layers, shadow_layers,
+                                 dev)
+        self.group, self.stepper, self.n_substeps = group, world.stepper, \
+            int(n_substeps)
+        self.device = dev
+        self.inputs, (self.ivp, self.cam, self.cam_world) = \
+            _camera_buffer(dev, 3)
+        self.sim, self.program = None, None
+
+    @property
+    def capture_seconds(self) -> float:
+        return sum(0.0 if x is None else x.capture_seconds
+                   for x in (self.sim, self.program))
+
+    @property
+    def pool_bytes(self) -> int:
+        return sum(0 if x is None else x.pool_bytes
+                   for x in (self.sim, self.program))
+
+    def _start(self, state, inv_view_proj, cam_pos, cam_world):
+        sharded = isinstance(state, ShardedWorldState)
+        if self.sim is None:
+            self.sim = EntityShardedSubstep(self.stepper, state, FIXED_DT,
+                                            self.group) if sharded else \
+                SubstepGraph(self.stepper, state, FIXED_DT)
+        elif sharded != isinstance(self.sim, EntityShardedSubstep) or (
+                sharded and state.ranges != self.sim.ranges):
+            raise ValueError("a step keeps the entity partition of its "
+                             "first state")
         else:
-            img = torch.empty((o.shape[0], 3), device=dev)
-            dist.all_gather_into_tensor(img, parts[0].contiguous(),
-                                        group=group)
-        return untile_image(img[:n], width, height)
+            copy_state(self.sim.state, state.state if sharded else state)
+        _stage_camera(self.inputs, (self.ivp, self.cam, self.cam_world),
+                      (inv_view_proj, cam_pos, cam_world))
 
-    return render
+    def _frame(self):
+        transforms, palettes = self.stepper._extract(self.sim.state, 1.0,
+                                                     self.cam_world)
+        return self.body(transforms, palettes, self.ivp, self.cam)
+
+    def _result(self, img):
+        out = clone_state(self.sim.state)
+        if isinstance(self.sim, EntityShardedSubstep):
+            out = ShardedWorldState(out, self.sim.ranges)
+        return out, img
+
+    def __call__(self, state, inv_view_proj, cam_pos, cam_world):
+        self._start(state, inv_view_proj, cam_pos, cam_world)
+        for _ in range(self.n_substeps):
+            self.sim.step()
+        if self.program is None:
+            self.program = FrameProgram(self._frame, self.device,
+                                        _mode(self.group))
+        return self._result(self.program.run().clone())
+
+    def eager(self, state, inv_view_proj, cam_pos, cam_world):
+        self._start(state, inv_view_proj, cam_pos, cam_world)
+        for _ in range(self.n_substeps):
+            self.sim.eager()
+        return self._result(self._frame().clone())
 
 
 def sharded_fused_step(group, world, ibl, width: int, height: int,
                        n_substeps: int = 1, max_layers: int = 1,
-                       shadow_layers: int = 1, device="cuda"):
+                       shadow_layers: int = 1,
+                       device="cuda") -> ShardedFusedStep:
     """The shipped frame's structure over the group (sharding.py:121-166)
     -> ``step(state, inv_view_proj, cam_pos, cam_world)`` giving (the
-    state after the substeps, the (height, width, 3) image).
+    state after the substeps, the (height, width, 3) image): a
+    ``ShardedFusedStep``.
 
     ``world``: a DemoWorld (geometry, lights, stepper) on ``device``. Each
     call runs ``n_substeps`` fixed substeps of the world's Stepper, the
     render extraction at alpha 1 relative to ``cam_world`` (a (3,) tensor
-    on the device), and ``sharded_render``. A WorldState is stepped whole
-    on every rank through a ``SubstepGraph``; a ShardedWorldState
-    (``shard_world_state``) through an ``EntityShardedSubstep``, each rank
-    stepping its own entity rows, and the step then returns a
-    ShardedWorldState with the same ranges. Either is captured at the
-    first call (CUDA graph replays on the card) and the state is copied
-    into its buffers; the returned state is a copy of the buffers."""
+    on the device), and the sharded render. A WorldState is stepped whole
+    on every rank; a ShardedWorldState (``shard_world_state``) by each
+    rank over its own entity rows, and the step then returns a
+    ShardedWorldState with the same ranges. The reference's one program
+    is here two CUDA graphs a step, the substep's and the frame's."""
     dev = resolve_device(device)
-    render = sharded_render(group, world.geometry, ibl, world.lights, width,
-                            height, max_layers, shadow_layers, dev)
-    stepper, sim = world.stepper, None
-
-    def step(state, inv_view_proj, cam_pos, cam_world):
-        nonlocal sim
-        sharded = isinstance(state, ShardedWorldState)
-        if sim is None:
-            sim = EntityShardedSubstep(stepper, state, FIXED_DT, group) \
-                if sharded else SubstepGraph(stepper, state, FIXED_DT)
-        elif sharded != isinstance(sim, EntityShardedSubstep) or (
-                sharded and state.ranges != sim.ranges):
-            raise ValueError("a step keeps the entity partition of its "
-                             "first state")
-        else:
-            copy_state(sim.state, state.state if sharded else state)
-        for _ in range(n_substeps):
-            sim.step()
-        transforms, palettes = stepper._extract(sim.state, 1.0, cam_world)
-        out = clone_state(sim.state)
-        if sharded:
-            out = ShardedWorldState(out, sim.ranges)
-        return out, render(transforms, palettes, inv_view_proj, cam_pos)
-
-    return step
+    RT._check_layers(max_layers, shadow_layers)
+    return ShardedFusedStep(group, world, ibl, width, height, n_substeps,
+                            max_layers, shadow_layers, dev)

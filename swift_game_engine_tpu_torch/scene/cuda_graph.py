@@ -7,6 +7,13 @@ build what a first call builds: cached constants, the kernel library,
 library workspaces), then the allocator's cache is emptied and the work is
 recorded once. A capture that fails raises.
 
+Work that holds a collective (parallel/sharding.py's programs over a
+process group) is captured with ``mode="thread_local"``: the process
+group's watchdog thread polls its events while another thread captures,
+which the default ``"global"`` mode forbids. Its first warm-up creates the
+communicator, so the capture records only the collective itself; every
+rank runs the same warm-ups and captures in the same order.
+
 The kernel wrappers of the port count their launches in module counters
 (``LAUNCH_COUNTERS``). A replay launches the captured kernels without
 calling the wrappers, so ``capture`` keeps what the recorded work added
@@ -77,10 +84,11 @@ class Captured(NamedTuple):
         add_launch_counts(self.launches)
 
 
-def capture(warm, record, warmup: int):
+def capture(warm, record, warmup: int, mode: str = "global"):
     """``warmup`` eager calls of ``warm()`` on a side stream, then ``record()``
     captured into a graph -> (Captured, what ``record`` returned: tensors
-    that each replay writes again)."""
+    that each replay writes again). ``mode``: the capture's error mode
+    (``torch.cuda.graph``'s ``capture_error_mode``)."""
     t0 = time.perf_counter()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -95,7 +103,7 @@ def capture(warm, record, warmup: int):
     reserved = torch.cuda.memory_reserved()
     before = launch_counts()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode=mode):
         out = record()
     torch.cuda.synchronize()
     delta = [_add(a, b, -1) for a, b in zip(launch_counts(), before)]

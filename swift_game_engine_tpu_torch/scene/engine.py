@@ -153,15 +153,17 @@ class FrameProgram:
     graph's own output tensors (the next replay overwrites them); for CPU
     tensors ``run()`` is the eager body. ``eager()`` runs the body eagerly
     on the current inputs whatever the device: on the card, the frame the
-    graph must equal bit for bit."""
+    graph must equal bit for bit. ``mode``: the capture's error mode
+    (``scene/cuda_graph.capture``; parallel/sharding.py's programs over a
+    process group hold a collective)."""
 
     WARMUP = 2
 
-    def __init__(self, body, device):
+    def __init__(self, body, device, mode: str = "global"):
         self.body = body
         self.captured, self.out = None, None
         if device.type == "cuda":
-            self.captured, self.out = capture(body, body, self.WARMUP)
+            self.captured, self.out = capture(body, body, self.WARMUP, mode)
 
     @property
     def capture_seconds(self) -> float:

@@ -161,23 +161,27 @@ class Stepper:
         """One fixed substep -> the next WorldState: ``_begin``, ``_move``,
         ``_separate`` and ``_end``.
 
-        ``rows`` (lo, hi) and ``gather``: one rank's substep of an
-        entity-sharded state (parallel/sharding.py). The mover and
-        separation's casts then run over the rows, and ``gather(list of
-        (hi - lo, ...) tensors)`` gives each over every entity (the ranks'
-        all-gather): after the mover (separation reads every agent) and
-        after separation (the stages after it run over every entity). With
-        no ``rows`` every stage runs over every entity."""
+        ``rows`` and ``gather``: this process's part of an entity-sharded
+        substep (parallel/sharding.py). ``rows`` holds the (lo, hi) entity
+        ranges it steps (one a rank; every range of the virtual shards);
+        the mover and separation's casts run over each range in turn, and
+        ``gather(one list of (hi - lo, ...) tensors per range)`` gives
+        each tensor over every entity (the ranks' all-gather): after the
+        mover (separation reads every agent) and after separation (the
+        stages after it run over every entity). With no ``rows`` every
+        stage runs over every entity."""
         dt = float(np.float32(dt))
         b = self._begin(state, dt)
-        pos, vel, ctrl = self._move(b, dt, rows)
-        if rows is not None:
-            pos, vel = gather([pos, vel])
-        pos, vel, ctrl = self._separate(b, pos, vel, ctrl, rows)
-        if rows is not None:
-            pos, vel, *c = gather([pos, vel, *ctrl])
-            ctrl = type(ctrl)(*c)
-        return self._end(state, b, pos, vel, ctrl, dt)
+        if rows is None:
+            pos, vel, ctrl = self._move(b, dt)
+            pos, vel, ctrl = self._separate(b, pos, vel, ctrl)
+            return self._end(state, b, pos, vel, ctrl, dt)
+        moved = [self._move(b, dt, r) for r in rows]
+        pos, vel = gather([m[:2] for m in moved])
+        seps = [self._separate(b, pos, vel, m[2], r)
+                for r, m in zip(rows, moved)]
+        pos, vel, *c = gather([[p, v, *ctrl] for p, v, ctrl in seps])
+        return self._end(state, b, pos, vel, type(seps[0][2])(*c), dt)
 
     def _begin(self, state: WorldState, dt: float) -> Begun:
         """The substep's stages before the mover, over every entity (the
@@ -449,20 +453,24 @@ class SubstepGraph:
     the state it is given, and ``step()`` advances them in place by one
     substep of ``dt``.
 
-    On the card ``step()`` replays a CUDA graph: ``Stepper._substep_impl``
-    is captured once, after ``WARMUP`` eager runs on a side stream (which
-    write nothing back), and the capture ends by copying each leaf of the
-    substep's result into its buffer. Everything the substep varies is read
-    from the buffers on the device (the player's chunk, the intents); ``dt``
-    and the scene's configuration are the only values the capture bakes
-    in. A capture that fails raises. For CPU tensors ``step()`` runs the
-    eager substep and copies its result into the same buffers.
+    On the card ``step()`` replays a CUDA graph: ``_next()`` (here
+    ``Stepper._substep_impl``) is captured once, after ``WARMUP`` eager
+    runs on a side stream (which write nothing back), and the capture ends
+    by copying each leaf of the substep's result into its buffer.
+    Everything the substep varies is read from the buffers on the device
+    (the player's chunk, the intents); ``dt`` and the scene's configuration
+    are the only values the capture bakes in. A capture that fails raises.
+    For CPU tensors ``step()`` runs the eager substep and copies its result
+    into the same buffers; ``eager()`` does so on any device (on the card,
+    the substep a replay must equal bit for bit).
 
     ``capture_seconds`` and ``pool_bytes`` (the memory the graph's private
-    pool reserved) describe the capture; both are 0 on the CPU.
+    pool reserved) describe the capture; both are 0 on the CPU. ``mode``:
+    the capture's error mode (``scene/cuda_graph.capture``).
     """
 
     WARMUP = 3
+    mode = "global"
 
     def __init__(self, stepper: Stepper, state: WorldState, dt: float):
         self.stepper, self.dt = stepper, float(dt)
@@ -472,20 +480,22 @@ class SubstepGraph:
         if self.state.alive.is_cuda:
             self._capture()
 
-    def _advance(self):
-        copy_state(self.state,
-                   self.stepper._substep_impl(self.state, self.dt))
+    def _next(self) -> WorldState:
+        """The substep from the buffers -> the next state."""
+        return self.stepper._substep_impl(self.state, self.dt)
+
+    def eager(self):
+        """Advance ``state`` in place by one eager substep."""
+        copy_state(self.state, self._next())
 
     def _capture(self):
-        cap, _ = capture(lambda: self.stepper._substep_impl(self.state,
-                                                           self.dt),
-                         self._advance, self.WARMUP)
+        cap, _ = capture(self._next, self.eager, self.WARMUP, self.mode)
         self.graph = cap.graph
         self.capture_seconds, self.pool_bytes = cap.seconds, cap.pool_bytes
 
     def step(self):
         """Advance ``state`` in place by one substep."""
         if self.graph is None:
-            self._advance()
+            self.eager()
         else:
             self.graph.replay()

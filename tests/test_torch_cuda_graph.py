@@ -33,7 +33,6 @@ origin, the count and the light direction from device memory.
 """
 
 import os
-import sys
 
 import numpy as np
 import pytest
@@ -95,9 +94,8 @@ def _world(name, dev, tmp_path):
             os.path.dirname(__file__), "..", "assets"))
         _, state, stepper, h = W.posed_port_world(rig, dev)
         return stepper, state, h["player"]
-    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
-    from chip_smoke import build_crowd
-    stepper, state = build_crowd(dev)
+    from swift_game_engine_tpu_torch.examples import bench_crowd
+    stepper, state = bench_crowd.build(256, device=dev)
     return stepper, state, stepper.player_idx
 
 

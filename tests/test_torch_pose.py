@@ -70,7 +70,7 @@ def rig(tmp_path_factory):
     jbank = jeng.make_bank(*(jmp.pack_profile(jprof[n], jsk) for n in LOCO))
     jact = jeng.make_action(jmp.pack_profile(
         jprof["StandingDodgeBackward"], jsk))
-    peng = PP.PoseEngine(psk)
+    peng = PP.PoseEngine(psk, device="cpu")
     pbank = peng.make_bank(*(pmp.pack_profile(pprof[n], psk) for n in LOCO))
     pact = peng.make_action(pmp.pack_profile(
         pprof["StandingDodgeBackward"], psk))
@@ -216,7 +216,7 @@ def test_fk_matches_reference(rig):
     q = rng.normal(size=(n, b, 4)).astype(np.float32)
     q /= np.linalg.norm(q, axis=-1, keepdims=True)
     jsolver = jfk.FKSolver(jsk.parent, jsk.levels)
-    psolver = pfk.FKSolver(jsk.parent, jsk.levels)
+    psolver = pfk.FKSolver(jsk.parent, jsk.levels, device="cpu")
     jt, jq = jax.vmap(jsolver.model_tq)(t, q)
     pt, pq = psolver.model_tq(torch.as_tensor(t), torch.as_tensor(q))
     np.testing.assert_allclose(pt.numpy(), np.asarray(jt), atol=1e-5)
@@ -430,3 +430,20 @@ def _against_oracle(rig, case, got, steps):
                                atol=5e-3)
     np.testing.assert_allclose(got.model[0].numpy(), o["model"], atol=5e-3)
     assert float(got.phase[0]) == pytest.approx(float(o["phase"]), abs=1e-4)
+
+
+def test_pose_entry_points_need_a_device_without_cuda(rig):
+    """``PoseEngine`` and ``FKSolver`` put their tensors on the card unless
+    the caller names another device; without CUDA a call that names none
+    raises, and ``device="cpu"`` builds them on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults use it")
+    psk = rig["psk"]
+    for call in (lambda: PP.PoseEngine(psk),
+                 lambda: pfk.FKSolver(psk.parent, psk.levels)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    eng = PP.PoseEngine(psk, device="cpu")
+    assert eng.device.type == "cpu" and eng.fk.perm.device.type == "cpu"
+    assert pfk.FKSolver(psk.parent, psk.levels,
+                        device="cpu").perm.device.type == "cpu"

@@ -168,6 +168,39 @@ def test_sharded_render_pads_rays(port, scene):
                                atol=1e-5)
 
 
+def test_sharded_render_reads_each_call_inputs(port, scene):
+    """One ``sharded_render`` (3 shards: padded rays) called at two
+    cameras, the CPU run of the body the card captures at its first call:
+    each image is the JAX sharded frame's at that camera (8 devices,
+    traversal tolerance), so no host value of the first call is kept.
+    The second camera arrives as device tensors, the first as host
+    values; ``eager`` at the second camera equals the call bit for bit."""
+    geo, tf, pal, lights, ibl = scene
+    cam_b = T.camera()
+    cam_b.position = np.array([-3.0, 6.0, 9.0], np.float32)
+    cam_b.target = np.array([1.0, 0.5, -1.0], np.float32)
+    render = SH.sharded_render(3, port["geo"], port["ibl"], port["lights"],
+                               T.W, T.H, T.LAYERS, T.SHADOW_LAYERS,
+                               device="cpu")
+    jrender = JSH.sharded_render(JSH.make_mesh(jax.devices()[:8]), geo, ibl,
+                                 lights, T.W, T.H, max_layers=T.LAYERS,
+                                 shadow_layers=T.SHADOW_LAYERS)
+    imgs = []
+    for cam, as_tensor in ((T.camera(), False), (cam_b, True)):
+        ivp, pos = cam.inv_view_proj(T.W, T.H), cam.position
+        args = (port["transforms"], port["palettes"],
+                torch.as_tensor(ivp) if as_tensor else ivp,
+                torch.as_tensor(pos) if as_tensor else pos)
+        img = render(*args)
+        want = np.asarray(jrender(jnp.asarray(tf), jnp.asarray(pal),
+                                  jnp.asarray(ivp), jnp.asarray(pos)))
+        assert img.shape == (T.H, T.W, 3) and float(img.std()) > 1e-3
+        T._agree(img.numpy(), want, 0.99, 5e-3)
+        imgs.append(img)
+    assert torch.equal(render.eager(*args), imgs[1])
+    assert float((imgs[0] - imgs[1]).abs().max()) > 0.1
+
+
 @pytest.mark.parametrize("world", [3, 8])
 def test_shard_rays_pads_as_reference(world):
     """Origin 0 and direction +y on the padding rays (sharding.py:31-40);
