@@ -1,0 +1,12 @@
+"""render_other_ms — render: device ms a frame of the frame program's stage
+``sge.render.other`` (the rest of the frame program: extraction, upscale,
+u8, overlay, snapshot): the nodes of that stage in the stage table the
+program keeps for the graph, read from each replay inside the benchmark's
+``portbench.frame_program`` spans (``portbench/stage_split.py``)."""
+
+from portbench.stage_split import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "frame_program", "sge.frame_program",
+                    "sge.render.other")

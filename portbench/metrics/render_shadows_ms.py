@@ -1,0 +1,13 @@
+"""render_shadows_ms — render: device ms a frame of the frame program's
+stage ``sge.render.shadows`` (the light-0 shadow source and every shadow
+sweep (K2/K3), wherever called): the nodes of that stage in the stage table
+the program keeps for the graph, read from each replay inside the
+benchmark's ``portbench.frame_program`` spans
+(``portbench/stage_split.py``)."""
+
+from portbench.stage_split import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "frame_program", "sge.frame_program",
+                    "sge.render.shadows")

@@ -33,19 +33,20 @@ at 960x540, and for each:
     trace is the script's own and not counted) per frame, and device time
     per frame of the port's own kernels and of the rest;
   * the render's device time split by stage, from a torch.profiler trace of
-    3 eager renders (``Engine.render``; a graph's replay runs the same
-    kernels but hides which Python issued them): each stage is a
-    ``record_function`` range that this script wraps around the render's
-    functions, and a kernel counts for the innermost range it was issued
-    in: "primary" (``render_frame``: rays, primary visibility (K1, K5 or
-    a traced layer 1), the layer records, dither), "layer-1 shade"
-    (the frame's first ``_shade_layer``), "continuations" (layers 2..,
-    compacted, with their traces), "mirror", "refraction", "shadows"
-    (``_shadow_mode``'s per-frame setup and every ``_shadow_factor``),
-    "deferred" (``render/deferred.py``'s shade but its one shadow sweep:
-    the G-buffers, the merged bounce trace, the light passes),
-    "raster" (the raster path's frame), "flatten" (``flatten_frame``),
-    "composite" (``composite_frame``) and "other" (extraction, upscale).
+    3 eager renders (``Engine.render``; in a graph's replay no host range
+    is open, and the benchmark's ``render_*_ms`` readers split the replays
+    by the stage tables the captures keep): the stages are the program's
+    own ``sge.render.*`` ranges (``swift_game_engine_tpu_torch/spans.py``),
+    and a kernel counts for the innermost range it was issued in:
+    "primary" (``render_frame``: rays, primary visibility (K1, K5 or a
+    traced layer 1), the layer records, dither), "layer1" (the frame's
+    first layer shade), "continuations" (layers 2.., compacted, with their
+    traces), "mirror" and "refraction" (the two bounce passes, with their
+    K4 traces), "shadows" (the light-0 shadow source and every shadow
+    sweep), "deferred" (``render/deferred.py``'s shade but its one shadow
+    sweep), "raster" (the raster path's frame), "flatten"
+    (``flatten_frame``), "composite" (``composite_frame``) and "other"
+    (extraction, upscale, outside every stage range).
 
 ``--crowd`` profiles chip_smoke.py's path 12 crowd instead of the paths:
 the ``ENTITY_AGENTS`` crowd's substep replicated (a ``SubstepGraph``)
@@ -57,8 +58,9 @@ replay its device busy time, the share of the replay the card is idle
 
 ``--repo DIR`` profiles the port in another checkout (its package and its
 ``chip_smoke.path_engines``), so that a parent commit and a change are
-measured in one run on one card; a stage whose function that checkout
-lacks is left out.
+measured in one run on one card; a checkout whose port opens no stage
+ranges (one older than the stage ranges) gives no stage split, only
+"other".
 
 Prints one line per path and, with ``--out``, writes the numbers there as
 JSON.
@@ -76,6 +78,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FRAMES, PROFILED, STAGE_REPS = 10, 3, 5
+STAGE = "sge.render."     # the program's render stage ranges (spans.py)
 
 
 def _union_ms(intervals):
@@ -91,77 +94,6 @@ def _union_ms(intervals):
     return total / 1e3
 
 
-STAGES = (("render.rt", "render_frame", "primary"),
-          ("render.rt", "_shade_layer", "layer-1 shade"),
-          ("render.rt", "_shade_continuations", "continuations"),
-          ("render.rt", "_mirror_pass", "mirror"),
-          ("render.rt", "_refraction_pass", "refraction"),
-          ("render.rt", "_shadow_mode", "shadows"),
-          ("render.rt", "_shadow_factor", "shadows"),
-          ("render.deferred", "shade_deferred", "deferred"),
-          ("scene.engine", "render_frame_raster", "raster"),
-          ("scene.engine", "flatten_frame", "flatten"),
-          ("scene.engine", "composite_frame", "composite"))
-# traced layers: trace(None) is layer 1's visibility, trace(lanes) a
-# continuation's
-TRACERS = ("_floor_tracer", "_offset_tracer")
-
-
-def _stage_wrappers(torch):
-    """Wrap the render's functions in ``record_function("stage:<name>")``
-    ranges -> a function that takes the wrappers off."""
-    import importlib
-    from torch.profiler import record_function
-    stack, undo, shades = [], [], [0]
-
-    def ranged(fn, stage):
-        def run(*a, **k):
-            name = stage
-            if stage == "primary" and not stack:
-                shades[0] = 0              # a new frame
-            if stage == "layer-1 shade":
-                # the frame's first layer shade; later ones (traced
-                # continuation layers) and those inside the continuations
-                # are the continuations'
-                shades[0] += 1
-                if shades[0] > 1 or "continuations" in stack:
-                    name = "continuations"
-            stack.append(name)
-            try:
-                with record_function("stage:" + name):
-                    return fn(*a, **k)
-            finally:
-                stack.pop()
-        return run
-
-    def patch(mod, attr, new):
-        undo.append((mod, attr, getattr(mod, attr)))
-        setattr(mod, attr, new)
-
-    pkg = "swift_game_engine_tpu_torch."
-    for mod_name, attr, stage in STAGES:
-        try:
-            mod = importlib.import_module(pkg + mod_name)
-        except ModuleNotFoundError:
-            continue
-        if hasattr(mod, attr):
-            patch(mod, attr, ranged(getattr(mod, attr), stage))
-    rt = importlib.import_module(pkg + "render.rt")
-    for attr in TRACERS:
-        def tracer(*a, _make=getattr(rt, attr), **k):
-            trace = _make(*a, **k)
-            first, rest = ranged(trace, "primary"), \
-                ranged(trace, "continuations")
-            return lambda lanes: first(lanes) if lanes is None else \
-                rest(lanes)
-        patch(rt, attr, tracer)
-
-    def off():
-        for mod, attr, fn in reversed(undo):
-            setattr(mod, attr, fn)
-    return off
-
-
 def _device_us(ev):
     for attr in ("device_time_total", "cuda_time_total"):
         v = getattr(ev, attr, None)
@@ -171,14 +103,15 @@ def _device_us(ev):
 
 
 def _stage_split(prof, frames):
-    """Device ms per frame of each stage, a kernel counted for the
-    innermost stage range it was issued in."""
+    """Device ms per frame of each of the program's render stages (its
+    ``sge.render.*`` ranges), a kernel counted for the innermost stage
+    range it was issued in."""
     out = {}
 
     def inner_total(ev):
         total = 0.0
         for ch in ev.cpu_children:
-            total += _device_us(ch) if ch.name.startswith("stage:") else \
+            total += _device_us(ch) if ch.name.startswith(STAGE) else \
                 inner_total(ch)
         return total
 
@@ -188,13 +121,13 @@ def _stage_split(prof, frames):
 
     top = 0.0
     for ev in prof.events():
-        if ev.device_type.name != "CPU" or not ev.name.startswith("stage:"):
+        if ev.device_type.name != "CPU" or not ev.name.startswith(STAGE):
             continue
-        key = ev.name[len("stage:"):]
+        key = ev.name[len(STAGE):]
         out[key] = out.get(key, 0.0) + stage_total(ev)
         parent, nested = ev.cpu_parent, False
         while parent is not None:
-            nested |= parent.name.startswith("stage:")
+            nested |= parent.name.startswith(STAGE)
             parent = parent.cpu_parent
         if not nested:
             top += _device_us(ev)
@@ -263,8 +196,6 @@ def _profile(eng, torch, np):
     for ev in prof.events():
         name = ev.name
         if ev.device_type.name == "CUDA":
-            if name.startswith("stage:"):
-                continue
             span = (ev.time_range.start, ev.time_range.end)
             intervals.append(span)
             if "memcpy" in name.lower() or "memset" in name.lower():
@@ -291,23 +222,18 @@ def _profile(eng, torch, np):
     frame_syncs = sum(v for k, v in syncs.items() if "Device" not in k)
 
     # the render's device time by stage, on eager renders
-    off = _stage_wrappers(torch)
-    try:
-        alpha = eng.accumulator / FIXED_DT
-        eng.render(alpha)
+    alpha = eng.accumulator / FIXED_DT
+    eng.render(alpha)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED):
+            eng.render(alpha)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILED):
-                eng.render(alpha)
-            torch.cuda.synchronize()
-    finally:
-        off()
     split, staged = _stage_split(prof, PROFILED)
     render_busy = _union_ms([
         (ev.time_range.start, ev.time_range.end) for ev in prof.events()
-        if ev.device_type.name == "CUDA" and
-        not ev.name.startswith("stage:")]) / PROFILED
+        if ev.device_type.name == "CUDA"]) / PROFILED
     render_kernels = sum(
         _device_us(ev) for ev in prof.events()
         if ev.device_type.name == "CPU" and ev.cpu_parent is None) / 1e3 / \

@@ -72,6 +72,7 @@ from ..render.camera import (TILE_H, TILE_W, generate_rays_tiled,
 from ..render.scene_geometry import flatten_frame
 from ..scene.engine import FIXED_DT, FrameProgram
 from ..scene.step import SubstepGraph
+from ..spans import stage
 
 
 def make_group(rank: int, world: int, init_method: str, device="cuda",
@@ -258,7 +259,8 @@ def _render_body(group, geo, ibl, lights, width: int, height: int,
     img = torch.empty((p, 3), device=dev)
 
     def body(transforms, palettes, inv_view_proj, cam_pos):
-        fg = flatten_frame(geo, transforms, palettes)
+        with stage("sge.render.flatten"):
+            fg = flatten_frame(geo, transforms, palettes)
         ro, rd, _, _ = generate_rays_tiled(inv_view_proj, cam_pos, width,
                                            height)
         o[:n].copy_(ro)

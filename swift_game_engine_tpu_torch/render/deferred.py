@@ -39,6 +39,7 @@ import torch
 
 from ..math3d import normalize
 from ..ops.rt_kernel import trace_batch
+from ..spans import stage
 from .compact import compact, gather, scatter
 from .ibl import eval_env_sh
 from .shading import fresnel_schlick, fresnel_schlick3, reflect
@@ -126,8 +127,10 @@ def shade_deferred(fr, ray_o, ray_d, recs):
         gate_all = torch.cat([gate_l, gate_b])
 
     # ---- 5. ONE shadow sweep over every origin, sorted
-    shadow_all = RT._shadow_factor(fr, hp_all, n_all, fr.lights.direction[0],
-                                   max_d0, bias_all, gate_all, sort=True)
+    with stage("sge.render.shadows"):
+        shadow_all = RT._shadow_factor(fr, hp_all, n_all,
+                                       fr.lights.direction[0], max_d0,
+                                       bias_all, gate_all, sort=True)
 
     # ---- 6. one light pass for each set
     color_l = RT._light_records(fr, d_rec, m_l, n_l, hp_l, shade_flat, True,

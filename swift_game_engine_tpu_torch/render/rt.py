@@ -98,6 +98,7 @@ from ..ops import rt_kernel as RK
 from ..ops.cluster_shadow import (_part1by1, build_shadow_split,
                                   trace_shadow_split)
 from ..ops.rt_kernel import barycentrics, trace_batch
+from ..spans import stage
 from .camera import generate_rays_tiled, untile_image
 from .compact import compact, gather, packets, scatter
 from .ibl import IBL, eval_env_sh, eval_spec_ibl
@@ -540,8 +541,9 @@ def _shade_hit(fr: _Frame, ray_o, ray_d, t_hit, tri, u, v, active,
     gates = [_light_gate(fr, i, m, n, hit_pos, active)
              for i in range(fr.lights.direction.shape[0])]
     gate0, _, max_dist0, _ = gates[0]
-    shadow0 = _shadow_factor(fr, hit_pos, n, fr.lights.direction[0],
-                             max_dist0, bias, gate0, sort=sort)
+    with stage("sge.render.shadows"):
+        shadow0 = _shadow_factor(fr, hit_pos, n, fr.lights.direction[0],
+                                 max_dist0, bias, gate0, sort=sort)
     color = _light_records(fr, ray_d, m, n, hit_pos, active, with_ibl_spec,
                            shadow0, gates)
     return color, m, n, hit_pos, bias
@@ -623,12 +625,15 @@ def _shade_layer(fr: _Frame, o_l, d_l, t, tri, u, v, found, alpha_in,
                                             found, True,
                                             sort=True if compacted else None)
     if fr.enable_mirror:
-        mirror = found & (m["roughness"] <= 0.08) & (m["metallic"] >= 0.8)
-        color = _mirror_pass(fr, d_l, n, hit_pos, bias, m["metallic"],
-                             m["base"], mirror, color)
+        with stage("sge.render.mirror"):
+            mirror = found & (m["roughness"] <= 0.08) & (m["metallic"] >= 0.8)
+            color = _mirror_pass(fr, d_l, n, hit_pos, bias, m["metallic"],
+                                 m["base"], mirror, color)
     if fr.enable_refraction:
-        color = _refraction_pass(fr, d_l, n, hit_pos, bias, m["base"],
-                                 m["transmission"], m["ior"], found, color)
+        with stage("sge.render.refraction"):
+            color = _refraction_pass(fr, d_l, n, hit_pos, bias, m["base"],
+                                     m["transmission"], m["ior"], found,
+                                     color)
     return color, torch.where(found, m["alpha"] * (1.0 - alpha_in), 0.0)
 
 
@@ -776,22 +781,25 @@ def _shade_records(fr: _Frame, ray_o, d, recs, lbatch: int, dense: bool):
     records), else it is mode 0."""
     p, dev = ray_o.shape[0], ray_o.device
     if lbatch == 1:
-        return _shade_continuations(
-            fr, ray_o, d, recs, torch.zeros((p, 3), device=dev),
-            torch.zeros(p, device=dev), torch.ones(p, dtype=torch.bool,
-                                                   device=dev))
+        with stage("sge.render.continuations"):
+            return _shade_continuations(
+                fr, ray_o, d, recs, torch.zeros((p, 3), device=dev),
+                torch.zeros(p, device=dev), torch.ones(p, dtype=torch.bool,
+                                                       device=dev))
     t1, tri1, u1, v1, f1 = recs[0]
     if u1 is None:                       # traced layer 1: dense barycentrics
         u1, v1, _ = barycentrics(fr.fg.bvh, ray_o, d, t1, tri1)
-    color, contrib = _shade_layer(fr, ray_o, d, t1, tri1, u1, v1, f1,
-                                  torch.zeros(p, device=dev))
+    with stage("sge.render.layer1"):
+        color, contrib = _shade_layer(fr, ray_o, d, t1, tri1, u1, v1, f1,
+                                      torch.zeros(p, device=dev))
     accum = color * contrib[:, None]
     if len(recs) == 1:
         return accum + _bg(dev) * (1.0 - contrib)[:, None]
     shade = _shade_continuations if lbatch == 2 else \
         _shade_layers_dense if lbatch == 3 and dense else \
         _shade_layers_compacted
-    return shade(fr, ray_o, d, recs[1:], accum, contrib, f1)
+    with stage("sge.render.continuations"):
+        return shade(fr, ray_o, d, recs[1:], accum, contrib, f1)
 
 
 def _layer_records(opq, trs, max_layers: int):
@@ -935,20 +943,23 @@ def _trace_layers(fr: _Frame, ray_o, d, max_layers: int, trace):
     (shading origin, t, tri, u, v, found)."""
     p, dev = ray_o.shape[0], ray_o.device
     oc, t, tri, u, v, found = trace(None)
-    color, contrib = _shade_layer(fr, oc, d, t, tri, u, v, found,
-                                  torch.zeros(p, device=dev))
+    with stage("sge.render.layer1"):
+        color, contrib = _shade_layer(fr, oc, d, t, tri, u, v, found,
+                                      torch.zeros(p, device=dev))
     accum = color * contrib[:, None]
     accum_alpha = contrib
     live = found
-    for _ in range(1, max_layers):
-        c = _retrace_lanes(fr, live & (accum_alpha < 0.99))
-        oc, t, tri, u, v, found = trace(c)
-        alpha_c = gather(accum_alpha, c)
-        color, contrib = _shade_layer(fr, oc, gather(d, c), t, tri, u, v,
-                                      found, alpha_c, compacted=True)
-        accum = scatter(accum, c, gather(accum, c) + color * contrib[:, None])
-        accum_alpha = scatter(accum_alpha, c, alpha_c + contrib)
-        live = scatter(torch.zeros_like(live), c, found)
+    with stage("sge.render.continuations"):
+        for _ in range(1, max_layers):
+            c = _retrace_lanes(fr, live & (accum_alpha < 0.99))
+            oc, t, tri, u, v, found = trace(c)
+            alpha_c = gather(accum_alpha, c)
+            color, contrib = _shade_layer(fr, oc, gather(d, c), t, tri, u,
+                                          v, found, alpha_c, compacted=True)
+            accum = scatter(accum, c,
+                            gather(accum, c) + color * contrib[:, None])
+            accum_alpha = scatter(accum_alpha, c, alpha_c + contrib)
+            live = scatter(torch.zeros_like(live), c, found)
     return accum + _bg(dev) * (1.0 - accum_alpha)[:, None]
 
 
@@ -989,7 +1000,8 @@ def _frame(geo, fg, ibl, lights, cam, lanes: int, shadow_layers: int,
     constants, shared by every shade call of the batch; ``knobs``: the
     ``_Frame`` switches (unlit_fast, unlit_split, unlit_dense,
     packet_compact)."""
-    mode, shadow = _shadow_mode(geo, fg, lights, lanes, shadow_layers)
+    with stage("sge.render.shadows"):
+        mode, shadow = _shadow_mode(geo, fg, lights, lanes, shadow_layers)
     return _Frame(geo=geo, fg=fg, ibl=ibl, lights=lights, cam=cam,
                   shadow=shadow, shadow_layers=shadow_layers,
                   enable_mirror=enable_mirror,
@@ -1090,38 +1102,42 @@ def render_frame(geo: SceneGeometry, fg: FrameGeometry, ibl: IBL,
     _check_layers(max_layers, shadow_layers)
     knobs = dict(unlit_fast=unlit_fast, unlit_split=unlit_split,
                  unlit_dense=unlit_dense, packet_compact=packet_compact)
-    dev = fg.pos.device
-    ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=dev)
-    cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
-    ray_o, ray_d, px, py = generate_rays_tiled(ivp, cam, width, height)
-    if primary == "trace":
-        out = _render_rays(geo, fg, ibl, lights, cam, ray_o, ray_d,
-                           max_layers, shadow_layers, enable_mirror,
-                           enable_refraction, layered=layered,
-                           shadow_prepass=shadow_prepass,
-                           shadow_sort=shadow_sort,
-                           shadow_sort_mode=shadow_sort_mode, lbatch=lbatch,
-                           layer_slots=layer_slots, **knobs)
-    else:
-        recs, trace = _raster_records(geo, fg, ivp, view_proj, cam, ray_o,
-                                      ray_d, width, height, max_layers,
-                                      primary, trans_subdiv)
-        fr = _frame(geo, fg, ibl, lights, cam, ray_o.shape[0],
-                    shadow_layers, enable_mirror, enable_refraction,
-                    shadow_prepass, shadow_sort, shadow_sort_mode, **knobs)
-        if recs is None:
-            out = _trace_layers(fr, ray_o, ray_d, max_layers, trace)
-        elif deferred and primary == "hybrid":
-            from .deferred import shade_deferred
-            out = shade_deferred(fr, ray_o, ray_d, recs)
+    with stage("sge.render.primary"):
+        dev = fg.pos.device
+        ivp = torch.as_tensor(inv_view_proj, dtype=torch.float32, device=dev)
+        cam = torch.as_tensor(cam_pos, dtype=torch.float32, device=dev)
+        ray_o, ray_d, px, py = generate_rays_tiled(ivp, cam, width, height)
+        if primary == "trace":
+            out = _render_rays(geo, fg, ibl, lights, cam, ray_o, ray_d,
+                               max_layers, shadow_layers, enable_mirror,
+                               enable_refraction, layered=layered,
+                               shadow_prepass=shadow_prepass,
+                               shadow_sort=shadow_sort,
+                               shadow_sort_mode=shadow_sort_mode,
+                               lbatch=lbatch, layer_slots=layer_slots,
+                               **knobs)
         else:
-            out = _shade_records(fr, ray_o, ray_d, recs, lbatch,
-                                 dense=primary == "hybrid")
-    # per-pixel hash dither in lane order, then one reshape to the image
-    noise = hash12(torch.stack([px.to(torch.float32), py.to(torch.float32)],
-                               -1))
-    out = torch.clamp(out + ((noise - 0.5) * (1.0 / 255.0))[:, None], min=0.0)
-    return untile_image(out, width, height)
+            recs, trace = _raster_records(geo, fg, ivp, view_proj, cam, ray_o,
+                                          ray_d, width, height, max_layers,
+                                          primary, trans_subdiv)
+            fr = _frame(geo, fg, ibl, lights, cam, ray_o.shape[0],
+                        shadow_layers, enable_mirror, enable_refraction,
+                        shadow_prepass, shadow_sort, shadow_sort_mode, **knobs)
+            if recs is None:
+                out = _trace_layers(fr, ray_o, ray_d, max_layers, trace)
+            elif deferred and primary == "hybrid":
+                from .deferred import shade_deferred
+                with stage("sge.render.deferred"):
+                    out = shade_deferred(fr, ray_o, ray_d, recs)
+            else:
+                out = _shade_records(fr, ray_o, ray_d, recs, lbatch,
+                                     dense=primary == "hybrid")
+        # per-pixel hash dither in lane order, then one reshape to the image
+        noise = hash12(torch.stack([px.to(torch.float32),
+                                    py.to(torch.float32)], -1))
+        out = torch.clamp(out + ((noise - 0.5) * (1.0 / 255.0))[:, None],
+                          min=0.0)
+        return untile_image(out, width, height)
 
 
 def subdivide(v0, v1, v2, ids, depth: int):

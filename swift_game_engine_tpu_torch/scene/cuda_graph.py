@@ -19,16 +19,40 @@ The kernel wrappers of the port count their launches in module counters
 calling the wrappers, so ``capture`` keeps what the recorded work added
 to the counters, takes it back (recording launches nothing), and each
 ``Captured.replay`` adds it again.
+
+A capture also keeps where its work's stages lie in the graph. The work
+opens ``spans.stage`` ranges; while it is recorded, each range marks the
+node count of the graph being built where it opens and where it closes.
+Work recorded from one stream with no fork makes a chain, in which node k
+runs k-th: ``stage_table`` turns the marks into ``[(stage, first node,
+end node)]``, each node in the innermost stage open when it was added, a
+node outside every stage in ``ROOT``. ``Captured.stages`` and
+``Captured.node_count`` hold the table. A graph that is no chain (one with
+a collective, which runs on the process group's own stream) keeps none:
+its node order is not the order its nodes run in. ``register`` keeps a
+program's table, as plain data, under the name its readers look it up by
+(``STAGE_TABLES``) while the program lives, so a replaced program's table
+goes with it: a reader of a device trace splits a replay's operations, in
+the order they start, by the table. The marks add no node: a graph is the
+same with or without them.
 """
 
 from __future__ import annotations
 
 import importlib
 import time
+import weakref
 from typing import NamedTuple
 
 import torch
 
+from ..spans import edge_count, node_count, recording_marks
+
+# a node of a captured graph outside every stage
+ROOT = "sge.root"
+# the name a program's stage table is looked up by (its ``SPAN``) -> {the
+# program: its StageTable}, for the live programs alone
+STAGE_TABLES = {}
 # (module, counter) of every kernel wrapper's launch count; tile_raster's
 # "launches" is a list (K1's launches by layer count)
 LAUNCH_COUNTERS = (
@@ -70,14 +94,55 @@ def add_launch_counts(delta: list):
     _set_launch_counts([_add(c, d) for c, d in zip(launch_counts(), delta)])
 
 
+def stage_table(marks, nodes: int) -> tuple:
+    """``spans.stage``'s marks ``(stage, opens, node count)`` of a graph of
+    ``nodes`` nodes -> ``((stage, first, end), ...)``: consecutive
+    ranges covering ``[0, nodes)``, each node in the innermost stage
+    open when it was added, ``ROOT`` outside every stage."""
+    out, open_, at = [], [], 0
+    for name, opens, count in list(marks) + [(None, True, nodes)]:
+        if count > at:
+            here = open_[-1] if open_ else ROOT
+            if out and out[-1][0] == here:
+                out[-1] = (here, out[-1][1], count)
+            else:
+                out.append((here, at, count))
+            at = count
+        if opens:
+            open_.append(name)
+        else:
+            open_.pop()
+    return tuple(out)
+
+
+class StageTable(NamedTuple):
+    """A captured graph's node count and stage table (``stage_table``)."""
+
+    node_count: int
+    stages: tuple
+
+
+def register(owner):
+    """Keep the stage table of ``owner.captured`` under ``owner.SPAN`` while
+    ``owner`` (a ``FrameProgram`` or a ``SubstepGraph``) lives; a graph
+    without a table (not captured, or no chain) keeps nothing."""
+    cap = owner.captured
+    if cap is not None and cap.stages is not None:
+        STAGE_TABLES.setdefault(owner.SPAN, weakref.WeakKeyDictionary())[
+            owner] = StageTable(cap.node_count, cap.stages)
+
+
 class Captured(NamedTuple):
-    """A captured graph, what its capture cost, and the kernel launches of
-    the port that one replay makes (``launch_counts`` form)."""
+    """A captured graph, what its capture cost, the kernel launches of the
+    port that one replay makes (``launch_counts`` form), and its nodes by
+    stage (``stage_table``; None where the graph is no chain)."""
 
     graph: torch.cuda.CUDAGraph
     seconds: float     # wall time of the warm-ups and the capture
     pool_bytes: int    # the memory the graph's private pool reserved
     launches: list
+    node_count: int
+    stages: tuple | None
 
     def replay(self):
         self.graph.replay()
@@ -104,10 +169,14 @@ def capture(warm, record, warmup: int, mode: str = "global"):
     before = launch_counts()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode=mode):
-        out = record()
+        with recording_marks() as marks:
+            out = record()
+            nodes, edges = node_count(), edge_count()
     torch.cuda.synchronize()
     delta = [_add(a, b, -1) for a, b in zip(launch_counts(), before)]
     _set_launch_counts(before)        # recording launched nothing
     return Captured(graph=graph, seconds=time.perf_counter() - t0,
                     pool_bytes=torch.cuda.memory_reserved() - reserved,
-                    launches=delta), out
+                    launches=delta, node_count=nodes,
+                    stages=stage_table(marks, nodes)
+                    if edges == nodes - 1 else None), out

@@ -100,7 +100,8 @@ from ..render.graph import RenderGraph, RenderPass
 from ..render.ibl import IBL
 from ..render.raster import check_raster, render_frame_raster
 from ..render.scene_geometry import flatten_frame
-from .cuda_graph import capture
+from ..spans import stage
+from .cuda_graph import capture, register
 from .input import InputFrame, InputSystem
 from .step import SubstepGraph
 
@@ -155,15 +156,24 @@ class FrameProgram:
     on the current inputs whatever the device: on the card, the frame the
     graph must equal bit for bit. ``mode``: the capture's error mode
     (``scene/cuda_graph.capture``; parallel/sharding.py's programs over a
-    process group hold a collective)."""
+    process group hold a collective).
+
+    The body runs inside the stage ``ROOT_STAGE``, so the graph's nodes
+    outside the render's other stages fall in it (``spans.stage``); the
+    capture's stage table is registered under ``SPAN``
+    (``cuda_graph.register``)."""
 
     WARMUP = 2
+    SPAN = "sge.frame_program"
+    ROOT_STAGE = "sge.render.other"
 
     def __init__(self, body, device, mode: str = "global"):
         self.body = body
         self.captured, self.out = None, None
         if device.type == "cuda":
-            self.captured, self.out = capture(body, body, self.WARMUP, mode)
+            self.captured, self.out = capture(self.eager, self.eager,
+                                              self.WARMUP, mode)
+            register(self)
 
     @property
     def capture_seconds(self) -> float:
@@ -175,12 +185,13 @@ class FrameProgram:
 
     def run(self):
         if self.captured is None:
-            return self.body()
+            return self.eager()
         self.captured.replay()
         return self.out
 
     def eager(self):
-        return self.body()
+        with stage(self.ROOT_STAGE):
+            return self.body()
 
 
 class Engine:
@@ -287,15 +298,17 @@ class Engine:
         graph = RenderGraph()
 
         def rt_pass(res):
-            fg = flatten_frame(self.geometry, res["transforms"],
-                               res["palettes"])
+            with stage("sge.render.flatten"):
+                fg = flatten_frame(self.geometry, res["transforms"],
+                                   res["palettes"])
             return {"rt_output": self._upscale(self.render_target(
                 fg, res["ivp"], res["vp"], res["cam_pos"]))}
 
         def composite_pass(res):
             img = res["rt_output"]
             if self.path != "raster":
-                img = composite_frame(img, res["exposure"], True)
+                with stage("sge.render.composite"):
+                    img = composite_frame(img, res["exposure"], True)
             return {"view": img}
 
         graph.add_pass(RenderPass("rt", rt_pass,
@@ -384,9 +397,10 @@ class Engine:
         size and its position (scene/engine.py:155-169)."""
         rw, rh = self.rt_size
         if self.path == "raster":
-            return render_frame_raster(
-                self.geometry, fg, ivp, cam_pos, rw, rh, view_proj=vp,
-                raster_mode=self.raster_mode, raster_vis=self.raster_vis)
+            with stage("sge.render.raster"):
+                return render_frame_raster(
+                    self.geometry, fg, ivp, cam_pos, rw, rh, view_proj=vp,
+                    raster_mode=self.raster_mode, raster_vis=self.raster_vis)
         bounce = self.path == "rt"
         return RT.render_frame(
             self.geometry, fg, self.ibl, self.lights, ivp, cam_pos, rw, rh,

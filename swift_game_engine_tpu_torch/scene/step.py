@@ -47,7 +47,8 @@ from ..physics.systems import ActionClock
 from ..physics.character import CharacterPipeline, PlatformSet
 from ..physics.collision_world import LocalTriangles, transform_soup
 from ..physics.separation import separate_agents
-from .cuda_graph import capture
+from ..spans import stage
+from .cuda_graph import capture, register
 
 _MASKS = ("has_body", "has_controller", "has_intent", "has_loco",
           "has_action", "has_dodge", "has_osc", "has_spin", "has_platform",
@@ -169,19 +170,30 @@ class Stepper:
         each tensor over every entity (the ranks' all-gather): after the
         mover (separation reads every agent) and after separation (the
         stages after it run over every entity). With no ``rows`` every
-        stage runs over every entity."""
+        stage runs over every entity.
+
+        Each part is a stage (``spans.stage``): ``sge.substep.begin``,
+        ``.move`` and ``.separate`` (each with the all-gather after it),
+        ``.end``."""
         dt = float(np.float32(dt))
-        b = self._begin(state, dt)
+        with stage("sge.substep.begin"):
+            b = self._begin(state, dt)
         if rows is None:
-            pos, vel, ctrl = self._move(b, dt)
-            pos, vel, ctrl = self._separate(b, pos, vel, ctrl)
-            return self._end(state, b, pos, vel, ctrl, dt)
-        moved = [self._move(b, dt, r) for r in rows]
-        pos, vel = gather([m[:2] for m in moved])
-        seps = [self._separate(b, pos, vel, m[2], r)
-                for r, m in zip(rows, moved)]
-        pos, vel, *c = gather([[p, v, *ctrl] for p, v, ctrl in seps])
-        return self._end(state, b, pos, vel, type(seps[0][2])(*c), dt)
+            with stage("sge.substep.move"):
+                pos, vel, ctrl = self._move(b, dt)
+            with stage("sge.substep.separate"):
+                pos, vel, ctrl = self._separate(b, pos, vel, ctrl)
+            with stage("sge.substep.end"):
+                return self._end(state, b, pos, vel, ctrl, dt)
+        with stage("sge.substep.move"):
+            moved = [self._move(b, dt, r) for r in rows]
+            pos, vel = gather([m[:2] for m in moved])
+        with stage("sge.substep.separate"):
+            seps = [self._separate(b, pos, vel, m[2], r)
+                    for r, m in zip(rows, moved)]
+            pos, vel, *c = gather([[p, v, *ctrl] for p, v, ctrl in seps])
+        with stage("sge.substep.end"):
+            return self._end(state, b, pos, vel, type(seps[0][2])(*c), dt)
 
     def _begin(self, state: WorldState, dt: float) -> Begun:
         """The substep's stages before the mover, over every entity (the
@@ -464,18 +476,23 @@ class SubstepGraph:
     into the same buffers; ``eager()`` does so on any device (on the card,
     the substep a replay must equal bit for bit).
 
+    ``captured`` (``cuda_graph.Captured``, None on the CPU),
     ``capture_seconds`` and ``pool_bytes`` (the memory the graph's private
-    pool reserved) describe the capture; both are 0 on the CPU. ``mode``:
-    the capture's error mode (``scene/cuda_graph.capture``).
+    pool reserved; both 0 on the CPU) describe the capture. ``mode``: the
+    capture's error mode (``scene/cuda_graph.capture``). The capture's
+    stage table is registered under ``SPAN`` (``cuda_graph.register``);
+    the copy into the buffers is a second ``sge.substep.end`` stage, so
+    each node of the graph falls in one of the substep's four.
     """
 
     WARMUP = 3
+    SPAN = "sge.substep"
     mode = "global"
 
     def __init__(self, stepper: Stepper, state: WorldState, dt: float):
         self.stepper, self.dt = stepper, float(dt)
         self.state = clone_state(state)
-        self.graph = None
+        self.graph, self.captured = None, None
         self.capture_seconds, self.pool_bytes = 0.0, 0
         if self.state.alive.is_cuda:
             self._capture()
@@ -486,11 +503,14 @@ class SubstepGraph:
 
     def eager(self):
         """Advance ``state`` in place by one eager substep."""
-        copy_state(self.state, self._next())
+        nxt = self._next()
+        with stage("sge.substep.end"):
+            copy_state(self.state, nxt)
 
     def _capture(self):
         cap, _ = capture(self._next, self.eager, self.WARMUP, self.mode)
-        self.graph = cap.graph
+        self.captured, self.graph = cap, cap.graph
+        register(self)
         self.capture_seconds, self.pool_bytes = cap.seconds, cap.pool_bytes
 
     def step(self):
